@@ -12,8 +12,13 @@ Port of ``repro.core.proposer`` for the drafters this slice serves:
   * ``commit(params, state, *, base_len, n_accept, n_commit,
     verify_tokens, hidden)`` → state reconciled to the accepted prefix.
 
-The continuous-batching hooks (``merge_state``, ``scatter_state``,
-``grow_state``) and the ``eagle``/``prefetch`` drafters are later slices.
+Continuous-batching hooks:
+
+  * ``merge_state(old, new, mask)`` — full-pool admission merge;
+  * ``scatter_state(old, new, rows, *, valid)`` — sliced admission scatter;
+  * ``grow_state(state, new_max_seq)`` — pad on paged-session growth.
+
+The ``eagle``/``prefetch`` drafters are later slices.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import Any, Callable, Dict, Optional, Protocol, Tuple, runtime_check
 import torch
 
 from repro_torch.core.rejection import probs_from_logits, sample_from
+from repro_torch.models.model import (grow_cache_seq, merge_cache_rows,
+                                      scatter_cache_rows)
 
 
 def stack_drafts(ds, qs, batch: int, vocab: int, device):
@@ -133,6 +140,21 @@ class ModelProposer:
         # attention cache: rejected-suffix KV left stale (position-masked)
         return {"cache": dict(state["cache"], lengths=base_len + n_commit)}
 
+    def merge_state(self, old, new, mask):
+        """Admission merge: the draft cache follows the model-cache layout,
+        so row selection is the target's primitive."""
+        return {"cache": merge_cache_rows(old["cache"], new["cache"], mask)}
+
+    def scatter_state(self, old, new, rows, *, valid=None):
+        """Sliced admission: row-scatter the compact draft cache."""
+        return {"cache": scatter_cache_rows(old["cache"], new["cache"],
+                                            rows, valid=valid)}
+
+    def grow_state(self, state, new_max_seq):
+        """Raise the draft cache's capacity on session growth."""
+        return {"cache": grow_cache_seq(state["cache"], self.draft.cfg,
+                                        new_max_seq)}
+
 
 class NoneProposer:
     """Zero-width proposer: the round degenerates to one target forward of
@@ -157,6 +179,18 @@ class NoneProposer:
 
     def commit(self, params, state, *, base_len, n_accept, n_commit,
                verify_tokens, hidden):
+        return state
+
+    def merge_state(self, old, new, mask):
+        """Stateless drafter: nothing to merge on admission."""
+        return old
+
+    def scatter_state(self, old, new, rows, *, valid=None):
+        """Stateless drafter: nothing to scatter on admission."""
+        return old
+
+    def grow_state(self, state, new_max_seq):
+        """Stateless drafter: nothing to grow."""
         return state
 
 

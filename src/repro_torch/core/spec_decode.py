@@ -14,12 +14,19 @@ Port of ``repro.core.spec_decode`` (wave-mode session API).  One SD round
 The AR baseline is the degenerate g=0 instance of the same loop (the
 "none" proposer), so SD and AR timings come from identical machinery.
 
+Session API (the continuous-batching seam): ``start`` opens a batch
+(optionally with a paged target cache and a pre-assigned block table),
+``round`` advances it with an ``active`` mask, ``admit`` (full pool) and
+``admit_rows`` (only the admitted rows, scattered into the live session)
+prefill new requests into retired rows between rounds, and
+``grow_session`` raises a paged session's capacity.
+
 The reference jits one fused round per gamma and logs every retrace.  This
 port runs eagerly: a round is the same four steps with no host sync until
-the round's results are read, and ``trace_log`` records each (gamma, batch)
-the first time it runs with a new shape, where the reference would trace.
-CUDA graphs are later work.  Admission (continuous batching) is a later
-slice.
+the round's results are read.  ``trace_log`` records each (gamma, batch)
+and ``admit_trace_log`` each (prompt bucket, rows) the first time it runs
+with a new shape (cache geometry included), where the reference would
+trace.  CUDA graphs are later work.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ import torch
 
 from repro_torch.core.proposer import Proposer, make_proposer
 from repro_torch.core.rejection import probs_from_logits, rejection_sample, sample_from
-from repro_torch.models.model import Model
+from repro_torch.models.model import (Model, grow_cache_pages, merge_cache_rows,
+                                      scatter_cache_rows)
 from repro_torch.serving.faults import logits_finite
 
 
@@ -108,6 +116,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A host value as a NEW tensor on ``device`` (never a view of the
+    caller's numpy buffer, which the scheduler keeps mutating); a tensor
+    is only moved and cast."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _cache_geometry(t_cache: dict) -> tuple:
+    """Shapes of one layer's cache leaves and of the block table: what a
+    growth changes, and what the reference's jit would retrace on."""
+    pages = t_cache.get("pages")
+    return (tuple(tuple(v.shape) for v in t_cache["layers"][0].values()),
+            None if pages is None else tuple(pages["table"].shape))
+
+
 class SDEngine:
     """One persistent decoding session: a target model + one Proposer."""
 
@@ -118,7 +143,11 @@ class SDEngine:
         self.gamma = gamma
         self.temperature = temperature
         self.trace_log: List[Tuple[int, int]] = []       # (gamma, B) per new shape
-        self._shapes: Set[Tuple[int, int, int]] = set()
+        # (T_prompt, rows) per new admission shape: the full path logs the
+        # pool, the sliced path the admitted-row bucket
+        self.admit_trace_log: List[Tuple[int, int]] = []
+        self.growth_log: List[Tuple[int, Optional[int]]] = []
+        self._shapes: Set[tuple] = set()
 
     def compiled_gammas(self) -> List[int]:
         """Gammas this session has run a round for."""
@@ -155,31 +184,61 @@ class SDEngine:
         new_last = torch.where(ok, next_token, last_token)
         return t_cache, p_state, new_last, committed, n_commit, n_accept
 
+    def _log_shape(self, log: list, entry: tuple, key: tuple) -> None:
+        """Append ``entry`` to ``log`` the first time ``key`` runs."""
+        if key not in self._shapes:
+            self._shapes.add(key)
+            log.append(entry)
+
     # --------------------------------------------------------------- prefill
-    def prefill(self, params_t, params_p, prompts, max_seq: int, *,
-                lengths=None, generator: Optional[torch.Generator] = None):
-        """Prefill target + proposer; returns (t_cache, p_state, last_token)."""
+    def _fresh_prefill(self, params, prompts, lengths, max_seq, *,
+                       cache_opts: Optional[dict] = None, page_table=None):
+        """Prefill a batch into fresh caches and proposer state; returns
+        (t_cache, p_state, last_logits).  Behind ``prefill``/``start``
+        (optionally paged) and the sliced ``admit_rows`` (compact, dense)."""
         dev = self.target.device
-        params = {"target": params_t, "draft": params_p}
-        prompts = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+        prompts = _on(prompts, torch.int64, dev)
         if lengths is not None:
-            lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-        t_cache = self.target.init_cache(prompts.shape[0], max_seq)
-        last_l, t_cache = self.target.prefill(params_t, prompts, t_cache,
-                                              lengths=lengths)
+            lengths = _on(lengths, torch.int32, dev)
+        t_cache = self.target.init_cache(prompts.shape[0], max_seq,
+                                         **(cache_opts or {}))
+        if page_table is not None:
+            t_cache["pages"] = dict(t_cache["pages"],
+                                    table=_on(page_table, torch.int32, dev))
+        last_l, t_cache = self.target.prefill(params["target"], prompts,
+                                              t_cache, lengths=lengths)
         p_state = self.proposer.init_state(params, prompts, max_seq,
                                            lengths=lengths)
+        return t_cache, p_state, last_l
+
+    def prefill(self, params_t, params_p, prompts, max_seq: int, *,
+                lengths=None, generator: Optional[torch.Generator] = None,
+                cache_opts: Optional[dict] = None, page_table=None):
+        """Prefill target + proposer; returns (t_cache, p_state, last_token).
+
+        ``cache_opts`` goes to ``Model.init_cache`` (e.g. ``{"paged": True,
+        "page_size": 64, "pool_pages": N}``); ``page_table`` pre-assigns a
+        paged cache's block table (a ``PageAllocator``'s) so the prefill
+        lands in the rows' pages.  Proposer caches stay dense."""
+        t_cache, p_state, last_l = self._fresh_prefill(
+            {"target": params_t, "draft": params_p}, prompts, lengths,
+            max_seq, cache_opts=cache_opts, page_table=page_table)
         p = probs_from_logits(last_l, self.temperature)
         return t_cache, p_state, sample_from(p, generator, self.temperature)
 
     # --------------------------------------------------------------- session
     def start(self, params_t, params_p, prompts, *, max_seq: int,
-              lengths=None, generator: Optional[torch.Generator] = None
+              lengths=None, generator: Optional[torch.Generator] = None,
+              cache_opts: Optional[dict] = None, page_table=None
               ) -> SessionState:
-        """Open a decoding batch: prefill + cache alloc → ``SessionState``."""
+        """Open a decoding batch: prefill + cache alloc → ``SessionState``.
+        ``max_seq`` is the static capacity of a dense session, and only the
+        initial logical capacity of a paged one (``grow_session`` raises
+        it)."""
         t_cache, p_state, last_token = self.prefill(
             params_t, params_p, prompts, max_seq, lengths=lengths,
-            generator=generator)
+            generator=generator, cache_opts=cache_opts,
+            page_table=page_table)
         return SessionState(params={"target": params_t, "draft": params_p},
                             t_cache=t_cache, p_state=p_state,
                             last_token=last_token, max_seq=max_seq)
@@ -198,10 +257,9 @@ class SDEngine:
             raise ValueError("round() needs a generator at temperature>0")
         dev = self.target.device
         B = state.batch
-        shape = (gamma, B, state.max_seq)
-        if shape not in self._shapes:
-            self._shapes.add(shape)
-            self.trace_log.append((gamma, B))
+        self._log_shape(self.trace_log, (gamma, B),
+                        ("round", gamma, B, state.max_seq,
+                         _cache_geometry(state.t_cache)))
         active = (torch.ones((B,), dtype=torch.bool, device=dev)
                   if active is None else
                   torch.as_tensor(np.asarray(active, bool), device=dev))
@@ -241,6 +299,96 @@ class SDEngine:
             phase_times=phases if timed else None,
             finite=finite.cpu().numpy())
         return new_state, result
+
+    # -------------------------------------------------------------- admission
+    def admit(self, state: SessionState, prompts, lengths, admit_mask, *,
+              generator: Optional[torch.Generator] = None) -> SessionState:
+        """Full-pool admission: prefill the whole (B, T_prompt) bucket into
+        fresh caches and merge the rows where ``admit_mask`` is True into
+        the live session (``merge_cache_rows`` + ``Proposer.merge_state``);
+        the other rows' prefill is discarded.  Dense sessions only."""
+        B, Tp = np.shape(prompts)
+        if B != state.batch:
+            raise ValueError(f"admit batch {B} != session batch "
+                             f"{state.batch}")
+        self._log_shape(self.admit_trace_log, (Tp, B),
+                        ("admit", B, Tp, state.max_seq,
+                         _cache_geometry(state.t_cache)))
+        fresh_t, fresh_p, last_l = self._fresh_prefill(
+            state.params, prompts, lengths, state.max_seq)
+        first = sample_from(probs_from_logits(last_l, self.temperature),
+                            generator, self.temperature)
+        mask = np.asarray(admit_mask, bool)
+        t_cache = merge_cache_rows(state.t_cache, fresh_t, mask)
+        p_state = self.proposer.merge_state(state.p_state, fresh_p, mask)
+        last_token = torch.where(
+            torch.as_tensor(mask, device=self.target.device), first,
+            state.last_token)
+        return replace(state, t_cache=t_cache, p_state=p_state,
+                       last_token=last_token)
+
+    def _scatter_admitted(self, state: SessionState, fresh, rows, valid,
+                          generator, Tp: int) -> SessionState:
+        """Scatter a compact fresh (cache, p_state, last_logits) into the
+        live session; pad lanes (``valid`` False) are dropped on the host."""
+        fresh_t, fresh_p, last_l = fresh
+        first = sample_from(probs_from_logits(last_l, self.temperature),
+                            generator, self.temperature)
+        t_cache = scatter_cache_rows(state.t_cache, fresh_t, rows,
+                                     valid=valid, n_prompt=Tp)
+        p_state = self.proposer.scatter_state(state.p_state, fresh_p, rows,
+                                              valid=valid)
+        keep = np.nonzero(valid)[0]
+        dev = self.target.device
+        last_token = state.last_token.clone()
+        last_token[torch.as_tensor(np.asarray(rows)[keep], device=dev)] = \
+            first[torch.as_tensor(keep, device=dev)]
+        return replace(state, t_cache=t_cache, p_state=p_state,
+                       last_token=last_token)
+
+    def admit_rows(self, state: SessionState, prompts, lengths, rows, *,
+                   valid=None, generator: Optional[torch.Generator] = None
+                   ) -> SessionState:
+        """Row-SLICED admission: prefill only the R admitted rows.
+
+        ``prompts`` (R, T_prompt) holds the admitted requests (row-count
+        bucketed; pad lanes replicate real ones and carry ``valid`` False),
+        ``rows`` (R,) the pool row each lands in.  The fresh prefill runs
+        at (R, T_prompt) into a dense cache of the session's logical
+        capacity and is scattered into the live session, dense or paged
+        (a paged session's table must already map the rows)."""
+        R, Tp = np.shape(prompts)
+        if generator is None and self.temperature > 0.0:
+            raise ValueError("admit_rows() needs a generator at "
+                             "temperature>0")
+        valid = (np.ones((R,), bool) if valid is None
+                 else np.asarray(valid, bool))
+        self._log_shape(self.admit_trace_log, (Tp, R),
+                        ("admit_rows", R, Tp, state.max_seq,
+                         _cache_geometry(state.t_cache)))
+        fresh = self._fresh_prefill(state.params, prompts, lengths,
+                                    state.max_seq)
+        return self._scatter_admitted(state, fresh, rows, valid, generator,
+                                      Tp)
+
+    # ---------------------------------------------------------------- growth
+    def grow_session(self, state: SessionState, new_max_seq: int, *,
+                     pool_pages: Optional[int] = None,
+                     max_pages: Optional[int] = None) -> SessionState:
+        """Raise a PAGED session's logical capacity to ``new_max_seq``: pad
+        the target's page pool and block table (``grow_cache_pages``) and
+        the proposer's dense caches (``Proposer.grow_state``), so a late
+        long request admits instead of raising.  Logged in ``growth_log``."""
+        t_cache = state.t_cache
+        if t_cache.get("pages") is None:
+            raise ValueError("grow_session: dense sessions are statically "
+                             "sized; use a paged session (kv_layout='paged')")
+        if pool_pages is not None:
+            t_cache = grow_cache_pages(t_cache, pool_pages, max_pages)
+        p_state = self.proposer.grow_state(state.p_state, new_max_seq)
+        self.growth_log.append((new_max_seq, pool_pages))
+        return replace(state, t_cache=t_cache, p_state=p_state,
+                       max_seq=new_max_seq)
 
     # -------------------------------------------------------------- generate
     def generate(self, params_t, params_p, prompts, max_new_tokens: int, *,

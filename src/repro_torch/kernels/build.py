@@ -16,8 +16,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -70,6 +71,13 @@ def build(source: Path) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(sources: Sequence[Path]) -> None:
+    """Compile every source at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        for fut in [pool.submit(build, s) for s in sources]:
+            fut.result()
 
 
 def load(source: Path) -> ctypes.CDLL:

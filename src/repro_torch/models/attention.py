@@ -15,9 +15,18 @@ writes are clamped onto slot S, which attention never reads.
 RoPE is applied at write time for K (absolute positions), query side at read
 time, so cached K never needs re-rotation.
 
-Attention itself stays explicit matmul + softmax in fp32, as in the
-reference: this path has no Pallas kernel there.  The flash kernels
-(``use_flash``) and the paged cache belong to later slices.
+Paged cache (``make_attn_cache(..., paged=True)``): ``{"k_pages": (NP, ps,
+Hkv, D), "v_pages": ...}``, a physical page pool shared by all rows and
+addressed through the model-level block table (B, MP).  Page 0 is the
+trash page unallocated and retired rows point at.  Decode/verify extends
+(causal, T <= 8) attend straight from the pool through the CUDA kernel of
+``kernels/decode_attention``; wider extends attend over the dense
+``pool[table]`` view.  ``paged_attention="gather"`` sends decode/verify
+extends to that view too, as a CPU cross-check of the kernel path; on CUDA
+tensors it raises, so the card's paged verify always runs the kernel.
+
+Dense attention stays explicit matmul + softmax in fp32, as in the
+reference.  The flash kernels (``use_flash``) belong to a later slice.
 """
 from __future__ import annotations
 
@@ -26,15 +35,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.decode_attention.paged import paged_decode_attention
+from repro_torch.kernels.decode_attention.ref import paged_view
 from repro_torch.models.layers import apply_rope, dense_init, softcap
 
 NEG_INF = -1e30
 
 _FLASH_TODO = ("use_flash=True selects the flash/decode attention kernels, "
                "which are ROADMAP queue 2 items 4-5 and not ported yet")
-_PAGED_TODO = ("the paged KV cache serves the continuous scheduler, which is "
-               "ROADMAP queue 1 item 7 (kernel: queue 2 item 3) and not "
-               "ported yet")
+GATHER_ON_CUDA = ("paged_attention='gather' is a CPU cross-check of the "
+                  "paged kernel path; on a CUDA device paged decode/verify "
+                  "runs the kernel (paged_attention='kernel')")
 
 
 # ---------------------------------------------------------------------------
@@ -58,14 +69,21 @@ def init_gqa(cfg, dtype, *, generator, device) -> dict:
 
 
 def make_attn_cache(cfg, batch: int, max_seq: int, kind: str, dtype, device,
-                    *, paged: bool = False) -> dict:
-    """Per-layer dense decode cache with one trailing trash slot."""
-    if paged:
-        raise NotImplementedError(_PAGED_TODO)
+                    *, paged: bool = False, page_size: int = 64,
+                    pool_pages: Optional[int] = None) -> dict:
+    """Per-layer decode cache: dense with one trailing trash slot, or a
+    physical page pool (``pool_pages`` pages of ``page_size`` positions;
+    default: every row at ``max_seq`` plus the trash page)."""
     if kind != "attn":
         raise NotImplementedError(
             f"block kind {kind!r} is ROADMAP queue 1 item 9; this slice "
             "ports 'attn' only")
+    if paged:
+        npg = (batch * (-(-max_seq // page_size)) + 1
+               if pool_pages is None else pool_pages)
+        shape = (npg, page_size, cfg.num_kv_heads, cfg.head_dim)
+        return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
     shape = (batch, max_seq + 1, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -79,6 +97,20 @@ def _write(cache: dict, positions: torch.Tensor, k, v) -> None:
     slot = positions.clamp(max=S)
     cache["k"][bidx, slot] = k
     cache["v"][bidx, slot] = v
+
+
+def _paged_write(pool: torch.Tensor, table: torch.Tensor,
+                 positions: torch.Tensor, vals: torch.Tensor) -> None:
+    """Scatter per-row values at logical ``positions`` (B, T) into the
+    physical pool (NP, ps, ...) through the block table (B, MP), in place.
+    Unallocated positions resolve to the trash page.  The logical page index
+    is clamped to MP-1, as the reference's gather clamps it; an index past
+    the table would fault here."""
+    ps = pool.shape[1]
+    bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    lp = (positions // ps).clamp(max=table.shape[1] - 1)
+    pid = table[bidx, lp].to(torch.int64)                    # (B, T)
+    pool[pid, positions % ps] = vals
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +219,8 @@ def gqa_forward(
     mode: str = "prefill",           # prefill | extend
     use_flash: bool = False,
     causal: bool = True,
+    page_table: Optional[torch.Tensor] = None,
+    paged_attention: str = "kernel",
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     if use_flash:
         raise NotImplementedError(_FLASH_TODO)
@@ -213,13 +247,35 @@ def gqa_forward(
     if mode == "prefill":
         # attention over the in-flight K/V, never through the cache
         out = attend(q, k, v, positions, positions)
-        if cache is not None:
+        if cache is not None and "k_pages" in cache:
+            _paged_write(cache["k_pages"], page_table, positions, k)
+            _paged_write(cache["v_pages"], page_table, positions, v)
+        elif cache is not None:
             _write(cache, positions, k, v)
         return out.reshape(B, T, -1) @ params["wo"], cache
 
     # extend: write the new tokens first, then attend over the cache
-    if cache.get("k_pages") is not None:
-        raise NotImplementedError(_PAGED_TODO)
+    if "k_pages" in cache:
+        _paged_write(cache["k_pages"], page_table, positions, k)
+        _paged_write(cache["v_pages"], page_table, positions, v)
+        if causal and T <= 8 and paged_attention == "gather" and q.is_cuda:
+            raise ValueError(GATHER_ON_CUDA)
+        if causal and T <= 8 and paged_attention == "kernel":
+            # decode/verify: the block-table-walking kernel reads the pages
+            # straight from the pool; no dense gather
+            out = paged_decode_attention(
+                q.contiguous(), cache["k_pages"], cache["v_pages"],
+                positions[:, 0].to(torch.int32), page_table, scale=scale,
+                logit_cap=cap)
+        else:
+            # stale and trash content is masked the way rejected SD suffixes
+            # are: the causal mask admits only positions <= q_pos
+            S = page_table.shape[1] * cache["k_pages"].shape[1]
+            k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+            out = attend(q, paged_view(cache["k_pages"], page_table),
+                         paged_view(cache["v_pages"], page_table), positions,
+                         k_pos)
+        return out.reshape(B, T, -1) @ params["wo"], cache
     _write(cache, positions, k, v)
     S = cache["k"].shape[1] - 1
     k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)

@@ -42,11 +42,15 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
                   x: torch.Tensor, positions: torch.Tensor,
                   cache: Optional[dict], *, mode: str,
                   dispatch: str = "onehot",
-                  use_flash: bool = False) -> torch.Tensor:
+                  use_flash: bool = False,
+                  page_table: Optional[torch.Tensor] = None,
+                  paged_attention: str = "kernel") -> torch.Tensor:
     """One block; writes this layer's KV into ``cache`` in place."""
     h = apply_norm(params["norm1"], x, cfg.norm_eps)
     out, _ = attn.gqa_forward(params["mixer"], cfg, h, positions, kind=kind,
-                              cache=cache, mode=mode, use_flash=use_flash)
+                              cache=cache, mode=mode, use_flash=use_flash,
+                              page_table=page_table,
+                              paged_attention=paged_attention)
     x = x + out
     if "ffn" in params:
         h = apply_norm(params["norm2"], x, cfg.norm_eps)
@@ -66,19 +70,34 @@ def init_stack(cfg, dtype, *, generator, device) -> List[dict]:
 
 
 def make_stack_cache(cfg, batch: int, max_seq: int, dtype, device, *,
-                     paged: bool = False) -> List[dict]:
+                     paged: bool = False, page_size: int = 64,
+                     pool_pages: Optional[int] = None) -> List[dict]:
+    """One cache per layer; a paged cache gives every layer a pool of the
+    same ``pool_pages`` (default: every row at ``max_seq`` + trash page)."""
+    if paged and pool_pages is None:
+        pool_pages = batch * (-(-max_seq // page_size)) + 1
     return [attn.make_attn_cache(cfg, batch, max_seq, kind, dtype, device,
-                                 paged=paged)
+                                 paged=paged, page_size=page_size,
+                                 pool_pages=pool_pages)
             for kind, _ in layer_kinds(cfg)]
 
 
 def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
                   positions: torch.Tensor, caches: Optional[List[dict]], *,
                   mode: str, dispatch: str = "onehot",
-                  use_flash: bool = False) -> torch.Tensor:
-    """Run every layer in order (the reference's scan over periods)."""
+                  use_flash: bool = False,
+                  page_table: Optional[torch.Tensor] = None,
+                  paged_attention: str = "kernel") -> torch.Tensor:
+    """Run every layer in order (the reference's scan over periods).
+
+    ``page_table`` (B, MP) is the block table of a paged cache, shared by
+    every layer; ``paged_attention`` picks the paged extend backend:
+    "kernel" walks the table in the CUDA kernel, "gather" (CPU only)
+    attends over the dense ``pool[table]`` view."""
     for l, (kind, is_moe) in enumerate(layer_kinds(cfg)):
         x = block_forward(layer_params[l], cfg, kind, is_moe, x, positions,
                           None if caches is None else caches[l], mode=mode,
-                          dispatch=dispatch, use_flash=use_flash)
+                          dispatch=dispatch, use_flash=use_flash,
+                          page_table=page_table,
+                          paged_attention=paged_attention)
     return x

@@ -1,18 +1,25 @@
 """Serving engine: request queue → batched speculative decoding → completions.
 
-Port of ``repro.serving.engine`` with the ``"wave"`` scheduler: admit up to
-``max_batch`` requests per generation wave (static batch per wave,
-continuous across waves) and run SD rounds until EVERY sequence in the wave
-is done.  Finished rows ride along as padding until the slowest request
-completes.
+Port of ``repro.serving.engine`` with both schedulers:
+
+  * ``scheduler="wave"`` — admit up to ``max_batch`` requests per
+    generation wave (static batch per wave, continuous across waves) and
+    run SD rounds until EVERY sequence in the wave is done.  Finished rows
+    ride along as padding until the slowest request completes.
+  * ``scheduler="continuous"`` — a fixed pool of ``max_batch`` KV-cache
+    slots decoded round by round (``serving/scheduler.py``): slots retire
+    the moment their request finishes, freed slots are refilled between
+    rounds, and the target cache may be dense or paged
+    (``kv_layout="paged"``, grown on demand).
 
 The engine holds ONE persistent decoding session (``SDEngine``) per
-proposer kind, reused across waves.  Batches are padded to power-of-two
-buckets with round-robin replicas of real requests, and cache lengths are
-bucketed too, as in the reference.
+proposer kind, reused across waves and streams.  Wave batches are padded
+to power-of-two buckets with round-robin replicas of real requests, and
+cache lengths are bucketed too, as in the reference.
 
-Not ported yet: the AutoTuner (ROADMAP queue 1 item 5, next slice) and the
-continuous scheduler with paged KV (queue 1 item 7).
+Not ported yet: the AutoTuner (``tuner`` stays None and gamma is fixed;
+ROADMAP queue 1 item 5), prefix sharing, chunked prefill and fault
+injection (queue 1 item 7's rest).
 """
 from __future__ import annotations
 
@@ -28,7 +35,17 @@ from repro_torch.core.proposer import make_proposer
 from repro_torch.core.spec_decode import SDEngine, SDStats
 from repro_torch.data.tokenizer import PAD
 from repro_torch.models.model import Model
+from repro_torch.serving.faults import ResilienceConfig
 from repro_torch.serving.sampling import SamplingParams
+
+_LATER = {
+    "prefix_sharing": "prefix sharing (ROADMAP queue 1 item 7, its "
+                      "prefix-sharing part)",
+    "prefill_chunk": "chunked prefill (ROADMAP queue 1 item 7, its "
+                     "chunked-admission part)",
+    "fault_injector": "fault injection (ROADMAP queue 1 item 7, its "
+                      "fault-injection part)",
+}
 
 
 @dataclass
@@ -41,7 +58,16 @@ class Request:
     submitted_at: float = field(default_factory=time.perf_counter)
     finished_at: Optional[float] = None
     sampling: Optional[SamplingParams] = None
-    finish_reason: Optional[str] = None  # "length" | "eos"
+    # "length" | "eos" | "rejected" | "numerical_fault" | "timeout" |
+    # "admit_failed" | "aborted"
+    finish_reason: Optional[str] = None
+    arrival_round: int = 0               # continuous mode: visible from here
+    # ---- continuous-mode resilience traceability ----
+    preempt_count: int = 0               # times page pressure evicted us
+    requeue_round: Optional[int] = None  # round of the last preemption
+    readmit_round: Optional[int] = None  # round of the last re-admission
+    resume_tokens: Optional[List[int]] = None  # committed tokens to replay
+    rounds_used: int = 0                 # decode rounds spent on this slot
 
 
 def finish_output(tokens: np.ndarray, eos_id: Optional[int]):
@@ -66,7 +92,12 @@ class WaveReport:
     proposer: str = "model"
     bucket: int = 0                       # padded batch actually decoded
     moe_dispatch: str = "onehot"          # target's decode dispatch mode
-    scheduler: str = "wave"
+    scheduler: str = "wave"               # "wave" | "continuous"
+    steps: Optional[list] = None          # continuous: per-round StepReports
+    # continuous: committed tokens of requests that did not finish cleanly
+    # (excluded from tokens_out)
+    tokens_discarded: int = 0
+    finish_reasons: Optional[Dict[str, int]] = None  # reason -> count
 
     @property
     def tokens_per_second(self) -> float:
@@ -108,13 +139,56 @@ class ServingEngine:
         seed: int = 0,
         timed: bool = False,
         bucket_batches: bool = True,
-        scheduler: str = "wave",
-        eos_id: Optional[int] = None,
+        scheduler: str = "wave",            # "wave" | "continuous"
+        eos_id: Optional[int] = None,       # early-exit token (both modes)
+        kv_layout: str = "dense",           # "dense" | "paged" (continuous)
+        page_size: int = 64,                # paged: positions per KV page
+        prefill_chunk: Optional[int] = None,
+        admit_mode: str = "sliced",         # "sliced" | "full"
+        prefix_sharing: bool = False,
+        admission_order: str = "fifo",      # "fifo" | "pressure" refill order
+        resilience: Optional[ResilienceConfig] = None,
+        fault_injector=None,
     ):
-        if scheduler != "wave":
-            raise NotImplementedError(
-                f"scheduler {scheduler!r}: the continuous scheduler is ROADMAP "
-                "queue 1 item 7; this slice serves 'wave'")
+        if scheduler not in ("wave", "continuous"):
+            raise ValueError(f"scheduler must be 'wave' or 'continuous', "
+                             f"got {scheduler!r}")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', "
+                             f"got {kv_layout!r}")
+        if admit_mode not in ("sliced", "full"):
+            raise ValueError(f"admit_mode must be 'sliced' or 'full', "
+                             f"got {admit_mode!r}")
+        if kv_layout == "paged":
+            if scheduler != "continuous":
+                raise ValueError("kv_layout='paged' is a continuous-serving "
+                                 "layout; wave decoding sizes caches per "
+                                 "wave already")
+            if admit_mode == "full":
+                raise ValueError("admit_mode='full' merges same-shape "
+                                 "caches and cannot address a paged pool; "
+                                 "use the sliced path with paged KV")
+        if admission_order not in ("fifo", "pressure"):
+            raise ValueError(f"admission_order must be 'fifo' or "
+                             f"'pressure', got {admission_order!r}")
+        if admission_order == "pressure" and kv_layout != "paged":
+            raise ValueError("admission_order='pressure' orders refills by "
+                             "page footprint; it requires kv_layout='paged'")
+        for name, value in (("prefix_sharing", prefix_sharing),
+                            ("prefill_chunk", prefill_chunk),
+                            ("fault_injector", fault_injector)):
+            if value not in (None, False):
+                raise NotImplementedError(
+                    f"{name}: {_LATER[name]} is not ported yet")
+        if resilience is None:
+            resilience = ResilienceConfig()
+        if ((resilience.round_deadline_s is not None
+             or resilience.max_rounds_per_request is not None)
+                and scheduler != "continuous"):
+            raise ValueError(
+                "resilience deadlines are continuous-scheduler features "
+                "(wave mode has no per-round requeue path); use "
+                "scheduler='continuous'")
         self.proposer_kind = proposer
         self.target, self.draft = target, draft
         self.params_t, self.params_d = params_t, params_d
@@ -126,6 +200,17 @@ class ServingEngine:
         self.bucket_batches = bucket_batches
         self.scheduler = scheduler
         self.eos_id = eos_id
+        self.kv_layout = kv_layout
+        self.page_size = page_size
+        self.admit_mode = admit_mode
+        self.admission_order = admission_order
+        self.resilience = resilience
+        # the AutoTuner is not ported: gamma is fixed, and the continuous
+        # scheduler consults ``tuner.plan(live)`` only when one is set
+        self.tuner = None
+        # fault/preemption/recovery counters, filled by the continuous
+        # scheduler and surfaced via session_stats()["resilience"]
+        self.fault_counters: Dict[str, int] = {}
         self.queue: Deque[Request] = deque()
         self.done: Dict[int, Request] = {}
         self.reports: List[WaveReport] = []
@@ -137,15 +222,19 @@ class ServingEngine:
         # exactly once and reused for every wave
         self._sessions: Dict[str, SDEngine] = {}
         self.session_constructions: Dict[str, int] = {}
+        self._slot_scheduler = None         # lazy ContinuousScheduler
 
     # ----------------------------------------------------------------- queue
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 64, *,
-               sampling: Optional[SamplingParams] = None) -> int:
+               sampling: Optional[SamplingParams] = None,
+               arrival_round: int = 0) -> int:
         """Queue one request; returns its uid (key into ``self.done``).
 
         ``temperature`` must equal the engine's and ``top_k``/``top_p`` must
         be off: batched rejection sampling shares one distribution policy
-        across the batch, so a mismatch raises."""
+        across the batch, so a mismatch raises.  ``arrival_round``
+        (continuous mode) makes the request admissible only from that
+        decode round on; wave mode ignores it."""
         sp = sampling if sampling is not None else SamplingParams(
             temperature=self.temperature, max_new_tokens=max_new_tokens)
         if sp.temperature != self.temperature:
@@ -160,7 +249,7 @@ class ServingEngine:
         self._uid += 1
         self.queue.append(Request(self._uid, np.asarray(prompt, np.int32),
                                   sp.max_new_tokens, sp.temperature,
-                                  sampling=sp))
+                                  sampling=sp, arrival_round=arrival_round))
         return self._uid
 
     def _admit(self) -> List[Request]:
@@ -190,12 +279,27 @@ class ServingEngine:
 
     def session_stats(self) -> Dict[str, dict]:
         """Per-proposer-kind session health: ``constructions`` (1 per kind:
-        waves reuse sessions), ``gammas_compiled`` and ``traces`` (each
-        (gamma, batch) the session first ran with a new shape)."""
-        return {kind: {"constructions": self.session_constructions.get(kind, 0),
-                       "gammas_compiled": sess.compiled_gammas(),
-                       "traces": list(sess.trace_log)}
-                for kind, sess in self._sessions.items()}
+        waves reuse sessions), ``gammas_compiled``, ``traces`` (each
+        (gamma, batch) the session first ran with a new shape),
+        ``admit_traces`` (each (prompt bucket, rows) admission shape) and
+        ``growths`` ((new_max_seq, pool_pages) per paged growth).  Plus one
+        non-kind entry, ``"resilience"``: the continuous scheduler's
+        fault/preemption/recovery counters (empty for a healthy stream)."""
+        out: Dict[str, dict] = {"resilience": dict(self.fault_counters)}
+        for kind, sess in self._sessions.items():
+            out[kind] = {
+                "constructions": self.session_constructions.get(kind, 0),
+                "gammas_compiled": sess.compiled_gammas(),
+                "traces": list(sess.trace_log),
+                "admit_traces": list(sess.admit_trace_log),
+                "growths": list(sess.growth_log),
+            }
+        return out
+
+    def _next_generator(self) -> torch.Generator:
+        """The engine's root generator: every wave, round and admission
+        draws from it in turn, so none reuses another's noise."""
+        return self._generator
 
     # ------------------------------------------------------------------ wave
     def _bucket(self, B: int) -> int:
@@ -244,7 +348,7 @@ class ServingEngine:
         out, stats = sess.generate(
             self.params_t, None if kind == "none" else self.params_d,
             toks, max_new, gamma=gamma, max_seq=max_seq, lengths=lengths,
-            generator=self._generator, timed=self.timed)
+            generator=self._next_generator(), timed=self.timed)
         wall = time.perf_counter() - t0
 
         n_tokens = 0
@@ -260,11 +364,26 @@ class ServingEngine:
         self.reports.append(report)
         return report
 
+    # ------------------------------------------------------------ continuous
+    def step_continuous(self) -> Optional[WaveReport]:
+        """Serve the queued stream (arrivals included) through the
+        continuous slot scheduler; one aggregated report whose ``steps``
+        are the per-round StepReports, or ``None`` on an empty queue."""
+        from repro_torch.serving.scheduler import ContinuousScheduler
+        if self._slot_scheduler is None:
+            self._slot_scheduler = ContinuousScheduler(self)
+        report = self._slot_scheduler.run_stream()
+        if report is not None:
+            self.reports.append(report)
+        return report
+
     def run(self) -> List[WaveReport]:
-        """Drain the queue, one wave at a time."""
+        """Drain the queue under the configured scheduler."""
+        step = self.step_continuous if self.scheduler == "continuous" \
+            else self.step
         reports = []
         while self.queue:
-            r = self.step()
+            r = step()
             if r:
                 reports.append(r)
         return reports

@@ -157,3 +157,108 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ----------------------------------------------- paged decode/verify attention
+# bf16 2e-2 and fp32 2e-5 (rtol and atol): the reference's bounds
+# (src/repro/kernels/decode_attention/decode_attention.py:288 in fp32); both
+# sides accumulate in fp32 in different orders, bf16 rounds the output once.
+PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _paged_case(dev, dtype, *, B, Hq, Hkv, D, T, ps, MP, seed=0):
+    """Noise in every physical page (trash page 0 included), a permuted
+    table and ragged lengths, as tests/test_paged_attention.py builds them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    NP = B * MP + 1
+    kp = torch.randn((NP, ps, Hkv, D), generator=g, device=dev).to(dtype)
+    vp = torch.randn((NP, ps, Hkv, D), generator=g, device=dev).to(dtype)
+    table = (torch.randperm(NP - 1, generator=g, device=dev) + 1
+             ).reshape(B, MP).to(torch.int32)
+    lengths = torch.randint(0, MP * ps - T + 1, (B,), generator=g,
+                            device=dev).to(torch.int32)
+    q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(dtype)
+    return q, kp, vp, lengths, table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("T,ps,cap", [(1, 16, 0.0), (5, 64, 0.0),
+                                      (8, 8, 30.0), (3, 64, 30.0)])
+def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_plain
+    case = _paged_case(cuda, dtype, B=3, Hq=28, Hkv=4, D=D, T=T, ps=ps,
+                       MP=5, seed=D + T)
+    before = paged.LAUNCHES["paged_decode_attention"]
+    out = paged.paged_decode_attention(*case, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert paged.LAUNCHES["paged_decode_attention"] == before + 1
+    ref = paged_decode_attention_plain(*case, logit_cap=cap)
+    tol = PAGED_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_long_context_and_no_sync(cuda, dtype):
+    """~8k cached positions at the serve widths, with the device never
+    waiting on the host for lengths or the table.  A typical |out| there is
+    ~0.02, near the bf16 bound, so fp32 holds the page walk at 2e-5."""
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_plain
+    case = _paged_case(cuda, dtype, B=2, Hq=28, Hkv=4, D=128, T=5,
+                       ps=64, MP=130, seed=3)
+    paged.paged_decode_attention(*case)               # build + load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = paged.paged_decode_attention(*case)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = paged_decode_attention_plain(*case)
+    tol = PAGED_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_paged_gather_refused_on_cuda(cuda):
+    """On the card the paged verify path runs the kernel: the gather
+    cross-check is refused at construction and in the layer itself."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    cfg = get_config("qwen2-57b-a14b", reduced=True)
+    with pytest.raises(ValueError, match="CPU cross-check"):
+        Model(cfg, paged_attention="gather", device="cuda")
+    m = Model(cfg, device="cuda")
+    p = m.init(torch.Generator(device=cuda).manual_seed(0))["layers"][0]
+    cache = attention.make_attn_cache(cfg, 2, 32, "attn", m.dtype, cuda,
+                                      paged=True, page_size=16)
+    table = torch.arange(1, 5, dtype=torch.int32, device=cuda).reshape(2, 2)
+    x = torch.randn((2, 5, cfg.d_model), device=cuda).to(m.dtype)
+    pos = torch.arange(5, device=cuda)[None].expand(2, 5)
+    with pytest.raises(ValueError, match="CPU cross-check"):
+        attention.gqa_forward(p["mixer"], cfg, x, pos, cache=cache,
+                              mode="extend", page_table=table,
+                              paged_attention="gather")
+
+
+def test_paged_attention_kernel_masks_stale_pages(cuda):
+    """Poison every position past length + T - 1 and the trash page: the
+    kernel's output must not move."""
+    from repro_torch.kernels.decode_attention import paged
+    q, kp, vp, lengths, table = _paged_case(
+        cuda, torch.float32, B=3, Hq=8, Hkv=2, D=64, T=2, ps=8, MP=4, seed=9)
+    before = paged.paged_decode_attention(q, kp, vp, lengths, table)
+    pk, pv = kp.clone(), vp.clone()
+    pk[0], pv[0] = 1e3, -1e3
+    for b in range(3):
+        first_dead = int(lengths[b]) + 2
+        for lp in range(4):
+            lo = max(0, first_dead - lp * 8)
+            if lo < 8:
+                page = int(table[b, lp])
+                pk[page, lo:], pv[page, lo:] = 1e3, -1e3
+    after = paged.paged_decode_attention(q, pk, pv, lengths, table)
+    torch.testing.assert_close(after, before, rtol=2e-5, atol=2e-5)

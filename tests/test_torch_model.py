@@ -78,10 +78,14 @@ def test_chunked_sdpa_matches_reference_and_dense():
 
 
 def test_unported_paths_raise_naming_the_roadmap():
+    from repro_torch.serving.engine import ServingEngine
     cfg = get_config("qwen2-0.5b", reduced=True)
     _, _, tm, tp = model_pair(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tm.init_cache(2, 16, paged=True)
+    for opt in ({"prefix_sharing": True}, {"prefill_chunk": 4},
+                {"fault_injector": object()}):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            ServingEngine(tm, None, tp, None, proposer="none",
+                          scheduler="continuous", **opt)
     tm.use_flash = True
     with pytest.raises(NotImplementedError, match="queue 2 items 4-5"):
         tm.prefill(tp, np.ones((1, 4), np.int32), tm.init_cache(1, 8))

@@ -22,12 +22,30 @@ Phases, each of which fails the run if it fails:
          rtol = atol = 2e-2; SD verify and long context also in fp32 at
          2e-5 (the reference's bound,
          src/repro/kernels/decode_attention/decode_attention.py:288);
+       * the flash prefill kernel (prefill of 8 prompts of 256 tokens at the
+         target's 28/4 heads of 128 and the draft's 14/2 heads of 64, a 4096-
+         token prefill, a window-and-cap case), bf16 at rtol = atol = 3e-2,
+         and fp32 at the reference's 2e-5 (tests/test_kernels.py);
+       * the dense decode/verify kernel on the (B, S+1, Hkv, D) cache layout:
+         SD verify (B 8, T 5, S 512, lengths 129-290), AR (T 1), the draft's
+         14/2 heads of 64, long context (S 8192), bf16 at 4e-2, SD verify and
+         long context also in fp32 at 3e-5 (tests/test_kernels.py);
+       * the capacity-binned expert GEMM at the full expert widths (E 64,
+         D 3584, F 2560, gate/up and down) at the SD-verify capacity
+         expert_capacity(40, 8, 64) = 128 and a prefill capacity
+         expert_capacity(2048, 8, 64) = 512, bf16 at 2e-2, fp32 at 1e-5
+         (tests/test_kernels.py);
+     each kernel is also timed beside one PyTorch call that computes the
+     same function and that the port never calls (the yardstick);
   4. reference: on the reduced qwen2-57b-a14b in fp32, the CUDA path agrees
      with the port's plain CPU path (which the CPU tests hold against the JAX
      reference) and greedy SD equals greedy AR; a continuous paged stream
      (6 requests, Poisson arrivals, one late long prompt that grows the
      session) emits the same tokens on the card as on the CPU, and SD the
-     same as AR;
+     same as AR; with use_flash=True on the reduced target and draft
+     (prompts of 129-256 tokens: prompt bucket 256, max_seq 512), the CUDA
+     path agrees with the CPU path, greedy SD equals greedy AR and the
+     greedy outputs equal those with use_flash=False;
   5. serve: qwen2-57b-a14b at its full published width, depth cut to LAYERS
      of 28, with the full qwen2-0.5b draft and random weights from --seed,
      greedy, gamma 4, max-batch 8, each path first with the "model"
@@ -38,11 +56,22 @@ Phases, each of which fails the run if it fails:
        * ServingEngine(scheduler="continuous", kv_layout="paged",
          page_size=64): 16 chat prompts with Poisson arrivals (0.5 per
          round, max-new 8/16/32) plus a 700-token prompt at round 6 that
-         grows the page pool mid-stream.
+         grows the page pool mid-stream;
+       * ServingEngine(scheduler="wave") over Model(..., use_flash=True)
+         target and draft ("wave-flash"): 16 prompts of 129-256 tokens
+         (long system or RAG prompts), max-new 32, so every prefill runs the
+         flash kernel and every extend (max_seq 512) the dense decode kernel;
+  6. ops: the capacity-binned MoE FFN (kernels/gmm/ops.py) at full width in
+     fp32, top-8 routing of 40 tokens: moe_ffn_gmm (3 launches) and
+     gmm_legacy (1 launch), held against the ragged dispatch, moe_ffn_ref
+     and ragged_gmm.
      Each path runs with every launch count set to 0 just before it and
      read just after: each gmm kernel's count must equal (MoE layers x that
-     path's target forwards), and on the continuous paths the paged
-     kernel's must equal (attention layers x rounds).
+     path's target forwards); on the continuous paths the paged kernel's
+     must equal (attention layers x rounds); on the wave-flash paths the
+     flash kernel's must equal (attention layers x prefill forwards) and
+     the dense decode kernel's (attention layers x extend forwards), summed
+     over target and draft; every other count must be 0.
 
 It ends with a JSON line of per-kernel numbers and, last, the device line.
 Without a card, or outside a checkout of the repository, it exits non-zero
@@ -65,6 +94,10 @@ FP32_FLOPS = 67e12                 # fp32 outside the tensor cores, published
 TOL = 3e-2                         # rtol and atol, tests/test_ragged_gmm.py
 # paged attention: bf16 output rounding; fp32 the reference's own bound
 PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the reference's bounds, tests/test_kernels.py
+FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+DECODE_TOL = {"bfloat16": 4e-2, "float32": 3e-5}
+GMM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # Target depth at full width: the bf16 weights of all 28 layers (57.4B
 # parameters, ~115 GB) do not fit in the card's 80 GB; 4 layers are ~18 GB.
 LAYERS = 4
@@ -74,6 +107,11 @@ TPU_SITES = {                      # the Pallas kernel each CUDA kernel replaces
     # _paged_decode_kernel
     "paged_decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:78",
+    "decode_attention":                                        # _decode_kernel
+        "src/repro/kernels/decode_attention/decode_attention.py:28",
+    "flash_attention":                                         # _flash_kernel
+        "src/repro/kernels/flash_attention/flash_attention.py:27",
+    "gmm_capacity": "src/repro/kernels/gmm/gmm.py:26",         # _gmm_kernel
 }
 SOURCES = {
     "fused_gate_up": "src/repro_torch/kernels/gmm/csrc/ragged_gmm.cu",
@@ -81,8 +119,25 @@ SOURCES = {
     "paged_decode_attention":
         "src/repro_torch/kernels/decode_attention/csrc/"
         "paged_decode_attention.cu",
+    "decode_attention":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "gmm_capacity": "src/repro_torch/kernels/gmm/csrc/gmm_capacity.cu",
 }
-PATHS = ("wave/model", "wave/none", "continuous/model", "continuous/none")
+PATHS = ("wave/model", "wave/none", "continuous/model", "continuous/none",
+         "wave-flash/model", "wave-flash/none")
+OPS_PATH = "ops/moe_ffn_gmm"
+MAIN_PATH = {"fused_gate_up": "wave/model", "ragged_gmm": "wave/model",
+             "paged_decode_attention": "continuous/model",
+             "decode_attention": "wave-flash/model",
+             "flash_attention": "wave-flash/model",
+             "gmm_capacity": OPS_PATH}
+MAIN_CASE = {"fused_gate_up": "verify", "ragged_gmm": "verify",
+             "paged_decode_attention": "sd_verify",
+             "decode_attention": "sd_verify",
+             "flash_attention": "prefill_target",
+             "gmm_capacity": "sd_verify_gate_up"}
 
 
 def log(msg: str) -> None:
@@ -109,6 +164,42 @@ def cuda_time_ms(fn, *, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, *, calls: int = 20, iters: int = 5):
+    """Device time per call without the host's cost of submitting it:
+    ``calls`` calls captured in one CUDA graph, the graph replayed ``iters``
+    times.  An eager call of a short kernel costs the host more than the
+    device (the wrapper's checks and the launch), so events around eager
+    calls time the host there.  None when the call cannot be captured."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * calls)
+    del graph
+    return ms
+
+
+def _fmt(ms) -> str:
+    return "-" if ms is None else f"{ms:.4f} ms"
+
+
 def bound_ms(bytes_moved: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -116,11 +207,19 @@ def bound_ms(bytes_moved: float, flops: float, peak: float = BF16_FLOPS):
 
 
 # --------------------------------------------------------------------- build
+def _counted_modules():
+    """Every kernel wrapper module: each has SOURCE, LAUNCHES and
+    reset_launch_counts()."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gmm import gmm, ragged
+    return (ragged, paged, dec_ops, flash_attention, gmm)
+
+
 def build_kernels():
     from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attention import paged
-    from repro_torch.kernels.gmm import ragged
-    sources = (ragged.SOURCE, paged.SOURCE)
+    sources = tuple(m.SOURCE for m in _counted_modules())
     t0 = time.perf_counter()
     build.build_all(sources)
     for src in sources:
@@ -130,19 +229,44 @@ def build_kernels():
 
 
 def reset_launch_counts():
-    from repro_torch.kernels.decode_attention import paged
-    from repro_torch.kernels.gmm import ragged
-    ragged.reset_launch_counts()
-    paged.reset_launch_counts()
+    for m in _counted_modules():
+        m.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels.decode_attention import paged
-    from repro_torch.kernels.gmm import ragged
-    return {**ragged.LAUNCHES, **paged.LAUNCHES}
+    counts = {}
+    for m in _counted_modules():
+        counts.update(m.LAUNCHES)
+    return counts
 
 
 # ------------------------------------------------------------------- kernels
+def _hold(name: str, case: str, out, ref, tol: float, res: dict) -> float:
+    """Fail unless the kernel's output is finite and within rtol = atol =
+    tol of its plain version; record the worst error.  Returns it."""
+    import torch
+    err = (out.float() - ref.float()).abs()
+    over = err / (tol + tol * ref.float().abs())
+    if not torch.isfinite(out).all() or (over > 1).any():
+        raise AssertionError(
+            f"{name} [{case}]: kernel disagrees with its plain version "
+            f"(max abs err {err.max().item():.4g}, "
+            f"{int((over > 1).sum())} elements outside rtol=atol={tol})")
+    res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+    res["max_err_over_tol"] = max(res["max_err_over_tol"], over.max().item())
+    return err.max().item()
+
+
+def _library(fn, label: str):
+    """A yardstick call the port never makes, if this build takes it:
+    (fn or None, label)."""
+    try:
+        fn()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, f"{label} refused: {str(e).splitlines()[0]}"
+    return fn, label
+
+
 def routed_sizes(n_tokens: int, E: int, K: int, gen, dev):
     """Group sizes of top-K routing of random router logits."""
     import torch
@@ -202,18 +326,7 @@ def kernel_phase(seed: int):
         torch.cuda.synchronize()
         for name, out, ref in (("fused_gate_up", h, h_ref),
                                ("ragged_gmm", y, y_ref)):
-            err = (out.float() - ref.float()).abs()
-            over = err / (TOL + TOL * ref.float().abs())
-            bad = over > 1
-            if not torch.isfinite(out).all() or bad.any():
-                raise AssertionError(
-                    f"{name} [{case}]: kernel disagrees with its plain version "
-                    f"(max abs err {err.max().item():.4g}, "
-                    f"{int(bad.sum())} elements outside rtol=atol={TOL})")
-            res = results[name]
-            res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
-            res["max_err_over_tol"] = max(res["max_err_over_tol"],
-                                          over.max().item())
+            _hold(name, case, out, ref, TOL, results[name])
         meta, _ = ragged._plan(xs, E, sizes, None)     # the kernels' visit list
         timings = {
             "fused_gate_up": dict(
@@ -319,16 +432,7 @@ def paged_kernel_phase(seed: int):
         ref = paged_decode_attention_plain(*args, logit_cap=cap)
         torch.cuda.synchronize()
         tol = PAGED_TOL[dtype_name]
-        err = (out.float() - ref.float()).abs()
-        over = err / (tol + tol * ref.float().abs())
-        if not torch.isfinite(out).all() or (over > 1).any():
-            raise AssertionError(
-                f"paged_decode_attention [{case}]: kernel disagrees with its "
-                f"plain version (max abs err {err.max().item():.4g}, "
-                f"{int((over > 1).sum())} elements outside rtol=atol={tol})")
-        res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
-        res["max_err_over_tol"] = max(res["max_err_over_tol"],
-                                      over.max().item())
+        err = _hold("paged_decode_attention", case, out, ref, tol, res)
         # bytes the call must move: K and V at the keys 0..length+T-1 of
         # each row, the table entries of the pages those keys lie in, the
         # lengths, q and out
@@ -349,24 +453,300 @@ def paged_kernel_phase(seed: int):
                                else (None, "sdpa has no logit cap"))
         sdpa_ms = cuda_time_ms(sdpa_fn, warmup=2, iters=10) \
             if sdpa_fn is not None else None
+        graph_ms = graph_time_ms(lambda: paged.paged_decode_attention(
+            *args, logit_cap=cap))
+        sdpa_graph_ms = graph_time_ms(sdpa_fn) if sdpa_fn is not None else None
         res["cases"][case] = dict(
             dtype=dtype_name, B=B, T=T, head_dim=D, page_size=ps,
             lengths=[int(n) for n in lengths.tolist()], keys=keys,
             pages_touched=touched,
-            kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            kernel_ms=ms, kernel_graph_ms=graph_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by,
             bytes=n_bytes, library_ms=None,
             library="no single call walks a block table",
-            sdpa_gathered_ms=sdpa_ms, sdpa_gathered=sdpa_label,
-            max_abs_err=err.max().item(), tol=tol)
+            sdpa_gathered_ms=sdpa_ms, sdpa_gathered_graph_ms=sdpa_graph_ms,
+            sdpa_gathered=sdpa_label,
+            max_abs_err=err, tol=tol)
         log(f"kernel paged_decode_attention [{case:14s}] {dtype_name} T={T} "
-            f"D={D} keys={keys:5d} pages={touched:4d}  {ms:.4f} ms  "
+            f"D={D} keys={keys:5d} pages={touched:4d}  {ms:.4f} ms "
+            f"(graph {_fmt(graph_ms)})  "
             f"plain {plain_ms:.3f} ms  "
             f"bound {b_ms:.4f} ms ({b_by})  sdpa "
             f"{'-' if sdpa_ms is None else f'{sdpa_ms:.4f} ms'} "
-            f"({sdpa_label})  max err {err.max().item():.3g}")
+            f"({sdpa_label})  max err {err:.3g}")
         del kp, vp, q, out, ref
     torch.cuda.empty_cache()
     return res
+
+
+FLASH_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, window, cap)
+    "prefill_target": ("bfloat16", 8, 256, 28, 4, 128, 0, 0.0),
+    "prefill_draft": ("bfloat16", 8, 256, 14, 2, 64, 0, 0.0),
+    "long_prefill": ("bfloat16", 1, 4096, 28, 4, 128, 0, 0.0),
+    "window_cap": ("bfloat16", 2, 512, 28, 4, 128, 256, 30.0),
+    "fp32_prefill": ("float32", 2, 256, 28, 4, 128, 0, 0.0),
+}
+
+
+def flash_kernel_phase(seed: int):
+    """The flash prefill kernel through the (B, T, H, D) wrapper the model
+    calls, against its plain version, at the serve prefill shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    for case, (dtype_name, B, T, Hq, Hkv, D, window, cap) in FLASH_CASES.items():
+        dt = getattr(torch, dtype_name)
+        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        kw = dict(causal=True, window=window, logit_cap=cap)
+        out = ops.flash_attention(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = _hold("flash_attention", case, out, ref, FLASH_TOL[dtype_name],
+                    res)
+        # work: each query t sees min(t + 1, window) keys; QK^T and PV are
+        # 2 * D FLOPs per (query, key) each; q, k, v read once, out written
+        pairs = sum(min(t + 1, window) if window else t + 1 for t in range(T))
+        flops = 4 * B * Hq * D * pairs
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS
+                              if dtype_name == "bfloat16" else FP32_FLOPS)
+        ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                          warmup=3, iters=20)
+        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                                warmup=1, iters=3)
+        if cap == 0.0 and window == 0:
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_fn, lib = _library(
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True),
+                "F.scaled_dot_product_attention(is_causal, enable_gqa), "
+                "(B, H, T, D) copies excluded")
+        else:
+            lib_fn, lib = None, "sdpa has no window-and-cap mask of its own"
+        lib_ms = cuda_time_ms(lib_fn, warmup=3, iters=20) if lib_fn else None
+        graph_ms = graph_time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        lib_graph_ms = graph_time_ms(lib_fn) if lib_fn else None
+        res["cases"][case] = dict(
+            dtype=dtype_name, B=B, T=T, heads=(Hq, Hkv), head_dim=D,
+            window=window, cap=cap, kernel_ms=ms, kernel_graph_ms=graph_ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+            flops=flops, library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+            library=lib, max_abs_err=err, tol=FLASH_TOL[dtype_name])
+        log(f"kernel flash_attention [{case:14s}] {dtype_name} B={B} T={T} "
+            f"heads={Hq}/{Hkv}x{D} w={window} cap={cap:g}  {ms:.4f} ms "
+            f"(graph {_fmt(graph_ms)})  plain {plain_ms:.3f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})  library {_fmt(lib_ms)} (graph "
+            f"{_fmt(lib_graph_ms)}; {lib})  max err {err:.3g}")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
+    "sd_verify": ("bfloat16", 8, 5, 28, 4, 128, 512, (129, 290)),
+    "ar": ("bfloat16", 8, 1, 28, 4, 128, 512, (129, 290)),
+    "draft_ar": ("bfloat16", 8, 1, 14, 2, 64, 512, (129, 290)),
+    "long_context": ("bfloat16", 8, 5, 28, 4, 128, 8192, (8000, 8187)),
+    "fp32_sd_verify": ("float32", 8, 5, 28, 4, 128, 512, (129, 290)),
+    # at ~8k keys a typical |out| is ~0.02, near the bf16 bound
+    "fp32_long_context": ("float32", 8, 5, 28, 4, 128, 8192, (8000, 8187)),
+}
+
+
+def decode_kernel_phase(seed: int):
+    """The dense decode/verify kernel on the model's (B, S+1, Hkv, D) cache
+    layout sliced to S (slot S, the trash slot, holds huge values), against
+    its plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    for case, (dtype_name, B, T, Hq, Hkv, D, S, (lo, hi)) in DECODE_CASES.items():
+        dt = getattr(torch, dtype_name)
+        kc, vc = (torch.randn((B, S + 1, Hkv, D), generator=gen, device=dev
+                              ).to(dt) for _ in range(2))
+        kc[:, S], vc[:, S] = 1e3, -1e3
+        k, v = kc[:, :S], vc[:, :S]
+        lengths = torch.randint(lo, hi + 1, (B,), generator=gen,
+                                device=dev).to(torch.int32)
+        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
+        out = ops.decode_attention(q, k, v, lengths)
+        ref = decode_attention_plain(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = _hold("decode_attention", case, out, ref,
+                    DECODE_TOL[dtype_name], res)
+        # bytes: K and V at the keys 0..min(S, length+T)-1 of each row, q,
+        # out and the lengths; FLOPs: 4 * D per (query row, visible key)
+        lens = [int(n) for n in lengths.tolist()]
+        keys = sum(min(S, n + T) for n in lens)
+        pairs = sum(min(S, n + t + 1) for n in lens for t in range(T))
+        elem = q.element_size()
+        n_bytes = (keys * Hkv * D * 2 * elem + 2 * q.numel() * elem
+                   + 4 * B)
+        flops = 4 * (Hq // Hkv) * Hkv * D * pairs
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS
+                              if dtype_name == "bfloat16" else FP32_FLOPS)
+        ms = cuda_time_ms(lambda: ops.decode_attention(q, k, v, lengths),
+                          warmup=3, iters=20)
+        plain_ms = cuda_time_ms(
+            lambda: decode_attention_plain(q, k, v, lengths), warmup=1, iters=3)
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+        q_pos = lengths.to(torch.int64)[:, None] + torch.arange(T, device=dev)
+        mask = (torch.arange(S, device=dev)[None, None, :]
+                <= q_pos[:, :, None])[:, None]              # (B, 1, T, S)
+        lib_fn, lib = _library(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                   enable_gqa=True),
+            "F.scaled_dot_product_attention(mask, enable_gqa) over the "
+            "contiguous (B, H, S, D) cache, copies excluded")
+        lib_ms = cuda_time_ms(lib_fn, warmup=3, iters=20) if lib_fn else None
+        graph_ms = graph_time_ms(lambda: ops.decode_attention(q, k, v,
+                                                              lengths))
+        lib_graph_ms = graph_time_ms(lib_fn) if lib_fn else None
+        res["cases"][case] = dict(
+            dtype=dtype_name, B=B, T=T, heads=(Hq, Hkv), head_dim=D, S=S,
+            lengths=lens, keys=keys, kernel_ms=ms, kernel_graph_ms=graph_ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+            flops=flops, library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+            library=lib, max_abs_err=err, tol=DECODE_TOL[dtype_name])
+        log(f"kernel decode_attention [{case:17s}] {dtype_name} B={B} T={T} "
+            f"heads={Hq}/{Hkv}x{D} S={S} keys={keys}  {ms:.4f} ms (graph "
+            f"{_fmt(graph_ms)})  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})  library {_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)})  "
+            f"max err {err:.3g}")
+        del kc, vc, k, v, q, out, ref, qh, kh, vh
+    torch.cuda.empty_cache()
+    return res
+
+
+def capacity_kernel_phase(seed: int):
+    """The capacity-binned expert GEMM at the full expert widths, gate/up
+    (D -> F) and down (F -> D), at the SD-verify and a prefill capacity."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ops import expert_capacity
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-57b-a14b")
+    E, K, D, F = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
+                  cfg.moe_d_ff)
+    c_verify = expert_capacity(40, K, E)          # B 8 x (gamma + 1) 5 tokens
+    c_prefill = expert_capacity(2048, K, E)       # B 8 x 256 tokens
+    cases = {  # name: (dtype, C, in width, out width)
+        "sd_verify_gate_up": ("bfloat16", c_verify, D, F),
+        "sd_verify_down": ("bfloat16", c_verify, F, D),
+        "prefill_gate_up": ("bfloat16", c_prefill, D, F),
+        "prefill_down": ("bfloat16", c_prefill, F, D),
+        "fp32_sd_verify_gate_up": ("float32", c_verify, D, F),
+    }
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    for case, (dtype_name, C, Din, Dout) in cases.items():
+        dt = getattr(torch, dtype_name)
+        x = torch.randn((E, C, Din), generator=gen, device=dev).to(dt)
+        w = (torch.randn((E, Din, Dout), generator=gen, device=dev)
+             / Din ** 0.5).to(dt)
+        out = gmm.gmm_capacity(x, w)
+        ref = gmm_capacity_ref(x, w)
+        torch.cuda.synchronize()
+        err = _hold("gmm_capacity", case, out, ref, GMM_TOL[dtype_name], res)
+        elem = x.element_size()
+        n_bytes = (x.numel() + w.numel() + E * C * Dout) * elem
+        flops = 2 * E * C * Din * Dout
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS
+                              if dtype_name == "bfloat16" else FP32_FLOPS)
+        ms = cuda_time_ms(lambda: gmm.gmm_capacity(x, w), warmup=2, iters=10)
+        plain_ms = cuda_time_ms(lambda: gmm_capacity_ref(x, w), warmup=1,
+                                iters=3)
+        lib_fn, lib = _library(lambda: torch.bmm(x, w), "torch.bmm")
+        lib_ms = cuda_time_ms(lib_fn, warmup=2, iters=10) if lib_fn else None
+        res["cases"][case] = dict(
+            dtype=dtype_name, E=E, C=C, K=Din, F=Dout, kernel_ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+            flops=flops, library_ms=lib_ms, library=lib, max_abs_err=err,
+            tol=GMM_TOL[dtype_name])
+        log(f"kernel gmm_capacity [{case:22s}] {dtype_name} E={E} C={C} "
+            f"{Din}->{Dout}  {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+            f"{b_ms:.3f} ms ({b_by})  library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'} ({lib})  "
+            f"max err {err:.3g}")
+        del x, w, out, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def capacity_ops_path(seed: int):
+    """The capacity-binned MoE FFN of kernels/gmm/ops.py at full width in
+    fp32 with top-8 routing of 40 tokens (an SD verify at B 8, gamma 4):
+    one moe_ffn_gmm and one gmm_legacy call, counted, then held against the
+    ragged dispatch, moe_ffn_ref and ragged_gmm."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.gmm import ops, ragged
+    from repro_torch.kernels.gmm.ref import moe_ffn_ref
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-57b-a14b")
+    E, K, D, F = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
+                  cfg.moe_d_ff)
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    x = torch.randn((40, D), generator=gen, device=dev)
+    wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) / D ** 0.5)
+              for _ in range(2))
+    wd = torch.randn((E, F, D), generator=gen, device=dev) / F ** 0.5
+    probs = torch.softmax(torch.randn((40, E), generator=gen, device=dev), -1)
+    weights, idx = probs.topk(K, -1)
+    weights = weights / weights.sum(-1, keepdim=True)
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    xs = x[order // K]                                   # expert-sorted rows
+    sizes = torch.bincount(flat, minlength=E).to(torch.int32)
+    cap = ops.expert_capacity(40, K, E)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    y, dropped = ops.moe_ffn_gmm(x, wg, wu, wd, weights, idx, capacity=cap,
+                                 return_dropped=True)
+    legacy = ops.gmm_legacy(xs, wg, sizes)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect = {n: 0 for n in counts}
+    expect["gmm_capacity"] = 3 + 1
+    log(f"ops[{OPS_PATH}]: capacity {cap}, dropped {int(dropped)}; launches "
+        f"counted {counts}, expected {expect}")
+    if counts != expect or int(dropped) != 0:
+        raise AssertionError(f"ops[{OPS_PATH}]: launches {counts} != {expect} "
+                             f"or dropped {int(dropped)} != 0")
+    ragged_y = moe._dispatch_gmm({"w_gate": wg, "w_up": wu, "w_down": wd},
+                                 cfg, x, weights, idx)
+    checks = {"moe_ffn_gmm vs ragged dispatch": (y, ragged_y, 1e-4),
+              "moe_ffn_gmm vs moe_ffn_ref": (
+                  y, moe_ffn_ref(x, wg, wu, wd, weights, idx), 1e-4),
+              "gmm_legacy vs ragged_gmm": (
+                  legacy, ragged.ragged_gmm(xs, wg, sizes), 2e-4)}
+    for what, (a, b, tol) in checks.items():
+        err = (a - b).abs().max().item()
+        if not torch.allclose(a, b, rtol=tol, atol=tol):
+            raise AssertionError(f"ops: {what}: max err {err:.3g} > {tol}")
+        log(f"ops: {what}: max err {err:.3g} (rtol=atol={tol})")
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ----------------------------------------------------------------- reference
@@ -440,6 +820,78 @@ def reference_phase(seed: int):
         "and SD == AR, token for token")
 
 
+def flash_reference_phase(seed: int):
+    """use_flash=True on the reduced target and draft in fp32, prompts of
+    129-256 tokens (prompt bucket 256, max_seq 512): the CUDA path (flash and
+    dense decode kernels) agrees with the CPU path (their plain versions),
+    and on the card greedy SD equals greedy AR and the greedy outputs equal
+    those with use_flash=False."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import prompt_batch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    params, errs = {}, {}
+    reset_launch_counts()
+    for name, c, disp, s in (
+            ("target", get_config("qwen2-57b-a14b", reduced=True), "gmm", seed),
+            ("draft", get_config("qwen2-0.5b", reduced=True), "onehot",
+             seed + 1)):
+        cpu = Model(c, moe_dispatch=disp, use_flash=True, device="cpu")
+        gpu = Model(c, moe_dispatch=disp, use_flash=True, device="cuda")
+        p_cpu = cpu.init(torch.Generator().manual_seed(s))
+        p_gpu = _to_device(p_cpu, gpu.device)
+        toks = rng.integers(3, c.vocab_size, (4, 256)).astype(np.int32)
+        lengths = np.array([256, 129, 200, 171], np.int32)
+        ver = rng.integers(3, c.vocab_size, (4, 5)).astype(np.int32)
+        outs = []
+        for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+            last, cache = m.prefill(p, toks, m.init_cache(4, 512),
+                                    lengths=lengths)
+            logits, _ = m.extend(p, ver, cache)
+            outs.append((last.cpu(), logits.cpu()))
+        errs[name] = max((a - b).abs().max().item() for a, b in zip(*outs))
+        if not errs[name] <= 1e-3:
+            raise AssertionError(f"reference use_flash {name}: CUDA path vs "
+                                 f"CPU path max err {errs[name]:.3g}")
+        params[name] = (c, disp, p_gpu)
+    counts = launch_counts()
+    if not (counts["flash_attention"] and counts["decode_attention"]):
+        raise AssertionError(f"reference use_flash: the kernels were not "
+                             f"launched ({counts})")
+    (tc, tdisp, pt), (dc, _, pd) = params["target"], params["draft"]
+    pb = prompt_batch(tc.vocab_size, 6, seed=seed, min_len=129, max_len=256)
+    outputs = {}
+    for flash in (True, False):
+        tm = Model(tc, moe_dispatch=tdisp, use_flash=flash, device="cuda")
+        dm = Model(dc, use_flash=flash, device="cuda")
+        for kind in ("model", "none"):
+            eng = ServingEngine(tm, dm if kind == "model" else None, pt,
+                                pd if kind == "model" else None, max_batch=4,
+                                gamma=4, temperature=0.0, proposer=kind,
+                                seed=seed)
+            for i in range(6):
+                eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+                           max_new_tokens=24)
+            eng.run()
+            outputs[flash, kind] = np.stack([eng.done[u].output
+                                             for u in sorted(eng.done)])
+    base = outputs[True, "model"]
+    for key, out in outputs.items():
+        if not np.array_equal(out, base):
+            raise AssertionError(f"reference use_flash: greedy outputs "
+                                 f"{key} != (use_flash, SD)")
+    log(f"reference use_flash: reduced fp32 logits CUDA vs CPU max err "
+        f"target {errs['target']:.2e}, draft {errs['draft']:.2e} (<= 1e-3), "
+        f"launches {counts}; greedy SD == AR == use_flash=False "
+        f"({base.shape[0]} prompts of 129-256 tokens x 24 tokens)")
+
+
 def continuous_stream(cfg, target, params_t, draft, params_d, kind: str,
                       seed: int) -> dict:
     """The reduced continuous paged stream: 5 Poisson arrivals with mixed
@@ -492,6 +944,10 @@ def serve_phase(seed: int):
     params_t = target.init(gen.manual_seed(seed))
     draft = Model(dcfg, device="cuda")
     params_d = draft.init(gen.manual_seed(seed + 1))
+    # the same weights behind Model(..., use_flash=True): use_flash changes
+    # no parameter
+    target_f = Model(cfg, moe_dispatch="gmm", use_flash=True, device="cuda")
+    draft_f = Model(dcfg, use_flash=True, device="cuda")
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params_t))
     log(f"serve: target {cfg.name} x{LAYERS} of 28 layers ({n_bytes / 1e9:.2f} GB of "
@@ -519,20 +975,26 @@ def serve_phase(seed: int):
         "paged")
 
     pb = prompt_batch(cfg.vocab_size, 16, kind="chat", seed=seed)
+    # long system / RAG prompts: bucket 256, max_seq pow2(256 + 32 + 4 + 2)
+    pb_long = prompt_batch(cfg.vocab_size, 16, seed=seed + 7, min_len=129,
+                           max_len=256)
     long_prompt = np.random.default_rng(seed).integers(3, cfg.vocab_size, 700)
     moe_layers = sum(cfg.moe_pattern[l % cfg.period] for l in range(LAYERS))
     attn_layers = LAYERS                        # every layer is "attn"
+    draft_attn_layers = dcfg.num_layers
 
-    def engine(kind: str, timed: bool, **kw):
-        return ServingEngine(target, draft if kind == "model" else None,
+    def engine(kind: str, timed: bool, flash: bool = False, **kw):
+        tm, dm = (target_f, draft_f) if flash else (target, draft)
+        return ServingEngine(tm, dm if kind == "model" else None,
                              params_t, params_d if kind == "model" else None,
                              max_batch=8, gamma=4, temperature=0.0,
                              proposer=kind, seed=seed, timed=timed, **kw)
 
-    def wave(kind: str, n_requests: int, timed: bool):
-        eng = engine(kind, timed)
+    def wave(kind: str, n_requests: int, timed: bool, flash: bool = False):
+        eng = engine(kind, timed, flash)
+        prompts = pb_long if flash else pb
         for i in range(n_requests):
-            eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+            eng.submit(prompts["tokens"][i][: int(prompts["lengths"][i])],
                        max_new_tokens=32)
         rounds = 0
         for r in eng.run():
@@ -542,7 +1004,8 @@ def serve_phase(seed: int):
             phases = (f" propose={r.propose_time:.3f} s verify="
                       f"{r.verify_time:.3f} s reject={r.reject_time:.3f} s"
                       if timed else "")
-            log(f"serve wave{' (timed round)' if timed else ''}: "
+            log(f"serve wave{'-flash' if flash else ''}"
+                f"{' (timed round)' if timed else ''}: "
                 f"proposer={r.proposer} B={r.batch}/{r.bucket} "
                 f"gamma={r.gamma} dispatch={r.moe_dispatch} "
                 f"{r.tokens_per_second:.2f} tok/s  {sd} rounds={r.stats.rounds} "
@@ -591,26 +1054,38 @@ def serve_phase(seed: int):
     torch.cuda.reset_peak_memory_stats()
     for path in PATHS:
         sched, kind = path.split("/")
+        flash = sched == "wave-flash"
+        tm, dm = (target_f, draft_f) if flash else (target, draft)
         # the path itself: every count zeroed just before, read just after
         reset_launch_counts()
-        target.forward_count = 0
-        if sched == "wave":
-            outputs[path], rounds = wave(kind, 16, timed=False)
-        else:
+        for m in (tm, dm):
+            m.forward_count = m.prefill_count = 0
+        if sched == "continuous":
             outputs[path], rounds = continuous(kind)
+        else:
+            outputs[path], rounds = wave(kind, 16, timed=False, flash=flash)
         launches[path] = launch_counts()
-        expect = {"fused_gate_up": moe_layers * target.forward_count,
-                  "ragged_gmm": moe_layers * target.forward_count,
-                  "paged_decode_attention":
-                      attn_layers * rounds if sched == "continuous" else 0}
-        log(f"serve[{path}]: {target.forward_count} target forwards, {rounds} "
-            f"rounds; launches counted {launches[path]}, expected {expect}")
+        expect = {name: 0 for name in launches[path]}
+        expect["fused_gate_up"] = expect["ragged_gmm"] = \
+            moe_layers * tm.forward_count
+        if sched == "continuous":
+            expect["paged_decode_attention"] = attn_layers * rounds
+        if flash:
+            layers = ((tm, attn_layers), (dm, draft_attn_layers))
+            expect["flash_attention"] = sum(n * m.prefill_count
+                                            for m, n in layers)
+            expect["decode_attention"] = sum(
+                n * (m.forward_count - m.prefill_count) for m, n in layers)
+        log(f"serve[{path}]: {tm.forward_count} target forwards "
+            f"({tm.prefill_count} prefills), {dm.forward_count} draft "
+            f"forwards ({dm.prefill_count} prefills), {rounds} rounds; "
+            f"launches counted {launches[path]}, expected {expect}")
         if launches[path] != expect:
             raise AssertionError(f"serve[{path}]: launches {launches[path]} "
                                  f"!= expected {expect}")
-        if sched == "wave":
-            wave(kind, 8, timed=True)           # phase breakdown, not counted
-    for sched in ("wave", "continuous"):
+        if sched != "continuous":
+            wave(kind, 8, timed=True, flash=flash)   # phase breakdown only
+    for sched in ("wave", "continuous", "wave-flash"):
         a, b = outputs[f"{sched}/model"], outputs[f"{sched}/none"]
         if sched == "continuous":
             a, b = (np.concatenate([a[u] for u in sorted(a)]),
@@ -656,25 +1131,36 @@ def main() -> int:
     build_kernels()
     kernels = kernel_phase(args.seed)
     kernels["paged_decode_attention"] = paged_kernel_phase(args.seed)
+    kernels["decode_attention"] = decode_kernel_phase(args.seed)
+    kernels["flash_attention"] = flash_kernel_phase(args.seed)
+    kernels["gmm_capacity"] = capacity_kernel_phase(args.seed)
     reference_phase(args.seed)
+    flash_reference_phase(args.seed)
     launches = serve_phase(args.seed)
+    launches[OPS_PATH] = capacity_ops_path(args.seed)
 
+    tols = {"fused_gate_up": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",
+            "ragged_gmm": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",
+            "paged_decode_attention":
+                "bf16 rtol=atol=2e-2, fp32 2e-5 (decode_attention.py:288)",
+            "decode_attention": "bf16 rtol=atol=4e-2, fp32 3e-5 "
+                                "(tests/test_kernels.py)",
+            "flash_attention": "bf16 rtol=atol=3e-2, fp32 2e-5 "
+                               "(tests/test_kernels.py)",
+            "gmm_capacity": "bf16 rtol=atol=2e-2, fp32 1e-5 "
+                            "(tests/test_kernels.py)"}
     line = []
     for name, res in kernels.items():
-        paged = name == "paged_decode_attention"
-        v = res["cases"]["sd_verify" if paged else "verify"]
+        v = res["cases"][MAIN_CASE[name]]
         line.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_SITES[name],
-            # the main path: continuous paged SD for the paged kernel, wave
-            # SD for the gmm kernels; every path beside it
-            "launches": launches["continuous/model" if paged
-                                 else "wave/model"][name],
+            # the kernel's main path, and every path beside it
+            "launches": launches[MAIN_PATH[name]][name],
+            "main_path": MAIN_PATH[name],
             "launches_by_path": {path: counts[name]
                                  for path, counts in launches.items()},
-            "max_abs_err": res["max_abs_err"],
-            "tol": ("bf16 rtol=atol=2e-2, fp32 2e-5 (decode_attention.py:288)"
-                    if paged else f"rtol=atol={TOL} (tests/test_ragged_gmm.py)"),
+            "max_abs_err": res["max_abs_err"], "tol": tols[name],
             "max_err_over_tol": res["max_err_over_tol"],
             "ms": v["kernel_ms"], "kernel_ms": v["kernel_ms"],
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],

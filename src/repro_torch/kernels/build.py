@@ -3,7 +3,8 @@ with a plain C interface, loaded with ``ctypes``).
 
 Each source under ``csrc/`` is compiled at first use for ``sm_90a`` into
 ``build/kernels/`` at the root of the checkout, named by the hash of its
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and of the headers it includes with ``#include "..."``, so an edited
+source or header is rebuilt and an unchanged one is reused.
 Nothing is compiled when a module is imported: the CPU tests import every
 module, and there is no ``nvcc`` there.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,8 +46,23 @@ def find_nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(source: Path, seen=None) -> bytes:
+    """The source and, recursively, every header it includes with quotes."""
+    seen = set() if seen is None else seen
+    source = source.resolve()
+    if source in seen:
+        return b""
+    seen.add(source)
+    text = source.read_bytes()
+    return text + b"".join(_source_bytes(source.parent / inc.decode(), seen)
+                           for inc in _LOCAL_INCLUDE.findall(text))
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
+    digest = hashlib.sha256(_source_bytes(source)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
@@ -91,6 +108,8 @@ def load(source: Path) -> ctypes.CDLL:
 
 
 def check(status: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error (its cudaGetLastError())."""
+    """Raise if a launcher returned an error: its cudaGetLastError(), or a
+    negative code of its own for arguments it refused."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+        kind = "CUDA error" if status > 0 else "launcher refused its arguments,"
+        raise RuntimeError(f"{what}: {kind} {status} at launch")

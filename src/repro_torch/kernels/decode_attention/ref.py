@@ -2,14 +2,15 @@
 
 Ports of ``repro.kernels.decode_attention.ref``: ``decode_attention_ref``
 and ``paged_decode_attention_ref`` keep the reference oracles' (B, Hq, T, D)
-layout; ``paged_decode_attention_plain`` is the (B, T, Hq, D) wrapper of
-``repro.kernels.decode_attention.ops.paged_decode_attention``.  The plain
-paged version gathers ``pool[table]`` into the dense view and delegates to
+layout; ``decode_attention_plain`` and ``paged_decode_attention_plain`` are
+the (B, T, Hq, D) wrappers of ``repro.kernels.decode_attention.ops``.  The
+plain paged version gathers ``pool[table]`` into the dense view and delegates to
 the dense one, so trash or stale page contents are masked, never read into
 the softmax.
 
-These are the CPU path of ``paged.paged_decode_attention`` and the
-yardstick its CUDA kernel is held against on the card.
+These are the CPU path of ``ops.decode_attention`` and
+``paged.paged_decode_attention`` and the yardsticks their CUDA kernels are
+held against on the card.
 """
 from __future__ import annotations
 
@@ -47,6 +48,22 @@ def decode_attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhts,bhsd->bhtd", p, v.float())
     return out.to(q.dtype)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,           # (B, T, Hq, D)
+    k: torch.Tensor,           # (B, S, Hkv, D)
+    v: torch.Tensor,
+    lengths: torch.Tensor,     # (B,)
+    *,
+    scale: float = 0.0,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:             # (B, T, Hq, D)
+    """(B, T, Hq, D) layout, as the kernel and the model take it."""
+    out = decode_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lengths,
+        scale=scale, logit_cap=logit_cap)
+    return out.transpose(1, 2)
 
 
 def paged_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

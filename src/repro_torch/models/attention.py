@@ -26,7 +26,12 @@ extends to that view too, as a CPU cross-check of the kernel path; on CUDA
 tensors it raises, so the card's paged verify always runs the kernel.
 
 Dense attention stays explicit matmul + softmax in fp32, as in the
-reference.  The flash kernels (``use_flash``) belong to a later slice.
+reference.  ``use_flash`` selects the reference's two kernel branches: a
+causal prefill of T >= 128 tokens runs the flash kernel
+(``kernels/flash_attention``), and an extend against a dense cache of
+logical capacity S >= 512 with no logit cap runs the dense decode/verify
+kernel (``kernels/decode_attention/ops.py``), which reads the cache in place
+and never its trash slot.
 """
 from __future__ import annotations
 
@@ -35,14 +40,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
 from repro_torch.kernels.decode_attention.ref import paged_view
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init, softcap
 
 NEG_INF = -1e30
 
-_FLASH_TODO = ("use_flash=True selects the flash/decode attention kernels, "
-               "which are ROADMAP queue 2 items 4-5 and not ported yet")
 GATHER_ON_CUDA = ("paged_attention='gather' is a CPU cross-check of the "
                   "paged kernel path; on a CUDA device paged decode/verify "
                   "runs the kernel (paged_attention='kernel')")
@@ -222,8 +227,6 @@ def gqa_forward(
     page_table: Optional[torch.Tensor] = None,
     paged_attention: str = "kernel",
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    if use_flash:
-        raise NotImplementedError(_FLASH_TODO)
     if kind != "attn":
         raise NotImplementedError(
             f"block kind {kind!r} is ROADMAP queue 1 item 9")
@@ -237,6 +240,10 @@ def gqa_forward(
 
     def attend(q_, k_, v_, q_pos, k_pos):
         S = k_.shape[1]
+        if use_flash and causal and T == S and T >= 128:
+            # masks by index: every prefill's positions are arange(T)
+            return flash_attention(q_, k_, v_, causal=True, scale=scale,
+                                   logit_cap=cap)
         if T * S > 2_097_152:  # avoid materializing big (T,S) score tensors
             return chunked_sdpa(q_, k_, v_, q_pos, k_pos, scale=scale,
                                 logit_cap=cap, causal=causal)
@@ -277,7 +284,13 @@ def gqa_forward(
                          k_pos)
         return out.reshape(B, T, -1) @ params["wo"], cache
     _write(cache, positions, k, v)
-    S = cache["k"].shape[1] - 1
+    S = cache["k"].shape[1] - 1                 # logical capacity: no trash slot
+    if use_flash and cap == 0.0 and S >= 512:
+        # decode/verify kernel: T queries against the cache read in place,
+        # per-sequence lengths = first query position
+        out = decode_attention(q, cache["k"][:, :S], cache["v"][:, :S],
+                               positions[:, 0].to(torch.int32), scale=scale)
+        return out.reshape(B, T, -1) @ params["wo"], cache
     k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     out = attend(q, cache["k"][:, :S], cache["v"][:, :S], positions, k_pos)
     return out.reshape(B, T, -1) @ params["wo"], cache

@@ -410,9 +410,11 @@ class Model:
         if paged_attention == "gather" and self.device.type == "cuda":
             raise ValueError(GATHER_ON_CUDA)
         self.dtype = torch_dtype(cfg)
-        # target/draft forward passes run (prefill + extend), for callers
-        # that check how many times each kernel of a forward must launch
+        # target/draft forward passes run (prefill + extend) and the prefills
+        # among them, for callers that check how many times each kernel of a
+        # forward must launch
         self.forward_count = 0
+        self.prefill_count = 0
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> dict:
@@ -489,6 +491,7 @@ class Model:
                               page_table=_page_table(cache),
                               paged_attention=self.paged_attention)
         self.forward_count += 1
+        self.prefill_count += 1
         # head only at each sequence's last prompt position — never (B,T,V)
         idx = (lengths.to(torch.int64) - 1)[:, None, None].expand(B, 1, x.shape[-1])
         last_h = torch.gather(x, 1, idx)

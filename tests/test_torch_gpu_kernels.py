@@ -7,9 +7,11 @@ machine with an NVIDIA GPU:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
 
-Tolerances: 1e-4 in fp32; in bf16 the reference's 3e-2 bound (rtol and atol,
-tests/test_ragged_gmm.py): both sides accumulate in fp32 in different orders
-and round once to bf16, so they differ by at most one bf16 ulp.
+Tolerances of the ragged kernels: 1e-4 in fp32; in bf16 the reference's
+3e-2 bound (rtol and atol, tests/test_ragged_gmm.py): both sides accumulate
+in fp32 in different orders and round once to bf16, so they differ by at
+most one bf16 ulp.  The paged, dense decode, flash and capacity kernels are
+held at the reference's own bounds, stated beside their tests.
 """
 import pytest
 import torch
@@ -262,3 +264,195 @@ def test_paged_attention_kernel_masks_stale_pages(cuda):
                 pk[page, lo:], pv[page, lo:] = 1e3, -1e3
     after = paged.paged_decode_attention(q, pk, pv, lengths, table)
     torch.testing.assert_close(after, before, rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------- flash prefill attention
+# the reference's bounds (tests/test_kernels.py): fp32 2e-5, bf16 3e-2 for
+# flash; fp32 3e-5, bf16 4e-2 for dense decode; both sides accumulate in
+# fp32, the kernel's bf16 path also rounds P to bf16 before the PV product.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+DECODE_TOL = {torch.float32: 3e-5, torch.bfloat16: 4e-2}
+
+
+def _randn(dev, shape, dtype, g):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,window,cap", [(256, 0, 0.0), (256, 100, 0.0),
+                                          (512, 0, 30.0), (128, 64, 20.0)])
+def test_flash_kernel_matches_plain(cuda, dtype, T, window, cap):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(T + window)
+    q = _randn(cuda, (2, 4, T, 64), dtype, g)
+    k, v = (_randn(cuda, (2, 2, T, 64), dtype, g) for _ in range(2))
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention_bhtd(q, k, v, causal=True, window=window,
+                                  logit_cap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_ref(q, k, v, causal=True, window=window,
+                              logit_cap=cap)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,T", [(2, 2, 32, 256), (7, 1, 128, 128),
+                                        (14, 2, 64, 256), (28, 4, 128, 384)])
+def test_flash_kernel_model_layout_and_non_causal(cuda, dtype, Hq, Hkv, D, T):
+    """The (B, T, H, D) wrapper the model calls, read in place, causal and
+    not, at the serve models' groupings (g = 7, head dims 64 and 128)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=cuda).manual_seed(Hq * D)
+    q = _randn(cuda, (2, T, Hq, D), dtype, g)
+    k, v = (_randn(cuda, (2, T, Hkv, D), dtype, g) for _ in range(2))
+    tol = FLASH_TOL[dtype]
+    for causal in (True, False):
+        out = ops.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+# ------------------------------------------------ dense decode/verify attention
+@pytest.mark.parametrize("T", [1, 4, 5])
+@pytest.mark.parametrize("g", [1, 2, 4, 7])
+def test_decode_kernel_matches_plain(cuda, T, g):
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(10 * g + T)
+    B, Hkv, S, D = 3, 2, 1024, 64
+    q = _randn(cuda, (B, T, Hkv * g, D), torch.float32, gen)
+    k, v = (_randn(cuda, (B, S, Hkv, D), torch.float32, gen) for _ in range(2))
+    lengths = torch.tensor([17, 512, 1024 - T], dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    ref = decode_attention_plain(q, k, v, lengths)
+    tol = DECODE_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,T", [(4, 2, 128, 3), (28, 4, 128, 5),
+                                        (14, 2, 64, 1), (4, 2, 32, 5)])
+def test_decode_kernel_on_the_cache_layout_with_trash_slot(cuda, dtype, Hq,
+                                                           Hkv, D, T):
+    """The model's (B, S+1, Hkv, D) cache sliced to S, read in place; slot S
+    holds huge values and row 2's positions pass S: neither shows."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(Hq + D + T)
+    B, S = 3, 512
+    q = _randn(cuda, (B, T, Hq, D), dtype, gen)
+    kc, vc = (_randn(cuda, (B, S + 1, Hkv, D), dtype, gen) for _ in range(2))
+    kc[:, S], vc[:, S] = 1e3, -1e3
+    lengths = torch.tensor([129, 290, S - 2], dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, kc[:, :S], vc[:, :S], lengths)
+    ref = decode_attention_plain(q, kc[:, :S], vc[:, :S], lengths)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_decode_kernel_never_syncs(cuda):
+    """A verify at the serve widths with the device never waiting on the
+    host: lengths stay on the device."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(cuda, (8, 5, 28, 128), torch.bfloat16, gen)
+    k, v = (_randn(cuda, (8, 512, 4, 128), torch.bfloat16, gen)
+            for _ in range(2))
+    lengths = torch.randint(129, 291, (8,), generator=gen, device=cuda
+                            ).to(torch.int32)
+    ops.decode_attention(q, k, v, lengths)           # build + load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ops.decode_attention(q, k, v, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = decode_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=4e-2, atol=4e-2)
+
+
+def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
+    """No fallback: a head dim the kernels are not built for raises on the
+    card instead of taking the plain version."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+    q = torch.zeros((1, 128, 2, 96), device=cuda)
+    kv = torch.zeros((1, 128, 2, 96), device=cuda)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    before = (fa.LAUNCHES["flash_attention"], dec.LAUNCHES["decode_attention"])
+    with pytest.raises(ValueError, match="head dims"):
+        fl.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="head dims"):
+        dec.decode_attention(q[:, :5], kv, kv,
+                             torch.zeros((1,), dtype=torch.int32, device=cuda))
+    assert (fa.LAUNCHES["flash_attention"],
+            dec.LAUNCHES["decode_attention"]) == before
+
+
+# ----------------------------------------------- capacity-binned grouped matmul
+# the reference's bounds (tests/test_kernels.py): fp32 1e-5, bf16 2e-2;
+# weights scaled by 1/sqrt(D) so the outputs are O(1)
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", [(2, 128, 256, 128), (4, 256, 512, 384),
+                                     (1, 128, 1024, 256), (8, 128, 128, 128),
+                                     (2, 4, 32, 48), (3, 100, 72, 40)])
+def test_gmm_capacity_kernel_matches_plain(cuda, dtype, E, C, D, F):
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+    gen = torch.Generator(device=cuda).manual_seed(E + C + D)
+    x = _randn(cuda, (E, C, D), dtype, gen)
+    w = (torch.randn((E, D, F), generator=gen, device=cuda) / D ** 0.5
+         ).to(dtype)
+    before = gmm.LAUNCHES["gmm_capacity"]
+    out = gmm.gmm_capacity(x, w)
+    torch.cuda.synchronize()
+    assert gmm.LAUNCHES["gmm_capacity"] == before + 1
+    tol = GMM_TOL[dtype]
+    torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_capacity_ops_launch_counts_and_parity(cuda):
+    """moe_ffn_gmm is 3 launches and equals the one-hot FFN with ample
+    capacity (no drops); gmm_legacy is 1 launch and equals the ragged
+    kernel."""
+    from repro_torch.kernels.gmm import gmm, ops
+    from repro_torch.kernels.gmm.ref import moe_ffn_ref
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    N, D, F, E, K = 64, 32, 48, 4, 2
+    x = _randn(cuda, (N, D), torch.float32, gen)
+    wg, wu = ((torch.randn((E, D, F), generator=gen, device=cuda) / D ** 0.5)
+              for _ in range(2))
+    wd = torch.randn((E, F, D), generator=gen, device=cuda) / F ** 0.5
+    w, idx = torch.softmax(torch.randn((N, E), generator=gen, device=cuda),
+                           -1).topk(K, -1)
+    w = w / w.sum(-1, keepdim=True)
+    before = gmm.LAUNCHES["gmm_capacity"]
+    y, dropped = ops.moe_ffn_gmm(x, wg, wu, wd, w, idx,
+                                 capacity=ops.expert_capacity(N, K, E, 8.0),
+                                 return_dropped=True)
+    torch.cuda.synchronize()
+    assert gmm.LAUNCHES["gmm_capacity"] == before + 3 and int(dropped) == 0
+    torch.testing.assert_close(y, moe_ffn_ref(x, wg, wu, wd, w, idx),
+                               rtol=1e-4, atol=1e-4)
+    sizes = torch.tensor([37, 0, 1, 129, 0, 77, 13, 200], dtype=torch.int32,
+                         device=cuda)
+    xs = _randn(cuda, (int(sizes.sum()), 64), torch.float32, gen)
+    w8 = torch.randn((8, 64, 128), generator=gen, device=cuda) / 8.0
+    before = gmm.LAUNCHES["gmm_capacity"]
+    out = ops.gmm_legacy(xs, w8, sizes)
+    assert gmm.LAUNCHES["gmm_capacity"] == before + 1
+    torch.testing.assert_close(out, ops.gmm(xs, w8, sizes), rtol=2e-4,
+                               atol=2e-4)

@@ -1,6 +1,7 @@
 """Port's Model vs the reference on the same weights: prefill logits and a
 gamma+1 extend (an SD verify pass), for the reduced qwen2-57b-a14b target
-(gmm dispatch) and the reduced qwen2-0.5b draft.  fp32 on the CPU, 1e-4."""
+(gmm dispatch) and the reduced qwen2-0.5b draft, with and without
+``use_flash``.  fp32 on the CPU, 1e-4."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +46,38 @@ def test_prefill_and_verify_extend_match_reference(arch, dispatch):
     np.testing.assert_allclose(to_np(td), to_np(jd), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("T", [128, 256])
+@pytest.mark.parametrize("arch,dispatch", ARCHS)
+def test_use_flash_prefill_and_extend_match_reference(arch, dispatch, T):
+    """``use_flash=True`` on both sides: a T-token prefill takes the flash
+    kernel (T >= 128) and the verify and decode extends at max_seq 512 the
+    dense decode kernel (the reference's in interpret mode, the port's plain
+    versions on the CPU).  ``use_flash`` changes no parameter: the weights
+    are the ones ``params_from_jax`` converts for every other test."""
+    from repro.models.model import Model as JaxModel
+    cfg = get_config(arch, reduced=True)
+    _, jp, tm, tp = model_pair(cfg, moe_dispatch=dispatch)
+    jm = JaxModel(cfg, moe_dispatch=dispatch, use_flash=True)
+    tm.use_flash = True
+    rng = np.random.default_rng(T)
+    toks = rng.integers(3, cfg.vocab_size, (3, T)).astype(np.int32)
+    lengths = np.array([T, T - 40, T - 3], np.int32)
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(3, 512),
+                        lengths=jnp.asarray(lengths))
+    tl, tc = tm.prefill(tp, toks, tm.init_cache(3, 512), lengths=lengths)
+    np.testing.assert_allclose(to_np(tl), to_np(jl), rtol=1e-4, atol=1e-4)
+    ver = rng.integers(3, cfg.vocab_size, (3, 5)).astype(np.int32)
+    jv, jpend = jm.extend(jp, jnp.asarray(ver), jc)
+    tv, tpend = tm.extend(tp, ver, tc)
+    np.testing.assert_allclose(to_np(tv), to_np(jv), rtol=1e-4, atol=1e-4)
+    n_commit = np.array([1, 5, 2], np.int32)
+    jc = jm.commit(jpend, jnp.asarray(n_commit))
+    tc = tm.commit(tpend, torch.from_numpy(n_commit))
+    jd, _ = jm.decode_step(jp, jnp.asarray(ver[:, 1]), jc)
+    td, _ = tm.decode_step(tp, ver[:, 1], tc)
+    np.testing.assert_allclose(to_np(td), to_np(jd), rtol=1e-4, atol=1e-4)
+
+
 def test_extend_past_capacity_matches_reference():
     """A row that runs past max_seq: the reference drops those writes, the
     port sends them to the trash slot; logits agree either way."""
@@ -86,9 +119,14 @@ def test_unported_paths_raise_naming_the_roadmap():
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             ServingEngine(tm, None, tp, None, proposer="none",
                           scheduler="continuous", **opt)
+    # use_flash is ported: a 128-token prefill and a verify at max_seq 512
+    # run the kernel branches (their plain versions on the CPU)
     tm.use_flash = True
-    with pytest.raises(NotImplementedError, match="queue 2 items 4-5"):
-        tm.prefill(tp, np.ones((1, 4), np.int32), tm.init_cache(1, 8))
+    last, cache = tm.prefill(tp, np.ones((1, 128), np.int32),
+                             tm.init_cache(1, 512))
+    logits, _ = tm.extend(tp, np.ones((1, 5), np.int32), cache)
+    assert logits.shape == (1, 5, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(last).all()
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu():

@@ -2,7 +2,8 @@
 
 Greedy SD is lossless (equal to greedy AR), the greedy wave outputs of the
 port's ServingEngine are token-identical to the reference's on the same
-weights and prompts, rejection sampling is lossless in distribution at
+weights and prompts (also with ``use_flash`` on both models, and for a dense
+continuous stream), rejection sampling is lossless in distribution at
 temperature > 0, and every proposer kind builds its session once."""
 import numpy as np
 import pytest
@@ -68,6 +69,61 @@ def test_greedy_wave_outputs_match_reference():
             np.testing.assert_array_equal(teng.done[uid].output,
                                           jeng.done[uid].output)
         assert [r.stats.rounds for r in trep] == [r.stats.rounds for r in jrep]
+
+
+def _flash_models():
+    """Both pairs with ``use_flash=True``: the same weights as ``_pair``
+    (``use_flash`` changes no parameter)."""
+    from repro.models.model import Model as JaxModel
+    (jpt, jpd), (tm, tpt, dm, tpd) = _pair()
+    jt = JaxModel(TARGET, moe_dispatch="gmm", use_flash=True)
+    jd = JaxModel(DRAFT, use_flash=True)
+    tm.use_flash = dm.use_flash = True
+    return (jt, jd, jpt, jpd), (tm, dm, tpt, tpd)
+
+
+def _long_prompts(n):
+    """129-256 tokens: prompt bucket 256, so prefill takes the flash kernel
+    and every extend (max_seq 512) the dense decode kernel."""
+    pb = prompt_batch(TARGET.vocab_size, n, seed=11, min_len=129, max_len=256)
+    return [pb["tokens"][i][: int(pb["lengths"][i])] for i in range(n)]
+
+
+def test_use_flash_greedy_wave_outputs_match_reference():
+    """One SD wave and one AR wave of 4 long prompts."""
+    jm, tmods = _flash_models()
+    prompts = _long_prompts(4)
+    for force in (True, False):
+        jeng = JaxServingEngine(*jm, max_batch=4, gamma=4, force_sd=force)
+        teng = ServingEngine(*tmods, max_batch=4, gamma=4, force_sd=force)
+        for p in prompts:
+            jeng.submit(p, max_new_tokens=8)
+            teng.submit(p, max_new_tokens=8)
+        jrep, trep = jeng.run(), teng.run()
+        assert [r.bucket for r in trep] == [r.bucket for r in jrep] == [4]
+        for uid in jeng.done:
+            np.testing.assert_array_equal(teng.done[uid].output,
+                                          jeng.done[uid].output)
+
+
+def test_use_flash_dense_continuous_stream_matches_reference():
+    """Five long prompts through a pool of 4 dense slots (one refill after
+    a retirement), SD with the model proposer."""
+    jm, tmods = _flash_models()
+    prompts = _long_prompts(5)
+    engines = [cls(*m, max_batch=4, gamma=4, force_sd=True,
+                   scheduler="continuous", kv_layout="dense")
+               for cls, m in ((JaxServingEngine, jm), (ServingEngine, tmods))]
+    for eng in engines:
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_new_tokens=4 + 2 * i)
+        eng.run()
+    jeng, teng = engines
+    assert teng.done.keys() == jeng.done.keys() and len(jeng.done) == 5
+    for uid in jeng.done:
+        assert teng.done[uid].finish_reason == jeng.done[uid].finish_reason
+        np.testing.assert_array_equal(teng.done[uid].output,
+                                      jeng.done[uid].output)
 
 
 def _dist(rng, V, sharp=1.0):

@@ -7,7 +7,10 @@ Phases, each of which fails the run if it fails:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build every CUDA kernel of the path from the sources in this checkout,
-     one nvcc per source, all at once;
+     one nvcc per source, all at once, and print the build time; beside it
+     ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
+     64, 128; capacity GEMM with 1 and 2 consumer warpgroups and column
+     tiles of 128 and 256): registers, dynamic shared memory, spills;
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
@@ -24,8 +27,11 @@ Phases, each of which fails the run if it fails:
          src/repro/kernels/decode_attention/decode_attention.py:288);
        * the flash prefill kernel (prefill of 8 prompts of 256 tokens at the
          target's 28/4 heads of 128 and the draft's 14/2 heads of 64, a 4096-
-         token prefill, a window-and-cap case), bf16 at rtol = atol = 3e-2,
-         and fp32 at the reference's 2e-5 (tests/test_kernels.py);
+         token prefill, a window-and-cap case), bf16 at rtol = atol = 3e-2
+         and every element within 5e-2 of the rms of its output row (the
+         late rows of a long prefill are smaller than 3e-2) through the
+         TMA + wgmma kernel, and fp32 at the reference's 2e-5 through the
+         CUDA-core body (tests/test_kernels.py);
        * the dense decode/verify kernel on the (B, S+1, Hkv, D) cache layout:
          SD verify (B 8, T 5, S 512, lengths 129-290), AR (T 1), the draft's
          14/2 heads of 64, long context (S 8192), bf16 at 4e-2, SD verify and
@@ -33,10 +39,16 @@ Phases, each of which fails the run if it fails:
        * the capacity-binned expert GEMM at the full expert widths (E 64,
          D 3584, F 2560, gate/up and down) at the SD-verify capacity
          expert_capacity(40, 8, 64) = 128 and a prefill capacity
-         expert_capacity(2048, 8, 64) = 512, bf16 at 2e-2, fp32 at 1e-5
+         expert_capacity(2048, 8, 64) = 512, bf16 at 2e-2 through the TMA +
+         wgmma kernel, fp32 at 1e-5 through the CUDA-core one
          (tests/test_kernels.py);
      each kernel is also timed beside one PyTorch call that computes the
-     same function and that the port never calls (the yardstick);
+     same function and that the port never calls (the yardstick), eagerly
+     and, for the attention kernels and the capacity GEMM, on the device
+     alone (calls captured in one CUDA graph); each flash and capacity case
+     prints the kernel its launch ran (route: gmm._route, the wrapper's
+     dispatch; for flash the kernel its launcher reports), and a bf16 case
+     that did not run the TMA + wgmma kernel fails the run;
   4. reference: on the reduced qwen2-57b-a14b in fp32, the CUDA path agrees
      with the port's plain CPU path (which the CPU tests hold against the JAX
      reference) and greedy SD equals greedy AR; a continuous paged stream
@@ -81,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +109,12 @@ TOL = 3e-2                         # rtol and atol, tests/test_ragged_gmm.py
 PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the reference's bounds, tests/test_kernels.py
 FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+# bf16 flash, besides FLASH_TOL: every element within FLASH_ROW_TOL x the rms
+# of its output row (b, t, h).  Row t averages t + 1 values of v, so its
+# |out| ~ 1/sqrt(t + 1), 0.016 at t 4095: below FLASH_TOL itself.  A stale or
+# skipped 128-key chunk moves such a row by ~sqrt(128)/(t + 1), 18 % of its
+# rms; one bf16 rounding of a row's largest element is ~3 %.
+FLASH_ROW_TOL = 5e-2
 DECODE_TOL = {"bfloat16": 4e-2, "float32": 3e-5}
 GMM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # Target depth at full width: the bf16 weights of all 28 layers (57.4B
@@ -218,14 +237,62 @@ def _counted_modules():
 
 
 def build_kernels():
+    """Build every library (one nvcc each, all at once); print the build
+    time and, from ``ptxas -v`` of the build, the registers, shared memory
+    and spills of the two TMA + wgmma kernels."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gmm import gmm
     sources = tuple(m.SOURCE for m in _counted_modules())
     t0 = time.perf_counter()
     build.build_all(sources)
     for src in sources:
         build.load(src)
-    log(f"build: {time.perf_counter() - t0:.1f} s -> " + ", ".join(
+    t_build = time.perf_counter() - t0
+    reports = {src: build.ptxas_report(src)
+               for src in (flash_attention.SOURCE, gmm.SOURCE)}
+    log(f"build: {t_build:.1f} s -> " + ", ".join(
         str(build.library_path(src).relative_to(ROOT)) for src in sources))
+    smem = {"flash_sm90_kernel": build.load(
+                flash_attention.SOURCE).flash_sm90_smem_bytes,
+            "gmm_capacity_sm90_kernel": build.load(
+                gmm.SOURCE).gmm_capacity_sm90_smem_bytes}
+    seen = set()
+    for src, text in reports.items():
+        for line in text.splitlines():
+            if "(C75" in line and "sm90_kernel" in line:   # ptxas's advisories
+                log(f"ptxas ({src.name}): {line.strip()[:240]}")
+        for kernel, args, regs, spills in _ptxas_entries(text):
+            seen.add((kernel, args))
+            log(f"ptxas {kernel}<{', '.join(map(str, args))}> ({src.name}): "
+                f"{regs} registers at entry (setmaxnreg moves them to the "
+                f"consumers), {smem[kernel](*args)} bytes dynamic shared "
+                f"memory, {spills}")
+    want = {("flash_sm90_kernel", (d,)) for d in (32, 64, 128)} | {
+        ("gmm_capacity_sm90_kernel", a) for a in ((1, 128), (2, 128), (2, 256))}
+    if seen != want:
+        raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
+                             f", expected {sorted(want)}")
+
+
+def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
+                                        "gmm_capacity_sm90_kernel")):
+    """(kernel, template arguments, registers, spill line) for each entry
+    function of ``kernels`` in ``ptxas -v`` output."""
+    pattern = re.compile(r"Compiling entry function '\w*?(%s)I((?:Li\d+E)+)E"
+                         % "|".join(kernels))
+    name = args = spills = None
+    for line in text.splitlines():
+        m = pattern.search(line)
+        if m:
+            name = m.group(1)
+            args = tuple(int(a) for a in re.findall(r"Li(\d+)E", m.group(2)))
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            yield name, args, int(regs.group(1)), spills
+            name = None
 
 
 def reset_launch_counts():
@@ -255,6 +322,13 @@ def _hold(name: str, case: str, out, ref, tol: float, res: dict) -> float:
     res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
     res["max_err_over_tol"] = max(res["max_err_over_tol"], over.max().item())
     return err.max().item()
+
+
+def row_scaled_err(out, ref) -> float:
+    """The largest |out - ref| over the rms of ref's row (the last dim)."""
+    ref = ref.float()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    return ((out.float() - ref).abs() / rms).max().item()
 
 
 def _library(fn, label: str):
@@ -493,7 +567,7 @@ def flash_kernel_phase(seed: int):
     calls, against its plain version, at the serve prefill shapes."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import flash_attention, ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     dev = torch.device("cuda")
@@ -508,8 +582,18 @@ def flash_kernel_phase(seed: int):
         out = ops.flash_attention(q, k, v, **kw)
         ref = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        route = flash_attention.LAST_ROUTE["flash_attention"]
+        if dtype_name == "bfloat16" and route != "sm90":
+            raise AssertionError(f"flash_attention [{case}]: bf16 ran the "
+                                 f"{route} kernel, not the TMA + wgmma one")
         err = _hold("flash_attention", case, out, ref, FLASH_TOL[dtype_name],
                     res)
+        row_err = row_scaled_err(out, ref)
+        if dtype_name == "bfloat16" and row_err > FLASH_ROW_TOL:
+            raise AssertionError(
+                f"flash_attention [{case}]: an element is {row_err:.3g} x the "
+                f"rms of its row from the plain version (bound "
+                f"{FLASH_ROW_TOL})")
         # work: each query t sees min(t + 1, window) keys; QK^T and PV are
         # 2 * D FLOPs per (query, key) each; q, k, v read once, out written
         pairs = sum(min(t + 1, window) if window else t + 1 for t in range(T))
@@ -534,16 +618,20 @@ def flash_kernel_phase(seed: int):
         graph_ms = graph_time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         lib_graph_ms = graph_time_ms(lib_fn) if lib_fn else None
         res["cases"][case] = dict(
-            dtype=dtype_name, B=B, T=T, heads=(Hq, Hkv), head_dim=D,
-            window=window, cap=cap, kernel_ms=ms, kernel_graph_ms=graph_ms,
+            dtype=dtype_name, route=route, B=B, T=T, heads=(Hq, Hkv),
+            head_dim=D, window=window, cap=cap, kernel_ms=ms,
+            kernel_graph_ms=graph_ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
             flops=flops, library_ms=lib_ms, library_graph_ms=lib_graph_ms,
-            library=lib, max_abs_err=err, tol=FLASH_TOL[dtype_name])
-        log(f"kernel flash_attention [{case:14s}] {dtype_name} B={B} T={T} "
-            f"heads={Hq}/{Hkv}x{D} w={window} cap={cap:g}  {ms:.4f} ms "
+            library=lib, max_abs_err=err, tol=FLASH_TOL[dtype_name],
+            max_row_scaled_err=row_err)
+        log(f"kernel flash_attention [{case:14s}] {dtype_name} route={route} "
+            f"B={B} T={T} heads={Hq}/{Hkv}x{D} w={window} cap={cap:g}  "
+            f"{ms:.4f} ms "
             f"(graph {_fmt(graph_ms)})  plain {plain_ms:.3f} ms  bound "
             f"{b_ms:.4f} ms ({b_by})  library {_fmt(lib_ms)} (graph "
-            f"{_fmt(lib_graph_ms)}; {lib})  max err {err:.3g}")
+            f"{_fmt(lib_graph_ms)}; {lib})  max err {err:.3g}, "
+            f"{row_err:.3g} x row rms")
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return res
@@ -631,36 +719,45 @@ def decode_kernel_phase(seed: int):
     return res
 
 
-def capacity_kernel_phase(seed: int):
-    """The capacity-binned expert GEMM at the full expert widths, gate/up
-    (D -> F) and down (F -> D), at the SD-verify and a prefill capacity."""
-    import torch
+def capacity_cases() -> dict:
+    """name: (dtype, E, C, in width, out width): qwen2-57b-a14b's experts,
+    gate/up (D -> F) and down (F -> D), at the SD-verify and a prefill
+    capacity."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.gmm import gmm
     from repro_torch.kernels.gmm.ops import expert_capacity
-    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
-
-    dev = torch.device("cuda")
     cfg = get_config("qwen2-57b-a14b")
     E, K, D, F = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
                   cfg.moe_d_ff)
     c_verify = expert_capacity(40, K, E)          # B 8 x (gamma + 1) 5 tokens
     c_prefill = expert_capacity(2048, K, E)       # B 8 x 256 tokens
-    cases = {  # name: (dtype, C, in width, out width)
-        "sd_verify_gate_up": ("bfloat16", c_verify, D, F),
-        "sd_verify_down": ("bfloat16", c_verify, F, D),
-        "prefill_gate_up": ("bfloat16", c_prefill, D, F),
-        "prefill_down": ("bfloat16", c_prefill, F, D),
-        "fp32_sd_verify_gate_up": ("float32", c_verify, D, F),
+    return {
+        "sd_verify_gate_up": ("bfloat16", E, c_verify, D, F),
+        "sd_verify_down": ("bfloat16", E, c_verify, F, D),
+        "prefill_gate_up": ("bfloat16", E, c_prefill, D, F),
+        "prefill_down": ("bfloat16", E, c_prefill, F, D),
+        "fp32_sd_verify_gate_up": ("float32", E, c_verify, D, F),
     }
+
+
+def capacity_kernel_phase(seed: int):
+    """The capacity-binned expert GEMM at capacity_cases()."""
+    import torch
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    for case, (dtype_name, C, Din, Dout) in cases.items():
+    for case, (dtype_name, E, C, Din, Dout) in capacity_cases().items():
         dt = getattr(torch, dtype_name)
         x = torch.randn((E, C, Din), generator=gen, device=dev).to(dt)
         w = (torch.randn((E, Din, Dout), generator=gen, device=dev)
              / Din ** 0.5).to(dt)
         out = gmm.gmm_capacity(x, w)
+        route = gmm._route(x, w)                  # the wrapper's dispatch
+        if dtype_name == "bfloat16" and route != "sm90":
+            raise AssertionError(f"gmm_capacity [{case}]: bf16 ran the "
+                                 f"{route} kernel, not the TMA + wgmma one")
         ref = gmm_capacity_ref(x, w)
         torch.cuda.synchronize()
         err = _hold("gmm_capacity", case, out, ref, GMM_TOL[dtype_name], res)
@@ -674,15 +771,20 @@ def capacity_kernel_phase(seed: int):
                                 iters=3)
         lib_fn, lib = _library(lambda: torch.bmm(x, w), "torch.bmm")
         lib_ms = cuda_time_ms(lib_fn, warmup=2, iters=10) if lib_fn else None
+        graph_ms = graph_time_ms(lambda: gmm.gmm_capacity(x, w), calls=10,
+                                 iters=3)
+        lib_graph_ms = (graph_time_ms(lib_fn, calls=10, iters=3) if lib_fn
+                        else None)
         res["cases"][case] = dict(
-            dtype=dtype_name, E=E, C=C, K=Din, F=Dout, kernel_ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-            flops=flops, library_ms=lib_ms, library=lib, max_abs_err=err,
-            tol=GMM_TOL[dtype_name])
-        log(f"kernel gmm_capacity [{case:22s}] {dtype_name} E={E} C={C} "
-            f"{Din}->{Dout}  {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
-            f"{b_ms:.3f} ms ({b_by})  library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'} ({lib})  "
+            dtype=dtype_name, route=route, E=E, C=C, K=Din, F=Dout,
+            kernel_ms=ms, kernel_graph_ms=graph_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops,
+            library_ms=lib_ms, library_graph_ms=lib_graph_ms, library=lib,
+            max_abs_err=err, tol=GMM_TOL[dtype_name])
+        log(f"kernel gmm_capacity [{case:22s}] {dtype_name} route={route} "
+            f"E={E} C={C} {Din}->{Dout}  {ms:.3f} ms (graph {_fmt(graph_ms)})"
+            f"  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})  library "
+            f"{_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)}; {lib})  "
             f"max err {err:.3g}")
         del x, w, out, ref
     torch.cuda.empty_cache()
@@ -1146,7 +1248,8 @@ def main() -> int:
             "decode_attention": "bf16 rtol=atol=4e-2, fp32 3e-5 "
                                 "(tests/test_kernels.py)",
             "flash_attention": "bf16 rtol=atol=3e-2, fp32 2e-5 "
-                               "(tests/test_kernels.py)",
+                               "(tests/test_kernels.py); bf16 also "
+                               f"<= {FLASH_ROW_TOL} x row rms",
             "gmm_capacity": "bf16 rtol=atol=2e-2, fp32 1e-5 "
                             "(tests/test_kernels.py)"}
     line = []

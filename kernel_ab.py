@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time the port's flash prefill and capacity-binned GEMM kernels on the
+device alone, for one or more source trees in turns, so that two versions
+of a kernel are compared in one run on one card.
+
+    python3 kernel_ab.py ROOT [ROOT ...]
+
+Each ROOT is a directory holding ``src/repro_torch``: this checkout (``.``)
+or another commit unpacked with ``git archive`` into an ignored directory
+of it.  The trees run in the order given, then in reverse (A B B A for two
+trees), each in a process of its own that builds its kernels into
+``ROOT/build/kernels``.  The cases, bounds and timing are chip_smoke.py's:
+every bf16 case of its flash and capacity phases is held against its plain
+PyTorch version and timed as calls captured in one CUDA graph
+(``graph_time_ms``), beside the PyTorch call that computes the same function
+(``F.scaled_dot_product_attention``, ``torch.bmm``) where there is one.
+Prints a line per (tree, case) and, last, a JSON object of the median time
+of each (tree, case).  Needs an NVIDIA GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke
+
+
+def child(root: Path, label: str) -> None:
+    """Time every case with the kernels of ``root``; one JSON line each."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+
+    def emit(kind, case, out, ref, tol, fn, lib_fn, calls):
+        err = chip_smoke._hold(f"{label} {kind}", case, out, ref, tol, res)
+        print(json.dumps({
+            "tree": label, "kernel": kind, "case": case,
+            "ms": chip_smoke.graph_time_ms(fn, calls=calls),
+            "library_ms": (chip_smoke.graph_time_ms(lib_fn, calls=calls)
+                           if lib_fn else None),
+            "max_abs_err": err}), flush=True)
+
+    for case, (dtype_name, B, T, Hq, Hkv, D, window, cap) in \
+            chip_smoke.FLASH_CASES.items():
+        if dtype_name != "bfloat16":
+            continue
+        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, T, Hkv, D), generator=gen, device=dev
+                            ).bfloat16() for _ in range(2))
+        kw = dict(window=window, logit_cap=cap)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = None                 # SDPA has no tanh cap of its own
+        if window == 0 and cap == 0.0:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True)
+        emit("flash", case, flash.flash_attention(q, k, v, **kw),
+             flash_attention_plain(q, k, v, **kw),
+             chip_smoke.FLASH_TOL[dtype_name],
+             lambda: flash.flash_attention(q, k, v, **kw), lib, 20)
+        del q, k, v, qh, kh, vh
+    for case, (dtype_name, E, C, K, Fo) in chip_smoke.capacity_cases().items():
+        if dtype_name != "bfloat16":
+            continue
+        x = torch.randn((E, C, K), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((E, K, Fo), generator=gen, device=dev) / K ** 0.5
+             ).bfloat16()
+        emit("gmm", case, gmm.gmm_capacity(x, w), gmm_capacity_ref(x, w),
+             chip_smoke.GMM_TOL[dtype_name], lambda: gmm.gmm_capacity(x, w),
+             lambda: torch.bmm(x, w), 10)
+        del x, w
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*", type=Path)
+    ap.add_argument("--child", nargs=2, metavar=("ROOT", "LABEL"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if args.child:
+        child(Path(args.child[0]).resolve(), args.child[1])
+        return 0
+    if not args.roots:
+        ap.error("give at least one source tree")
+    for root in args.roots:
+        if not (root / "src" / "repro_torch").is_dir():
+            ap.error(f"{root} holds no src/repro_torch")
+    card = chip_smoke.card_line()
+    print(f"card: {card}", flush=True)
+    order = [str(r) for r in args.roots]
+    order += order[::-1]
+    times = {}
+    for label in order:
+        proc = subprocess.run([sys.executable, __file__, "--child", label,
+                               label], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        for line in proc.stdout.splitlines():
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            lib = rec["library_ms"]
+            print(f"{rec['tree']:24s} {rec['kernel']:5s} {rec['case']:18s} "
+                  f"{chip_smoke._fmt(rec['ms'])}  library "
+                  f"{chip_smoke._fmt(lib)}  max err {rec['max_abs_err']:.3g}",
+                  flush=True)
+            key = f"{rec['tree']}|{rec['kernel']}|{rec['case']}"
+            times.setdefault(key, {"ms": [], "library_ms": []})
+            times[key]["ms"].append(rec["ms"])
+            times[key]["library_ms"].append(rec["library_ms"])
+    def median(xs):
+        return None if None in xs else statistics.median(xs)
+    print(json.dumps({"card": card, "median_ms": {
+        k: {"ms": median(v["ms"]), "library_ms": median(v["library_ms"])}
+        for k, v in times.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,7 +4,8 @@ with a plain C interface, loaded with ``ctypes``).
 Each source under ``csrc/`` is compiled at first use for ``sm_90a`` into
 ``build/kernels/`` at the root of the checkout, named by the hash of its
 source and of the headers it includes with ``#include "..."``, so an edited
-source or header is rebuilt and an unchanged one is reused.
+source or header is rebuilt and an unchanged one is reused.  Beside each
+library lies what ``ptxas -v`` said of its kernels (``ptxas_report``).
 Nothing is compiled when a module is imported: the CPU tests import every
 module, and there is no ``nvcc`` there.
 """
@@ -26,6 +27,8 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# registers, shared memory and spills of each kernel; changes no code
+PTXAS_VERBOSE = ["-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[Path, ctypes.CDLL] = {}
@@ -67,27 +70,43 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
+def _report_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.txt")
+
+
 def build(source: Path) -> Path:
     """Compile ``source`` unless its library is already built; returns the
-    library's path.  The output is written under a temporary name and then
-    renamed, so concurrent builds never load a half-written file."""
+    library's path.  The library and its ``ptxas -v`` report are written
+    under temporary names and then renamed, the library last, so concurrent
+    builds never load a half-written file."""
     out = library_path(source)
-    if out.exists():
+    report = _report_path(out)
+    if out.exists() and report.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    tmp_report = tmp + ".ptxas.txt"
+    cmd = [find_nvcc(), *NVCC_FLAGS, *PTXAS_VERBOSE, "-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {source.name}:\n"
                                f"{proc.stdout}\n{proc.stderr}")
+        Path(tmp_report).write_text(proc.stdout + proc.stderr)
+        os.replace(tmp_report, report)
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for path in (tmp, tmp_report):
+            if os.path.exists(path):
+                os.unlink(path)
     return out
+
+
+def ptxas_report(source: Path) -> str:
+    """What ``ptxas -v`` said of each kernel of ``source`` (registers,
+    shared memory, spills) when its library was built."""
+    return _report_path(build(source)).read_text()
 
 
 def build_all(sources: Sequence[Path]) -> None:

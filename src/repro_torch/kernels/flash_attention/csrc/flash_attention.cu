@@ -13,35 +13,35 @@
 // prompts of 256 tokens, 28 query heads of 128) a call does ~3 GFLOP against
 // ~29 MB of q/k/v/out; at 4096 tokens ~120 GFLOP against ~37 MB, ~0.12 ms at
 // the bf16 tensor-core peak, so the kernel is compute bound and the products
-// have to run on the tensor cores.
+// have to run on the tensor cores at a rate near wgmma's.
 //
-// What the design does about it (the body is attention_tile.cuh):
-//   * One block per (64-query tile, query head, sequence); blocks run in no
-//     order, so the TPU grid's sequential KV axis is a loop inside the block
-//     and the running max, sum and output stay in shared memory.
-//   * bf16 products on the tensor cores (WMMA 16x16x16, fp32 accumulation);
-//     fp32 inputs, used by the parity checks, stay in full fp32 on the CUDA
-//     cores.
-//   * Causal blocks stop at their last query position and windowed blocks
+// What the design does about it:
+//   * bf16 (every call of the model): flash_sm90.cuh.  A block owns 128
+//     query positions of one head; TMA fills a ring of 128-key K/V chunks,
+//     a producer warp keeps the loads in flight, two consumer warpgroups run
+//     S = Q K^T and O += P V as wgmma with the softmax and O in registers,
+//     and masks are built only where a chunk crosses the diagonal, the window
+//     edge or S.  Causal blocks stop at their last query and windowed blocks
 //     start at their first visible key, as the TPU kernel skips fully masked
 //     blocks.
+//   * fp32 (the parity checks): attention_tile.cuh's CUDA-core path in full
+//     fp32, 64 positions of one head per block (G = 1), the body and fp32
+//     numerics of the dense decode kernel.
 //   * q, k, v and out are read and written in place through strides, in the
 //     (B, H, T, D) layout of flash_attention_bhtd or the (B, T, H, D) layout
 //     of the model alike.
-//   * Simple and right first: no TMA, no wgmma, one K/V chunk in flight.
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
 #include "../../csrc/attention_tile.cuh"
+#include "flash_sm90.cuh"
 
-// dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64 or 128.  strides: 12 element
-// strides, q (b, t, h), k (b, s, h), v (b, s, h), out (b, t, h); the head dim
-// is contiguous and every row 16-byte aligned.
-extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
-                                      const void* k, const void* v, void* out,
-                                      const long long* strides, int B, int T, int S,
-                                      int Hq, int Hkv, int causal, int window,
-                                      float scale, float logit_cap, void* stream) {
+namespace {
+
+template <int D>
+int launch_fp32(const long long* strides, const void* q, const void* k, const void* v,
+                void* out, int B, int T, int S, int Hq, int Hkv, int causal, int window,
+                float scale, float logit_cap, void* stream) {
   attn::Params p{};
   p.q = q;
   p.k = k;
@@ -58,5 +58,51 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
   p.window = window;
   p.scale = scale;
   p.cap = logit_cap;
-  return attn::launch_any(dtype, head_dim, p, B, stream);
+  return attn::launch<float, D>(p, B, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64 or 128.  strides: 12 element
+// strides, q (b, t, h), k (b, s, h), v (b, s, h), out (b, t, h); the head dim
+// is contiguous and every row 16-byte aligned.  *kernel is set to the kernel
+// the call launches: 0 = flash_sm90_kernel (TMA + wgmma), 1 = attention_tile's
+// CUDA-core body.  Returns cudaGetLastError() after the launch, -1 for shapes
+// the kernels do not take, -2 for a dtype or head dim they are not built for,
+// -3/-4 when the CUDA driver cannot encode the tensor maps.
+extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
+                                      const void* k, const void* v, void* out,
+                                      const long long* strides, int B, int T, int S,
+                                      int Hq, int Hkv, int causal, int window,
+                                      float scale, float logit_cap, void* stream,
+                                      int* kernel) {
+  if (Hkv < 1 || Hq % Hkv != 0 || T < 1 || S < 1 || B < 1) return -1;
+  if (dtype == 0) {
+    *kernel = 0;
+    return flash90::launch_any(head_dim, q, k, v, out, strides, B, T, S, Hq, Hkv, causal,
+                               window, scale, logit_cap, static_cast<cudaStream_t>(stream));
+  }
+  if (dtype == 1) {
+    *kernel = 1;
+    switch (head_dim) {
+      case 32: return launch_fp32<32>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal, window,
+                                      scale, logit_cap, stream);
+      case 64: return launch_fp32<64>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal, window,
+                                      scale, logit_cap, stream);
+      case 128: return launch_fp32<128>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+                                        window, scale, logit_cap, stream);
+    }
+  }
+  return -2;
+}
+
+// Dynamic shared memory of a block of the bf16 kernel at this head dim (for
+// reports), or -2 for a head dim it is not built for.
+extern "C" int flash_sm90_smem_bytes(int head_dim) {
+  switch (head_dim) {
+    case 32: return flash90::Cfg<32>::BYTES;
+    case 64: return flash90::Cfg<64>::BYTES;
+    case 128: return flash90::Cfg<128>::BYTES;
+  }
+  return -2;
 }

@@ -9,7 +9,10 @@ Port of ``repro.kernels.flash_attention.flash_attention.flash_attention_bhtd``:
 ``ValueError`` for the same calls, on every device.
 
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
-the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+the kernel or raise.  ``LAUNCHES`` counts kernel launches.  bf16 runs the
+TMA + wgmma kernel (``csrc/flash_sm90.cuh``), fp32 the CUDA-core body of
+``kernels/csrc/attention_tile.cuh``; the launcher reports which one it
+launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or ``"simt"``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 # kernel launches since the last reset
 LAUNCHES = {"flash_attention": 0}
+# the kernel the last launch ran, as the launcher reported it
+LAST_ROUTE = {"flash_attention": None}
+_ROUTES = ("sm90", "simt")     # the launcher's kernel codes
 BLOCK = 128                    # the reference's bq = bk
 
 
@@ -40,7 +46,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         st = ctypes.POINTER(ctypes.c_longlong)
         lib.flash_attention_launch.argtypes = [
-            i, i, p, p, p, p, st, i, i, i, i, i, i, i, f, f, p]
+            i, i, p, p, p, p, st, i, i, i, i, i, i, i, f, f, p,
+            ctypes.POINTER(i)]
         lib.flash_attention_launch.restype = i
         lib._argtypes_set = True
     return lib
@@ -71,14 +78,16 @@ def flash_attention_btd(q, k, v, *, causal: bool = True, window: int = 0,
     if B == 0 or T == 0:
         return out
     st = attention_launch.strides(q, k, v, out)
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         status = _lib().flash_attention_launch(
             attention_launch.DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), st, B, T, S,
             Hq, Hkv, int(causal), int(window), float(scale), float(logit_cap),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    LAST_ROUTE["flash_attention"] = _ROUTES[kernel.value]
     return out
 
 

@@ -4,8 +4,12 @@
 Port of ``repro.kernels.gmm.gmm.gmm_capacity``: ``out[e] = x[e] @ w[e]`` for
 tokens already dispatched to fixed-capacity expert bins, fp32 accumulation,
 cast to x's dtype.  The reference asserts that C, F and D are multiples of
-its blocks (min(128, ·), min(512, D)); the kernel masks ragged edges, so it
-takes any C (the reference's own tests use C = 4).
+its blocks (min(128, ·), min(512, D)); the kernels mask ragged edges, so
+they take any C (the reference's own tests use C = 4).
+
+Three kernels, chosen per call by ``_route``: ``"sm90"`` (bf16 through TMA
+and wgmma, whenever TMA can address x and w), ``"wmma"`` (bf16 shapes whose
+row pitch or base TMA cannot take) and ``"simt"`` (fp32).
 
 CPU tensors take the plain PyTorch version (``ref.gmm_capacity_ref``); CUDA
 tensors launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.
@@ -40,6 +44,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gmm_capacity_launch.argtypes = [i, i, p, p, p, i, i, i, i, i, p]
         lib.gmm_capacity_launch.restype = i
+        lib.gmm_capacity_sm90_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.gmm_capacity_sm90_launch.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -58,12 +64,24 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"{x.shape[0]} experts exceed the grid")
 
 
+def _route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a call takes: ``"simt"`` for fp32; for bf16 ``"sm90"``
+    when TMA can address both operands (row pitches D and F multiples of
+    16 bytes, 16-byte aligned bases), else ``"wmma"``."""
+    if x.dtype == torch.float32:
+        return "simt"
+    vec = 16 // x.element_size()
+    if (x.shape[2] % vec == 0 and w.shape[2] % vec == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "sm90"
+    return "wmma"
+
+
 def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
                  w: torch.Tensor            # (E, D, F) expert weights
                  ) -> torch.Tensor:         # (E, C, F)
     """Batched per-expert product with fp32 accumulation, cast to x's
-    dtype.  The kernel's row tile is 64, or 16 for bins of fewer than 64
-    rows."""
+    dtype, through the kernel ``_route`` picks."""
     if x.device.type == "cpu":
         return gmm_capacity_ref(x, w)
     if x.device.type != "cuda":
@@ -71,17 +89,25 @@ def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
     _check(x, w)
     E, C, D = x.shape
     F = w.shape[2]
-    bm = 64 if C >= 64 else 16
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if 0 in (E, C, F):
         return out
-    vec = 16 // x.element_size()
-    aligned = (D % vec == 0 and F % vec == 0
-               and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    route = _route(x, w)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = _lib().gmm_capacity_launch(
-            _DTYPES[x.dtype], bm, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-            E, C, D, F, int(aligned), torch.cuda.current_stream().cuda_stream)
+        if route == "sm90":
+            status = _lib().gmm_capacity_sm90_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+        else:
+            bm = 64 if C >= 64 else 16
+            # fp32 loads 16-byte vectors where every row and base allows;
+            # the WMMA kernel serves only shapes that do not
+            aligned = route == "simt" and (
+                D % 4 == 0 and F % 4 == 0
+                and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
+            status = _lib().gmm_capacity_launch(
+                _DTYPES[x.dtype], bm, x.data_ptr(), w.data_ptr(),
+                out.data_ptr(), E, C, D, F, int(aligned), stream)
     build.check(status, "gmm_capacity")
     LAUNCHES["gmm_capacity"] += 1
     return out

@@ -160,3 +160,45 @@ def test_gmm_legacy_overflow_gives_what_the_reference_gives(sizes, total):
     if total is None:                            # the overflow is really wrong
         assert not np.allclose(to_np(out)[128:200],
                                to_np(tref.ragged_gmm_ref(tx, tw, ts))[128:200])
+
+
+def _operands(E, C, D, F, dtype, offset=0):
+    """(x, w) of the given shapes without the memory: broadcast views of one
+    row, x's base moved by ``offset`` elements."""
+    dt = getattr(torch, dtype)
+    x = torch.empty((D + offset,), dtype=dt)[offset:].expand(E, C, D)
+    w = torch.empty((F,), dtype=dt).expand(E, D, F)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype,E,C,D,F,offset,route", [
+    ("float32", 2, 4, 32, 48, 0, "simt"),          # fp32: the parity path
+    ("float32", 64, 128, 3584, 2560, 0, "simt"),
+    ("bfloat16", 2, 4, 32, 48, 0, "sm90"),         # the reference's C = 4
+    ("bfloat16", 3, 100, 72, 40, 0, "sm90"),       # ragged C and F
+    ("bfloat16", 1, 512, 64, 384, 0, "sm90"),
+    ("bfloat16", 2, 4, 36, 48, 0, "wmma"),         # D pitch 72 bytes
+    ("bfloat16", 2, 4, 32, 44, 0, "wmma"),         # F pitch 88 bytes
+    ("bfloat16", 2, 4, 32, 48, 1, "wmma"),         # x base off 16 bytes
+])
+def test_gmm_capacity_route(dtype, E, C, D, F, offset, route):
+    """bf16 takes the TMA + wgmma kernel whenever TMA can address x and w,
+    the WMMA kernel otherwise; fp32 the CUDA-core kernel."""
+    x, w = _operands(E, C, D, F, dtype, offset)
+    assert tgmm._route(x, w) == route
+
+
+def test_every_model_shape_routes_to_sm90():
+    """The full-width expert FFN's capacity products (gate/up D -> F, down
+    F -> D) at the SD-verify and prefill capacities, and the reduced
+    model's, all take the TMA + wgmma kernel in bf16."""
+    from repro_torch.configs.registry import get_config
+    for name, reduced in (("qwen2-57b-a14b", False), ("qwen2-57b-a14b", True)):
+        cfg = get_config(name, reduced=reduced)
+        E, K = cfg.num_experts, cfg.num_experts_per_tok
+        D, F = cfg.d_model, cfg.moe_d_ff
+        for n_tokens in (8, 40, 2048):
+            C = tops.expert_capacity(n_tokens, K, E)
+            for din, dout in ((D, F), (F, D)):
+                assert tgmm._route(*_operands(E, C, din, dout, "bfloat16")) \
+                    == "sm90", (name, reduced, C, din, dout)

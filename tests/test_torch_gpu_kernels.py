@@ -272,6 +272,20 @@ def test_paged_attention_kernel_masks_stale_pages(cuda):
 # fp32, the kernel's bf16 path also rounds P to bf16 before the PV product.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_TOL = {torch.float32: 3e-5, torch.bfloat16: 4e-2}
+# bf16 flash, besides FLASH_TOL: every element within 5e-2 x the rms of its
+# output row (chip_smoke.FLASH_ROW_TOL).  Late rows of a long prefill are
+# ~1/sqrt(t + 1), below 3e-2; a stale or skipped 128-key chunk moves them by
+# ~18 % of their rms, one bf16 rounding of a row's largest element ~3 %.
+FLASH_ROW_TOL = 5e-2
+
+
+def _assert_rows_close(out, ref):
+    ref = ref.float()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    worst = ((out.float() - ref).abs() / rms).max().item()
+    assert worst <= FLASH_ROW_TOL, (
+        f"an element is {worst:.3g} x the rms of its row from the plain "
+        f"version (bound {FLASH_ROW_TOL})")
 
 
 def _randn(dev, shape, dtype, g):
@@ -304,6 +318,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, T, window, cap):
 def test_flash_kernel_model_layout_and_non_causal(cuda, dtype, Hq, Hkv, D, T):
     """The (B, T, H, D) wrapper the model calls, read in place, causal and
     not, at the serve models' groupings (g = 7, head dims 64 and 128)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     g = torch.Generator(device=cuda).manual_seed(Hq * D)
@@ -312,9 +327,57 @@ def test_flash_kernel_model_layout_and_non_causal(cuda, dtype, Hq, Hkv, D, T):
     tol = FLASH_TOL[dtype]
     for causal in (True, False):
         out = ops.flash_attention(q, k, v, causal=causal)
+        # the kernel the launcher reports it ran
+        assert fa.LAST_ROUTE["flash_attention"] == (
+            "sm90" if dtype == torch.bfloat16 else "simt")
         ref = flash_attention_plain(q, k, v, causal=causal)
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("T", [64, 128, 256, 4096])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_sm90_kernel_matches_plain(cuda, T, D):
+    """The bf16 TMA + wgmma kernel in the model's (B, T, H, D) layout with
+    B > 1: T below one 128-query tile (zero fill, masked stores), one tile,
+    several, and a long prefill, at every head dim it is built for."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    B = 2 if T < 4096 else 1
+    q = _randn(cuda, (B, T, 4, D), torch.bfloat16, g)
+    k, v = (_randn(cuda, (B, T, 2, D), torch.bfloat16, g) for _ in range(2))
+    before = fa.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAST_ROUTE["flash_attention"] == "sm90"
+    ref = flash_attention_plain(q, k, v)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref)
+
+
+@pytest.mark.parametrize("causal,window,cap", [(True, 256, 30.0),
+                                               (True, 100, 0.0),
+                                               (False, 0, 20.0)])
+def test_flash_sm90_kernel_gqa7_window_cap_non_causal(cuda, causal, window,
+                                                      cap):
+    """Seven query heads per KV head, B 3, windows that start blocks past
+    key 0 and cross chunk edges, the tanh cap, and every key (non-causal)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=cuda).manual_seed(window + int(cap))
+    q = _randn(cuda, (3, 512, 14, 128), torch.bfloat16, g)
+    k, v = (_randn(cuda, (3, 512, 2, 128), torch.bfloat16, g)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    out = ops.flash_attention(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref)
 
 
 # ------------------------------------------------ dense decode/verify attention
@@ -380,6 +443,27 @@ def test_decode_kernel_never_syncs(cuda):
     torch.testing.assert_close(out.float(), ref.float(), rtol=4e-2, atol=4e-2)
 
 
+def test_decode_kernel_matches_plain_at_sd_verify(cuda):
+    """The dense decode kernel, whose body the flash kernel no longer
+    shares, at the serve SD verify (B 8, T 5, 28/4 heads of 128, S 512,
+    lengths 129-290) in bf16 at the reference's 4e-2."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(cuda, (8, 5, 28, 128), torch.bfloat16, gen)
+    kc, vc = (_randn(cuda, (8, 513, 4, 128), torch.bfloat16, gen)
+              for _ in range(2))
+    lengths = torch.randint(129, 291, (8,), generator=gen, device=cuda
+                            ).to(torch.int32)
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, kc[:, :512], vc[:, :512], lengths)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    ref = decode_attention_plain(q, kc[:, :512], vc[:, :512], lengths)
+    tol = DECODE_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
     """No fallback: a head dim the kernels are not built for raises on the
     card instead of taking the plain version."""
@@ -419,6 +503,48 @@ def test_gmm_capacity_kernel_matches_plain(cuda, dtype, E, C, D, F):
     out = gmm.gmm_capacity(x, w)
     torch.cuda.synchronize()
     assert gmm.LAUNCHES["gmm_capacity"] == before + 1
+    tol = GMM_TOL[dtype]
+    torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("C", [4, 16, 100, 128, 512])
+def test_gmm_capacity_sm90_kernel_matches_plain(cuda, C):
+    """The bf16 TMA + wgmma kernel: bins below one 64-row warpgroup tile
+    (one consumer warpgroup), ragged C, one and four 128-row tiles, E 1,
+    F = 384 (three 128-column tiles; a ragged F is in the next test)."""
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    x = _randn(cuda, (1, C, 256), torch.bfloat16, gen)
+    w = (torch.randn((1, 256, 384), generator=gen, device=cuda) / 16.0
+         ).to(torch.bfloat16)
+    assert gmm._route(x, w) == "sm90"
+    before = gmm.LAUNCHES["gmm_capacity"]
+    out = gmm.gmm_capacity(x, w)
+    torch.cuda.synchronize()
+    assert gmm.LAUNCHES["gmm_capacity"] == before + 1
+    tol = GMM_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,E,C,D,F,route", [
+    (torch.bfloat16, 2, 100, 36, 40, "wmma"),      # D pitch 72 bytes
+    (torch.bfloat16, 2, 64, 64, 200, "sm90"),       # F ragged, not a tile
+    (torch.float32, 2, 100, 72, 40, "simt"),
+])
+def test_gmm_capacity_routes_match_plain(cuda, dtype, E, C, D, F, route):
+    """A shape TMA cannot address keeps the WMMA kernel, fp32 the CUDA-core
+    kernel; each matches the plain version at its bound."""
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+    gen = torch.Generator(device=cuda).manual_seed(D + F)
+    x = _randn(cuda, (E, C, D), dtype, gen)
+    w = (torch.randn((E, D, F), generator=gen, device=cuda) / D ** 0.5
+         ).to(dtype)
+    assert gmm._route(x, w) == route
+    out = gmm.gmm_capacity(x, w)
     tol = GMM_TOL[dtype]
     torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
                                rtol=tol, atol=tol)

@@ -10,20 +10,27 @@ Phases, each of which fails the run if it fails:
      one nvcc per source, all at once, and print the build time; beside it
      ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
      64, 128; capacity GEMM with 1 and 2 consumer warpgroups and column
-     tiles of 128 and 256): registers, dynamic shared memory, spills;
+     tiles of 128 and 256; paged decode/verify at head dims 64 and 128;
+     ragged down GEMM with 1 and 2 consumer warpgroups): registers, dynamic
+     shared memory, spills;
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
        * the ragged expert-FFN kernels (SD verify: 320 routed rows, top-8 of
          64 experts; AR verify: 64 rows; prefill: 4096 rows; empty experts
          with unaligned groups), bf16, rtol = atol = 3e-2
-         (tests/test_ragged_gmm.py);
+         (tests/test_ragged_gmm.py); each case prints the visit count of
+         the fused kernel's list and the expert-chunk count of the down
+         kernel's (ragged.expert_chunks), and the down kernel must report
+         the TMA + wgmma route (ragged.LAST_ROUTE);
        * the paged decode/verify attention kernel (28 query / 4 KV heads,
          pages of 64, noise in every page, a permuted table, ragged
          lengths): SD verify (B 8, T 5), AR verify (T 1), long context
          (~8k positions), logit cap 30, head dims 64 and 256, bf16 at
-         rtol = atol = 2e-2; SD verify and long context also in fp32 at
-         2e-5 (the reference's bound,
+         rtol = atol = 2e-2 and, where it runs the split-KV TMA + wgmma
+         body (paged.LAST_ROUTE "sm90": head dims 64 and 128), every
+         element within PAGED_ROW_TOL x the rms of its output row; SD verify
+         and long context also in fp32 at 2e-5 (the reference's bound,
          src/repro/kernels/decode_attention/decode_attention.py:288);
        * the flash prefill kernel (prefill of 8 prompts of 256 tokens at the
          target's 28/4 heads of 128 and the draft's 14/2 heads of 64, a 4096-
@@ -44,11 +51,11 @@ Phases, each of which fails the run if it fails:
          (tests/test_kernels.py);
      each kernel is also timed beside one PyTorch call that computes the
      same function and that the port never calls (the yardstick), eagerly
-     and, for the attention kernels and the capacity GEMM, on the device
-     alone (calls captured in one CUDA graph); each flash and capacity case
-     prints the kernel its launch ran (route: gmm._route, the wrapper's
-     dispatch; for flash the kernel its launcher reports), and a bf16 case
-     that did not run the TMA + wgmma kernel fails the run;
+     and on the device alone (calls captured in one CUDA graph); each
+     flash, paged, ragged-down and capacity case prints the kernel its
+     launch ran (route: gmm._route, the wrapper's dispatch, for the
+     capacity GEMM; for the others the kernel their launcher reports), and
+     a bf16 case that did not run the TMA + wgmma kernel fails the run;
   4. reference: on the reduced qwen2-57b-a14b in fp32, the CUDA path agrees
      with the port's plain CPU path (which the CPU tests hold against the JAX
      reference) and greedy SD equals greedy AR; a continuous paged stream
@@ -107,6 +114,14 @@ FP32_FLOPS = 67e12                 # fp32 outside the tensor cores, published
 TOL = 3e-2                         # rtol and atol, tests/test_ragged_gmm.py
 # paged attention: bf16 output rounding; fp32 the reference's own bound
 PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# bf16 paged attention on the split-KV body, besides PAGED_TOL: every
+# element within PAGED_ROW_TOL x the rms of its output row.  At ~8k keys a
+# row averages ~8k values of v, |out| ~ 0.011, below PAGED_TOL itself.  On
+# patched copies of the kernel (kernel_variants.py mutants) a dropped split
+# put the long-context case's worst element at 2.6 x its row's rms and a
+# stale 64-key chunk at 1.6 x; the sound kernel stays at <= 0.025 x (bf16
+# rounding of P and of the output; PERF.md).
+PAGED_ROW_TOL = 5e-2
 # the reference's bounds, tests/test_kernels.py
 FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
 # bf16 flash, besides FLASH_TOL: every element within FLASH_ROW_TOL x the rms
@@ -241,8 +256,9 @@ def build_kernels():
     time and, from ``ptxas -v`` of the build, the registers, shared memory
     and spills of the two TMA + wgmma kernels."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm import gmm, ragged
     sources = tuple(m.SOURCE for m in _counted_modules())
     t0 = time.perf_counter()
     build.build_all(sources)
@@ -250,13 +266,17 @@ def build_kernels():
         build.load(src)
     t_build = time.perf_counter() - t0
     reports = {src: build.ptxas_report(src)
-               for src in (flash_attention.SOURCE, gmm.SOURCE)}
+               for src in (flash_attention.SOURCE, gmm.SOURCE, paged.SOURCE,
+                           ragged.SOURCE)}
     log(f"build: {t_build:.1f} s -> " + ", ".join(
         str(build.library_path(src).relative_to(ROOT)) for src in sources))
     smem = {"flash_sm90_kernel": build.load(
                 flash_attention.SOURCE).flash_sm90_smem_bytes,
             "gmm_capacity_sm90_kernel": build.load(
-                gmm.SOURCE).gmm_capacity_sm90_smem_bytes}
+                gmm.SOURCE).gmm_capacity_sm90_smem_bytes,
+            "paged_sm90_kernel": build.load(paged.SOURCE).paged_sm90_smem_bytes,
+            "ragged_sm90_kernel": build.load(
+                ragged.SOURCE).ragged_sm90_smem_bytes}
     seen = set()
     for src, text in reports.items():
         for line in text.splitlines():
@@ -265,28 +285,33 @@ def build_kernels():
         for kernel, args, regs, spills in _ptxas_entries(text):
             seen.add((kernel, args))
             log(f"ptxas {kernel}<{', '.join(map(str, args))}> ({src.name}): "
-                f"{regs} registers at entry (setmaxnreg moves them to the "
-                f"consumers), {smem[kernel](*args)} bytes dynamic shared "
-                f"memory, {spills}")
-    want = {("flash_sm90_kernel", (d,)) for d in (32, 64, 128)} | {
-        ("gmm_capacity_sm90_kernel", a) for a in ((1, 128), (2, 128), (2, 256))}
+                f"{regs} registers at entry, {smem[kernel](*args)} bytes "
+                f"dynamic shared memory, {spills}")
+    want = ({("flash_sm90_kernel", (d,)) for d in (32, 64, 128)}
+            | {("gmm_capacity_sm90_kernel", a)
+               for a in ((1, 128), (2, 128), (2, 256))}
+            | {("paged_sm90_kernel", (d,)) for d in (64, 128)}
+            | {("ragged_sm90_kernel", ())})
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
                              f", expected {sorted(want)}")
 
 
 def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
-                                        "gmm_capacity_sm90_kernel")):
+                                        "gmm_capacity_sm90_kernel",
+                                        "paged_sm90_kernel",
+                                        "ragged_sm90_kernel")):
     """(kernel, template arguments, registers, spill line) for each entry
     function of ``kernels`` in ``ptxas -v`` output."""
-    pattern = re.compile(r"Compiling entry function '\w*?(%s)I((?:Li\d+E)+)E"
+    pattern = re.compile(r"Compiling entry function '\w*?(%s)(?:I((?:Li\d+E)+)E)?"
                          % "|".join(kernels))
     name = args = spills = None
     for line in text.splitlines():
         m = pattern.search(line)
         if m:
             name = m.group(1)
-            args = tuple(int(a) for a in re.findall(r"Li(\d+)E", m.group(2)))
+            args = tuple(int(a) for a in re.findall(r"Li(\d+)E",
+                                                    m.group(2) or ""))
         elif name and "spill stores" in line:
             spills = line.strip()
         elif name and "Used" in line:
@@ -364,6 +389,22 @@ def grouped_mm_library(h, w, sizes):
     return (lambda: fn(h, w, offs=offs)), "torch._grouped_mm"
 
 
+def ragged_cases(E: int, K: int, gen, dev) -> dict:
+    """Group sizes of the ragged kernels' cases: top-K routing of the
+    tokens of an SD verify, an AR verify and a prefill, and a fixed list
+    with empty experts and unaligned groups."""
+    import torch
+    edge = torch.zeros((E,), dtype=torch.int32, device=dev)
+    edge[[0, 2, 3, 5, 6, 7, 40, 63]] = torch.tensor(
+        [37, 1, 129, 77, 13, 200, 3, 17], dtype=torch.int32, device=dev)
+    return {
+        "verify": routed_sizes(40, E, K, gen, dev),      # B=8 x (gamma+1)=5
+        "ar_verify": routed_sizes(8, E, K, gen, dev),    # B=8 x 1: ~1 row/expert
+        "prefill": routed_sizes(512, E, K, gen, dev),    # B=8 x T=64
+        "edge": edge,                                    # empties, unaligned
+    }
+
+
 def kernel_phase(seed: int):
     import torch
     from repro_torch.configs.registry import get_config
@@ -378,15 +419,7 @@ def kernel_phase(seed: int):
     wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) / D ** 0.5).to(dt)
               for _ in range(2))
     wd = (torch.randn((E, F, D), generator=gen, device=dev) / F ** 0.5).to(dt)
-    edge = torch.zeros((E,), dtype=torch.int32, device=dev)
-    edge[[0, 2, 3, 5, 6, 7, 40, 63]] = torch.tensor(
-        [37, 1, 129, 77, 13, 200, 3, 17], dtype=torch.int32, device=dev)
-    cases = {
-        "verify": routed_sizes(40, E, K, gen, dev),      # B=8 x (gamma+1)=5
-        "ar_verify": routed_sizes(8, E, K, gen, dev),    # B=8 x 1: ~1 row/expert
-        "prefill": routed_sizes(512, E, K, gen, dev),    # B=8 x T=64
-        "edge": edge,                                    # empties, unaligned
-    }
+    cases = ragged_cases(E, K, gen, dev)
     results = {name: {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
                for name in ("fused_gate_up", "ragged_gmm")}
     for case, sizes in cases.items():
@@ -396,41 +429,59 @@ def kernel_phase(seed: int):
         h = ragged.fused_gate_up(xs, wg, wu, sizes)
         h_ref = fused_gate_up_ref(xs, wg, wu, sizes)
         y = ragged.ragged_gmm(h_ref, wd, sizes)
+        route = ragged.LAST_ROUTE["ragged_gmm"]     # as the launcher reports
         y_ref = ragged_gmm_ref(h_ref, wd, sizes)
         torch.cuda.synchronize()
+        if route != "sm90":
+            raise AssertionError(f"ragged_gmm [{case}]: bf16 ran the {route} "
+                                 "kernel, not the TMA + wgmma one")
         for name, out, ref in (("fused_gate_up", h, h_ref),
                                ("ragged_gmm", y, y_ref)):
             _hold(name, case, out, ref, TOL, results[name])
-        meta, _ = ragged._plan(xs, E, sizes, None)     # the kernels' visit list
+        meta, _ = ragged._plan(xs, E, sizes, None)     # the fused kernel's list
+        visits = int(meta.num_visits[0])
+        bm = ragged.sm90_chunk_rows()                 # the down kernel's chunks
+        chunks = len(ragged.expert_chunks(sizes, bm))
         timings = {
             "fused_gate_up": dict(
-                ms=cuda_time_ms(lambda: ragged.fused_gate_up(xs, wg, wu, sizes)),
+                fn=lambda: ragged.fused_gate_up(xs, wg, wu, sizes),
                 plain_ms=cuda_time_ms(lambda: fused_gate_up_ref(xs, wg, wu, sizes),
                                       warmup=1, iters=3),
                 bytes=N * D * 2 + active * 2 * D * F * 2 + E * 4 + N * F * 2,
-                flops=2 * 2 * N * D * F, library=(None, "no single call")),
+                flops=2 * 2 * N * D * F, library=(None, "no single call"),
+                work=""),
             "ragged_gmm": dict(
-                ms=cuda_time_ms(lambda: ragged.ragged_gmm(h_ref, wd, sizes)),
+                fn=lambda: ragged.ragged_gmm(h_ref, wd, sizes),
                 plain_ms=cuda_time_ms(lambda: ragged_gmm_ref(h_ref, wd, sizes),
                                       warmup=1, iters=3),
                 bytes=N * F * 2 + active * F * D * 2 + E * 4 + N * D * 2,
                 flops=2 * N * F * D,
-                library=grouped_mm_library(h_ref, wd, sizes)),
+                library=grouped_mm_library(h_ref, wd, sizes),
+                work=f"expert chunks={chunks:3d} (bm {bm}) route={route}"),
         }
         for name, t in timings.items():
             b_ms, b_by = bound_ms(t["bytes"], t["flops"])
             lib_fn, lib_name = t["library"]
+            ms = cuda_time_ms(t["fn"])
+            graph_ms = graph_time_ms(t["fn"], calls=10, iters=3)
             lib_ms = cuda_time_ms(lib_fn) if lib_fn is not None else None
+            lib_graph_ms = (graph_time_ms(lib_fn, calls=10, iters=3)
+                            if lib_fn is not None else None)
             results[name]["cases"][case] = dict(
-                rows=N, active_experts=active,
-                visits=int(meta.num_visits[0]), kernel_ms=t["ms"],
+                rows=N, active_experts=active, visits=visits,
+                kernel_ms=ms, kernel_graph_ms=graph_ms,
                 plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, library=lib_name)
+                library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+                library=lib_name)
+            if name == "ragged_gmm":
+                results[name]["cases"][case].update(
+                    route=route, expert_chunks=chunks, chunk_rows=bm)
             log(f"kernel {name:13s} [{case:9s}] rows={N:5d} experts={active:2d} "
-                f"visits={int(meta.num_visits[0]):3d}  {t['ms']:.3f} ms  "
+                f"visits={visits:3d} {t['work']}  {ms:.3f} ms (graph "
+                f"{_fmt(graph_ms)})  "
                 f"plain {t['plain_ms']:.3f} ms  bound {b_ms:.3f} ms ({b_by})  "
-                f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'} "
-                f"({lib_name})")
+                f"library {_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)}; "
+                f"{lib_name})")
     del wg, wu, wd
     torch.cuda.empty_cache()
     return results
@@ -443,9 +494,10 @@ PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
     "capped": ("bfloat16", 5, 128, (16, 130), 30.0),
     "head_dim_64": ("bfloat16", 5, 64, (16, 130), 0.0),
     "head_dim_256": ("bfloat16", 5, 256, (16, 130), 0.0),
+    # fp32 runs the CUDA-core body: its long page walk is held at the fp32
+    # bound (a typical |out| at ~8k keys is near the bf16 bound; the bf16
+    # split-KV body is held at PAGED_ROW_TOL for that)
     "fp32_sd_verify": ("float32", 5, 128, (16, 130), 0.0),
-    # the bf16 bound is near a typical |out| (~0.02) at ~8k keys, so the
-    # long page walk is also held at the fp32 bound
     "fp32_long_context": ("float32", 5, 128, (8000, 8192), 0.0),
 }
 
@@ -477,6 +529,27 @@ def sdpa_gathered(q, kp, vp, lengths, table):
     return fn, "F.scaled_dot_product_attention(enable_gqa), gather excluded"
 
 
+def paged_inputs(spec, gen, dev, B: int = 8, Hq: int = 28, Hkv: int = 4,
+                 ps: int = 64):
+    """(q, k_pages, v_pages, lengths, table) of a PAGED_CASES entry at the
+    serve widths: noise in every physical page (trash page 0 included), a
+    permuted table one page wider than the longest row needs, ragged
+    lengths."""
+    import torch
+    dtype_name, T, D, (lo, hi), _ = spec
+    dt = getattr(torch, dtype_name)
+    MP = -(-(hi + T) // ps) + 1
+    NP = B * MP + 1                                        # page 0 = trash
+    kp = torch.randn((NP, ps, Hkv, D), generator=gen, device=dev).to(dt)
+    vp = torch.randn((NP, ps, Hkv, D), generator=gen, device=dev).to(dt)
+    table = (torch.randperm(NP - 1, generator=gen, device=dev) + 1
+             ).reshape(B, MP).to(torch.int32)
+    lengths = torch.randint(lo, hi + 1, (B,), generator=gen,
+                            device=dev).to(torch.int32)
+    q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
+    return q, kp, vp, lengths, table
+
+
 def paged_kernel_phase(seed: int):
     """The paged decode/verify kernel against its plain version at the
     serve widths (28 query / 4 KV heads, pages of 64)."""
@@ -486,27 +559,30 @@ def paged_kernel_phase(seed: int):
         paged_decode_attention_plain
 
     dev = torch.device("cuda")
-    B, Hq, Hkv, ps = 8, 28, 4, 64
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    for case, (dtype_name, T, D, (lo, hi), cap) in PAGED_CASES.items():
-        dt = getattr(torch, dtype_name)
-        MP = -(-(hi + T) // ps) + 1
-        NP = B * MP + 1                                    # page 0 = trash
-        # noise in every physical page, trash page included
-        kp = torch.randn((NP, ps, Hkv, D), generator=gen, device=dev).to(dt)
-        vp = torch.randn((NP, ps, Hkv, D), generator=gen, device=dev).to(dt)
-        table = (torch.randperm(NP - 1, generator=gen, device=dev) + 1
-                 ).reshape(B, MP).to(torch.int32)
-        lengths = torch.randint(lo, hi + 1, (B,), generator=gen,
-                                device=dev).to(torch.int32)
-        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
-        args = (q, kp, vp, lengths, table)
+    for case, spec in PAGED_CASES.items():
+        dtype_name, T, D, _, cap = spec
+        args = paged_inputs(spec, gen, dev)
+        q, kp, vp, lengths, table = args
+        B, Hq, Hkv = q.shape[0], q.shape[2], kp.shape[2]
+        MP, ps = table.shape[1], kp.shape[1]
         out = paged.paged_decode_attention(*args, logit_cap=cap)
+        route = paged.LAST_ROUTE["paged_decode_attention"]
         ref = paged_decode_attention_plain(*args, logit_cap=cap)
         torch.cuda.synchronize()
+        want = "sm90" if dtype_name == "bfloat16" and D in (64, 128) else "simt"
+        if route != want:
+            raise AssertionError(f"paged_decode_attention [{case}]: ran the "
+                                 f"{route} body, expected {want}")
         tol = PAGED_TOL[dtype_name]
         err = _hold("paged_decode_attention", case, out, ref, tol, res)
+        row_err = row_scaled_err(out, ref)
+        if route == "sm90" and row_err > PAGED_ROW_TOL:
+            raise AssertionError(
+                f"paged_decode_attention [{case}]: an element is "
+                f"{row_err:.3g} x the rms of its row from the plain version "
+                f"(bound {PAGED_ROW_TOL})")
         # bytes the call must move: K and V at the keys 0..length+T-1 of
         # each row, the table entries of the pages those keys lie in, the
         # lengths, q and out
@@ -531,7 +607,7 @@ def paged_kernel_phase(seed: int):
             *args, logit_cap=cap))
         sdpa_graph_ms = graph_time_ms(sdpa_fn) if sdpa_fn is not None else None
         res["cases"][case] = dict(
-            dtype=dtype_name, B=B, T=T, head_dim=D, page_size=ps,
+            dtype=dtype_name, route=route, B=B, T=T, head_dim=D, page_size=ps,
             lengths=[int(n) for n in lengths.tolist()], keys=keys,
             pages_touched=touched,
             kernel_ms=ms, kernel_graph_ms=graph_ms, plain_ms=plain_ms,
@@ -540,15 +616,17 @@ def paged_kernel_phase(seed: int):
             library="no single call walks a block table",
             sdpa_gathered_ms=sdpa_ms, sdpa_gathered_graph_ms=sdpa_graph_ms,
             sdpa_gathered=sdpa_label,
-            max_abs_err=err, tol=tol)
-        log(f"kernel paged_decode_attention [{case:14s}] {dtype_name} T={T} "
+            max_abs_err=err, tol=tol, max_row_scaled_err=row_err)
+        log(f"kernel paged_decode_attention [{case:14s}] {dtype_name} "
+            f"route={route} T={T} "
             f"D={D} keys={keys:5d} pages={touched:4d}  {ms:.4f} ms "
             f"(graph {_fmt(graph_ms)})  "
             f"plain {plain_ms:.3f} ms  "
             f"bound {b_ms:.4f} ms ({b_by})  sdpa "
             f"{'-' if sdpa_ms is None else f'{sdpa_ms:.4f} ms'} "
-            f"({sdpa_label})  max err {err:.3g}")
-        del kp, vp, q, out, ref
+            f"(graph {_fmt(sdpa_graph_ms)}; {sdpa_label})  max err {err:.3g}, "
+            f"{row_err:.3g} x row rms")
+        del args, kp, vp, q, out, ref
     torch.cuda.empty_cache()
     return res
 
@@ -1244,7 +1322,8 @@ def main() -> int:
     tols = {"fused_gate_up": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",
             "ragged_gmm": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",
             "paged_decode_attention":
-                "bf16 rtol=atol=2e-2, fp32 2e-5 (decode_attention.py:288)",
+                "bf16 rtol=atol=2e-2, fp32 2e-5 (decode_attention.py:288); "
+                f"bf16 split-KV body also <= {PAGED_ROW_TOL} x row rms",
             "decode_attention": "bf16 rtol=atol=4e-2, fp32 3e-5 "
                                 "(tests/test_kernels.py)",
             "flash_attention": "bf16 rtol=atol=3e-2, fp32 2e-5 "

@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Build patched copies of this checkout's kernel sources and measure them
+on the card: faults that a tolerance must catch, and the tile and split
+choices of the TMA + wgmma kernels.
+
+    python3 kernel_variants.py mutants
+    python3 kernel_variants.py tune NAME [NAME ...]
+
+Each variant is this checkout's ``src/repro_torch`` copied to the ignored
+``build/variants/NAME`` with the text replacements of ``VARIANTS`` applied
+(each must match exactly once, so a variant that no longer fits the sources
+fails instead of measuring the unpatched kernel); it builds its kernels into
+its own ``build/kernels``.
+
+``mutants`` runs every bf16 case of chip_smoke.py's paged phase
+(``PAGED_CASES`` through ``paged_inputs``, same seed) through this tree and
+each ``FAULTS`` variant, and prints, per case, the largest elementwise error
+over ``PAGED_TOL`` and the largest error over the rms of its output row
+over ``PAGED_ROW_TOL`` (above 1 fails chip_smoke.py), then one JSON line.
+It exits non-zero unless every fault fails the row bound at long context
+and this tree passes both bounds everywhere.
+
+``tune`` times the named ``TUNING`` variants against this tree with
+kernel_ab.py (this tree first, A B ... B A), on the cases of the kernels
+they change.  Needs an NVIDIA GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PAGED = "kernels/decode_attention/csrc/paged_sm90.cuh"
+RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
+
+FAULTS = {
+    # the combine step leaves out the last live split of every row
+    "paged_dropped_split": [(PAGED, "for (int s = 0; s < live; ++s) {\n"
+                                    "      const long long at",
+                             "for (int s = 0; s < live - 1; ++s) {\n"
+                             "      const long long at")],
+    # chunk 5 of every split is loaded from chunk 4's keys again (stale)
+    "paged_stale_chunk": [(PAGED, "const int lk = kb + j * per;",
+                           "const int lk = (i == 5 ? kb - BK : kb) + j * per;")],
+}
+TUNING = {
+    # splits for 2 or 4 blocks per SM at long context instead of 1
+    "paged_waves2": [(PAGED, "constexpr int WAVES = 1;",
+                      "constexpr int WAVES = 2;")],
+    "paged_waves4": [(PAGED, "constexpr int WAVES = 1;",
+                      "constexpr int WAVES = 4;")],
+    # 6 chunks of K and V in flight instead of 4
+    "paged_stages6": [(PAGED, "constexpr int STAGES = 4;",
+                       "constexpr int STAGES = 6;")],
+    # 8 stages of the down kernel's ring instead of 5
+    "ragged_stages8": [(RAGGED, "constexpr int STAGES = 5;",
+                        "constexpr int STAGES = 8;")],
+    # 256 output columns per item (4 stages fit shared memory)
+    "ragged_bn256": [(RAGGED, "constexpr int BN = 128;",
+                      "constexpr int BN = 256;"),
+                     (RAGGED, "constexpr int STAGES = 5;",
+                      "constexpr int STAGES = 4;"),
+                     (RAGGED, "sm90::wgmma_ss_n128<1>(acc",
+                      "sm90::wgmma_ss_n256<1>(acc")],
+}
+VARIANTS = {**FAULTS, **TUNING}
+
+
+def make_tree(name: str) -> Path:
+    """build/variants/NAME: this checkout's src/repro_torch, patched."""
+    tree = ROOT / "build" / "variants" / name
+    if tree.exists():
+        shutil.rmtree(tree)
+    shutil.copytree(ROOT / "src" / "repro_torch", tree / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for rel, old, new in VARIANTS[name]:
+        path = tree / "src" / "repro_torch" / rel
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"variant {name}: {old!r} occurs "
+                             f"{text.count(old)} times in {rel}")
+        path.write_text(text.replace(old, new))
+    return tree
+
+
+def child_errors(root: Path, label: str) -> None:
+    """One JSON line per bf16 paged case: errors over the two bounds."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)   # chip_smoke's seed 0
+    for case, spec in chip_smoke.PAGED_CASES.items():
+        args = chip_smoke.paged_inputs(spec, gen, dev)
+        dtype_name, _, _, _, cap = spec
+        if dtype_name != "bfloat16":
+            continue
+        out = paged.paged_decode_attention(*args, logit_cap=cap).float()
+        ref = paged_decode_attention_plain(*args, logit_cap=cap).float()
+        tol = chip_smoke.PAGED_TOL[dtype_name]
+        over = ((out - ref).abs() / (tol + tol * ref.abs())).max().item()
+        row = chip_smoke.row_scaled_err(out, ref) / chip_smoke.PAGED_ROW_TOL
+        print(json.dumps({"tree": label, "case": case,
+                          "route": paged.LAST_ROUTE["paged_decode_attention"],
+                          "err_over_tol": over, "row_err_over_bound": row,
+                          "max_abs_err": (out - ref).abs().max().item()}),
+              flush=True)
+
+
+def mutants() -> int:
+    trees = {".": ROOT, **{name: make_tree(name) for name in FAULTS}}
+    rows = []
+    for label, tree in trees.items():
+        proc = subprocess.run([sys.executable, __file__, "--child-errors",
+                               str(tree), label], capture_output=True,
+                              text=True, cwd=ROOT)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                rows.append(rec)
+                print(f"{rec['tree']:20s} {rec['case']:14s} route={rec['route']}"
+                      f"  err/tol {rec['err_over_tol']:.3g}  row err/bound "
+                      f"{rec['row_err_over_bound']:.3g}  max abs err "
+                      f"{rec['max_abs_err']:.3g}", flush=True)
+    print(json.dumps({"cases": rows}))
+    sound = [r for r in rows if r["tree"] == "."]
+    caught = {r["tree"] for r in rows if r["tree"] != "."
+              and r["case"] == "long_context" and r["row_err_over_bound"] > 1}
+    ok = (all(r["err_over_tol"] <= 1 and r["row_err_over_bound"] <= 1
+              for r in sound) and caught == set(FAULTS))
+    print(f"mutants: sound tree within both bounds and every fault caught at "
+          f"long context: {ok}")
+    return 0 if ok else 1
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("mode", nargs="?", choices=("mutants", "tune"))
+    ap.add_argument("names", nargs="*")
+    ap.add_argument("--child-errors", nargs=2, metavar=("ROOT", "LABEL"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    if args.child_errors:
+        child_errors(Path(args.child_errors[0]), args.child_errors[1])
+        return 0
+    if args.mode == "mutants":
+        return mutants()
+    if args.mode != "tune" or not args.names:
+        ap.error("give mutants, or tune with variant names from TUNING")
+    unknown = [n for n in args.names if n not in TUNING]
+    if unknown:
+        ap.error(f"unknown tuning variants {unknown}; known: {sorted(TUNING)}")
+    trees = [str(make_tree(n).relative_to(ROOT)) for n in args.names]
+    kinds = sorted({"paged" if n.startswith("paged") else "down"
+                    for n in args.names})
+    return subprocess.run([sys.executable, str(ROOT / "kernel_ab.py"), ".",
+                           *trees, "--only", ",".join(kinds)],
+                          cwd=ROOT).returncode
+
+
+if __name__ == "__main__":
+    sys.exit(main())

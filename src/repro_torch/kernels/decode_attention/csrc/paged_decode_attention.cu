@@ -17,9 +17,23 @@
 // (8 sequences, ~130 cached positions, 4 KV heads of 128, bf16) one call
 // must read ~1 MB, ~0.3 us at 3.35 TB/s, and its FLOPs are negligible, so
 // at short context launch latency sets the time; at 8k positions a call
-// reads ~134 MB, a floor of ~40 us, and the kernel is memory bound.
+// reads ~134 MB, a floor of ~40 us, and the kernel is memory bound: the
+// keys have to be spread over every SM with loads in flight on each.
 //
-// What the design does about it:
+// Two bodies; the launcher picks one per call and reports which:
+//   * bf16 at head dims 64 and 128, pages of 8, 16, 32 or a multiple of 64
+//     (every call of the served models): paged_sm90.cuh.  Split-KV over a
+//     (splits, Hkv, B) grid with a combine kernel, a producer warp keeping
+//     TMA page loads in flight in a ring of 64-key chunks, both products as
+//     wgmma with the softmax in registers.
+//   * everything else: the CUDA-core body below, one block per (KV head,
+//     sequence), unchanged since it was written.  fp32 (the parity checks)
+//     keeps its numerics; head dim 256 stays here because its O accumulator
+//     alone would take 128 registers a thread in the wgmma body and a
+//     64-key K+V chunk 64 KB of shared memory (two ring stages); other page
+//     sizes do not tile a 64-key chunk with TMA boxes.
+//
+// The CUDA-core body:
 //   * One block per (KV head h, sequence b).  The TPU kernel's grid
 //     (B, Hkv, MP) carried the softmax state from page to page in VMEM; on
 //     the GPU blocks run in no order, so the page walk is a loop inside the
@@ -35,17 +49,15 @@
 //   * Scores: each thread owns one key of the chunk and a quarter of the
 //     head dim, for all rows; the quarters are summed with warp shuffles.
 //     PV: each thread owns 4 columns of the head dim for a slice of rows.
-//     All arithmetic is fp32 on the CUDA cores, for both element types.
-//   * Simple and right first.  At the serve shape the grid is B*Hkv = 32
-//     blocks on 132 SMs, which caps the bandwidth at long context; split-KV
-//     across blocks with a combine pass, TMA page loads and tensor-core
-//     products are the later redesign.
+//     All arithmetic is fp32 on the CUDA cores.
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "paged_sm90.cuh"
 
 namespace {
 
@@ -358,13 +370,29 @@ int launch_d(int head_dim, const void* q, const void* kp, const void* vp,
 
 // dtype: 0 = bf16, 1 = fp32.  head_dim: 64, 128 or 256.  q, out: (B, T, Hq, D);
 // k_pages, v_pages: (NP, ps, Hkv, D); lengths: (B,) int32; table: (B, MP)
-// int32.  All contiguous, on the device, 16-byte aligned.
+// int32; scratch: paged_decode_attention_scratch_bytes() bytes (null when 0).
+// All contiguous, on the device, 16-byte aligned.  *kernel is set to the body
+// the call launches: 0 = paged_sm90_kernel (split-KV, TMA + wgmma), 1 = the
+// CUDA-core body.  Returns cudaGetLastError() after the launch, -1 for a
+// missing scratch, -3/-4 when the CUDA driver cannot encode the tensor maps.
 extern "C" int paged_decode_attention_launch(int dtype, int head_dim, const void* q,
                                              const void* k_pages, const void* v_pages,
                                              const void* lengths, const void* table,
-                                             void* out, int B, int T_q, int Hq, int Hkv,
-                                             int ps, int MP, float scale,
-                                             float logit_cap, void* stream) {
+                                             void* out, void* scratch, int B, int T_q,
+                                             int Hq, int Hkv, int NP, int ps, int MP,
+                                             float scale, float logit_cap, void* stream,
+                                             int* kernel) {
+  if (Hkv < 1 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (paged90::takes(dtype, head_dim, ps, Hq / Hkv, T_q)) {
+    *kernel = 0;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (head_dim == 64)
+      return paged90::launch<64>(q, k_pages, v_pages, lengths, table, out, scratch, B, T_q,
+                                 Hq, Hkv, NP, ps, MP, scale, logit_cap, s);
+    return paged90::launch<128>(q, k_pages, v_pages, lengths, table, out, scratch, B, T_q,
+                                Hq, Hkv, NP, ps, MP, scale, logit_cap, s);
+  }
+  *kernel = 1;
   if (dtype == 0)
     return launch_d<bf16>(head_dim, q, k_pages, v_pages, lengths, table, out, B, T_q, Hq,
                           Hkv, ps, MP, scale, logit_cap, stream);
@@ -372,4 +400,22 @@ extern "C" int paged_decode_attention_launch(int dtype, int head_dim, const void
     return launch_d<float>(head_dim, q, k_pages, v_pages, lengths, table, out, B, T_q, Hq,
                            Hkv, ps, MP, scale, logit_cap, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of scratch the call with these arguments needs (the split-KV
+// partials of the sm90 body; 0 when it runs one split or the CUDA-core body).
+extern "C" long long paged_decode_attention_scratch_bytes(int dtype, int head_dim, int B,
+                                                          int T_q, int Hq, int Hkv, int ps,
+                                                          int MP) {
+  if (Hkv < 1 || Hq % Hkv != 0 || !paged90::takes(dtype, head_dim, ps, Hq / Hkv, T_q))
+    return 0;
+  return paged90::scratch_bytes(head_dim, B, T_q, Hq, Hkv, ps, MP);
+}
+
+// Dynamic shared memory of a block of the sm90 body at this head dim (for
+// reports), or -2 for a head dim it is not built for.
+extern "C" int paged_sm90_smem_bytes(int head_dim) {
+  if (head_dim == 64) return paged90::Cfg<64>::BYTES;
+  if (head_dim == 128) return paged90::Cfg<128>::BYTES;
+  return -2;
 }

@@ -9,7 +9,15 @@ no dense ``pool[table]`` gather.
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
 the kernel or raise.  ``lengths`` and ``table`` stay on the device: the
 wrapper checks dtypes, devices, shapes and contiguity, never table values,
-because reading them would sync.  ``LAUNCHES`` counts kernel launches.
+because reading them would sync.  ``LAUNCHES`` counts calls that launched
+the kernel (one per call, whether or not it also ran its combine step).
+
+Two bodies: bf16 at head dims 64 and 128 with pages of 8, 16, 32 or a
+multiple of 64 runs the split-KV TMA + wgmma body (``csrc/paged_sm90.cuh``),
+everything else the CUDA-core body.  The launcher reports which one it
+launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or ``"simt"``).  The
+split partials go into scratch the launcher sizes
+(``paged_decode_attention_scratch_bytes``) and this wrapper allocates.
 """
 from __future__ import annotations
 
@@ -26,6 +34,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode_attention.cu"
 
 # kernel launches since the last reset
 LAUNCHES = {"paged_decode_attention": 0}
+# the body the last launch ran, as the launcher reported it
+LAST_ROUTE = {"paged_decode_attention": None}
+_ROUTES = ("sm90", "simt")     # the launcher's kernel codes
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (64, 128, 256)
@@ -42,8 +53,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_decode_attention_launch.argtypes = [
-            i, i, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p]
+            i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, p,
+            ctypes.POINTER(i)]
         lib.paged_decode_attention_launch.restype = i
+        lib.paged_decode_attention_scratch_bytes.argtypes = [i] * 8
+        lib.paged_decode_attention_scratch_bytes.restype = ctypes.c_longlong
         lib._argtypes_set = True
     return lib
 
@@ -102,18 +116,28 @@ def paged_decode_attention(
         raise ValueError(f"no paged attention kernel for device {q.device}")
     _check(q, k_pages, v_pages, lengths, table)
     B, T, Hq, D = q.shape
-    _, ps, Hkv, _ = k_pages.shape
+    NP, ps, Hkv, _ = k_pages.shape
+    MP = table.shape[1]
     if scale == 0.0:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
-        status = _lib().paged_decode_attention_launch(
-            _DTYPES[q.dtype], D, q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), lengths.data_ptr(), table.data_ptr(),
-            out.data_ptr(), B, T, Hq, Hkv, ps, table.shape[1], float(scale),
-            float(logit_cap), torch.cuda.current_stream().cuda_stream)
+        lib = _lib()
+        dt = _DTYPES[q.dtype]
+        n = lib.paged_decode_attention_scratch_bytes(dt, D, B, T, Hq, Hkv, ps,
+                                                     MP)
+        scratch = torch.empty((n,), dtype=torch.uint8, device=q.device) \
+            if n else None
+        status = lib.paged_decode_attention_launch(
+            dt, D, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            lengths.data_ptr(), table.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if n else None, B, T, Hq, Hkv, NP, ps, MP,
+            float(scale), float(logit_cap),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
+    LAST_ROUTE["paged_decode_attention"] = _ROUTES[kernel.value]
     return out

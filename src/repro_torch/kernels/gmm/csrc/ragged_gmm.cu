@@ -38,8 +38,13 @@
 //     products and applies the activation on the accumulator fragments.
 //   * fp32 (used by the parity checks) runs on the CUDA cores in full fp32,
 //     with the accumulators in registers.
-//   * Simple and right first: no TMA, no wgmma, no multi-stage pipeline;
-//     those are later work.
+//   * The down projection (ragged_gmm) in bf16, whenever TMA can address x
+//     and w, runs ragged_sm90.cuh instead: expert-aligned items (an expert's
+//     weight tile read once per BM-row chunk of its rows, not once per
+//     row tile its rows touch) on a persistent TMA + wgmma mainloop.  The
+//     WMMA kernel below keeps the fused gate/up product and the bf16 shapes
+//     TMA cannot address; ragged.py's _route picks, and each launcher
+//     reports the kernel it ran.
 //
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
 
@@ -49,6 +54,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "ragged_sm90.cuh"
 
 namespace {
 
@@ -343,13 +350,42 @@ extern "C" int fused_gate_up_launch(int dtype, int bm, int act, const void* x,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// *kernel is set to the kernel the call launches: 1 = WMMA (bf16), 2 = the
+// CUDA-core kernel (fp32).
 extern "C" int ragged_gmm_launch(int dtype, int bm, const void* x, const void* w,
                                  void* out, const void* offs, const void* gids,
                                  const void* mtids, const void* nvis, int K, int F,
-                                 int t_max, int vec, void* stream) {
-  if (dtype == 0)
+                                 int t_max, int vec, void* stream, int* kernel) {
+  if (dtype == 0) {
+    *kernel = 1;
     return launch_bm<bf16, 1, 0>(bm, x, w, nullptr, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
-  if (dtype == 1)
+  }
+  if (dtype == 1) {
+    *kernel = 2;
     return launch_bm<float, 1, 0>(bm, x, w, nullptr, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The down projection in bf16 through TMA and wgmma, on expert-aligned items
+// of ragged_sm90_chunk_rows() rows built in the kernel from group_sizes.
+// x (N, K), w (E, K, F), out (N, F), all contiguous on the device; sizes (E,)
+// int32 summing to N; K and F multiples of 8; x and w 16-byte aligned (the
+// wrapper's _route).  *kernel is set to 0.  -1 for arguments it refuses,
+// -3/-4 when the CUDA driver cannot encode the tensor maps.
+extern "C" int ragged_gmm_sm90_launch(const void* x, const void* w, void* out,
+                                      const void* sizes, int N, int K, int F, int E,
+                                      void* stream, int* kernel) {
+  if (N < 1 || K < 1 || F < 1 || E < 1 || E > ragged90::MAX_E || K % 8 != 0 || F % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 4 != 0)
+    return -1;
+  *kernel = 0;
+  return ragged90::launch(x, w, out, sizes, N, K, F, E, static_cast<cudaStream_t>(stream));
+}
+
+// Rows of one expert chunk of ragged_gmm_sm90_launch.
+extern "C" int ragged_sm90_chunk_rows() { return ragged90::BM; }
+
+// Dynamic shared memory of a block of the TMA kernel (for reports).
+extern "C" int ragged_sm90_smem_bytes() { return ragged90::BYTES; }

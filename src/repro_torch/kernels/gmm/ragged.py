@@ -8,10 +8,23 @@ maps the static visit axis ``ceil(N/bm) + E - 1`` onto the ragged
 m-tile whose rows belong to one expert is visited once, a tile straddling a
 group boundary once per group, and an empty expert not at all.
 
+The down product (``ragged_gmm``, and the second launch of
+``ragged_moe_ffn``) in bf16 takes the TMA + wgmma kernel
+(``csrc/ragged_sm90.cuh``) whenever TMA can address its operands
+(``_route``): its work items are expert-aligned, (expert, row chunk of 64
+rows, column tile), built inside the kernel from ``group_sizes``, so
+an expert's weights are read once per chunk of its rows rather than once per
+row tile its rows touch.  ``expert_chunks`` computes the same list on the
+host for tests and reports; nothing on the kernel's path calls it.  Other
+bf16 shapes keep the WMMA kernel, fp32 the CUDA-core one, both on
+``make_group_metadata``'s visit list, as does the fused gate/up kernel.
+
 Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
 the two.  ``LAUNCHES`` counts kernel launches per kernel, so a run can show
-that its main path went through them.
+that its main path went through them; ``LAST_ROUTE`` holds the kernel the
+last down launch ran, as its launcher reported it (``"sm90"``, ``"wmma"``
+or ``"simt"``).
 """
 from __future__ import annotations
 
@@ -29,6 +42,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ragged_gmm.cu"
 
 # kernel launches since the last reset, by kernel
 LAUNCHES = {"fused_gate_up": 0, "ragged_gmm": 0}
+# the kernel the last ragged_gmm launch ran, as the launcher reported it
+LAST_ROUTE = {"ragged_gmm": None}
+_ROUTES = ("sm90", "wmma", "simt")   # the launchers' kernel codes
+_SM90_MAX_EXPERTS = 512              # the TMA kernel's shared tables
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _ACTS = {"silu": 0, "gelu": 1}
@@ -79,6 +96,22 @@ def make_group_metadata(group_sizes: torch.Tensor, n_rows_pad: int,
                          mt_ext.to(torch.int32), num_visits.to(torch.int32))
 
 
+def expert_chunks(group_sizes: torch.Tensor, bm: int) -> torch.Tensor:
+    """The TMA kernel's work list without its column tiles: one row per
+    (expert, chunk) of ``bm`` rows, ``(expert, first row, end row)`` with
+    the end capped at the expert's last row, expert-major.  Empty experts
+    have no chunk.  Its length is sum(ceil(size / bm)) over the experts."""
+    sizes = group_sizes.to(torch.int64).cpu()
+    ends = torch.cumsum(sizes, 0)
+    starts = ends - sizes
+    chunks = (sizes + bm - 1) // bm
+    e = torch.repeat_interleave(torch.arange(len(sizes)), chunks)
+    c = torch.arange(int(chunks.sum())) - torch.repeat_interleave(
+        torch.cumsum(chunks, 0) - chunks, chunks)
+    row0 = starts[e] + c * bm
+    return torch.stack([e, row0, torch.minimum(row0 + bm, ends[e])], 1)
+
+
 def _row_tile(n_rows: int, n_experts: int) -> int:
     """16-row tiles when experts hold few rows each (decode/verify), else
     64: the kernels' two instantiations."""
@@ -92,9 +125,13 @@ def _lib() -> ctypes.CDLL:
         lib.fused_gate_up_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
                                              i, i, i, i, p]
         lib.ragged_gmm_launch.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i,
-                                          i, p]
+                                          i, p, ctypes.POINTER(i)]
+        lib.ragged_gmm_sm90_launch.argtypes = [p, p, p, p, i, i, i, i, p,
+                                               ctypes.POINTER(i)]
         lib.fused_gate_up_launch.restype = i
         lib.ragged_gmm_launch.restype = i
+        lib.ragged_gmm_sm90_launch.restype = i
+        lib.ragged_sm90_chunk_rows.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -122,6 +159,29 @@ def _vec_ok(K: int, F: int, tensors) -> bool:
     vec = 16 // tensors[0].element_size()
     return (K % vec == 0 and F % vec == 0
             and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _route(xs: torch.Tensor, w: torch.Tensor, bm: Optional[int] = None
+           ) -> str:
+    """The kernel a ``ragged_gmm`` call takes: ``"simt"`` for fp32; for
+    bf16 ``"sm90"`` when TMA can address x and w (row pitches multiples of
+    16 bytes, 16-byte aligned bases), there are at most 512 experts and
+    ``bm`` is None or 64 (its chunk rows); else ``"wmma"`` (``bm`` 16 asks
+    for it)."""
+    if xs.dtype == torch.float32:
+        return "simt"
+    E, K, F = w.shape
+    if (bm in (None, 64) and E <= _SM90_MAX_EXPERTS
+            and K % 8 == 0 and F % 8 == 0
+            and xs.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "sm90"
+    return "wmma"
+
+
+def sm90_chunk_rows() -> int:
+    """Rows of one expert chunk of the TMA kernel, as its library says
+    (needs the built library)."""
+    return _lib().ragged_sm90_chunk_rows()
 
 
 def _plan(xs: torch.Tensor, E: int, group_sizes: torch.Tensor,
@@ -158,15 +218,34 @@ def _launch_ragged(xs, w, meta: GroupMetadata, bm: int) -> torch.Tensor:
     N, K = xs.shape
     F = w.shape[2]
     out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(xs.device):
         status = _lib().ragged_gmm_launch(
             _DTYPES[xs.dtype], bm, xs.data_ptr(), w.data_ptr(), out.data_ptr(),
             meta.group_offsets.data_ptr(), meta.group_ids.data_ptr(),
             meta.m_tile_ids.data_ptr(), meta.num_visits.data_ptr(), K, F,
             meta.group_ids.shape[0], int(_vec_ok(K, F, (xs, w, out))),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, "ragged_gmm")
     LAUNCHES["ragged_gmm"] += 1
+    LAST_ROUTE["ragged_gmm"] = _ROUTES[kernel.value]
+    return out
+
+
+def _launch_ragged_sm90(xs, w, group_sizes: torch.Tensor) -> torch.Tensor:
+    N, K = xs.shape
+    E, _, F = w.shape
+    sizes = group_sizes.to(torch.int32).contiguous()   # no-op when it is
+    out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
+    kernel = ctypes.c_int(-1)
+    with torch.cuda.device(xs.device):
+        status = _lib().ragged_gmm_sm90_launch(
+            xs.data_ptr(), w.data_ptr(), out.data_ptr(),
+            sizes.data_ptr(), N, K, F, E,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
+    build.check(status, "ragged_gmm")
+    LAUNCHES["ragged_gmm"] += 1
+    LAST_ROUTE["ragged_gmm"] = _ROUTES[kernel.value]
     return out
 
 
@@ -183,13 +262,17 @@ def ragged_gmm(xs: torch.Tensor,            # (N, D) tokens sorted by expert
                group_sizes: torch.Tensor,   # (E,) rows per expert
                *, bm: Optional[int] = None) -> torch.Tensor:   # (N, F)
     """``xs[n] @ w[e(n)]`` with fp32 accumulation, cast to ``xs.dtype``.
-    ``group_sizes`` must sum to N.  ``bm`` (16 or 64) overrides the kernel's
-    row tile, which is otherwise chosen from the rows per expert."""
+    ``group_sizes`` must sum to N.  ``bm`` (16 or 64) overrides the row
+    tile, which is otherwise 64 rows for the TMA kernel and chosen from the
+    rows per expert for the visit-list kernels; 16 takes the WMMA kernel in
+    bf16."""
     if not _on_cuda(xs):
         return ragged_gmm_ref(xs, w, group_sizes)
     _check(xs, (w,), group_sizes)
     if xs.shape[0] == 0:
         return xs.new_empty((0, w.shape[2]))
+    if _route(xs, w, bm) == "sm90":
+        return _launch_ragged_sm90(xs, w, group_sizes)
     meta, bm = _plan(xs, w.shape[0], group_sizes, bm)
     return _launch_ragged(xs, w, meta, bm)
 
@@ -215,8 +298,10 @@ def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
                    group_sizes: torch.Tensor, *, activation: str = "silu",
                    bm: Optional[int] = None) -> torch.Tensor:
     """Whole expert FFN on expert-sorted tokens in 2 launches (fused gate+up,
-    then down).  The visit list is built once and shared; ``h`` is rounded
-    to the input dtype between the launches, as in the reference."""
+    then down).  The visit list is built once, for the fused launch and a
+    down launch that ``_route`` sends to a visit-list kernel (the TMA
+    kernel builds its own list from ``group_sizes``); ``h`` is rounded to
+    the input dtype between the launches, as in the reference."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
     if not _on_cuda(xs):
@@ -230,6 +315,8 @@ def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
                          f"{xs.dtype} tensor on {xs.device}")
     if xs.shape[0] == 0:
         return xs.new_empty((0, w_down.shape[2]))
-    meta, bm = _plan(xs, w_gate.shape[0], group_sizes, bm)
-    h = _launch_fused(xs, w_gate, w_up, meta, bm, activation)
-    return _launch_ragged(h, w_down, meta, bm)
+    meta, tile = _plan(xs, w_gate.shape[0], group_sizes, bm)
+    h = _launch_fused(xs, w_gate, w_up, meta, tile, activation)
+    if _route(h, w_down, bm) == "sm90":
+        return _launch_ragged_sm90(h, w_down, group_sizes)
+    return _launch_ragged(h, w_down, meta, tile)

@@ -62,12 +62,63 @@ def _close(out, ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bm", [16, 64])
 def test_ragged_gmm_kernel_matches_plain(cuda, sizes, dtype, bm):
+    """fp32 runs the CUDA-core kernel; bf16 the WMMA kernel at 16-row tiles
+    (only it has them) and the TMA + wgmma kernel at 64-row chunks."""
     sizes, xs, (w, _) = _case(sizes, 64, 96, dtype, cuda)
     before = ragged.LAUNCHES["ragged_gmm"]
     out = ragged.ragged_gmm(xs, w, sizes, bm=bm)
     torch.cuda.synchronize()
     assert ragged.LAUNCHES["ragged_gmm"] == before + 1
+    assert ragged.LAST_ROUTE["ragged_gmm"] == (
+        "simt" if dtype == torch.float32 else "wmma" if bm == 16 else "sm90")
     _close(out, ragged_gmm_ref(xs, w, sizes), dtype)
+
+
+@pytest.mark.parametrize("sizes", GROUP_CASES + [[0] * 5 + [129] + [0] * 2])
+@pytest.mark.parametrize("bm", [None, 64])
+def test_ragged_gmm_sm90_kernel_matches_plain(cuda, sizes, bm):
+    """The bf16 TMA + wgmma down kernel on expert-aligned 64-row chunks:
+    experts with more rows than a chunk (310, 200, 256, 129), empty
+    experts, groups starting at unaligned rows, one expert; F 136 is one
+    and a ragged column tile."""
+    sizes, xs, (w, _) = _case(sizes, 128, 136, torch.bfloat16, cuda,
+                              seed=len(sizes))
+    assert ragged._route(xs, w, bm) == "sm90"
+    before = ragged.LAUNCHES["ragged_gmm"]
+    out = ragged.ragged_gmm(xs, w, sizes, bm=bm)
+    torch.cuda.synchronize()
+    assert ragged.LAUNCHES["ragged_gmm"] == before + 1
+    assert ragged.LAST_ROUTE["ragged_gmm"] == "sm90"
+    _close(out, ragged_gmm_ref(xs, w, sizes), torch.bfloat16)
+
+
+@pytest.mark.parametrize("tokens", [40, 8, 512])
+def test_ragged_gmm_sm90_at_serving_widths(cuda, tokens):
+    """The down projection of qwen2-57b-a14b (F 2560 -> D 3584, 64 experts,
+    top-8) at the SD verify (320 rows), AR verify (64) and prefill (4096)
+    row counts, with no host sync; the expert-chunk list is never longer
+    than the fused kernel's visit list."""
+    g = torch.Generator(device=cuda).manual_seed(tokens)
+    E, K, D, F = 64, 8, 3584, 2560
+    idx = torch.randn((tokens, E), generator=g, device=cuda).topk(K, -1).indices
+    sizes = torch.bincount(idx.reshape(-1), minlength=E).to(torch.int32)
+    h = torch.randn((tokens * K, F), generator=g, device=cuda).bfloat16()
+    wd = (torch.randn((E, F, D), generator=g, device=cuda) / F ** 0.5
+          ).bfloat16()
+    ragged.ragged_gmm(h, wd, sizes)                  # build + load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ragged.ragged_gmm(h, wd, sizes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ragged.LAST_ROUTE["ragged_gmm"] == "sm90"
+    _close(out, ragged_gmm_ref(h, wd, sizes), torch.bfloat16)
+    bm = ragged.sm90_chunk_rows()
+    n_chunks = len(ragged.expert_chunks(sizes, bm))
+    assert bm == 64 and n_chunks == int(((sizes + bm - 1) // bm).sum())
+    meta, _ = ragged._plan(h, E, sizes, bm)
+    assert n_chunks <= int(meta.num_visits[0])
 
 
 @pytest.mark.parametrize("sizes", GROUP_CASES)
@@ -166,21 +217,85 @@ def _to(tree, dev):
 # (src/repro/kernels/decode_attention/decode_attention.py:288 in fp32); both
 # sides accumulate in fp32 in different orders, bf16 rounds the output once.
 PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 on the split-KV body, besides PAGED_TOL: every element within 5e-2 x
+# the rms of its output row (chip_smoke.PAGED_ROW_TOL).  At ~8k keys |out|
+# ~ 0.011, below 2e-2; a dropped split or a stale 64-key chunk put the worst
+# element at 1.6-2.6 x its row's rms, a sound kernel stays at <= 0.025 x.
+PAGED_ROW_TOL = 5e-2
 
 
-def _paged_case(dev, dtype, *, B, Hq, Hkv, D, T, ps, MP, seed=0):
+def _paged_case(dev, dtype, *, B, Hq, Hkv, D, T, ps, MP, seed=0,
+                lengths=None):
     """Noise in every physical page (trash page 0 included), a permuted
-    table and ragged lengths, as tests/test_paged_attention.py builds them."""
+    table and ragged lengths, as tests/test_paged_attention.py builds them
+    (or the given lengths)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     NP = B * MP + 1
     kp = torch.randn((NP, ps, Hkv, D), generator=g, device=dev).to(dtype)
     vp = torch.randn((NP, ps, Hkv, D), generator=g, device=dev).to(dtype)
     table = (torch.randperm(NP - 1, generator=g, device=dev) + 1
              ).reshape(B, MP).to(torch.int32)
-    lengths = torch.randint(0, MP * ps - T + 1, (B,), generator=g,
-                            device=dev).to(torch.int32)
+    if lengths is None:
+        lengths = torch.randint(0, MP * ps - T + 1, (B,), generator=g,
+                                device=dev).to(torch.int32)
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(dtype)
     return q, kp, vp, lengths, table
+
+
+# lengths of a 4096-key table: one live split (5, 200) and many (1234, 4000)
+SPLIT_LENGTHS = [5, 200, 1234, 4096 - 8]
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("T", [1, 5, 8])
+@pytest.mark.parametrize("Hq,Hkv", [(28, 4), (8, 2)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_sm90_kernel_matches_plain(cuda, ps, T, Hq, Hkv, D):
+    """The bf16 split-KV TMA + wgmma body: pages of 8, 16 and 64, T 1, 5
+    and 8 at g 7 and 4, head dims 64 and 128, over a 4096-key table with
+    rows that have one live split and rows that have many (combined)."""
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_plain
+    case = _paged_case(cuda, torch.bfloat16, B=4, Hq=Hq, Hkv=Hkv, D=D, T=T,
+                       ps=ps, MP=4096 // ps, seed=ps + T + D,
+                       lengths=SPLIT_LENGTHS)
+    before = paged.LAUNCHES["paged_decode_attention"]
+    out = paged.paged_decode_attention(*case)
+    torch.cuda.synchronize()
+    assert paged.LAUNCHES["paged_decode_attention"] == before + 1
+    assert paged.LAST_ROUTE["paged_decode_attention"] == "sm90"
+    ref = paged_decode_attention_plain(*case)
+    tol = PAGED_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref, PAGED_ROW_TOL)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_paged_sm90_kernel_ignores_poisoned_stale_and_trash_pages(cuda, ps):
+    """bf16: NaN in every position past length + T - 1 (the rest of the
+    last page, the pages beyond) and in the trash page: the split-KV body's
+    output must not move by one bit, split by split and combined."""
+    from repro_torch.kernels.decode_attention import paged
+    q, kp, vp, lengths, table = _paged_case(
+        cuda, torch.bfloat16, B=4, Hq=28, Hkv=4, D=128, T=5, ps=ps,
+        MP=4096 // ps, seed=ps, lengths=SPLIT_LENGTHS)
+    before = paged.paged_decode_attention(q, kp, vp, lengths, table)
+    pk, pv = kp.clone(), vp.clone()
+    pk[0], pv[0] = float("nan"), float("inf")
+    for b, n in enumerate(SPLIT_LENGTHS):
+        first_dead = n + 5
+        for lp in range(table.shape[1]):
+            lo = max(0, first_dead - lp * ps)
+            if lo < ps:
+                page = int(table[b, lp])
+                pk[page, lo:], pv[page, lo:] = float("nan"), float("nan")
+    after = paged.paged_decode_attention(q, pk, pv, lengths, table)
+    assert paged.LAST_ROUTE["paged_decode_attention"] == "sm90"
+    assert torch.isfinite(after).all()
+    torch.testing.assert_close(after, before, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -206,7 +321,9 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
 def test_paged_attention_kernel_long_context_and_no_sync(cuda, dtype):
     """~8k cached positions at the serve widths, with the device never
     waiting on the host for lengths or the table.  A typical |out| there is
-    ~0.02, near the bf16 bound, so fp32 holds the page walk at 2e-5."""
+    ~0.02, near the bf16 bound, so fp32 holds the CUDA-core page walk at
+    2e-5 and bf16 (the split-KV body, several splits and the combine) is
+    also held at PAGED_ROW_TOL x each row's rms."""
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.decode_attention.ref import \
         paged_decode_attention_plain
@@ -222,6 +339,10 @@ def test_paged_attention_kernel_long_context_and_no_sync(cuda, dtype):
     ref = paged_decode_attention_plain(*case)
     tol = PAGED_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert paged.LAST_ROUTE["paged_decode_attention"] == (
+        "sm90" if dtype == torch.bfloat16 else "simt")
+    if dtype == torch.bfloat16:
+        _assert_rows_close(out, ref, PAGED_ROW_TOL)
 
 
 def test_paged_gather_refused_on_cuda(cuda):
@@ -279,13 +400,13 @@ DECODE_TOL = {torch.float32: 3e-5, torch.bfloat16: 4e-2}
 FLASH_ROW_TOL = 5e-2
 
 
-def _assert_rows_close(out, ref):
+def _assert_rows_close(out, ref, bound=FLASH_ROW_TOL):
     ref = ref.float()
     rms = ref.square().mean(-1, keepdim=True).sqrt()
     worst = ((out.float() - ref).abs() / rms).max().item()
-    assert worst <= FLASH_ROW_TOL, (
+    assert worst <= bound, (
         f"an element is {worst:.3g} x the rms of its row from the plain "
-        f"version (bound {FLASH_ROW_TOL})")
+        f"version (bound {bound})")
 
 
 def _randn(dev, shape, dtype, g):

@@ -107,3 +107,71 @@ def test_row_tile_follows_rows_per_expert():
     prefill-sized (4096 rows) 64-row tiles."""
     assert tr._row_tile(320, 64) == 16
     assert tr._row_tile(4096, 64) == 64
+
+
+# serve-like routings (top-8 of 64 experts) besides GROUP_CASES
+def _routed(tokens, seed, E=64, K=8):
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.standard_normal((tokens, E)), -1)[:, :K]
+    return np.bincount(idx.reshape(-1), minlength=E).astype(np.int32)
+
+
+CHUNK_CASES = GROUP_CASES + [[0] * 5 + [128] + [0] * 2, _routed(40, 0).tolist(),
+                             _routed(8, 1).tolist(), _routed(512, 2).tolist()]
+
+
+@pytest.mark.parametrize("sizes", CHUNK_CASES)
+@pytest.mark.parametrize("bm", [64, 128])
+def test_expert_chunks_match_numpy_count(sizes, bm):
+    """The TMA kernel's work list: sum(ceil(size / bm)) chunks over the
+    non-empty experts, expert-major, each starting bm rows after the last
+    within its expert and ending at the next chunk or the expert's end, so
+    the chunks tile every routed row exactly once."""
+    sizes = np.asarray(sizes, np.int64)
+    chunks = tr.expert_chunks(torch.from_numpy(sizes.astype(np.int32)), bm)
+    assert chunks.shape == (int((-(-sizes // bm)).sum()), 3)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    want = [(e, offs[e] + c * bm, min(offs[e] + (c + 1) * bm, offs[e + 1]))
+            for e in range(len(sizes)) if sizes[e]
+            for c in range(-(-int(sizes[e]) // bm))]
+    np.testing.assert_array_equal(chunks.numpy(), np.asarray(want).reshape(-1, 3))
+    covered = np.zeros(int(sizes.sum()), np.int32)
+    for _, lo, hi in want:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("sizes", CHUNK_CASES)
+@pytest.mark.parametrize("bm", [16, 64])
+def test_expert_chunks_never_exceed_visits(sizes, bm):
+    """At one row tile, an expert's chunks are never more than the
+    row-tile-aligned visits make_group_metadata gives it (each visit reads
+    the expert's weights once), and fewer wherever an expert's rows cross a
+    tile boundary they would fit in."""
+    sizes = np.asarray(sizes, np.int32)
+    n_pad = -(-int(sizes.sum()) // bm) * bm
+    meta = tr.make_group_metadata(torch.from_numpy(sizes), n_pad, bm)
+    n_chunks = len(tr.expert_chunks(torch.from_numpy(sizes), bm))
+    assert n_chunks <= int(meta.num_visits[0])
+    offs = np.concatenate([[0], np.cumsum(sizes.astype(np.int64))])
+    crossing = sum(1 for e in range(len(sizes)) if sizes[e] and
+                   (offs[e + 1] - 1) // bm - offs[e] // bm + 1
+                   > -(-int(sizes[e]) // bm))
+    assert int(meta.num_visits[0]) - n_chunks == crossing
+
+
+@pytest.mark.parametrize("dtype,K,F,bm,route", [
+    (torch.float32, 64, 96, None, "simt"),
+    (torch.bfloat16, 64, 96, None, "sm90"),
+    (torch.bfloat16, 64, 96, 64, "sm90"),
+    (torch.bfloat16, 64, 96, 128, "wmma"),         # no 128-row chunks
+    (torch.bfloat16, 64, 96, 16, "wmma"),          # 16-row tiles: WMMA only
+    (torch.bfloat16, 36, 96, None, "wmma"),        # row pitch of 72 bytes
+    (torch.bfloat16, 64, 100, None, "wmma"),       # F not a multiple of 8
+])
+def test_route_picks_the_down_kernel(dtype, K, F, bm, route):
+    """``_route``'s dispatch (the launchers report what they ran on the
+    card; the CPU runs neither)."""
+    xs = torch.zeros((10, K), dtype=dtype)
+    w = torch.zeros((3, K, F), dtype=dtype)
+    assert tr._route(xs, w, bm) == route

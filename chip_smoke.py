@@ -9,10 +9,9 @@ Phases, each of which fails the run if it fails:
   2. build every CUDA kernel of the path from the sources in this checkout,
      one nvcc per source, all at once, and print the build time; beside it
      ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
-     64, 128; capacity GEMM with 1 and 2 consumer warpgroups and column
-     tiles of 128 and 256; paged decode/verify at head dims 64 and 128;
-     ragged down GEMM with 1 and 2 consumer warpgroups): registers, dynamic
-     shared memory, spills;
+     64, 128 with one and two consumer warpgroups; capacity GEMM with 1 and 2 consumer warpgroups and column
+     tiles of 128 and 256; paged and dense decode/verify at head dims 64 and
+     128; ragged down GEMM): registers, dynamic shared memory, spills;
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
@@ -41,8 +40,11 @@ Phases, each of which fails the run if it fails:
          CUDA-core body (tests/test_kernels.py);
        * the dense decode/verify kernel on the (B, S+1, Hkv, D) cache layout:
          SD verify (B 8, T 5, S 512, lengths 129-290), AR (T 1), the draft's
-         14/2 heads of 64, long context (S 8192), bf16 at 4e-2, SD verify and
-         long context also in fp32 at 3e-5 (tests/test_kernels.py);
+         14/2 heads of 64 at T 1 and T 5, long context (S 8192), bf16 at
+         4e-2 through the split-KV TMA + wgmma body (decode_attention
+         .LAST_ROUTE "sm90") and every element within DECODE_ROW_TOL x the
+         rms of its output row, SD verify and long context also in fp32 at
+         3e-5 through the CUDA-core body (tests/test_kernels.py);
        * the capacity-binned expert GEMM at the full expert widths (E 64,
          D 3584, F 2560, gate/up and down) at the SD-verify capacity
          expert_capacity(40, 8, 64) = 128 and a prefill capacity
@@ -131,6 +133,12 @@ FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
 # rms; one bf16 rounding of a row's largest element is ~3 %.
 FLASH_ROW_TOL = 5e-2
 DECODE_TOL = {"bfloat16": 4e-2, "float32": 3e-5}
+# bf16 dense decode on the split-KV body, besides DECODE_TOL: every element
+# within DECODE_ROW_TOL x the rms of its output row.  At 8k keys |out| ~
+# 0.011, below DECODE_TOL itself; the faults of kernel_variants.py (the
+# combine leaving out the last live split, a chunk loaded from the previous
+# chunk's keys) must fail it at long context while the sound kernel passes.
+DECODE_ROW_TOL = 5e-2
 GMM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # Target depth at full width: the bf16 weights of all 28 layers (57.4B
 # parameters, ~115 GB) do not fit in the card's 80 GB; 4 layers are ~18 GB.
@@ -254,8 +262,9 @@ def _counted_modules():
 def build_kernels():
     """Build every library (one nvcc each, all at once); print the build
     time and, from ``ptxas -v`` of the build, the registers, shared memory
-    and spills of the two TMA + wgmma kernels."""
+    and spills of the TMA + wgmma kernels."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gmm import gmm, ragged
@@ -267,7 +276,7 @@ def build_kernels():
     t_build = time.perf_counter() - t0
     reports = {src: build.ptxas_report(src)
                for src in (flash_attention.SOURCE, gmm.SOURCE, paged.SOURCE,
-                           ragged.SOURCE)}
+                           dec_ops.SOURCE, ragged.SOURCE)}
     log(f"build: {t_build:.1f} s -> " + ", ".join(
         str(build.library_path(src).relative_to(ROOT)) for src in sources))
     smem = {"flash_sm90_kernel": build.load(
@@ -275,6 +284,8 @@ def build_kernels():
             "gmm_capacity_sm90_kernel": build.load(
                 gmm.SOURCE).gmm_capacity_sm90_smem_bytes,
             "paged_sm90_kernel": build.load(paged.SOURCE).paged_sm90_smem_bytes,
+            "decode_sm90_kernel": build.load(
+                dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
                 ragged.SOURCE).ragged_sm90_smem_bytes}
     seen = set()
@@ -287,10 +298,12 @@ def build_kernels():
             log(f"ptxas {kernel}<{', '.join(map(str, args))}> ({src.name}): "
                 f"{regs} registers at entry, {smem[kernel](*args)} bytes "
                 f"dynamic shared memory, {spills}")
-    want = ({("flash_sm90_kernel", (d,)) for d in (32, 64, 128)}
+    want = ({("flash_sm90_kernel", (d, nc)) for d in (32, 64, 128)
+             for nc in (1, 2)}
             | {("gmm_capacity_sm90_kernel", a)
                for a in ((1, 128), (2, 128), (2, 256))}
             | {("paged_sm90_kernel", (d,)) for d in (64, 128)}
+            | {("decode_sm90_kernel", (d,)) for d in (64, 128)}
             | {("ragged_sm90_kernel", ())})
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
@@ -300,6 +313,7 @@ def build_kernels():
 def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
                                         "gmm_capacity_sm90_kernel",
                                         "paged_sm90_kernel",
+                                        "decode_sm90_kernel",
                                         "ragged_sm90_kernel")):
     """(kernel, template arguments, registers, spill line) for each entry
     function of ``kernels`` in ``ptxas -v`` output."""
@@ -719,6 +733,7 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
     "sd_verify": ("bfloat16", 8, 5, 28, 4, 128, 512, (129, 290)),
     "ar": ("bfloat16", 8, 1, 28, 4, 128, 512, (129, 290)),
     "draft_ar": ("bfloat16", 8, 1, 14, 2, 64, 512, (129, 290)),
+    "draft_sd_verify": ("bfloat16", 8, 5, 14, 2, 64, 512, (129, 290)),
     "long_context": ("bfloat16", 8, 5, 28, 4, 128, 8192, (8000, 8187)),
     "fp32_sd_verify": ("float32", 8, 5, 28, 4, 128, 512, (129, 290)),
     # at ~8k keys a typical |out| is ~0.02, near the bf16 bound
@@ -726,32 +741,72 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
 }
 
 
+def decode_inputs(spec, gen, dev):
+    """(q, k, v, lengths) of a DECODE_CASES entry: k and v are the model's
+    (B, S+1, Hkv, D) cache sliced to S, noise everywhere and huge values in
+    slot S (the trash slot), ragged lengths."""
+    import torch
+    dtype_name, B, T, Hq, Hkv, D, S, (lo, hi) = spec
+    dt = getattr(torch, dtype_name)
+    kc, vc = (torch.randn((B, S + 1, Hkv, D), generator=gen, device=dev
+                          ).to(dt) for _ in range(2))
+    kc[:, S], vc[:, S] = 1e3, -1e3
+    lengths = torch.randint(lo, hi + 1, (B,), generator=gen,
+                            device=dev).to(torch.int32)
+    q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
+    return q, kc[:, :S], vc[:, :S], lengths
+
+
+def sdpa_dense(q, k, v, lengths):
+    """``F.scaled_dot_product_attention`` with the causal mask of the
+    lengths over (B, H, S, D) copies of the cache made beforehand: a
+    yardstick the port never calls.  Returns (fn or None, label)."""
+    import torch
+    import torch.nn.functional as F
+    B, T, _, _ = q.shape
+    S = k.shape[1]
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+    q_pos = lengths.to(torch.int64)[:, None] + torch.arange(T, device=q.device)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= q_pos[:, :, None])[:, None]                  # (B, 1, T, S)
+    return _library(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                               enable_gqa=True),
+        "F.scaled_dot_product_attention(mask, enable_gqa) over the "
+        "contiguous (B, H, S, D) cache, copies excluded")
+
+
 def decode_kernel_phase(seed: int):
     """The dense decode/verify kernel on the model's (B, S+1, Hkv, D) cache
     layout sliced to S (slot S, the trash slot, holds huge values), against
     its plain version."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
     res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    for case, (dtype_name, B, T, Hq, Hkv, D, S, (lo, hi)) in DECODE_CASES.items():
-        dt = getattr(torch, dtype_name)
-        kc, vc = (torch.randn((B, S + 1, Hkv, D), generator=gen, device=dev
-                              ).to(dt) for _ in range(2))
-        kc[:, S], vc[:, S] = 1e3, -1e3
-        k, v = kc[:, :S], vc[:, :S]
-        lengths = torch.randint(lo, hi + 1, (B,), generator=gen,
-                                device=dev).to(torch.int32)
-        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
+    for case, spec in DECODE_CASES.items():
+        dtype_name, B, T, Hq, Hkv, D, S, _ = spec
+        q, k, v, lengths = decode_inputs(spec, gen, dev)
         out = ops.decode_attention(q, k, v, lengths)
+        route = ops.LAST_ROUTE["decode_attention"]
         ref = decode_attention_plain(q, k, v, lengths)
         torch.cuda.synchronize()
+        want = "sm90" if dtype_name == "bfloat16" and D in (64, 128) else "simt"
+        if route != want:
+            raise AssertionError(f"decode_attention [{case}]: ran the {route} "
+                                 f"body, expected {want}")
         err = _hold("decode_attention", case, out, ref,
                     DECODE_TOL[dtype_name], res)
+        row_err = row_scaled_err(out, ref)
+        if route == "sm90" and row_err > DECODE_ROW_TOL:
+            raise AssertionError(
+                f"decode_attention [{case}]: an element is {row_err:.3g} x "
+                f"the rms of its row from the plain version (bound "
+                f"{DECODE_ROW_TOL})")
         # bytes: K and V at the keys 0..min(S, length+T)-1 of each row, q,
         # out and the lengths; FLOPs: 4 * D per (query row, visible key)
         lens = [int(n) for n in lengths.tolist()]
@@ -767,32 +822,25 @@ def decode_kernel_phase(seed: int):
                           warmup=3, iters=20)
         plain_ms = cuda_time_ms(
             lambda: decode_attention_plain(q, k, v, lengths), warmup=1, iters=3)
-        qh = q.transpose(1, 2).contiguous()
-        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
-        q_pos = lengths.to(torch.int64)[:, None] + torch.arange(T, device=dev)
-        mask = (torch.arange(S, device=dev)[None, None, :]
-                <= q_pos[:, :, None])[:, None]              # (B, 1, T, S)
-        lib_fn, lib = _library(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                   enable_gqa=True),
-            "F.scaled_dot_product_attention(mask, enable_gqa) over the "
-            "contiguous (B, H, S, D) cache, copies excluded")
+        lib_fn, lib = sdpa_dense(q, k, v, lengths)
         lib_ms = cuda_time_ms(lib_fn, warmup=3, iters=20) if lib_fn else None
         graph_ms = graph_time_ms(lambda: ops.decode_attention(q, k, v,
                                                               lengths))
         lib_graph_ms = graph_time_ms(lib_fn) if lib_fn else None
         res["cases"][case] = dict(
-            dtype=dtype_name, B=B, T=T, heads=(Hq, Hkv), head_dim=D, S=S,
-            lengths=lens, keys=keys, kernel_ms=ms, kernel_graph_ms=graph_ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-            flops=flops, library_ms=lib_ms, library_graph_ms=lib_graph_ms,
-            library=lib, max_abs_err=err, tol=DECODE_TOL[dtype_name])
-        log(f"kernel decode_attention [{case:17s}] {dtype_name} B={B} T={T} "
-            f"heads={Hq}/{Hkv}x{D} S={S} keys={keys}  {ms:.4f} ms (graph "
-            f"{_fmt(graph_ms)})  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms "
-            f"({b_by})  library {_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)})  "
-            f"max err {err:.3g}")
-        del kc, vc, k, v, q, out, ref, qh, kh, vh
+            dtype=dtype_name, route=route, B=B, T=T, heads=(Hq, Hkv),
+            head_dim=D, S=S, lengths=lens, keys=keys, kernel_ms=ms,
+            kernel_graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bytes=n_bytes, flops=flops, library_ms=lib_ms,
+            library_graph_ms=lib_graph_ms, library=lib, max_abs_err=err,
+            tol=DECODE_TOL[dtype_name], max_row_scaled_err=row_err)
+        log(f"kernel decode_attention [{case:17s}] {dtype_name} route={route} "
+            f"B={B} T={T} heads={Hq}/{Hkv}x{D} S={S} keys={keys}  {ms:.4f} ms "
+            f"(graph {_fmt(graph_ms)})  plain {plain_ms:.3f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})  library {_fmt(lib_ms)} (graph "
+            f"{_fmt(lib_graph_ms)})  max err {err:.3g}, {row_err:.3g} x row "
+            f"rms")
+        del q, k, v, out, ref, lib_fn
     torch.cuda.empty_cache()
     return res
 
@@ -1325,7 +1373,8 @@ def main() -> int:
                 "bf16 rtol=atol=2e-2, fp32 2e-5 (decode_attention.py:288); "
                 f"bf16 split-KV body also <= {PAGED_ROW_TOL} x row rms",
             "decode_attention": "bf16 rtol=atol=4e-2, fp32 3e-5 "
-                                "(tests/test_kernels.py)",
+                                "(tests/test_kernels.py); bf16 split-KV "
+                                f"body also <= {DECODE_ROW_TOL} x row rms",
             "flash_attention": "bf16 rtol=atol=3e-2, fp32 2e-5 "
                                "(tests/test_kernels.py); bf16 also "
                                f"<= {FLASH_ROW_TOL} x row rms",

@@ -15,17 +15,18 @@ of it, e.g. the parent:
 The trees run in the order given, then in reverse (A B B A for two trees),
 each in a process of its own that builds its kernels into
 ``ROOT/build/kernels``.  The cases, inputs, bounds and timing are
-chip_smoke.py's: every bf16 case of its flash, capacity, paged and ragged
-phases (``FLASH_CASES``, ``capacity_cases``, ``PAGED_CASES`` through
-``paged_inputs``, ``ragged_cases``) is held against its plain PyTorch
+chip_smoke.py's: every bf16 case of its flash, capacity, paged, dense
+decode and ragged phases (``FLASH_CASES``, ``capacity_cases``,
+``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
+``decode_inputs``, ``ragged_cases``) is held against its plain PyTorch
 version at chip_smoke.py's tolerance and timed as calls captured in one CUDA
 graph (``graph_time_ms``), beside the PyTorch call that computes the same
 function where there is one (``F.scaled_dot_product_attention``,
-``torch.bmm``, ``sdpa_gathered``, ``grouped_mm_library``).  Prints a line
-per (tree, case) and, last, a JSON object of the median time of each
-(tree, case).  ``--only`` keeps the named kinds of case: flash, gmm (the
-capacity GEMM), paged, fused (ragged gate/up), down (ragged down).  Needs an
-NVIDIA GPU.
+``torch.bmm``, ``sdpa_gathered``, ``sdpa_dense``, ``grouped_mm_library``).
+Prints a line per (tree, case) and, last, a JSON object of the median time
+of each (tree, case).  ``--only`` keeps the named kinds of case: flash, gmm
+(the capacity GEMM), paged, decode (dense decode/verify), fused (ragged
+gate/up), down (ragged down).  Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from pathlib import Path
 import chip_smoke
 
 
-KINDS = ("flash", "gmm", "paged", "fused", "down")
+KINDS = ("flash", "gmm", "paged", "decode", "fused", "down")
 
 
 def child(root: Path, label: str, kinds=KINDS) -> None:
@@ -50,9 +51,10 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import paged
-    from repro_torch.kernels.decode_attention.ref import \
-        paged_decode_attention_plain
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain, paged_decode_attention_plain)
     from repro_torch.kernels.gmm import gmm, ragged
     from repro_torch.kernels.gmm.ref import (fused_gate_up_ref,
                                              gmm_capacity_ref, ragged_gmm_ref)
@@ -116,6 +118,16 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
              chip_smoke.PAGED_TOL[dtype_name],
              lambda: paged.paged_decode_attention(*args, logit_cap=cap), lib,
              20)
+        del args, lib
+        torch.cuda.empty_cache()
+    for case, spec in chip_smoke.DECODE_CASES.items():
+        if spec[0] != "bfloat16" or "decode" not in kinds:
+            continue
+        args = chip_smoke.decode_inputs(spec, gen, dev)
+        lib, _ = chip_smoke.sdpa_dense(*args)
+        emit("decode", case, dec_ops.decode_attention(*args),
+             decode_attention_plain(*args), chip_smoke.DECODE_TOL[spec[0]],
+             lambda: dec_ops.decode_attention(*args), lib, 20)
         del args, lib
         torch.cuda.empty_cache()
     if not {"fused", "down"} & set(kinds):
@@ -185,7 +197,7 @@ def main() -> int:
                 continue
             rec = json.loads(line)
             lib = rec["library_ms"]
-            print(f"{rec['tree']:24s} {rec['kernel']:5s} {rec['case']:18s} "
+            print(f"{rec['tree']:24s} {rec['kernel']:6s} {rec['case']:18s} "
                   f"{chip_smoke._fmt(rec['ms'])}  library "
                   f"{chip_smoke._fmt(lib)}  max err {rec['max_abs_err']:.3g}"
                   f", {rec['row_scaled_err']:.3g} x row rms", flush=True)

@@ -12,17 +12,20 @@ Each variant is this checkout's ``src/repro_torch`` copied to the ignored
 fails instead of measuring the unpatched kernel); it builds its kernels into
 its own ``build/kernels``.
 
-``mutants`` runs every bf16 case of chip_smoke.py's paged phase
-(``PAGED_CASES`` through ``paged_inputs``, same seed) through this tree and
-each ``FAULTS`` variant, and prints, per case, the largest elementwise error
-over ``PAGED_TOL`` and the largest error over the rms of its output row
-over ``PAGED_ROW_TOL`` (above 1 fails chip_smoke.py), then one JSON line.
-It exits non-zero unless every fault fails the row bound at long context
-and this tree passes both bounds everywhere.
+``mutants`` runs every bf16 case of chip_smoke.py's paged and dense decode
+phases (``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
+``decode_inputs``, same seeds) through this tree and each ``FAULTS``
+variant, and prints, per case, the largest elementwise error over the
+kernel's tolerance (``PAGED_TOL``, ``DECODE_TOL``) and the largest error
+over the rms of its output row over its row bound (``PAGED_ROW_TOL``,
+``DECODE_ROW_TOL``; above 1 fails chip_smoke.py), then one JSON line.  It
+exits non-zero unless every fault fails the row bound at long context in
+every kernel it plants itself in (``FAULT_KERNELS``) and this tree passes
+both bounds everywhere.
 
 ``tune`` times the named ``TUNING`` variants against this tree with
 kernel_ab.py (this tree first, A B ... B A), on the cases of the kernels
-they change.  Needs an NVIDIA GPU.
+they change (``TUNE_KINDS`` by the name's prefix).  Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -35,27 +38,57 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PAGED = "kernels/decode_attention/csrc/paged_sm90.cuh"
+DECODE = "kernels/decode_attention/csrc/decode_sm90.cuh"
+SPLITKV = "kernels/csrc/splitkv_sm90.cuh"
+FLASH = "kernels/flash_attention/csrc/flash_sm90.cuh"
 RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
 
 FAULTS = {
-    # the combine step leaves out the last live split of every row
-    "paged_dropped_split": [(PAGED, "for (int s = 0; s < live; ++s) {\n"
-                                    "      const long long at",
-                             "for (int s = 0; s < live - 1; ++s) {\n"
-                             "      const long long at")],
+    # the combine step (shared by the paged and dense bodies) leaves out the
+    # last live split of every row
+    "dropped_split": [(SPLITKV, "for (int s = 0; s < live; ++s) {\n"
+                                "      const long long at",
+                       "for (int s = 0; s < live - 1; ++s) {\n"
+                       "      const long long at")],
     # chunk 5 of every split is loaded from chunk 4's keys again (stale)
     "paged_stale_chunk": [(PAGED, "const int lk = kb + j * per;",
                            "const int lk = (i == 5 ? kb - BK : kb) + j * per;")],
+    "decode_stale_chunk": [(DECODE, "map, bar, 64 * c, h, kb, b);",
+                            "map, bar, 64 * c, h, i == 5 ? kb - BK : kb, b);")],
 }
+# the kernels each fault is planted in, which must each fail at long context
+FAULT_KERNELS = {"dropped_split": ("paged", "decode"),
+                 "paged_stale_chunk": ("paged",),
+                 "decode_stale_chunk": ("decode",)}
 TUNING = {
     # splits for 2 or 4 blocks per SM at long context instead of 1
     "paged_waves2": [(PAGED, "constexpr int WAVES = 1;",
                       "constexpr int WAVES = 2;")],
     "paged_waves4": [(PAGED, "constexpr int WAVES = 1;",
                       "constexpr int WAVES = 4;")],
-    # 6 chunks of K and V in flight instead of 4
-    "paged_stages6": [(PAGED, "constexpr int STAGES = 4;",
-                       "constexpr int STAGES = 6;")],
+    # 6 chunks of K and V in flight instead of 4 (paged and dense bodies)
+    "splitkv_stages6": [(SPLITKV, "constexpr int STAGES = 4;",
+                         "constexpr int STAGES = 6;")],
+    # dense decode splits of at least 2 or 4 chunks instead of 8: the serve
+    # shape (S 512) then runs 4 or 2 splits and the combine kernel
+    "decode_min_chunks2": [(DECODE, "constexpr int MIN_CHUNKS = 8;",
+                            "constexpr int MIN_CHUNKS = 2;")],
+    "decode_min_chunks4": [(DECODE, "constexpr int MIN_CHUNKS = 8;",
+                            "constexpr int MIN_CHUNKS = 4;")],
+    # flash: one block per item (the grid of the kernel before it was made
+    # persistent), and the persistent grid's plain static stride
+    "flash_one_item_per_block": [
+        (FLASH, "const int grid = p.n_items < slots ? p.n_items : slots;",
+         "const int grid = p.n_items;")],
+    "flash_plain_stride": [
+        (FLASH, "return n * G + ((n & 1) ? G - 1 - j : j);",
+         "return n * G + j;")],
+    # flash: 128-query items on two consumer warpgroups (one block an SM)
+    # at every length, or 64-query items (two blocks an SM) at every length
+    "flash_wide_only": [(FLASH, "constexpr int NARROW_MAX_T = 512;",
+                         "constexpr int NARROW_MAX_T = 0;")],
+    "flash_narrow_all": [(FLASH, "constexpr int NARROW_MAX_T = 512;",
+                          "constexpr int NARROW_MAX_T = 1 << 30;")],
     # 8 stages of the down kernel's ring instead of 5
     "ragged_stages8": [(RAGGED, "constexpr int STAGES = 5;",
                         "constexpr int STAGES = 8;")],
@@ -68,6 +101,10 @@ TUNING = {
                       "sm90::wgmma_ss_n256<1>(acc")],
 }
 VARIANTS = {**FAULTS, **TUNING}
+# the kernel_ab.py kinds a tuning variant changes, by its name's prefix
+TUNE_KINDS = {"paged": ("paged",), "decode": ("decode",),
+              "splitkv": ("paged", "decode"), "flash": ("flash",),
+              "ragged": ("down",)}
 
 
 def make_tree(name: str) -> Path:
@@ -88,14 +125,25 @@ def make_tree(name: str) -> Path:
 
 
 def child_errors(root: Path, label: str) -> None:
-    """One JSON line per bf16 paged case: errors over the two bounds."""
+    """One JSON line per bf16 paged and dense decode case: errors over the
+    two bounds."""
     sys.path.insert(0, str(root / "src"))
     import torch
 
     import chip_smoke
-    from repro_torch.kernels.decode_attention import paged
-    from repro_torch.kernels.decode_attention.ref import \
-        paged_decode_attention_plain
+    from repro_torch.kernels.decode_attention import ops, paged
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain, paged_decode_attention_plain)
+
+    def report(kernel, case, out, ref, tol, row_tol, route):
+        out, ref = out.float(), ref.float()
+        over = ((out - ref).abs() / (tol + tol * ref.abs())).max().item()
+        row = chip_smoke.row_scaled_err(out, ref) / row_tol
+        print(json.dumps({"tree": label, "kernel": kernel, "case": case,
+                          "route": route, "err_over_tol": over,
+                          "row_err_over_bound": row,
+                          "max_abs_err": (out - ref).abs().max().item()}),
+              flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)   # chip_smoke's seed 0
@@ -104,16 +152,20 @@ def child_errors(root: Path, label: str) -> None:
         dtype_name, _, _, _, cap = spec
         if dtype_name != "bfloat16":
             continue
-        out = paged.paged_decode_attention(*args, logit_cap=cap).float()
-        ref = paged_decode_attention_plain(*args, logit_cap=cap).float()
-        tol = chip_smoke.PAGED_TOL[dtype_name]
-        over = ((out - ref).abs() / (tol + tol * ref.abs())).max().item()
-        row = chip_smoke.row_scaled_err(out, ref) / chip_smoke.PAGED_ROW_TOL
-        print(json.dumps({"tree": label, "case": case,
-                          "route": paged.LAST_ROUTE["paged_decode_attention"],
-                          "err_over_tol": over, "row_err_over_bound": row,
-                          "max_abs_err": (out - ref).abs().max().item()}),
-              flush=True)
+        out = paged.paged_decode_attention(*args, logit_cap=cap)
+        report("paged", case, out,
+               paged_decode_attention_plain(*args, logit_cap=cap),
+               chip_smoke.PAGED_TOL[dtype_name], chip_smoke.PAGED_ROW_TOL,
+               paged.LAST_ROUTE["paged_decode_attention"])
+    gen = torch.Generator(device=dev).manual_seed(4)   # chip_smoke's seed 0
+    for case, spec in chip_smoke.DECODE_CASES.items():
+        args = chip_smoke.decode_inputs(spec, gen, dev)
+        if spec[0] != "bfloat16":
+            continue
+        out = ops.decode_attention(*args)
+        report("decode", case, out, decode_attention_plain(*args),
+               chip_smoke.DECODE_TOL[spec[0]], chip_smoke.DECODE_ROW_TOL,
+               ops.LAST_ROUTE["decode_attention"])
 
 
 def mutants() -> int:
@@ -130,16 +182,19 @@ def mutants() -> int:
             if line.startswith("{"):
                 rec = json.loads(line)
                 rows.append(rec)
-                print(f"{rec['tree']:20s} {rec['case']:14s} route={rec['route']}"
+                print(f"{rec['tree']:20s} {rec['kernel']:6s} {rec['case']:17s} "
+                      f"route={rec['route']}"
                       f"  err/tol {rec['err_over_tol']:.3g}  row err/bound "
                       f"{rec['row_err_over_bound']:.3g}  max abs err "
                       f"{rec['max_abs_err']:.3g}", flush=True)
     print(json.dumps({"cases": rows}))
     sound = [r for r in rows if r["tree"] == "."]
-    caught = {r["tree"] for r in rows if r["tree"] != "."
+    caught = {(r["tree"], r["kernel"]) for r in rows if r["tree"] != "."
               and r["case"] == "long_context" and r["row_err_over_bound"] > 1}
+    planted = {(name, kernel) for name, kernels in FAULT_KERNELS.items()
+               for kernel in kernels}
     ok = (all(r["err_over_tol"] <= 1 and r["row_err_over_bound"] <= 1
-              for r in sound) and caught == set(FAULTS))
+              for r in sound) and planted <= caught)
     print(f"mutants: sound tree within both bounds and every fault caught at "
           f"long context: {ok}")
     return 0 if ok else 1
@@ -167,8 +222,8 @@ def main() -> int:
     if unknown:
         ap.error(f"unknown tuning variants {unknown}; known: {sorted(TUNING)}")
     trees = [str(make_tree(n).relative_to(ROOT)) for n in args.names]
-    kinds = sorted({"paged" if n.startswith("paged") else "down"
-                    for n in args.names})
+    kinds = sorted({kind for n in args.names
+                    for kind in TUNE_KINDS[n.split("_")[0]]})
     return subprocess.run([sys.executable, str(ROOT / "kernel_ab.py"), ".",
                            *trees, "--only", ",".join(kinds)],
                           cwd=ROOT).returncode

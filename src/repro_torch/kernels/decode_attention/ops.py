@@ -11,8 +11,19 @@ kernel reads them in place through their strides, so a slice of the model's
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
 the kernel or raise.  ``lengths`` stays on the device: the wrapper checks
 dtypes, devices, shapes and strides, never values, because reading them
-would sync.  ``LAUNCHES`` counts kernel launches.  The paged wrapper of the
-same reference module is ``paged.paged_decode_attention``.
+would sync.  ``LAUNCHES`` counts calls that launched the kernel (one per
+call, whether or not it also ran its combine step).  The paged wrapper of
+the same reference module is ``paged.paged_decode_attention``.
+
+Three bodies: bf16 at head dims 64 and 128 with g * T <= 64 query rows per
+KV head runs the split-KV TMA + wgmma body (``csrc/decode_sm90.cuh``),
+other bf16 calls the WMMA body and fp32 the CUDA-core body of
+``kernels/csrc/attention_tile.cuh``.  The launcher reports which one it
+launched, and ``LAST_ROUTE`` holds it (``"sm90"``, ``"wmma"`` or
+``"simt"``).  The split partials go into scratch the launcher sizes
+(``decode_attention_scratch_bytes``) and this wrapper takes from torch's
+allocator on the current stream, so a call never syncs and can be captured
+in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -29,6 +40,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
 # kernel launches since the last reset
 LAUNCHES = {"decode_attention": 0}
+# the body the last launch ran, as the launcher reported it
+LAST_ROUTE = {"decode_attention": None}
+_ROUTES = ("sm90", "wmma", "simt")     # the launcher's kernel codes
 
 
 def reset_launch_counts() -> None:
@@ -42,8 +56,11 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         st = ctypes.POINTER(ctypes.c_longlong)
         lib.decode_attention_launch.argtypes = [
-            i, i, p, p, p, p, p, st, i, i, i, i, i, f, f, p]
+            i, i, p, p, p, p, p, p, st, i, i, i, i, i, f, f, p,
+            ctypes.POINTER(i)]
         lib.decode_attention_launch.restype = i
+        lib.decode_attention_scratch_bytes.argtypes = [i] * 7
+        lib.decode_attention_scratch_bytes.restype = ctypes.c_longlong
         lib._argtypes_set = True
     return lib
 
@@ -79,12 +96,20 @@ def decode_attention(
     if B == 0 or T == 0:
         return out
     st = attention_launch.strides(q, k, v, out)
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
-        status = _lib().decode_attention_launch(
-            attention_launch.DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), lengths.data_ptr(), out.data_ptr(), st, B, T, S, Hq,
-            Hkv, float(scale), float(logit_cap),
-            torch.cuda.current_stream().cuda_stream)
+        lib = _lib()
+        dt = attention_launch.DTYPES[q.dtype]
+        n = lib.decode_attention_scratch_bytes(dt, D, B, T, S, Hq, Hkv)
+        scratch = torch.empty((n,), dtype=torch.uint8, device=q.device) \
+            if n else None
+        status = lib.decode_attention_launch(
+            dt, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if n else None, st, B, T, S, Hq, Hkv,
+            float(scale), float(logit_cap),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, "decode_attention")
     LAUNCHES["decode_attention"] += 1
+    LAST_ROUTE["decode_attention"] = _ROUTES[kernel.value]
     return out

@@ -16,14 +16,16 @@
 // have to run on the tensor cores at a rate near wgmma's.
 //
 // What the design does about it:
-//   * bf16 (every call of the model): flash_sm90.cuh.  A block owns 128
-//     query positions of one head; TMA fills a ring of 128-key K/V chunks,
-//     a producer warp keeps the loads in flight, two consumer warpgroups run
-//     S = Q K^T and O += P V as wgmma with the softmax and O in registers,
-//     and masks are built only where a chunk crosses the diagonal, the window
-//     edge or S.  Causal blocks stop at their last query and windowed blocks
-//     start at their first visible key, as the TPU kernel skips fully masked
-//     blocks.
+//   * bf16 (every call of the model): flash_sm90.cuh.  A work item is 128
+//     query positions of one head; a persistent grid of one block per SM
+//     walks the heaviest-first items with a static stride, so a short
+//     prefill pays the block start once per SM.  TMA fills a ring of
+//     128-key K/V chunks that runs on across items, a producer warp keeps
+//     the loads in flight, two consumer warpgroups run S = Q K^T and
+//     O += P V as wgmma with the softmax and O in registers, and masks are
+//     built only where a chunk crosses the diagonal, the window edge or S.
+//     Causal items stop at their last query and windowed items start at
+//     their first visible key, as the TPU kernel skips fully masked blocks.
 //   * fp32 (the parity checks): attention_tile.cuh's CUDA-core path in full
 //     fp32, 64 positions of one head per block (G = 1), the body and fp32
 //     numerics of the dense decode kernel.
@@ -96,13 +98,8 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
   return -2;
 }
 
-// Dynamic shared memory of a block of the bf16 kernel at this head dim (for
-// reports), or -2 for a head dim it is not built for.
-extern "C" int flash_sm90_smem_bytes(int head_dim) {
-  switch (head_dim) {
-    case 32: return flash90::Cfg<32>::BYTES;
-    case 64: return flash90::Cfg<64>::BYTES;
-    case 128: return flash90::Cfg<128>::BYTES;
-  }
-  return -2;
+// Dynamic shared memory of a block of the bf16 kernel at this head dim with
+// nc consumer warpgroups (for reports), or -2 for a shape it is not built for.
+extern "C" int flash_sm90_smem_bytes(int head_dim, int nc) {
+  return flash90::smem_bytes(head_dim, nc);
 }

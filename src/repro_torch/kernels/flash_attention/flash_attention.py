@@ -33,6 +33,7 @@ LAUNCHES = {"flash_attention": 0}
 LAST_ROUTE = {"flash_attention": None}
 _ROUTES = ("sm90", "simt")     # the launcher's kernel codes
 BLOCK = 128                    # the reference's bq = bk
+NARROW_MAX_T = 512             # flash_sm90.cuh: 64-query items up to this T
 
 
 def reset_launch_counts() -> None:
@@ -51,6 +52,33 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = i
         lib._argtypes_set = True
     return lib
+
+
+def schedule(T: int, B: int, Hq: int, sm_count: int) -> list:
+    """The bf16 kernel's persistent schedule, as ``csrc/flash_sm90.cuh``
+    computes it on the device: per block of the grid, the (query tile,
+    head, sequence) items it runs, in order.  Up to ``NARROW_MAX_T`` queries
+    an item is 64 positions and two blocks share an SM, beyond it 128 and
+    one; the grid is one block per slot, at most one per item.  The item
+    list is heaviest first (the last query tile of every (sequence, head)
+    before the one before it); block j of G takes item r * G + j in round r
+    when r is even and r * G + G - 1 - j when it is odd."""
+    rows, per_sm = (64, 2) if T <= NARROW_MAX_T else (128, 1)
+    n_qt = -(-T // rows)
+    n_items = n_qt * B * Hq
+    grid = min(n_items, per_sm * sm_count)
+    blocks = []
+    for j in range(grid):
+        items, r = [], 0
+        while True:
+            idx = r * grid + (grid - 1 - j if r % 2 else j)
+            if idx >= n_items:
+                break
+            bh = idx % (B * Hq)
+            items.append((n_qt - 1 - idx // (B * Hq), bh % Hq, bh // Hq))
+            r += 1
+        blocks.append(items)
+    return blocks
 
 
 def check_blocks(T: int, S: int) -> None:

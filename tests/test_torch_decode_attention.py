@@ -6,6 +6,11 @@ tensors, and what the CUDA kernel is held against on the card) equals the
 reference's Pallas kernel in interpret mode and its jnp oracle, mirroring
 tests/test_kernels.py::test_decode_attention_sweep (3e-5) and
 test_decode_attention_bf16 (4e-2), plus the serve models' grouping g = 7.
+Split-KV: the plain split version (per-range partials merged as the card's
+combine kernel merges them) equals the reference's kernel at 1, 2 and 5
+splits (3e-5), and the Python mirror of the host split planner covers every
+key of every row exactly once and leaves a split that starts past a row's
+last key empty.
 Layer level: ``gqa_forward`` extends with ``use_flash`` against the
 reference's, on a cache of logical capacity 512 with one row whose
 positions pass it: the reference drops those writes, the port sends them to
@@ -70,6 +75,56 @@ def test_decode_attention_bf16_matches_reference():
     assert out.dtype == torch.bfloat16
     _close(out, jdec.decode_attention_bhtd(jq, jk, jv, jl, interpret=True),
            TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("splits", [1, 2, 5])
+def test_split_plain_matches_reference(splits, T):
+    """S 640 (10 chunks of 64) cut into 1, 2 and 5 ranges: a row whose keys
+    fit the first range, one that spans several, and one whose last query
+    sits at S - 1 (the reference pads S to its 512-key block with zero keys,
+    which a query past S would see); fp32 at the reference's 3e-5."""
+    B, Hkv, g, S, D = 3, 2, 4, 640, 64
+    (jq, tq), (jk, tk), (jv, tv) = _case(B, Hkv * g, Hkv, T, S, D,
+                                         100 * splits + T, "float32")
+    jl, tl = both(np.array([20, 333, S - T], np.int32))
+    ref = jdec.decode_attention_bhtd(jq, jk, jv, jl, interpret=True)
+    out = tref.decode_attention_split_plain(
+        tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2), tl,
+        splits=splits)
+    _close(out.transpose(1, 2), ref, TOL["float32"])
+
+
+@pytest.mark.parametrize("B,Hkv,S,sms,min_chunks", [
+    (8, 4, 512, 132, tref.DENSE_MIN_CHUNKS),     # target verify: one split
+    (8, 4, 8192, 132, tref.DENSE_MIN_CHUNKS),    # long context: 4 splits
+    (8, 2, 512, 132, tref.DENSE_MIN_CHUNKS),     # the draft's heads
+    (1, 1, 8192, 132, tref.DENSE_MIN_CHUNKS),    # one pair: 16 splits
+    (8, 4, 8256, 132, tref.PAGED_MIN_CHUNKS),    # the paged long context
+    (3, 2, 1000, 132, 2),                        # a ragged last chunk
+    (2, 2, 64, 132, tref.DENSE_MIN_CHUNKS)])     # one chunk
+def test_split_planner_covers_every_key_once(B, Hkv, S, sms, min_chunks):
+    cps, splits = tref.split_plan(B, Hkv, S, sms, min_chunks=min_chunks)
+    n_chunks = -(-S // tref.CHUNK)
+    assert (splits - 1) * cps < n_chunks <= splits * cps
+    assert splits == 1 or (cps >= min_chunks
+                           and splits <= sms // (B * Hkv))
+    for T in (1, 5):
+        for length in sorted({0, 1, 63, 64, S // 3, S // 2, S - T, S - 1}):
+            if length < 0:
+                continue
+            last = min(length + T - 1, S - 1)
+            seen = np.zeros(S + tref.CHUNK, np.int64)
+            for k0, n in tref.split_chunks(length, T, S, cps, splits):
+                if k0 > last:
+                    assert n == 0           # its block returns at once
+                    continue
+                assert n >= 1
+                seen[k0:k0 + n * tref.CHUNK] += 1
+                # only the row's last chunk reaches past its last key
+                assert k0 + (n - 1) * tref.CHUNK <= last
+            assert (seen[:last + 1] == 1).all()
+            assert (seen[last + tref.CHUNK:] == 0).all()
 
 
 def _attn_params(cfg, seed):

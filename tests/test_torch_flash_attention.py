@@ -5,7 +5,12 @@ the CUDA kernel is held against on the card.  It is compared with the
 reference's Pallas kernel in interpret mode, as the reference's own tests
 run it (tests/test_kernels.py::test_flash_attention_sweep and
 test_flash_non_causal), and with the reference's jnp oracle.  Tolerances
-are the reference's: 2e-5 in fp32, 3e-2 in bf16 (rtol and atol)."""
+are the reference's: 2e-5 in fp32, 3e-2 in bf16 (rtol and atol).
+
+The bf16 kernel's persistent schedule (mirrored on the host by
+``flash_attention.schedule``) runs each (query tile, head, sequence) item
+exactly once, heaviest first within each block, and no block carries more
+causal chunks than the mean plus one item's."""
 import numpy as np
 import pytest
 import torch
@@ -92,3 +97,24 @@ def test_flash_refuses_what_the_reference_asserts(T, S):
     else:
         out = tflash.flash_attention_bhtd(q, kv, kv, causal=False)
         assert out.shape == q.shape
+
+
+@pytest.mark.parametrize("T,B,Hq,sms", [(256, 8, 28, 132), (256, 8, 14, 132),
+                                        (4096, 1, 28, 132), (512, 2, 28, 132),
+                                        (128, 1, 2, 132), (384, 3, 7, 16),
+                                        (1024, 2, 28, 132)])
+def test_flash_persistent_schedule_runs_each_item_once_heaviest_first(
+        T, B, Hq, sms):
+    blocks = tflash.schedule(T, B, Hq, sms)
+    narrow = T <= tflash.NARROW_MAX_T
+    n_qt = -(-T // (64 if narrow else 128))
+    items = [it for blk in blocks for it in blk]
+    assert len(blocks) == min(n_qt * B * Hq, (2 if narrow else 1) * sms)
+    assert sorted(items) == sorted((qt, h, b) for qt in range(n_qt)
+                                   for h in range(Hq) for b in range(B))
+    for blk in blocks:
+        assert [qt for qt, _, _ in blk] == sorted(
+            (qt for qt, _, _ in blk), reverse=True)
+    # causal: query tile qt reads qt + 1 chunks (as many keys as rows)
+    loads = [sum(qt + 1 for qt, _, _ in blk) for blk in blocks]
+    assert max(loads) <= sum(loads) / len(loads) + n_qt

@@ -585,6 +585,168 @@ def test_decode_kernel_matches_plain_at_sd_verify(cuda):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+# bf16 dense decode on the split-KV body, besides DECODE_TOL: every element
+# within 5e-2 x the rms of its output row (chip_smoke.DECODE_ROW_TOL).  At
+# 8k keys |out| ~ 0.011, below 4e-2; a dropped split or a stale 64-key chunk
+# moves an element by more than the row's rms (kernel_variants.py mutants).
+DECODE_ROW_TOL = 5e-2
+
+
+def _decode_case(dev, *, B, T, Hq, Hkv, D, S, lengths, seed=0):
+    """q and the model's (B, S+1, Hkv, D) cache sliced to S, bf16, noise
+    everywhere (the trash slot S included)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn(dev, (B, T, Hq, D), torch.bfloat16, gen)
+    kc, vc = (_randn(dev, (B, S + 1, Hkv, D), torch.bfloat16, gen)
+              for _ in range(2))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kc, vc, lengths
+
+
+@pytest.mark.parametrize("S", [512, 8192])
+@pytest.mark.parametrize("g", [1, 2, 4, 7])
+@pytest.mark.parametrize("T", [1, 2, 5])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_sm90_kernel_matches_plain(cuda, D, T, g, S):
+    """The bf16 split-KV TMA + wgmma body of the dense decode kernel on the
+    cache layout, at both head dims, T 1, 2, 5 and g 1, 2, 4, 7: at S 512
+    one split, at S 8192 several, with rows whose keys fit split 0, rows
+    that span every split and a row whose queries run past S."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    lengths = [5, S // 2 - 3, S - T - 1, S - 2][:4]
+    q, kc, vc, lengths = _decode_case(cuda, B=4, T=T, Hq=2 * g, Hkv=2, D=D,
+                                      S=S, lengths=lengths, seed=D + T + g)
+    k, v = kc[:, :S], vc[:, :S]
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert ops.LAST_ROUTE["decode_attention"] == "sm90"
+    ref = decode_attention_plain(q, k, v, lengths)
+    tol = DECODE_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref, DECODE_ROW_TOL)
+
+
+@pytest.mark.parametrize("S", [512, 8192])
+def test_decode_sm90_kernel_ignores_poisoned_stale_keys_and_trash_slot(
+        cuda, S):
+    """bf16: NaN and Inf in every cache position past length + T - 1 and in
+    the trash slot S: the split-KV body's output must not move by one bit,
+    with one split and with several combined."""
+    from repro_torch.kernels.decode_attention import ops
+    T = 5
+    lens = [3, 200, S // 2 + 7, S - 2]
+    q, kc, vc, lengths = _decode_case(cuda, B=4, T=T, Hq=28, Hkv=4, D=128,
+                                      S=S, lengths=lens, seed=S)
+    before = ops.decode_attention(q, kc[:, :S], vc[:, :S], lengths)
+    pk, pv = kc.clone(), vc.clone()
+    for b, n in enumerate(lens):
+        pk[b, n + T:], pv[b, n + T:] = float("nan"), float("inf")
+    pk[:, S], pv[:, S] = float("inf"), float("nan")
+    after = ops.decode_attention(q, pk[:, :S], pv[:, :S], lengths)
+    assert ops.LAST_ROUTE["decode_attention"] == "sm90"
+    assert torch.isfinite(after).all()
+    torch.testing.assert_close(after, before, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,D,g,T,route", [
+    (torch.bfloat16, 128, 7, 5, "sm90"), (torch.bfloat16, 64, 7, 1, "sm90"),
+    (torch.bfloat16, 64, 8, 8, "sm90"), (torch.bfloat16, 32, 7, 5, "wmma"),
+    (torch.bfloat16, 128, 7, 10, "wmma"), (torch.float32, 128, 7, 5, "simt"),
+    (torch.float32, 64, 2, 1, "simt")])
+def test_decode_kernel_routes_are_what_the_launcher_reports(cuda, dtype, D,
+                                                            g, T, route):
+    """bf16 at head dims 64 and 128 with g * T <= 64 rows takes the split-KV
+    body; head dim 32 and g * T > 64 the WMMA body; fp32 the CUDA-core
+    body: each as the launcher reports it, each against the plain version."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(D + g + T)
+    B, Hkv, S = 2, 2, 1024
+    q = _randn(cuda, (B, T, Hkv * g, D), dtype, gen)
+    k, v = (_randn(cuda, (B, S, Hkv, D), dtype, gen) for _ in range(2))
+    lengths = torch.tensor([40, 1000 - T], dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, k, v, lengths)
+    assert ops.LAST_ROUTE["decode_attention"] == route
+    ref = decode_attention_plain(q, k, v, lengths)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_decode_sm90_kernel_with_combine_never_syncs(cuda):
+    """The long-context case (several splits, the combine kernel and its
+    scratch from torch's allocator) with the device never waiting on the
+    host."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    S = 8192
+    q, kc, vc, lengths = _decode_case(cuda, B=8, T=5, Hq=28, Hkv=4, D=128,
+                                      S=S, lengths=[8000 + 20 * b
+                                                    for b in range(8)],
+                                      seed=11)
+    k, v = kc[:, :S], vc[:, :S]
+    ops.decode_attention(q, k, v, lengths)           # build + load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ops.decode_attention(q, k, v, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.LAST_ROUTE["decode_attention"] == "sm90"
+    ref = decode_attention_plain(q, k, v, lengths)
+    tol = DECODE_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref, DECODE_ROW_TOL)
+
+
+@pytest.mark.parametrize("causal,window,cap", [(True, 300, 30.0),
+                                               (False, 0, 20.0)])
+def test_flash_sm90_wide_items_window_cap_non_causal(cuda, causal, window,
+                                                     cap):
+    """Past NARROW_MAX_T queries the kernel runs 128-query items on two
+    consumer warpgroups: a window that starts items past key 0 and crosses
+    chunk edges, the tanh cap, and every key (non-causal), at g 7."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    T = 2 * fa.NARROW_MAX_T
+    g = torch.Generator(device=cuda).manual_seed(window + int(cap) + T)
+    q = _randn(cuda, (2, T, 14, 128), torch.bfloat16, g)
+    k, v = (_randn(cuda, (2, T, 2, 128), torch.bfloat16, g) for _ in range(2))
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    out = ops.flash_attention(q, k, v, **kw)
+    assert fa.LAST_ROUTE["flash_attention"] == "sm90"
+    ref = flash_attention_plain(q, k, v, **kw)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", [(8, 256, 28, 4, 128),
+                                          (8, 256, 14, 2, 64),
+                                          (3, 384, 7, 1, 32)])
+def test_flash_sm90_persistent_grid_at_short_prefills(cuda, B, T, Hq, Hkv,
+                                                      D):
+    """The persistent bf16 kernel at the serve prefills (8 prompts of 256
+    tokens at the target's and the draft's heads: 64-query items, two
+    blocks an SM), where every block runs several items and the ring and
+    both Q buffers turn over many times."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=cuda).manual_seed(B * T + D)
+    q = _randn(cuda, (B, T, Hq, D), torch.bfloat16, g)
+    k, v = (_randn(cuda, (B, T, Hkv, D), torch.bfloat16, g) for _ in range(2))
+    out = ops.flash_attention(q, k, v)
+    assert fa.LAST_ROUTE["flash_attention"] == "sm90"
+    ref = flash_attention_plain(q, k, v)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref)
+
+
 def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
     """No fallback: a head dim the kernels are not built for raises on the
     card instead of taking the plain version."""

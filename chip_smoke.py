@@ -11,17 +11,21 @@ Phases, each of which fails the run if it fails:
      ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
      64, 128 with one and two consumer warpgroups; capacity GEMM with 1 and 2 consumer warpgroups and column
      tiles of 128 and 256; paged and dense decode/verify at head dims 64 and
-     128; ragged down GEMM): registers, dynamic shared memory, spills;
+     128; ragged down and fused gate/up GEMMs, silu and gelu): registers,
+     dynamic shared memory, spills;
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
        * the ragged expert-FFN kernels (SD verify: 320 routed rows, top-8 of
          64 experts; AR verify: 64 rows; prefill: 4096 rows; empty experts
          with unaligned groups), bf16, rtol = atol = 3e-2
-         (tests/test_ragged_gmm.py); each case prints the visit count of
-         the fused kernel's list and the expert-chunk count of the down
-         kernel's (ragged.expert_chunks), and the down kernel must report
-         the TMA + wgmma route (ragged.LAST_ROUTE);
+         (tests/test_ragged_gmm.py); each case prints the items of the
+         fused kernel (expert chunks x column tiles) beside the visit count
+         of the old visit list, and the expert-chunk count of the down
+         kernel (ragged.expert_chunks); both kernels must report the TMA +
+         wgmma route (ragged.LAST_ROUTE); the fused kernel's two products
+         alone (torch._grouped_mm over a copy of [Wg | Wu], no act * mul)
+         are timed on a line of their own, as context, not its yardstick;
        * the paged decode/verify attention kernel (28 query / 4 KV heads,
          pages of 64, noise in every page, a permuted table, ragged
          lengths): SD verify (B 8, T 5), AR verify (T 1), long context
@@ -54,8 +58,8 @@ Phases, each of which fails the run if it fails:
      each kernel is also timed beside one PyTorch call that computes the
      same function and that the port never calls (the yardstick), eagerly
      and on the device alone (calls captured in one CUDA graph); each
-     flash, paged, ragged-down and capacity case prints the kernel its
-     launch ran (route: gmm._route, the wrapper's dispatch, for the
+     flash, paged, ragged (fused and down) and capacity case prints the
+     kernel its launch ran (route: gmm._route, the wrapper's dispatch, for the
      capacity GEMM; for the others the kernel their launcher reports), and
      a bf16 case that did not run the TMA + wgmma kernel fails the run;
   4. reference: on the reduced qwen2-57b-a14b in fp32, the CUDA path agrees
@@ -287,7 +291,7 @@ def build_kernels():
             "decode_sm90_kernel": build.load(
                 dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
-                ragged.SOURCE).ragged_sm90_smem_bytes}
+                ragged.SOURCE).ragged_sm90_smem_bytes}     # (nmat, act)
     seen = set()
     for src, text in reports.items():
         for line in text.splitlines():
@@ -304,7 +308,7 @@ def build_kernels():
                for a in ((1, 128), (2, 128), (2, 256))}
             | {("paged_sm90_kernel", (d,)) for d in (64, 128)}
             | {("decode_sm90_kernel", (d,)) for d in (64, 128)}
-            | {("ragged_sm90_kernel", ())})
+            | {("ragged_sm90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))})
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
                              f", expected {sorted(want)}")
@@ -433,29 +437,44 @@ def kernel_phase(seed: int):
     wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) / D ** 0.5).to(dt)
               for _ in range(2))
     wd = (torch.randn((E, F, D), generator=gen, device=dev) / F ** 0.5).to(dt)
+    # the fused kernel's two products alone, for context: one grouped
+    # product over [Wg | Wu] (made here, outside any timed region)
+    wgu = torch.cat([wg, wu], dim=2)
     cases = ragged_cases(E, K, gen, dev)
     results = {name: {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
                for name in ("fused_gate_up", "ragged_gmm")}
+    bm = ragged.sm90_chunk_rows()                     # rows of an expert chunk
+    tiles_n = -(-F // ragged.sm90_tile_cols(2))      # the fused kernel's columns
     for case, sizes in cases.items():
         N = int(sizes.sum())
         active = int((sizes > 0).sum())
         xs = torch.randn((N, D), generator=gen, device=dev).to(dt)
         h = ragged.fused_gate_up(xs, wg, wu, sizes)
+        routes = {"fused_gate_up": ragged.LAST_ROUTE["fused_gate_up"]}
         h_ref = fused_gate_up_ref(xs, wg, wu, sizes)
         y = ragged.ragged_gmm(h_ref, wd, sizes)
-        route = ragged.LAST_ROUTE["ragged_gmm"]     # as the launcher reports
+        routes["ragged_gmm"] = ragged.LAST_ROUTE["ragged_gmm"]  # as reported
         y_ref = ragged_gmm_ref(h_ref, wd, sizes)
         torch.cuda.synchronize()
-        if route != "sm90":
-            raise AssertionError(f"ragged_gmm [{case}]: bf16 ran the {route} "
-                                 "kernel, not the TMA + wgmma one")
+        for name, route in routes.items():
+            if route != "sm90":
+                raise AssertionError(f"{name} [{case}]: bf16 ran the {route} "
+                                     "kernel, not the TMA + wgmma one")
         for name, out, ref in (("fused_gate_up", h, h_ref),
                                ("ragged_gmm", y, y_ref)):
             _hold(name, case, out, ref, TOL, results[name])
-        meta, _ = ragged._plan(xs, E, sizes, None)     # the fused kernel's list
+        meta, _ = ragged._plan(xs, E, sizes, None)     # the old visit list
         visits = int(meta.num_visits[0])
-        bm = ragged.sm90_chunk_rows()                 # the down kernel's chunks
         chunks = len(ragged.expert_chunks(sizes, bm))
+        prod_fn, prod_name = grouped_mm_library(xs, wgu, sizes)
+        products = dict(
+            products_only_ms=cuda_time_ms(prod_fn) if prod_fn else None,
+            products_only_graph_ms=(graph_time_ms(prod_fn, calls=10, iters=3)
+                                    if prod_fn else None))
+        log(f"kernel fused_gate_up [{case:9s}] products only (context, not "
+            f"the yardstick: {prod_name} over [Wg | Wu], no act * mul): "
+            f"{_fmt(products['products_only_ms'])} (graph "
+            f"{_fmt(products['products_only_graph_ms'])})")
         timings = {
             "fused_gate_up": dict(
                 fn=lambda: ragged.fused_gate_up(xs, wg, wu, sizes),
@@ -463,7 +482,12 @@ def kernel_phase(seed: int):
                                       warmup=1, iters=3),
                 bytes=N * D * 2 + active * 2 * D * F * 2 + E * 4 + N * F * 2,
                 flops=2 * 2 * N * D * F, library=(None, "no single call"),
-                work=""),
+                work=f"items={chunks}x{tiles_n}={chunks * tiles_n:4d} "
+                     f"(visit list {visits:3d}) "
+                     f"route={routes['fused_gate_up']}",
+                extra=dict(route=routes["fused_gate_up"], expert_chunks=chunks,
+                           column_tiles=tiles_n, items=chunks * tiles_n,
+                           **products)),
             "ragged_gmm": dict(
                 fn=lambda: ragged.ragged_gmm(h_ref, wd, sizes),
                 plain_ms=cuda_time_ms(lambda: ragged_gmm_ref(h_ref, wd, sizes),
@@ -471,7 +495,10 @@ def kernel_phase(seed: int):
                 bytes=N * F * 2 + active * F * D * 2 + E * 4 + N * D * 2,
                 flops=2 * N * F * D,
                 library=grouped_mm_library(h_ref, wd, sizes),
-                work=f"expert chunks={chunks:3d} (bm {bm}) route={route}"),
+                work=f"expert chunks={chunks:3d} (bm {bm}) "
+                     f"route={routes['ragged_gmm']}",
+                extra=dict(route=routes["ragged_gmm"], expert_chunks=chunks,
+                           chunk_rows=bm)),
         }
         for name, t in timings.items():
             b_ms, b_by = bound_ms(t["bytes"], t["flops"])
@@ -486,17 +513,14 @@ def kernel_phase(seed: int):
                 kernel_ms=ms, kernel_graph_ms=graph_ms,
                 plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, library_graph_ms=lib_graph_ms,
-                library=lib_name)
-            if name == "ragged_gmm":
-                results[name]["cases"][case].update(
-                    route=route, expert_chunks=chunks, chunk_rows=bm)
+                library=lib_name, **t["extra"])
             log(f"kernel {name:13s} [{case:9s}] rows={N:5d} experts={active:2d} "
-                f"visits={visits:3d} {t['work']}  {ms:.3f} ms (graph "
+                f"{t['work']}  {ms:.3f} ms (graph "
                 f"{_fmt(graph_ms)})  "
                 f"plain {t['plain_ms']:.3f} ms  bound {b_ms:.3f} ms ({b_by})  "
                 f"library {_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)}; "
                 f"{lib_name})")
-    del wg, wu, wd
+    del wg, wu, wd, wgu
     torch.cuda.empty_cache()
     return results
 

@@ -14,14 +14,17 @@ its own ``build/kernels``.
 
 ``mutants`` runs every bf16 case of chip_smoke.py's paged and dense decode
 phases (``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
-``decode_inputs``, same seeds) through this tree and each ``FAULTS``
-variant, and prints, per case, the largest elementwise error over the
-kernel's tolerance (``PAGED_TOL``, ``DECODE_TOL``) and the largest error
-over the rms of its output row over its row bound (``PAGED_ROW_TOL``,
-``DECODE_ROW_TOL``; above 1 fails chip_smoke.py), then one JSON line.  It
-exits non-zero unless every fault fails the row bound at long context in
-every kernel it plants itself in (``FAULT_KERNELS``) and this tree passes
-both bounds everywhere.
+``decode_inputs``) and of its ragged phase (the fused gate/up and down
+kernels on ``ragged_cases``), same seeds, through this tree and each
+``FAULTS`` variant, and prints, per case, the largest elementwise error
+over the kernel's tolerance (``PAGED_TOL``, ``DECODE_TOL``, ``TOL``) and,
+for the attention kernels, the largest error over the rms of its output row
+over its row bound (``PAGED_ROW_TOL``, ``DECODE_ROW_TOL``); above 1 fails
+chip_smoke.py.  Then one JSON line.  It exits non-zero unless every fault
+is caught in every kernel it plants itself in (``FAULT_KERNELS``): an
+attention fault by the row bound at long context, a ragged fault by the
+tolerance at every serving case (SD verify, AR verify, prefill); and this
+tree passes every bound everywhere.
 
 ``tune`` times the named ``TUNING`` variants against this tree with
 kernel_ab.py (this tree first, A B ... B A), on the cases of the kernels
@@ -55,11 +58,21 @@ FAULTS = {
                            "const int lk = (i == 5 ? kb - BK : kb) + j * per;")],
     "decode_stale_chunk": [(DECODE, "map, bar, 64 * c, h, kb, b);",
                             "map, bar, 64 * c, h, i == 5 ? kb - BK : kb, b);")],
+    # the fused kernel loads Wu's tile from Wg's map (computes act(g) * g)
+    "fused_wu_from_wg_map": [(RAGGED, "m == 0 ? &wmap : &umap", "&wmap")],
+    # the epilogue (shared by both ragged products) stores 8 rows past the
+    # expert's end, over the next expert's first rows (never past N)
+    "ragged_rows_past_end": [(RAGGED, "if (r < w.row_end && c < F) {",
+                              "if (r < min(w.row_end + 8, off[E]) && c < F) {")],
 }
-# the kernels each fault is planted in, which must each fail at long context
+# the kernels each fault is planted in, which must each catch it
 FAULT_KERNELS = {"dropped_split": ("paged", "decode"),
                  "paged_stale_chunk": ("paged",),
-                 "decode_stale_chunk": ("decode",)}
+                 "decode_stale_chunk": ("decode",),
+                 "fused_wu_from_wg_map": ("fused",),
+                 "ragged_rows_past_end": ("fused", "down")}
+RAGGED_KINDS = ("fused", "down")
+SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
 TUNING = {
     # splits for 2 or 4 blocks per SM at long context instead of 1
     "paged_waves2": [(PAGED, "constexpr int WAVES = 1;",
@@ -90,21 +103,27 @@ TUNING = {
     "flash_narrow_all": [(FLASH, "constexpr int NARROW_MAX_T = 512;",
                           "constexpr int NARROW_MAX_T = 1 << 30;")],
     # 8 stages of the down kernel's ring instead of 5
-    "ragged_stages8": [(RAGGED, "constexpr int STAGES = 5;",
-                        "constexpr int STAGES = 8;")],
-    # 256 output columns per item (4 stages fit shared memory)
-    "ragged_bn256": [(RAGGED, "constexpr int BN = 128;",
-                      "constexpr int BN = 256;"),
-                     (RAGGED, "constexpr int STAGES = 5;",
-                      "constexpr int STAGES = 4;"),
-                     (RAGGED, "sm90::wgmma_ss_n128<1>(acc",
-                      "sm90::wgmma_ss_n256<1>(acc")],
+    "ragged_stages8": [(RAGGED, "STAGES = NMAT == 1 ? 5 : 5;",
+                        "STAGES = NMAT == 1 ? 8 : 5;")],
+    # 256 output columns per down item (4 stages fit shared memory)
+    "ragged_bn256": [(RAGGED, "BN = NMAT == 1 ? 128 : 128;",
+                      "BN = NMAT == 1 ? 256 : 128;"),
+                     (RAGGED, "STAGES = NMAT == 1 ? 5 : 5;",
+                      "STAGES = NMAT == 1 ? 4 : 5;")],
+    # the fused gate/up kernel: 4 stages of its ring instead of 5, and 64
+    # columns per matrix (wgmma n64 twice, twice the items; 8 stages fit)
+    "fused_stages4": [(RAGGED, "STAGES = NMAT == 1 ? 5 : 5;",
+                       "STAGES = NMAT == 1 ? 5 : 4;")],
+    "fused_bn64": [(RAGGED, "BN = NMAT == 1 ? 128 : 128;",
+                    "BN = NMAT == 1 ? 128 : 64;"),
+                   (RAGGED, "STAGES = NMAT == 1 ? 5 : 5;",
+                    "STAGES = NMAT == 1 ? 5 : 8;")],
 }
 VARIANTS = {**FAULTS, **TUNING}
 # the kernel_ab.py kinds a tuning variant changes, by its name's prefix
 TUNE_KINDS = {"paged": ("paged",), "decode": ("decode",),
               "splitkv": ("paged", "decode"), "flash": ("flash",),
-              "ragged": ("down",)}
+              "ragged": ("down",), "fused": ("fused",)}
 
 
 def make_tree(name: str) -> Path:
@@ -125,20 +144,24 @@ def make_tree(name: str) -> Path:
 
 
 def child_errors(root: Path, label: str) -> None:
-    """One JSON line per bf16 paged and dense decode case: errors over the
-    two bounds."""
+    """One JSON line per bf16 paged, dense decode and ragged case: errors
+    over the bounds."""
     sys.path.insert(0, str(root / "src"))
     import torch
 
     import chip_smoke
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.decode_attention import ops, paged
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain, paged_decode_attention_plain)
+    from repro_torch.kernels.gmm import ragged
+    from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
 
     def report(kernel, case, out, ref, tol, row_tol, route):
         out, ref = out.float(), ref.float()
         over = ((out - ref).abs() / (tol + tol * ref.abs())).max().item()
-        row = chip_smoke.row_scaled_err(out, ref) / row_tol
+        row = (chip_smoke.row_scaled_err(out, ref) / row_tol if row_tol
+               else None)
         print(json.dumps({"tree": label, "kernel": kernel, "case": case,
                           "route": route, "err_over_tol": over,
                           "row_err_over_bound": row,
@@ -166,6 +189,25 @@ def child_errors(root: Path, label: str) -> None:
         report("decode", case, out, decode_attention_plain(*args),
                chip_smoke.DECODE_TOL[spec[0]], chip_smoke.DECODE_ROW_TOL,
                ops.LAST_ROUTE["decode_attention"])
+    del args, out
+    # chip_smoke.kernel_phase's inputs at seed 0, in its order
+    cfg = get_config("qwen2-57b-a14b")
+    E, K, D, F = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
+                  cfg.moe_d_ff)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) / D ** 0.5
+               ).bfloat16() for _ in range(2))
+    wd = (torch.randn((E, F, D), generator=gen, device=dev) / F ** 0.5
+          ).bfloat16()
+    for case, sizes in chip_smoke.ragged_cases(E, K, gen, dev).items():
+        xs = torch.randn((int(sizes.sum()), D), generator=gen, device=dev
+                         ).bfloat16()
+        h = fused_gate_up_ref(xs, wg, wu, sizes)
+        report("fused", case, ragged.fused_gate_up(xs, wg, wu, sizes), h,
+               chip_smoke.TOL, None, ragged.LAST_ROUTE["fused_gate_up"])
+        report("down", case, ragged.ragged_gmm(h, wd, sizes),
+               ragged_gmm_ref(h, wd, sizes), chip_smoke.TOL, None,
+               ragged.LAST_ROUTE["ragged_gmm"])
 
 
 def mutants() -> int:
@@ -182,21 +224,31 @@ def mutants() -> int:
             if line.startswith("{"):
                 rec = json.loads(line)
                 rows.append(rec)
+                row = rec["row_err_over_bound"]
                 print(f"{rec['tree']:20s} {rec['kernel']:6s} {rec['case']:17s} "
                       f"route={rec['route']}"
                       f"  err/tol {rec['err_over_tol']:.3g}  row err/bound "
-                      f"{rec['row_err_over_bound']:.3g}  max abs err "
+                      f"{'-' if row is None else f'{row:.3g}'}  max abs err "
                       f"{rec['max_abs_err']:.3g}", flush=True)
     print(json.dumps({"cases": rows}))
     sound = [r for r in rows if r["tree"] == "."]
-    caught = {(r["tree"], r["kernel"]) for r in rows if r["tree"] != "."
-              and r["case"] == "long_context" and r["row_err_over_bound"] > 1}
-    planted = {(name, kernel) for name, kernels in FAULT_KERNELS.items()
-               for kernel in kernels}
-    ok = (all(r["err_over_tol"] <= 1 and r["row_err_over_bound"] <= 1
-              for r in sound) and planted <= caught)
-    print(f"mutants: sound tree within both bounds and every fault caught at "
-          f"long context: {ok}")
+
+    def caught(name, kernel):
+        recs = [r for r in rows if r["tree"] == name and r["kernel"] == kernel]
+        if kernel in RAGGED_KINDS:
+            serving = [r for r in recs if r["case"] in SERVING_CASES]
+            return (len(serving) == len(SERVING_CASES)
+                    and all(r["err_over_tol"] > 1 for r in serving))
+        return any(r["case"] == "long_context" and r["row_err_over_bound"] > 1
+                   for r in recs)
+
+    missed = [(name, kernel) for name, kernels in FAULT_KERNELS.items()
+              for kernel in kernels if not caught(name, kernel)]
+    ok = (all(r["err_over_tol"] <= 1 and (r["row_err_over_bound"] is None
+                                          or r["row_err_over_bound"] <= 1)
+              for r in sound) and not missed)
+    print(f"mutants: sound tree within every bound and every fault caught: "
+          f"{ok}" + (f" (missed {missed})" if missed else ""))
     return 0 if ok else 1
 
 

@@ -1,8 +1,9 @@
 // Ragged grouped matmul for the MoE expert FFN, for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of src/repro/kernels/gmm/ragged.py:
-//   * _fused_kernel  -> fused_gate_up_launch: act(x @ Wg[e]) * (x @ Wu[e])
-//   * _ragged_kernel -> ragged_gmm_launch:    x @ W[e]
+//   * _fused_kernel  -> fused_gate_up_sm90_launch / fused_gate_up_launch:
+//                       act(x @ Wg[e]) * (x @ Wu[e])
+//   * _ragged_kernel -> ragged_gmm_sm90_launch / ragged_gmm_launch: x @ W[e]
 // for rows x sorted by expert id, with per-expert row counts (group sizes).
 // Accumulation is fp32; the result is cast to the element type (bf16 or
 // fp32) at emit.  act is silu or gelu with the tanh approximation.
@@ -13,38 +14,28 @@
 // Wg+Wu per layer and the down kernel ~1.17 GB, against ~11.7 and ~5.9
 // GFLOP.  At 3.35 TB/s and 989 TFLOP/s the bytes take ~60x longer than the
 // operations, so the kernels are memory bound and the goal is to stream
-// every touched weight tile once, with enough loads in flight, spending as
-// few instructions per weight byte as possible.
+// every touched weight tile once, with enough loads in flight.
 //
-// What the design does about it:
-//   * Work list.  The wrapper builds (on the device, no host sync) the
-//     visit list of ragged.py:make_group_metadata: one visit per (expert,
-//     m-tile) pair that holds rows of that expert; an empty expert costs no
-//     visit.  The grid is (n-tiles, static upper bound on visits); blocks
-//     past num_visits exit at once.
-//   * No carry between blocks.  The TPU kernel runs its grid in order and
+// Two designs:
+//   * bf16, whenever TMA can address x and every weight (ragged.py's
+//     _route): ragged_sm90.cuh, one kernel for both products.  Its items
+//     are expert-aligned (an expert's weight tiles read once per 64-row
+//     chunk of its rows), built inside the kernel from group_sizes, on a
+//     persistent TMA + wgmma mainloop.
+//   * bf16 with 16-row tiles or shapes TMA cannot address (WMMA 16x16x16),
+//     and fp32 (CUDA cores, full fp32): the kernels below, on the visit list
+//     of ragged.py:make_group_metadata, one visit per (expert, m-tile) pair
+//     that holds rows of that expert; an empty expert costs no visit.  The
+//     grid is (n-tiles, static upper bound on visits); blocks past
+//     num_visits exit at once.  The TPU kernel runs its grid in order and
 //     carries one accumulator across the visits of an m-tile that straddles
-//     two experts.  Here each block owns one (visit, n-tile) and writes only
+//     two experts; here each block owns one (visit, n-tile) and writes only
 //     rows [max(mt*BM, off[g]), min((mt+1)*BM, off[g+1])) of its tile, so
-//     the visits sharing a straddled tile write disjoint rows and nothing
-//     accumulates across blocks.
-//   * Row tiles of 16 (verify: ~5 rows per expert) or 64 (prefill), so each
-//     weight tile is read by as few visits as possible.
-//   * bf16 runs on the tensor cores (WMMA 16x16x16, fp32 accumulators): the
-//     weight and x tiles are copied into shared memory with 16-byte loads
-//     and fed to the tensor cores as they are, so a block spends a handful
-//     of instructions per tile and the 16-row tile costs no more than the
-//     ~5 rows it holds.  The fused kernel reads each x tile once for both
-//     products and applies the activation on the accumulator fragments.
-//   * fp32 (used by the parity checks) runs on the CUDA cores in full fp32,
-//     with the accumulators in registers.
-//   * The down projection (ragged_gmm) in bf16, whenever TMA can address x
-//     and w, runs ragged_sm90.cuh instead: expert-aligned items (an expert's
-//     weight tile read once per BM-row chunk of its rows, not once per
-//     row tile its rows touch) on a persistent TMA + wgmma mainloop.  The
-//     WMMA kernel below keeps the fused gate/up product and the bf16 shapes
-//     TMA cannot address; ragged.py's _route picks, and each launcher
-//     reports the kernel it ran.
+//     nothing accumulates across blocks.  Weight and x tiles are copied into
+//     shared memory with 16-byte loads; the fused kernel reads each x tile
+//     once for both products and applies the activation on the accumulator
+//     fragments.
+// Each launcher reports the kernel it ran.
 //
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
 
@@ -63,14 +54,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BN = 64;                       // output columns per block
 
-template <int ACT> __device__ __forceinline__ float activate(float g);
-template <> __device__ __forceinline__ float activate<0>(float g) {   // silu
-  return g / (1.0f + expf(-g));
-}
-template <> __device__ __forceinline__ float activate<1>(float g) {   // gelu (tanh)
-  const float c = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * g * (1.0f + tanhf(c * (g + 0.044715f * g * g * g)));
-}
+using ragged90::activate;
 
 // Stage a ROWS x COLS tile of a row-major matrix (leading dimension ld) into
 // shared memory (pitch PITCH elements).  Tile row i is global row row0 + i;
@@ -334,19 +318,24 @@ int launch_bm(int bm, const void* x, const void* w0, const void* w1, void* out,
 
 // dtype: 0 = bf16, 1 = fp32.  bm: 16 or 64.  act: 0 = silu, 1 = gelu (tanh).
 // Metadata pointers are device int32 arrays from make_group_metadata.
+// *kernel is set to the kernel the call launches: 1 = WMMA (bf16), 2 = the
+// CUDA-core kernel (fp32).
 extern "C" int fused_gate_up_launch(int dtype, int bm, int act, const void* x,
                                     const void* wg, const void* wu, void* out,
                                     const void* offs, const void* gids,
                                     const void* mtids, const void* nvis, int K,
-                                    int F, int t_max, int vec, void* stream) {
-  if (dtype == 0 && act == 0)
-    return launch_bm<bf16, 2, 0>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
-  if (dtype == 0 && act == 1)
-    return launch_bm<bf16, 2, 1>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
-  if (dtype == 1 && act == 0)
-    return launch_bm<float, 2, 0>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
-  if (dtype == 1 && act == 1)
-    return launch_bm<float, 2, 1>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
+                                    int F, int t_max, int vec, void* stream,
+                                    int* kernel) {
+  if (dtype == 0) {
+    *kernel = 1;
+    return act == 0 ? launch_bm<bf16, 2, 0>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream)
+                    : launch_bm<bf16, 2, 1>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
+  }
+  if (dtype == 1) {
+    *kernel = 2;
+    return act == 0 ? launch_bm<float, 2, 0>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream)
+                    : launch_bm<float, 2, 1>(bm, x, wg, wu, out, offs, gids, mtids, nvis, K, F, t_max, vec, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -367,25 +356,56 @@ extern "C" int ragged_gmm_launch(int dtype, int bm, const void* x, const void* w
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The sm90 launchers' common checks: sizes, x and the weights 16-byte
+// aligned, K and F multiples of 8 (TMA's row pitch), out 4-byte aligned.
+static bool sm90_args_ok(const void* x, const void* w, const void* u, const void* out, int N,
+                         int K, int F, int E) {
+  return N >= 1 && K >= 1 && F >= 1 && E >= 1 && E <= ragged90::MAX_E && K % 8 == 0 &&
+         F % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 4 == 0;
+}
+
 // The down projection in bf16 through TMA and wgmma, on expert-aligned items
 // of ragged_sm90_chunk_rows() rows built in the kernel from group_sizes.
 // x (N, K), w (E, K, F), out (N, F), all contiguous on the device; sizes (E,)
-// int32 summing to N; K and F multiples of 8; x and w 16-byte aligned (the
-// wrapper's _route).  *kernel is set to 0.  -1 for arguments it refuses,
-// -3/-4 when the CUDA driver cannot encode the tensor maps.
+// int32 summing to N (sm90_args_ok; the wrapper's _route).  *kernel is set
+// to 0.  -1 for arguments it refuses, -3/-4 when the CUDA driver cannot
+// encode the tensor maps.
 extern "C" int ragged_gmm_sm90_launch(const void* x, const void* w, void* out,
                                       const void* sizes, int N, int K, int F, int E,
                                       void* stream, int* kernel) {
-  if (N < 1 || K < 1 || F < 1 || E < 1 || E > ragged90::MAX_E || K % 8 != 0 || F % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 4 != 0)
-    return -1;
+  if (!sm90_args_ok(x, w, w, out, N, K, F, E)) return -1;
   *kernel = 0;
-  return ragged90::launch(x, w, out, sizes, N, K, F, E, static_cast<cudaStream_t>(stream));
+  return ragged90::launch<1, 0>(x, w, nullptr, out, sizes, N, K, F, E,
+                                static_cast<cudaStream_t>(stream));
 }
 
-// Rows of one expert chunk of ragged_gmm_sm90_launch.
+// The fused gate/up product in bf16 on the same kernel: out = act(x @ wg[e])
+// * (x @ wu[e]), wg and wu (E, K, F); act 0 = silu, 1 = gelu (tanh).  The
+// rest as ragged_gmm_sm90_launch.
+extern "C" int fused_gate_up_sm90_launch(int act, const void* x, const void* wg,
+                                         const void* wu, void* out, const void* sizes, int N,
+                                         int K, int F, int E, void* stream, int* kernel) {
+  if (!sm90_args_ok(x, wg, wu, out, N, K, F, E) || (act != 0 && act != 1)) return -1;
+  *kernel = 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return act == 0 ? ragged90::launch<2, 0>(x, wg, wu, out, sizes, N, K, F, E, s)
+                  : ragged90::launch<2, 1>(x, wg, wu, out, sizes, N, K, F, E, s);
+}
+
+// Rows of one expert chunk of the TMA kernel.
 extern "C" int ragged_sm90_chunk_rows() { return ragged90::BM; }
 
-// Dynamic shared memory of a block of the TMA kernel (for reports).
-extern "C" int ragged_sm90_smem_bytes() { return ragged90::BYTES; }
+// Output columns of one item of the TMA kernel, for nmat weights (1 down,
+// 2 fused gate/up).
+extern "C" int ragged_sm90_tile_cols(int nmat) {
+  return nmat == 2 ? ragged90::Tiles<2>::BN : ragged90::Tiles<1>::BN;
+}
+
+// Dynamic shared memory of a block of ragged_sm90_kernel<nmat, act> (for
+// reports).
+extern "C" int ragged_sm90_smem_bytes(int nmat, int act) {
+  (void)act;
+  return nmat == 2 ? ragged90::Tiles<2>::BYTES : ragged90::Tiles<1>::BYTES;
+}

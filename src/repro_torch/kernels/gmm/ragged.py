@@ -8,23 +8,25 @@ maps the static visit axis ``ceil(N/bm) + E - 1`` onto the ragged
 m-tile whose rows belong to one expert is visited once, a tile straddling a
 group boundary once per group, and an empty expert not at all.
 
-The down product (``ragged_gmm``, and the second launch of
-``ragged_moe_ffn``) in bf16 takes the TMA + wgmma kernel
-(``csrc/ragged_sm90.cuh``) whenever TMA can address its operands
+Both products in bf16 (``fused_gate_up`` and ``ragged_gmm``, the two
+launches of ``ragged_moe_ffn``) take the TMA + wgmma kernel
+(``csrc/ragged_sm90.cuh``) whenever TMA can address their operands
 (``_route``): its work items are expert-aligned, (expert, row chunk of 64
 rows, column tile), built inside the kernel from ``group_sizes``, so
 an expert's weights are read once per chunk of its rows rather than once per
-row tile its rows touch.  ``expert_chunks`` computes the same list on the
-host for tests and reports; nothing on the kernel's path calls it.  Other
-bf16 shapes keep the WMMA kernel, fp32 the CUDA-core one, both on
-``make_group_metadata``'s visit list, as does the fused gate/up kernel.
+row tile its rows touch, and the wrapper builds no list: the bf16 expert
+FFN is two launches that read ``group_sizes`` on the device.
+``expert_chunks`` computes the same list on the host for tests and
+reports; nothing on the kernel's path calls it.  Other bf16 shapes keep the
+WMMA kernels, fp32 the CUDA-core ones, both on ``make_group_metadata``'s
+visit list.
 
 Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
 the two.  ``LAUNCHES`` counts kernel launches per kernel, so a run can show
 that its main path went through them; ``LAST_ROUTE`` holds the kernel the
-last down launch ran, as its launcher reported it (``"sm90"``, ``"wmma"``
-or ``"simt"``).
+last launch of each ran, as its launcher reported it (``"sm90"``,
+``"wmma"`` or ``"simt"``).
 """
 from __future__ import annotations
 
@@ -42,8 +44,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ragged_gmm.cu"
 
 # kernel launches since the last reset, by kernel
 LAUNCHES = {"fused_gate_up": 0, "ragged_gmm": 0}
-# the kernel the last ragged_gmm launch ran, as the launcher reported it
-LAST_ROUTE = {"ragged_gmm": None}
+# the kernel the last launch of each ran, as its launcher reported it
+LAST_ROUTE = {"fused_gate_up": None, "ragged_gmm": None}
 _ROUTES = ("sm90", "wmma", "simt")   # the launchers' kernel codes
 _SM90_MAX_EXPERTS = 512              # the TMA kernel's shared tables
 
@@ -123,15 +125,20 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_gate_up_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
-                                             i, i, i, i, p]
+                                             i, i, i, i, p, ctypes.POINTER(i)]
         lib.ragged_gmm_launch.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i,
                                           i, p, ctypes.POINTER(i)]
         lib.ragged_gmm_sm90_launch.argtypes = [p, p, p, p, i, i, i, i, p,
                                                ctypes.POINTER(i)]
+        lib.fused_gate_up_sm90_launch.argtypes = [i, p, p, p, p, p, i, i, i,
+                                                  i, p, ctypes.POINTER(i)]
+        lib.ragged_sm90_tile_cols.argtypes = [i]
         lib.fused_gate_up_launch.restype = i
         lib.ragged_gmm_launch.restype = i
         lib.ragged_gmm_sm90_launch.restype = i
+        lib.fused_gate_up_sm90_launch.restype = i
         lib.ragged_sm90_chunk_rows.restype = i
+        lib.ragged_sm90_tile_cols.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -161,19 +168,20 @@ def _vec_ok(K: int, F: int, tensors) -> bool:
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def _route(xs: torch.Tensor, w: torch.Tensor, bm: Optional[int] = None
-           ) -> str:
-    """The kernel a ``ragged_gmm`` call takes: ``"simt"`` for fp32; for
-    bf16 ``"sm90"`` when TMA can address x and w (row pitches multiples of
-    16 bytes, 16-byte aligned bases), there are at most 512 experts and
-    ``bm`` is None or 64 (its chunk rows); else ``"wmma"`` (``bm`` 16 asks
-    for it)."""
+def _route(xs: torch.Tensor, w, bm: Optional[int] = None) -> str:
+    """The kernel a launch takes, for ``w`` the weight of ``ragged_gmm`` or
+    the tuple (gate, up) of ``fused_gate_up``: ``"simt"`` for fp32; for
+    bf16 ``"sm90"`` when TMA can address x and every weight (row pitches
+    multiples of 16 bytes, 16-byte aligned bases), there are at most 512
+    experts and ``bm`` is None or 64 (its chunk rows); else ``"wmma"``
+    (``bm`` 16 asks for it)."""
     if xs.dtype == torch.float32:
         return "simt"
-    E, K, F = w.shape
+    ws = (w,) if isinstance(w, torch.Tensor) else tuple(w)
+    E, K, F = ws[0].shape
     if (bm in (None, 64) and E <= _SM90_MAX_EXPERTS
             and K % 8 == 0 and F % 8 == 0
-            and xs.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+            and all(t.data_ptr() % 16 == 0 for t in (xs, *ws))):
         return "sm90"
     return "wmma"
 
@@ -182,6 +190,12 @@ def sm90_chunk_rows() -> int:
     """Rows of one expert chunk of the TMA kernel, as its library says
     (needs the built library)."""
     return _lib().ragged_sm90_chunk_rows()
+
+
+def sm90_tile_cols(n_mat: int) -> int:
+    """Output columns of one item of the TMA kernel: ``n_mat`` 1 for the
+    down product, 2 for the fused gate/up (needs the built library)."""
+    return _lib().ragged_sm90_tile_cols(n_mat)
 
 
 def _plan(xs: torch.Tensor, E: int, group_sizes: torch.Tensor,
@@ -201,6 +215,7 @@ def _launch_fused(xs, w_gate, w_up, meta: GroupMetadata, bm: int,
     N, K = xs.shape
     F = w_gate.shape[2]
     out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(xs.device):
         status = _lib().fused_gate_up_launch(
             _DTYPES[xs.dtype], bm, _ACTS[activation], xs.data_ptr(),
@@ -208,9 +223,28 @@ def _launch_fused(xs, w_gate, w_up, meta: GroupMetadata, bm: int,
             meta.group_offsets.data_ptr(), meta.group_ids.data_ptr(),
             meta.m_tile_ids.data_ptr(), meta.num_visits.data_ptr(), K, F,
             meta.group_ids.shape[0], int(_vec_ok(K, F, (xs, w_gate, w_up, out))),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, "fused_gate_up")
     LAUNCHES["fused_gate_up"] += 1
+    LAST_ROUTE["fused_gate_up"] = _ROUTES[kernel.value]
+    return out
+
+
+def _launch_fused_sm90(xs, w_gate, w_up, group_sizes: torch.Tensor,
+                       activation: str) -> torch.Tensor:
+    N, K = xs.shape
+    E, _, F = w_gate.shape
+    sizes = group_sizes.to(torch.int32).contiguous()   # no-op when it is
+    out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
+    kernel = ctypes.c_int(-1)
+    with torch.cuda.device(xs.device):
+        status = _lib().fused_gate_up_sm90_launch(
+            _ACTS[activation], xs.data_ptr(), w_gate.data_ptr(),
+            w_up.data_ptr(), out.data_ptr(), sizes.data_ptr(), N, K, F, E,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
+    build.check(status, "fused_gate_up")
+    LAUNCHES["fused_gate_up"] += 1
+    LAST_ROUTE["fused_gate_up"] = _ROUTES[kernel.value]
     return out
 
 
@@ -280,7 +314,8 @@ def ragged_gmm(xs: torch.Tensor,            # (N, D) tokens sorted by expert
 def fused_gate_up(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                   group_sizes: torch.Tensor, *, activation: str = "silu",
                   bm: Optional[int] = None) -> torch.Tensor:
-    """``act(xs @ w_gate[g]) * (xs @ w_up[g])`` in ONE launch: (N, D) → (N, F)."""
+    """``act(xs @ w_gate[g]) * (xs @ w_up[g])`` in ONE launch: (N, D) → (N, F).
+    ``bm`` as for ``ragged_gmm``."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
     if not _on_cuda(xs):
@@ -288,6 +323,8 @@ def fused_gate_up(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     _check(xs, (w_gate, w_up), group_sizes)
     if xs.shape[0] == 0:
         return xs.new_empty((0, w_gate.shape[2]))
+    if _route(xs, (w_gate, w_up), bm) == "sm90":
+        return _launch_fused_sm90(xs, w_gate, w_up, group_sizes, activation)
     meta, bm = _plan(xs, w_gate.shape[0], group_sizes, bm)
     return _launch_fused(xs, w_gate, w_up, meta, bm, activation)
 
@@ -297,11 +334,11 @@ def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
                    w_down: torch.Tensor,     # (E, F, D)
                    group_sizes: torch.Tensor, *, activation: str = "silu",
                    bm: Optional[int] = None) -> torch.Tensor:
-    """Whole expert FFN on expert-sorted tokens in 2 launches (fused gate+up,
-    then down).  The visit list is built once, for the fused launch and a
-    down launch that ``_route`` sends to a visit-list kernel (the TMA
-    kernel builds its own list from ``group_sizes``); ``h`` is rounded to
-    the input dtype between the launches, as in the reference."""
+    """Whole expert FFN on expert-sorted tokens in 2 launches:
+    ``fused_gate_up``, then ``ragged_gmm`` of its ``h``, which is rounded to
+    the input dtype between the launches, as in the reference.  On the bf16
+    TMA route (``_route``) nothing else runs: each kernel builds its work
+    list from ``group_sizes``; the visit-list kernels build theirs each."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
     if not _on_cuda(xs):
@@ -313,10 +350,6 @@ def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
             or w_down.device != xs.device or not w_down.is_contiguous()):
         raise ValueError(f"w_down must be a contiguous ({E}, {F}, {D}) "
                          f"{xs.dtype} tensor on {xs.device}")
-    if xs.shape[0] == 0:
-        return xs.new_empty((0, w_down.shape[2]))
-    meta, tile = _plan(xs, w_gate.shape[0], group_sizes, bm)
-    h = _launch_fused(xs, w_gate, w_up, meta, tile, activation)
-    if _route(h, w_down, bm) == "sm90":
-        return _launch_ragged_sm90(h, w_down, group_sizes)
-    return _launch_ragged(h, w_down, meta, tile)
+    h = fused_gate_up(xs, w_gate, w_up, group_sizes, activation=activation,
+                      bm=bm)
+    return ragged_gmm(h, w_down, group_sizes, bm=bm)

@@ -131,6 +131,109 @@ def test_fused_gate_up_kernel_matches_plain(cuda, sizes, activation, dtype):
     _close(out, fused_gate_up_ref(xs, wg, wu, sizes, activation), dtype)
 
 
+@pytest.mark.parametrize("sizes", [[0, 1, 129, 0, 200, 37, 0],
+                                   [0, 5, 0, 64, 65, 0, 3, 0]])
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+@pytest.mark.parametrize("K,F", [(128, 136), (72, 200)])
+def test_fused_gate_up_sm90_kernel_matches_plain(cuda, sizes, activation, K,
+                                                 F):
+    """The bf16 TMA + wgmma fused kernel on expert-aligned 64-row chunks:
+    empty experts first and last, a 1-row expert, experts of 65, 129 and
+    200 rows (several chunks); F 136 and 200 end in a ragged column tile,
+    K 72 in a K tail past one 64-deep stage."""
+    sizes, xs, (wg, wu) = _case(sizes, K, F, torch.bfloat16, cuda,
+                                seed=len(sizes) + K)
+    assert ragged._route(xs, (wg, wu)) == "sm90"
+    before = ragged.LAUNCHES["fused_gate_up"]
+    out = ragged.fused_gate_up(xs, wg, wu, sizes, activation=activation)
+    torch.cuda.synchronize()
+    assert ragged.LAUNCHES["fused_gate_up"] == before + 1
+    assert ragged.LAST_ROUTE["fused_gate_up"] == "sm90"
+    _close(out, fused_gate_up_ref(xs, wg, wu, sizes, activation),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("tokens", [40, 8, 512])
+def test_fused_gate_up_sm90_at_serving_widths(cuda, tokens):
+    """The gate/up product of qwen2-57b-a14b (D 3584 -> F 2560, 64 experts,
+    top-8) at the SD verify (320 rows), AR verify (64) and prefill (4096)
+    row counts, with no host sync."""
+    g = torch.Generator(device=cuda).manual_seed(tokens)
+    E, K, D, F = 64, 8, 3584, 2560
+    idx = torch.randn((tokens, E), generator=g, device=cuda).topk(K, -1).indices
+    sizes = torch.bincount(idx.reshape(-1), minlength=E).to(torch.int32)
+    xs = torch.randn((tokens * K, D), generator=g, device=cuda).bfloat16()
+    wg, wu = ((torch.randn((E, D, F), generator=g, device=cuda) / D ** 0.5
+               ).bfloat16() for _ in range(2))
+    ragged.fused_gate_up(xs, wg, wu, sizes)          # build + load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ragged.fused_gate_up(xs, wg, wu, sizes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ragged.LAST_ROUTE["fused_gate_up"] == "sm90"
+    _close(out, fused_gate_up_ref(xs, wg, wu, sizes), torch.bfloat16)
+
+
+def _ffn_weights(E, D, F, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wg, wu = ((torch.randn((E, D, F), generator=g, device=dev) / D ** 0.5
+               ).bfloat16() for _ in range(2))
+    wd = (torch.randn((E, F, D), generator=g, device=dev) / F ** 0.5
+          ).bfloat16()
+    return wg, wu, wd
+
+
+def test_moe_ffn_sm90_builds_no_visit_list(cuda, monkeypatch):
+    """On the bf16 sm90 route ragged_moe_ffn is its two launches and no
+    visit list (make_group_metadata raises here)."""
+    sizes, xs, _ = _case([37, 0, 1, 129, 0, 77, 13, 200], 128, 136,
+                         torch.bfloat16, cuda)
+    wg, wu, wd = _ffn_weights(len(sizes), 128, 136, cuda, seed=3)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("visit list built on the sm90 route")
+
+    monkeypatch.setattr(ragged, "make_group_metadata", refuse)
+    before = dict(ragged.LAUNCHES)
+    out = ragged.ragged_moe_ffn(xs, wg, wu, wd, sizes)
+    torch.cuda.synchronize()
+    assert {k: ragged.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_gate_up": 1, "ragged_gmm": 1}
+    assert ragged.LAST_ROUTE == {"fused_gate_up": "sm90", "ragged_gmm": "sm90"}
+    _close(out, ragged_moe_ffn_ref(xs, wg, wu, wd, sizes), torch.bfloat16)
+
+
+def test_moe_ffn_sm90_graph_replays_read_new_routing(cuda):
+    """ragged_moe_ffn captured once in a CUDA graph, then replayed after new
+    routing and rows are written into the same group_sizes and xs buffers:
+    each replay matches the plain version on its routing, so both kernels
+    read the routing on the device at every replay."""
+    E, N, D, F = 8, 320, 128, 136
+    wg, wu, wd = _ffn_weights(E, D, F, cuda, seed=4)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sizes = torch.zeros((E,), dtype=torch.int32, device=cuda)
+    xs = torch.empty((N, D), dtype=torch.bfloat16, device=cuda)
+
+    def route(counts):
+        sizes.copy_(torch.tensor(counts, dtype=torch.int32))
+        xs.copy_(torch.randn((N, D), generator=g, device=cuda))
+
+    route([40] * E)
+    ragged.ragged_moe_ffn(xs, wg, wu, wd, sizes)     # build + load first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ragged.ragged_moe_ffn(xs, wg, wu, wd, sizes)
+    for counts in ([40] * E, [0, 0, 200, 0, 0, 120, 0, 0],
+                   [1, 0, 63, 65, 0, 0, 0, 191], [0] * (E - 1) + [N]):
+        route(counts)
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, ragged_moe_ffn_ref(xs, wg, wu, wd, sizes), torch.bfloat16)
+
+
 @pytest.mark.parametrize("rows,dtype", [(320, torch.bfloat16),
                                         (4096, torch.bfloat16),
                                         (320, torch.float32)])

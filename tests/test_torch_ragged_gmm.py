@@ -175,3 +175,33 @@ def test_route_picks_the_down_kernel(dtype, K, F, bm, route):
     xs = torch.zeros((10, K), dtype=dtype)
     w = torch.zeros((3, K, F), dtype=dtype)
     assert tr._route(xs, w, bm) == route
+
+
+def _offset_by_one(shape, dtype):
+    """A contiguous view one element past a 16-byte aligned base."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,K,F,bm,up_offset,route", [
+    (torch.float32, 64, 96, None, False, "simt"),
+    (torch.bfloat16, 64, 96, None, False, "sm90"),
+    (torch.bfloat16, 64, 96, 64, False, "sm90"),
+    (torch.bfloat16, 64, 96, 16, False, "wmma"),   # 16-row tiles: WMMA only
+    (torch.bfloat16, 64, 96, 128, False, "wmma"),  # no 128-row chunks
+    (torch.bfloat16, 36, 96, None, False, "wmma"),  # row pitch of 72 bytes
+    (torch.bfloat16, 64, 100, None, False, "wmma"),  # F not a multiple of 8
+    (torch.bfloat16, 64, 96, None, True, "wmma"),  # w_up alone misaligned
+])
+def test_route_picks_the_fused_kernel(dtype, K, F, bm, up_offset, route):
+    """``_route`` over both weights of the fused gate/up product: TMA must
+    address x, w_gate and w_up, each checked on its own."""
+    xs = torch.zeros((10, K), dtype=dtype)
+    wg = torch.zeros((3, K, F), dtype=dtype)
+    wu = (_offset_by_one((3, K, F), dtype) if up_offset
+          else torch.zeros((3, K, F), dtype=dtype))
+    assert wg.data_ptr() % 16 == 0
+    assert (wu.data_ptr() % 16 != 0) == up_offset
+    assert tr._route(xs, (wg, wu), bm) == route
+    # the gate weight alone: only the misaligned w_up kept it off sm90
+    assert tr._route(xs, wg, bm) == ("sm90" if up_offset else route)

@@ -64,20 +64,32 @@ Phases, each of which fails the run if it fails:
      a bf16 case that did not run the TMA + wgmma kernel fails the run;
   4. reference: on the reduced qwen2-57b-a14b in fp32, the CUDA path agrees
      with the port's plain CPU path (which the CPU tests hold against the JAX
-     reference) and greedy SD equals greedy AR; a continuous paged stream
-     (6 requests, Poisson arrivals, one late long prompt that grows the
-     session) emits the same tokens on the card as on the CPU, and SD the
-     same as AR; with use_flash=True on the reduced target and draft
+     reference) and greedy SD equals greedy AR; greedy SD from CUDA-graph
+     replay equals the eager card round's and the CPU round's token for
+     token; a continuous paged stream (6 requests, Poisson arrivals, one
+     late long prompt that grows the session) emits the same tokens from
+     graph replay, eagerly on the card and on the CPU, and SD the same as
+     AR; with use_flash=True on the reduced target and draft
      (prompts of 129-256 tokens: prompt bucket 256, max_seq 512), the CUDA
      path agrees with the CPU path, greedy SD equals greedy AR and the
      greedy outputs equal those with use_flash=False;
   5. serve: qwen2-57b-a14b at its full published width, depth cut to LAYERS
      of 28, with the full qwen2-0.5b draft and random weights from --seed,
-     greedy, gamma 4, max-batch 8, each path first with the "model"
-     proposer (SD), then "none" (AR):
+     greedy, gamma 4, max-batch 8.  First one captured round's verify
+     logits (bf16) are held against the eager round's on the same state
+     within rtol = atol = 3e-2, with the argmax agreement printed.  Then
+     each path, first with the "model" proposer (SD), then "none" (AR),
+     every round from CUDA graphs (core/graphs.py), its workload run twice
+     on one engine: the second run must capture nothing, replays every
+     round under torch.cuda.set_sync_debug_mode("error") up to its one
+     readback, and each path prints its captures, replays, capture time
+     and graph-pool memory:
        * ServingEngine(scheduler="wave"): 16 requests, max-new 32, with the
-         default (untimed) round; one more wave per proposer runs the timed
-         round for the propose/verify/reject breakdown and is not counted;
+         default (untimed) round; after it, two waves of 8 on an engine with
+         the timed round (three stage graphs) give the propose/verify/
+         reject breakdown of the second, and on the wave paths the same
+         waves run eagerly (cuda_graphs=False), graphs against eager in one
+         run (tok/s and the propose share of the timed round);
        * ServingEngine(scheduler="continuous", kv_layout="paged",
          page_size=64): 16 chat prompts with Poisson arrivals (0.5 per
          round, max-new 8/16/32) plus a 700-token prompt at round 6 that
@@ -91,7 +103,8 @@ Phases, each of which fails the run if it fails:
      gmm_legacy (1 launch), held against the ragged dispatch, moe_ffn_ref
      and ragged_gmm.
      Each path runs with every launch count set to 0 just before it and
-     read just after: each gmm kernel's count must equal (MoE layers x that
+     read just after (replays credit the launches their capture recorded):
+     each gmm kernel's count must equal (MoE layers x that
      path's target forwards); on the continuous paths the paged kernel's
      must equal (attention layers x rounds); on the wave-flash paths the
      flash kernel's must equal (attention layers x prefill forwards) and
@@ -1040,21 +1053,45 @@ def reference_phase(seed: int):
     ar = generate_ar(gpu, p_gpu, toks, 24, lengths=lengths)
     if not np.array_equal(sd, ar):
         raise AssertionError("reference: greedy SD != greedy AR on the card")
+    # graph replay vs the eager card round vs the CPU round, token for token
+    again, _ = eng.generate(p_gpu, pd_gpu, toks, 24, lengths=lengths)
+    eager, _ = SDEngine(gpu, make_proposer("model", gpu, draft), gamma=4,
+                        cuda_graphs=False).generate(p_gpu, pd_gpu, toks, 24,
+                                                    lengths=lengths)
+    on_cpu, _ = SDEngine(cpu, make_proposer("model", cpu, drafts["cpu"]),
+                         gamma=4).generate(p_cpu, pd_cpu, toks, 24,
+                                           lengths=lengths)
+    if eng.graphs.total_captures != 1 or not eng.graphs.total_replays:
+        raise AssertionError(f"reference: SD session captured "
+                             f"{eng.graphs.captures}, replayed "
+                             f"{eng.graphs.replays}")
+    for name, out in (("replayed again", again), ("eager", eager),
+                      ("CPU", on_cpu)):
+        if not np.array_equal(out, sd):
+            raise AssertionError(f"reference: greedy SD from graph replay "
+                                 f"!= {name}")
     log(f"reference: reduced fp32 logits CUDA vs CPU max err {err:.2e} (<= 1e-3); "
-        "greedy SD == greedy AR (4 rows x 24 tokens)")
+        "greedy SD == greedy AR (4 rows x 24 tokens); graph replay == eager "
+        f"card == CPU ({eng.graphs.total_captures} capture, "
+        f"{eng.graphs.total_replays} replays)")
 
     # continuous paged stream: card vs CPU, SD vs AR
     streams = {}
     for dev, tm, pt, pd in (("cpu", cpu, p_cpu, pd_cpu),
-                            ("cuda", gpu, p_gpu, pd_gpu)):
+                            ("cuda", gpu, p_gpu, pd_gpu),
+                            ("cuda-eager", gpu, p_gpu, pd_gpu)):
         for kind in ("model", "none"):
-            if dev == "cuda":
+            if dev != "cpu":
                 reset_launch_counts()
             streams[dev, kind] = continuous_stream(
-                cfg, tm, pt, drafts[dev], pd, kind, seed)
-            if dev == "cuda" and not launch_counts()["paged_decode_attention"]:
+                cfg, tm, pt, drafts[dev.split("-")[0]], pd, kind, seed,
+                cuda_graphs=False if dev == "cuda-eager" else None)
+            if dev != "cpu" and not launch_counts()["paged_decode_attention"]:
                 raise AssertionError("reference: the continuous paged stream "
                                      "never launched the paged kernel")
+            if dev == "cuda" and not streams[dev, kind]["replays"]:
+                raise AssertionError("reference: the continuous paged stream "
+                                     "replayed no round")
     base = streams["cpu", "model"]
     for key, got in streams.items():
         if got["growths"] == [] or got["outputs"].keys() != base["outputs"].keys():
@@ -1068,8 +1105,10 @@ def reference_phase(seed: int):
                     f"({r2}, {o2.tolist()}) != cpu/model ({reason}, "
                     f"{out.tolist()})")
     log(f"reference: continuous paged stream ({len(base['outputs'])} requests, "
-        f"growths {base['growths']}, {base['rounds']} SD rounds): card == CPU "
-        "and SD == AR, token for token")
+        f"growths {base['growths']}, {base['rounds']} SD rounds): card "
+        f"(graph replay: {streams['cuda', 'model']['captures']} captures, "
+        f"{streams['cuda', 'model']['replays']} replays) == eager card == "
+        "CPU and SD == AR, token for token")
 
 
 def flash_reference_phase(seed: int):
@@ -1145,7 +1184,7 @@ def flash_reference_phase(seed: int):
 
 
 def continuous_stream(cfg, target, params_t, draft, params_d, kind: str,
-                      seed: int) -> dict:
+                      seed: int, cuda_graphs=None) -> dict:
     """The reduced continuous paged stream: 5 Poisson arrivals with mixed
     budgets and one late long prompt that forces a session growth."""
     import numpy as np
@@ -1156,17 +1195,18 @@ def continuous_stream(cfg, target, params_t, draft, params_d, kind: str,
                         params_d if kind == "model" else None,
                         scheduler="continuous", kv_layout="paged",
                         page_size=16, max_batch=4, gamma=4, proposer=kind,
-                        seed=seed)
+                        seed=seed, cuda_graphs=cuda_graphs)
     pb = prompt_batch(cfg.vocab_size, 5, seed=seed, min_len=5, max_len=24)
     submit_poisson(eng, pb["tokens"], pb["lengths"], rate=0.5,
                    max_new_choices=(4, 8, 12), seed=seed)
     long = np.random.default_rng(seed).integers(3, cfg.vocab_size, 150)
     eng.submit(long, max_new_tokens=8, arrival_round=3)
     (rep,) = eng.run()
+    stats = eng.session_stats()[kind]
     return {"outputs": {u: (r.finish_reason, r.output)
                         for u, r in eng.done.items()},
-            "growths": eng.session_stats()[kind]["growths"],
-            "rounds": rep.stats.rounds}
+            "growths": stats["growths"], "rounds": rep.stats.rounds,
+            "captures": stats["captures"], "replays": stats["replays"]}
 
 
 def _to_device(tree, dev):
@@ -1178,7 +1218,64 @@ def _to_device(tree, dev):
 
 
 # --------------------------------------------------------------------- serve
+def captured_verify_check(target, draft, params_t, params_d, pb) -> None:
+    """bf16, full width: one captured round's verify logits (its propose
+    and verify, as the round's stages run them, through RoundGraphs: the
+    key's first run is eager, the second replays its graph) against the
+    eager round's on the same session state, within rtol = atol = 3e-2;
+    prints the largest error, the argmax agreement and, for the spread, the
+    largest error of a second eager round against the first.  The card sums each
+    token's expert rows in a fixed order (models/moe.py), so the two may
+    agree to the bit, which is not required."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graphs import RoundGraphs
+    from repro_torch.core.proposer import make_proposer
+    from repro_torch.core.spec_decode import SDEngine
+
+    eng = SDEngine(target, make_proposer("model", target, draft), gamma=4)
+    state = eng.start(params_t, params_d, pb["tokens"][:8, :64], max_seq=128,
+                      lengths=np.minimum(pb["lengths"][:8], 64))
+    leaves = list(_leaves([state.t_cache, state.p_state, state.last_token]))
+    snap = [t.clone() for t in leaves]
+    out = torch.empty((8, 5, target.cfg.vocab_size), dtype=target.dtype,
+                      device="cuda")
+
+    def propose_verify(_):
+        drafts, _, _ = eng.proposer.propose(state.params, state.p_state,
+                                            state.last_token, 4, None)
+        logits, _ = target.extend(
+            params_t, torch.cat([state.last_token[:, None], drafts], 1),
+            state.t_cache)
+        out.copy_(logits)
+
+    graphs = RoundGraphs(target.device, capture=True, models=(target, draft))
+    logits = []
+    # eager (+ capture), replay, and eager again for the run-to-run spread
+    for run in (lambda: graphs.run(("verify",), [propose_verify]),) * 2 + (
+            lambda: propose_verify(None),):
+        for t, s in zip(leaves, snap):
+            t.copy_(s)
+        run()
+        logits.append(out.float().clone())
+    eager, replay, again = logits
+    err = (replay - eager).abs()
+    if not (torch.isfinite(replay).all()
+            and (err <= TOL + TOL * eager.abs()).all()):
+        raise AssertionError(f"serve: captured verify logits vs eager max err "
+                             f"{err.max().item():.4g} (rtol=atol={TOL})")
+    agree = (replay.argmax(-1) == eager.argmax(-1)).float().mean().item()
+    log(f"serve: captured round's verify logits (bf16, B 8, gamma 4) vs the "
+        f"eager round's on the same state: max abs err {err.max().item():.4g} "
+        f"(rtol=atol={TOL}), argmax agreement {agree:.3f}; a second eager "
+        f"round vs the first: max abs err "
+        f"{(again - eager).abs().max().item():.4g}; "
+        f"{graphs.total_captures} capture, {graphs.total_replays} replay")
+
+
 def serve_phase(seed: int):
+    import gc
+
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
@@ -1227,6 +1324,7 @@ def serve_phase(seed: int):
         "paged")
 
     pb = prompt_batch(cfg.vocab_size, 16, kind="chat", seed=seed)
+    captured_verify_check(target, draft, params_t, params_d, pb)
     # long system / RAG prompts: bucket 256, max_seq pow2(256 + 32 + 4 + 2)
     pb_long = prompt_batch(cfg.vocab_size, 16, seed=seed + 7, min_len=129,
                            max_len=256)
@@ -1242,35 +1340,52 @@ def serve_phase(seed: int):
                              max_batch=8, gamma=4, temperature=0.0,
                              proposer=kind, seed=seed, timed=timed, **kw)
 
-    def wave(kind: str, n_requests: int, timed: bool, flash: bool = False):
-        eng = engine(kind, timed, flash)
+    def graph_note(eng, kind: str) -> str:
+        g = eng._sessions[kind].graphs
+        if not g.capture:
+            return "eager"
+        return (f"graphs: {g.total_captures} captures in "
+                f"{sum(g.capture_seconds.values()):.3f} s, "
+                f"{g.total_replays} replays, pool "
+                f"{g.pool_bytes() / 2**20:.1f} MiB")
+
+    def wave(eng, kind: str, n_requests: int, label: str):
+        """One batch of requests through ``eng``; (outputs, rounds, tok/s
+        of each wave, the propose share of the timed rounds or None)."""
+        flash = eng.target.use_flash
         prompts = pb_long if flash else pb
         for i in range(n_requests):
             eng.submit(prompts["tokens"][i][: int(prompts["lengths"][i])],
                        max_new_tokens=32)
-        rounds = 0
+        first = max(eng.done, default=0)
+        rounds, rates, t_prop, t_all = 0, [], 0.0, 0.0
         for r in eng.run():
             rounds += r.stats.rounds
+            rates.append(r.tokens_per_second)
+            t_prop += r.propose_time
+            t_all += r.propose_time + r.verify_time + r.reject_time
             sd = (f"sigma={r.stats.sigma:.3f} alpha={r.stats.alpha:.3f}"
                   if r.used_sd else "AR")
             phases = (f" propose={r.propose_time:.3f} s verify="
                       f"{r.verify_time:.3f} s reject={r.reject_time:.3f} s"
-                      if timed else "")
-            log(f"serve wave{'-flash' if flash else ''}"
-                f"{' (timed round)' if timed else ''}: "
+                      if eng.timed else "")
+            log(f"serve wave{'-flash' if flash else ''} ({label}"
+                f"{', timed round' if eng.timed else ''}): "
                 f"proposer={r.proposer} B={r.batch}/{r.bucket} "
                 f"gamma={r.gamma} dispatch={r.moe_dispatch} "
                 f"{r.tokens_per_second:.2f} tok/s  {sd} rounds={r.stats.rounds} "
-                f"wall={r.wall_time:.3f} s{phases}")
-        out = np.stack([eng.done[u].output for u in sorted(eng.done)])
+                f"wall={r.wall_time:.3f} s{phases} captures={r.captures} "
+                f"replays={r.replays}")
+        out = np.stack([eng.done[u].output for u in sorted(eng.done)
+                        if u > first])
         if out.shape != (n_requests, 32) or out.min() < 0 \
                 or out.max() >= cfg.vocab_size:
             raise AssertionError(f"serve wave[{kind}]: bad outputs {out.shape}")
-        return out, rounds
+        share = t_prop / t_all if eng.timed and t_all else None
+        return out, rounds, rates, share
 
-    def continuous(kind: str):
-        eng = engine(kind, False, scheduler="continuous", kv_layout="paged",
-                     page_size=64)
+    def continuous(eng, kind: str, label: str):
+        first = max(eng.done, default=0)
         submit_poisson(eng, pb["tokens"], pb["lengths"], rate=0.5,
                        max_new_choices=(8, 16, 32), seed=seed)
         eng.submit(long_prompt, max_new_tokens=16, arrival_round=6)
@@ -1280,10 +1395,11 @@ def serve_phase(seed: int):
         occ = occupancy_timeline([s.live for s in r.steps],
                                  [s.committed for s in r.steps])
         stats = eng.session_stats()[kind]
-        log(f"serve continuous paged: proposer={r.proposer} "
+        log(f"serve continuous paged ({label}): proposer={r.proposer} "
             f"requests={r.batch} pool={r.bucket} gamma={r.gamma} "
             f"{r.tokens_per_second:.2f} tok/s  {sd} rounds={r.stats.rounds} "
-            f"tokens={r.tokens_out} wall={r.wall_time:.3f} s")
+            f"tokens={r.tokens_out} wall={r.wall_time:.3f} s "
+            f"captures={r.captures} replays={r.replays}")
         log(f"  N(t): peak={occ['peak_live']:.0f} mean={occ['mean_live']:.2f} "
             f"token_weighted={occ['token_weighted_live']:.2f} "
             f"occupancy={occ['mean_occupancy']:.2f}  "
@@ -1292,31 +1408,65 @@ def serve_phase(seed: int):
         log(f"  admission: {sum(s.admit_rows for s in r.steps)} prefill rows, "
             f"{sum(s.admit_tokens for s in r.steps)} row-tokens (sliced); "
             f"admit traces {stats['admit_traces']}; growths {stats['growths']}")
-        reasons = {eng.done[u].finish_reason for u in eng.done}
-        if len(eng.done) != 17 or reasons != {"length"}:
-            raise AssertionError(f"serve continuous[{kind}]: {len(eng.done)} "
+        done = {u - first: eng.done[u] for u in eng.done if u > first}
+        reasons = {d.finish_reason for d in done.values()}
+        if len(done) != 17 or reasons != {"length"}:
+            raise AssertionError(f"serve continuous[{kind}]: {len(done)} "
                                  f"requests finished {reasons}")
         if not stats["growths"]:
             raise AssertionError(f"serve continuous[{kind}]: the 700-token "
                                  "prompt did not grow the page pool")
         eng._slot_scheduler._alloc.assert_no_leaks()
-        return {u: eng.done[u].output for u in eng.done}, r.stats.rounds
+        return ({u: d.output for u, d in done.items()}, r.stats.rounds,
+                [r.tokens_per_second], None)
 
-    outputs, launches = {}, {}
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    outputs, launches, rates = {}, {}, {}
     torch.cuda.reset_peak_memory_stats()
     for path in PATHS:
         sched, kind = path.split("/")
         flash = sched == "wave-flash"
         tm, dm = (target_f, draft_f) if flash else (target, draft)
-        # the path itself: every count zeroed just before, read just after
+        if sched == "continuous":
+            eng = engine(kind, False, scheduler="continuous",
+                         kv_layout="paged", page_size=64)
+            run = lambda label: continuous(eng, kind, label)   # noqa: E731
+        else:
+            eng = engine(kind, False, flash)
+            run = lambda label: wave(eng, kind, 16, label)     # noqa: E731
+        # the path itself, run twice on one engine (the second run of the
+        # same workload replays every round, under sync debug mode "error"
+        # up to each round's readback): every count zeroed just before,
+        # read just after
         reset_launch_counts()
         for m in (tm, dm):
             m.forward_count = m.prefill_count = 0
-        if sched == "continuous":
-            outputs[path], rounds = continuous(kind)
-        else:
-            outputs[path], rounds = wave(kind, 16, timed=False, flash=flash)
+        out, rounds, rates[path, "graphs"], _ = run("graphs, first run")
+        caps = eng.session_stats()[kind]["captures"]
+        eng._sessions[kind].sync_guard = True
+        out2, rounds2, rates[path, "graphs, again"], _ = run("graphs, again")
+        eng._sessions[kind].sync_guard = False
+        stats = eng.session_stats()[kind]
         launches[path] = launch_counts()
+        log(f"serve[{path}]: {graph_note(eng, kind)}")
+        if stats["captures"] != caps or caps < 1 or \
+                stats["replays"] != rounds2 + rounds - caps:
+            raise AssertionError(f"serve[{path}]: the second run captured "
+                                 f"{stats['captures'] - caps} new keys, or "
+                                 f"replayed too little ({stats})")
+        if sched == "continuous":
+            same = out.keys() == out2.keys() and all(
+                np.array_equal(out[u], out2[u]) for u in out)
+        else:
+            same = np.array_equal(out, out2)
+        log(f"serve[{path}]: second identical run captured nothing; its "
+            f"outputs {'equal' if same else 'differ from'} the first run's "
+            "(bf16: not required to be equal)")
+        rounds += rounds2
+        outputs[path] = out
         expect = {name: 0 for name in launches[path]}
         expect["fused_gate_up"] = expect["ragged_gmm"] = \
             moe_layers * tm.forward_count
@@ -1331,12 +1481,39 @@ def serve_phase(seed: int):
         log(f"serve[{path}]: {tm.forward_count} target forwards "
             f"({tm.prefill_count} prefills), {dm.forward_count} draft "
             f"forwards ({dm.prefill_count} prefills), {rounds} rounds; "
-            f"launches counted {launches[path]}, expected {expect}")
+            f"launches counted (credited per replay) {launches[path]}, "
+            f"expected {expect}")
         if launches[path] != expect:
             raise AssertionError(f"serve[{path}]: launches {launches[path]} "
                                  f"!= expected {expect}")
-        if sched != "continuous":
-            wave(kind, 8, timed=True, flash=flash)   # phase breakdown only
+        del eng
+        release()
+        if sched == "continuous":
+            continue
+        # the phase breakdown (timed round: three stage graphs), and on the
+        # wave paths the same waves eagerly, graphs against eager in one run
+        modes = ((None, "graphs"), (False, "eager")) if not flash \
+            else ((None, "graphs"),)
+        for cuda_graphs, label in modes:
+            if cuda_graphs is False:
+                eng = engine(kind, False, flash, cuda_graphs=False)
+                _, _, rates[path, label], _ = wave(eng, kind, 16, label)
+                del eng
+            eng = engine(kind, True, flash, cuda_graphs=cuda_graphs)
+            wave(eng, kind, 8, label)                      # warm (captures)
+            _, _, _, share = wave(eng, kind, 8, label)
+            rates[path, label + " timed"] = share
+            log(f"serve[{path}] ({label}): propose share of the timed round "
+                f"{share:.3f}")
+            del eng
+            release()
+    for path in ("wave/model", "wave/none"):
+        g, e = rates[path, "graphs, again"], rates[path, "eager"]
+        log(f"serve[{path}]: graphs vs eager in this run: "
+            f"{', '.join(f'{x:.2f}' for x in g)} vs "
+            f"{', '.join(f'{x:.2f}' for x in e)} tok/s per wave; propose "
+            f"share of the timed round {rates[path, 'graphs timed']:.3f} vs "
+            f"{rates[path, 'eager timed']:.3f}")
     for sched in ("wave", "continuous", "wave-flash"):
         a, b = outputs[f"{sched}/model"], outputs[f"{sched}/none"]
         if sched == "continuous":

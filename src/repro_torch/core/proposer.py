@@ -5,8 +5,9 @@ Port of ``repro.core.proposer`` for the drafters this slice serves:
 ``"none"`` (zero drafts: the AR baseline).  ``params`` is always the dict
 ``{"target": params_t, "draft": params_p}``.
 
-  * ``init_state(params, prompts, max_seq, *, lengths)`` → state (the draft
-    cache), built once per generation after the target prefill.
+  * ``init_state(params, prompts, max_seq, *, lengths, reuse)`` → state
+    (the draft cache), built once per generation after the target prefill;
+    ``reuse`` is a state of the same shape to reset and fill in place.
   * ``propose(params, state, last_token, gamma, generator)`` →
     ``(drafts (B, g), q_dist (B, g, V), work_state)`` with g <= gamma.
   * ``commit(params, state, *, base_len, n_accept, n_commit,
@@ -52,7 +53,8 @@ class Proposer(Protocol):
     needs_hidden: bool
 
     def init_state(self, params: dict, prompts: torch.Tensor, max_seq: int, *,
-                   lengths: Optional[torch.Tensor] = None) -> Any:
+                   lengths: Optional[torch.Tensor] = None,
+                   reuse: Any = None) -> Any:
         ...
 
     def propose(self, params: dict, state: Any, last_token: torch.Tensor,
@@ -109,8 +111,13 @@ class ModelProposer:
         self.draft = draft
         self.temperature = temperature
 
-    def init_state(self, params, prompts, max_seq, *, lengths=None):
-        cache = self.draft.init_cache(prompts.shape[0], max_seq)
+    def init_state(self, params, prompts, max_seq, *, lengths=None,
+                   reuse=None):
+        """Prefill the draft cache: a fresh one, or ``reuse``'s (a state of
+        the same shape) reset in place."""
+        cache = self.draft.init_cache(
+            prompts.shape[0], max_seq,
+            reuse=None if reuse is None else reuse["cache"])
         _, cache = self.draft.prefill(params["draft"], prompts, cache,
                                       lengths=lengths)
         return {"cache": cache}
@@ -141,8 +148,8 @@ class ModelProposer:
         return {"cache": dict(state["cache"], lengths=base_len + n_commit)}
 
     def merge_state(self, old, new, mask):
-        """Admission merge: the draft cache follows the model-cache layout,
-        so row selection is the target's primitive."""
+        """Admission merge, in place: the draft cache follows the
+        model-cache layout, so row selection is the target's primitive."""
         return {"cache": merge_cache_rows(old["cache"], new["cache"], mask)}
 
     def scatter_state(self, old, new, rows, *, valid=None):
@@ -167,7 +174,8 @@ class NoneProposer:
     def __init__(self, target, draft=None, temperature: float = 0.0):
         self.vocab_size = target.cfg.vocab_size
 
-    def init_state(self, params, prompts, max_seq, *, lengths=None):
+    def init_state(self, params, prompts, max_seq, *, lengths=None,
+                   reuse=None):
         return None
 
     def propose(self, params, state, last_token, gamma, generator):

@@ -21,22 +21,41 @@ Session API (the continuous-batching seam): ``start`` opens a batch
 prefill new requests into retired rows between rounds, and
 ``grow_session`` raises a paged session's capacity.
 
-The reference jits one fused round per gamma and logs every retrace.  This
-port runs eagerly: a round is the same four steps with no host sync until
-the round's results are read.  ``trace_log`` records each (gamma, batch)
-and ``admit_trace_log`` each (prompt bucket, rows) the first time it runs
-with a new shape (cache geometry included), where the reference would
-trace.  CUDA graphs are later work.
+The reference jits one fused round per gamma (and three stage programs for
+``timed=True``) and logs every trace.  This port captures them in CUDA
+graphs (``core/graphs.py``): one graph set per key (stage, gamma, batch,
+max_seq, cache geometry), captured the first time the key runs and
+replayed every later round.  ``trace_log`` gets (gamma, batch) for each
+capture, and ``admit_trace_log`` each (prompt bucket, rows) the first time
+an admission runs with a new shape (cache geometry included); admissions,
+prefills and growth stay eager.  A replayed round copies its host inputs
+into static buffers, replays with no host sync, and reads its results back
+with one device-to-host copy.  ``cuda_graphs=False`` runs the same rounds
+eagerly on the card (A/B runs); on the CPU they always run eagerly.
+
+Arenas.  A graph reads and writes fixed addresses, so a session's tensors
+(target and draft caches with their lengths, the block table, the last
+token) live in an arena per (batch, max_seq, cache geometry) that the
+engine keeps for its lifetime: ``start`` resets and prefills into the
+arena of its shape, so the second wave of a shape replays the first one's
+graphs, ``grow_session`` moves a paged session into the arena of its new
+geometry, and the admissions write into the arena in place.  A
+``SessionState`` therefore aliases its arena: a round or a later ``start``
+of the same shape changes what an older state holds, so callers keep only
+the newest state, and a state whose tensors are not its arena's is copied
+into the arena by the next round.
 """
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.graphs import RoundGraphs, StaticIO
 from repro_torch.core.proposer import Proposer, make_proposer
 from repro_torch.core.rejection import probs_from_logits, rejection_sample, sample_from
 from repro_torch.models.model import (Model, grow_cache_pages, merge_cache_rows,
@@ -83,7 +102,10 @@ class SDStats:
 class SessionState:
     """One live decoding batch: everything a round reads and writes.
     ``last_token`` (B,) is the most recently committed token per row (after
-    ``start`` the prefill-sampled first generated token)."""
+    ``start`` the prefill-sampled first generated token).  Its tensors are
+    the engine's arena for its shape (module docstring): a later round or
+    ``start`` of that shape overwrites them, so keep only the newest
+    state."""
     params: dict
     t_cache: dict
     p_state: Any
@@ -133,24 +155,88 @@ def _cache_geometry(t_cache: dict) -> tuple:
             None if pages is None else tuple(pages["table"].shape))
 
 
+def _copy_into(dst, src) -> None:
+    """Copy every tensor leaf of ``src`` into the same leaf of ``dst`` (same
+    structure and shapes), skipping leaves that already are ``dst``'s."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError(f"session tree keys {sorted(src)} != arena's "
+                             f"{sorted(dst)}")
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        if len(dst) != len(src):
+            raise ValueError("session tree does not match its arena")
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+    elif not (dst is None and src is None):
+        raise ValueError("session tree does not match its arena")
+
+
+def _claim(tree, owned: Set[int]):
+    """``tree`` with every tensor leaf that ``owned`` (ids) already holds
+    cloned, so no two leaves of the arenas share a tensor (a target and a
+    draft prefill share their ``lengths``); adds the returned leaves' ids
+    to ``owned``."""
+    if isinstance(tree, torch.Tensor):
+        if id(tree) in owned:
+            tree = tree.clone()
+        owned.add(id(tree))
+        return tree
+    if isinstance(tree, dict):
+        return {k: _claim(v, owned) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_claim(v, owned) for v in tree)
+    return tree
+
+
+@dataclass
+class _Arena:
+    """The session tensors of one (batch, max_seq, cache geometry)."""
+    t_cache: dict
+    p_state: Any
+    last_token: torch.Tensor
+
+
 class SDEngine:
-    """One persistent decoding session: a target model + one Proposer."""
+    """One persistent decoding session: a target model + one Proposer.
+
+    ``cuda_graphs`` (default: True on a CUDA device) captures each round
+    key once and replays it; False runs rounds eagerly on the card, for
+    A/B runs.  On the CPU rounds always run eagerly.  ``sync_guard`` runs
+    every replayed untimed round, up to its readback, under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync there
+    raises."""
 
     def __init__(self, target: Model, proposer: Proposer, *,
-                 gamma: int = 4, temperature: float = 0.0):
+                 gamma: int = 4, temperature: float = 0.0,
+                 cuda_graphs: Optional[bool] = None):
         self.target = target
         self.proposer = proposer
         self.gamma = gamma
         self.temperature = temperature
-        self.trace_log: List[Tuple[int, int]] = []       # (gamma, B) per new shape
+        if cuda_graphs is None:
+            cuda_graphs = target.device.type == "cuda"
+        models = [target] + ([proposer.draft]
+                             if getattr(proposer, "draft", None) else [])
+        self.graphs = RoundGraphs(target.device, capture=cuda_graphs,
+                                  models=models)
+        self.sync_guard = False
+        self.trace_log: List[Tuple[int, int]] = []       # (gamma, B) per capture
         # (T_prompt, rows) per new admission shape: the full path logs the
         # pool, the sliced path the admitted-row bucket
         self.admit_trace_log: List[Tuple[int, int]] = []
         self.growth_log: List[Tuple[int, Optional[int]]] = []
         self._shapes: Set[tuple] = set()
+        self._arenas: Dict[tuple, _Arena] = {}
+        self._owned: Set[int] = set()        # ids of the arenas' tensors
+        self._io: Dict[tuple, StaticIO] = {}
 
     def compiled_gammas(self) -> List[int]:
-        """Gammas this session has run a round for."""
+        """Gammas this session has captured a round for."""
         return sorted({g for g, _ in self.trace_log})
 
     # ----------------------------------------------------------- round pieces
@@ -184,129 +270,193 @@ class SDEngine:
         new_last = torch.where(ok, next_token, last_token)
         return t_cache, p_state, new_last, committed, n_commit, n_accept
 
+    def _round_stages(self, state: SessionState, io: StaticIO, gamma: int,
+                      generator, staged: bool) -> list:
+        """The round over ``state``'s arena as stage callables: one fused
+        stage, or (``staged``) propose, verify and finalize, each handing
+        its intermediates to the next.  Finalize writes the new lengths and
+        last token into the arena and the results into ``io``."""
+        params, t_cache, p_state = state.params, state.t_cache, state.p_state
+        last = state.last_token
+
+        def propose(_):
+            return self.proposer.propose(params, p_state, last, gamma,
+                                         generator)
+
+        def verify(prev):
+            drafts = prev[0]
+            return prev + self._verify(params["target"], t_cache, last,
+                                       drafts)
+
+        def finalize(prev):
+            drafts, q_dist, p_work, p_dist, pend, finite = prev
+            t_new, p_new, new_last, committed, n_commit, n_acc = \
+                self._finalize(params, pend, p_work, t_cache["lengths"],
+                               p_dist, q_dist, drafts, last, io.active,
+                               finite, generator)
+            io.publish(committed, n_commit, n_acc, finite)
+            _copy_into((t_cache, p_state, last), (t_new, p_new, new_last))
+
+        if not staged:
+            return [lambda _: finalize(verify(propose(None)))]
+        if self.proposer.kind == "none":
+            # zero-width drafts launch nothing: no propose graph to capture
+            return [lambda _: verify(propose(None)), finalize]
+        return [propose, verify, finalize]
+
     def _log_shape(self, log: list, entry: tuple, key: tuple) -> None:
         """Append ``entry`` to ``log`` the first time ``key`` runs."""
         if key not in self._shapes:
             self._shapes.add(key)
             log.append(entry)
 
+    # ---------------------------------------------------------------- arenas
+    def _adopt(self, akey: tuple, t_cache: dict, p_state, last_token
+               ) -> _Arena:
+        """The arena of ``akey`` holding these session tensors: copied into
+        it where they are not its own, or, for a new key, these tensors
+        become the arena (clones of any an arena already holds)."""
+        arena = self._arenas.get(akey)
+        if arena is None:
+            arena = self._arenas[akey] = _Arena(
+                *_claim((t_cache, p_state, last_token), self._owned))
+        else:
+            _copy_into((arena.t_cache, arena.p_state, arena.last_token),
+                       (t_cache, p_state, last_token))
+        return arena
+
+    def _arena_key(self, batch: int, max_seq: int, t_cache: dict) -> tuple:
+        return (batch, max_seq, _cache_geometry(t_cache))
+
     # --------------------------------------------------------------- prefill
     def _fresh_prefill(self, params, prompts, lengths, max_seq, *,
-                       cache_opts: Optional[dict] = None, page_table=None):
-        """Prefill a batch into fresh caches and proposer state; returns
-        (t_cache, p_state, last_logits).  Behind ``prefill``/``start``
-        (optionally paged) and the sliced ``admit_rows`` (compact, dense)."""
+                       cache_opts: Optional[dict] = None, page_table=None,
+                       reuse: Optional[_Arena] = None):
+        """Prefill a batch into caches (fresh, or ``reuse``'s reset in
+        place) and proposer state; returns (t_cache, p_state, last_logits).
+        Behind ``start`` and the admissions (compact or full, dense)."""
         dev = self.target.device
         prompts = _on(prompts, torch.int64, dev)
         if lengths is not None:
             lengths = _on(lengths, torch.int32, dev)
-        t_cache = self.target.init_cache(prompts.shape[0], max_seq,
-                                         **(cache_opts or {}))
+        t_cache = self.target.init_cache(
+            prompts.shape[0], max_seq, **(cache_opts or {}),
+            reuse=None if reuse is None else reuse.t_cache)
         if page_table is not None:
-            t_cache["pages"] = dict(t_cache["pages"],
-                                    table=_on(page_table, torch.int32, dev))
+            t_cache["pages"]["table"].copy_(_on(page_table, torch.int32, dev))
         last_l, t_cache = self.target.prefill(params["target"], prompts,
                                               t_cache, lengths=lengths)
-        p_state = self.proposer.init_state(params, prompts, max_seq,
-                                           lengths=lengths)
+        p_state = self.proposer.init_state(
+            params, prompts, max_seq, lengths=lengths,
+            reuse=None if reuse is None else reuse.p_state)
         return t_cache, p_state, last_l
-
-    def prefill(self, params_t, params_p, prompts, max_seq: int, *,
-                lengths=None, generator: Optional[torch.Generator] = None,
-                cache_opts: Optional[dict] = None, page_table=None):
-        """Prefill target + proposer; returns (t_cache, p_state, last_token).
-
-        ``cache_opts`` goes to ``Model.init_cache`` (e.g. ``{"paged": True,
-        "page_size": 64, "pool_pages": N}``); ``page_table`` pre-assigns a
-        paged cache's block table (a ``PageAllocator``'s) so the prefill
-        lands in the rows' pages.  Proposer caches stay dense."""
-        t_cache, p_state, last_l = self._fresh_prefill(
-            {"target": params_t, "draft": params_p}, prompts, lengths,
-            max_seq, cache_opts=cache_opts, page_table=page_table)
-        p = probs_from_logits(last_l, self.temperature)
-        return t_cache, p_state, sample_from(p, generator, self.temperature)
 
     # --------------------------------------------------------------- session
     def start(self, params_t, params_p, prompts, *, max_seq: int,
               lengths=None, generator: Optional[torch.Generator] = None,
               cache_opts: Optional[dict] = None, page_table=None
               ) -> SessionState:
-        """Open a decoding batch: prefill + cache alloc → ``SessionState``.
+        """Open a decoding batch: prefill into the arena of its shape (reset
+        in place; allocated the first time) → ``SessionState``.
         ``max_seq`` is the static capacity of a dense session, and only the
         initial logical capacity of a paged one (``grow_session`` raises
-        it)."""
-        t_cache, p_state, last_token = self.prefill(
-            params_t, params_p, prompts, max_seq, lengths=lengths,
-            generator=generator, cache_opts=cache_opts,
-            page_table=page_table)
-        return SessionState(params={"target": params_t, "draft": params_p},
-                            t_cache=t_cache, p_state=p_state,
-                            last_token=last_token, max_seq=max_seq)
+        it).  ``cache_opts`` goes to ``Model.init_cache`` (e.g.
+        ``{"paged": True, "page_size": 64, "pool_pages": N}``);
+        ``page_table`` pre-assigns a paged cache's block table (a
+        ``PageAllocator``'s) so the prefill lands in the rows' pages.
+        Proposer caches stay dense."""
+        params = {"target": params_t, "draft": params_p}
+        B = int(np.shape(prompts)[0])
+        akey = self._arena_key(B, max_seq, self.target.init_cache(
+            B, max_seq, **(cache_opts or {}), device="meta"))
+        t_cache, p_state, last_l = self._fresh_prefill(
+            params, prompts, lengths, max_seq, cache_opts=cache_opts,
+            page_table=page_table, reuse=self._arenas.get(akey))
+        last = sample_from(probs_from_logits(last_l, self.temperature),
+                           generator, self.temperature)
+        arena = self._adopt(akey, t_cache, p_state, last)
+        return SessionState(params=params, t_cache=arena.t_cache,
+                            p_state=arena.p_state,
+                            last_token=arena.last_token, max_seq=max_seq)
 
     def round(self, state: SessionState, *, gamma: Optional[int] = None,
               generator: Optional[torch.Generator] = None, active=None,
               timed: bool = False) -> Tuple[SessionState, RoundResult]:
         """Run ONE propose/verify/reject/commit round on a live session.
 
-        ``active`` (B,) bool: inactive rows commit 0 tokens.  ``timed``
-        synchronises the device between phases to fill ``phase_times``;
-        otherwise the round runs without a host sync until its results
-        are read at the end."""
+        ``active`` (B,) bool: inactive rows commit 0 tokens.  The round is
+        the graph set of its key (fused; ``timed``: the propose, verify and
+        finalize stages with a device sync between them to fill
+        ``phase_times``), captured on the key's first round and replayed
+        after.  Host inputs go into static buffers first; the results come
+        back with one device-to-host copy at the end, the round's one host
+        sync when untimed.  The returned state aliases the arena."""
         gamma = self.gamma if gamma is None else gamma
         if generator is None and self.temperature > 0.0:
             raise ValueError("round() needs a generator at temperature>0")
-        dev = self.target.device
         B = state.batch
-        self._log_shape(self.trace_log, (gamma, B),
-                        ("round", gamma, B, state.max_seq,
-                         _cache_geometry(state.t_cache)))
-        active = (torch.ones((B,), dtype=torch.bool, device=dev)
-                  if active is None else
-                  torch.as_tensor(np.asarray(active, bool), device=dev))
-        params = state.params
+        akey = self._arena_key(B, state.max_seq, state.t_cache)
+        key = ("staged" if timed else "round", gamma) + akey
+        io = self._io.get(key)
+        if io is None:
+            io = self._io[key] = StaticIO(B, self.target.device)
         phases: Dict[str, float] = {}
+        names = (["propose", "verify", "reject"]
+                 if self.proposer.kind != "none" else ["verify", "reject"])
         t_round = time.perf_counter()
-        base_len = state.t_cache["lengths"]
-        t0 = time.perf_counter()
-        drafts, q_dist, p_work = self.proposer.propose(
-            params, state.p_state, state.last_token, gamma, generator)
-        if timed:
-            _sync(dev)
-            phases["propose"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-        p_dist, pend, finite = self._verify(params["target"], state.t_cache,
-                                            state.last_token, drafts)
-        if timed:
-            _sync(dev)
-            phases["verify"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-        t_cache, p_state, last_token, committed, n_commit, n_acc = \
-            self._finalize(params, pend, p_work, base_len, p_dist, q_dist,
-                           drafts, state.last_token, active, finite,
-                           generator)
-        if timed:
-            _sync(dev)
-            phases["reject"] = time.perf_counter() - t0
-        committed = committed.cpu().numpy()            # device sync
-        n_commit_np = n_commit.cpu().numpy()
+        t_phase = [t_round]
+
+        def after_stage(i):
+            _sync(self.target.device)
+            now = time.perf_counter()
+            phases[names[i]] = now - t_phase[0]
+            t_phase[0] = now
+
+        warm = key in self.graphs.captures
+        with self._guarded(warm and not timed):
+            arena = self._adopt(akey, state.t_cache, state.p_state,
+                                state.last_token)
+            state = replace(state, t_cache=arena.t_cache,
+                            p_state=arena.p_state,
+                            last_token=arena.last_token)
+            io.set_active(active)
+            stages = self._round_stages(state, io, gamma, generator, timed)
+            if self.graphs.run(key, stages,
+                               generator=None if self.temperature <= 0.0
+                               else generator,
+                               after_stage=after_stage if timed else None):
+                self.trace_log.append((gamma, B))
+        committed, n_commit, n_acc, finite = io.read()
         round_time = time.perf_counter() - t_round
-        new_state = replace(state, t_cache=t_cache, p_state=p_state,
-                            last_token=last_token)
+        if timed:
+            phases.setdefault("propose", 0.0)
         result = RoundResult(
-            committed=committed, n_commit=n_commit_np,
-            n_accept=n_acc.cpu().numpy(), width=committed.shape[1] - 1,
-            gamma=gamma, round_time=round_time,
-            phase_times=phases if timed else None,
-            finite=finite.cpu().numpy())
-        return new_state, result
+            committed=committed, n_commit=n_commit, n_accept=n_acc,
+            width=committed.shape[1] - 1, gamma=gamma, round_time=round_time,
+            phase_times=phases if timed else None, finite=finite)
+        return state, result
+
+    @contextmanager
+    def _guarded(self, on: bool):
+        """``sync_guard``'s region: sync debug mode "error" on the card."""
+        if not (on and self.sync_guard and self.target.device.type == "cuda"):
+            yield
+            return
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
 
     # -------------------------------------------------------------- admission
     def admit(self, state: SessionState, prompts, lengths, admit_mask, *,
               generator: Optional[torch.Generator] = None) -> SessionState:
         """Full-pool admission: prefill the whole (B, T_prompt) bucket into
-        fresh caches and merge the rows where ``admit_mask`` is True into
-        the live session (``merge_cache_rows`` + ``Proposer.merge_state``);
-        the other rows' prefill is discarded.  Dense sessions only."""
+        fresh caches and copy the rows where ``admit_mask`` is True into
+        the live session in place (``merge_cache_rows`` +
+        ``Proposer.merge_state``); the other rows' prefill is discarded.
+        Dense sessions only."""
         B, Tp = np.shape(prompts)
         if B != state.batch:
             raise ValueError(f"admit batch {B} != session batch "
@@ -330,7 +480,8 @@ class SDEngine:
     def _scatter_admitted(self, state: SessionState, fresh, rows, valid,
                           generator, Tp: int) -> SessionState:
         """Scatter a compact fresh (cache, p_state, last_logits) into the
-        live session; pad lanes (``valid`` False) are dropped on the host."""
+        live session in place; pad lanes (``valid`` False) are dropped on
+        the host."""
         fresh_t, fresh_p, last_l = fresh
         first = sample_from(probs_from_logits(last_l, self.temperature),
                             generator, self.temperature)
@@ -340,7 +491,7 @@ class SDEngine:
                                               valid=valid)
         keep = np.nonzero(valid)[0]
         dev = self.target.device
-        last_token = state.last_token.clone()
+        last_token = state.last_token
         last_token[torch.as_tensor(np.asarray(rows)[keep], device=dev)] = \
             first[torch.as_tensor(keep, device=dev)]
         return replace(state, t_cache=t_cache, p_state=p_state,
@@ -378,7 +529,8 @@ class SDEngine:
         """Raise a PAGED session's logical capacity to ``new_max_seq``: pad
         the target's page pool and block table (``grow_cache_pages``) and
         the proposer's dense caches (``Proposer.grow_state``), so a late
-        long request admits instead of raising.  Logged in ``growth_log``."""
+        long request admits instead of raising.  The grown session moves
+        into the arena of its new geometry.  Logged in ``growth_log``."""
         t_cache = state.t_cache
         if t_cache.get("pages") is None:
             raise ValueError("grow_session: dense sessions are statically "
@@ -387,8 +539,11 @@ class SDEngine:
             t_cache = grow_cache_pages(t_cache, pool_pages, max_pages)
         p_state = self.proposer.grow_state(state.p_state, new_max_seq)
         self.growth_log.append((new_max_seq, pool_pages))
-        return replace(state, t_cache=t_cache, p_state=p_state,
-                       max_seq=new_max_seq)
+        arena = self._adopt(
+            self._arena_key(state.batch, new_max_seq, t_cache), t_cache,
+            p_state, state.last_token)
+        return replace(state, t_cache=arena.t_cache, p_state=arena.p_state,
+                       last_token=arena.last_token, max_seq=new_max_seq)
 
     # -------------------------------------------------------------- generate
     def generate(self, params_t, params_p, prompts, max_new_tokens: int, *,

@@ -153,7 +153,7 @@ def main(argv=None):
         print(f"{r.scheduler}: B={r.batch}/{r.bucket} gamma={r.gamma} "
               f"proposer={r.proposer} dispatch={r.moe_dispatch} "
               f"sd={r.used_sd} {r.tokens_per_second:.1f} tok/s  "
-              f"{sd}{timing}")
+              f"{sd}{timing}  captures={r.captures} replays={r.replays}")
         if r.steps:
             occ = occupancy_timeline([s.live for s in r.steps],
                                      [s.committed for s in r.steps])
@@ -178,6 +178,7 @@ def main(argv=None):
         print(f"session[{kind}]: constructed {s['constructions']}x, "
               f"gammas compiled {s['gammas_compiled']}, "
               f"{len(s['traces'])} round traces, "
+              f"{s['captures']} round captures, {s['replays']} replays, "
               f"{len(s['admit_traces'])} admit traces, "
               f"{len(s['growths'])} growths")
     sample = eng.done[1]

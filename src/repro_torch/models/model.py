@@ -57,21 +57,21 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def merge_cache_rows(old: dict, new: dict, mask) -> dict:
     """Row-wise select between two same-shape DENSE decode caches: rows
     where ``mask`` (B,) is True take ``new`` (a fresh prefill), the others
-    keep ``old`` untouched.  The full-pool admission primitive
-    (``SDEngine.admit``)."""
+    keep ``old``.  The full-pool admission primitive (``SDEngine.admit``).
+    ``mask`` is a host array; the rows are copied into ``old``'s tensors in
+    place (a session's graphs read them there), and the cache dict is
+    returned."""
     if old.get("pages") is not None:
         raise NotImplementedError(
             "merge_cache_rows needs two same-shape caches; a paged cache "
             "admits through scatter_cache_rows (the sliced path)")
-    mask = torch.as_tensor(np.asarray(mask, bool), device=old["lengths"].device)
-
-    def pick(o, n):
-        return torch.where(mask.reshape((-1,) + (1,) * (o.dim() - 1)), n, o)
-
-    layers = [{k: pick(lo[k], ln[k]) for k in lo}
-              for lo, ln in zip(old["layers"], new["layers"])]
-    return dict(old, layers=layers,
-                lengths=torch.where(mask, new["lengths"], old["lengths"]))
+    rows = torch.as_tensor(np.nonzero(np.asarray(mask, bool))[0],
+                           device=old["lengths"].device)
+    for lo, ln in zip(old["layers"], new["layers"]):
+        for k in lo:
+            lo[k][rows] = ln[k][rows]
+    old["lengths"][rows] = new["lengths"][rows]
+    return dict(old)
 
 
 _PAGED_LEAF_PAIRS = (("k_pages", "k"), ("v_pages", "v"))
@@ -383,6 +383,19 @@ def grow_cache_seq(cache: dict, cfg: ModelConfig, new_max_seq: int) -> dict:
                                for slot in cache["layers"]])
 
 
+def _leaves(cache: dict) -> List[torch.Tensor]:
+    """Every tensor of a decode cache, in a fixed order."""
+    out = [leaf for slot in cache["layers"] for leaf in slot.values()]
+    out.append(cache["lengths"])
+    if cache.get("pages") is not None:
+        out.append(cache["pages"]["table"])
+    return out
+
+
+def _leaf_shapes(cache: dict) -> list:
+    return [(tuple(t.shape), t.dtype) for t in _leaves(cache)]
+
+
 def _page_table(cache: dict) -> Optional[torch.Tensor]:
     pages = cache.get("pages")
     return None if pages is None else pages["table"]
@@ -447,8 +460,8 @@ class Model:
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int, *, paged: bool = False,
-                   page_size: int = 64,
-                   pool_pages: Optional[int] = None) -> dict:
+                   page_size: int = 64, pool_pages: Optional[int] = None,
+                   reuse: Optional[dict] = None, device=None) -> dict:
         """Allocate a decode cache.
 
         Dense (default): every attention layer holds (B, max_seq) K/V (plus
@@ -457,19 +470,35 @@ class Model:
         positions (default: every row at ``max_seq`` plus the trash page),
         addressed through ``cache["pages"]["table"]``
         (B, ceil(max_seq / page_size)); ``max_seq`` is then the logical
-        capacity, growable with :func:`grow_cache_pages`."""
+        capacity, growable with :func:`grow_cache_pages`.
+
+        ``reuse``: a cache of exactly this shape, reset in place instead of
+        allocating (every leaf zeroed, ``lengths`` and the table included)
+        and returned, so tensors a captured round reads keep their
+        addresses.  ``device`` overrides the model's (``"meta"`` gives the
+        shapes alone)."""
+        dev = self.device if device is None else torch.device(device)
+        if reuse is not None:
+            want = self.init_cache(batch, max_seq, paged=paged,
+                                   page_size=page_size,
+                                   pool_pages=pool_pages, device="meta")
+            if _leaf_shapes(want) != _leaf_shapes(reuse):
+                raise ValueError("init_cache(reuse=...): the cache to reuse "
+                                 "does not have the requested shape")
+            for leaf in _leaves(reuse):
+                leaf.zero_()
+            return reuse
         cache: Dict[str, Any] = {
             "layers": tfm.make_stack_cache(self.cfg, batch, max_seq,
-                                           self.dtype, self.device,
+                                           self.dtype, dev,
                                            paged=paged, page_size=page_size,
                                            pool_pages=pool_pages),
-            "lengths": torch.zeros((batch,), dtype=torch.int32,
-                                   device=self.device),
+            "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
         }
         if paged:
             cache["pages"] = {"table": torch.zeros(
                 (batch, -(-max_seq // page_size)), dtype=torch.int32,
-                device=self.device)}
+                device=dev)}
         return cache
 
     # --------------------------------------------------------------- prefill

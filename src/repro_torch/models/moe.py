@@ -70,8 +70,9 @@ def _dispatch_onehot(params, cfg, x, weights, indices):
 
 def _dispatch_gmm(params, cfg, x, weights, indices):
     """Sort tokens by expert, ragged grouped matmul (2 kernel launches:
-    fused gate+up, then down), weighted scatter-add back to tokens.  Nothing
-    here waits on the routing: group sizes stay on the device."""
+    fused gate+up, then down), weighted sum back to tokens in a fixed
+    order.  Nothing here waits on the routing: group sizes stay on the
+    device."""
     N, d = x.shape
     K, E = cfg.num_experts_per_tok, cfg.num_experts
     flat_expert = indices.reshape(-1)                       # (N*K,)
@@ -87,11 +88,14 @@ def _dispatch_gmm(params, cfg, x, weights, indices):
                                params["w_down"], group_sizes,
                                activation=cfg.mlp_activation)  # (N*K, d)
     w_flat = weights.reshape(-1)[order].to(ys.dtype)        # (N*K,)
-    out = torch.zeros((N, d), dtype=ys.dtype, device=x.device)
-    # the scatter-add sums each token's K rows in another order than the
-    # reference (atomics on the card, so not run-to-run stable there); the
-    # tests state the tolerance that covers it
-    return out.index_add_(0, token_of, ys * w_flat[:, None])
+    rows = ys * w_flat[:, None]
+    # each token's K rows back in (token, k) order and summed by one
+    # reduction: the same bits on every run, eager or replayed from a CUDA
+    # graph (an index_add_ adds them with atomics on the card, in an order
+    # that changes from run to run); the tests state the tolerance that
+    # covers the order against the reference's scatter-add
+    slots = torch.empty_like(rows).index_copy_(0, order, rows)
+    return slots.view(N, K, d).sum(1)
 
 
 def moe_forward(params: dict, cfg, x: torch.Tensor, *,

@@ -98,6 +98,9 @@ class WaveReport:
     # (excluded from tokens_out)
     tokens_discarded: int = 0
     finish_reasons: Optional[Dict[str, int]] = None  # reason -> count
+    # round keys captured and rounds replayed during this wave / stream
+    captures: int = 0
+    replays: int = 0
 
     @property
     def tokens_per_second(self) -> float:
@@ -149,6 +152,7 @@ class ServingEngine:
         admission_order: str = "fifo",      # "fifo" | "pressure" refill order
         resilience: Optional[ResilienceConfig] = None,
         fault_injector=None,
+        cuda_graphs: Optional[bool] = None,  # None: capture on a card
     ):
         if scheduler not in ("wave", "continuous"):
             raise ValueError(f"scheduler must be 'wave' or 'continuous', "
@@ -205,6 +209,7 @@ class ServingEngine:
         self.admit_mode = admit_mode
         self.admission_order = admission_order
         self.resilience = resilience
+        self.cuda_graphs = cuda_graphs
         # the AutoTuner is not ported: gamma is fixed, and the continuous
         # scheduler consults ``tuner.plan(live)`` only when one is set
         self.tuner = None
@@ -271,7 +276,8 @@ class ServingEngine:
                                  None if kind == "none" else self.draft,
                                  temperature=self.temperature)
             sess = SDEngine(self.target, prop, gamma=self.gamma,
-                            temperature=self.temperature)
+                            temperature=self.temperature,
+                            cuda_graphs=self.cuda_graphs)
             self._sessions[kind] = sess
             self.session_constructions[kind] = \
                 self.session_constructions.get(kind, 0) + 1
@@ -280,9 +286,11 @@ class ServingEngine:
     def session_stats(self) -> Dict[str, dict]:
         """Per-proposer-kind session health: ``constructions`` (1 per kind:
         waves reuse sessions), ``gammas_compiled``, ``traces`` (each
-        (gamma, batch) the session first ran with a new shape),
-        ``admit_traces`` (each (prompt bucket, rows) admission shape) and
-        ``growths`` ((new_max_seq, pool_pages) per paged growth).  Plus one
+        (gamma, batch) the session captured a round key for), ``captures``
+        and ``replays`` (round keys captured, rounds replayed; on the CPU
+        the first and the later eager runs of a key), ``admit_traces``
+        (each (prompt bucket, rows) admission shape) and ``growths``
+        ((new_max_seq, pool_pages) per paged growth).  Plus one
         non-kind entry, ``"resilience"``: the continuous scheduler's
         fault/preemption/recovery counters (empty for a healthy stream)."""
         out: Dict[str, dict] = {"resilience": dict(self.fault_counters)}
@@ -291,6 +299,8 @@ class ServingEngine:
                 "constructions": self.session_constructions.get(kind, 0),
                 "gammas_compiled": sess.compiled_gammas(),
                 "traces": list(sess.trace_log),
+                "captures": sess.graphs.total_captures,
+                "replays": sess.graphs.total_replays,
                 "admit_traces": list(sess.admit_trace_log),
                 "growths": list(sess.growth_log),
             }
@@ -344,6 +354,8 @@ class ServingEngine:
         if self.bucket_batches:
             max_seq = _pow2_at_least(max_seq)
 
+        graphs = sess.graphs
+        before = (graphs.total_captures, graphs.total_replays)
         t0 = time.perf_counter()
         out, stats = sess.generate(
             self.params_t, None if kind == "none" else self.params_d,
@@ -360,7 +372,9 @@ class ServingEngine:
             self.done[r.uid] = r
         report = WaveReport(B, gamma, use_sd, stats, wall, n_tokens,
                             proposer=kind, bucket=bucket,
-                            moe_dispatch=self.moe_dispatch)
+                            moe_dispatch=self.moe_dispatch,
+                            captures=graphs.total_captures - before[0],
+                            replays=graphs.total_replays - before[1])
         self.reports.append(report)
         return report
 
@@ -372,8 +386,12 @@ class ServingEngine:
         from repro_torch.serving.scheduler import ContinuousScheduler
         if self._slot_scheduler is None:
             self._slot_scheduler = ContinuousScheduler(self)
+        graphs = self._session(self.proposer_kind).graphs
+        before = (graphs.total_captures, graphs.total_replays)
         report = self._slot_scheduler.run_stream()
         if report is not None:
+            report.captures = graphs.total_captures - before[0]
+            report.replays = graphs.total_replays - before[1]
             self.reports.append(report)
         return report
 

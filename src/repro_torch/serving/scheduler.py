@@ -33,7 +33,7 @@ and round draws from it in turn.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field, replace as dc_replace
+from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, List, Optional, Tuple
 
 import numpy as np
@@ -222,12 +222,13 @@ class ContinuousScheduler:
                           cache_opts=cache_opts, page_table=table)
 
     def _sync_table(self, state: SessionState) -> SessionState:
-        """Push the allocator's host table into the session (a copy: the
-        allocator keeps mutating its array)."""
-        table = torch.tensor(self._alloc.table, dtype=torch.int32,
-                             device=self.engine.target.device)
-        pages = dict(state.t_cache["pages"], table=table)
-        return dc_replace(state, t_cache=dict(state.t_cache, pages=pages))
+        """Push the allocator's host table into the session's table in
+        place (a copy: the allocator keeps mutating its array; in place:
+        the session's round graphs read that tensor).  A growth has already
+        given the session a table of the allocator's new shape."""
+        state.t_cache["pages"]["table"].copy_(
+            torch.from_numpy(self._alloc.table))
+        return state
 
     def _grow(self, sess, state: SessionState, pool_pages: int,
               max_pages: int) -> SessionState:

@@ -192,14 +192,15 @@ def test_scatter_cache_rows_matches_merge(models):
     rows = np.array([1, 3])
     mask = np.zeros((Bq,), bool)
     mask[rows] = True
+    # both primitives write in place: scatter into a copy of the live cache
+    live_copy = {"layers": [{k: v.clone() for k, v in lo.items()}
+                            for lo in live["layers"]],
+                 "lengths": live["lengths"].clone()}
     merged = merge_cache_rows(live, fresh_full, mask)
     # the compact prefill carries a pad lane replicating row 1
     lanes = np.array([1, 3, 1])
     _, fresh_rows = t.prefill(pt, toks[lanes] + 1, t.init_cache(3, max_seq),
                               lengths=lengths[lanes])
-    live_copy = {"layers": [{k: v.clone() for k, v in lo.items()}
-                            for lo in live["layers"]],
-                 "lengths": live["lengths"].clone()}
     scattered = scatter_cache_rows(live_copy, fresh_rows, lanes,
                                    valid=np.array([True, True, False]))
     np.testing.assert_array_equal(merged["lengths"].numpy(),

@@ -292,10 +292,12 @@ def test_moe_layer_never_syncs_on_routing(cuda):
 
 
 def test_moe_layer_bf16_on_card_matches_cpu(cuda):
-    """The bf16 gmm dispatch on the card (kernels, atomic index_add_) against
-    the same layer on the CPU (plain loop, sequential index_add_).  Bound:
-    the reference's bf16 3e-2 (rtol and atol) — each side rounds h, the
-    expert outputs and every one of the K adds to bf16, in another order."""
+    """The bf16 gmm dispatch on the card (kernels, a fixed-order sum of each
+    token's K rows) against the same layer on the CPU (plain loop,
+    sequential index_add_).  Bound: the reference's bf16 3e-2 (rtol and
+    atol) — each side rounds h and the expert outputs to bf16; the CPU also
+    rounds every one of the K adds, the card sums them in fp32 and rounds
+    once."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import moe
     cfg = get_config("qwen2-57b-a14b", reduced=True).with_overrides(

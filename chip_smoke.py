@@ -98,7 +98,37 @@ Phases, each of which fails the run if it fails:
          target and draft ("wave-flash"): 16 prompts of 129-256 tokens
          (long system or RAG prompts), max-new 32, so every prefill runs the
          flash kernel and every extend (max_seq 512) the dense decode kernel;
-  6. ops: the capacity-binned MoE FFN (kernels/gmm/ops.py) at full width in
+  6. tuner: the serving CLI's AutoTuner (launch/serve.make_tuner, priced on
+     the full published config on the H100 record).  On the serve phase's
+     full-width target and draft, after the fixed-gamma serve lines: a
+     captured gamma-8 round's verify logits against the eager round's
+     (dense, and paged, where 9 queries take the gathered view) within
+     rtol = atol = 3e-2, then
+       a. measured target efficiency: for B in 1..128, one extend of T
+          random tokens per row (T 1..9) on a cache prefilled with 64
+          tokens, captured in a CUDA graph and replayed
+          (core/target_efficiency.py), T_T(B,1), T_T(B,5) and eta_target
+          beside the token-0 extends the reference times and the H100
+          simulator's, and one draft extend T_D(B,1) beside its price;
+       d. the plans: AutoTuner.plan(B) and speedup_window() at alpha 0.7
+          for the CLI's tuner, the full config with the served draft and the
+          4-layer config with it, and beside the last the plan of the same
+          tuner whose simulator returns the measured T_T and T_D;
+       b. tuner-driven wave serving (the wave workload of phase 5), each
+          wave's plan, alpha before and after, tok/s, captures and replays;
+       c. tuner-driven continuous paged serving (the continuous workload of
+          phase 5), the plan per round against N(t), captures per gamma key
+          and the graph pool; an SD->AR hand-off is required;
+     b and c run their workload twice on one engine, the tuner's alpha reset
+     to 0.7 between: the repeat plans the same and captures nothing.  Times
+     are only required to be finite and positive; bf16 outputs are printed
+     beside the tuner-less AR run's, not required to equal them.  Last, on
+     the reduced target in fp32: waves (12 requests, max-batch 2) and the
+     continuous paged stream of phase 4, planned per wave and per round
+     through gamma changes and the SD->AR hand-off, must give the
+     tuner-less AR run's greedy tokens on the card and the tuner-driven CPU
+     run's, with the same plans on both devices.
+  7. ops: the capacity-binned MoE FFN (kernels/gmm/ops.py) at full width in
      fp32, top-8 routing of 40 tokens: moe_ffn_gmm (3 launches) and
      gmm_legacy (1 launch), held against the ragged dispatch, moe_ffn_ref
      and ragged_gmm.
@@ -109,7 +139,9 @@ Phases, each of which fails the run if it fails:
      must equal (attention layers x rounds); on the wave-flash paths the
      flash kernel's must equal (attention layers x prefill forwards) and
      the dense decode kernel's (attention layers x extend forwards), summed
-     over target and draft; every other count must be 0.
+     over target and draft; every other count must be 0.  The tuner's three
+     paths (tuner/eta, tuner/wave, tuner/continuous) are counted the same
+     way.
 
 It ends with a JSON line of per-kernel numbers and, last, the device line.
 Without a card, or outside a checkout of the repository, it exits non-zero
@@ -1184,18 +1216,19 @@ def flash_reference_phase(seed: int):
 
 
 def continuous_stream(cfg, target, params_t, draft, params_d, kind: str,
-                      seed: int, cuda_graphs=None) -> dict:
+                      seed: int, cuda_graphs=None, tuner=None) -> dict:
     """The reduced continuous paged stream: 5 Poisson arrivals with mixed
     budgets and one late long prompt that forces a session growth."""
     import numpy as np
     from repro_torch.data.pipeline import prompt_batch
+    from repro_torch.launch.serve import plan_trajectory
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.scheduler import submit_poisson
     eng = ServingEngine(target, draft if kind == "model" else None, params_t,
                         params_d if kind == "model" else None,
                         scheduler="continuous", kv_layout="paged",
                         page_size=16, max_batch=4, gamma=4, proposer=kind,
-                        seed=seed, cuda_graphs=cuda_graphs)
+                        seed=seed, cuda_graphs=cuda_graphs, tuner=tuner)
     pb = prompt_batch(cfg.vocab_size, 5, seed=seed, min_len=5, max_len=24)
     submit_poisson(eng, pb["tokens"], pb["lengths"], rate=0.5,
                    max_new_choices=(4, 8, 12), seed=seed)
@@ -1206,7 +1239,9 @@ def continuous_stream(cfg, target, params_t, draft, params_d, kind: str,
     return {"outputs": {u: (r.finish_reason, r.output)
                         for u, r in eng.done.items()},
             "growths": stats["growths"], "rounds": rep.stats.rounds,
-            "captures": stats["captures"], "replays": stats["replays"]}
+            "captures": stats["captures"], "replays": stats["replays"],
+            "steps": [(st.live, st.gamma) for st in rep.steps],
+            "plans": plan_trajectory(rep.steps), "keys": stats["keys"]}
 
 
 def _to_device(tree, dev):
@@ -1218,13 +1253,17 @@ def _to_device(tree, dev):
 
 
 # --------------------------------------------------------------------- serve
-def captured_verify_check(target, draft, params_t, params_d, pb) -> None:
+def captured_verify_check(target, draft, params_t, params_d, pb, *,
+                          gamma: int = 4, paged: bool = False,
+                          label: str = "serve") -> None:
     """bf16, full width: one captured round's verify logits (its propose
     and verify, as the round's stages run them, through RoundGraphs: the
     key's first run is eager, the second replays its graph) against the
     eager round's on the same session state, within rtol = atol = 3e-2;
     prints the largest error, the argmax agreement and, for the spread, the
-    largest error of a second eager round against the first.  The card sums each
+    largest error of a second eager round against the first.  ``paged``:
+    the target cache in pages of 64, so a verify wider than
+    PAGED_KERNEL_MAX_T attends over the gathered view.  The card sums each
     token's expert rows in a fixed order (models/moe.py), so the two may
     agree to the bit, which is not required."""
     import numpy as np
@@ -1233,17 +1272,25 @@ def captured_verify_check(target, draft, params_t, params_d, pb) -> None:
     from repro_torch.core.proposer import make_proposer
     from repro_torch.core.spec_decode import SDEngine
 
-    eng = SDEngine(target, make_proposer("model", target, draft), gamma=4)
-    state = eng.start(params_t, params_d, pb["tokens"][:8, :64], max_seq=128,
-                      lengths=np.minimum(pb["lengths"][:8], 64))
+    B, max_seq = 8, 128
+    opts, table = None, None
+    if paged:
+        per_row = max_seq // 64
+        opts = {"paged": True, "page_size": 64, "pool_pages": B * per_row + 1}
+        table = 1 + torch.arange(B * per_row, dtype=torch.int32,
+                                 device="cuda").view(B, per_row)  # 0: trash
+    eng = SDEngine(target, make_proposer("model", target, draft), gamma=gamma)
+    state = eng.start(params_t, params_d, pb["tokens"][:B, :64],
+                      max_seq=max_seq, lengths=np.minimum(pb["lengths"][:B], 64),
+                      cache_opts=opts, page_table=table)
     leaves = list(_leaves([state.t_cache, state.p_state, state.last_token]))
     snap = [t.clone() for t in leaves]
-    out = torch.empty((8, 5, target.cfg.vocab_size), dtype=target.dtype,
-                      device="cuda")
+    out = torch.empty((B, gamma + 1, target.cfg.vocab_size),
+                      dtype=target.dtype, device="cuda")
 
     def propose_verify(_):
         drafts, _, _ = eng.proposer.propose(state.params, state.p_state,
-                                            state.last_token, 4, None)
+                                            state.last_token, gamma, None)
         logits, _ = target.extend(
             params_t, torch.cat([state.last_token[:, None], drafts], 1),
             state.t_cache)
@@ -1262,11 +1309,12 @@ def captured_verify_check(target, draft, params_t, params_d, pb) -> None:
     err = (replay - eager).abs()
     if not (torch.isfinite(replay).all()
             and (err <= TOL + TOL * eager.abs()).all()):
-        raise AssertionError(f"serve: captured verify logits vs eager max err "
-                             f"{err.max().item():.4g} (rtol=atol={TOL})")
+        raise AssertionError(f"{label}: captured verify logits vs eager max "
+                             f"err {err.max().item():.4g} (rtol=atol={TOL})")
     agree = (replay.argmax(-1) == eager.argmax(-1)).float().mean().item()
-    log(f"serve: captured round's verify logits (bf16, B 8, gamma 4) vs the "
-        f"eager round's on the same state: max abs err {err.max().item():.4g} "
+    log(f"{label}: captured round's verify logits (bf16, B {B}, gamma "
+        f"{gamma}, {'paged' if paged else 'dense'} cache) vs the eager "
+        f"round's on the same state: max abs err {err.max().item():.4g} "
         f"(rtol=atol={TOL}), argmax agreement {agree:.3f}; a second eager "
         f"round vs the first: max abs err "
         f"{(again - eager).abs().max().item():.4g}; "
@@ -1524,6 +1572,379 @@ def serve_phase(seed: int):
             "required to be exact)")
     log(f"serve: torch.cuda.max_memory_allocated() = "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del target_f, draft_f
+    release()
+    served = {"cfg": cfg, "dcfg": dcfg, "target": target, "draft": draft,
+              "params_t": params_t, "params_d": params_d, "pb": pb,
+              "long_prompt": long_prompt, "outputs": outputs,
+              "moe_layers": moe_layers, "attn_layers": attn_layers}
+    return launches, served
+
+
+# ---------------------------------------------------------------------- tuner
+TUNER_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
+ETA_PROMPT, ETA_SEQ = 64, 128       # the wave workload's prompt bucket, max_seq
+
+
+def tuner_reference_phase(seed: int):
+    """Reduced fp32 on the card: the serving CLI's AutoTuner (make_tuner)
+    plans every wave and every continuous paged round, through gamma
+    changes and SD->AR hand-offs; greedy outputs equal the tuner-less AR
+    run's on the card and the tuner-driven CPU run's, token for token,
+    with the same plans on both devices."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import prompt_batch
+    from repro_torch.launch.serve import make_tuner
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("qwen2-57b-a14b", reduced=True)
+    dcfg = get_config("qwen2-0.5b", reduced=True)
+    p_cpu = Model(cfg, moe_dispatch="gmm", device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    pd_cpu = Model(dcfg, device="cpu").init(
+        torch.Generator().manual_seed(seed + 1))
+    pb = prompt_batch(cfg.vocab_size, 12, seed=seed, min_len=5, max_len=24)
+
+    def models(dev):
+        tm, dm = Model(cfg, moe_dispatch="gmm", device=dev), Model(dcfg,
+                                                                 device=dev)
+        return tm, _to_device(p_cpu, tm.device), dm, _to_device(pd_cpu,
+                                                                dm.device)
+
+    def waves(dev, kind, tuner):
+        tm, pt, dm, pd = models(dev)
+        eng = ServingEngine(tm, dm if kind == "model" else None, pt,
+                            pd if kind == "model" else None, max_batch=2,
+                            gamma=4, proposer=kind, seed=seed, tuner=tuner)
+        for i in range(12):
+            eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+                       max_new_tokens=12)
+        reports = eng.run()
+        out = np.stack([eng.done[u].output for u in sorted(eng.done)])
+        return out, [r.gamma for r in reports], eng.session_stats()
+
+    wave = {dev: waves(dev, "model", make_tuner("qwen2-57b-a14b"))
+            for dev in ("cuda", "cpu")}
+    ar, _, _ = waves("cuda", "none", None)
+    gammas = wave["cuda"][1]
+    if gammas != wave["cpu"][1] or len(set(gammas)) < 3 or 0 not in gammas:
+        raise AssertionError(f"tuner reference: wave gammas {gammas} (card) "
+                             f"vs {wave['cpu'][1]} (CPU): expected the same "
+                             "plans, gamma changes and an AR hand-off")
+    for name, out in (("tuner-less AR on the card", ar),
+                      ("tuner-driven CPU run", wave["cpu"][0])):
+        if not np.array_equal(wave["cuda"][0], out):
+            raise AssertionError(f"tuner reference: tuner-driven waves on the "
+                                 f"card != {name}")
+    keys = wave["cuda"][2]["model"]["keys"]
+    log(f"tuner reference: reduced fp32 waves (12 requests, max-batch 2) planned "
+        f"gamma {gammas} (0: AR, the 'none' session); card == tuner-less AR == "
+        f"CPU token for token; graph keys (gamma, batch, max_seq): "
+        f"captures/replays {keys}")
+
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        tm, pt, dm, pd = models(dev)
+        streams[dev] = continuous_stream(cfg, tm, pt, dm, pd, "model", seed,
+                                         tuner=make_tuner("qwen2-57b-a14b"))
+    tm, pt, dm, pd = models("cuda")
+    ar = continuous_stream(cfg, tm, pt, dm, pd, "none", seed)
+    got = streams["cuda"]
+    g = [gm for _, gm in got["steps"]]
+    first_ar = g.index(0) if 0 in g else None
+    if (got["steps"] != streams["cpu"]["steps"] or first_ar is None
+            or len({x for x in g[:first_ar]}) < 2):
+        raise AssertionError(f"tuner reference: continuous plans {got['plans']}"
+                             f" (card) vs {streams['cpu']['plans']} (CPU): "
+                             "expected the same plans, gamma changes, then "
+                             "the SD->AR hand-off")
+    for name, other in (("tuner-less AR stream", ar),
+                        ("tuner-driven CPU stream", streams["cpu"])):
+        for uid, (reason, out) in other["outputs"].items():
+            r2, o2 = got["outputs"][uid]
+            if r2 != reason or not np.array_equal(o2, out):
+                raise AssertionError(f"tuner reference: continuous request "
+                                     f"{uid} on the card != {name}")
+    log(f"tuner reference: reduced fp32 continuous paged stream, plans "
+        f"(N(t)/gamma per round) {got['plans']}; card == tuner-less AR == CPU "
+        f"token for token; graph keys captures/replays {got['keys']}")
+
+
+def measured_tuner(cfg, dcfg, alpha: float, sim, t_t: dict, t_d: dict):
+    """An AutoTuner whose simulator answers ``forward_time`` with the
+    measured T_T(B, T) and T_D(B, 1) instead of their prices, so its plan
+    and best_gamma come from the tuner's own formula
+    (``Simulator.sd_speedup``) on the card's times; the rejection term
+    stays priced."""
+    from repro_torch.core.autotune import AutoTuner
+    from repro_torch.core.simulator import Simulator
+
+    class Measured(Simulator):
+        def forward_time(self, c, batch, s, context_len=None):
+            if c is cfg:
+                return t_t[batch][s]
+            if c is not dcfg or s != 1:
+                raise ValueError(f"not measured: {c.name} at T {s}")
+            return t_d[batch]
+
+    return AutoTuner(cfg, dcfg, alpha, sim=Measured(
+        hw=sim.hw, context_len=sim.context_len))
+
+
+def tuner_phase(seed: int, served: dict) -> dict:
+    """The AutoTuner on the full-width target and draft of the serve phase:
+    (a) measured against predicted target efficiency and draft forwards;
+    (d) the H100 record's plans beside the speedup the measured times give;
+    (b) tuner-driven wave serving and (c) tuner-driven continuous paged
+    serving, each run twice (the repeat captures nothing).  Returns the
+    launch counts of its three paths."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.autotune import AutoTuner
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.core.target_efficiency import (
+        measure_extend_time, measure_target_efficiency,
+        predicted_target_efficiency)
+    from repro_torch.launch.serve import make_tuner, plan_trajectory
+    from repro_torch.models.attention import PAGED_KERNEL_MAX_T
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import submit_poisson
+
+    cfg, dcfg = served["cfg"], served["dcfg"]
+    target, draft = served["target"], served["draft"]
+    params_t, params_d = served["params_t"], served["params_d"]
+    moe_layers, attn_layers = served["moe_layers"], served["attn_layers"]
+    full = get_config("qwen2-57b-a14b")
+    gammas = AutoTuner(cfg, dcfg).gammas
+    # priced at the measured context: prompts of ETA_PROMPT tokens
+    sim = Simulator(context_len=ETA_PROMPT)
+    launches = {}
+
+    def reset():
+        reset_launch_counts()
+        for m in (target, draft):
+            m.forward_count = m.prefill_count = 0
+
+    def check_launches(path: str, rounds: int = 0) -> None:
+        got = launch_counts()
+        expect = {name: 0 for name in got}
+        expect["fused_gate_up"] = expect["ragged_gmm"] = \
+            moe_layers * target.forward_count
+        if rounds:
+            expect["paged_decode_attention"] = attn_layers * rounds
+        log(f"tuner[{path}]: {target.forward_count} target forwards, "
+            f"{draft.forward_count} draft forwards; launches counted "
+            f"(credited per replay) {got}, expected {expect}")
+        if got != expect:
+            raise AssertionError(f"tuner[{path}]: launches {got} != {expect}")
+        launches[path] = got
+
+    # the tuner paths' widest round: gamma 8, dense (waves) and paged
+    # (the continuous stream; 9 queries take the gathered view)
+    for paged in (False, True):
+        captured_verify_check(target, draft, params_t, params_d, served["pb"],
+                              gamma=max(gammas), paged=paged, label="tuner")
+
+    # (a) measured T_T and T_D: one extend, captured, replayed 7 times
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    t_t, t_d = {}, {}
+    reset()
+    for B in TUNER_BATCHES:
+        tok = torch.randint(3, cfg.vocab_size, (B, ETA_PROMPT), generator=gen,
+                            device="cuda")
+        # distinct verify tokens per position, so the target routes them as
+        # it routes drafts; the reference's token-0 extend for comparison
+        ver = torch.randint(3, cfg.vocab_size, (B, max(gammas) + 1),
+                            generator=gen, device="cuda")
+        _, cache = target.prefill(params_t, tok,
+                                  target.init_cache(B, ETA_SEQ))
+        te = measure_target_efficiency(target, params_t, cache, 4,
+                                       tokens=ver)
+        zeros = measure_target_efficiency(target, params_t, cache, 4)
+        t_t[B] = {1: te["T_T_1"], 5: te["T_T_gamma"]}
+        for g in gammas:
+            if g + 1 not in t_t[B]:
+                t_t[B][g + 1] = measure_extend_time(target, params_t, cache,
+                                                    g + 1, tokens=ver)
+        _, dcache = draft.prefill(params_d, tok, draft.init_cache(B, ETA_SEQ))
+        t_d[B] = measure_extend_time(draft, params_d, dcache, 1, tokens=ver)
+        del cache, dcache
+        pred = predicted_target_efficiency(sim, cfg, B, 4)
+        times = list(t_t[B].values()) + [t_d[B], zeros["T_T_1"],
+                                          zeros["T_T_gamma"]]
+        if not all(np.isfinite(x) and x > 0 for x in times):
+            raise AssertionError(f"tuner eta: B {B}: times {times}")
+        log(f"tuner eta B={B}: measured T_T(B,1) {t_t[B][1] * 1e3:.4f} ms, "
+            f"T_T(B,5) {t_t[B][5] * 1e3:.4f} ms, eta_target "
+            f"{te['target_efficiency']:.4f} (token-0 extends, as the "
+            f"reference times them: {zeros['T_T_1'] * 1e3:.4f} / "
+            f"{zeros['T_T_gamma'] * 1e3:.4f} ms, "
+            f"{zeros['target_efficiency']:.4f}) | H100 simulator eta_target "
+            f"{pred['target_efficiency']:.4f}, T_T(B,1) "
+            f"{pred['T_T_1'] * 1e3:.4f} ms, T_T(B,5) "
+            f"{pred['T_T_gamma'] * 1e3:.4f} ms")
+        d_sim = sim.forward_time(dcfg, B, 1)
+        log(f"tuner draft B={B}: measured T_D(B,1) {t_d[B] * 1e3:.4f} ms "
+            f"(one {dcfg.name} extend, graph replay) | H100 simulator "
+            f"{d_sim * 1e3:.4f} ms (measured / priced "
+            f"{t_d[B] / d_sim:.2f})")
+    log("tuner eta: T_T(B,T) ms measured, T = 2..9: " + "; ".join(
+        f"B {B}: " + " ".join(f"{t_t[B][T] * 1e3:.3f}" for T in sorted(t_t[B]))
+        for B in TUNER_BATCHES))
+    check_launches("tuner/eta")
+    log(f"tuner eta: {time.perf_counter() - t0:.1f} s")
+
+    # (d) plans on the H100 record, beside the same tuner's plans on the
+    # measured times
+    cli = make_tuner(full.name)
+    alpha = cli.alpha
+    tuners = {f"{full.name} x28 + {cli.draft.name} (CLI)": cli,
+              f"{full.name} x28 + {dcfg.name}": AutoTuner(full, dcfg, alpha),
+              f"{cfg.name} x{cfg.num_layers} + {dcfg.name}":
+                  AutoTuner(cfg, dcfg, alpha)}
+    on_card = measured_tuner(cfg, dcfg, alpha, sim, t_t, t_d)
+    for name, tuner in tuners.items():
+        win = tuner.speedup_window()
+        log(f"tuner plan [{name}], H100 record, alpha {alpha}: speedup window "
+            f"peak B {win['peak_batch']} ({win['peak']:.3f}x), window "
+            f"{win['window']}")
+        measured_here = tuner.target is cfg
+        for B in TUNER_BATCHES:
+            plan = tuner.plan(B)
+            line = (f"  B={B}: plan gamma={plan['gamma']} "
+                    f"use_sd={plan['use_sd']} predicted "
+                    f"{plan['predicted_speedup']:.3f}x")
+            if measured_here:
+                meas = on_card.plan(B)
+                line += (f" | measured T_T, T_D: "
+                         f"{on_card.speedup(B, plan['gamma']):.3f}x at gamma "
+                         f"{plan['gamma']}; plan gamma={meas['gamma']} "
+                         f"use_sd={meas['use_sd']} "
+                         f"{meas['predicted_speedup']:.3f}x")
+            log(line)
+
+    # (b) tuner-driven wave serving: 16 chat prompts, max-batch 8
+    pb = served["pb"]
+    tuner = make_tuner(full.name)
+    eng = ServingEngine(target, draft, params_t, params_d, max_batch=8,
+                        gamma=4, proposer="model", seed=seed, tuner=tuner)
+    reset()
+    runs = []
+    for run in ("first run", "again"):
+        tuner.alpha = 0.7                       # the same workload, replayed
+        if run == "again":
+            for sess in eng._sessions.values():
+                sess.sync_guard = True
+        first = max(eng.done, default=0)
+        for i in range(16):
+            eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+                       max_new_tokens=32)
+        reports = eng.run()
+        for r in reports:
+            sd = (f"sigma={r.stats.sigma:.3f} alpha={r.stats.alpha:.3f}"
+                  if r.used_sd else "AR")
+            log(f"tuner wave ({run}): plan gamma={r.plan['gamma']} "
+                f"use_sd={r.plan['use_sd']} predicted "
+                f"{r.plan['predicted_speedup']:.3f}x, tuner alpha "
+                f"{r.tuner_alpha[0]:.3f} -> {r.tuner_alpha[1]:.3f}; ran "
+                f"proposer={r.proposer} B={r.batch}/{r.bucket} gamma={r.gamma} "
+                f"{r.tokens_per_second:.2f} tok/s {sd} rounds={r.stats.rounds} "
+                f"captures={r.captures} replays={r.replays}")
+        out = np.stack([eng.done[u].output for u in sorted(eng.done)
+                        if u > first])
+        if out.shape != (16, 32) or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"tuner wave: bad outputs {out.shape}")
+        runs.append((out, reports))
+    for sess in eng._sessions.values():
+        sess.sync_guard = False
+    again = runs[1][1]
+    if sum(r.captures for r in again) or \
+            [r.gamma for r in again] != [r.gamma for r in runs[0][1]]:
+        raise AssertionError("tuner wave: the repeat captured "
+                             f"{sum(r.captures for r in again)} keys or "
+                             "planned other gammas")
+    for kind, st in eng.session_stats().items():
+        if kind != "resilience":
+            log(f"tuner wave: session[{kind}] graph keys (gamma, batch, "
+                f"max_seq): captures/replays {st['keys']}, pool "
+                f"{eng._sessions[kind].graphs.pool_bytes() / 2**20:.1f} MiB")
+    ar = served["outputs"]["wave/none"]
+    log(f"tuner wave: outputs vs the tuner-less AR wave: token agreement "
+        f"{float((runs[0][0] == ar).mean()):.3f} (bf16: not required to be "
+        f"exact; the reduced fp32 phase requires it); the repeat's outputs "
+        f"{'equal' if np.array_equal(runs[0][0], runs[1][0]) else 'differ from'}"
+        " the first run's")
+    check_launches("tuner/wave")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) tuner-driven continuous paged serving: Poisson arrivals and a
+    # 700-token prompt at round 6, pool of 8, pages of 64
+    tuner = make_tuner(full.name)
+    eng = ServingEngine(target, draft, params_t, params_d, max_batch=8,
+                        gamma=4, proposer="model", seed=seed, tuner=tuner,
+                        scheduler="continuous", kv_layout="paged",
+                        page_size=64)
+    reset()
+    runs, kernel_rounds = [], 0
+    for run in ("first run", "again"):
+        tuner.alpha = 0.7
+        if run == "again":
+            eng._sessions["model"].sync_guard = True
+        first = max(eng.done, default=0)
+        submit_poisson(eng, pb["tokens"], pb["lengths"], rate=0.5,
+                       max_new_choices=(8, 16, 32), seed=seed)
+        eng.submit(served["long_prompt"], max_new_tokens=16, arrival_round=6)
+        (r,) = eng.run()
+        # a verify wider than PAGED_KERNEL_MAX_T (gamma 8) attends over the
+        # gathered view, as in the reference: no paged kernel in that round
+        kernel_rounds += sum(1 for st in r.steps if st.live
+                             and st.gamma + 1 <= PAGED_KERNEL_MAX_T)
+        traj = [(st.live, st.gamma) for st in r.steps]
+        log(f"tuner continuous ({run}): {r.tokens_per_second:.2f} tok/s "
+            f"rounds={r.stats.rounds} tokens={r.tokens_out} "
+            f"captures={r.captures} replays={r.replays}, tuner alpha "
+            f"{tuner.alpha:.3f}; plans (N(t)/gamma per round) "
+            f"{plan_trajectory(r.steps)}")
+        done = {u - first: eng.done[u] for u in eng.done if u > first}
+        if len(done) != 17 or {d.finish_reason for d in done.values()} != \
+                {"length"}:
+            raise AssertionError(f"tuner continuous: {len(done)} requests")
+        runs.append(({u: d.output for u, d in done.items()}, traj, r))
+    eng._sessions["model"].sync_guard = False
+    g = [gm for _, gm in runs[0][1]]
+    if 0 not in g or len({x for x in g[:g.index(0)]}) < 2:
+        raise AssertionError(f"tuner continuous: gammas {g}: expected gamma "
+                             "changes, then the SD->AR hand-off")
+    if runs[1][2].captures or runs[1][1] != runs[0][1]:
+        raise AssertionError(f"tuner continuous: the repeat captured "
+                             f"{runs[1][2].captures} keys or planned "
+                             "other rounds")
+    st = eng.session_stats()["model"]
+    log(f"tuner continuous: graph keys (gamma, batch, max_seq): "
+        f"captures/replays {st['keys']}; growths {st['growths']}; graph pool "
+        f"{eng._sessions['model'].graphs.pool_bytes() / 2**20:.1f} MiB in "
+        f"{sum(eng._sessions['model'].graphs.capture_seconds.values()):.3f} s "
+        "of captures")
+    ar = served["outputs"]["continuous/none"]
+    a = np.concatenate([runs[0][0][u] for u in sorted(runs[0][0])])
+    b = np.concatenate([ar[u] for u in sorted(ar)])
+    log(f"tuner continuous: outputs vs the tuner-less AR stream: token "
+        f"agreement {float((a == b).mean()) if a.shape == b.shape else 0:.3f} "
+        "(bf16: not required to be exact; the reduced fp32 phase requires it)")
+    eng._slot_scheduler._alloc.assert_no_leaks()
+    check_launches("tuner/continuous", kernel_rounds)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1565,7 +1986,10 @@ def main() -> int:
     kernels["gmm_capacity"] = capacity_kernel_phase(args.seed)
     reference_phase(args.seed)
     flash_reference_phase(args.seed)
-    launches = serve_phase(args.seed)
+    launches, served = serve_phase(args.seed)
+    launches.update(tuner_phase(args.seed, served))
+    del served
+    tuner_reference_phase(args.seed)
     launches[OPS_PATH] = capacity_ops_path(args.seed)
 
     tols = {"fused_gate_up": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",

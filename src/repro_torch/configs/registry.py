@@ -1,7 +1,9 @@
 """Config registry: --arch <id> resolution, reduced variants, drafts.
 
-Holds the configurations this slice of the port serves: the MoE target
-``qwen2-57b-a14b`` and its paper draft ``qwen2-0.5b``."""
+Holds the configurations the port serves and prices: the paper's MoE
+target ``qwen2-57b-a14b`` and its draft ``qwen2-0.5b``, and the dense and
+sparse comparisons the cost model prices (``qwen2-7b``, ``mixtral-8x7b``,
+``qwen3-moe-30b-a3b``)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -29,7 +31,8 @@ def get_config(name: str, *, reduced: bool = False, **overrides) -> ModelConfig:
 
 
 def _load_all():
-    from repro_torch.configs import drafts, qwen2_57b_a14b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        drafts, mixtral_8x7b, qwen2_7b, qwen2_57b_a14b, qwen3_moe_30b_a3b)
 
 
 def draft_for(cfg: ModelConfig) -> ModelConfig:

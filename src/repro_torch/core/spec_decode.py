@@ -239,6 +239,18 @@ class SDEngine:
         """Gammas this session has captured a round for."""
         return sorted({g for g, _ in self.trace_log})
 
+    def round_keys(self) -> Dict[tuple, Tuple[int, int]]:
+        """(gamma, batch, max_seq) -> (captures, replays) of the round keys
+        that ran, summed over the fused and timed stages and over cache
+        geometries."""
+        keys: Dict[tuple, Tuple[int, int]] = {}
+        for key, n in self.graphs.captures.items():
+            _, gamma, batch, max_seq, _ = key       # round()'s key layout
+            c, r = keys.get((gamma, batch, max_seq), (0, 0))
+            keys[(gamma, batch, max_seq)] = (c + n,
+                                             r + self.graphs.replays[key])
+        return keys
+
     # ----------------------------------------------------------- round pieces
     def _verify(self, params_t, t_cache, last_token, drafts):
         verify_tokens = torch.cat([last_token[:, None], drafts], 1)

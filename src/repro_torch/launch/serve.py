@@ -2,12 +2,16 @@
 with the continuous slot scheduler.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
-      --reduced --requests 16 --max-batch 8 --max-new 32 --no-autotune
+      --reduced --requests 16 --max-batch 8 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
-      --reduced --scheduler continuous --kv-layout paged --no-autotune
+      --reduced --scheduler continuous --kv-layout paged
 
 Port of ``repro.launch.serve`` for the flags this slice implements.  The
 draft is the reference's default draft for the target (``draft_for``).
+Unless ``--no-autotune`` (or ``--proposer none``), an ``AutoTuner`` priced
+on the full published config (``make_tuner``, the ``H100`` record) plans
+{use_sd, gamma} per wave, or per round in continuous mode, and each wave
+line prints its plan and the tuner's alpha before and after the wave.
 Runs on ``--device cuda`` (the default) or ``--device cpu``; without a card
 and without ``--device cpu`` it stops.  Requests are submitted through
 ``submit_poisson`` (``--arrival-rate`` 0: all at round 0).
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.configs.registry import draft_for, get_config
 from repro_torch.core.analytics import occupancy_timeline
+from repro_torch.core.autotune import AutoTuner
 from repro_torch.core.proposer import registered_proposers
 from repro_torch.data.pipeline import prompt_batch
 from repro_torch.data.tokenizer import ByteTokenizer
@@ -28,10 +33,12 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import ResilienceConfig
 from repro_torch.serving.scheduler import submit_poisson
 
-AUTOTUNE_TODO = (
-    "the AutoTuner is not ported yet (ROADMAP queue 1 item 5: AutoTuner with "
-    "an H100 Hardware record); pass --no-autotune to serve with a fixed "
-    "--gamma, or --proposer none")
+
+def make_tuner(arch: str) -> AutoTuner:
+    """The serving CLI's tuner: priced on the FULL published config of
+    ``arch`` and its default draft, whatever depth or width is served."""
+    full_cfg = get_config(arch)
+    return AutoTuner(full_cfg, draft_for(full_cfg), alpha=0.7)
 
 
 def main(argv=None):
@@ -102,8 +109,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not (args.no_autotune or args.proposer == "none"):
-        raise SystemExit(AUTOTUNE_TODO)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     target = Model(cfg, moe_dispatch=args.moe_dispatch,
@@ -120,13 +125,16 @@ def main(argv=None):
         draft = Model(dcfg, device=args.device)
         params_d = draft.init(gen.manual_seed(args.seed + 1))
 
+    tuner = (None if args.no_autotune or args.proposer == "none"
+             else make_tuner(args.arch))
     resilience = ResilienceConfig(
         round_deadline_s=args.round_deadline_s,
         max_rounds_per_request=args.max_rounds_per_request,
         free_page_watermark=args.free_page_watermark,
         max_pool_pages=args.max_pool_pages)
     eng = ServingEngine(target, draft, params_t, params_d,
-                        max_batch=args.max_batch, gamma=args.gamma,
+                        max_batch=args.max_batch, tuner=tuner,
+                        gamma=args.gamma,
                         temperature=args.temperature, proposer=args.proposer,
                         seed=args.seed, timed=args.timed,
                         scheduler=args.scheduler, eos_id=args.eos_id,
@@ -154,6 +162,10 @@ def main(argv=None):
               f"proposer={r.proposer} dispatch={r.moe_dispatch} "
               f"sd={r.used_sd} {r.tokens_per_second:.1f} tok/s  "
               f"{sd}{timing}  captures={r.captures} replays={r.replays}")
+        if r.plan is not None:
+            print(f"  plan: gamma={r.plan['gamma']} use_sd={r.plan['use_sd']} "
+                  f"predicted={r.plan['predicted_speedup']:.3f}x "
+                  f"alpha {r.tuner_alpha[0]:.3f} -> {r.tuner_alpha[1]:.3f}")
         if r.steps:
             occ = occupancy_timeline([s.live for s in r.steps],
                                      [s.committed for s in r.steps])
@@ -166,6 +178,10 @@ def main(argv=None):
                   f"admitted={sum(s.admitted for s in r.steps)} "
                   f"retired={sum(s.retired for s in r.steps)} "
                   f"sd_handoffs={handoffs}")
+            if tuner is not None:
+                print(f"  plans (N(t)/gamma per round): "
+                      f"{plan_trajectory(r.steps)}  tuner alpha "
+                      f"{tuner.alpha:.3f}")
             print(f"  admission: {sum(s.admit_rows for s in r.steps)} "
                   f"prefill rows, {sum(s.admit_tokens for s in r.steps)} "
                   f"row-tokens ({args.admit_mode})")
@@ -181,10 +197,25 @@ def main(argv=None):
               f"{s['captures']} round captures, {s['replays']} replays, "
               f"{len(s['admit_traces'])} admit traces, "
               f"{len(s['growths'])} growths")
+        print(f"  graph keys (gamma, batch, max_seq): captures/replays " +
+              " ".join(f"{k}:{c}/{n}" for k, (c, n) in sorted(s["keys"].items())))
     sample = eng.done[1]
     print(f"sample completion ({sample.finish_reason}):",
           repr(tok.decode(sample.output)[:80]))
     return reports
+
+
+def plan_trajectory(steps) -> str:
+    """A continuous stream's rounds as "N(t)/gamma" (gamma 0: an AR
+    round), runs of equal rounds merged as "xN"."""
+    runs: list = []
+    for s in steps:
+        if runs and runs[-1][0] == (s.live, s.gamma):
+            runs[-1][1] += 1
+        else:
+            runs.append([(s.live, s.gamma), 1])
+    return " ".join(f"{n}/{g}" + (f"x{c}" if c > 1 else "")
+                    for (n, g), c in runs)
 
 
 if __name__ == "__main__":

@@ -48,6 +48,10 @@ from repro_torch.models.layers import apply_rope, dense_init, softcap
 
 NEG_INF = -1e30
 
+# decode/verify widths up to this many queries take the paged kernel; wider
+# extends (a verify of gamma 8 and up) attend over the gathered view, as in
+# the reference (src/repro/models/attention.py, T <= 8)
+PAGED_KERNEL_MAX_T = 8
 GATHER_ON_CUDA = ("paged_attention='gather' is a CPU cross-check of the "
                   "paged kernel path; on a CUDA device paged decode/verify "
                   "runs the kernel (paged_attention='kernel')")
@@ -265,9 +269,10 @@ def gqa_forward(
     if "k_pages" in cache:
         _paged_write(cache["k_pages"], page_table, positions, k)
         _paged_write(cache["v_pages"], page_table, positions, v)
-        if causal and T <= 8 and paged_attention == "gather" and q.is_cuda:
+        kernel_width = causal and T <= PAGED_KERNEL_MAX_T
+        if kernel_width and paged_attention == "gather" and q.is_cuda:
             raise ValueError(GATHER_ON_CUDA)
-        if causal and T <= 8 and paged_attention == "kernel":
+        if kernel_width and paged_attention == "kernel":
             # decode/verify: the block-table-walking kernel reads the pages
             # straight from the pool; no dense gather
             out = paged_decode_attention(

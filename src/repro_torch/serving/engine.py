@@ -15,22 +15,26 @@ Port of ``repro.serving.engine`` with both schedulers:
 The engine holds ONE persistent decoding session (``SDEngine``) per
 proposer kind, reused across waves and streams.  Wave batches are padded
 to power-of-two buckets with round-robin replicas of real requests, and
-cache lengths are bucketed too, as in the reference.
+cache lengths are bucketed too, as in the reference.  With a ``tuner``
+(``core/autotune.AutoTuner``) every wave plans {use_sd, gamma} at its
+padded bucket and feeds the wave's acceptance rate back; the continuous
+scheduler re-plans on the live slot count every round.  Each gamma that
+runs is its own round key, captured once (``core/graphs.py``).
 
-Not ported yet: the AutoTuner (``tuner`` stays None and gamma is fixed;
-ROADMAP queue 1 item 5), prefix sharing, chunked prefill and fault
-injection (queue 1 item 7's rest).
+Not ported yet: prefix sharing, chunked prefill and fault injection
+(ROADMAP queue 1 item 7's rest).
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.autotune import AutoTuner
 from repro_torch.core.proposer import make_proposer
 from repro_torch.core.spec_decode import SDEngine, SDStats
 from repro_torch.data.tokenizer import PAD
@@ -101,6 +105,10 @@ class WaveReport:
     # round keys captured and rounds replayed during this wave / stream
     captures: int = 0
     replays: int = 0
+    # wave mode with a tuner: its plan at the bucket, and (an AutoTuner)
+    # its alpha before and after the wave's feedback
+    plan: Optional[dict] = None
+    tuner_alpha: Optional[Tuple[float, float]] = None
 
     @property
     def tokens_per_second(self) -> float:
@@ -135,6 +143,7 @@ class ServingEngine:
         params_d=None,
         *,
         max_batch: int = 32,
+        tuner: Optional[AutoTuner] = None,
         gamma: int = 4,
         temperature: float = 0.0,
         force_sd: Optional[bool] = None,
@@ -210,9 +219,7 @@ class ServingEngine:
         self.admission_order = admission_order
         self.resilience = resilience
         self.cuda_graphs = cuda_graphs
-        # the AutoTuner is not ported: gamma is fixed, and the continuous
-        # scheduler consults ``tuner.plan(live)`` only when one is set
-        self.tuner = None
+        self.tuner = tuner
         # fault/preemption/recovery counters, filled by the continuous
         # scheduler and surfaced via session_stats()["resilience"]
         self.fault_counters: Dict[str, int] = {}
@@ -289,8 +296,10 @@ class ServingEngine:
         (gamma, batch) the session captured a round key for), ``captures``
         and ``replays`` (round keys captured, rounds replayed; on the CPU
         the first and the later eager runs of a key), ``admit_traces``
-        (each (prompt bucket, rows) admission shape) and ``growths``
-        ((new_max_seq, pool_pages) per paged growth).  Plus one
+        (each (prompt bucket, rows) admission shape), ``growths``
+        ((new_max_seq, pool_pages) per paged growth) and ``keys``
+        (``SDEngine.round_keys``: (gamma, batch, max_seq) -> (captures,
+        replays)).  Plus one
         non-kind entry, ``"resilience"``: the continuous scheduler's
         fault/preemption/recovery counters (empty for a healthy stream)."""
         out: Dict[str, dict] = {"resilience": dict(self.fault_counters)}
@@ -303,6 +312,7 @@ class ServingEngine:
                 "replays": sess.graphs.total_replays,
                 "admit_traces": list(sess.admit_trace_log),
                 "growths": list(sess.growth_log),
+                "keys": sess.round_keys(),
             }
         return out
 
@@ -334,18 +344,28 @@ class ServingEngine:
 
     def step(self) -> Optional[WaveReport]:
         """Admit and decode one generation wave; returns its report, or
-        ``None`` if the queue was empty.  ``tokens_out`` counts only real
-        generated tokens (per-request ``max_new_tokens`` and eos)."""
+        ``None`` if the queue was empty.  With a tuner, {use_sd, gamma}
+        is planned at the padded bucket (the batch that runs), and the
+        wave's alpha goes back to it when the wave drafted.
+        ``tokens_out`` counts only real generated tokens (per-request
+        ``max_new_tokens`` and eos)."""
         wave = self._admit()
         if not wave:
             return None
         B = len(wave)
         bucket = self._bucket(B)
-        use_sd = True if self.force_sd is None else self.force_sd
+        gamma, use_sd, plan, alpha_in = self.gamma, True, None, None
+        if self.tuner is not None:
+            plan = self.tuner.plan(bucket)
+            alpha_in = self.tuner.alpha
+            gamma, use_sd = plan["gamma"], plan["use_sd"]
+        if self.force_sd is not None:
+            use_sd = self.force_sd
         if self.proposer_kind == "none":
             use_sd = False
         kind = self.proposer_kind if use_sd else "none"
-        gamma = self.gamma if use_sd else 0
+        if not use_sd:
+            gamma = 0
         sess = self._session(kind)
         max_new = max(r.max_new_tokens for r in wave)
         toks, lengths = self._pad_prompts(wave, bucket)
@@ -361,6 +381,8 @@ class ServingEngine:
             self.params_t, None if kind == "none" else self.params_d,
             toks, max_new, gamma=gamma, max_seq=max_seq, lengths=lengths,
             generator=self._next_generator(), timed=self.timed)
+        if use_sd and self.tuner is not None and stats.draft_events:
+            self.tuner.update_alpha(stats.alpha)
         wall = time.perf_counter() - t0
 
         n_tokens = 0
@@ -374,7 +396,10 @@ class ServingEngine:
                             proposer=kind, bucket=bucket,
                             moe_dispatch=self.moe_dispatch,
                             captures=graphs.total_captures - before[0],
-                            replays=graphs.total_replays - before[1])
+                            replays=graphs.total_replays - before[1],
+                            plan=plan,
+                            tuner_alpha=None if alpha_in is None
+                            else (alpha_in, self.tuner.alpha))
         self.reports.append(report)
         return report
 

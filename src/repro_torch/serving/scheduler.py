@@ -22,9 +22,13 @@ operates it rather than measuring it:
     per-request round budgets, the free-page watermark, the faulty-round
     ladder (forced AR, then a safe stop) and the stall watchdog.
 
-Every round would consult ``tuner.plan(live)``; the AutoTuner is not
-ported, so ``engine.tuner`` is None and gamma stays fixed.  Prefix sharing,
-chunked prefill and fault injection wait for later slices (the engine's
+With a tuner (``engine.tuner``) every round re-plans {use_sd, gamma} on
+the live slot count, ``plan(live)``; a round planned without SD runs with
+gamma 0 in the same session (the SD→AR hand-off), the stream's caches are
+sized for the largest gamma the tuner can plan, and the round's acceptance
+rate, read back with its results, goes to ``update_alpha``.  Each gamma is
+its own round key, captured on its first round.  Prefix sharing, chunked
+prefill and fault injection wait for later slices (the engine's
 constructor refuses them).
 
 The engine's generator replaces the reference's key splits: each admission

@@ -49,6 +49,7 @@ class _MidStreamSubmitter:
     late submit that stream-start sizing cannot see."""
 
     gammas = (2,)
+    alpha = 0.0
 
     def __init__(self, engine_ref, at_call=3, prompt_len=40):
         self.engine_ref = engine_ref
@@ -72,11 +73,7 @@ def _late_long_stream(cls, m, **kw):
     """Two short requests and one long one submitted mid-stream."""
     ref = []
     tuner = _MidStreamSubmitter(ref)
-    if cls is JaxServingEngine:
-        eng = _engine(cls, m, tuner=tuner, **kw)
-    else:
-        eng = _engine(cls, m, **kw)
-        eng.tuner = tuner                       # the scheduler's plan() site
+    eng = _engine(cls, m, tuner=tuner, **kw)
     ref.append(eng)
     uids = [eng.submit(np.arange(3, 9), max_new_tokens=8),
             eng.submit(np.arange(3, 10), max_new_tokens=12)]

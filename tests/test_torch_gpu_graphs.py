@@ -330,3 +330,97 @@ def test_dead_graphs_are_not_freed_inside_a_capture(cuda):
 def test_round_graphs_reject_the_cpu(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         RoundGraphs(torch.device("cpu"), capture=True)
+
+
+class _CycleTuner:
+    """Stub tuner that plans the gammas of ``cycle`` in turn, one per call
+    (0: an AR round), whatever the batch."""
+
+    gammas = (2, 4)
+    alpha = 0.0
+
+    def __init__(self, cycle=(2, 4, 0, 4)):
+        self.cycle = cycle
+        self.calls = 0
+        self.alphas = []
+
+    def plan(self, batch):
+        g = self.cycle[self.calls % len(self.cycle)]
+        self.calls += 1
+        return {"use_sd": g > 0, "gamma": g or 2, "predicted_speedup": 1.0}
+
+    def update_alpha(self, alpha):
+        self.alphas.append(alpha)
+
+
+def _tuned_stream(m, tuner, **kw):
+    """Six requests on a dense pool of 4: {uid: tokens}."""
+    t, d, pt, pd = m
+    eng = ServingEngine(t, d, pt, pd, max_batch=4, gamma=4, seed=0,
+                        tuner=tuner, scheduler="continuous", **kw)
+    return eng, _serve(eng, "wave")
+
+
+def test_tuned_gamma_changes_capture_one_key_per_gamma(models):
+    """A stream whose gamma changes every round (2 -> 4 -> 0 -> 4, the 0
+    an AR round in the same session) captures one graph key per gamma;
+    the second identical stream replays every round and captures nothing;
+    greedy fp32 outputs equal the fixed-gamma eager stream's token for
+    token."""
+    m = models["cuda"]
+    tuner = _CycleTuner()
+    eng, first = _tuned_stream(m, tuner)
+    keys = eng.session_stats()["model"]["keys"]
+    assert {g for g, _, _ in keys} == {0, 2, 4}
+    assert all(c == 1 for c, _ in keys.values()) and len(keys) == 3
+    tuner.calls = 0
+    again = _serve(eng, "wave")
+    second = eng.reports[-1]
+    assert second.captures == 0 and second.replays == second.stats.rounds
+    assert [s.gamma for s in second.steps][:4] == [2, 4, 0, 4]
+    assert len(tuner.alphas) == sum(1 for s in eng.reports[0].steps
+                                    if s.used_sd) + sum(
+        1 for s in second.steps if s.used_sd)
+    _, fixed = _tuned_stream(m, None, cuda_graphs=False)
+    for run in (first, again):
+        assert run.keys() == fixed.keys()
+        for uid, toks in fixed.items():
+            np.testing.assert_array_equal(run[uid], toks)
+
+
+def test_tuned_waves_switch_sessions_and_capture_once(models):
+    """Wave serving under the stub: each wave plans its gamma (2, 4, then
+    AR through the "none" session); greedy fp32 outputs equal the CPU
+    run's under the same stub."""
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t, d, pt, pd = models[dev]
+        eng = ServingEngine(t, d, pt, pd, max_batch=2, gamma=4, seed=0,
+                            tuner=_CycleTuner())
+        outs[dev] = _serve(eng, "wave")
+        assert [r.gamma for r in eng.reports] == [2, 4, 0]
+    stats = eng.session_stats()
+    assert set(stats) == {"resilience", "model", "none"}
+    for uid, toks in outs["cpu"].items():
+        np.testing.assert_array_equal(outs["cuda"][uid], toks)
+
+
+def test_measured_extend_time_replays_a_graph(models):
+    """measure_extend_time on the card: one capture, every timed call a
+    replay credited to the launch counts and forward_count, positive
+    device times, and the caller's cache untouched."""
+    from repro_torch.core.target_efficiency import (measure_extend_time,
+                                                    measure_target_efficiency)
+    t, _, pt, _ = models["cuda"]
+    tok = torch.randint(3, TARGET.vocab_size, (4, 16), device="cuda")
+    _, cache = t.prefill(pt, tok, t.init_cache(4, 64))
+    snap = cache["layers"][0]["k"].clone()
+    _reset([t])
+    ms = measure_extend_time(t, pt, cache, 5, iters=3, warmup=2)
+    assert ms > 0 and t.forward_count == 1 + 2 + 3
+    assert _launches()["fused_gate_up"] == t.forward_count * sum(
+        TARGET.moe_pattern[i % TARGET.period] for i in range(TARGET.num_layers))
+    assert torch.equal(snap, cache["layers"][0]["k"])
+    te = measure_target_efficiency(t, pt, cache, gamma=4, iters=3)
+    assert te["T_T_1"] > 0 and te["T_T_gamma"] > 0
+    assert 0 < te["target_efficiency"] < 2

@@ -182,10 +182,26 @@ def test_session_stats_one_construction_per_kind():
     assert stats["none"]["gammas_compiled"] == [0]
 
 
-def test_serve_cli_refuses_to_autotune():
+def test_serve_cli_autotunes_on_cpu(capsys):
+    """Without --no-autotune the CLI serves under the AutoTuner: every
+    wave line prints the gamma it ran, its plan and the tuner's alpha
+    before and after, and the alpha moves (random weights: alpha ~0)."""
+    import re
+
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        serve.main(["--arch", "qwen2-57b-a14b", "--reduced", "--device", "cpu"])
+    reports = serve.main(["--arch", "qwen2-57b-a14b", "--reduced", "--device",
+                          "cpu", "--requests", "6", "--max-batch", "2",
+                          "--max-new", "6"])
+    out = capsys.readouterr().out
+    plans = re.findall(r"plan: gamma=(\d+) use_sd=(\w+) predicted=\S+ "
+                       r"alpha ([\d.]+) -> ([\d.]+)", out)
+    assert len(reports) == 3 and len(plans) == 3
+    for r, (g, sd, a_in, a_out) in zip(reports, plans):
+        assert int(g) == r.plan["gamma"] and f"gamma={r.gamma} " in out
+        assert sd == str(r.plan["use_sd"])
+    alphas = [float(plans[0][2])] + [float(p[3]) for p in plans]
+    assert alphas[0] == 0.7 and all(b < a for a, b in zip(alphas, alphas[1:]))
+    assert "graph keys (gamma, batch, max_seq)" in out
 
 
 def test_serve_cli_runs_on_cpu(capsys):

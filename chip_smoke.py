@@ -72,7 +72,16 @@ Phases, each of which fails the run if it fails:
      AR; with use_flash=True on the reduced target and draft
      (prompts of 129-256 tokens: prompt bucket 256, max_seq 512), the CUDA
      path agrees with the CPU path, greedy SD equals greedy AR and the
-     greedy outputs equal those with use_flash=False;
+     greedy outputs equal those with use_flash=False; a continuous paged
+     stream with prefix sharing (a 128-token shared prefix, 2 pages of 64,
+     and a follow-up turn whose boundary page is copied on write), chunked
+     admission (chunks of 64, a late 700-token prompt) and the fault smoke
+     lane's scripted injector (failed admissions, held pages, a NaN row, a
+     slow round) emits the same tokens and finish reasons from graph
+     replay, eagerly on the card and on the CPU; the requests that finish
+     cleanly beside the NaN row give the stream's tokens without the NaN
+     fault, and that stream gives those of the stream without sharing and
+     chunking;
   5. serve: qwen2-57b-a14b at its full published width, depth cut to LAYERS
      of 28, with the full qwen2-0.5b draft and random weights from --seed,
      greedy, gamma 4, max-batch 8.  First one captured round's verify
@@ -98,6 +107,19 @@ Phases, each of which fails the run if it fails:
          target and draft ("wave-flash"): 16 prompts of 129-256 tokens
          (long system or RAG prompts), max-new 32, so every prefill runs the
          flash kernel and every extend (max_seq 512) the dense decode kernel;
+       * continuous-prefix (SD, then AR): the continuous workload with
+         every prompt behind a 256-token shared system prompt (4 pages),
+         prefix_sharing=True and prefill_chunk 128: tok/s, prefix and
+         copy-on-write counters, chunk steps, captures, replays and graph
+         pool beside the card's name and power limit, and the greedy
+         tokens' agreement with the same stream without sharing and
+         chunking on the same engine (bf16; printed);
+       * continuous-faults (SD): the continuous workload under a seeded
+         injector (failed admissions, held pages, a NaN row after the last
+         admission, a slow round of 10x the clean stream's median round):
+         one numerical_fault and 16 "length", a slow round counted, no
+         leaked page, and every other request's tokens equal to the clean
+         stream's;
   6. tuner: the serving CLI's AutoTuner (launch/serve.make_tuner, priced on
      the full published config on the H100 record).  On the serve phase's
      full-width target and draft, after the fixed-gamma serve lines: a
@@ -136,7 +158,9 @@ Phases, each of which fails the run if it fails:
      read just after (replays credit the launches their capture recorded):
      each gmm kernel's count must equal (MoE layers x that
      path's target forwards); on the continuous paths the paged kernel's
-     must equal (attention layers x rounds); on the wave-flash paths the
+     must equal (attention layers x rounds), and on the continuous-prefix
+     paths (attention layers x (rounds + tail admissions of at most 8
+     tokens)); on the wave-flash paths the
      flash kernel's must equal (attention layers x prefill forwards) and
      the dense decode kernel's (attention layers x extend forwards), summed
      over target and draft; every other count must be 0.  The tuner's three
@@ -1215,6 +1239,136 @@ def flash_reference_phase(seed: int):
         f"({base.shape[0]} prompts of 129-256 tokens x 24 tokens)")
 
 
+def prefix_fault_reference_phase(seed: int):
+    """Reduced target in fp32, one continuous paged stream (pages of 64,
+    pool of 4) with prefix sharing (a 128-token, 2-page shared prefix,
+    tails of 3-7 tokens, and a follow-up turn that extends an earlier
+    prompt, so its boundary page is copied on write), chunked admission
+    (chunks of 64, a late 700-token prompt) and the smoke lane's scripted
+    injector (faults._smoke_injector: failed admissions at round 1, every
+    free page held at rounds 2-4, a NaN row at 6, a slow round at 7).  The
+    same tokens and finish reasons from graph replay, eagerly on the card
+    and on the CPU; every request that finished cleanly gives the tokens
+    of the same stream without the NaN fault; and that stream gives, token
+    for token, the tokens of the stream without sharing and chunking."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import faults
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2-57b-a14b", reduced=True)
+    dcfg = get_config("qwen2-0.5b", reduced=True)
+    models = {}
+    p_cpu = Model(cfg, moe_dispatch="gmm", device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    pd_cpu = Model(dcfg, device="cpu").init(
+        torch.Generator().manual_seed(seed + 1))
+    for dev in ("cpu", "cuda"):
+        models[dev] = (Model(cfg, moe_dispatch="gmm", device=dev),
+                       Model(dcfg, device=dev), _to_device(p_cpu, dev),
+                       _to_device(pd_cpu, dev))
+    rng = np.random.default_rng(seed + 3)
+    prefix = rng.integers(3, cfg.vocab_size, 128)
+    first = np.concatenate([prefix, rng.integers(3, cfg.vocab_size, 5)])
+    spec = [(first, 16, 0),                                   # the leader
+            (np.concatenate([prefix, rng.integers(3, cfg.vocab_size, 7)]),
+             10, 0),                                          # staggered
+            (rng.integers(3, cfg.vocab_size, 9), 4, 0),       # unrelated
+            (np.concatenate([first, rng.integers(3, cfg.vocab_size, 4)]),
+             8, 3),                                           # follow-up turn
+            (np.concatenate([prefix, rng.integers(3, cfg.vocab_size, 3)]),
+             8, 3),
+            (rng.integers(3, cfg.vocab_size, 700), 8, 3),     # 11 chunks
+            (np.concatenate([prefix, rng.integers(3, cfg.vocab_size, 6)]),
+             8, 8)]
+    script = faults._smoke_injector().faults
+
+    def stream(dev, nan=True, sharing=True, cuda_graphs=None):
+        inj = faults.FaultInjector([f for f in script
+                                    if nan or f.kind != "nan_row"])
+        eng = ServingEngine(*models[dev], scheduler="continuous",
+                            kv_layout="paged", page_size=64, max_batch=4,
+                            gamma=4, seed=seed, cuda_graphs=cuda_graphs,
+                            prefix_sharing=sharing,
+                            prefill_chunk=64 if sharing else None,
+                            fault_injector=inj,
+                            resilience=faults.ResilienceConfig(
+                                faulty_rounds_to_ar=64,
+                                faulty_rounds_to_stop=128))
+        for p, m, arrive in spec:
+            eng.submit(p.astype(np.int32), max_new_tokens=m,
+                       arrival_round=arrive)
+        (rep,) = eng.run()
+        eng._slot_scheduler._alloc.assert_no_leaks()
+        return {"out": {u: (r.finish_reason, r.output)
+                        for u, r in eng.done.items()},
+                "counters": dict(eng.fault_counters),
+                "injected": dict(inj.injected),
+                "chunk_steps": sum(s.chunk_steps for s in rep.steps),
+                "steps": [(s.live, s.gamma) for s in rep.steps],
+                "stats": eng.session_stats()["model"]}
+
+    reset_launch_counts()
+    runs = {"replay": stream("cuda")}
+    paged = launch_counts()["paged_decode_attention"]
+    runs["eager"] = stream("cuda", cuda_graphs=False)
+    runs["cpu"] = stream("cpu")
+    runs["clean"] = stream("cuda", nan=False)
+    runs["plain"] = stream("cuda", nan=False, sharing=False)
+    base = runs["replay"]
+    c = base["counters"]
+    if not (paged and base["stats"]["replays"]
+            and c.get("prefix_hits", 0) >= 2 and c.get("cow_copies", 0) >= 1
+            and c.get("numerical_faults", 0) >= 1
+            and c.get("admit_retries", 0) >= 1 and base["chunk_steps"] >= 11
+            and base["stats"]["growths"]
+            and base["injected"]["page_exhaustion"] == 1):
+        raise AssertionError(f"prefix/faults reference: the stream missed a "
+                             f"path: counters {c}, injected "
+                             f"{base['injected']}, chunk steps "
+                             f"{base['chunk_steps']}, paged launches {paged}, "
+                             f"growths {base['stats']['growths']}")
+    for name in ("eager", "cpu"):
+        got = runs[name]
+        if got["out"].keys() != base["out"].keys() or any(
+                got["out"][u][0] != r
+                or not np.array_equal(got["out"][u][1], o)
+                for u, (r, o) in base["out"].items()) \
+                or got["counters"] != c or got["steps"] != base["steps"]:
+            raise AssertionError(f"prefix/faults reference: graph replay != "
+                                 f"{name} ({got['counters']} vs {c})")
+    clean = {u: o for u, (r, o) in base["out"].items() if r == "length"}
+    reasons = sorted(r for r, _ in base["out"].values())
+    if not clean or "numerical_fault" not in reasons or any(
+            runs["clean"]["out"][u][0] != "length"
+            or not np.array_equal(runs["clean"]["out"][u][1], o)
+            for u, o in clean.items()):
+        raise AssertionError(f"prefix/faults reference: rows that finished "
+                             f"cleanly beside the NaN row ({sorted(clean)}) "
+                             "differ from the stream without the NaN fault "
+                             f"(finish reasons {reasons})")
+    plain, shared = runs["plain"]["out"], runs["clean"]["out"]
+    if plain.keys() != shared.keys() or any(
+            plain[u][0] != r or not np.array_equal(plain[u][1], o)
+            for u, (r, o) in shared.items()):
+        raise AssertionError("prefix/faults reference: the shared, chunked "
+                             "stream != the stream without sharing and "
+                             "chunking")
+    log(f"reference prefix/faults: continuous paged stream ({len(spec)} "
+        f"requests, finish reasons {reasons}; counters {c}; injected "
+        f"{base['injected']}; {base['chunk_steps']} chunk steps; growths "
+        f"{base['stats']['growths']}; prefix traces "
+        f"{base['stats']['prefix_traces']}; paged kernel launches {paged}): "
+        f"graph replay ({base['stats']['captures']} captures, "
+        f"{base['stats']['replays']} replays) == eager card == CPU; the "
+        f"{len(clean)} requests that finished cleanly == the stream without "
+        "the NaN fault; sharing and chunking == neither, token for token")
+
+
 def continuous_stream(cfg, target, params_t, draft, params_d, kind: str,
                       seed: int, cuda_graphs=None, tuner=None) -> dict:
     """The reduced continuous paged stream: 5 Poisson arrivals with mixed
@@ -1581,8 +1735,219 @@ def serve_phase(seed: int):
     return launches, served
 
 
+# ----------------------------------------------------- prefix sharing, faults
+SYSTEM_PROMPT = 256                 # shared system-prompt tokens (4 pages)
+PREFIX_CHUNK = 128                  # prefill_chunk of the two paths below
+
+
+def prefix_faults_phase(seed: int, served: dict) -> dict:
+    """Two continuous paged paths at full width on the serve phase's target
+    and draft, each run twice on one engine (the repeat captures nothing),
+    every launch count zeroed just before the path and read after it:
+
+      * continuous-prefix (SD, then AR): the serve phase's continuous
+        workload with every prompt behind a 256-token shared system prompt,
+        prefix_sharing=True, prefill_chunk 128; its tok/s, prefix and
+        copy-on-write counters, chunk steps, captures, replays and graph
+        pool, and its greedy tokens beside those of the same stream without
+        sharing and chunking on the same engine (bf16: the agreement is
+        printed; the reduced fp32 phase requires equality);
+      * continuous-faults (SD): the same workload without the shared prompt
+        under a seeded injector: failed admissions at round 1, every free
+        page held at rounds 2-4, a NaN row at the first round after the
+        last admission of the clean stream, then a slow round of 10x the
+        clean stream's median round (deadline 5x).  The clean stream (the
+        same script without the NaN row and the slow round) runs first;
+        the faulted stream must end with one numerical_fault and the rest
+        "length", a slow round counted, no leaked page, and every other
+        request's tokens equal to the clean stream's.
+
+    Kernel 3 must launch attention layers x (rounds + tail admissions of
+    at most PAGED_KERNEL_MAX_T tokens); kernels 1 and 2 MoE layers x target
+    forwards; the others never.  Returns the launch counts per path."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.models.attention import PAGED_KERNEL_MAX_T
+    from repro_torch.serving import faults
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import submit_poisson
+
+    cfg = served["cfg"]
+    target, draft = served["target"], served["draft"]
+    params_t, params_d = served["params_t"], served["params_d"]
+    moe_layers, attn_layers = served["moe_layers"], served["attn_layers"]
+    pb = served["pb"]
+    system = np.random.default_rng(seed + 17).integers(3, cfg.vocab_size,
+                                                       SYSTEM_PROMPT)
+    prefixed = {"tokens": [np.concatenate([system, pb["tokens"][i][:n]])
+                           for i, n in enumerate(pb["lengths"])],
+                "lengths": [SYSTEM_PROMPT + int(n) for n in pb["lengths"]]}
+    launches = {}
+
+    def engine(kind: str, **kw):
+        return ServingEngine(target, draft if kind == "model" else None,
+                             params_t, params_d if kind == "model" else None,
+                             max_batch=8, gamma=4, temperature=0.0,
+                             proposer=kind, seed=seed, scheduler="continuous",
+                             kv_layout="paged", page_size=64,
+                             prefill_chunk=PREFIX_CHUNK, **kw)
+
+    def reset():
+        reset_launch_counts()
+        for m in (target, draft):
+            m.forward_count = m.prefill_count = 0
+
+    def stream(eng, prompts):
+        first = max(eng.done, default=0)
+        submit_poisson(eng, prompts["tokens"], prompts["lengths"], rate=0.5,
+                       max_new_choices=(8, 16, 32), seed=seed)
+        eng.submit(served["long_prompt"], max_new_tokens=16, arrival_round=6)
+        (r,) = eng.run()
+        eng._slot_scheduler._alloc.assert_no_leaks()
+        done = {u - first: eng.done[u] for u in eng.done if u > first}
+        if len(done) != 17:
+            raise AssertionError(f"{len(done)} of 17 requests finished")
+        return done, r
+
+    def check_launches(path: str, rounds: int, tails: int) -> None:
+        got = launch_counts()
+        expect = {name: 0 for name in got}
+        expect["fused_gate_up"] = expect["ragged_gmm"] = \
+            moe_layers * target.forward_count
+        expect["paged_decode_attention"] = attn_layers * (rounds + tails)
+        log(f"{path}: {target.forward_count} target forwards "
+            f"({target.prefill_count} prefills), {draft.forward_count} draft "
+            f"forwards, {rounds} rounds, {tails} tail admissions of <= "
+            f"{PAGED_KERNEL_MAX_T} tokens; launches counted (credited per "
+            f"replay) {got}, expected {expect}")
+        if got != expect:
+            raise AssertionError(f"{path}: launches {got} != {expect}")
+        launches[path] = got
+
+    def line(path: str, label: str, r, eng, kind: str, c: dict) -> str:
+        g = eng._sessions[kind].graphs
+        return (f"{path} ({label}): {r.tokens_per_second:.2f} tok/s rounds="
+                f"{r.stats.rounds} tokens={r.tokens_out} wall={r.wall_time:.3f}"
+                f" s prefix_hits={c.get('prefix_hits', 0)} "
+                f"prefix_shared_tokens={c.get('prefix_shared_tokens', 0)} "
+                f"cow_copies={c.get('cow_copies', 0)} chunk_steps="
+                f"{sum(s.chunk_steps for s in r.steps)} captures={r.captures} "
+                f"replays={r.replays} pool {g.pool_bytes() / 2**20:.1f} MiB")
+
+    card = card_line()
+    for kind in ("model", "none"):
+        path = f"continuous-prefix/{kind}"
+        eng = engine(kind, prefix_sharing=True)
+        sess = eng._session(kind)
+        tails = []
+        admit_rows_prefix = sess.admit_rows_prefix
+
+        def counted(state, tail_toks, *a, **kw):
+            tails.append(np.shape(tail_toks)[1])
+            return admit_rows_prefix(state, tail_toks, *a, **kw)
+
+        sess.admit_rows_prefix = counted
+        reset()
+        runs = []
+        for label in ("first run", "again"):
+            before = dict(eng.fault_counters)
+            done, r = stream(eng, prefixed)
+            counters = {k: v - before.get(k, 0)
+                        for k, v in eng.fault_counters.items()}
+            log(line(path, label, r, eng, kind, counters) + f" | {card}")
+            reasons = {d.finish_reason for d in done.values()}
+            if reasons != {"length"}:
+                raise AssertionError(f"{path}: finish reasons {reasons}")
+            runs.append((done, r, counters))
+        first, again = runs
+        if again[1].captures or first[2] != again[2] or \
+                not first[2].get("prefix_hits"):
+            raise AssertionError(f"{path}: the repeat captured "
+                                 f"{again[1].captures} keys, or its counters "
+                                 f"{again[2]} != {first[2]}")
+        check_launches(path, first[1].stats.rounds + again[1].stats.rounds,
+                       sum(1 for t in tails if t <= PAGED_KERNEL_MAX_T))
+        # the same stream without sharing and chunking, on the same engine
+        eng.prefix_sharing, eng.prefill_chunk = False, None
+        plain, _ = stream(eng, prefixed)
+        a = np.concatenate([first[0][u].output for u in sorted(first[0])])
+        b = np.concatenate([plain[u].output for u in sorted(plain)])
+        same = all(np.array_equal(first[0][u].output, again[0][u].output)
+                   for u in first[0])
+        log(f"{path}: greedy tokens vs the same stream without sharing and "
+            f"chunking on one engine geometry: agreement "
+            f"{float((a == b).mean()) if a.shape == b.shape else 0.0:.3f} "
+            "(bf16; the reduced fp32 phase requires 1); the repeat's tokens "
+            f"{'equal' if same else 'differ from'} the first run's; graph "
+            f"keys {eng.session_stats()[kind]['keys']}")
+        del eng, sess
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # continuous-faults: the clean stream, then the faulted one twice
+    path = "continuous-faults/model"
+    eng = engine("model", resilience=faults.ResilienceConfig(
+        faulty_rounds_to_ar=64, faulty_rounds_to_stop=128))
+    reset()
+    script = [faults.Fault(round=1, kind="admit_fail"),
+              faults.Fault(round=2, kind="page_exhaustion", hold_rounds=3)]
+    eng.fault_injector = faults.FaultInjector(script)
+    clean, r0 = stream(eng, pb)
+    rounds = r0.stats.rounds
+    log(line(path, "clean", r0, eng, "model", eng.fault_counters)
+        + f" | {card}")
+    tau = float(np.median([s.round_time for s in r0.steps if s.live]))
+    last_admit = max(s.round_index for s in r0.steps if s.admitted)
+    fault_round = min(s.round_index for s in r0.steps
+                      if s.round_index > last_admit and s.live >= 2)
+    eng.resilience = faults.ResilienceConfig(
+        round_deadline_s=5 * tau, faulty_rounds_to_ar=64,
+        faulty_rounds_to_stop=128)
+    faulted = script + [faults.Fault(round=fault_round, kind="nan_row"),
+                        faults.Fault(round=fault_round + 1, kind="slow_round",
+                                     delay_s=10 * tau)]
+    runs = []
+    for label in ("faulted", "faulted, again"):
+        before = dict(eng.fault_counters)
+        eng.fault_injector = faults.FaultInjector(faulted, seed=seed)
+        done, r = stream(eng, pb)
+        rounds += r.stats.rounds
+        counters = {k: v - before.get(k, 0)
+                    for k, v in eng.fault_counters.items()}
+        log(line(path, label, r, eng, "model", counters) + f" | counters "
+            f"{counters}, injected {eng.fault_injector.injected}, finish reasons "
+            f"{r.finish_reasons} | {card}")
+        reasons = sorted(d.finish_reason for d in done.values())
+        ok = {u: d for u, d in done.items() if d.finish_reason == "length"}
+        if reasons != ["length"] * 16 + ["numerical_fault"] or \
+                not counters.get("slow_rounds") or any(
+                    not np.array_equal(d.output, clean[u].output)
+                    for u, d in ok.items()):
+            raise AssertionError(
+                f"{path} ({label}): finish reasons {reasons}, counters "
+                f"{counters}, or a co-batched row's tokens differ from the "
+                "clean stream's")
+        runs.append(r)
+    if runs[1].captures:
+        raise AssertionError(f"{path}: the repeat captured "
+                             f"{runs[1].captures} keys")
+    log(f"{path}: NaN row at round {fault_round} (the clean stream's last "
+        f"admission at round {last_admit}), slow round {10 * tau * 1e3:.1f} "
+        f"ms against a {5 * tau * 1e3:.1f} ms deadline (median round "
+        f"{tau * 1e3:.2f} ms); the 16 other requests, the rows co-batched "
+        "with the NaN row among them, equal the clean stream's tokens; no "
+        "leaked page")
+    check_launches(path, rounds, 0)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------- tuner
-TUNER_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
+TUNER_BATCHES =(1, 2, 4, 8, 16, 32, 64, 128)
 ETA_PROMPT, ETA_SEQ = 64, 128       # the wave workload's prompt bucket, max_seq
 
 
@@ -1986,7 +2351,9 @@ def main() -> int:
     kernels["gmm_capacity"] = capacity_kernel_phase(args.seed)
     reference_phase(args.seed)
     flash_reference_phase(args.seed)
+    prefix_fault_reference_phase(args.seed)
     launches, served = serve_phase(args.seed)
+    launches.update(prefix_faults_phase(args.seed, served))
     launches.update(tuner_phase(args.seed, served))
     del served
     tuner_reference_phase(args.seed)

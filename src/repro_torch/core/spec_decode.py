@@ -18,8 +18,11 @@ Session API (the continuous-batching seam): ``start`` opens a batch
 (optionally with a paged target cache and a pre-assigned block table),
 ``round`` advances it with an ``active`` mask, ``admit`` (full pool) and
 ``admit_rows`` (only the admitted rows, scattered into the live session)
-prefill new requests into retired rows between rounds, and
-``grow_session`` raises a paged session's capacity.
+prefill new requests into retired rows between rounds,
+``admit_rows_prefix`` prefills only the unshared tails of rows whose block
+tables already point at a sibling's prefix pages,
+``begin_admit_chunked``/``admit_chunk`` prefill a long prompt one chunk per
+round boundary, and ``grow_session`` raises a paged session's capacity.
 
 The reference jits one fused round per gamma (and three stage programs for
 ``timed=True``) and logs every trace.  This port captures them in CUDA
@@ -27,11 +30,14 @@ graphs (``core/graphs.py``): one graph set per key (stage, gamma, batch,
 max_seq, cache geometry), captured the first time the key runs and
 replayed every later round.  ``trace_log`` gets (gamma, batch) for each
 capture, and ``admit_trace_log`` each (prompt bucket, rows) the first time
-an admission runs with a new shape (cache geometry included); admissions,
-prefills and growth stay eager.  A replayed round copies its host inputs
-into static buffers, replays with no host sync, and reads its results back
-with one device-to-host copy.  ``cuda_graphs=False`` runs the same rounds
-eagerly on the card (A/B runs); on the CPU they always run eagerly.
+an admission runs with a new shape (cache geometry included);
+``prefix_trace_log`` (tail bucket, rows) and ``chunk_trace_log`` (stage,
+chunk, rows) do the same for the prefix-shared and chunked admissions.
+Admissions, prefills and growth stay eager.  A replayed round copies its
+host inputs into static buffers, replays with no host sync, and reads its
+results back with one device-to-host copy.  ``cuda_graphs=False`` runs the
+same rounds eagerly on the card (A/B runs); on the CPU they always run
+eagerly.
 
 Arenas.  A graph reads and writes fixed addresses, so a session's tensors
 (target and draft caches with their lengths, the block table, the last
@@ -96,6 +102,26 @@ class SDStats:
         self.max_possible += (res.gamma + 1) * live
         self.accept_events += int(res.n_accept.sum())
         self.draft_events += res.width * live
+
+
+@dataclass
+class PendingAdmission:
+    """A chunked sliced admission in flight (``begin_admit_chunked``).
+    ``t_cache`` is the compact dense target cache under construction (None
+    until the first chunk ran), ``consumed`` the prompt tokens prefilled so
+    far.  The rows join the live session when ``admit_chunk`` returns None
+    for the pending half."""
+    prompts: np.ndarray                  # (R, Tp) host-side
+    lengths: np.ndarray                  # (R,) true prompt lengths (equal)
+    rows: np.ndarray                     # (R,) destination pool rows
+    chunk: int
+    generator: Optional[torch.Generator] = None
+    t_cache: Optional[dict] = None
+    consumed: int = 0
+
+    @property
+    def remaining(self) -> int:
+        return int(self.lengths[0]) - self.consumed
 
 
 @dataclass
@@ -229,6 +255,8 @@ class SDEngine:
         # (T_prompt, rows) per new admission shape: the full path logs the
         # pool, the sliced path the admitted-row bucket
         self.admit_trace_log: List[Tuple[int, int]] = []
+        self.prefix_trace_log: List[Tuple[int, int]] = []  # (T_tail, rows)
+        self.chunk_trace_log: List[Tuple[str, int, int]] = []  # (stage, C, R)
         self.growth_log: List[Tuple[int, Optional[int]]] = []
         self._shapes: Set[tuple] = set()
         self._arenas: Dict[tuple, _Arena] = {}
@@ -533,6 +561,146 @@ class SDEngine:
                                     state.max_seq)
         return self._scatter_admitted(state, fresh, rows, valid, generator,
                                       Tp)
+
+    def admit_rows_prefix(self, state: SessionState, tails, tail_start,
+                          tail_len, prompts, lengths, rows, *, valid=None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> SessionState:
+        """Prefix-SHARED sliced admission: target-prefill only the tails.
+
+        For a PAGED session whose allocator already mapped each admitted
+        row's table onto a sibling's prefix pages (``fork_prefix``, private
+        ``extend_row`` pages, the copy-on-write boundary copied).  The
+        target extends only ``tails`` (R, T_tail) at offset ``tail_start``
+        over an R-row view of the live cache (the pool tensors themselves
+        and the rows' slice of the block table), so the tail K/V land in the
+        rows' private pages and the tail queries attend across the shared
+        prefix in the same forward: tails of at most PAGED_KERNEL_MAX_T
+        tokens through the paged kernel, longer ones over the gathered view.
+        The proposer builds its state over the full ``prompts`` (R, T_p).
+        Lengths, proposer rows and first tokens are written into the live
+        session in place; pad lanes (``valid`` False) replicate real rows
+        and are dropped.  Every target layer must be pool-backed."""
+        tails = np.asarray(tails)
+        prompts = np.asarray(prompts)
+        R, Tt = tails.shape
+        Tp = prompts.shape[1]
+        if state.t_cache.get("pages") is None:
+            raise ValueError("admit_rows_prefix needs a paged session")
+        bad = [k for k in self.target.cfg.layer_pattern
+               if k not in ("attn", "mla")]
+        if bad:
+            raise ValueError(
+                f"admit_rows_prefix requires pool-backed layers only; "
+                f"target has {sorted(set(bad))} (fall back to admit_rows)")
+        if generator is None and self.temperature > 0.0:
+            raise ValueError("admit_rows_prefix() needs a generator at "
+                             "temperature>0")
+        valid = (np.ones((R,), bool) if valid is None
+                 else np.asarray(valid, bool))
+        self._log_shape(self.prefix_trace_log, (Tt, R),
+                        ("prefix", R, Tt, Tp, state.max_seq,
+                         _cache_geometry(state.t_cache)))
+        dev = self.target.device
+        t_cache = state.t_cache
+        rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        compact = {"layers": t_cache["layers"],
+                   "lengths": _on(tail_start, torch.int32, dev),
+                   "pages": {"table": t_cache["pages"]["table"][rows_t]}}
+        logits, _ = self.target.extend(state.params["target"], tails, compact)
+        idx = _on(np.asarray(tail_len, np.int64) - 1, torch.int64, dev)
+        last_l = logits[torch.arange(R, device=dev), idx]
+        lengths = _on(lengths, torch.int32, dev)
+        fresh_p = self.proposer.init_state(
+            state.params, _on(prompts, torch.int64, dev), state.max_seq,
+            lengths=lengths)
+        first = sample_from(probs_from_logits(last_l, self.temperature),
+                            generator, self.temperature)
+        p_state = self.proposer.scatter_state(state.p_state, fresh_p, rows,
+                                              valid=valid)
+        # the live lengths jump to the full prompt, shared prefix included;
+        # pad lanes (valid False) are dropped on the host
+        keep = np.nonzero(valid)[0]
+        dst = torch.as_tensor(np.asarray(rows, np.int64)[keep], device=dev)
+        src = torch.as_tensor(keep, device=dev)
+        t_cache["lengths"][dst] = lengths[src]
+        state.last_token[dst] = first[src]
+        return replace(state, p_state=p_state)
+
+    # ----------------------------------------------------- chunked admission
+    def begin_admit_chunked(self, prompts, lengths, rows, *, chunk: int,
+                            generator: Optional[torch.Generator] = None
+                            ) -> PendingAdmission:
+        """Open a chunked sliced admission: ``admit_chunk`` then prefills
+        ``chunk`` tokens per call (one per round boundary), so one long
+        admission does not stall the round it lands in.  The compact cache
+        attends only to its own written positions, so chunked and one-shot
+        prefills give the same tokens.  The rows stay out of the live
+        session until the final chunk.  One chunked admission holds
+        prompts of EQUAL length."""
+        prompts = np.asarray(prompts)
+        lengths = np.asarray(lengths, np.int32)
+        if len(set(int(x) for x in lengths)) != 1:
+            raise ValueError("chunked admission requires equal prompt "
+                             "lengths; admit long prompts one at a time")
+        if int(lengths[0]) <= chunk:
+            raise ValueError("prompt fits one chunk; use admit_rows")
+        if generator is None and self.temperature > 0.0:
+            raise ValueError("begin_admit_chunked() needs a generator at "
+                             "temperature>0")
+        return PendingAdmission(prompts=prompts, lengths=lengths,
+                                rows=np.asarray(rows, np.int32),
+                                chunk=int(chunk), generator=generator)
+
+    def admit_chunk(self, state: SessionState, pa: PendingAdmission
+                    ) -> Tuple[SessionState, Optional[PendingAdmission]]:
+        """Advance a chunked admission by ONE chunk, eagerly.
+
+        ``first`` prefills a compact dense cache of the session's logical
+        capacity, ``mid`` extends and commits it; neither touches the live
+        session.  ``final`` extends and commits the last chunk, builds the
+        proposer state over the full prompt, samples the first tokens and
+        scatters everything into the live session in place, as
+        ``admit_rows`` does.  Returns ``(state, pending)``; ``pending`` is
+        None once the rows are live."""
+        R, Tp = pa.prompts.shape
+        C, done, total = pa.chunk, pa.consumed, int(pa.lengths[0])
+        take = min(C, total - done)
+        toks = np.zeros((R, C), np.int32)
+        toks[:, :take] = pa.prompts[:, done:done + take]
+        dev = self.target.device
+        n_row = torch.full((R,), take, dtype=torch.int32, device=dev)
+        params_t = state.params["target"]
+        if done == 0:
+            self._log_shape(self.chunk_trace_log, ("first", C, R),
+                            ("chunk", "first", R, C, state.max_seq))
+            fresh_t = self.target.init_cache(R, state.max_seq)
+            _, fresh_t = self.target.prefill(
+                params_t, toks, fresh_t,
+                lengths=_on(np.minimum(pa.lengths, C), torch.int32, dev))
+            return state, replace(pa, t_cache=fresh_t, consumed=take)
+        if done + take < total:
+            self._log_shape(self.chunk_trace_log, ("mid", C, R),
+                            ("chunk", "mid", R, C,
+                             _cache_geometry(pa.t_cache)))
+            _, pend = self.target.extend(params_t, toks, pa.t_cache,
+                                         collect=True)
+            fresh_t = self.target.commit(pend, n_row, collected=True)
+            return state, replace(pa, t_cache=fresh_t, consumed=done + take)
+        self._log_shape(self.chunk_trace_log, ("final", C, R),
+                        ("chunk", "final", R, C, Tp, state.max_seq,
+                         _cache_geometry(pa.t_cache),
+                         _cache_geometry(state.t_cache)))
+        logits, pend = self.target.extend(params_t, toks, pa.t_cache,
+                                          collect=True)
+        fresh_t = self.target.commit(pend, n_row, collected=True)
+        fresh_p = self.proposer.init_state(
+            state.params, _on(pa.prompts, torch.int64, dev), state.max_seq,
+            lengths=_on(pa.lengths, torch.int32, dev))
+        state = self._scatter_admitted(
+            state, (fresh_t, fresh_p, logits[:, take - 1]), pa.rows,
+            np.ones((R,), bool), pa.generator, Tp)
+        return state, None
 
     # ---------------------------------------------------------------- growth
     def grow_session(self, state: SessionState, new_max_seq: int, *,

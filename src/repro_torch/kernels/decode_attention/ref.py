@@ -5,8 +5,9 @@ and ``paged_decode_attention_ref`` keep the reference oracles' (B, Hq, T, D)
 layout; ``decode_attention_plain`` and ``paged_decode_attention_plain`` are
 the (B, T, Hq, D) wrappers of ``repro.kernels.decode_attention.ops``.  The
 plain paged version gathers ``pool[table]`` into the dense view and delegates to
-the dense one, so trash or stale page contents are masked, never read into
-the softmax.
+the dense one, so trash or stale page contents are masked out of the
+softmax, and their V rows zeroed before the P V product, as the kernels
+zero them.
 
 These are the CPU path of ``ops.decode_attention`` and
 ``paged.paged_decode_attention`` and the yardsticks their CUDA kernels are
@@ -55,7 +56,11 @@ def decode_attention_ref(
     k_pos = torch.arange(S, device=dev)[None, None, None, :]
     s = s.masked_fill(k_pos > q_pos, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhts,bhsd->bhtd", p, v.float())
+    # V rows past the newest query, length + T - 1, are zeroed as the CUDA
+    # kernels zero them: a stale value there, even NaN, never enters the
+    # result (a zero probability times NaN would)
+    past = k_pos[..., 0, :, None] > q_pos[:, :, -1:, :]        # (B, 1, S, 1)
+    out = torch.einsum("bhts,bhsd->bhtd", p, v.float().masked_fill(past, 0.0))
     return out.to(q.dtype)
 
 

@@ -5,6 +5,9 @@ with the continuous slot scheduler.
       --reduced --requests 16 --max-batch 8 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
       --reduced --scheduler continuous --kv-layout paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
+      --reduced --scheduler continuous --kv-layout paged --page-size 16 \
+      --prefix-sharing --shared-prefix 32 --prefill-chunk 16
 
 Port of ``repro.launch.serve`` for the flags this slice implements.  The
 draft is the reference's default draft for the target (``draft_for``).
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import draft_for, get_config
@@ -74,6 +78,9 @@ def main(argv=None):
                     choices=["sliced", "full"],
                     help="continuous admission: prefill only the admitted "
                          "rows (sliced) or the whole pool (full)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="continuous mode: prefill prompts longer than "
+                         "this in chunks interleaved with decode rounds")
     ap.add_argument("--kv-layout", default="dense",
                     choices=["dense", "paged"],
                     help="target KV layout; paged = block-table pages with "
@@ -86,11 +93,19 @@ def main(argv=None):
                          "walking CUDA kernel (default) or the dense "
                          "pool[table] gather, a cross-check allowed only "
                          "with --device cpu")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="paged mode: admissions whose prompt shares a "
+                         "page-aligned prefix with a live slot fork its "
+                         "pages (refcounted copy-on-write) and prefill only "
+                         "the tail")
     ap.add_argument("--admission-order", default="fifo",
                     choices=["fifo", "pressure"],
                     help="continuous refill order; pressure picks the "
                          "smallest-page-footprint admissible request when "
                          "the paged pool is under pressure")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many common system-prompt tokens to "
+                         "every request (exercises --prefix-sharing)")
     ap.add_argument("--round-deadline-s", type=float, default=None,
                     help="resilience: per-round wall-clock deadline; slower "
                          "rounds count toward the degradation ladder")
@@ -139,11 +154,23 @@ def main(argv=None):
                         seed=args.seed, timed=args.timed,
                         scheduler=args.scheduler, eos_id=args.eos_id,
                         admit_mode=args.admit_mode,
+                        prefill_chunk=args.prefill_chunk,
                         kv_layout=args.kv_layout, page_size=args.page_size,
+                        prefix_sharing=args.prefix_sharing,
                         admission_order=args.admission_order,
                         resilience=resilience)
     pb = prompt_batch(cfg.vocab_size, args.requests, kind=args.kind,
                       seed=args.seed)
+    if args.shared_prefix > 0:
+        # one common system prompt ahead of every request, the workload
+        # prefix sharing is built for (the reference's draws)
+        rng = np.random.default_rng(args.seed + 17)
+        sys_toks = rng.integers(1, cfg.vocab_size,
+                                size=args.shared_prefix).astype(np.int32)
+        pb["tokens"] = [np.concatenate([sys_toks, np.asarray(
+            pb["tokens"][i][: int(pb["lengths"][i])], np.int32)])
+            for i in range(len(pb["lengths"]))]
+        pb["lengths"] = [int(n) + args.shared_prefix for n in pb["lengths"]]
     max_new_choices = ([int(x) for x in args.mixed_max_new.split(",")]
                        if args.mixed_max_new else [args.max_new])
     submit_poisson(eng, pb["tokens"], pb["lengths"], rate=args.arrival_rate,
@@ -184,7 +211,10 @@ def main(argv=None):
                       f"{tuner.alpha:.3f}")
             print(f"  admission: {sum(s.admit_rows for s in r.steps)} "
                   f"prefill rows, {sum(s.admit_tokens for s in r.steps)} "
-                  f"row-tokens ({args.admit_mode})")
+                  f"row-tokens ({args.admit_mode}), "
+                  f"{sum(s.chunk_steps for s in r.steps)} chunk steps, "
+                  f"{sum(s.shared_tokens for s in r.steps)} shared prompt "
+                  "tokens not prefilled")
     for kind, s in eng.session_stats().items():
         if kind == "resilience":
             if s:                 # fault/preemption/recovery counters
@@ -196,6 +226,8 @@ def main(argv=None):
               f"{len(s['traces'])} round traces, "
               f"{s['captures']} round captures, {s['replays']} replays, "
               f"{len(s['admit_traces'])} admit traces, "
+              f"{len(s['prefix_traces'])} prefix traces, "
+              f"{len(s['chunk_traces'])} chunk traces, "
               f"{len(s['growths'])} growths")
         print(f"  graph keys (gamma, batch, max_seq): captures/replays " +
               " ".join(f"{k}:{c}/{n}" for k, (c, n) in sorted(s["keys"].items())))

@@ -52,6 +52,10 @@ NEG_INF = -1e30
 # extends (a verify of gamma 8 and up) attend over the gathered view, as in
 # the reference (src/repro/models/attention.py, T <= 8)
 PAGED_KERNEL_MAX_T = 8
+# slots a sliding-window ring keeps beyond its window, as in the reference;
+# a chunked prefill wider than SWA_RING_PAD + 1 would evict entries still in
+# an earlier query's window ("swa" itself is ROADMAP queue 1 item 9)
+SWA_RING_PAD = 8
 GATHER_ON_CUDA = ("paged_attention='gather' is a CPU cross-check of the "
                   "paged kernel path; on a CUDA device paged decode/verify "
                   "runs the kernel (paged_attention='kernel')")

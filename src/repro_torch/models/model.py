@@ -365,6 +365,29 @@ def grow_cache_pages(cache: dict, pool_pages: int, max_pages: int) -> dict:
                 pages=dict(cache["pages"], table=table))
 
 
+def copy_cache_pages(cache: dict, pairs) -> dict:
+    """Copy physical pages src -> dst across every paged leaf, in place.
+
+    The copy-on-write step: after :meth:`PageAllocator.cow_range` hands back
+    (src, dst) pairs, this clones their contents so the detached row keeps
+    its shared-prefix KV.  Callers pad ``pairs`` to a bucketed count with
+    (0, 0) trash self-copies.  The pool tensors are written where they are
+    (the session's round graphs read them there) and the cache dict is
+    returned."""
+    if cache.get("pages") is None:
+        raise ValueError("copy_cache_pages: not a paged cache")
+    if not pairs:
+        return cache
+    dev = cache["lengths"].device
+    src = torch.as_tensor([p[0] for p in pairs], dtype=torch.int64, device=dev)
+    dst = torch.as_tensor([p[1] for p in pairs], dtype=torch.int64, device=dev)
+    for slot in cache["layers"]:
+        for paged_key, _ in _PAGED_LEAF_PAIRS:
+            leaf = slot[paged_key]
+            leaf[dst] = leaf[src]       # the gather is read before the write
+    return cache
+
+
 def grow_cache_seq(cache: dict, cfg: ModelConfig, new_max_seq: int) -> dict:
     """Raise a DENSE cache's logical capacity to ``new_max_seq``: the
     draft-side companion of :func:`grow_cache_pages`.  New positions go

@@ -10,7 +10,10 @@ Port of ``repro.serving.engine`` with both schedulers:
     slots decoded round by round (``serving/scheduler.py``): slots retire
     the moment their request finishes, freed slots are refilled between
     rounds, and the target cache may be dense or paged
-    (``kv_layout="paged"``, grown on demand).
+    (``kv_layout="paged"``, grown on demand).  Long prompts may prefill in
+    chunks (``prefill_chunk``), a paged stream may share common prompt
+    prefixes between rows (``prefix_sharing``), and a ``fault_injector``
+    (``serving/faults.py``) scripts faults for tests.
 
 The engine holds ONE persistent decoding session (``SDEngine``) per
 proposer kind, reused across waves and streams.  Wave batches are padded
@@ -20,9 +23,6 @@ cache lengths are bucketed too, as in the reference.  With a ``tuner``
 padded bucket and feeds the wave's acceptance rate back; the continuous
 scheduler re-plans on the live slot count every round.  Each gamma that
 runs is its own round key, captured once (``core/graphs.py``).
-
-Not ported yet: prefix sharing, chunked prefill and fault injection
-(ROADMAP queue 1 item 7's rest).
 """
 from __future__ import annotations
 
@@ -38,19 +38,10 @@ from repro_torch.core.autotune import AutoTuner
 from repro_torch.core.proposer import make_proposer
 from repro_torch.core.spec_decode import SDEngine, SDStats
 from repro_torch.data.tokenizer import PAD
+from repro_torch.models.attention import SWA_RING_PAD
 from repro_torch.models.model import Model
 from repro_torch.serving.faults import ResilienceConfig
 from repro_torch.serving.sampling import SamplingParams
-
-_LATER = {
-    "prefix_sharing": "prefix sharing (ROADMAP queue 1 item 7, its "
-                      "prefix-sharing part)",
-    "prefill_chunk": "chunked prefill (ROADMAP queue 1 item 7, its "
-                     "chunked-admission part)",
-    "fault_injector": "fault injection (ROADMAP queue 1 item 7, its "
-                      "fault-injection part)",
-}
-
 
 @dataclass
 class Request:
@@ -72,6 +63,7 @@ class Request:
     readmit_round: Optional[int] = None  # round of the last re-admission
     resume_tokens: Optional[List[int]] = None  # committed tokens to replay
     rounds_used: int = 0                 # decode rounds spent on this slot
+    admit_attempts: int = 0              # transient admission failures seen
 
 
 def finish_output(tokens: np.ndarray, eos_id: Optional[int]):
@@ -187,21 +179,43 @@ class ServingEngine:
         if admission_order == "pressure" and kv_layout != "paged":
             raise ValueError("admission_order='pressure' orders refills by "
                              "page footprint; it requires kv_layout='paged'")
-        for name, value in (("prefix_sharing", prefix_sharing),
-                            ("prefill_chunk", prefill_chunk),
-                            ("fault_injector", fault_injector)):
-            if value not in (None, False):
-                raise NotImplementedError(
-                    f"{name}: {_LATER[name]} is not ported yet")
+        if prefix_sharing:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "prefix_sharing maps common prompt prefixes to shared "
+                    "KV pages; it requires kv_layout='paged' (continuous "
+                    "scheduler)")
+            bad = [k for k in target.cfg.layer_pattern
+                   if k not in ("attn", "mla")]
+            if bad:
+                raise ValueError(
+                    f"prefix_sharing forks block-table pages; target layer "
+                    f"kinds {sorted(set(bad))} keep dense per-row state "
+                    "(SWA rings / recurrent columns) that a table fork "
+                    "cannot share — serve this model without sharing")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got "
+                                 f"{prefill_chunk}")
+            if scheduler != "continuous":
+                raise ValueError("prefill_chunk interleaves with decode "
+                                 "rounds; it requires scheduler="
+                                 "'continuous'")
+            if (any(k == "swa" for k in target.cfg.layer_pattern)
+                    and prefill_chunk > SWA_RING_PAD + 1):
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} > SWA_RING_PAD+1="
+                    f"{SWA_RING_PAD + 1}: a larger chunk evicts ring "
+                    "entries still inside earlier chunk queries' windows")
         if resilience is None:
             resilience = ResilienceConfig()
-        if ((resilience.round_deadline_s is not None
-             or resilience.max_rounds_per_request is not None)
-                and scheduler != "continuous"):
+        if (resilience.round_deadline_s is not None
+                or resilience.max_rounds_per_request is not None
+                or fault_injector is not None) and scheduler != "continuous":
             raise ValueError(
-                "resilience deadlines are continuous-scheduler features "
-                "(wave mode has no per-round requeue path); use "
-                "scheduler='continuous'")
+                "resilience deadlines and fault injection are continuous-"
+                "scheduler features (wave mode has no per-round requeue "
+                "path); use scheduler='continuous'")
         self.proposer_kind = proposer
         self.target, self.draft = target, draft
         self.params_t, self.params_d = params_t, params_d
@@ -215,9 +229,13 @@ class ServingEngine:
         self.eos_id = eos_id
         self.kv_layout = kv_layout
         self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        self.prefix_sharing = prefix_sharing
         self.admit_mode = admit_mode
         self.admission_order = admission_order
         self.resilience = resilience
+        # a FaultInjector (tests); may be reassigned between streams
+        self.fault_injector = fault_injector
         self.cuda_graphs = cuda_graphs
         self.tuner = tuner
         # fault/preemption/recovery counters, filled by the continuous
@@ -299,7 +317,9 @@ class ServingEngine:
         (each (prompt bucket, rows) admission shape), ``growths``
         ((new_max_seq, pool_pages) per paged growth) and ``keys``
         (``SDEngine.round_keys``: (gamma, batch, max_seq) -> (captures,
-        replays)).  Plus one
+        replays)), ``prefix_traces`` (each (tail bucket, rows) shape of a
+        prefix-shared admission) and ``chunk_traces`` (each (stage, chunk,
+        rows) shape of a chunked admission).  Plus one
         non-kind entry, ``"resilience"``: the continuous scheduler's
         fault/preemption/recovery counters (empty for a healthy stream)."""
         out: Dict[str, dict] = {"resilience": dict(self.fault_counters)}
@@ -311,6 +331,8 @@ class ServingEngine:
                 "captures": sess.graphs.total_captures,
                 "replays": sess.graphs.total_replays,
                 "admit_traces": list(sess.admit_trace_log),
+                "prefix_traces": list(sess.prefix_trace_log),
+                "chunk_traces": list(sess.chunk_trace_log),
                 "growths": list(sess.growth_log),
                 "keys": sess.round_keys(),
             }

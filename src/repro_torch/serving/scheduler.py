@@ -27,9 +27,25 @@ the live slot count, ``plan(live)``; a round planned without SD runs with
 gamma 0 in the same session (the SD→AR hand-off), the stream's caches are
 sized for the largest gamma the tuner can plan, and the round's acceptance
 rate, read back with its results, goes to ``update_alpha``.  Each gamma is
-its own round key, captured on its first round.  Prefix sharing, chunked
-prefill and fault injection wait for later slices (the engine's
-constructor refuses them).
+its own round key, captured on its first round.
+
+  * long prompts optionally prefill in CHUNKS (``prefill_chunk``), one
+    chunk per round boundary (``SDEngine.admit_chunk``), so one long
+    admission does not stall the round it lands in,
+  * with ``prefix_sharing=True`` (paged only) an admission whose prompt
+    shares at least a page of prefix with a LIVE slot's prompt forks that
+    slot's prefix pages (refcounted, the boundary page copied on write:
+    ``PageAllocator.fork_prefix``/``cow_range``, ``copy_cache_pages``) and
+    target-prefills only its tail (``SDEngine.admit_rows_prefix``);
+    same-round siblings are staggered one round so the first becomes the
+    leader,
+  * a ``FaultInjector`` (``serving/faults.py``) scripts page exhaustion,
+    NaN rows, slow rounds and admission failures at fixed rounds.
+
+Every write these make into the session (table forks, copy-on-write page
+copies, NaN poison, the final scatter of a chunked admission) goes into
+the session's tensors in place before the next round, because the round
+graphs read them there.
 
 The engine's generator replaces the reference's key splits: each admission
 and round draws from it in turn.
@@ -43,9 +59,12 @@ from typing import TYPE_CHECKING, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.spec_decode import SDStats, SessionState
+from repro_torch.core.spec_decode import (PendingAdmission, SDStats,
+                                          SessionState)
 from repro_torch.data.tokenizer import PAD
-from repro_torch.models.model import PageAllocator
+from repro_torch.models.model import (PageAllocator, copy_cache_pages,
+                                      grow_cache_seq)
+from repro_torch.serving.faults import poison_cache_row
 from repro_torch.serving.engine import WaveReport, _pow2_at_least
 
 if TYPE_CHECKING:                                    # avoid runtime cycle
@@ -122,7 +141,12 @@ class StepReport:
     admission prefills processed.  Resilience fields (zero on a healthy
     round): slots ``preempted`` for page pressure, rows quarantined by the
     numerical sentinel (``faults``), requests over their round budget
-    (``timeouts``), admissions ``deferred`` by backpressure."""
+    (``timeouts``), admissions ``deferred`` by backpressure, a transient
+    admission failure or a prefix-sharing stagger.  ``shared_tokens``
+    counts the prompt tokens this boundary's admissions did not prefill
+    because prefix sharing mapped them to a sibling's pages, and
+    ``chunk_steps`` the chunks of chunked admissions advanced at it (their
+    rows and tokens are in ``admit_rows``/``admit_tokens``)."""
     round_index: int
     live: int
     gamma: int
@@ -137,6 +161,16 @@ class StepReport:
     faults: int = 0
     timeouts: int = 0
     deferred: int = 0
+    shared_tokens: int = 0
+    chunk_steps: int = 0
+
+
+@dataclass
+class _Chunking:
+    """A slot reserved by an in-flight chunked admission."""
+    slot: SlotState
+    request: "Request"
+    pa: PendingAdmission
 
 
 class ContinuousScheduler:
@@ -205,6 +239,50 @@ class ContinuousScheduler:
         c = self.engine.fault_counters
         c[name] = c.get(name, 0) + n
 
+    # -------------------------------------------------------- prefix sharing
+    @staticmethod
+    def _common_prefix(a, b) -> int:
+        n = min(len(a), len(b))
+        if n == 0:
+            return 0
+        neq = np.nonzero(np.asarray(a[:n]) != np.asarray(b[:n]))[0]
+        return int(neq[0]) if neq.size else n
+
+    def _find_leader(self, slots: List[SlotState], r: "Request"
+                     ) -> Tuple[Optional[SlotState], int]:
+        """The ACTIVE slot whose prompt shares the longest common prefix
+        with ``r``'s, or (None, 0).  The share is capped at
+        ``len(r.prompt) - 1`` (the tail keeps a token, whose logit samples
+        the first output) and must reach a whole page, or nothing is
+        shared."""
+        best, best_len = None, 0
+        for s in slots:
+            if not s.active or s.request is None:
+                continue
+            share = min(self._common_prefix(s.request.prompt, r.prompt),
+                        len(r.prompt) - 1)
+            if share > best_len:
+                best, best_len = s, share
+        if best_len < self.engine.page_size:
+            return None, 0
+        return best, best_len
+
+    def _should_stagger(self, r: "Request", batch_in, prefix_in, landed,
+                        chunking) -> bool:
+        """True when no ACTIVE leader exists but a sibling admitted at this
+        boundary shares at least a page of prompt prefix with ``r``: one
+        round later ``r`` forks the sibling's pages instead of prefilling
+        the prefix twice.  Each uid staggers at most once."""
+        if r.uid in self._staggered:
+            return False
+        ps = self.engine.page_size
+        siblings = [q for _, q in batch_in] \
+            + [q for _, q, _ in prefix_in] \
+            + [q for _, q in landed] \
+            + [c.request for c in chunking]
+        return any(min(self._common_prefix(q.prompt, r.prompt),
+                       len(r.prompt) - 1) >= ps for q in siblings)
+
     def _bucket(self, n: int) -> int:
         return _pow2_at_least(n) if self.engine.bucket_batches else n
 
@@ -237,11 +315,18 @@ class ContinuousScheduler:
     def _grow(self, sess, state: SessionState, pool_pages: int,
               max_pages: int) -> SessionState:
         """Adopt a grown paged geometry: pad the session's pool and logical
-        capacity and mirror it in the allocator."""
+        capacity, mirror it in the allocator, and pad the compact caches of
+        in-flight chunked admissions so their final scatter still matches
+        the grown session."""
         alloc = self._alloc
-        state = sess.grow_session(state, max_pages * alloc.page_size,
-                                  pool_pages=pool_pages, max_pages=max_pages)
+        new_cap = max_pages * alloc.page_size
+        state = sess.grow_session(state, new_cap, pool_pages=pool_pages,
+                                  max_pages=max_pages)
         alloc.grow(pool_pages, max_pages)
+        for c in self._chunking:
+            if c.pa.t_cache is not None:
+                c.pa.t_cache = grow_cache_seq(c.pa.t_cache,
+                                              self.engine.target.cfg, new_cap)
         return self._sync_table(state)
 
     def _headroom_ok(self, need_pages: int, live: int) -> bool:
@@ -287,21 +372,27 @@ class ContinuousScheduler:
         self._round_preempted += 1
 
     def _make_room(self, sess, state: SessionState, r: "Request",
-                   round_idx: int, live: int, slots: List[SlotState]
+                   round_idx: int, live: int, slots: List[SlotState],
+                   fresh_pages: Optional[int] = None
                    ) -> Tuple[SessionState, str]:
         """Make the paged pool able to admit ``r``: ``"ok"`` (caller
         allocs), ``"defer"`` (transient pressure) or ``"impossible"`` (it
         cannot fit a drained pool at ``max_pool_pages``).  Under pressure:
-        grow (pow2) while the cap allows, then preempt, then defer."""
+        grow (pow2) while the cap allows, then preempt, then defer.
+        ``fresh_pages`` (a prefix-shared admission) is what the admission
+        draws from the free list: its private tail and the copy-on-write
+        boundary page; the logical capacity is still checked against the
+        full footprint."""
         alloc = self._alloc
         cap = self.engine.resilience.max_pool_pages
         need = self._need(r)
         need_pages = alloc.pages_for(need)
+        fresh = need_pages if fresh_pages is None else fresh_pages
         if cap is not None and need_pages > cap - 1:
             return state, "impossible"
         while True:
             if (need > state.max_seq or need_pages > alloc.max_pages
-                    or need_pages > len(alloc.free)):
+                    or fresh > len(alloc.free)):
                 pool_pages, max_pages = alloc.grown_geometry(need)
                 if cap is not None and pool_pages > cap:
                     victim = self._preempt_victim(slots, r)
@@ -311,7 +402,7 @@ class ContinuousScheduler:
                     continue
                 state = self._grow(sess, state, pool_pages, max_pages)
                 continue
-            if not self._headroom_ok(need_pages, live):
+            if not self._headroom_ok(fresh, live):
                 pool_pages = alloc.pool_pages * 2
                 if cap is not None and pool_pages > cap:
                     return state, "defer"    # watermark backpressure
@@ -371,6 +462,42 @@ class ContinuousScheduler:
         state = sess.admit_rows(state, toks, lengths, rows, valid=valid,
                                 generator=gen)
         return state, R, R * Tp
+
+    def _admit_batch_prefix(self, sess, state: SessionState,
+                            batch_in: List[Tuple[SlotState, "Request", int]]
+                            ) -> Tuple[SessionState, int, int]:
+        """One TAIL-ONLY admission prefill for this round's prefix-shared
+        refills (``SDEngine.admit_rows_prefix``): the allocator already
+        forked each row's table onto its leader's prefix pages and the
+        boundary page was copied, so the target extends only
+        ``prompt[share:]`` at offset ``share``; the proposer prefills the
+        full prompt.  Pad lanes replicate real rows (identical writes to
+        the same pages) and are dropped.  Returns (state, rows, row-tokens)
+        of the TARGET's tail work."""
+        tails = [np.asarray(r.prompt[sl:], np.int32) for _, r, sl in batch_in]
+        proms = [np.asarray(r.prompt, np.int32) for _, r, _ in batch_in]
+        Tt = self._bucket(max(len(t) for t in tails))
+        Tp = self._bucket(max(len(p) for p in proms))
+        R = min(self._bucket(len(batch_in)), self.pool)
+        tail_toks = np.full((R, Tt), PAD, np.int32)
+        prom_toks = np.full((R, Tp), PAD, np.int32)
+        tail_start = np.zeros((R,), np.int32)
+        tail_len = np.ones((R,), np.int32)
+        lengths = np.ones((R,), np.int32)
+        rows = np.zeros((R,), np.int32)
+        valid = np.zeros((R,), bool)
+        for i in range(R):
+            s, r, sl = batch_in[i % len(batch_in)]
+            t, p = tails[i % len(batch_in)], proms[i % len(batch_in)]
+            tail_toks[i, : len(t)] = t
+            prom_toks[i, : len(p)] = p
+            tail_start[i], tail_len[i], lengths[i] = sl, len(t), len(p)
+            rows[i] = s.index
+            valid[i] = i < len(batch_in)
+        state = sess.admit_rows_prefix(state, tail_toks, tail_start, tail_len,
+                                       prom_toks, lengths, rows, valid=valid,
+                                       generator=self.engine._next_generator())
+        return state, R, R * Tt
 
     # ------------------------------------------------------------ completion
     def _append(self, slot: SlotState, tokens: List[int]) -> int:
@@ -439,19 +566,59 @@ class ContinuousScheduler:
             + max(r.max_new_tokens for r in pending) + self._g_max + 2
         return _pow2_at_least(max_seq) if eng.bucket_batches else max_seq
 
+    def _advance_chunks(self, sess, state: SessionState):
+        """Advance every in-flight chunked admission by one chunk.  Returns
+        (state, landed, rows, row-tokens, chunk steps)."""
+        landed: List[Tuple[SlotState, "Request"]] = []
+        rows_n = toks_n = 0
+        steps = len(self._chunking)
+        for c in list(self._chunking):
+            R, C = c.pa.prompts.shape[0], c.pa.chunk
+            rows_n += R
+            toks_n += R * min(C, c.pa.remaining)
+            state, pa = sess.admit_chunk(state, c.pa)
+            if pa is None:
+                self._chunking.remove(c)
+                landed.append((c.slot, c.request))
+            else:
+                c.pa = pa
+        return state, landed, rows_n, toks_n, steps
+
     def _admit_boundary(self, sess, state: SessionState, slots, round_idx,
                         max_seq: int):
-        """Retire/refill at one round boundary: admit every admissible
-        request into a free slot with one prefill, rejecting (dense) or
-        making room for (paged) what the stream was not sized for.
-        Returns (state, landed, deferred, admit_rows, admit_tokens)."""
+        """Retire/refill at one round boundary.
+
+        First every in-flight chunked admission advances one chunk.  Then
+        every admissible request takes a free slot (or, when the injector
+        fails this round's admissions, is retried with backoff): rejected
+        (dense) or made room for (paged) where the stream was not sized
+        for it; with prefix sharing, forked onto a live leader's prefix
+        pages, or staggered a round behind a same-boundary sibling; a
+        prompt longer than ``prefill_chunk`` opens a chunked admission.
+        One table upload, one bucketed copy of the copy-on-write pages, one
+        tail admission and one sliced admission follow.  Returns (state,
+        landed, deferred, admit rows, admit row-tokens, shared tokens,
+        chunk steps)."""
         eng = self.engine
         paged = self._alloc is not None
+        prefix_ok = paged and eng.prefix_sharing
+        inj = eng.fault_injector
+        state, landed, rows_n, toks_n, chunk_steps = \
+            self._advance_chunks(sess, state)
         batch_in: List[Tuple[SlotState, "Request"]] = []
-        claimed = set()
-        deferred = 0
+        prefix_in: List[Tuple[SlotState, "Request", int]] = []
+        cow_pairs: List[Tuple[int, int]] = []
+        # slots of in-flight and just-landed chunked admissions are taken
+        claimed = {c.slot.index for c in self._chunking} \
+            | {s.index for s, _ in landed}
+        deferred = shared = 0
         live_now = sum(1 for s in slots if s.active)
-        while True:
+        # a scripted transient admission failure retries everything
+        # admissible this round with backoff, and admits nothing
+        failing = inj is not None and inj.admission_fails(round_idx)
+        if failing:
+            deferred += self._defer_admissible(round_idx)
+        while not failing:
             free = [s for s in slots
                     if not s.active and s.index not in claimed]
             if not free:
@@ -462,9 +629,40 @@ class ContinuousScheduler:
             if not paged and self._need(r) > max_seq:
                 self._finish_request(r, "rejected")
                 continue
+            # prefix sharing: fork a live sibling's prompt pages.  A
+            # re-admission never shares (its resumed stream diverges), and
+            # a tail longer than the prefill chunk takes the chunked path
+            leader, share_len = None, 0
+            if prefix_ok and not r.resume_tokens:
+                leader, share_len = self._find_leader(slots, r)
+                if (leader is not None and eng.prefill_chunk
+                        and len(r.prompt) - share_len > eng.prefill_chunk):
+                    leader, share_len = None, 0
+                if leader is None and self._should_stagger(
+                        r, batch_in, prefix_in, landed, self._chunking):
+                    r.arrival_round = round_idx + 1
+                    eng.queue.append(r)
+                    self._staggered.add(r.uid)
+                    deferred += 1
+                    self._count("prefix_staggered")
+                    continue
             if paged:
-                state, verdict = self._make_room(sess, state, r, round_idx,
-                                                 live_now, slots)
+                while True:
+                    fresh = None
+                    if leader is not None:
+                        # private tail pages + the copy-on-write boundary
+                        # page; the fork itself draws nothing
+                        fresh = (self._alloc.pages_for(self._need(r))
+                                 - share_len // self._alloc.page_size)
+                    state, verdict = self._make_room(
+                        sess, state, r, round_idx, live_now, slots,
+                        fresh_pages=fresh)
+                    if leader is not None and not leader.active:
+                        # _make_room preempted the leader: its pages are
+                        # gone, so re-budget unshared
+                        leader, share_len = None, 0
+                        continue
+                    break
                 if verdict == "impossible":
                     self._finish_request(r, "rejected")
                     continue
@@ -478,32 +676,70 @@ class ContinuousScheduler:
                 # a preemption inside _make_room may have freed a slot
                 free = [s for s in slots
                         if not s.active and s.index not in claimed]
-                self._alloc.alloc(free[0].index, self._need(r))
+                row = free[0].index
+                if leader is not None:
+                    self._alloc.fork_prefix(leader.index, row, share_len)
+                    self._alloc.extend_row(row, self._need(r))
+                    pairs = self._alloc.cow_range(row, share_len,
+                                                  self._need(r))
+                    cow_pairs.extend(pairs)
+                    shared += share_len
+                    self._count("prefix_hits")
+                    self._count("prefix_shared_tokens", share_len)
+                    self._count("cow_copies", len(pairs))
+                else:
+                    self._alloc.alloc(row, self._need(r))
                 self._table_dirty = True
             s = free[0]
             claimed.add(s.index)
             s.admit_seq = self._admit_seq
             self._admit_seq += 1
+            if leader is not None:
+                prefix_in.append((s, r, share_len))
+                continue
+            toks = self._admit_toks(r)
+            if eng.prefill_chunk and len(toks) > eng.prefill_chunk:
+                self._chunking.append(_Chunking(s, r, sess.begin_admit_chunked(
+                    toks[None, :], np.array([len(toks)], np.int32),
+                    np.array([s.index], np.int32), chunk=eng.prefill_chunk,
+                    generator=eng._next_generator())))
+                continue
             batch_in.append((s, r))
         if self._table_dirty:
-            # one table upload covers every page assignment and preemption
-            # of this boundary, before the admission scatter writes through
-            # it and before the next round: a freed victim's row must point
-            # at trash page 0, or its frozen lane would write into pages the
-            # pool has re-issued
+            # one table upload covers every page assignment, fork and
+            # preemption of this boundary, before the copies and admissions
+            # write through it and before the next round: a freed victim's
+            # row must point at trash page 0, or its frozen lane would
+            # write into pages the pool has re-issued
             state = self._sync_table(state)
-        rows_n = toks_n = 0
+        if cow_pairs:
+            # one bucketed copy detaches every copy-on-write page of this
+            # boundary; (0, 0) trash self-copies pad it to a power of two
+            n = _pow2_at_least(len(cow_pairs)) if eng.bucket_batches \
+                else len(cow_pairs)
+            copy_cache_pages(state.t_cache,
+                             cow_pairs + [(0, 0)] * (n - len(cow_pairs)))
+        if prefix_in:
+            state, rn, tn = self._admit_batch_prefix(sess, state, prefix_in)
+            rows_n += rn
+            toks_n += tn
+            landed.extend((s, r) for s, r, _ in prefix_in)
         if batch_in:
-            state, rows_n, toks_n = self._admit_batch(sess, state, batch_in)
-        return state, batch_in, deferred, rows_n, toks_n
+            state, rn, tn = self._admit_batch(sess, state, batch_in)
+            rows_n += rn
+            toks_n += tn
+            landed.extend(batch_in)
+        return state, landed, deferred, rows_n, toks_n, shared, chunk_steps
 
     def run_stream(self) -> Optional[WaveReport]:
         """Serve the queued stream to completion; one aggregated report.
 
-        Per round: (1) retire/refill (``_admit_boundary``); (2) plan gamma
+        Per round: (1) the injector's page holds, then advance chunked
+        admissions and retire/refill (``_admit_boundary``); (2) plan gamma
         on the live slot count (``tuner.plan(live)`` when a tuner is set),
         with the SD→AR handoff as a gamma=0 round in the same session;
-        (3) one SD round with the active mask; (4) credit tokens per slot,
+        (3) the injector's NaN rows and slow delay, then one SD round with
+        the active mask; (4) credit tokens per slot,
         quarantine non-finite rows, apply round budgets, free retired
         rows' pages; (5) the degradation ladder and the stall watchdog.
         Returns ``None`` on an empty queue."""
@@ -526,7 +762,10 @@ class ContinuousScheduler:
         steps: List[StepReport] = []
         self._finished: List["Request"] = []
         self._retired_rows: List[int] = []
+        self._chunking: List[_Chunking] = []
+        self._staggered = set()              # uids prefix-staggered once
         rescfg = eng.resilience
+        inj = eng.fault_injector
         self._consec_faulty = 0              # ladder state is per-stream
         self._consec_stall = 0
         self._forced_ar = False
@@ -541,9 +780,12 @@ class ContinuousScheduler:
             self._round_preempted = 0
             self._table_dirty = False
             had_admissible = self._has_admissible(round_idx)
-            state, landed, deferred_n, admit_rows_n, admit_tokens = \
-                self._admit_boundary(sess, state, slots, round_idx,
-                                     max_seq)
+            if inj is not None and self._alloc is not None:
+                # scripted page holds: release expired, apply due ones
+                inj.page_service(round_idx, self._alloc)
+            (state, landed, deferred_n, admit_rows_n, admit_tokens,
+             shared_n, chunk_n) = self._admit_boundary(
+                sess, state, slots, round_idx, max_seq)
             if landed:
                 first = state.last_token.cpu().numpy()
                 for s, r in landed:
@@ -571,9 +813,11 @@ class ContinuousScheduler:
                                             n_retired, 0.0, admit_rows_n,
                                             admit_tokens,
                                             preempted=self._round_preempted,
-                                            deferred=deferred_n))
+                                            deferred=deferred_n,
+                                            shared_tokens=shared_n,
+                                            chunk_steps=chunk_n))
                 self._free_retired()
-                if not eng.queue:
+                if not eng.queue and not self._chunking:
                     break
                 if self._note_stall(had_admissible,
                                     landed or admit_rows_n or n_retired):
@@ -591,7 +835,8 @@ class ContinuousScheduler:
             if eng.force_sd is not None:
                 use_sd = eng.force_sd
             if kind == "none" or self._forced_ar:
-                # the ladder's first rung forces AR until a healthy round
+                # the ladder's first rung forces AR until a healthy round,
+                # over force_sd too
                 use_sd = False
             if not use_sd:
                 gamma = 0                       # in-session SD→AR handoff
@@ -604,8 +849,19 @@ class ContinuousScheduler:
                 first_gamma = gamma
             used_sd_any |= use_sd
 
-            # ---- one SD round over the pool, retired rows masked out
+            # ---- scripted pre-round faults (tests; no injector in serving)
             t_r0 = time.perf_counter()
+            if inj is not None:
+                for f in inj.nan_rows(round_idx):
+                    row = f.row if f.row is not None else next(
+                        (s.index for s in slots if s.active), None)
+                    if row is not None:
+                        poison_cache_row(state.t_cache, row)
+                delay = inj.slow_delay(round_idx)
+                if delay:
+                    time.sleep(delay)
+
+            # ---- one SD round over the pool, retired rows masked out
             state, res = sess.round(state, gamma=gamma,
                                     generator=eng._next_generator(),
                                     active=active_mask, timed=eng.timed)
@@ -655,7 +911,9 @@ class ContinuousScheduler:
                                     admit_tokens,
                                     preempted=self._round_preempted,
                                     faults=faults_n, timeouts=timeouts_n,
-                                    deferred=deferred_n))
+                                    deferred=deferred_n,
+                                    shared_tokens=shared_n,
+                                    chunk_steps=chunk_n))
 
             # ---- degradation ladder: healthy → forced AR → safe stop
             slow = (rescfg.round_deadline_s is not None
@@ -686,6 +944,8 @@ class ContinuousScheduler:
                 break
             round_idx += 1
 
+        if inj is not None and self._alloc is not None:
+            inj.release_all(self._alloc)
         self._check_invariants()
         wall = time.perf_counter() - t_start
         clean = ("length", "eos")
@@ -708,6 +968,29 @@ class ContinuousScheduler:
             finish_reasons=reasons)
 
     # ------------------------------------------------------------ resilience
+    def _defer_admissible(self, round_idx: int) -> int:
+        """Bounded retry with backoff for a transiently failing admission
+        round: attempt ``i`` pushes a request ``backoff * 2**(i-1)`` rounds
+        out; past ``admit_retries`` it finishes ``admit_failed``."""
+        eng = self.engine
+        rescfg = eng.resilience
+        deferred = 0
+        while True:
+            r = self._pop_admissible(round_idx)
+            if r is None:
+                return deferred
+            r.admit_attempts += 1
+            if r.admit_attempts > rescfg.admit_retries:
+                self._count("admit_failures")
+                self._finish_request(r, "admit_failed")
+                continue
+            backoff = max(1, rescfg.admit_backoff_rounds
+                          * 2 ** (r.admit_attempts - 1))
+            r.arrival_round = round_idx + backoff
+            eng.queue.append(r)
+            self._count("admit_retries")
+            deferred += 1
+
     def _note_stall(self, had_admissible: bool, progress) -> bool:
         """Stall watchdog: True once ``stall_rounds`` consecutive rounds had
         admissible work and nothing landed, committed or retired."""
@@ -721,9 +1004,15 @@ class ContinuousScheduler:
         return False
 
     def _abort(self, slots: List[SlotState]) -> None:
-        """Stream-level safe stop: every in-flight and queued request
-        finishes ``"aborted"`` (partial output kept) and every page returns
-        to the pool, so the engine stays serviceable."""
+        """Stream-level safe stop: every in-flight (chunked admissions
+        included) and queued request finishes ``"aborted"`` (partial output
+        kept) and every page returns to the pool, so the engine stays
+        serviceable."""
+        for c in self._chunking:
+            if self._alloc is not None:
+                self._alloc.free_row(c.slot.index)
+            self._finish_request(c.request, "aborted")
+        self._chunking.clear()
         for s in slots:
             if s.active:
                 self._finish(s, "aborted")

@@ -4,9 +4,12 @@ Mirrors tests/test_admission.py on the port: the page allocator's
 bookkeeping, the two admission primitives (row scatter ≡ row merge), the
 sliced admission's shapes (keyed on the admitted rows, bucket reset per
 refill), a late request the stream was not sized for (rejected on a dense
-cache, admitted by growth on a paged one), watermark backpressure, and a
-request too large for the pool cap.  Where the reference runs the same
-stream, the port's admission traces, growths and greedy outputs equal its.
+cache, admitted by growth on a paged one), watermark backpressure, a
+request too large for the pool cap, and chunked prefill (one chunk per
+round boundary) against the one-shot admission, dense and paged, with a
+growth while a chunked admission is in flight.  Where the reference runs
+the same stream, the port's admission and chunk traces, growths and greedy
+outputs equal its.
 
 Same weights on both sides (``model_pair``), fp32, TF32 off.
 """
@@ -322,3 +325,45 @@ def test_oversize_request_at_pool_cap_rejected(models):
     assert eng.done[ua].finish_reason == "length"
     assert len(eng.done[ua].output) == 8
     eng._slot_scheduler._alloc.assert_no_leaks()
+
+
+# ------------------------------------------------------------ chunked prefill
+def _chunk_stream(cls, m, chunk, layout):
+    """16-token prompts in 4-token chunks (paged: pages of 8, and a 40-token
+    prompt at round 2 whose admission grows the session while a chunked
+    admission is in flight)."""
+    eng = _engine(cls, m, prefill_chunk=chunk, kv_layout=layout,
+                  page_size=8)
+    uids = [eng.submit(np.arange(3, 19), max_new_tokens=n) for n in (6, 9, 5)]
+    if layout == "paged":
+        uids.append(eng.submit(np.arange(3, 43), max_new_tokens=4,
+                               arrival_round=2))
+    (report,) = eng.run()
+    return eng, uids, report
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_chunked_prefill_matches_one_shot(models, layout):
+    """Chunked prefill is greedy token-identical to the one-shot sliced
+    admission; its chunk log holds the three stages, each chunk of the
+    stream is counted, and tokens, chunk traces and growths equal the
+    reference's chunked stream."""
+    jm, tm = models
+    one, ou, _ = _chunk_stream(ServingEngine, tm, None, layout)
+    eng, uids, rep = _chunk_stream(ServingEngine, tm, 4, layout)
+    jeng, juids, _ = _chunk_stream(JaxServingEngine, jm, 4, layout)
+    for u, ju in zip(uids, juids):
+        np.testing.assert_array_equal(one.done[u].output, eng.done[u].output)
+        np.testing.assert_array_equal(eng.done[u].output,
+                                      np.asarray(jeng.done[ju].output))
+        assert eng.done[u].finish_reason == jeng.done[ju].finish_reason
+    st, jst = eng.session_stats()["model"], jeng.session_stats()["model"]
+    assert {s for s, _, _ in st["chunk_traces"]} == {"first", "mid", "final"}
+    assert st["chunk_traces"] == jst["chunk_traces"]
+    assert st["growths"] == jst["growths"]
+    prompts = [16, 16, 16] + ([40] if layout == "paged" else [])
+    assert sum(s.chunk_steps for s in rep.steps) == sum(n // 4
+                                                        for n in prompts)
+    if layout == "paged":
+        assert st["growths"]
+        eng._slot_scheduler._alloc.assert_no_leaks()

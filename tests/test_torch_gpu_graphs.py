@@ -12,7 +12,8 @@ the "model" and "none" proposers; at temperature > 0 every replay draws
 fresh numbers from the engine's generator, and rejection sampling replayed
 keeps tests/test_rejection.py::test_lossless_distribution's bound; kernel
 launches and forwards are credited per replay; warm replays make no host
-sync.
+sync; a repeated shared-prefix stream with chunked admissions captures
+nothing and equals eager and CPU, and the fault smoke lane passes.
 """
 import numpy as np
 import pytest
@@ -424,3 +425,53 @@ def test_measured_extend_time_replays_a_graph(models):
     te = measure_target_efficiency(t, pt, cache, gamma=4, iters=3)
     assert te["T_T_1"] > 0 and te["T_T_gamma"] > 0
     assert 0 < te["target_efficiency"] < 2
+
+
+# ------------------------------------------- prefix sharing, chunks, faults
+def _shared_stream(m, **kw):
+    """Three requests behind a 20-token shared prefix (pages of 16: one
+    whole shared page and a copied boundary page), all at round 0, and a
+    40-token prompt at round 2 in chunks of 16.  Returns {uid: tokens}."""
+    eng = kw.pop("engine", None) or ServingEngine(
+        *m, max_batch=2, gamma=2, force_sd=True, scheduler="continuous",
+        kv_layout="paged", page_size=16, prefix_sharing=True,
+        prefill_chunk=16, **kw)
+    base = np.arange(3, 23)
+    first = len(eng.done)
+    for i, n in enumerate((3, 7, 5)):
+        eng.submit(np.concatenate([base, np.arange(30, 34) + 4 * i]),
+                   max_new_tokens=n)
+    eng.submit(np.arange(3, 43), max_new_tokens=6, arrival_round=2)
+    eng.run()
+    return eng, {u - first: eng.done[u].output for u in sorted(eng.done)
+                 if u > first}
+
+
+def test_paged_kernel_shared_prefix_stream_steady_state(models):
+    """On the card: a second identical shared-prefix stream through the
+    same engine captures nothing, and both runs, an eager card run and the
+    CPU run emit the same greedy tokens (fp32); the prefix path forked and
+    copied pages and the paged kernel ran."""
+    for m in KERNEL_MODULES:
+        m.reset_launch_counts()
+    eng, first = _shared_stream(models["cuda"])
+    caps = eng.session_stats()["model"]["captures"]
+    _, again = _shared_stream(models["cuda"], engine=eng)
+    assert eng.session_stats()["model"]["captures"] == caps
+    assert eng.fault_counters["prefix_hits"] >= 2
+    assert eng.fault_counters["cow_copies"] >= 2
+    assert _launches()["paged_decode_attention"] > 0
+    _, eager = _shared_stream(models["cuda"], cuda_graphs=False)
+    _, cpu = _shared_stream(models["cpu"])
+    for name, out in (("again", again), ("eager", eager), ("cpu", cpu)):
+        assert out.keys() == first.keys(), name
+        for u in first:
+            np.testing.assert_array_equal(out[u], first[u], err_msg=name)
+
+
+def test_fault_smoke_lane_on_the_card(cuda, capsys):
+    """``python -m repro_torch.serving.faults``: the scripted stream's
+    finish reasons, no leaked page, and no capture on the replay stream."""
+    from repro_torch.serving import faults
+    assert faults.main([]) == 0
+    assert "captured nothing" in capsys.readouterr().out

@@ -112,13 +112,25 @@ def test_chunked_sdpa_matches_reference_and_dense():
 
 def test_unported_paths_raise_naming_the_roadmap():
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultInjector
     cfg = get_config("qwen2-0.5b", reduced=True)
     _, _, tm, tp = model_pair(cfg)
-    for opt in ({"prefix_sharing": True}, {"prefill_chunk": 4},
-                {"fault_injector": object()}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            ServingEngine(tm, None, tp, None, proposer="none",
-                          scheduler="continuous", **opt)
+    # queue 1 item 7 is ported: the three options construct, and the
+    # reference's misconfigurations of them raise ValueError
+    for opt in ({"prefix_sharing": True, "kv_layout": "paged"},
+                {"prefill_chunk": 4}, {"fault_injector": FaultInjector()}):
+        eng = ServingEngine(tm, None, tp, None, proposer="none",
+                            scheduler="continuous", **opt)
+        assert all(getattr(eng, k) is v for k, v in opt.items())
+    for opt, match in (({"prefix_sharing": True, "scheduler": "continuous"},
+                        "kv_layout='paged'"),
+                       ({"prefill_chunk": 0, "scheduler": "continuous"},
+                        ">= 1"),
+                       ({"prefill_chunk": 4}, "scheduler='continuous'"),
+                       ({"fault_injector": FaultInjector()},
+                        "continuous-scheduler features")):
+        with pytest.raises(ValueError, match=match):
+            ServingEngine(tm, None, tp, None, proposer="none", **opt)
     # use_flash is ported: a 128-token prefill and a verify at max_seq 512
     # run the kernel branches (their plain versions on the CPU)
     tm.use_flash = True

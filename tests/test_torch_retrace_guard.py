@@ -9,10 +9,8 @@ occupancy churn, same-bucket admissions and repeated continuous streams
 capture nothing; a new admission bucket traces exactly once.  The arena
 round (static buffers, in-place commits) emits the reference's greedy
 tokens round for round in fp32, and a second wave of one shape reuses the
-first one's arena.  The mirror of
-``test_paged_kernel_shared_prefix_stream_steady_state`` waits for prefix
-sharing (ROADMAP queue 1 item 7); a repeated paged stream with a pool
-growth stands in for its paged half.
+first one's arena.  A repeated shared-prefix stream (tail admissions,
+copy-on-write page copies and table forks) captures nothing either.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +22,7 @@ from _torch_parity import model_pair
 from repro.configs.base import ModelConfig
 from repro.core.proposer import make_proposer as jax_make_proposer
 from repro.core.spec_decode import SDEngine as JaxSDEngine
+from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.core.graphs import RoundGraphs
 from repro_torch.core.proposer import ModelProposer, make_proposer
 from repro_torch.core.spec_decode import SDEngine
@@ -160,6 +159,48 @@ def test_continuous_stream_steady_state(models, layout):
         ids = [id(x) for a in arenas
                for x in _tensors((a.t_cache, a.p_state, a.last_token))]
         assert len(ids) == len(set(ids))
+
+
+def test_paged_kernel_shared_prefix_stream_steady_state(models):
+    """A second identical-shape shared-prefix stream through the SAME paged
+    engine captures nothing and runs no admission shape for the first
+    time: the tail admissions, the copy-on-write page copies (pow2-padded
+    pairs) and the table forks are data once the warm stream ran each
+    shape.  Its tokens and counters equal the reference's stream."""
+    (jt, jd, jpt, jpd), (t, d, pt, pd) = models
+    base = np.arange(3, 15)                       # 12-token shared prefix:
+                                                  # the boundary page is copied
+
+    def stream(eng, budgets, salt):
+        uids = []
+        for i, m in enumerate(budgets):
+            tail = np.arange(0, 4) + 20 + salt + 4 * i
+            uids.append(eng.submit(np.concatenate([base, tail]),
+                                   max_new_tokens=m))
+        eng.run()
+        return uids
+
+    engines = [cls(*m, max_batch=2, gamma=2, force_sd=True,
+                   scheduler="continuous", kv_layout="paged", page_size=8,
+                   prefix_sharing=True)
+               for cls, m in ((ServingEngine, (t, d, pt, pd)),
+                              (JaxServingEngine, (jt, jd, jpt, jpd)))]
+    eng, jeng = engines
+    warm = [stream(e, (3, 7, 5), salt=0) for e in engines]
+    assert eng.fault_counters.get("prefix_hits", 0) >= 1
+    assert eng.fault_counters.get("cow_copies", 0) >= 1
+    stats = eng.session_stats()["model"]
+    again = [stream(e, (4, 6, 5), salt=60) for e in engines]
+    after = eng.session_stats()["model"]
+    assert after["captures"] == stats["captures"]
+    assert after["replays"] > stats["replays"]
+    for key in ("prefix_traces", "admit_traces", "traces"):
+        assert after[key] == stats[key]
+    assert eng.fault_counters["prefix_hits"] >= 2
+    assert eng.fault_counters == jeng.fault_counters
+    for (u, ju) in zip(warm[0] + again[0], warm[1] + again[1]):
+        np.testing.assert_array_equal(eng.done[u].output,
+                                      np.asarray(jeng.done[ju].output))
 
 
 @pytest.mark.parametrize("kind", ["model", "none"])

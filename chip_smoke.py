@@ -81,7 +81,14 @@ Phases, each of which fails the run if it fails:
      replay, eagerly on the card and on the CPU; the requests that finish
      cleanly beside the NaN row give the stream's tokens without the NaN
      fault, and that stream gives those of the stream without sharing and
-     chunking;
+     chunking; the EAGLE and prefetch proposers (a reduced EagleHead; the
+     reduced draft behind the router probe): greedy SD from graph replay
+     equals a second replayed generation, the eager card session, the CPU
+     and greedy AR, token for token, with the prefetch hit, actual and
+     predicted counts equal to the CPU's; and an EAGLE continuous paged
+     stream with prefix sharing (pages of 16) and chunked admission
+     (chunks of 16, a late 40-token prompt) from graph replay equals the
+     eager card and the CPU, request for request;
   5. serve: qwen2-57b-a14b at its full published width, depth cut to LAYERS
      of 28, with the full qwen2-0.5b draft and random weights from --seed,
      greedy, gamma 4, max-batch 8.  First one captured round's verify
@@ -120,6 +127,23 @@ Phases, each of which fails the run if it fails:
          one numerical_fault and 16 "length", a slow round counted, no
          leaked page, and every other request's tokens equal to the clean
          stream's;
+       * wave-prefetch (the "prefetch" proposer: the "model" drafter and a
+         router probe that warms the top 16 of 64 experts a MoE layer,
+         then AR): the wave workload; every prefetch round runs staged
+         (propose and probe, warm, verify, finalize: four graphs a key);
+         tok/s, the hit rate, predicted = rounds x 16 x MoE layers
+         (required), captures and replays per stage key, the warm stage's
+         device time beside its byte bound and its buffers' bytes, and a
+         timed wave's propose/warm/verify/reject split;
+       * wave-eagle and continuous-eagle (SD with the "eagle" proposer,
+         then AR), after the qwen2-57b-a14b target is freed: mixtral-8x7b
+         at its published width (d 4096, 8 experts top-2, moe_d_ff 14336),
+         depth cut to LAYERS of 32, with its full-width EagleHead (8/2
+         heads of 64, d_ff 16384), on the wave workload and on the
+         continuous paged workload (admission through
+         prefill_with_hidden, the feature carry's scatter and growth,
+         kernel 3 every round); tok/s, rounds, sigma, captures, replays
+         and the launches of kernels 1 and 2;
   6. tuner: the serving CLI's AutoTuner (launch/serve.make_tuner, priced on
      the full published config on the H100 record).  On the serve phase's
      full-width target and draft, after the fixed-gamma serve lines: a
@@ -164,8 +188,8 @@ Phases, each of which fails the run if it fails:
      flash kernel's must equal (attention layers x prefill forwards) and
      the dense decode kernel's (attention layers x extend forwards), summed
      over target and draft; every other count must be 0.  The tuner's three
-     paths (tuner/eta, tuner/wave, tuner/continuous) are counted the same
-     way.
+     paths (tuner/eta, tuner/wave, tuner/continuous), wave-prefetch,
+     wave-eagle and continuous-eagle are counted the same way.
 
 It ends with a JSON line of per-kernel numbers and, last, the device line.
 Without a card, or outside a checkout of the repository, it exits non-zero
@@ -216,6 +240,7 @@ GMM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # Target depth at full width: the bf16 weights of all 28 layers (57.4B
 # parameters, ~115 GB) do not fit in the card's 80 GB; 4 layers are ~18 GB.
 LAYERS = 4
+EAGLE_ARCH = "mixtral-8x7b"          # the EAGLE paths' target (cut to LAYERS)
 TPU_SITES = {                      # the Pallas kernel each CUDA kernel replaces
     "fused_gate_up": "src/repro/kernels/gmm/ragged.py:124",    # _fused_kernel
     "ragged_gmm": "src/repro/kernels/gmm/ragged.py:104",       # _ragged_kernel
@@ -477,9 +502,9 @@ def grouped_mm_library(h, w, sizes):
 
 
 def ragged_cases(E: int, K: int, gen, dev) -> dict:
-    """Group sizes of the ragged kernels' cases: top-K routing of the
-    tokens of an SD verify, an AR verify and a prefill, and a fixed list
-    with empty experts and unaligned groups."""
+    """Group sizes of the ragged kernels' cases at qwen2-57b-a14b's expert
+    widths: top-K routing of the tokens of an SD verify, an AR verify and a
+    prefill, and a fixed list with empty experts and unaligned groups."""
     import torch
     edge = torch.zeros((E,), dtype=torch.int32, device=dev)
     edge[[0, 2, 3, 5, 6, 7, 40, 63]] = torch.tensor(
@@ -492,16 +517,40 @@ def ragged_cases(E: int, K: int, gen, dev) -> dict:
     }
 
 
+def mixtral_ragged_cases(E: int, K: int, gen, dev) -> dict:
+    """The same routings at the EAGLE paths' widths (EAGLE_ARCH: 8 experts,
+    top-2, d 4096, moe_d_ff 14336): an SD verify, an AR verify and a
+    prefill of B 8."""
+    return {"mixtral_verify": routed_sizes(40, E, K, gen, dev),
+            "mixtral_ar_verify": routed_sizes(8, E, K, gen, dev),
+            "mixtral_prefill": routed_sizes(512, E, K, gen, dev)}
+
+
 def kernel_phase(seed: int):
+    """Kernels 1 and 2 against their plain versions at the expert widths of
+    both full-width targets: qwen2-57b-a14b (the serve and prefetch paths)
+    and EAGLE_ARCH (the EAGLE paths); every bf16 case must take the TMA +
+    wgmma route."""
+    import torch
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
+    results = {name: {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
+               for name in ("fused_gate_up", "ragged_gmm")}
+    for arch, cases_fn in (("qwen2-57b-a14b", ragged_cases),
+                           (EAGLE_ARCH, mixtral_ragged_cases)):
+        _ragged_width_cases(arch, cases_fn, gen, results)
+    return results
+
+
+def _ragged_width_cases(arch: str, cases_fn, gen, results: dict) -> None:
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.gmm import ragged
     from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
 
     dev = torch.device("cuda")
-    cfg = get_config("qwen2-57b-a14b")
+    cfg = get_config(arch)
     E, K, D, F = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model, cfg.moe_d_ff
-    gen = torch.Generator(device=dev).manual_seed(seed)
     dt = torch.bfloat16
     wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) / D ** 0.5).to(dt)
               for _ in range(2))
@@ -509,9 +558,7 @@ def kernel_phase(seed: int):
     # the fused kernel's two products alone, for context: one grouped
     # product over [Wg | Wu] (made here, outside any timed region)
     wgu = torch.cat([wg, wu], dim=2)
-    cases = ragged_cases(E, K, gen, dev)
-    results = {name: {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
-               for name in ("fused_gate_up", "ragged_gmm")}
+    cases = cases_fn(E, K, gen, dev)
     bm = ragged.sm90_chunk_rows()                     # rows of an expert chunk
     tiles_n = -(-F // ragged.sm90_tile_cols(2))      # the fused kernel's columns
     for case, sizes in cases.items():
@@ -578,6 +625,7 @@ def kernel_phase(seed: int):
             lib_graph_ms = (graph_time_ms(lib_fn, calls=10, iters=3)
                             if lib_fn is not None else None)
             results[name]["cases"][case] = dict(
+                arch=arch, E=E, d=D, f=F,
                 rows=N, active_experts=active, visits=visits,
                 kernel_ms=ms, kernel_graph_ms=graph_ms,
                 plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
@@ -591,7 +639,6 @@ def kernel_phase(seed: int):
                 f"{lib_name})")
     del wg, wu, wd, wgu
     torch.cuda.empty_cache()
-    return results
 
 
 PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
@@ -606,7 +653,12 @@ PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
     # split-KV body is held at PAGED_ROW_TOL for that)
     "fp32_sd_verify": ("float32", 5, 128, (16, 130), 0.0),
     "fp32_long_context": ("float32", 5, 128, (8000, 8192), 0.0),
+    # the EAGLE paths' target (EAGLE_ARCH: 32 query / 8 KV heads of 128)
+    "mixtral_sd_verify": ("bfloat16", 5, 128, (16, 130), 0.0),
+    "mixtral_ar_verify": ("bfloat16", 1, 128, (16, 130), 0.0),
 }
+SERVE_HEADS = (28, 4)               # qwen2-57b-a14b's query / KV heads
+PAGED_HEADS = {"mixtral_sd_verify": (32, 8), "mixtral_ar_verify": (32, 8)}
 
 
 def sdpa_gathered(q, kp, vp, lengths, table):
@@ -636,13 +688,15 @@ def sdpa_gathered(q, kp, vp, lengths, table):
     return fn, "F.scaled_dot_product_attention(enable_gqa), gather excluded"
 
 
-def paged_inputs(spec, gen, dev, B: int = 8, Hq: int = 28, Hkv: int = 4,
+def paged_inputs(spec, gen, dev, heads=SERVE_HEADS, B: int = 8,
                  ps: int = 64):
-    """(q, k_pages, v_pages, lengths, table) of a PAGED_CASES entry at the
-    serve widths: noise in every physical page (trash page 0 included), a
+    """(q, k_pages, v_pages, lengths, table) of a PAGED_CASES entry at
+    ``heads`` (query, KV; a case's own: PAGED_HEADS, else the serve
+    widths): noise in every physical page (trash page 0 included), a
     permuted table one page wider than the longest row needs, ragged
     lengths."""
     import torch
+    Hq, Hkv = heads
     dtype_name, T, D, (lo, hi), _ = spec
     dt = getattr(torch, dtype_name)
     MP = -(-(hi + T) // ps) + 1
@@ -659,7 +713,8 @@ def paged_inputs(spec, gen, dev, B: int = 8, Hq: int = 28, Hkv: int = 4,
 
 def paged_kernel_phase(seed: int):
     """The paged decode/verify kernel against its plain version at the
-    serve widths (28 query / 4 KV heads, pages of 64)."""
+    serve widths (28 query / 4 KV heads, pages of 64) and at the EAGLE
+    paths' (32 / 8)."""
     import torch
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.decode_attention.ref import \
@@ -670,7 +725,7 @@ def paged_kernel_phase(seed: int):
     res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
     for case, spec in PAGED_CASES.items():
         dtype_name, T, D, _, cap = spec
-        args = paged_inputs(spec, gen, dev)
+        args = paged_inputs(spec, gen, dev, PAGED_HEADS.get(case, SERVE_HEADS))
         q, kp, vp, lengths, table = args
         B, Hq, Hkv = q.shape[0], q.shape[2], kp.shape[2]
         MP, ps = table.shape[1], kp.shape[1]
@@ -714,7 +769,8 @@ def paged_kernel_phase(seed: int):
             *args, logit_cap=cap))
         sdpa_graph_ms = graph_time_ms(sdpa_fn) if sdpa_fn is not None else None
         res["cases"][case] = dict(
-            dtype=dtype_name, route=route, B=B, T=T, head_dim=D, page_size=ps,
+            dtype=dtype_name, route=route, B=B, T=T, Hq=Hq, Hkv=Hkv,
+            head_dim=D, page_size=ps,
             lengths=[int(n) for n in lengths.tolist()], keys=keys,
             pages_touched=touched,
             kernel_ms=ms, kernel_graph_ms=graph_ms, plain_ms=plain_ms,
@@ -724,8 +780,8 @@ def paged_kernel_phase(seed: int):
             sdpa_gathered_ms=sdpa_ms, sdpa_gathered_graph_ms=sdpa_graph_ms,
             sdpa_gathered=sdpa_label,
             max_abs_err=err, tol=tol, max_row_scaled_err=row_err)
-        log(f"kernel paged_decode_attention [{case:14s}] {dtype_name} "
-            f"route={route} T={T} "
+        log(f"kernel paged_decode_attention [{case:17s}] {dtype_name} "
+            f"route={route} T={T} H={Hq}/{Hkv} "
             f"D={D} keys={keys:5d} pages={touched:4d}  {ms:.4f} ms "
             f"(graph {_fmt(graph_ms)})  "
             f"plain {plain_ms:.3f} ms  "
@@ -1946,6 +2002,474 @@ def prefix_faults_phase(seed: int, served: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------- eagle and prefetch
+def proposer_reference_phase(seed: int):
+    """Reduced fp32 on the card, the EAGLE and prefetch proposers: greedy
+    SD from graph replay (a second generation on one session) == the eager
+    card session == the CPU == greedy AR, token for token, with the
+    prefetch hit, actual and predicted counts equal to the CPU's; and one
+    EAGLE continuous paged stream with prefix sharing (pages of 16, a
+    20-token shared prefix, gamma 2) and chunked admission (chunks of 16,
+    a late 40-token prompt) from graph replay == eager card == CPU,
+    request for request."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.eagle import EagleHead
+    from repro_torch.core.proposer import make_proposer
+    from repro_torch.core.spec_decode import SDEngine, generate_ar
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2-57b-a14b", reduced=True)
+    dcfg = get_config("qwen2-0.5b", reduced=True)
+    pt = Model(cfg, moe_dispatch="gmm", device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    pd = Model(dcfg, device="cpu").init(torch.Generator().manual_seed(seed + 1))
+    ph = EagleHead(Model(cfg, device="cpu")).init(
+        torch.Generator().manual_seed(seed + 2))
+
+    def models(dev):
+        tm = Model(cfg, moe_dispatch="gmm", device=dev)
+        return tm, _to_device(pt, tm.device), {
+            "prefetch": (Model(dcfg, device=dev), _to_device(pd, tm.device)),
+            "eagle": (EagleHead(tm), _to_device(ph, tm.device))}
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(3, cfg.vocab_size, (4, 16)).astype(np.int32)
+    lengths = np.array([16, 9, 12, 5], np.int32)
+    on = {dev: models(dev) for dev in ("cuda", "cpu")}
+    pf = lambda st: (st.prefetch_hits, st.prefetch_actual,  # noqa: E731
+                     st.prefetch_predicted)
+    for kind in ("eagle", "prefetch"):
+        runs = {}
+        for label, dev, graphs in (("graphs", "cuda", None),
+                                   ("eager", "cuda", False),
+                                   ("cpu", "cpu", None)):
+            tm, p_t, drafts = on[dev]
+            draft, p_d = drafts[kind]
+            eng = SDEngine(tm, make_proposer(kind, tm, draft), gamma=4,
+                           cuda_graphs=graphs)
+            runs[label] = eng.generate(p_t, p_d, toks, 24, lengths=lengths)
+            if label == "graphs":
+                runs["replayed again"] = eng.generate(p_t, p_d, toks, 24,
+                                                      lengths=lengths)
+                caps, reps = (eng.graphs.total_captures,
+                              eng.graphs.total_replays)
+        tm, p_t, _ = on["cuda"]
+        ar = generate_ar(tm, p_t, toks, 24, lengths=lengths)
+        out, stats = runs["graphs"]
+        if caps != 1 or not reps:
+            raise AssertionError(f"proposer reference[{kind}]: {caps} "
+                                 f"captures, {reps} replays")
+        for name, (o, st) in runs.items():
+            if not np.array_equal(o, out) or pf(st) != pf(stats):
+                raise AssertionError(
+                    f"proposer reference[{kind}]: graph replay != {name} "
+                    f"(prefetch counts {pf(stats)} vs {pf(st)})")
+        if not np.array_equal(out, ar):
+            raise AssertionError(f"proposer reference[{kind}]: greedy SD != "
+                                 "greedy AR on the card")
+        log(f"proposer reference[{kind}]: reduced fp32, greedy SD from graph "
+            "replay == replayed again == eager card == CPU == AR (4 rows x "
+            f"24 tokens); {caps} capture, {reps} replays"
+            + (f"; prefetch hits/actual/predicted {pf(stats)} on every run"
+               if kind == "prefetch" else ""))
+
+    def shared_stream(dev, cuda_graphs=None):
+        tm, p_t, drafts = on[dev]
+        head, p_h = drafts["eagle"]
+        eng = ServingEngine(tm, head, p_t, p_h, max_batch=2, gamma=2,
+                            force_sd=True, proposer="eagle", seed=seed,
+                            scheduler="continuous", kv_layout="paged",
+                            page_size=16, prefix_sharing=True,
+                            prefill_chunk=16, cuda_graphs=cuda_graphs)
+        base = np.arange(3, 23)
+        for i, n in enumerate((3, 7, 5)):
+            eng.submit(np.concatenate([base, np.arange(30, 34) + 4 * i]),
+                       max_new_tokens=n)
+        eng.submit(np.arange(3, 43), max_new_tokens=6, arrival_round=2)
+        (rep,) = eng.run()
+        eng._slot_scheduler._alloc.assert_no_leaks()
+        return ({u: (r.finish_reason, r.output) for u, r in eng.done.items()},
+                dict(eng.fault_counters),
+                sum(s.chunk_steps for s in rep.steps), rep)
+
+    base, counters, chunks, rep = shared_stream("cuda")
+    if not counters.get("prefix_hits") or not chunks or not rep.replays:
+        raise AssertionError(f"proposer reference: the EAGLE stream shared "
+                             f"no prefix, chunked nothing or replayed no "
+                             f"round ({counters}, {chunks} chunk steps, "
+                             f"{rep.replays} replays)")
+    for name, args in (("eager card", ("cuda", False)), ("CPU", ("cpu",))):
+        got, c2, _, _ = shared_stream(*args)
+        if c2 != counters or got.keys() != base.keys() or any(
+                got[u][0] != base[u][0] or not np.array_equal(got[u][1],
+                                                              base[u][1])
+                for u in base):
+            raise AssertionError(f"proposer reference: the EAGLE stream "
+                                 f"with prefix sharing and chunks != {name}")
+    log(f"proposer reference: reduced fp32 EAGLE continuous paged stream with "
+        f"prefix sharing and chunks of 16 ({len(base)} requests, counters "
+        f"{counters}, {chunks} chunk steps, {rep.captures} captures, "
+        f"{rep.replays} replays): graph replay == eager card == CPU, request "
+        "for request")
+    # the sessions' graph pools and arenas go now, not under a later
+    # phase's timing
+    del on, tm, p_t, eng, runs, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _path_runs(eng, kind: str, run, path: str, card: str):
+    """Run ``run(label)`` twice on ``eng``: the second identical run must
+    capture nothing and replays every round under sync debug mode "error"
+    up to each readback.  Returns the two results."""
+    sess = eng._session(kind)
+    first = run("graphs, first run")
+    caps = sess.graphs.total_captures
+    sess.sync_guard = True
+    again = run("graphs, again")
+    sess.sync_guard = False
+    if sess.graphs.total_captures != caps or caps < 1:
+        raise AssertionError(f"{path}: the second run captured "
+                             f"{sess.graphs.total_captures - caps} new keys")
+    log(f"{path}: second identical run captured nothing; graphs "
+        f"{sess.graphs.total_captures} captures in "
+        f"{sum(sess.graphs.capture_seconds.values()):.3f} s, "
+        f"{sess.graphs.total_replays} replays, pool "
+        f"{sess.graphs.pool_bytes() / 2**20:.1f} MiB | {card}")
+    return first, again
+
+
+def _reset_routes() -> None:
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.gmm import ragged
+    for routes in (ragged.LAST_ROUTE, paged.LAST_ROUTE):
+        routes.update(dict.fromkeys(routes))
+
+
+def _check_routes(path: str, names) -> None:
+    """Fail unless each named kernel's last launch since ``_reset_routes``
+    (eager, or a stage's capture) took the TMA + wgmma route."""
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.gmm import ragged
+    seen = {**ragged.LAST_ROUTE, **paged.LAST_ROUTE}
+    got = {name: seen[name] for name in names}
+    if set(got.values()) != {"sm90"}:
+        raise AssertionError(f"{path}: bf16 routes {got}, expected sm90")
+    log(f"{path}: routes {got}")
+
+
+def _wave_line(path: str, label: str, r) -> str:
+    sd = (f"sigma={r.stats.sigma:.3f} alpha={r.stats.alpha:.3f}"
+          if r.used_sd else "AR")
+    pf = (f" prefetch hit rate {r.prefetch_hit_rate:.4f} (hits "
+          f"{r.prefetch_hits}, actual {r.stats.prefetch_actual}, predicted "
+          f"{r.stats.prefetch_predicted})" if r.stats.prefetch_actual else "")
+    return (f"{path} ({label}): proposer={r.proposer} B={r.batch}/{r.bucket} "
+            f"gamma={r.gamma} {r.tokens_per_second:.2f} tok/s  {sd} "
+            f"rounds={r.stats.rounds} wall={r.wall_time:.3f} s{pf} "
+            f"captures={r.captures} replays={r.replays}")
+
+
+def prefetch_phase(seed: int, served: dict) -> dict:
+    """wave-prefetch at full width on the serve phase's target and draft:
+    the "prefetch" proposer (the "model" drafter and a router probe, top-M
+    min(64, 2 x 8) = 16 experts a MoE layer) on the wave workload (16 chat
+    prompts, max-batch 8, 32 new tokens, gamma 4, greedy), then AR, each
+    run twice on one engine (the repeat captures nothing).  Every prefetch
+    round runs staged: propose (and probe), warm, verify, finalize, each
+    stage its own graph.  Prints tok/s, the hit rate, predicted = rounds x
+    16 x MoE layers (required), captures and replays per stage key, the
+    warm stage's device time beside its bound, the warm buffers' bytes,
+    and a timed wave's propose/warm/verify/reject split.  Kernels 1 and 2
+    must launch MoE layers x target forwards, the others never.  Returns
+    the launch counts per path."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.prefetch import router_probe
+    from repro_torch.models.moe import warm_experts
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = served["cfg"]
+    target, draft = served["target"], served["draft"]
+    params_t, params_d = served["params_t"], served["params_d"]
+    moe_layers, pb = served["moe_layers"], served["pb"]
+    top_m = min(cfg.num_experts, 2 * cfg.num_experts_per_tok)
+    card = card_line()
+    launches, outputs = {}, {}
+
+    def engine(kind: str, timed: bool = False):
+        return ServingEngine(target, draft if kind != "none" else None,
+                             params_t, params_d if kind != "none" else None,
+                             max_batch=8, gamma=4, temperature=0.0,
+                             proposer=kind, seed=seed, timed=timed)
+
+    def wave(eng, path: str, n: int, label: str):
+        first = max(eng.done, default=0)
+        for i in range(n):
+            eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+                       max_new_tokens=32)
+        reports = eng.run()
+        for r in reports:
+            log(_wave_line(path, label, r) + (
+                f" propose={r.propose_time:.4f} s warm={r.warm_time:.4f} s "
+                f"verify={r.verify_time:.4f} s reject={r.reject_time:.4f} s"
+                if eng.timed else ""))
+        out = np.stack([eng.done[u].output for u in sorted(eng.done)
+                        if u > first])
+        if out.shape != (n, 32):
+            raise AssertionError(f"{path}: bad outputs {out.shape}")
+        return out, reports
+
+    for kind in ("prefetch", "none"):
+        path = f"wave-prefetch/{kind}"
+        eng = engine(kind)
+        reset_launch_counts()
+        _reset_routes()
+        for m in (target, draft):
+            m.forward_count = m.prefill_count = 0
+        (out, reps), (_, reps2) = _path_runs(
+            eng, kind, lambda label: wave(eng, path, 16, label), path, card)
+        rounds = sum(r.stats.rounds for r in reps + reps2)
+        _check_routes(path, ("fused_gate_up", "ragged_gmm"))
+        got = launch_counts()
+        expect = {name: 0 for name in got}
+        expect["fused_gate_up"] = expect["ragged_gmm"] = \
+            moe_layers * target.forward_count
+        log(f"{path}: {target.forward_count} target forwards, "
+            f"{draft.forward_count} draft forwards, {rounds} rounds; launches "
+            f"counted (credited per replay) {got}, expected {expect}")
+        if got != expect:
+            raise AssertionError(f"{path}: launches {got} != {expect}")
+        launches[path] = got
+        outputs[kind] = out
+        sess = eng._sessions[kind]
+        if kind == "prefetch":
+            stats = [r.stats for r in reps + reps2]
+            predicted = sum(s.prefetch_predicted for s in stats)
+            hits = sum(s.prefetch_hits for s in stats)
+            actual = sum(s.prefetch_actual for s in stats)
+            if predicted != rounds * top_m * moe_layers or not actual:
+                raise AssertionError(
+                    f"{path}: predicted {predicted} != rounds {rounds} x "
+                    f"{top_m} x {moe_layers}, or no expert counted")
+            log(f"{path}: hit rate {hits / actual:.4f} ({hits} of {actual} "
+                f"activated experts warm), predicted {predicted} = {rounds} "
+                f"rounds x {top_m} x {moe_layers} MoE layers; session totals "
+                f"{eng.session_stats()[kind]['prefetch']} | {card}")
+            for key, n in sorted(sess.graphs.captures.items(),
+                                 key=lambda kv: str(kv[0])):
+                stages = len(sess.graphs._captured[key].graphs)
+                log(f"{path}: key (stage {key[0]!r}, gamma {key[1]}, batch "
+                    f"{key[2]}, max_seq {key[3]}): {n} capture of {stages} "
+                    f"stage graphs, {sess.graphs.replays[key]} replays")
+            # the warm stage alone at this run's plan shape, into the
+            # session's own buffers
+            stream = torch.as_tensor(np.stack([pb["tokens"][i][:5]
+                                               for i in range(8)]),
+                                     device="cuda")
+            plan = router_probe(params_t, cfg, stream, top_m=top_m)
+            n_bytes = sess.warm_bytes()
+
+            def warm():
+                warm_experts(params_t["layers"], cfg, plan, out=sess._warm)
+
+            layers = [l for l in range(cfg.num_layers)
+                      if cfg.moe_pattern[l % cfg.period]]
+
+            def per_element():
+                # the same gather over bf16 elements of the (E, d, f)
+                # tensors, which warm_experts replaces by 8-byte words
+                for l, buf in zip(layers, sess._warm):
+                    for k in ("w_gate", "w_up", "w_down"):
+                        torch.index_select(params_t["layers"][l]["ffn"][k], 0,
+                                           plan.expert_ids[l], out=buf[k])
+
+            ms_eager = cuda_time_ms(warm)
+            ms = graph_time_ms(warm, calls=4)
+            ms_elem = graph_time_ms(per_element, calls=4)
+            bound, by = bound_ms(2 * n_bytes, 0.0)
+            log(f"{path}: warm stage (index_select of {top_m} experts x 3 "
+                f"matrices x {moe_layers} layers into fixed buffers, "
+                f"{n_bytes / 1e9:.3f} GB): {ms_eager:.4f} ms eager, "
+                f"{_fmt(ms)} device-only, bound {bound:.4f} ms "
+                f"({by}: read + write at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+                f"the same gather over bf16 elements {_fmt(ms_elem)} "
+                f"device-only | {card}")
+            del eng, sess
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the timed round: four stage graphs with a sync between
+            eng = engine(kind, timed=True)
+            wave(eng, path, 8, "timed round, warm")
+            wave(eng, path, 8, "timed round")
+        else:
+            del sess
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = outputs["prefetch"], served["outputs"]["wave/model"]
+    log(f"wave-prefetch: greedy tokens vs the serve phase's wave/model run "
+        f"{float((a == b).mean()):.3f} (bf16; the reduced fp32 phase requires "
+        f"equality); vs AR {float((a == outputs['none']).mean()):.3f}")
+    return launches
+
+
+
+def eagle_phase(seed: int) -> dict:
+    """The EAGLE proposer at full width: mixtral-8x7b at its published
+    width (d 4096, 8 experts top-2, moe_d_ff 14336, 32/8 heads of 128),
+    depth cut to LAYERS of 32 (the bf16 weights of all 32 layers, ~93 GB,
+    do not fit in 80 GB), with its full-width EagleHead (8/2 heads of 64,
+    d_ff 16384), random weights from --seed, greedy, gamma 4, max-batch 8:
+      * wave-eagle (SD with the "eagle" proposer, then AR): the wave
+        workload of the serve phase (16 chat prompts, 32 new tokens);
+      * continuous-eagle (SD, then AR): the continuous paged workload
+        (Poisson arrivals at 0.5 a round, max_new 8/16/32, a 700-token
+        prompt at round 6, pool of 8, pages of 64): admissions through
+        prefill_with_hidden, the feature carry's scatter and growth, and
+        kernel 3 every round.
+    Each path runs twice on one engine (the repeat captures nothing) with
+    every count zeroed before it: kernels 1 and 2 must launch MoE layers x
+    target forwards, kernel 3 attention layers x rounds on the continuous
+    paths, the others never (the head's attention and FFN are plain
+    torch), and each of those kernels must take its TMA + wgmma route.
+    Returns the launch counts per path."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.eagle import EagleHead
+    from repro_torch.data.pipeline import prompt_batch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import submit_poisson
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(EAGLE_ARCH).with_overrides(num_layers=LAYERS)
+    t0 = time.perf_counter()
+    target = Model(cfg, moe_dispatch="gmm", device="cuda")
+    gen = torch.Generator(device=target.device)
+    params_t = target.init(gen.manual_seed(seed))
+    head = EagleHead(target)
+    params_h = head.init(gen.manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    n_t = sum(t.numel() for t in _leaves(params_t))
+    n_h = sum(t.numel() for t in _leaves(params_h))
+    card = card_line()
+    log(f"eagle: target {cfg.name} x{LAYERS} of 32 layers ({n_t / 1e9:.3f} B "
+        f"parameters, {2 * n_t / 1e9:.2f} GB of {cfg.dtype}), EagleHead "
+        f"{head.cfg.num_heads}/{head.cfg.num_kv_heads} heads of "
+        f"{head.cfg.head_dim}, d_ff {head.cfg.d_ff} ({n_h / 1e9:.3f} B "
+        f"parameters), init {time.perf_counter() - t0:.1f} s; card memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated | {card}")
+    pb = prompt_batch(cfg.vocab_size, 16, kind="chat", seed=seed)
+    long_prompt = np.random.default_rng(seed).integers(3, cfg.vocab_size, 700)
+    moe_layers = sum(cfg.moe_pattern[l % cfg.period] for l in range(LAYERS))
+    attn_layers = LAYERS
+    launches, outputs = {}, {}
+
+    def engine(kind: str, **kw):
+        return ServingEngine(target, head if kind == "eagle" else None,
+                             params_t, params_h if kind == "eagle" else None,
+                             max_batch=8, gamma=4, temperature=0.0,
+                             proposer=kind, seed=seed, **kw)
+
+    def wave(eng, path, label):
+        first = max(eng.done, default=0)
+        for i in range(16):
+            eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+                       max_new_tokens=32)
+        reports = eng.run()
+        for r in reports:
+            log(_wave_line(path, label, r))
+        out = np.stack([eng.done[u].output for u in sorted(eng.done)
+                        if u > first])
+        if out.shape != (16, 32) or out.min() < 0 or \
+                out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{path}: bad outputs {out.shape}")
+        return out, sum(r.stats.rounds for r in reports)
+
+    def continuous(eng, path, kind, label):
+        first = max(eng.done, default=0)
+        submit_poisson(eng, pb["tokens"], pb["lengths"], rate=0.5,
+                       max_new_choices=(8, 16, 32), seed=seed)
+        eng.submit(long_prompt, max_new_tokens=16, arrival_round=6)
+        (r,) = eng.run()
+        stats = eng.session_stats()[kind]
+        log(_wave_line(path, label, r) + f" tokens={r.tokens_out} "
+            f"admitted={sum(s.admitted for s in r.steps)} growths "
+            f"{stats['growths']}")
+        done = {u - first: eng.done[u] for u in eng.done if u > first}
+        reasons = {d.finish_reason for d in done.values()}
+        if len(done) != 17 or reasons != {"length"} or not stats["growths"]:
+            raise AssertionError(f"{path}: {len(done)} requests finished "
+                                 f"{reasons}, growths {stats['growths']}")
+        eng._slot_scheduler._alloc.assert_no_leaks()
+        return ({u: d.output for u, d in done.items()}, r.stats.rounds)
+
+    for path in ("wave-eagle/eagle", "wave-eagle/none",
+                 "continuous-eagle/eagle", "continuous-eagle/none"):
+        sched, kind = path.split("/")
+        if sched == "continuous-eagle":
+            eng = engine(kind, scheduler="continuous", kv_layout="paged",
+                         page_size=64)
+            run = lambda label: continuous(eng, path, kind,  # noqa: E731
+                                           label)
+        else:
+            eng = engine(kind)
+            run = lambda label: wave(eng, path, label)       # noqa: E731
+        reset_launch_counts()
+        _reset_routes()
+        target.forward_count = target.prefill_count = 0
+        (out, rounds), (_, rounds2) = _path_runs(eng, kind, run, path, card)
+        rounds += rounds2
+        _check_routes(path, ("fused_gate_up", "ragged_gmm")
+                      + (("paged_decode_attention",)
+                         if sched == "continuous-eagle" else ()))
+        got = launch_counts()
+        expect = {name: 0 for name in got}
+        expect["fused_gate_up"] = expect["ragged_gmm"] = \
+            moe_layers * target.forward_count
+        if sched == "continuous-eagle":
+            expect["paged_decode_attention"] = attn_layers * rounds
+        log(f"{path}: {target.forward_count} target forwards "
+            f"({target.prefill_count} prefills), {rounds} rounds; launches "
+            f"of kernels 1 and 2 {got['fused_gate_up']}, {got['ragged_gmm']};"
+            f" all counted (credited per replay) {got}, expected {expect}")
+        if got != expect:
+            raise AssertionError(f"{path}: launches {got} != {expect}")
+        launches[path] = got
+        outputs[path] = out
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for sched in ("wave-eagle", "continuous-eagle"):
+        a, b = outputs[f"{sched}/eagle"], outputs[f"{sched}/none"]
+        if sched == "continuous-eagle":
+            a, b = (np.concatenate([a[u] for u in sorted(a)]),
+                    np.concatenate([b[u] for u in sorted(b)]))
+        log(f"{sched}: SD vs AR token agreement "
+            f"{float((a == b).mean()) if a.shape == b.shape else 0.0:.3f} "
+            "(bf16: not required to be exact)")
+    log(f"eagle: torch.cuda.max_memory_allocated() = "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del target, head, params_t, params_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------- tuner
 TUNER_BATCHES =(1, 2, 4, 8, 16, 32, 64, 128)
 ETA_PROMPT, ETA_SEQ = 64, 128       # the wave workload's prompt bucket, max_seq
@@ -2352,10 +2876,13 @@ def main() -> int:
     reference_phase(args.seed)
     flash_reference_phase(args.seed)
     prefix_fault_reference_phase(args.seed)
+    proposer_reference_phase(args.seed)
     launches, served = serve_phase(args.seed)
     launches.update(prefix_faults_phase(args.seed, served))
+    launches.update(prefetch_phase(args.seed, served))
     launches.update(tuner_phase(args.seed, served))
     del served
+    launches.update(eagle_phase(args.seed))
     tuner_reference_phase(args.seed)
     launches[OPS_PATH] = capacity_ops_path(args.seed)
 

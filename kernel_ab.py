@@ -110,7 +110,8 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
         dtype_name, _, _, _, cap = spec
         if dtype_name != "bfloat16" or "paged" not in kinds:
             continue
-        args = chip_smoke.paged_inputs(spec, gen, dev)
+        heads = chip_smoke.PAGED_HEADS.get(case, chip_smoke.SERVE_HEADS)
+        args = chip_smoke.paged_inputs(spec, gen, dev, heads)
         lib, _ = (chip_smoke.sdpa_gathered(*args) if cap == 0.0
                   else (None, None))
         emit("paged", case, paged.paged_decode_attention(*args, logit_cap=cap),

@@ -171,7 +171,8 @@ def child_errors(root: Path, label: str) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)   # chip_smoke's seed 0
     for case, spec in chip_smoke.PAGED_CASES.items():
-        args = chip_smoke.paged_inputs(spec, gen, dev)
+        heads = chip_smoke.PAGED_HEADS.get(case, chip_smoke.SERVE_HEADS)
+        args = chip_smoke.paged_inputs(spec, gen, dev, heads)
         dtype_name, _, _, _, cap = spec
         if dtype_name != "bfloat16":
             continue

@@ -4,6 +4,7 @@ that the fixed-gamma serve lines of two versions are compared in one run on
 one card.
 
     python3 serve_ab.py ROOT [ROOT ...] [--repeat N] [--seed S]
+                        [--prefix | --full]
 
 Each ROOT is a directory holding ``chip_smoke.py`` and ``src/repro_torch``:
 this checkout (``.``) or another commit unpacked with ``git archive`` into
@@ -20,6 +21,14 @@ wave, continuous paged and wave-flash workloads, each served twice on one
 engine.  Every ``serve ... tok/s`` line and propose share that phase prints
 is kept under its path, mode and proposer; the last line is a JSON object
 of the median of each (tree, line) over all its runs.  Needs an NVIDIA GPU.
+
+``--prefix`` also runs ROOT's ``prefix_faults_phase`` on the served target
+after the serve phase (the continuous-prefix and continuous-faults lines).
+``--full`` runs each ROOT's whole ``chip_smoke.py`` instead (from ROOT, so
+every phase before the serve phase runs before it as it does there) and
+keeps, besides the serve lines, the tok/s line of every later path
+("continuous-prefix/model (again): ... tok/s", "tuner continuous (again):
+... tok/s", ...).
 """
 from __future__ import annotations
 
@@ -38,31 +47,44 @@ TOK_S = re.compile(r"^serve (?P<path>[\w-]+(?: paged)?) \((?P<mode>[^)]+)\): "
 # "serve[wave/model] (graphs): propose share of the timed round 0.803"
 SHARE = re.compile(r"^serve\[(?P<path>[^\]]+)\] \((?P<mode>\w+)\): propose "
                    r"share of the timed round (?P<share>[\d.]+)")
+# "continuous-prefix/model (again): 94.86 tok/s ...", "tuner continuous
+# (again): 193.91 tok/s ...", "wave-eagle/eagle (graphs, again): ... tok/s"
+PATH_TOK_S = re.compile(r"^(?P<path>(?:tuner )?[\w-]+(?:/\w+)?) "
+                        r"\((?P<mode>[^)]+)\): (?:.*? )?(?P<tps>[\d.]+) tok/s")
 
 
-def child(root: Path, seed: int) -> None:
-    """ROOT's build_kernels() and serve_phase(seed), in this process."""
+def child(root: Path, seed: int, prefix: bool) -> None:
+    """ROOT's build_kernels() and serve_phase(seed), then with ``prefix``
+    its prefix_faults_phase, in this process."""
     sys.path.insert(0, str(root / "src"))
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_under_test", root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smoke.build_kernels()
-    smoke.serve_phase(seed)
+    _, served = smoke.serve_phase(seed)
+    if prefix:
+        smoke.prefix_faults_phase(seed, served)
 
 
 def parse(text: str) -> dict:
-    """{line key: [values]} of one serve phase's output."""
+    """{line key: [values]} of one run's output."""
     got: dict = {}
     for line in text.splitlines():
         m = TOK_S.match(line)
         if m:
             key = f"{m['path']} ({m['mode']}) {m['proposer']} tok/s"
             got.setdefault(key, []).append(float(m["tps"]))
+            continue
         m = SHARE.match(line)
         if m:
             key = f"{m['path']} ({m['mode']}) propose share"
             got.setdefault(key, []).append(float(m["share"]))
+            continue
+        m = PATH_TOK_S.match(line)
+        if m and not line.startswith("serve "):
+            key = f"{m['path']} ({m['mode']}) tok/s"
+            got.setdefault(key, []).append(float(m["tps"]))
     return got
 
 
@@ -72,9 +94,14 @@ def main() -> int:
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", type=Path, default=None)
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--prefix", action="store_true",
+                      help="also run each ROOT's prefix_faults_phase")
+    mode.add_argument("--full", action="store_true",
+                      help="run each ROOT's whole chip_smoke.py")
     args = ap.parse_args()
     if args.child is not None:
-        child(args.child.resolve(), args.seed)
+        child(args.child.resolve(), args.seed, args.prefix)
         return 0
     if not args.roots:
         ap.error("name at least one ROOT")
@@ -82,10 +109,12 @@ def main() -> int:
     order = (roots + roots[::-1]) * args.repeat
     runs: dict = {str(r): {} for r in roots}
     for i, root in enumerate(order):
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--child",
-             str(root), "--seed", str(args.seed)],
-            capture_output=True, text=True)
+        cmd = ([sys.executable, "chip_smoke.py", "--seed", str(args.seed)]
+               if args.full else
+               [sys.executable, str(Path(__file__).resolve()), "--child",
+                str(root), "--seed", str(args.seed)]
+               + (["--prefix"] if args.prefix else []))
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n",
                   file=sys.stderr)

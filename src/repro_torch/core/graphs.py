@@ -3,7 +3,8 @@
 The port's counterpart of the reference's jitted round
 (``repro.core.spec_decode.SDEngine._round_fn``, one ``jax.jit`` of the
 whole propose/verify/reject/commit round per gamma, and ``_staged_jits``,
-its three stage programs for ``timed=True``).  A round is given to
+its stage programs for ``timed=True`` and for prefetch-aware proposers,
+whose warm stage runs between propose and verify).  A round is given to
 :meth:`RoundGraphs.run` as a list of stage callables over static buffers:
 each stage reads the session's tensors (the arena of
 ``core/spec_decode.py``: caches, lengths, block table, last token) and the
@@ -63,9 +64,12 @@ Stage = Callable[[object], object]
 class StaticIO:
     """The static buffers of one round key besides the arena: the
     ``active`` mask (B,) with its pinned host staging buffer, and the
-    round's results packed into one (B, width + 4) int32 tensor
-    [committed (width + 1) | n_commit | n_accept | finite] with its pinned
-    host copy, so a round reads back with one device-to-host copy."""
+    round's results packed into one int32 tensor [committed (width + 1) |
+    n_commit | n_accept | finite | prefetch hits, actual, predicted (a
+    prefetch round only, the same on every row)] with its pinned host
+    copy, so a round reads back with one device-to-host copy."""
+
+    PF_KEYS = ("hits", "actual", "predicted")
 
     def __init__(self, batch: int, device: torch.device):
         self.device = device
@@ -75,6 +79,7 @@ class StaticIO:
                                        pin_memory=pin)
         self.out: Optional[torch.Tensor] = None
         self._out_host: Optional[torch.Tensor] = None
+        self._n_pf = 0
 
     def set_active(self, active) -> None:
         """Copy the host mask in (None: every row) without a host sync:
@@ -86,33 +91,42 @@ class StaticIO:
         self._active_host.numpy()[:] = np.asarray(active, bool)
         self.active.copy_(self._active_host, non_blocking=True)
 
-    def publish(self, committed, n_commit, n_accept, finite) -> None:
-        """Inside the round: pack the results into ``out`` (allocated by
-        the key's first, eager run, so graphs write the same buffer)."""
-        packed = torch.cat([committed.to(torch.int32),
-                            n_commit.to(torch.int32)[:, None],
-                            n_accept.to(torch.int32)[:, None],
-                            finite.to(torch.int32)[:, None]], 1)
+    def publish(self, committed, n_commit, n_accept, finite,
+                pf: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Inside the round: pack the results (and a prefetch round's
+        device counts ``pf``) into ``out``, allocated by the key's first,
+        eager run, so graphs write the same buffer."""
+        cols = [committed.to(torch.int32), n_commit.to(torch.int32)[:, None],
+                n_accept.to(torch.int32)[:, None],
+                finite.to(torch.int32)[:, None]]
+        if pf is not None:
+            counts = torch.stack([pf[k] for k in self.PF_KEYS]).to(torch.int32)
+            cols.append(counts[None, :].expand(committed.shape[0], -1))
+        packed = torch.cat(cols, 1)
         if self.out is None:
+            self._n_pf = 0 if pf is None else len(self.PF_KEYS)
             self.out = torch.empty_like(packed)
             if self.device.type == "cuda":
                 self._out_host = torch.empty(packed.shape, dtype=torch.int32,
                                              pin_memory=True)
         self.out.copy_(packed)
 
-    def read(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    def read(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                            Optional[Dict[str, int]]]:
         """The round's one readback: (committed, n_commit, n_accept,
-        finite) as new host arrays.  On the card this is the round's only
-        host sync."""
+        finite, prefetch counts or None) as new host values.  On the card
+        this is the round's only host sync."""
         if self._out_host is not None:
             self._out_host.copy_(self.out, non_blocking=True)
             torch.cuda.current_stream().synchronize()
             packed = self._out_host.numpy()
         else:
             packed = self.out.numpy()
-        w = packed.shape[1] - 3
+        w = packed.shape[1] - 3 - self._n_pf
+        pf = (dict(zip(self.PF_KEYS, map(int, packed[0, w + 3:])))
+              if self._n_pf else None)
         return (packed[:, :w].copy(), packed[:, w].copy(),
-                packed[:, w + 1].copy(), packed[:, w + 2].astype(bool))
+                packed[:, w + 1].copy(), packed[:, w + 2].astype(bool), pf)
 
 
 @dataclass

@@ -1,28 +1,38 @@
 """Proposer API — the drafting seam of the SD engine.
 
-Port of ``repro.core.proposer`` for the drafters this slice serves:
-``"model"`` (a small attention draft model, the paper's configuration) and
-``"none"`` (zero drafts: the AR baseline).  ``params`` is always the dict
-``{"target": params_t, "draft": params_p}``.
+Port of ``repro.core.proposer``.  Four drafters: ``"model"`` (a small
+attention draft model, the paper's configuration), ``"none"`` (zero
+drafts: the AR baseline), ``"eagle"`` (a one-block head on the target's
+features, ``core/eagle.py``) and ``"prefetch"`` (the draft model plus
+draft-phase expert warming, ``core/prefetch.py``); the last two are
+imported on first use.  ``params`` is always the dict ``{"target":
+params_t, "draft": params_p}``.
 
-  * ``init_state(params, prompts, max_seq, *, lengths, reuse)`` → state
-    (the draft cache), built once per generation after the target prefill;
-    ``reuse`` is a state of the same shape to reset and fill in place.
+  * ``init_state(params, prompts, max_seq, *, lengths, reuse,
+    last_hidden)`` → state, built once per generation after the target
+    prefill; ``reuse`` is a state of the same shape to reset and fill in
+    place, ``last_hidden`` (B, d) the target's hidden state at each
+    prompt's last position (read by ``needs_hidden`` proposers only).
   * ``propose(params, state, last_token, gamma, generator)`` →
     ``(drafts (B, g), q_dist (B, g, V), work_state)`` with g <= gamma.
   * ``commit(params, state, *, base_len, n_accept, n_commit,
-    verify_tokens, hidden)`` → state reconciled to the accepted prefix.
+    verify_tokens, hidden)`` → state reconciled to the accepted prefix;
+    ``hidden`` is the verify pass's (B, g+1, d) hidden states when
+    ``needs_hidden``, else None.
+
+``provides_prefetch`` (optional, False when absent) marks a proposer whose
+work state carries a ``models/moe.PrefetchPlan`` under ``"plan"``: the
+engine then runs its rounds staged with a warm stage before verify.
 
 Continuous-batching hooks:
 
   * ``merge_state(old, new, mask)`` — full-pool admission merge;
   * ``scatter_state(old, new, rows, *, valid)`` — sliced admission scatter;
   * ``grow_state(state, new_max_seq)`` — pad on paged-session growth.
-
-The ``eagle``/``prefetch`` drafters are later slices.
 """
 from __future__ import annotations
 
+import importlib
 from typing import Any, Callable, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 import torch
@@ -54,7 +64,8 @@ class Proposer(Protocol):
 
     def init_state(self, params: dict, prompts: torch.Tensor, max_seq: int, *,
                    lengths: Optional[torch.Tensor] = None,
-                   reuse: Any = None) -> Any:
+                   reuse: Any = None,
+                   last_hidden: Optional[torch.Tensor] = None) -> Any:
         ...
 
     def propose(self, params: dict, state: Any, last_token: torch.Tensor,
@@ -70,6 +81,9 @@ class Proposer(Protocol):
 
 
 _REGISTRY: Dict[str, Callable[..., "Proposer"]] = {}
+# kinds whose module is imported on first use (it registers itself)
+_LAZY_KINDS = {"eagle": "repro_torch.core.eagle",
+               "prefetch": "repro_torch.core.prefetch"}
 
 
 def register_proposer(name: str, factory: Optional[Callable] = None):
@@ -83,12 +97,18 @@ def register_proposer(name: str, factory: Optional[Callable] = None):
 
 
 def registered_proposers() -> Tuple[str, ...]:
-    return tuple(sorted(_REGISTRY))
+    """Every selectable kind: registered, or imported on first use."""
+    return tuple(sorted(set(_REGISTRY) | set(_LAZY_KINDS)))
 
 
 def make_proposer(kind: str, target, draft=None, *,
                   temperature: float = 0.0, **opts) -> "Proposer":
-    """Build a registered proposer by name."""
+    """Build a registered proposer by name.  ``draft`` is kind-specific: a
+    draft ``Model`` for "model" and "prefetch", an ``EagleHead`` (or None
+    to build one) for "eagle", ignored for "none"; ``opts`` are the
+    factory's own (``top_m`` for "prefetch")."""
+    if kind not in _REGISTRY and kind in _LAZY_KINDS:
+        importlib.import_module(_LAZY_KINDS[kind])      # registers itself
     if kind not in _REGISTRY:
         raise KeyError(
             f"unknown proposer {kind!r}; registered: {registered_proposers()}")
@@ -112,9 +132,9 @@ class ModelProposer:
         self.temperature = temperature
 
     def init_state(self, params, prompts, max_seq, *, lengths=None,
-                   reuse=None):
+                   reuse=None, last_hidden=None):
         """Prefill the draft cache: a fresh one, or ``reuse``'s (a state of
-        the same shape) reset in place."""
+        the same shape) reset in place.  ``last_hidden`` is not read."""
         cache = self.draft.init_cache(
             prompts.shape[0], max_seq,
             reuse=None if reuse is None else reuse["cache"])
@@ -175,7 +195,7 @@ class NoneProposer:
         self.vocab_size = target.cfg.vocab_size
 
     def init_state(self, params, prompts, max_seq, *, lengths=None,
-                   reuse=None):
+                   reuse=None, last_hidden=None):
         return None
 
     def propose(self, params, state, last_token, gamma, generator):

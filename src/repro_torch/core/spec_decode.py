@@ -14,6 +14,17 @@ Port of ``repro.core.spec_decode`` (wave-mode session API).  One SD round
 The AR baseline is the degenerate g=0 instance of the same loop (the
 "none" proposer), so SD and AR timings come from identical machinery.
 
+Proposers that read the target's features (``needs_hidden``: the EAGLE
+head) get the verify pass's hidden states in ``commit`` and the prefill's
+last hidden state in ``init_state``.  Prefetch-aware proposers
+(``provides_prefetch``) always run staged, as the reference refuses its
+fused round for them: propose (with the router probe), WARM (the plan's
+experts' weights gathered into the engine's fixed warm buffers,
+``models/moe.warm_experts``), verify through
+``Model.extend_with_prefetch`` (hit, actual and predicted expert counts
+on the device), finalize; the counts come back with the round's one
+readback and add up in ``SDStats`` and ``prefetch_totals``.
+
 Session API (the continuous-batching seam): ``start`` opens a batch
 (optionally with a paged target cache and a pre-assigned block table),
 ``round`` advances it with an ``active`` mask, ``admit`` (full pool) and
@@ -25,10 +36,10 @@ tables already point at a sibling's prefix pages,
 round boundary, and ``grow_session`` raises a paged session's capacity.
 
 The reference jits one fused round per gamma (and three stage programs for
-``timed=True``) and logs every trace.  This port captures them in CUDA
-graphs (``core/graphs.py``): one graph set per key (stage, gamma, batch,
-max_seq, cache geometry), captured the first time the key runs and
-replayed every later round.  ``trace_log`` gets (gamma, batch) for each
+``timed=True``, four with the warm stage) and logs every trace.  This port
+captures them in CUDA graphs (``core/graphs.py``): one graph set per key
+(stage, gamma, batch, max_seq, cache geometry), captured the first time the
+key runs and replayed every later round.  ``trace_log`` gets (gamma, batch) for each
 capture, and ``admit_trace_log`` each (prompt bucket, rows) the first time
 an admission runs with a new shape (cache geometry included);
 ``prefix_trace_log`` (tail bucket, rows) and ``chunk_trace_log`` (stage,
@@ -66,6 +77,7 @@ from repro_torch.core.proposer import Proposer, make_proposer
 from repro_torch.core.rejection import probs_from_logits, rejection_sample, sample_from
 from repro_torch.models.model import (Model, grow_cache_pages, merge_cache_rows,
                                       scatter_cache_rows)
+from repro_torch.models.moe import warm_experts
 from repro_torch.serving.faults import logits_finite
 
 
@@ -80,6 +92,12 @@ class SDStats:
     propose_time: float = 0.0               # per-phase (timed=True only)
     verify_time: float = 0.0
     reject_time: float = 0.0
+    # expert-prefetch accounting (prefetch-aware proposers only), summed
+    # over rounds and MoE layers: hits = activated AND warmed
+    prefetch_hits: int = 0
+    prefetch_actual: int = 0                # experts the verify passes hit
+    prefetch_predicted: int = 0             # experts the plans warmed
+    warm_time: float = 0.0                  # warm stage (timed=True only)
 
     @property
     def sigma(self) -> float:               # paper's σ (Eq. 5 empirical)
@@ -88,6 +106,14 @@ class SDStats:
     @property
     def alpha(self) -> float:               # empirical acceptance rate
         return self.accept_events / max(self.draft_events, 1)
+
+    @property
+    def prefetch_misses(self) -> int:       # activated but NOT warmed
+        return self.prefetch_actual - self.prefetch_hits
+
+    @property
+    def prefetch_hit_rate(self) -> float:   # P(activated expert was warm)
+        return self.prefetch_hits / max(self.prefetch_actual, 1)
 
     def absorb_round(self, res: "RoundResult", live: int) -> None:
         """Fold one RoundResult into the aggregate; ``live`` is the number
@@ -98,10 +124,15 @@ class SDStats:
             self.propose_time += res.phase_times.get("propose", 0.0)
             self.verify_time += res.phase_times.get("verify", 0.0)
             self.reject_time += res.phase_times.get("reject", 0.0)
+            self.warm_time += res.phase_times.get("warm", 0.0)
         self.generated += int(res.n_commit.sum())
         self.max_possible += (res.gamma + 1) * live
         self.accept_events += int(res.n_accept.sum())
         self.draft_events += res.width * live
+        if res.pf is not None:
+            self.prefetch_hits += res.pf["hits"]
+            self.prefetch_actual += res.pf["actual"]
+            self.prefetch_predicted += res.pf["predicted"]
 
 
 @dataclass
@@ -148,7 +179,9 @@ class RoundResult:
     """Host-side outcome of one SD round.  ``committed`` is (B, width+1);
     per row only the first ``n_commit[b]`` entries are real.  ``finite``
     (B,) is the numerical sentinel's verdict on the raw verify logits: a
-    False row committed nothing this round."""
+    False row committed nothing this round.  ``pf`` holds the round's
+    prefetch ``hits``/``actual``/``predicted`` counts (prefetch-aware
+    proposers, else None)."""
     committed: np.ndarray
     n_commit: np.ndarray
     n_accept: np.ndarray
@@ -157,6 +190,7 @@ class RoundResult:
     round_time: float
     phase_times: Optional[Dict[str, float]] = None
     finite: Optional[np.ndarray] = None
+    pf: Optional[Dict[str, int]] = None
 
 
 def _sync(device: torch.device) -> None:
@@ -219,6 +253,19 @@ def _claim(tree, owned: Set[int]):
     return tree
 
 
+def _provides_prefetch(proposer) -> bool:
+    return getattr(proposer, "provides_prefetch", False)
+
+
+def _counted_models(target: Model, proposer) -> List[Model]:
+    """The models whose forward counters a replay credits, each once: the
+    target and the proposer's draft ``Model``, if it has one.  An EAGLE
+    head is no ``Model``; its steps count no forwards."""
+    d = getattr(proposer, "draft", None)
+    return [target] + ([d] if isinstance(d, Model) and d is not target
+                       else [])
+
+
 @dataclass
 class _Arena:
     """The session tensors of one (batch, max_seq, cache geometry)."""
@@ -246,10 +293,8 @@ class SDEngine:
         self.temperature = temperature
         if cuda_graphs is None:
             cuda_graphs = target.device.type == "cuda"
-        models = [target] + ([proposer.draft]
-                             if getattr(proposer, "draft", None) else [])
         self.graphs = RoundGraphs(target.device, capture=cuda_graphs,
-                                  models=models)
+                                  models=_counted_models(target, proposer))
         self.sync_guard = False
         self.trace_log: List[Tuple[int, int]] = []       # (gamma, B) per capture
         # (T_prompt, rows) per new admission shape: the full path logs the
@@ -262,6 +307,27 @@ class SDEngine:
         self._arenas: Dict[tuple, _Arena] = {}
         self._owned: Set[int] = set()        # ids of the arenas' tensors
         self._io: Dict[tuple, StaticIO] = {}
+        # the warm stage's buffers (prefetch-aware proposers): allocated by
+        # the first warm, then written in place by every round
+        self._warm: Optional[List[dict]] = None
+        # session-lifetime expert-prefetch totals, summed over every
+        # generation and stream this session served
+        self.prefetch_totals: Dict[str, int] = {
+            "hits": 0, "actual": 0, "predicted": 0, "rounds": 0}
+
+    def accumulate_prefetch_totals(self, stats: SDStats) -> None:
+        """Fold one generation's or stream's prefetch counts into the
+        session totals (a no-op for other proposers)."""
+        if _provides_prefetch(self.proposer):
+            self.prefetch_totals["hits"] += stats.prefetch_hits
+            self.prefetch_totals["actual"] += stats.prefetch_actual
+            self.prefetch_totals["predicted"] += stats.prefetch_predicted
+            self.prefetch_totals["rounds"] += stats.rounds
+
+    def warm_bytes(self) -> int:
+        """Bytes of the warm stage's buffers (0 before the first warm)."""
+        return sum(t.numel() * t.element_size() for layer in self._warm or ()
+                   for t in layer.values())
 
     def compiled_gammas(self) -> List[int]:
         """Gammas this session has captured a round for."""
@@ -280,16 +346,37 @@ class SDEngine:
         return keys
 
     # ----------------------------------------------------------- round pieces
-    def _verify(self, params_t, t_cache, last_token, drafts):
+    def _verify(self, params_t, t_cache, last_token, drafts, plan=None):
+        """The verify forward → (p_dist, hidden or None, pending cache,
+        prefetch counts or None, finite).  ``plan``: a prefetch round's
+        ``PrefetchPlan``, scored by ``Model.extend_with_prefetch``."""
         verify_tokens = torch.cat([last_token[:, None], drafts], 1)
-        logits, pend = self.target.extend(params_t, verify_tokens, t_cache,
-                                          collect=True)
+        pf = None
+        if plan is not None:
+            logits, hidden, pend, pf = self.target.extend_with_prefetch(
+                params_t, verify_tokens, t_cache, plan, collect=True)
+        else:
+            logits, hidden, pend = self.target.extend_with_hidden(
+                params_t, verify_tokens, t_cache, collect=True)
+        if not self.proposer.needs_hidden:
+            hidden = None
         # the sentinel reads RAW logits: argmax of an all-NaN row is valid
-        return probs_from_logits(logits, self.temperature), pend, \
-            logits_finite(logits)
+        return (probs_from_logits(logits, self.temperature), hidden, pend,
+                pf, logits_finite(logits))
+
+    def _warm_experts(self, params_t, plan) -> None:
+        """The warm stage: the plan's experts' weights into the engine's
+        warm buffers (allocated by the first call, written in place after,
+        so captured rounds write the same addresses)."""
+        if self._warm is None:
+            self._warm = warm_experts(params_t["layers"], self.target.cfg,
+                                      plan)
+        else:
+            warm_experts(params_t["layers"], self.target.cfg, plan,
+                         out=self._warm)
 
     def _finalize(self, params, pend, p_state, base_len, p_dist, q_dist,
-                  drafts, last_token, active, finite, generator):
+                  drafts, hidden, last_token, active, finite, generator):
         B, g = drafts.shape
         n_accept, next_token, _ = rejection_sample(
             p_dist, q_dist, drafts, generator, self.temperature)
@@ -302,7 +389,7 @@ class SDEngine:
         verify_tokens = torch.cat([last_token[:, None], drafts], 1)
         p_state = self.proposer.commit(
             params, p_state, base_len=base_len, n_accept=n_accept,
-            n_commit=n_commit, verify_tokens=verify_tokens, hidden=None)
+            n_commit=n_commit, verify_tokens=verify_tokens, hidden=hidden)
         slot = torch.arange(g + 1, device=drafts.device)[None, :]
         drafts_pad = torch.cat([drafts, drafts.new_zeros((B, 1))], 1)
         committed = torch.where(slot < n_accept[:, None], drafts_pad,
@@ -314,27 +401,35 @@ class SDEngine:
                       generator, staged: bool) -> list:
         """The round over ``state``'s arena as stage callables: one fused
         stage, or (``staged``) propose, verify and finalize, each handing
-        its intermediates to the next.  Finalize writes the new lengths and
-        last token into the arena and the results into ``io``."""
+        its intermediates to the next, with the warm stage between propose
+        and verify for a prefetch-aware proposer.  Finalize writes the new
+        lengths and last token into the arena and the results into
+        ``io``."""
         params, t_cache, p_state = state.params, state.t_cache, state.p_state
         last = state.last_token
+        prefetch = _provides_prefetch(self.proposer)
 
         def propose(_):
             return self.proposer.propose(params, p_state, last, gamma,
                                          generator)
 
+        def warm(prev):
+            self._warm_experts(params["target"], prev[2]["plan"])
+            return prev
+
         def verify(prev):
-            drafts = prev[0]
+            drafts, _, p_work = prev
             return prev + self._verify(params["target"], t_cache, last,
-                                       drafts)
+                                       drafts,
+                                       p_work["plan"] if prefetch else None)
 
         def finalize(prev):
-            drafts, q_dist, p_work, p_dist, pend, finite = prev
+            drafts, q_dist, p_work, p_dist, hidden, pend, pf, finite = prev
             t_new, p_new, new_last, committed, n_commit, n_acc = \
                 self._finalize(params, pend, p_work, t_cache["lengths"],
-                               p_dist, q_dist, drafts, last, io.active,
-                               finite, generator)
-            io.publish(committed, n_commit, n_acc, finite)
+                               p_dist, q_dist, drafts, hidden, last,
+                               io.active, finite, generator)
+            io.publish(committed, n_commit, n_acc, finite, pf)
             _copy_into((t_cache, p_state, last), (t_new, p_new, new_last))
 
         if not staged:
@@ -342,6 +437,8 @@ class SDEngine:
         if self.proposer.kind == "none":
             # zero-width drafts launch nothing: no propose graph to capture
             return [lambda _: verify(propose(None)), finalize]
+        if prefetch:
+            return [propose, warm, verify, finalize]
         return [propose, verify, finalize]
 
     def _log_shape(self, log: list, entry: tuple, key: tuple) -> None:
@@ -374,7 +471,9 @@ class SDEngine:
                        reuse: Optional[_Arena] = None):
         """Prefill a batch into caches (fresh, or ``reuse``'s reset in
         place) and proposer state; returns (t_cache, p_state, last_logits).
-        Behind ``start`` and the admissions (compact or full, dense)."""
+        Behind ``start`` and the admissions (compact or full, dense).  A
+        ``needs_hidden`` proposer starts from the prefill's last hidden
+        state."""
         dev = self.target.device
         prompts = _on(prompts, torch.int64, dev)
         if lengths is not None:
@@ -384,11 +483,12 @@ class SDEngine:
             reuse=None if reuse is None else reuse.t_cache)
         if page_table is not None:
             t_cache["pages"]["table"].copy_(_on(page_table, torch.int32, dev))
-        last_l, t_cache = self.target.prefill(params["target"], prompts,
-                                              t_cache, lengths=lengths)
+        last_l, last_h, t_cache = self.target.prefill_with_hidden(
+            params["target"], prompts, t_cache, lengths=lengths)
         p_state = self.proposer.init_state(
             params, prompts, max_seq, lengths=lengths,
-            reuse=None if reuse is None else reuse.p_state)
+            reuse=None if reuse is None else reuse.p_state,
+            last_hidden=last_h if self.proposer.needs_hidden else None)
         return t_cache, p_state, last_l
 
     # --------------------------------------------------------------- session
@@ -425,10 +525,11 @@ class SDEngine:
         """Run ONE propose/verify/reject/commit round on a live session.
 
         ``active`` (B,) bool: inactive rows commit 0 tokens.  The round is
-        the graph set of its key (fused; ``timed``: the propose, verify and
-        finalize stages with a device sync between them to fill
-        ``phase_times``), captured on the key's first round and replayed
-        after.  Host inputs go into static buffers first; the results come
+        the graph set of its key (fused; staged: the propose, verify and
+        finalize stages, with the warm stage before verify for a
+        prefetch-aware proposer, which always runs staged; ``timed``
+        syncs the device after each stage to fill ``phase_times``),
+        captured on the key's first round and replayed after.  Host inputs go into static buffers first; the results come
         back with one device-to-host copy at the end, the round's one host
         sync when untimed.  The returned state aliases the arena."""
         gamma = self.gamma if gamma is None else gamma
@@ -436,13 +537,16 @@ class SDEngine:
             raise ValueError("round() needs a generator at temperature>0")
         B = state.batch
         akey = self._arena_key(B, state.max_seq, state.t_cache)
-        key = ("staged" if timed else "round", gamma) + akey
+        prefetch = _provides_prefetch(self.proposer)
+        staged = timed or prefetch
+        key = ("staged" if staged else "round", gamma) + akey
         io = self._io.get(key)
         if io is None:
             io = self._io[key] = StaticIO(B, self.target.device)
         phases: Dict[str, float] = {}
-        names = (["propose", "verify", "reject"]
-                 if self.proposer.kind != "none" else ["verify", "reject"])
+        names = (["verify", "reject"] if self.proposer.kind == "none" else
+                 ["propose", "warm", "verify", "reject"] if prefetch else
+                 ["propose", "verify", "reject"])
         t_round = time.perf_counter()
         t_phase = [t_round]
 
@@ -460,20 +564,20 @@ class SDEngine:
                             p_state=arena.p_state,
                             last_token=arena.last_token)
             io.set_active(active)
-            stages = self._round_stages(state, io, gamma, generator, timed)
+            stages = self._round_stages(state, io, gamma, generator, staged)
             if self.graphs.run(key, stages,
                                generator=None if self.temperature <= 0.0
                                else generator,
                                after_stage=after_stage if timed else None):
                 self.trace_log.append((gamma, B))
-        committed, n_commit, n_acc, finite = io.read()
+        committed, n_commit, n_acc, finite, pf = io.read()
         round_time = time.perf_counter() - t_round
         if timed:
             phases.setdefault("propose", 0.0)
         result = RoundResult(
             committed=committed, n_commit=n_commit, n_accept=n_acc,
             width=committed.shape[1] - 1, gamma=gamma, round_time=round_time,
-            phase_times=phases if timed else None, finite=finite)
+            phase_times=phases if timed else None, finite=finite, pf=pf)
         return state, result
 
     @contextmanager
@@ -607,13 +711,17 @@ class SDEngine:
         compact = {"layers": t_cache["layers"],
                    "lengths": _on(tail_start, torch.int32, dev),
                    "pages": {"table": t_cache["pages"]["table"][rows_t]}}
-        logits, _ = self.target.extend(state.params["target"], tails, compact)
+        logits, hidden, _ = self.target.extend_with_hidden(
+            state.params["target"], tails, compact)
         idx = _on(np.asarray(tail_len, np.int64) - 1, torch.int64, dev)
-        last_l = logits[torch.arange(R, device=dev), idx]
+        at = torch.arange(R, device=dev)
+        last_l = logits[at, idx]
         lengths = _on(lengths, torch.int32, dev)
         fresh_p = self.proposer.init_state(
             state.params, _on(prompts, torch.int64, dev), state.max_seq,
-            lengths=lengths)
+            lengths=lengths,
+            last_hidden=hidden[at, idx] if self.proposer.needs_hidden
+            else None)
         first = sample_from(probs_from_logits(last_l, self.temperature),
                             generator, self.temperature)
         p_state = self.proposer.scatter_state(state.p_state, fresh_p, rows,
@@ -691,12 +799,14 @@ class SDEngine:
                         ("chunk", "final", R, C, Tp, state.max_seq,
                          _cache_geometry(pa.t_cache),
                          _cache_geometry(state.t_cache)))
-        logits, pend = self.target.extend(params_t, toks, pa.t_cache,
-                                          collect=True)
+        logits, hidden, pend = self.target.extend_with_hidden(
+            params_t, toks, pa.t_cache, collect=True)
         fresh_t = self.target.commit(pend, n_row, collected=True)
         fresh_p = self.proposer.init_state(
             state.params, _on(pa.prompts, torch.int64, dev), state.max_seq,
-            lengths=_on(pa.lengths, torch.int32, dev))
+            lengths=_on(pa.lengths, torch.int32, dev),
+            last_hidden=hidden[:, take - 1] if self.proposer.needs_hidden
+            else None)
         state = self._scatter_admitted(
             state, (fresh_t, fresh_p, logits[:, take - 1]), pa.rows,
             np.ones((R,), bool), pa.generator, Tp)
@@ -759,7 +869,22 @@ class SDEngine:
                 out[b, n_out[b]: n_out[b] + w] = res.committed[b, :w]
                 n_out[b] += w
             stats.absorb_round(res, B)
+        self.accumulate_prefetch_totals(stats)
         return out[:, :max_new_tokens], stats
+
+
+class SpecDecoder(SDEngine):
+    """Legacy shim: target + draft *model* pair == ``SDEngine("model")``.
+
+    Prefer ``SDEngine(target, make_proposer("model", target, draft))``."""
+
+    def __init__(self, target: Model, draft: Model, gamma: int = 4,
+                 temperature: float = 0.0):
+        super().__init__(
+            target,
+            make_proposer("model", target, draft, temperature=temperature),
+            gamma=gamma, temperature=temperature)
+        self.draft = draft
 
 
 def _ar_session(model: Model, temperature: float) -> SDEngine:

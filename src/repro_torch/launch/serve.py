@@ -8,9 +8,16 @@ with the continuous slot scheduler.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
       --reduced --scheduler continuous --kv-layout paged --page-size 16 \
       --prefix-sharing --shared-prefix 32 --prefill-chunk 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --reduced --proposer eagle
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
+      --reduced --proposer prefetch --prefetch-top-m 2
 
 Port of ``repro.launch.serve`` for the flags this slice implements.  The
-draft is the reference's default draft for the target (``draft_for``).
+draft is the reference's default draft for the target (``draft_for``), or
+with ``--proposer eagle`` an ``EagleHead`` on the target; ``--proposer
+prefetch`` warms ``--prefetch-top-m`` experts a MoE layer each round (default
+min(E, 2K)) and prints each wave's hit rate.
 Unless ``--no-autotune`` (or ``--proposer none``), an ``AutoTuner`` priced
 on the full published config (``make_tuner``, the ``H100`` record) plans
 {use_sd, gamma} per wave, or per round in continuous mode, and each wave
@@ -38,10 +45,15 @@ from repro_torch.serving.faults import ResilienceConfig
 from repro_torch.serving.scheduler import submit_poisson
 
 
-def make_tuner(arch: str) -> AutoTuner:
+def make_tuner(arch: str, proposer: str = "model") -> AutoTuner:
     """The serving CLI's tuner: priced on the FULL published config of
-    ``arch`` and its default draft, whatever depth or width is served."""
+    ``arch`` and its default draft, or for ``proposer="eagle"`` the EAGLE
+    head's block on that config (``eagle_head_config``: the drafter that
+    serves), whatever depth or width is served."""
     full_cfg = get_config(arch)
+    if proposer == "eagle":
+        from repro_torch.core.eagle import eagle_head_config
+        return AutoTuner(full_cfg, eagle_head_config(full_cfg), alpha=0.7)
     return AutoTuner(full_cfg, draft_for(full_cfg), alpha=0.7)
 
 
@@ -58,6 +70,10 @@ def main(argv=None):
     ap.add_argument("--proposer", default="model",
                     choices=sorted(registered_proposers()),
                     help="drafting strategy (Proposer registry kind)")
+    ap.add_argument("--prefetch-top-m", type=int, default=None,
+                    help="--proposer prefetch: experts warmed per MoE "
+                         "layer each round (default min(E, 2K), clamped to "
+                         "[1, E])")
     ap.add_argument("--moe-dispatch", default="gmm", choices=["gmm", "onehot"],
                     help="MoE dispatch for the decode path; gmm = the ragged "
                          "grouped-matmul CUDA kernels")
@@ -128,9 +144,15 @@ def main(argv=None):
     cfg = get_config(args.arch, reduced=args.reduced)
     target = Model(cfg, moe_dispatch=args.moe_dispatch,
                    paged_attention=args.paged_attention, device=args.device)
+    if args.proposer == "eagle":
+        from repro_torch.core.eagle import EagleHead
+        draft = EagleHead(target)       # refuses a head it cannot build,
+                                        # before any weight is drawn
     gen = torch.Generator(device=target.device)
     params_t = target.init(gen.manual_seed(args.seed))
-    if args.proposer == "none":
+    if args.proposer == "eagle":
+        params_d = draft.init(gen.manual_seed(args.seed + 1))
+    elif args.proposer == "none":
         draft, params_d = None, None
     else:
         dcfg = draft_for(cfg) if not args.reduced else \
@@ -141,7 +163,10 @@ def main(argv=None):
         params_d = draft.init(gen.manual_seed(args.seed + 1))
 
     tuner = (None if args.no_autotune or args.proposer == "none"
-             else make_tuner(args.arch))
+             else make_tuner(args.arch, args.proposer))
+    proposer_opts = {}
+    if args.proposer == "prefetch" and args.prefetch_top_m is not None:
+        proposer_opts["top_m"] = args.prefetch_top_m
     resilience = ResilienceConfig(
         round_deadline_s=args.round_deadline_s,
         max_rounds_per_request=args.max_rounds_per_request,
@@ -151,7 +176,7 @@ def main(argv=None):
                         max_batch=args.max_batch, tuner=tuner,
                         gamma=args.gamma,
                         temperature=args.temperature, proposer=args.proposer,
-                        seed=args.seed, timed=args.timed,
+                        proposer_opts=proposer_opts, seed=args.seed, timed=args.timed,
                         scheduler=args.scheduler, eos_id=args.eos_id,
                         admit_mode=args.admit_mode,
                         prefill_chunk=args.prefill_chunk,
@@ -185,10 +210,16 @@ def main(argv=None):
               f"rounds={r.stats.rounds}" if r.used_sd and r.stats else "AR")
         timing = (f" propose={r.propose_time:.3f}s verify={r.verify_time:.3f}s"
                   f" reject={r.reject_time:.3f}s" if args.timed else "")
+        if args.timed and r.warm_time:
+            timing += f" warm={r.warm_time:.3f}s"
+        # on the stats, not the kind: any prefetch-aware proposer counts
+        pf = (f" prefetch_hit={r.prefetch_hit_rate:.2f} "
+              f"({r.prefetch_hits}/{r.stats.prefetch_actual})"
+              if r.stats and r.stats.prefetch_actual else "")
         print(f"{r.scheduler}: B={r.batch}/{r.bucket} gamma={r.gamma} "
               f"proposer={r.proposer} dispatch={r.moe_dispatch} "
               f"sd={r.used_sd} {r.tokens_per_second:.1f} tok/s  "
-              f"{sd}{timing}  captures={r.captures} replays={r.replays}")
+              f"{sd}{pf}{timing}  captures={r.captures} replays={r.replays}")
         if r.plan is not None:
             print(f"  plan: gamma={r.plan['gamma']} use_sd={r.plan['use_sd']} "
                   f"predicted={r.plan['predicted_speedup']:.3f}x "

@@ -285,12 +285,17 @@ def gqa_forward(
                 logit_cap=cap)
         else:
             # stale and trash content is masked the way rejected SD suffixes
-            # are: the causal mask admits only positions <= q_pos
+            # are: the causal mask admits only positions <= q_pos.  V rows
+            # past each row's newest query are zeroed, as kernels 3 and 4
+            # zero them: a recycled page's stale NaN there would otherwise
+            # enter the P V product as 0 x NaN
             S = page_table.shape[1] * cache["k_pages"].shape[1]
             k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
-            out = attend(q, paged_view(cache["k_pages"], page_table),
-                         paged_view(cache["v_pages"], page_table), positions,
-                         k_pos)
+            past = k_pos > positions[:, -1:]                     # (B, S)
+            v_view = paged_view(cache["v_pages"], page_table).masked_fill_(
+                past[:, :, None, None], 0.0)       # a fresh gather: in place
+            out = attend(q, paged_view(cache["k_pages"], page_table), v_view,
+                         positions, k_pos)
         return out.reshape(B, T, -1) @ params["wo"], cache
     _write(cache, positions, k, v)
     S = cache["k"].shape[1] - 1                 # logical capacity: no trash slot

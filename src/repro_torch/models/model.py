@@ -9,6 +9,11 @@ Port of ``repro.models.model.Model`` for decoder-only attention configs:
     logits, pend  = model.extend(params, tokens, cache)
     cache  = model.commit(pend, n_commit)
 
+``prefill_with_hidden`` and ``extend_with_hidden`` also return the final
+pre-head hidden states (what an EAGLE head reads), ``extend_with_prefetch``
+scores an expert-prefetch plan while it verifies, and ``forward_hidden`` /
+``forward_train`` are the cacheless forward with the router's metrics.
+
 Cache layout::
 
     {"layers": [{"k", "v"} per layer], "lengths": (B,) int32}
@@ -524,11 +529,42 @@ class Model:
                 device=dev)}
         return cache
 
+    # ----------------------------------------------------------------- train
+    def forward_hidden(self, params, tokens) -> Tuple[torch.Tensor, dict]:
+        """Final pre-head hidden states (B, T, d) of a cacheless causal
+        forward over ``tokens`` (B, T), and the MoE metrics summed over
+        layers (``aux_loss``, ``expert_counts``).  The reference's train
+        forward without the optimizer (ROADMAP queue 1 item 10)."""
+        tokens = self._tokens(tokens)
+        B, T = tokens.shape
+        positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
+        x, metrics = tfm.stack_forward(
+            params["layers"], self.cfg, self._embed(params, tokens),
+            positions, None, mode="prefill", dispatch=self.moe_dispatch,
+            use_flash=self.use_flash, want_metrics=True)
+        self.forward_count += 1
+        return x, metrics
+
+    def forward_train(self, params, tokens) -> Tuple[torch.Tensor, dict]:
+        """Logits (B, T, V) of :meth:`forward_hidden` and its metrics."""
+        x, metrics = self.forward_hidden(params, tokens)
+        return self._head(params, x), metrics
+
     # --------------------------------------------------------------- prefill
     def prefill(self, params, tokens, cache: dict, *,
                 lengths=None) -> Tuple[torch.Tensor, dict]:
         """Prefill padded prompts (B, T); returns the logits at each
         sequence's last prompt position (B, V) and the filled cache."""
+        last, _, cache = self.prefill_with_hidden(params, tokens, cache,
+                                                  lengths=lengths)
+        return last, cache
+
+    def prefill_with_hidden(self, params, tokens, cache: dict, *,
+                            lengths=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+        """:meth:`prefill` that also returns the pre-head hidden state at
+        each sequence's last prompt position (B, d): the feature carry of
+        hidden-feeding proposers (``core/eagle.EagleProposer``)."""
         tokens = self._tokens(tokens)
         B, T = tokens.shape
         if lengths is None:
@@ -536,35 +572,37 @@ class Model:
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
         positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
         x = self._embed(params, tokens)
-        x = tfm.stack_forward(params["layers"], self.cfg, x, positions,
-                              cache["layers"], mode="prefill",
-                              dispatch=self.moe_dispatch,
-                              use_flash=self.use_flash,
-                              page_table=_page_table(cache),
-                              paged_attention=self.paged_attention)
+        x, _ = tfm.stack_forward(params["layers"], self.cfg, x, positions,
+                                 cache["layers"], mode="prefill",
+                                 dispatch=self.moe_dispatch,
+                                 use_flash=self.use_flash,
+                                 page_table=_page_table(cache),
+                                 paged_attention=self.paged_attention)
         self.forward_count += 1
         self.prefill_count += 1
         # head only at each sequence's last prompt position — never (B,T,V)
         idx = (lengths.to(torch.int64) - 1)[:, None, None].expand(B, 1, x.shape[-1])
         last_h = torch.gather(x, 1, idx)
         last = self._head(params, last_h)[:, 0]
-        return last, dict(cache, lengths=lengths)
+        return last, last_h[:, 0], dict(cache, lengths=lengths)
 
     # ---------------------------------------------------------------- extend
-    def _extend_impl(self, params, tokens, cache):
+    def _extend_impl(self, params, tokens, cache, prefetch_masks=None):
         tokens = self._tokens(tokens)
         B, T = tokens.shape
         positions = (cache["lengths"].to(torch.int64)[:, None]
                      + torch.arange(T, device=self.device)[None, :])
         x = self._embed(params, tokens)
-        x = tfm.stack_forward(params["layers"], self.cfg, x, positions,
-                              cache["layers"], mode="extend",
-                              dispatch=self.moe_dispatch,
-                              use_flash=self.use_flash,
-                              page_table=_page_table(cache),
-                              paged_attention=self.paged_attention)
+        x, metrics = tfm.stack_forward(params["layers"], self.cfg, x,
+                                       positions, cache["layers"],
+                                       mode="extend",
+                                       dispatch=self.moe_dispatch,
+                                       use_flash=self.use_flash,
+                                       page_table=_page_table(cache),
+                                       paged_attention=self.paged_attention,
+                                       prefetch_masks=prefetch_masks)
         self.forward_count += 1
-        return self._head(params, x), x, dict(cache)
+        return self._head(params, x), x, dict(cache), metrics
 
     def extend(self, params, tokens, cache: dict, *,
                collect: bool = False) -> Tuple[torch.Tensor, dict]:
@@ -572,8 +610,29 @@ class Model:
         returns logits (B, T, V) and the pending cache (K/V written,
         ``lengths`` unchanged until ``commit``).  ``collect`` gathers
         recurrent states in the reference; attention stacks have none."""
-        logits, _, pend = self._extend_impl(params, tokens, cache)
+        logits, _, pend, _ = self._extend_impl(params, tokens, cache)
         return logits, pend
+
+    def extend_with_hidden(self, params, tokens, cache: dict, *,
+                           collect: bool = False):
+        """:meth:`extend` that also returns the final hidden states
+        (B, T, d), which EAGLE-style heads (``core/eagle.py``) read."""
+        logits, x, pend, _ = self._extend_impl(params, tokens, cache)
+        return logits, x, pend
+
+    def extend_with_prefetch(self, params, tokens, cache: dict, plan, *,
+                             collect: bool = False):
+        """Verify forward that scores an expert-prefetch plan as it runs:
+        the compute of :meth:`extend`, and each MoE layer compares the
+        experts it routed to with ``plan.masks``
+        (``models/moe.PrefetchPlan``).  Returns logits (B, T, V), hidden
+        states (B, T, d), the pending cache and ``{"hits", "actual",
+        "predicted"}``: int32 device scalars summed over the MoE layers."""
+        logits, x, pend, metrics = self._extend_impl(
+            params, tokens, cache, prefetch_masks=list(plan.masks))
+        pf = {k: metrics[f"prefetch_{k}"]
+              for k in ("hits", "actual", "predicted")}
+        return logits, x, pend, pf
 
     # ---------------------------------------------------------------- commit
     def commit(self, pend: dict, n_commit: torch.Tensor,

@@ -7,16 +7,111 @@ Port of ``repro.models.moe`` for the serving dispatches:
   * ``onehot``  — dense einsum over a (tokens, experts) combine tensor; kept
                   as a second oracle for tests.
 
-Expert-parallel dispatch (``ep``) and the prefetch masks are later slices.
+Expert prefetch (SP-MoE, arXiv:2510.10302): a ``PrefetchPlan`` names, per
+layer, the experts a router probe over the draft token stream predicts the
+next verify pass will hit (``core/prefetch.py``).  ``warm_experts`` gathers
+those experts' FFN weights into fixed-shape buffers during the SD round,
+between propose and verify; verify still reads the original weights, so the
+warm is a dispatch-level simulation, as in the reference.  ``moe_forward``
+scores the plan against the experts a forward actually routed to
+(``prefetch_hit_stats``: device int32 counts, no host sync).
+
+Expert-parallel dispatch (``ep``) is ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.gmm import ragged
 from repro_torch.models.layers import act_fn, dense_init
+
+
+class PrefetchPlan(NamedTuple):
+    """Per-layer expert-warmup prediction.
+
+    ``masks``: one ``(E,)`` bool tensor per layer, True where the probe
+    predicts the verify pass will activate that expert (all False for a
+    dense layer).  ``expert_ids``: one ``(M,)`` int64 tensor per layer, the
+    top-M predicted ids behind the mask (``(0,)`` for a dense layer).  The
+    reference stacks each period slot over ``num_periods`` ((P, E) and
+    (P, M)); layer ``l`` here is period ``l // period`` of slot
+    ``l % period`` there."""
+
+    masks: Tuple[torch.Tensor, ...]
+    expert_ids: Tuple[torch.Tensor, ...]
+
+
+def _expert_rows(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (E, ...) as one row per expert, in 8-byte words where the row
+    allows: the gather then moves a quarter as many bf16 elements, which
+    on an H100 takes it from ~1.1 to ~2.5 TB/s (PERF.md)."""
+    rows = w.view(w.shape[0], -1)
+    if (rows.shape[1] * w.element_size()) % 8 == 0 and w.data_ptr() % 8 == 0:
+        return rows.view(torch.int64)
+    return rows
+
+
+def warm_experts(layer_params: List[dict], cfg, plan: PrefetchPlan, *,
+                 out: Optional[List[dict]] = None) -> List[dict]:
+    """Gather the predicted experts' FFN weights: per MoE layer
+    ``{"w_gate": (M, d, f), "w_up": (M, d, f), "w_down": (M, f, d)}``, a
+    bit copy of ``ffn[k][expert_ids]``.
+
+    ``out`` (the list a previous call returned) receives the gather in
+    place, so a captured round writes the same buffers every replay.  The
+    values are not consumed: verify reads the original weights (the
+    reference's dispatch-level simulation, ``repro.models.moe``)."""
+    kinds = [cfg.moe_pattern[l % cfg.period] for l in range(cfg.num_layers)]
+    layers = [l for l, is_moe in enumerate(kinds)
+              if is_moe and plan.expert_ids[l].shape[-1] > 0]
+    if out is None:
+        out = [{k: layer_params[l]["ffn"][k].new_empty(
+                    (plan.expert_ids[l].shape[-1],)
+                    + layer_params[l]["ffn"][k].shape[1:])
+                for k in ("w_gate", "w_up", "w_down")} for l in layers]
+    for l, buf in zip(layers, out):
+        ffn, ids = layer_params[l]["ffn"], plan.expert_ids[l]
+        for k in ("w_gate", "w_up", "w_down"):
+            torch.index_select(_expert_rows(ffn[k]), 0, ids,
+                               out=_expert_rows(buf[k]))
+    return out
+
+
+def prefetch_hit_stats(prefetch_mask: torch.Tensor, indices: torch.Tensor,
+                       num_experts: int) -> dict:
+    """Score one layer's plan against the experts routed to: int32 device
+    scalars ``prefetch_hits`` (activated and warmed), ``prefetch_actual``
+    (activated) and ``prefetch_predicted`` (warmed)."""
+    # the scalar fill is a kernel argument: no host copy, no host sync
+    actual = torch.zeros((num_experts,), dtype=torch.int32,
+                         device=indices.device).scatter_(
+        0, indices.reshape(-1), 1) > 0
+    predicted = prefetch_mask.to(torch.bool)
+    return {
+        "prefetch_hits": (actual & predicted).sum().to(torch.int32),
+        "prefetch_actual": actual.sum().to(torch.int32),
+        "prefetch_predicted": predicted.sum().to(torch.int32),
+    }
+
+
+def load_balance_loss(probs: torch.Tensor, indices: torch.Tensor,
+                      num_experts: int) -> torch.Tensor:
+    """Switch-transformer aux loss: E * sum_e f_e * P_e (arXiv:2101.03961)."""
+    one_hot = torch.nn.functional.one_hot(indices, num_experts).float()
+    f = one_hot.sum(1).mean(0)                   # fraction per expert
+    return num_experts * (f * probs.mean(0)).sum()
+
+
+def expert_activation_counts(indices: torch.Tensor,
+                             num_experts: int) -> torch.Tensor:
+    """Tokens routed to each expert (int32): the paper's N(t) measurement."""
+    counts = torch.zeros((num_experts,), dtype=torch.int32,
+                         device=indices.device)
+    flat = indices.reshape(-1)
+    return counts.scatter_add_(0, flat, torch.ones_like(flat,
+                                                        dtype=torch.int32))
 
 
 def init_moe(cfg, dtype, *, generator, device) -> dict:
@@ -99,20 +194,35 @@ def _dispatch_gmm(params, cfg, x, weights, indices):
 
 
 def moe_forward(params: dict, cfg, x: torch.Tensor, *,
-                dispatch: str = "onehot") -> torch.Tensor:
-    """Routed MoE FFN with the shared-expert add: (B, T, d) → (B, T, d)."""
+                dispatch: str = "onehot", return_metrics: bool = False,
+                prefetch_mask: Optional[torch.Tensor] = None):
+    """Routed MoE FFN with the shared-expert add: (B, T, d) → (B, T, d).
+
+    Returns ``(output, metrics)``: ``return_metrics`` adds ``aux_loss`` and
+    ``expert_counts``, a ``prefetch_mask`` (E,) the ``prefetch_hit_stats``
+    counts; nothing asked gives {}."""
     if dispatch not in ("gmm", "onehot"):
         raise NotImplementedError(
             f"dispatch {dispatch!r}: expert-parallel serving is ROADMAP "
             "queue 1 item 11; this slice ports 'gmm' and 'onehot'")
     B, T, d = x.shape
     xf = x.reshape(B * T, d)
-    weights, indices, _ = router_topk(params, cfg, xf)
+    weights, indices, probs = router_topk(params, cfg, xf)
     fn = _dispatch_gmm if dispatch == "gmm" else _dispatch_onehot
     y = fn(params, cfg, xf, weights.to(x.dtype), indices)
     if "shared" in params:
         s = params["shared"]
         h = act_fn(xf @ s["w_gate"], cfg.mlp_activation) * (xf @ s["w_up"])
         y = y + h @ s["w_down"]
-    return y.reshape(B, T, d)
+    y = y.reshape(B, T, d)
+    metrics = {}
+    if return_metrics:
+        metrics["aux_loss"] = load_balance_loss(probs, indices,
+                                                cfg.num_experts)
+        metrics["expert_counts"] = expert_activation_counts(indices,
+                                                            cfg.num_experts)
+    if prefetch_mask is not None:
+        metrics.update(prefetch_hit_stats(prefetch_mask, indices,
+                                          cfg.num_experts))
+    return y, metrics
 

@@ -8,7 +8,7 @@ here the stack is a list of per-layer blocks and a Python loop, layer
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,22 +44,30 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
                   dispatch: str = "onehot",
                   use_flash: bool = False,
                   page_table: Optional[torch.Tensor] = None,
-                  paged_attention: str = "kernel") -> torch.Tensor:
-    """One block; writes this layer's KV into ``cache`` in place."""
+                  paged_attention: str = "kernel",
+                  want_metrics: bool = False,
+                  prefetch_mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, dict]:
+    """One block; writes this layer's KV into ``cache`` in place.  Returns
+    the output and the MoE layer's metrics (``moe_forward``'s; empty for a
+    dense layer or when none are asked for)."""
     h = apply_norm(params["norm1"], x, cfg.norm_eps)
     out, _ = attn.gqa_forward(params["mixer"], cfg, h, positions, kind=kind,
                               cache=cache, mode=mode, use_flash=use_flash,
                               page_table=page_table,
                               paged_attention=paged_attention)
     x = x + out
+    metrics: dict = {}
     if "ffn" in params:
         h = apply_norm(params["norm2"], x, cfg.norm_eps)
         if is_moe:
-            y = moe_mod.moe_forward(params["ffn"], cfg, h, dispatch=dispatch)
+            y, metrics = moe_mod.moe_forward(
+                params["ffn"], cfg, h, dispatch=dispatch,
+                return_metrics=want_metrics, prefetch_mask=prefetch_mask)
         else:
             y = apply_mlp(params["ffn"], h, cfg.mlp_activation)
         x = x + y
-    return x
+    return x, metrics
 
 
 def init_stack(cfg, dtype, *, generator, device) -> List[dict]:
@@ -87,17 +95,40 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
                   mode: str, dispatch: str = "onehot",
                   use_flash: bool = False,
                   page_table: Optional[torch.Tensor] = None,
-                  paged_attention: str = "kernel") -> torch.Tensor:
+                  paged_attention: str = "kernel",
+                  want_metrics: bool = False,
+                  prefetch_masks: Optional[List[torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, dict]:
     """Run every layer in order (the reference's scan over periods).
 
     ``page_table`` (B, MP) is the block table of a paged cache, shared by
     every layer; ``paged_attention`` picks the paged extend backend:
     "kernel" walks the table in the CUDA kernel, "gather" (CPU only)
-    attends over the dense ``pool[table]`` view."""
+    attends over the dense ``pool[table]`` view.
+
+    Returns the output and the metrics summed over layers:
+    ``want_metrics`` adds the router's ``aux_loss`` and ``expert_counts``
+    (E,), and ``prefetch_masks`` (one (E,) mask per layer,
+    ``models/moe.PrefetchPlan.masks``) the ``prefetch_hits``/``_actual``/
+    ``_predicted`` counts, all on the device; nothing asked gives {}."""
+    metrics: Dict[str, torch.Tensor] = {}
+    dev = x.device
+    if want_metrics:
+        metrics["aux_loss"] = torch.zeros((), dtype=torch.float32, device=dev)
+        metrics["expert_counts"] = torch.zeros(
+            (max(cfg.num_experts, 1),), dtype=torch.int32, device=dev)
+    if prefetch_masks is not None:
+        for k in ("prefetch_hits", "prefetch_actual", "prefetch_predicted"):
+            metrics[k] = torch.zeros((), dtype=torch.int32, device=dev)
     for l, (kind, is_moe) in enumerate(layer_kinds(cfg)):
-        x = block_forward(layer_params[l], cfg, kind, is_moe, x, positions,
-                          None if caches is None else caches[l], mode=mode,
-                          dispatch=dispatch, use_flash=use_flash,
-                          page_table=page_table,
-                          paged_attention=paged_attention)
-    return x
+        x, m = block_forward(layer_params[l], cfg, kind, is_moe, x, positions,
+                             None if caches is None else caches[l], mode=mode,
+                             dispatch=dispatch, use_flash=use_flash,
+                             page_table=page_table,
+                             paged_attention=paged_attention,
+                             want_metrics=want_metrics,
+                             prefetch_mask=None if prefetch_masks is None
+                             else prefetch_masks[l])
+        for k, v in m.items():
+            metrics[k] = metrics[k] + v
+    return x, metrics

@@ -118,6 +118,23 @@ class WaveReport:
     def reject_time(self) -> float:
         return self.stats.reject_time if self.stats else 0.0
 
+    @property
+    def warm_time(self) -> float:
+        return self.stats.warm_time if self.stats else 0.0
+
+    # expert-prefetch accounting (prefetch-aware waves; zero otherwise)
+    @property
+    def prefetch_hits(self) -> int:
+        return self.stats.prefetch_hits if self.stats else 0
+
+    @property
+    def prefetch_misses(self) -> int:
+        return self.stats.prefetch_misses if self.stats else 0
+
+    @property
+    def prefetch_hit_rate(self) -> float:
+        return self.stats.prefetch_hit_rate if self.stats else 0.0
+
 
 def _pow2_at_least(n: int) -> int:
     b = 1
@@ -130,7 +147,7 @@ class ServingEngine:
     def __init__(
         self,
         target: Model,
-        draft: Optional[Model] = None,
+        draft=None,                         # Model | EagleHead | None
         params_t=None,
         params_d=None,
         *,
@@ -140,6 +157,7 @@ class ServingEngine:
         temperature: float = 0.0,
         force_sd: Optional[bool] = None,
         proposer: str = "model",            # registered proposer kind
+        proposer_opts: Optional[dict] = None,  # extra factory kwargs for it
         seed: int = 0,
         timed: bool = False,
         bucket_batches: bool = True,
@@ -217,6 +235,7 @@ class ServingEngine:
                 "scheduler features (wave mode has no per-round requeue "
                 "path); use scheduler='continuous'")
         self.proposer_kind = proposer
+        self.proposer_opts = dict(proposer_opts or {})
         self.target, self.draft = target, draft
         self.params_t, self.params_d = params_t, params_d
         self.max_batch = max_batch
@@ -297,9 +316,12 @@ class ServingEngine:
         """The long-lived decoding session for one proposer kind."""
         sess = self._sessions.get(kind)
         if sess is None:
+            # the factory options are the configured kind's, never the
+            # "none" session's
+            opts = self.proposer_opts if kind == self.proposer_kind else {}
             prop = make_proposer(kind, self.target,
                                  None if kind == "none" else self.draft,
-                                 temperature=self.temperature)
+                                 temperature=self.temperature, **opts)
             sess = SDEngine(self.target, prop, gamma=self.gamma,
                             temperature=self.temperature,
                             cuda_graphs=self.cuda_graphs)
@@ -318,12 +340,16 @@ class ServingEngine:
         ((new_max_seq, pool_pages) per paged growth) and ``keys``
         (``SDEngine.round_keys``: (gamma, batch, max_seq) -> (captures,
         replays)), ``prefix_traces`` (each (tail bucket, rows) shape of a
-        prefix-shared admission) and ``chunk_traces`` (each (stage, chunk,
-        rows) shape of a chunked admission).  Plus one
+        prefix-shared admission), ``chunk_traces`` (each (stage, chunk,
+        rows) shape of a chunked admission) and ``prefetch`` (the session's
+        expert-warm totals ``{"hits", "actual", "predicted", "rounds",
+        "hit_rate"}``, all 0 unless the kind warms experts).  Plus one
         non-kind entry, ``"resilience"``: the continuous scheduler's
         fault/preemption/recovery counters (empty for a healthy stream)."""
         out: Dict[str, dict] = {"resilience": dict(self.fault_counters)}
         for kind, sess in self._sessions.items():
+            totals = dict(sess.prefetch_totals)
+            totals["hit_rate"] = totals["hits"] / max(totals["actual"], 1)
             out[kind] = {
                 "constructions": self.session_constructions.get(kind, 0),
                 "gammas_compiled": sess.compiled_gammas(),
@@ -335,6 +361,7 @@ class ServingEngine:
                 "chunk_traces": list(sess.chunk_trace_log),
                 "growths": list(sess.growth_log),
                 "keys": sess.round_keys(),
+                "prefetch": totals,
             }
         return out
 

@@ -947,6 +947,7 @@ class ContinuousScheduler:
         if inj is not None and self._alloc is not None:
             inj.release_all(self._alloc)
         self._check_invariants()
+        sess.accumulate_prefetch_totals(stats)
         wall = time.perf_counter() - t_start
         clean = ("length", "eos")
         n_tokens = sum(len(r.output) for r in self._finished

@@ -16,6 +16,9 @@ from repro_torch.models.model import Model as TorchModel
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# the parity models are tiny: one intra-op thread a process, or pytest's
+# parallel workers oversubscribe the cores and each small op waits its turn
+torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 

@@ -9,18 +9,25 @@ request too large for the pool cap, and chunked prefill (one chunk per
 round boundary) against the one-shot admission, dense and paged, with a
 growth while a chunked admission is in flight.  Where the reference runs
 the same stream, the port's admission and chunk traces, growths and greedy
-outputs equal its.
+outputs equal its.  The EAGLE proposer's feature carry goes through the
+same admissions: a continuous stream with refills equals its own wave
+decode and the reference's stream, and so does a paged stream with prefix
+sharing and chunked admission.
 
 Same weights on both sides (``model_pair``), fp32, TF32 off.
 """
+import jax
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import model_pair
+from _torch_parity import CPU, model_pair
 from repro.configs.base import ModelConfig
+from repro.core.eagle import EagleHead as JaxEagleHead
 from repro.models.model import PageAllocator as JaxPageAllocator
 from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro_torch.core.eagle import EagleHead
+from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import (PageAllocator, merge_cache_rows,
                                       scatter_cache_rows)
 from repro_torch.serving.engine import ServingEngine
@@ -367,3 +374,71 @@ def test_chunked_prefill_matches_one_shot(models, layout):
     if layout == "paged":
         assert st["growths"]
         eng._slot_scheduler._alloc.assert_no_leaks()
+
+
+# ------------------------------------------------------------- eagle carry
+@pytest.fixture(scope="module")
+def eagle(models):
+    """Both targets with an EAGLE head on one set of head weights:
+    (target, head, params_t, params_head) for the reference, then the
+    port."""
+    (jt, _, jpt, _), (tt, _, tpt, _) = models
+    jh = JaxEagleHead(jt)
+    jph = jh.init(jax.random.PRNGKey(2))
+    th = EagleHead(tt)
+    return (jt, jh, jpt, jph), (tt, th, tpt,
+                                params_from_jax(jax.device_get(jph), th.cfg,
+                                                CPU))
+
+
+def test_eagle_proposer_sliced_admission(eagle):
+    """The sliced scatter covers the feature carry: an EAGLE continuous
+    stream with refills matches its own wave decode, and the reference's
+    continuous stream."""
+    jm, tm = eagle
+    outs = {}
+    for name, cls, m, sched in (("wave", ServingEngine, tm, "wave"),
+                                ("port", ServingEngine, tm, "continuous"),
+                                ("ref", JaxServingEngine, jm, "continuous")):
+        eng = cls(*m, max_batch=2, gamma=2, force_sd=True, proposer="eagle",
+                  scheduler=sched)
+        uids = [eng.submit(np.arange(3, 9), max_new_tokens=6)
+                for _ in range(3)]
+        eng.run()
+        outs[name] = [np.asarray(eng.done[u].output) for u in uids]
+    for a, b, c in zip(outs["wave"], outs["port"], outs["ref"]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(b, c)
+
+
+def test_eagle_prefix_shared_chunked_stream_matches_reference(eagle):
+    """Paged EAGLE stream, pages of 16, prefix sharing and chunks of 16:
+    three requests behind a 20-token shared prefix (tail admissions carry
+    the feature at each tail's last position) and a 40-token prompt at
+    round 2 (the final chunk carries its last position's feature): the
+    reference's tokens, finish reasons, prefix counters and traces."""
+    jm, tm = eagle
+    engines = [cls(*m, max_batch=2, gamma=2, force_sd=True, proposer="eagle",
+                   scheduler="continuous", kv_layout="paged", page_size=16,
+                   prefix_sharing=True, prefill_chunk=16)
+               for cls, m in ((ServingEngine, tm), (JaxServingEngine, jm))]
+    base = np.arange(3, 23)
+    uids = []
+    for eng in engines:
+        uids.append([eng.submit(np.concatenate([base, np.arange(30, 34)
+                                                + 4 * i]), max_new_tokens=n)
+                     for i, n in enumerate((3, 7, 5))])
+        uids[-1].append(eng.submit(np.arange(3, 43), max_new_tokens=6,
+                                   arrival_round=2))
+        eng.run()
+    eng, jeng = engines
+    for u, ju in zip(*uids):
+        assert eng.done[u].finish_reason == jeng.done[ju].finish_reason
+        np.testing.assert_array_equal(eng.done[u].output,
+                                      np.asarray(jeng.done[ju].output))
+    assert eng.fault_counters.get("prefix_hits", 0) >= 1
+    assert eng.fault_counters == jeng.fault_counters
+    st, jst = eng.session_stats()["eagle"], jeng.session_stats()["eagle"]
+    for key in ("prefix_traces", "chunk_traces", "admit_traces"):
+        assert st[key] == jst[key], key
+    eng._slot_scheduler._alloc.assert_no_leaks()

@@ -13,7 +13,12 @@ fresh numbers from the engine's generator, and rejection sampling replayed
 keeps tests/test_rejection.py::test_lossless_distribution's bound; kernel
 launches and forwards are credited per replay; warm replays make no host
 sync; a repeated shared-prefix stream with chunked admissions captures
-nothing and equals eager and CPU, and the fault smoke lane passes.
+nothing and equals eager and CPU, and the fault smoke lane passes.  The
+EAGLE and prefetch proposers' rounds replay to the bit of their eager
+rounds in bf16 and fp32 (and equal the CPU's in fp32, the prefetch hit
+counts too); a replayed prefetch round makes no host sync, its warm stage
+is captured once per key into fixed buffers, and ``session_stats()``
+carries the session's prefetch totals.
 """
 import numpy as np
 import pytest
@@ -475,3 +480,86 @@ def test_fault_smoke_lane_on_the_card(cuda, capsys):
     from repro_torch.serving import faults
     assert faults.main([]) == 0
     assert "captured nothing" in capsys.readouterr().out
+
+
+# ------------------------------------------------------- eagle and prefetch
+def _proposer_models(dtype: str, dev: str):
+    """The reduced target and draft (or an EAGLE head) in ``dtype`` on
+    ``dev``, weights drawn on the CPU from fixed seeds."""
+    from repro_torch.core.eagle import EagleHead
+    cfg, dcfg = (c.with_overrides(dtype=dtype) for c in (TARGET, DRAFT))
+    t = Model(cfg, moe_dispatch="gmm", device=dev)
+    d = Model(dcfg, device=dev)
+    head = EagleHead(t)
+    pt = Model(cfg, moe_dispatch="gmm", device="cpu").init(
+        torch.Generator().manual_seed(0))
+    pd = Model(dcfg, device="cpu").init(torch.Generator().manual_seed(1))
+    ph = EagleHead(Model(cfg, device="cpu")).init(
+        torch.Generator().manual_seed(2))
+    return t, _to(pt, dev), {"prefetch": (d, _to(pd, dev)),
+                             "eagle": (head, _to(ph, dev))}
+
+
+def _generate(t, pt, drafts, kind, prompts, lengths, **kw):
+    draft, params_p = drafts[kind]
+    eng = SDEngine(t, make_proposer(kind, t, draft), gamma=4, **kw)
+    runs = [eng.generate(pt, params_p, prompts, 12, lengths=lengths)
+            for _ in range(2)]
+    return eng, runs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["eagle", "prefetch"])
+def test_eagle_and_prefetch_rounds_replay_equal_eager(cuda, kind, dtype):
+    """Two generations on one session (the second replays every round)
+    against the same on an eager session: the same tokens and prefetch
+    counts to the bit; in fp32 also the CPU's.  A prefetch key holds four
+    stage graphs (propose, warm, verify, finalize), captured once."""
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(3, TARGET.vocab_size, (4, 10)).astype(np.int32)
+    lengths = np.array([10, 6, 8, 7], np.int32)
+    t, pt, drafts = _proposer_models(dtype, "cuda")
+    eng, runs = _generate(t, pt, drafts, kind, prompts, lengths)
+    _, eager = _generate(t, pt, drafts, kind, prompts, lengths,
+                         cuda_graphs=False)
+    others = [runs[1], eager[0], eager[1]]
+    if dtype == "float32":
+        others.append(_generate(*_proposer_models(dtype, "cpu"), kind,
+                                prompts, lengths)[1][0])
+    counts = lambda st: (st.prefetch_hits, st.prefetch_actual,  # noqa: E731
+                         st.prefetch_predicted, st.rounds)
+    for out, stats in others:
+        np.testing.assert_array_equal(out, runs[0][0])
+        assert counts(stats) == counts(runs[0][1])
+    assert eng.graphs.total_captures == 1
+    assert eng.graphs.total_replays == runs[0][1].rounds * 2 - 1
+    (rec,) = eng.graphs._captured.values()
+    assert len(rec.graphs) == (4 if kind == "prefetch" else 1)
+    assert (runs[0][1].prefetch_actual > 0) == (kind == "prefetch")
+
+
+def test_prefetch_replays_make_no_host_sync_and_warm_in_place(cuda):
+    """A replayed prefetch round under sync_guard reaches its readback
+    with no host sync; its warm stage writes the same buffers every round,
+    and the serving engine's session_stats() carries the totals."""
+    t, pt, drafts = _proposer_models("bfloat16", "cuda")
+    d, pd = drafts["prefetch"]
+    eng = ServingEngine(t, d, pt, pd, max_batch=4, gamma=4, seed=0,
+                        proposer="prefetch", force_sd=True)
+    _serve(eng, "wave")
+    sess = eng._sessions["prefetch"]
+    ptrs = [w["w_gate"].data_ptr() for w in sess._warm]
+    assert sess.warm_bytes() > 0
+    sess.sync_guard = True
+    _serve(eng, "wave")
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert [w["w_gate"].data_ptr() for w in sess._warm] == ptrs
+    second = eng.reports[len(eng.reports) // 2:]
+    assert sum(r.captures for r in second) == 0
+    assert sum(r.replays for r in second) == sum(r.stats.rounds
+                                                 for r in second)
+    totals = eng.session_stats()["prefetch"]["prefetch"]
+    assert totals["rounds"] == sum(r.stats.rounds for r in eng.reports)
+    assert totals["actual"] == sum(r.stats.prefetch_actual
+                                   for r in eng.reports) > 0
+    assert set(eng.session_stats()) == {"resilience", "prefetch"}

@@ -284,10 +284,10 @@ def test_moe_layer_never_syncs_on_routing(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        y = moe.moe_forward(p, cfg, x, dispatch="gmm")
+        y, _ = moe.moe_forward(p, cfg, x, dispatch="gmm")
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    ref = moe.moe_forward(p, cfg, x, dispatch="onehot")
+    ref, _ = moe.moe_forward(p, cfg, x, dispatch="onehot")
     torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
 
 
@@ -305,8 +305,9 @@ def test_moe_layer_bf16_on_card_matches_cpu(cuda):
     gen = torch.Generator().manual_seed(1)
     p = moe.init_moe(cfg, torch.bfloat16, generator=gen, device="cpu")
     x = torch.randn((4, 5, cfg.d_model), generator=gen).to(torch.bfloat16)
-    on_card = moe.moe_forward(_to(p, cuda), cfg, x.to(cuda), dispatch="gmm")
-    on_cpu = moe.moe_forward(p, cfg, x, dispatch="gmm")
+    on_card, _ = moe.moe_forward(_to(p, cuda), cfg, x.to(cuda),
+                                 dispatch="gmm")
+    on_cpu, _ = moe.moe_forward(p, cfg, x, dispatch="gmm")
     torch.testing.assert_close(on_card.cpu().float(), on_cpu.float(),
                                rtol=3e-2, atol=3e-2)
 

@@ -35,7 +35,7 @@ def test_moe_forward_gmm_matches_reference(K):
     jp, tp, x = _layer(cfg, K)
     jx, tx = both(x)
     y_ref, _ = jmoe.moe_forward(jp, cfg, jx, dispatch="gmm")
-    y = tmoe.moe_forward(tp, port_config(cfg), tx, dispatch="gmm")
+    y, _ = tmoe.moe_forward(tp, port_config(cfg), tx, dispatch="gmm")
     np.testing.assert_allclose(to_np(y), to_np(y_ref), rtol=2e-4, atol=2e-4)
 
 
@@ -44,8 +44,8 @@ def test_moe_gmm_matches_onehot(K):
     cfg = port_config(_cfg(K))
     _, tp, x = _layer(_cfg(K), K + 10)
     tx = torch.from_numpy(x)
-    y_gmm = tmoe.moe_forward(tp, cfg, tx, dispatch="gmm")
-    y_one = tmoe.moe_forward(tp, cfg, tx, dispatch="onehot")
+    y_gmm, _ = tmoe.moe_forward(tp, cfg, tx, dispatch="gmm")
+    y_one, _ = tmoe.moe_forward(tp, cfg, tx, dispatch="onehot")
     np.testing.assert_allclose(to_np(y_gmm), to_np(y_one), rtol=2e-4, atol=2e-4)
 
 

@@ -94,6 +94,60 @@ def test_plain_paged_attention_matches_reference_kernel(ps, T, cap):
                                    rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("T", [16, 9])
+def test_gathered_view_ignores_stale_nan_past_the_newest_query(T):
+    """Extends wider than PAGED_KERNEL_MAX_T (a 16-token prefix-sharing
+    tail, a gamma-8 verify of 9 queries) attend over the gathered
+    ``pool[table]`` view.  When the rows' pages were recycled from a row
+    whose K/V went NaN, every position past each row's newest query holds
+    NaN: the port's output stays finite and equals the same extend over
+    clean pages, and on clean pages it equals the reference's
+    ``gqa_forward``.  The reference keeps the NaN on this path (a zero
+    probability times a NaN V row in its P V product; ROADMAP queue 3), so
+    it is held on the clean pages only."""
+    from repro.configs.base import ModelConfig
+    from repro_torch.models.convert import _map, _tensor
+    from _torch_parity import port_config
+    cfg = ModelConfig("pa-nan", "dense", 1, 64, 4, 2, 128, 256,
+                      dtype="float32")
+    tcfg = port_config(cfg)
+    assert T > tattn.PAGED_KERNEL_MAX_T
+    ps, mp, B = 8, 6, 2
+    rng = np.random.default_rng(T)
+    jp = jattn.init_gqa(jax.random.PRNGKey(T), cfg, jnp.float32)
+    tp = _map(jax.device_get(jp), lambda a: _tensor(a, torch.device("cpu")))
+    shape = (B * mp + 1, ps, cfg.num_kv_heads, cfg.head_dim)
+    k_pages, v_pages = (rng.standard_normal(shape).astype(np.float32)
+                        for _ in range(2))
+    table = rng.permutation(np.arange(1, B * mp + 1)).reshape(B, mp).astype(
+        np.int32)
+    lengths = np.array([5, 20], np.int32)
+    positions = lengths[:, None] + np.arange(T, dtype=np.int32)[None, :]
+    x = rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)
+    dirty = [a.copy() for a in (k_pages, v_pages)]
+    for b in range(B):                         # NaN past the newest query
+        for pos in range(int(positions[b, -1]) + 1, mp * ps):
+            for a in dirty:
+                a[table[b, pos // ps], pos % ps] = np.nan
+
+    def port(kp, vp):
+        cache = {"k_pages": torch.from_numpy(kp.copy()),
+                 "v_pages": torch.from_numpy(vp.copy())}
+        out, _ = tattn.gqa_forward(
+            tp, tcfg, torch.from_numpy(x), torch.from_numpy(positions),
+            cache=cache, mode="extend", page_table=torch.from_numpy(table))
+        return out.numpy()
+
+    clean, recycled = port(k_pages, v_pages), port(*dirty)
+    assert np.isfinite(recycled).all()
+    np.testing.assert_array_equal(recycled, clean)
+    ref, _ = jattn.gqa_forward(
+        jp, cfg, jnp.asarray(x), jnp.asarray(positions),
+        cache={"k_pages": jnp.asarray(k_pages), "v_pages": jnp.asarray(v_pages)},
+        mode="extend", page_table=jnp.asarray(table))
+    np.testing.assert_allclose(clean, np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
 def test_plain_paged_attention_forked_tables_mask_stale_pages():
     """Rows 1..B-1 alias row 0's first two pages (a forked, many-to-one
     table) and every position past each row's length + T - 1, plus the

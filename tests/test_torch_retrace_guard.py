@@ -9,8 +9,11 @@ occupancy churn, same-bucket admissions and repeated continuous streams
 capture nothing; a new admission bucket traces exactly once.  The arena
 round (static buffers, in-place commits) emits the reference's greedy
 tokens round for round in fp32, and a second wave of one shape reuses the
-first one's arena.  A repeated shared-prefix stream (tail admissions,
-copy-on-write page copies and table forks) captures nothing either.
+first one's arena; so do the EAGLE proposer's rounds (feature carry in the
+arena) and the prefetch proposer's staged rounds (warm stage and hit
+counts), whose keys capture once as the others do.  A repeated
+shared-prefix stream (tail admissions, copy-on-write page copies and table
+forks) captures nothing either.
 """
 import jax
 import jax.numpy as jnp
@@ -20,12 +23,15 @@ import torch
 
 from _torch_parity import model_pair
 from repro.configs.base import ModelConfig
+from repro.core.eagle import EagleHead as JaxEagleHead
 from repro.core.proposer import make_proposer as jax_make_proposer
 from repro.core.spec_decode import SDEngine as JaxSDEngine
 from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro_torch.core.eagle import EagleHead
 from repro_torch.core.graphs import RoundGraphs
 from repro_torch.core.proposer import ModelProposer, make_proposer
 from repro_torch.core.spec_decode import SDEngine
+from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import ServingEngine
 
 TCFG = ModelConfig("rg-moe", "moe", 2, 128, 4, 2, 256, 512, num_experts=4,
@@ -203,20 +209,38 @@ def test_paged_kernel_shared_prefix_stream_steady_state(models):
                                       np.asarray(jeng.done[ju].output))
 
 
-@pytest.mark.parametrize("kind", ["model", "none"])
+@pytest.fixture(scope="module")
+def heads(models):
+    """An EAGLE head on each target, one set of head weights:
+    ((reference head, params), (port head, params))."""
+    (jt, *_), (t, *_) = models
+    jh = JaxEagleHead(jt)
+    jph = jh.init(jax.random.PRNGKey(2))
+    th = EagleHead(t)
+    return (jh, jph), (th, params_from_jax(jax.device_get(jph), th.cfg,
+                                           torch.device("cpu")))
+
+
+@pytest.mark.parametrize("kind", ["model", "none", "eagle", "prefetch"])
 @pytest.mark.parametrize("timed", [False, True])
-def test_arena_rounds_match_reference_token_for_token(models, kind, timed):
-    """Greedy fp32: the port's arena round (fused or staged) commits the
-    reference's tokens round for round, with the active mask flipping."""
+def test_arena_rounds_match_reference_token_for_token(models, heads, kind,
+                                                      timed):
+    """Greedy fp32: the port's arena round (fused or staged; a prefetch
+    round always staged, with its warm stage) commits the reference's
+    tokens round for round, with the active mask flipping; a prefetch
+    round's hit counts equal the reference's."""
     (jt, jd, jpt, jpd), (t, d, pt, pd) = models
     prompts = np.random.default_rng(3).integers(
         3, TCFG.vocab_size, (4, 7)).astype(np.int32)
     lengths = np.array([7, 4, 6, 5], np.int32)
-    gamma = 2 if kind == "model" else 0
-    eng = SDEngine(t, make_proposer(kind, t, d if kind == "model" else None),
-                   gamma=gamma)
-    jeng = JaxSDEngine(jt, jax_make_proposer(kind, jt, jd if kind == "model"
-                                             else None), gamma=gamma)
+    gamma = 0 if kind == "none" else 2
+    (jh, jph), (th, tph) = heads
+    draft, jdraft = {"model": (d, jd), "prefetch": (d, jd),
+                     "eagle": (th, jh)}.get(kind, (None, None))
+    if kind == "eagle":
+        pd, jpd = tph, jph
+    eng = SDEngine(t, make_proposer(kind, t, draft), gamma=gamma)
+    jeng = JaxSDEngine(jt, jax_make_proposer(kind, jt, jdraft), gamma=gamma)
     state = eng.start(pt, pd, prompts, max_seq=64, lengths=lengths)
     jstate = jeng.start(jpt, jpd, jnp.asarray(prompts), max_seq=64,
                         lengths=jnp.asarray(lengths),
@@ -230,6 +254,7 @@ def test_arena_rounds_match_reference_token_for_token(models, kind, timed):
         jstate, jres = jeng.round(jstate, active=active, timed=timed,
                                   key=jax.random.PRNGKey(10 + r))
         np.testing.assert_array_equal(res.n_commit, jres.n_commit)
+        assert res.pf == jres.pf and (res.pf is None) == (kind != "prefetch")
         for b in range(4):
             n = int(res.n_commit[b])
             np.testing.assert_array_equal(res.committed[b, :n],
@@ -237,8 +262,10 @@ def test_arena_rounds_match_reference_token_for_token(models, kind, timed):
     np.testing.assert_array_equal(state.t_cache["lengths"].numpy(),
                                   np.asarray(jstate.t_cache["lengths"]))
     assert _counts(eng) == (1, len(masks) - 1)
+    assert eng.trace_log == [(gamma, 4)]
     if timed:
-        assert set(res.phase_times) == {"propose", "verify", "reject"}
+        assert set(res.phase_times) == {"propose", "verify", "reject"} | (
+            {"warm"} if kind == "prefetch" else set())
 
 
 def test_second_wave_reuses_the_arena(models):

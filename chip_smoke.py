@@ -11,14 +11,16 @@ Phases, each of which fails the run if it fails:
      ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
      64, 128 with one and two consumer warpgroups; capacity GEMM with 1 and 2 consumer warpgroups and column
      tiles of 128 and 256; paged and dense decode/verify at head dims 64 and
-     128; ragged down and fused gate/up GEMMs, silu and gelu): registers,
-     dynamic shared memory, spills;
+     128; ragged down and fused gate/up GEMMs, silu and gelu) and of
+     attention_tile.cuh's body at head dim 256 in bf16 and fp32 (kernels 4
+     and 5 at D 256): registers, dynamic shared memory, spills;
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
        * the ragged expert-FFN kernels (SD verify: 320 routed rows, top-8 of
          64 experts; AR verify: 64 rows; prefill: 4096 rows; empty experts
-         with unaligned groups), bf16, rtol = atol = 3e-2
+         with unaligned groups; the same three routings at mixtral-8x7b's
+         and dbrx-132b's expert widths), bf16, rtol = atol = 3e-2
          (tests/test_ragged_gmm.py); each case prints the items of the
          fused kernel (expert chunks x column tiles) beside the visit count
          of the old visit list, and the expert-chunk count of the down
@@ -29,25 +31,33 @@ Phases, each of which fails the run if it fails:
        * the paged decode/verify attention kernel (28 query / 4 KV heads,
          pages of 64, noise in every page, a permuted table, ragged
          lengths): SD verify (B 8, T 5), AR verify (T 1), long context
-         (~8k positions), logit cap 30, head dims 64 and 256, bf16 at
-         rtol = atol = 2e-2 and, where it runs the split-KV TMA + wgmma
-         body (paged.LAST_ROUTE "sm90": head dims 64 and 128), every
-         element within PAGED_ROW_TOL x the rms of its output row; SD verify
+         (~8k positions), logit cap 30, head dims 64 and 256, and at
+         gemma3-12b's 16/8 and gemma-7b's 16/16 heads of 256 (1100-1640
+         cached positions, the CUDA-core body), bf16 at
+         rtol = atol = 2e-2 and, on either body (paged.LAST_ROUTE "sm90"
+         at head dims 64 and 128, "simt" at 256), every element within
+         PAGED_ROW_TOL x the rms of its output row; SD verify
          and long context also in fp32 at 2e-5 (the reference's bound,
          src/repro/kernels/decode_attention/decode_attention.py:288);
        * the flash prefill kernel (prefill of 8 prompts of 256 tokens at the
          target's 28/4 heads of 128 and the draft's 14/2 heads of 64, a 4096-
-         token prefill, a window-and-cap case), bf16 at rtol = atol = 3e-2
+         token prefill, a window-and-cap case; at head dim 256 gemma3-12b's
+         16/8 heads with its window of 1024 and without, gemma-7b's 16/16,
+         T 256 and 2048, through attention_tile's WMMA body in bf16 and its
+         CUDA-core body in fp32), bf16 at rtol = atol = 3e-2
          and every element within 5e-2 of the rms of its output row (the
          late rows of a long prefill are smaller than 3e-2) through the
          TMA + wgmma kernel, and fp32 at the reference's 2e-5 through the
          CUDA-core body (tests/test_kernels.py);
        * the dense decode/verify kernel on the (B, S+1, Hkv, D) cache layout:
          SD verify (B 8, T 5, S 512, lengths 129-290), AR (T 1), the draft's
-         14/2 heads of 64 at T 1 and T 5, long context (S 8192), bf16 at
+         14/2 heads of 64 at T 1 and T 5, long context (S 8192), and at
+         head dim 256 gemma3-12b's 16/8 heads (T 1, 5, 9) and gemma-7b's
+         16/16 (T 5) at S 2048 (attention_tile's WMMA body), bf16 at
          4e-2 through the split-KV TMA + wgmma body (decode_attention
-         .LAST_ROUTE "sm90") and every element within DECODE_ROW_TOL x the
-         rms of its output row, SD verify and long context also in fp32 at
+         .LAST_ROUTE "sm90") and the WMMA body ("wmma" at head dim 256),
+         and every element within DECODE_ROW_TOL x the rms of its output
+         row on both, SD verify and long context also in fp32 at
          3e-5 through the CUDA-core body (tests/test_kernels.py);
        * the capacity-binned expert GEMM at the full expert widths (E 64,
          D 3584, F 2560, gate/up and down) at the SD-verify capacity
@@ -178,6 +188,23 @@ Phases, each of which fails the run if it fails:
      fp32, top-8 routing of 40 tokens: moe_ffn_gmm (3 launches) and
      gmm_legacy (1 launch), held against the ragged dispatch, moe_ffn_ref
      and ragged_gmm.
+  8. the attention-only assigned archs (dbrx-132b, gemma-7b, gemma3-12b,
+     minicpm3-4b, qwen2-vl-2b), each with its draft_for draft:
+       a. reduced, fp32: card vs CPU logits, and greedy waves SD from graph
+          replay == SD eager == SD on the CPU == AR; gemma3-12b (rings in a
+          paged cache, a row reused after a request longer than its window)
+          and minicpm3-4b (latent pages) also on a continuous paged stream;
+       b. at published width, random bf16 weights, SD then AR, max-batch 8,
+          gamma 4: wave-gemma3 (all 48 layers, use_flash, 16 prompts of
+          1100-1600 tokens: kernel 5 at D 256 with the window, kernel 4 at
+          D 256 on the global layers), continuous-gemma3 (the same model
+          paged, pages of 64: kernel 3 at D 256), wave-dbrx (4 of 40
+          layers: kernels 1 and 2), wave-gemma7b (full depth, use_flash,
+          the prompts of wave-gemma3: kernels 4 and 5 at D 256),
+          wave-minicpm3 and wave-qwen2vl (full depth); tok/s, captures,
+          replays, launches; on the use_flash paths every launch of
+          kernels 3-5 at D 256 must report its D-256 body (WMMA for 4 and
+          5, CUDA-core for 3), counted per route and head dim.
      Each path runs with every launch count set to 0 just before it and
      read just after (replays credit the launches their capture recorded):
      each gmm kernel's count must equal (MoE layers x that
@@ -189,7 +216,12 @@ Phases, each of which fails the run if it fails:
      the dense decode kernel's (attention layers x extend forwards), summed
      over target and draft; every other count must be 0.  The tuner's three
      paths (tuner/eta, tuner/wave, tuner/continuous), wave-prefetch,
-     wave-eagle and continuous-eagle are counted the same way.
+     wave-eagle, continuous-eagle and phase 8b's paths are counted the same
+     way (8b: the dense decode kernel on the global layers only, since a
+     sliding-window layer attends over its ring by mask; on
+     continuous-gemma3 the flash count a positive multiple of the layers a
+     prefill runs it on, as the 1-token fillers and short prompts take no
+     kernel).
 
 It ends with a JSON line of per-kernel numbers and, last, the device line.
 Without a card, or outside a checkout of the repository, it exits non-zero
@@ -219,7 +251,11 @@ PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # patched copies of the kernel (kernel_variants.py mutants) a dropped split
 # put the long-context case's worst element at 2.6 x its row's rms and a
 # stale 64-key chunk at 1.6 x; the sound kernel stays at <= 0.025 x (bf16
-# rounding of P and of the output; PERF.md).
+# rounding of P and of the output; PERF.md).  The CUDA-core body (head dim
+# 256, gemma's 1100-1640 positions, |out| ~ 0.045, near PAGED_TOL) is held
+# to the same bound: it read <= 0.0125 x there (NVIDIA H100 80GB HBM3,
+# 700.00 W), and kernel_variants.py's paged_simt_last_chunk fault must
+# fail it.
 PAGED_ROW_TOL = 5e-2
 # the reference's bounds, tests/test_kernels.py
 FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
@@ -235,6 +271,11 @@ DECODE_TOL = {"bfloat16": 4e-2, "float32": 3e-5}
 # 0.011, below DECODE_TOL itself; the faults of kernel_variants.py (the
 # combine leaving out the last live split, a chunk loaded from the previous
 # chunk's keys) must fail it at long context while the sound kernel passes.
+# The WMMA body (head dim 256, gemma's 1100-1640 positions, |out| ~ 0.045,
+# near DECODE_TOL) is held to the same bound: it read <= 0.027 x there
+# (NVIDIA H100 80GB HBM3, 700.00 W), and kernel_variants.py's
+# tile_last_chunk fault (attention_tile skips its last key chunk) must
+# fail it.
 DECODE_ROW_TOL = 5e-2
 GMM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # Target depth at full width: the bf16 weights of all 28 layers (57.4B
@@ -386,13 +427,23 @@ def build_kernels():
                 dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
                 ragged.SOURCE).ragged_sm90_smem_bytes}     # (nmat, act)
-    seen = set()
+    # attention_tile.cuh's body at head dim 256 (both dtypes), in the flash
+    # and dense decode libraries: the bodies of kernels 4 and 5 at D 256
+    tile_smem = build.load(flash_attention.SOURCE).attention_tile_smem_bytes
+    smem["attention_tile_kernel"] = lambda dt, d: tile_smem(
+        0 if dt == "bf16" else 1, d)
+    seen, tiles = set(), set()
     for src, text in reports.items():
         for line in text.splitlines():
             if "(C75" in line and "sm90_kernel" in line:   # ptxas's advisories
                 log(f"ptxas ({src.name}): {line.strip()[:240]}")
         for kernel, args, regs, spills in _ptxas_entries(text):
-            seen.add((kernel, args))
+            if kernel == "attention_tile_kernel":
+                if args[1] != 256:
+                    continue
+                tiles.add((src.name, args[0]))
+            else:
+                seen.add((kernel, args))
             log(f"ptxas {kernel}<{', '.join(map(str, args))}> ({src.name}): "
                 f"{regs} registers at entry, {smem[kernel](*args)} bytes "
                 f"dynamic shared memory, {spills}")
@@ -406,24 +457,34 @@ def build_kernels():
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
                              f", expected {sorted(want)}")
+    want = {(src.name, dt) for src in (flash_attention.SOURCE, dec_ops.SOURCE)
+            for dt in ("bf16", "fp32")}
+    if tiles != want:
+        raise AssertionError(f"ptxas -v shows attention_tile_kernel at head "
+                             f"dim 256 as {sorted(tiles)}, expected "
+                             f"{sorted(want)}")
 
 
 def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
                                         "gmm_capacity_sm90_kernel",
                                         "paged_sm90_kernel",
                                         "decode_sm90_kernel",
-                                        "ragged_sm90_kernel")):
+                                        "ragged_sm90_kernel",
+                                        "attention_tile_kernel")):
     """(kernel, template arguments, registers, spill line) for each entry
-    function of ``kernels`` in ``ptxas -v`` output."""
-    pattern = re.compile(r"Compiling entry function '\w*?(%s)(?:I((?:Li\d+E)+)E)?"
+    function of ``kernels`` in ``ptxas -v`` output; a type argument
+    (attention_tile_kernel's) comes first, as "bf16" or "fp32"."""
+    pattern = re.compile(r"Compiling entry function '\w*?(%s)"
+                         r"(?:I(13__nv_bfloat16|f)?((?:Li\d+E)+)E)?"
                          % "|".join(kernels))
     name = args = spills = None
     for line in text.splitlines():
         m = pattern.search(line)
         if m:
             name = m.group(1)
-            args = tuple(int(a) for a in re.findall(r"Li(\d+)E",
-                                                    m.group(2) or ""))
+            dt = {None: (), "f": ("fp32",)}.get(m.group(2), ("bf16",))
+            args = dt + tuple(int(a) for a in re.findall(r"Li(\d+)E",
+                                                         m.group(3) or ""))
         elif name and "spill stores" in line:
             spills = line.strip()
         elif name and "Used" in line:
@@ -517,27 +578,30 @@ def ragged_cases(E: int, K: int, gen, dev) -> dict:
     }
 
 
-def mixtral_ragged_cases(E: int, K: int, gen, dev) -> dict:
-    """The same routings at the EAGLE paths' widths (EAGLE_ARCH: 8 experts,
-    top-2, d 4096, moe_d_ff 14336): an SD verify, an AR verify and a
-    prefill of B 8."""
-    return {"mixtral_verify": routed_sizes(40, E, K, gen, dev),
-            "mixtral_ar_verify": routed_sizes(8, E, K, gen, dev),
-            "mixtral_prefill": routed_sizes(512, E, K, gen, dev)}
+def prefixed_ragged_cases(prefix: str):
+    """The routings of ragged_cases' serving cases (an SD verify, an AR
+    verify and a prefill of B 8) as PREFIX_verify, PREFIX_ar_verify and
+    PREFIX_prefill: the cases at another target's expert widths."""
+    def cases(E: int, K: int, gen, dev) -> dict:
+        return {f"{prefix}_verify": routed_sizes(40, E, K, gen, dev),
+                f"{prefix}_ar_verify": routed_sizes(8, E, K, gen, dev),
+                f"{prefix}_prefill": routed_sizes(512, E, K, gen, dev)}
+    return cases
 
 
 def kernel_phase(seed: int):
     """Kernels 1 and 2 against their plain versions at the expert widths of
-    both full-width targets: qwen2-57b-a14b (the serve and prefetch paths)
-    and EAGLE_ARCH (the EAGLE paths); every bf16 case must take the TMA +
-    wgmma route."""
+    every full-width MoE target: qwen2-57b-a14b (the serve and prefetch
+    paths), EAGLE_ARCH (the EAGLE paths) and dbrx-132b (wave-dbrx); every
+    bf16 case must take the TMA + wgmma route."""
     import torch
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
     results = {name: {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
                for name in ("fused_gate_up", "ragged_gmm")}
     for arch, cases_fn in (("qwen2-57b-a14b", ragged_cases),
-                           (EAGLE_ARCH, mixtral_ragged_cases)):
+                           (EAGLE_ARCH, prefixed_ragged_cases("mixtral")),
+                           ("dbrx-132b", prefixed_ragged_cases("dbrx"))):
         _ragged_width_cases(arch, cases_fn, gen, results)
     return results
 
@@ -656,9 +720,16 @@ PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
     # the EAGLE paths' target (EAGLE_ARCH: 32 query / 8 KV heads of 128)
     "mixtral_sd_verify": ("bfloat16", 5, 128, (16, 130), 0.0),
     "mixtral_ar_verify": ("bfloat16", 1, 128, (16, 130), 0.0),
+    # continuous-gemma3's global layers (16 / 8 heads of 256, the CUDA-core
+    # body) at the path's lengths, and gemma-7b's 16 / 16
+    "gemma3_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
+    "gemma3_ar_verify": ("bfloat16", 1, 256, (1100, 1640), 0.0),
+    "gemma7b_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
 }
 SERVE_HEADS = (28, 4)               # qwen2-57b-a14b's query / KV heads
-PAGED_HEADS = {"mixtral_sd_verify": (32, 8), "mixtral_ar_verify": (32, 8)}
+PAGED_HEADS = {"mixtral_sd_verify": (32, 8), "mixtral_ar_verify": (32, 8),
+               "gemma3_sd_verify": (16, 8), "gemma3_ar_verify": (16, 8),
+               "gemma7b_sd_verify": (16, 16)}
 
 
 def sdpa_gathered(q, kp, vp, lengths, table):
@@ -740,7 +811,7 @@ def paged_kernel_phase(seed: int):
         tol = PAGED_TOL[dtype_name]
         err = _hold("paged_decode_attention", case, out, ref, tol, res)
         row_err = row_scaled_err(out, ref)
-        if route == "sm90" and row_err > PAGED_ROW_TOL:
+        if dtype_name == "bfloat16" and row_err > PAGED_ROW_TOL:
             raise AssertionError(
                 f"paged_decode_attention [{case}]: an element is "
                 f"{row_err:.3g} x the rms of its row from the plain version "
@@ -800,7 +871,27 @@ FLASH_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, window, cap)
     "long_prefill": ("bfloat16", 1, 4096, 28, 4, 128, 0, 0.0),
     "window_cap": ("bfloat16", 2, 512, 28, 4, 128, 256, 30.0),
     "fp32_prefill": ("float32", 2, 256, 28, 4, 128, 0, 0.0),
+    # head dim 256 (attention_tile's WMMA body in bf16): gemma3-12b's 16 / 8
+    # heads on its sliding-window (1024) and global layers, gemma-7b's 16 /
+    # 16, at a short prefill (B 8, T 256) and wave-gemma3's bucket (T 2048)
+    "gemma3_swa_256": ("bfloat16", 8, 256, 16, 8, 256, 1024, 0.0),
+    "gemma3_global_256": ("bfloat16", 8, 256, 16, 8, 256, 0, 0.0),
+    "gemma3_swa_2048": ("bfloat16", 2, 2048, 16, 8, 256, 1024, 0.0),
+    "gemma3_global_2048": ("bfloat16", 2, 2048, 16, 8, 256, 0, 0.0),
+    "gemma7b_256": ("bfloat16", 8, 256, 16, 16, 256, 0, 0.0),
+    "gemma7b_2048": ("bfloat16", 2, 2048, 16, 16, 256, 0, 0.0),
+    "fp32_gemma3_swa_2048": ("float32", 1, 2048, 16, 8, 256, 1024, 0.0),
+    "fp32_gemma7b_256": ("float32", 2, 256, 16, 16, 256, 0, 0.0),
 }
+
+
+def flash_route(dtype_name: str, D: int) -> str:
+    """The body the flash launcher must report: TMA + wgmma for bf16 up to
+    head dim 128, attention_tile's WMMA body for bf16 at 256, its CUDA-core
+    body for fp32."""
+    if dtype_name != "bfloat16":
+        return "simt"
+    return "wmma" if D == 256 else "sm90"
 
 
 def flash_kernel_phase(seed: int):
@@ -824,9 +915,10 @@ def flash_kernel_phase(seed: int):
         ref = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         route = flash_attention.LAST_ROUTE["flash_attention"]
-        if dtype_name == "bfloat16" and route != "sm90":
-            raise AssertionError(f"flash_attention [{case}]: bf16 ran the "
-                                 f"{route} kernel, not the TMA + wgmma one")
+        if route != flash_route(dtype_name, D):
+            raise AssertionError(f"flash_attention [{case}]: {dtype_name} ran "
+                                 f"the {route} kernel, expected "
+                                 f"{flash_route(dtype_name, D)}")
         err = _hold("flash_attention", case, out, ref, FLASH_TOL[dtype_name],
                     res)
         row_err = row_scaled_err(out, ref)
@@ -846,15 +938,24 @@ def flash_kernel_phase(seed: int):
                           warmup=3, iters=20)
         plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                                 warmup=1, iters=3)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if cap == 0.0 and window == 0:
-            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib_fn, lib = _library(
                 lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, is_causal=True, enable_gqa=True),
                 "F.scaled_dot_product_attention(is_causal, enable_gqa), "
                 "(B, H, T, D) copies excluded")
+        elif cap == 0.0:
+            pos = torch.arange(T, device=dev)
+            band = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib_fn, lib = _library(
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=band, enable_gqa=True),
+                "F.scaled_dot_product_attention(window band mask, "
+                "enable_gqa), (B, H, T, D) copies excluded")
         else:
-            lib_fn, lib = None, "sdpa has no window-and-cap mask of its own"
+            lib_fn, lib = None, "sdpa has no tanh logit cap"
         lib_ms = cuda_time_ms(lib_fn, warmup=3, iters=20) if lib_fn else None
         graph_ms = graph_time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         lib_graph_ms = graph_time_ms(lib_fn) if lib_fn else None
@@ -887,6 +988,16 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
     "fp32_sd_verify": ("float32", 8, 5, 28, 4, 128, 512, (129, 290)),
     # at ~8k keys a typical |out| is ~0.02, near the bf16 bound
     "fp32_long_context": ("float32", 8, 5, 28, 4, 128, 8192, (8000, 8187)),
+    # head dim 256 (attention_tile's WMMA body in bf16): wave-gemma3's
+    # global layers (16 / 8 heads) at its lengths, gamma 4 and 8 verifies
+    # and AR, and gemma-7b's 16 / 16
+    "gemma3_sd_verify": ("bfloat16", 8, 5, 16, 8, 256, 2048, (1100, 1640)),
+    "gemma3_ar": ("bfloat16", 8, 1, 16, 8, 256, 2048, (1100, 1640)),
+    "gemma3_gamma8_verify": ("bfloat16", 8, 9, 16, 8, 256, 2048,
+                             (1100, 1640)),
+    "gemma7b_sd_verify": ("bfloat16", 8, 5, 16, 16, 256, 2048, (1100, 1640)),
+    "fp32_gemma3_sd_verify": ("float32", 8, 5, 16, 8, 256, 2048,
+                              (1100, 1640)),
 }
 
 
@@ -944,14 +1055,15 @@ def decode_kernel_phase(seed: int):
         route = ops.LAST_ROUTE["decode_attention"]
         ref = decode_attention_plain(q, k, v, lengths)
         torch.cuda.synchronize()
-        want = "sm90" if dtype_name == "bfloat16" and D in (64, 128) else "simt"
+        want = ("simt" if dtype_name != "bfloat16" else "sm90"
+                if D in (64, 128) and (Hq // Hkv) * T <= 64 else "wmma")
         if route != want:
             raise AssertionError(f"decode_attention [{case}]: ran the {route} "
                                  f"body, expected {want}")
         err = _hold("decode_attention", case, out, ref,
                     DECODE_TOL[dtype_name], res)
         row_err = row_scaled_err(out, ref)
-        if route == "sm90" and row_err > DECODE_ROW_TOL:
+        if dtype_name == "bfloat16" and row_err > DECODE_ROW_TOL:
             raise AssertionError(
                 f"decode_attention [{case}]: an element is {row_err:.3g} x "
                 f"the rms of its row from the plain version (bound "
@@ -2165,6 +2277,30 @@ def _check_routes(path: str, names) -> None:
     log(f"{path}: routes {got}")
 
 
+def _check_head_dim_256_routes(path: str, paged: bool) -> None:
+    """Fail unless every launch of kernels 3-5 at head dim 256 since the
+    counts were reset (eager, or a stage's capture: a replay runs what was
+    captured) ran its D-256 body: the WMMA body for flash and dense decode,
+    the CUDA-core body for paged; and the path's prefill kernel and its
+    extend kernel (paged if ``paged``, else dense) each ran at D 256."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.decode_attention import paged as pg
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    tallies = {"flash_attention": (fa.ROUTE_LAUNCHES, "wmma"),
+               "decode_attention": (dec.ROUTE_LAUNCHES, "wmma"),
+               "paged_decode_attention": (pg.ROUTE_LAUNCHES, "simt")}
+    must = ("flash_attention",
+            "paged_decode_attention" if paged else "decode_attention")
+    for name, (tally, want) in tallies.items():
+        at256 = {route: n for (route, d), n in tally.items() if d == 256}
+        if set(at256) - {want} or (name in must and not at256):
+            raise AssertionError(f"{path}: {name} launches at head dim 256 "
+                                 f"by route {at256}, expected {want} only")
+    log(f"{path}: launches by (route, head dim) " + "; ".join(
+        f"{name} {dict(sorted(tally.items()))}"
+        for name, (tally, _) in tallies.items()))
+
+
 def _wave_line(path: str, label: str, r) -> str:
     sd = (f"sigma={r.stats.sigma:.3f} alpha={r.stats.alpha:.3f}"
           if r.used_sd else "AR")
@@ -2465,6 +2601,283 @@ def eagle_phase(seed: int) -> dict:
     log(f"eagle: torch.cuda.max_memory_allocated() = "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del target, head, params_t, params_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------- the attention-only assigned archs
+NEW_ARCHS = ("dbrx-132b", "gemma-7b", "gemma3-12b", "minicpm3-4b",
+             "qwen2-vl-2b")
+
+
+def arch_reference_phase(seed: int):
+    """The five attention-only archs, reduced, in fp32 (TF32 off), each with
+    its ``draft_for`` draft: prefill and verify logits on the card against
+    the CPU path (1e-3), then greedy waves (4 prompts of 5-40 tokens, past
+    gemma3-reduced's window of 16; max-batch 2, 8 new tokens, gamma 4): SD
+    from graph replay == SD eager on the card == SD on the CPU == AR on the
+    card, token for token.  gemma3-12b-reduced (rings dense inside a paged
+    cache; a row reused after a 40-token request, longer than its window)
+    and minicpm3-4b-reduced (latent pages) also serve a continuous paged
+    stream (5 requests, 2 slots, pages of 8) with the same four-way
+    equality."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import draft_for, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    for arch in NEW_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch, reduced=True)
+        dcfg = draft_for(cfg)
+        disp = "gmm" if cfg.num_experts else "onehot"
+        m = {d: (Model(cfg, moe_dispatch=disp, device=d), Model(dcfg, device=d))
+             for d in ("cpu", "cuda")}
+        p_cpu = (m["cpu"][0].init(torch.Generator().manual_seed(seed)),
+                 m["cpu"][1].init(torch.Generator().manual_seed(seed + 1)))
+        p = {"cpu": p_cpu,
+             "cuda": tuple(_to_device(x, torch.device("cuda")) for x in p_cpu)}
+        toks = rng.integers(3, cfg.vocab_size, (3, 40)).astype(np.int32)
+        lengths = np.array([40, 23, 31], np.int32)
+        ver = rng.integers(3, cfg.vocab_size, (3, 5)).astype(np.int32)
+        outs = []
+        for d in ("cpu", "cuda"):
+            t, pt = m[d][0], p[d][0]
+            last, cache = t.prefill(pt, toks, t.init_cache(3, 64),
+                                    lengths=lengths)
+            logits, _ = t.extend(pt, ver, cache)
+            outs.append((last.cpu(), logits.cpu()))
+        err = max((a - b).abs().max().item() for a, b in zip(*outs))
+        if not err <= 1e-3:
+            raise AssertionError(f"arch-reference[{arch}]: CUDA path vs CPU "
+                                 f"path max err {err:.3g}")
+        prompts = [rng.integers(3, cfg.vocab_size, n) for n in (40, 5, 17, 28)]
+        streams = [("wave", {})]
+        if arch in ("gemma3-12b", "minicpm3-4b"):
+            streams.append(("continuous-paged", dict(
+                scheduler="continuous", kv_layout="paged", page_size=8)))
+        for sched, kw in streams:
+            runs = {}
+            for label, dev, proposer, graphs in (
+                    ("SD replay", "cuda", "model", None),
+                    ("SD eager", "cuda", "model", False),
+                    ("SD cpu", "cpu", "model", None),
+                    ("AR replay", "cuda", "none", None)):
+                (t, dm), (pt, pd) = m[dev], p[dev]
+                extra = {} if graphs is None else {"cuda_graphs": graphs}
+                eng = ServingEngine(
+                    t, dm if proposer == "model" else None, pt,
+                    pd if proposer == "model" else None, max_batch=2,
+                    gamma=4, proposer=proposer, force_sd=True, seed=seed,
+                    **kw, **extra)
+                uids = [eng.submit(q, max_new_tokens=8) for q in
+                        (prompts + [prompts[0][:12]] if kw else prompts)]
+                reports = eng.run()
+                runs[label] = [np.asarray(eng.done[u].output) for u in uids]
+                if label == "SD replay" and not sum(r.replays for r in reports):
+                    raise AssertionError(f"arch-reference[{arch}] {sched}: "
+                                         "no round was replayed")
+            base = runs["SD replay"]
+            for label, out in runs.items():
+                if len(out) != len(base) or not all(
+                        np.array_equal(a, b) for a, b in zip(out, base)):
+                    raise AssertionError(f"arch-reference[{arch}] {sched}: "
+                                         f"{label} != SD replay")
+            log(f"arch-reference[{arch}] {sched}: logits card vs CPU max err "
+                f"{err:.3g}; SD replay == SD eager == SD CPU == AR over "
+                f"{len(base)} requests ({sum(len(o) for o in base)} tokens) "
+                f"in {time.perf_counter() - t0:.1f} s")
+        del m, p, p_cpu
+    torch.cuda.empty_cache()
+
+
+# path label, arch, layers served (None: all), use_flash, workload
+ARCH_PATHS = (
+    ("wave-gemma3", "gemma3-12b", None, True, "long"),
+    ("continuous-gemma3", "gemma3-12b", None, True, "long"),
+    ("wave-dbrx", "dbrx-132b", LAYERS, False, "chat"),
+    ("wave-gemma7b", "gemma-7b", None, True, "long"),
+    ("wave-minicpm3", "minicpm3-4b", None, False, "chat"),
+    ("wave-qwen2vl", "qwen2-vl-2b", None, False, "chat"),
+)
+LONG_PROMPTS = (1100, 1600)          # the "long" paths: past the 1024 window
+
+
+def arch_serve_phase(seed: int) -> dict:
+    """The five archs at their published widths, random bf16 weights from
+    --seed, each with its ``draft_for`` draft, greedy, gamma 4, max-batch
+    8, every round from CUDA graphs; each path SD ("model") then AR
+    ("none"), with every count zeroed before it:
+      * wave-gemma3: gemma3-12b, all 48 layers, use_flash on target and
+        draft, 16 prompts of LONG_PROMPTS tokens (bucket 2048, so the
+        window of 1024 masks), 32 new tokens: every prefill runs kernel 5
+        on all 48 + 4 layers (WMMA body at D 256 on the target), every
+        extend kernel 4 on the 8 global layers and the draft's 4;
+      * continuous-gemma3: the same model, paged (pages of 64), the same
+        prompts with Poisson arrivals (0.5 a round, 8/16/32 new tokens):
+        kernel 3 at D 256 on the global layers every round, rings dense;
+      * wave-dbrx: dbrx-132b cut to LAYERS of 40 layers, gmm dispatch, 16
+        chat prompts, 32 new tokens: kernels 1 and 2 in every forward;
+      * wave-gemma7b: gemma-7b at full depth (28 layers, 16 / 16 heads of
+        256), use_flash, the prompts of wave-gemma3 (bucket 2048): kernel
+        5 at D 256 on every prefill, kernel 4 at D 256 on every extend;
+      * wave-minicpm3, wave-qwen2vl: minicpm3-4b and qwen2-vl-2b at full
+        depth, the wave workload of wave-dbrx.
+    On the use_flash paths every launch of kernels 3-5 at head dim 256 must
+    have run its D-256 body (_check_head_dim_256_routes).  Returns the
+    launch counts per path."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import draft_for, get_config
+    from repro_torch.data.pipeline import prompt_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import submit_poisson
+
+    card = card_line()
+    launches, loaded = {}, None
+    for path_name, arch, layers, flash, workload in ARCH_PATHS:
+        full = get_config(arch)
+        cfg = full if layers is None else full.with_overrides(num_layers=layers)
+        dcfg = draft_for(full)
+        if loaded is None or loaded[0] != (arch, layers):
+            # free the previous model before the next one is made
+            loaded = target = draft = params_t = params_d = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            disp = "gmm" if cfg.num_experts else "onehot"
+            target = Model(cfg, moe_dispatch=disp, device="cuda")
+            draft = Model(dcfg, device="cuda")
+            gen = torch.Generator(device=target.device)
+            params_t = target.init(gen.manual_seed(seed))
+            params_d = draft.init(gen.manual_seed(seed + 1))
+            torch.cuda.synchronize()
+            n_t = sum(t.numel() for t in _leaves(params_t))
+            log(f"arch-serve: {arch} x{cfg.num_layers} of {full.num_layers} "
+                f"layers ({n_t / 1e9:.3f} B parameters, {2 * n_t / 1e9:.2f} "
+                f"GB bf16), draft {dcfg.name} d {dcfg.d_model} x"
+                f"{dcfg.num_layers}, init {time.perf_counter() - t0:.1f} s; "
+                f"card memory {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+                f"| {card}")
+            loaded = ((arch, layers), target, draft, params_t, params_d)
+        _, target, draft, params_t, params_d = loaded
+        target.use_flash = draft.use_flash = flash
+        if workload == "long":
+            prng = np.random.default_rng(seed + 11)
+            prompts = [prng.integers(3, cfg.vocab_size,
+                                     int(prng.integers(*LONG_PROMPTS) + 1))
+                       for _ in range(16)]
+        else:
+            pb = prompt_batch(cfg.vocab_size, 16, kind="chat", seed=seed)
+            prompts = [pb["tokens"][i][: int(pb["lengths"][i])]
+                       for i in range(16)]
+        # the layers the dense decode and paged kernels run on: full
+        # attention ("swa" rings attend by mask)
+        attn_global = sum(k == "attn" for k, _ in layer_kinds(cfg))
+        moe_layers = sum(cfg.moe_pattern[l % cfg.period]
+                         for l in range(cfg.num_layers))
+        paged = path_name.startswith("continuous")
+        outputs = {}
+        for kind in ("model", "none"):
+            path = f"{path_name}/{kind}"
+            extra = (dict(scheduler="continuous", kv_layout="paged",
+                          page_size=64) if paged else {})
+            eng = ServingEngine(target, draft if kind == "model" else None,
+                                params_t, params_d if kind == "model" else None,
+                                max_batch=8, gamma=4, temperature=0.0,
+                                proposer=kind, seed=seed, **extra)
+            reset_launch_counts()
+            _reset_routes()
+            for m in (target, draft):
+                m.forward_count = m.prefill_count = 0
+            t_path = time.perf_counter()
+            if paged:
+                lens = np.array([len(q) for q in prompts])
+                toks = np.zeros((16, lens.max()), np.int32)
+                for i, q in enumerate(prompts):
+                    toks[i, :len(q)] = q
+                submit_poisson(eng, toks, lens, rate=0.5,
+                               max_new_choices=(8, 16, 32), seed=seed)
+            else:
+                for q in prompts:
+                    eng.submit(q, max_new_tokens=32)
+            reports = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_path
+            rounds = sum(r.stats.rounds for r in reports)
+            for r in reports:
+                log(_wave_line(path, "graphs", r)
+                    + (f" tokens={r.tokens_out}" if paged else ""))
+            done = [eng.done[u] for u in sorted(eng.done)]
+            if len(done) != 16 or {d.finish_reason for d in done} != {"length"}:
+                raise AssertionError(f"{path}: {len(done)} requests finished "
+                                     f"{ {d.finish_reason for d in done} }")
+            for d in done:
+                o = np.asarray(d.output)
+                if o.min() < 0 or o.max() >= cfg.vocab_size:
+                    raise AssertionError(f"{path}: token out of the vocab")
+            if paged:
+                eng._slot_scheduler._alloc.assert_no_leaks()
+            got = launch_counts()
+            expect = {name: 0 for name in got}
+            if moe_layers:
+                expect["fused_gate_up"] = expect["ragged_gmm"] = \
+                    moe_layers * target.forward_count
+            used = [(target, cfg.num_layers, attn_global)]
+            if kind == "model":
+                used.append((draft, dcfg.num_layers, dcfg.num_layers))
+            if flash and not paged:
+                expect["flash_attention"] = sum(
+                    n * m.prefill_count for m, n, _ in used)
+                expect["decode_attention"] = sum(
+                    g * (m.forward_count - m.prefill_count)
+                    for m, _, g in used)
+            if paged:
+                # fillers and short prompts prefill below 128 tokens (no
+                # flash); every admission prefills target and draft alike
+                per = sum(n for _, n, _ in used)
+                n_flash = got["flash_attention"]
+                if n_flash < per or n_flash % per:
+                    raise AssertionError(f"{path}: {n_flash} flash launches, "
+                                         f"not a positive multiple of {per}")
+                expect["flash_attention"] = n_flash
+                expect["paged_decode_attention"] = attn_global * rounds
+                if kind == "model":
+                    expect["decode_attention"] = dcfg.num_layers * (
+                        draft.forward_count - draft.prefill_count)
+            stats = eng.session_stats()[kind]
+            toks_out = sum(r.tokens_out for r in reports)
+            log(f"{path}: {toks_out} tokens in {wall:.2f} s "
+                f"({toks_out / wall:.2f} tok/s end to end, captures "
+                f"{stats['captures']}, replays {stats['replays']}); "
+                f"{target.forward_count} target forwards "
+                f"({target.prefill_count} prefills), {draft.forward_count} "
+                f"draft forwards, {rounds} rounds; launches {got}, expected "
+                f"{expect} | {card}")
+            if got != expect:
+                raise AssertionError(f"{path}: launches {got} != {expect}")
+            if moe_layers:
+                _check_routes(path, ("fused_gate_up", "ragged_gmm"))
+            if flash:
+                _check_head_dim_256_routes(path, paged)
+            launches[path] = got
+            outputs[kind] = [np.asarray(d.output) for d in done]
+            del eng
+            gc.collect()
+        agree = np.mean([float((a == b).mean()) for a, b in
+                         zip(outputs["model"], outputs["none"])])
+        log(f"{path_name}: SD vs AR token agreement {agree:.3f} (bf16: not "
+            "required to be exact)")
+    del loaded
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2884,6 +3297,8 @@ def main() -> int:
     del served
     launches.update(eagle_phase(args.seed))
     tuner_reference_phase(args.seed)
+    arch_reference_phase(args.seed)
+    launches.update(arch_serve_phase(args.seed))
     launches[OPS_PATH] = capacity_ops_path(args.seed)
 
     tols = {"fused_gate_up": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",

@@ -20,11 +20,13 @@ kernels on ``ragged_cases``), same seeds, through this tree and each
 over the kernel's tolerance (``PAGED_TOL``, ``DECODE_TOL``, ``TOL``) and,
 for the attention kernels, the largest error over the rms of its output row
 over its row bound (``PAGED_ROW_TOL``, ``DECODE_ROW_TOL``); above 1 fails
-chip_smoke.py.  Then one JSON line.  It exits non-zero unless every fault
-is caught in every kernel it plants itself in (``FAULT_KERNELS``): an
-attention fault by the row bound at long context, a ragged fault by the
-tolerance at every serving case (SD verify, AR verify, prefill); and this
-tree passes every bound everywhere.
+chip_smoke.py (a non-finite output counts as infinitely far).  Then one
+JSON line.  It exits non-zero unless every fault is caught in each case
+``FAULT_CASES`` names for it: an attention fault by the row bound (the TMA
++ wgmma bodies' faults at long context, the head-dim-256 bodies' at
+gemma's heads and lengths), a ragged fault by the tolerance at every
+serving case (SD verify, AR verify, prefill); and this tree passes every
+bound everywhere.
 
 ``tune`` times the named ``TUNING`` variants against this tree with
 kernel_ab.py (this tree first, A B ... B A), on the cases of the kernels
@@ -45,6 +47,8 @@ DECODE = "kernels/decode_attention/csrc/decode_sm90.cuh"
 SPLITKV = "kernels/csrc/splitkv_sm90.cuh"
 FLASH = "kernels/flash_attention/csrc/flash_sm90.cuh"
 RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
+TILE = "kernels/csrc/attention_tile.cuh"
+PAGED_SIMT = "kernels/decode_attention/csrc/paged_decode_attention.cu"
 
 FAULTS = {
     # the combine step (shared by the paged and dense bodies) leaves out the
@@ -64,15 +68,34 @@ FAULTS = {
     # expert's end, over the next expert's first rows (never past N)
     "ragged_rows_past_end": [(RAGGED, "if (r < w.row_end && c < F) {",
                               "if (r < min(w.row_end + 8, off[E]) && c < F) {")],
+    # the head-dim-256 bodies skip their last key chunk: attention_tile's
+    # (dense decode's WMMA body, and flash's) and the paged CUDA-core body
+    "tile_last_chunk": [(TILE, "for (int kbase = kstart; kbase < kend; "
+                               "kbase += BK) {",
+                         "for (int kbase = kstart; kbase + BK < kend; "
+                         "kbase += BK) {")],
+    "paged_simt_last_chunk": [(PAGED_SIMT, "for (int kbase = 0; kbase <= last; "
+                                           "kbase += KT) {",
+                               "for (int kbase = 0; kbase + KT <= last; "
+                               "kbase += KT) {")],
 }
-# the kernels each fault is planted in, which must each catch it
-FAULT_KERNELS = {"dropped_split": ("paged", "decode"),
-                 "paged_stale_chunk": ("paged",),
-                 "decode_stale_chunk": ("decode",),
-                 "fused_wu_from_wg_map": ("fused",),
-                 "ragged_rows_past_end": ("fused", "down")}
 RAGGED_KINDS = ("fused", "down")
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
+# chip_smoke's bf16 cases at head dim 256 on gemma's heads and lengths
+GEMMA_DECODE = ("gemma3_sd_verify", "gemma3_ar", "gemma3_gamma8_verify",
+                "gemma7b_sd_verify")
+GEMMA_PAGED = ("gemma3_sd_verify", "gemma3_ar_verify", "gemma7b_sd_verify")
+# fault: {kernel it is planted in: the cases of that kernel that must each
+# catch it}
+FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
+                                 "decode": ("long_context",)},
+               "paged_stale_chunk": {"paged": ("long_context",)},
+               "decode_stale_chunk": {"decode": ("long_context",)},
+               "fused_wu_from_wg_map": {"fused": SERVING_CASES},
+               "ragged_rows_past_end": {"fused": SERVING_CASES,
+                                        "down": SERVING_CASES},
+               "tile_last_chunk": {"decode": GEMMA_DECODE},
+               "paged_simt_last_chunk": {"paged": GEMMA_PAGED}}
 TUNING = {
     # splits for 2 or 4 blocks per SM at long context instead of 1
     "paged_waves2": [(PAGED, "constexpr int WAVES = 1;",
@@ -159,9 +182,11 @@ def child_errors(root: Path, label: str) -> None:
 
     def report(kernel, case, out, ref, tol, row_tol, route):
         out, ref = out.float(), ref.float()
-        over = ((out - ref).abs() / (tol + tol * ref.abs())).max().item()
-        row = (chip_smoke.row_scaled_err(out, ref) / row_tol if row_tol
-               else None)
+        finite = bool(torch.isfinite(out).all())
+        over = ((out - ref).abs() / (tol + tol * ref.abs())).max().item() \
+            if finite else float("inf")
+        row = (None if not row_tol else float("inf") if not finite
+               else chip_smoke.row_scaled_err(out, ref) / row_tol)
         print(json.dumps({"tree": label, "kernel": kernel, "case": case,
                           "route": route, "err_over_tol": over,
                           "row_err_over_bound": row,
@@ -234,17 +259,14 @@ def mutants() -> int:
     print(json.dumps({"cases": rows}))
     sound = [r for r in rows if r["tree"] == "."]
 
-    def caught(name, kernel):
-        recs = [r for r in rows if r["tree"] == name and r["kernel"] == kernel]
-        if kernel in RAGGED_KINDS:
-            serving = [r for r in recs if r["case"] in SERVING_CASES]
-            return (len(serving) == len(SERVING_CASES)
-                    and all(r["err_over_tol"] > 1 for r in serving))
-        return any(r["case"] == "long_context" and r["row_err_over_bound"] > 1
-                   for r in recs)
+    def caught(name, kernel, case):
+        key = "err_over_tol" if kernel in RAGGED_KINDS else "row_err_over_bound"
+        return any(r[key] > 1 for r in rows if r["tree"] == name
+                   and r["kernel"] == kernel and r["case"] == case)
 
-    missed = [(name, kernel) for name, kernels in FAULT_KERNELS.items()
-              for kernel in kernels if not caught(name, kernel)]
+    missed = [(name, kernel, case) for name, kernels in FAULT_CASES.items()
+              for kernel, cases in kernels.items() for case in cases
+              if not caught(name, kernel, case)]
     ok = (all(r["err_over_tol"] <= 1 and (r["row_err_over_bound"] is None
                                           or r["row_err_over_bound"] <= 1)
               for r in sound) and not missed)

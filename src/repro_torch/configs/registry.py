@@ -1,9 +1,12 @@
 """Config registry: --arch <id> resolution, reduced variants, drafts.
 
 Holds the configurations the port serves and prices: the paper's MoE
-target ``qwen2-57b-a14b`` and its draft ``qwen2-0.5b``, and the dense and
+target ``qwen2-57b-a14b`` and its draft ``qwen2-0.5b``, the dense and
 sparse comparisons the cost model prices (``qwen2-7b``, ``mixtral-8x7b``,
-``qwen3-moe-30b-a3b``)."""
+``qwen3-moe-30b-a3b``), and the attention-only assigned archs
+(``dbrx-132b``, ``gemma-7b``, ``gemma3-12b``, ``minicpm3-4b``,
+``qwen2-vl-2b``).  The recurrent and encoder-decoder archs are ROADMAP
+queue 1 item 9."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -32,7 +35,8 @@ def get_config(name: str, *, reduced: bool = False, **overrides) -> ModelConfig:
 
 def _load_all():
     from repro_torch.configs import (  # noqa: F401
-        drafts, mixtral_8x7b, qwen2_7b, qwen2_57b_a14b, qwen3_moe_30b_a3b)
+        dbrx_132b, drafts, gemma3_12b, gemma_7b, minicpm3_4b, mixtral_8x7b,
+        qwen2_7b, qwen2_57b_a14b, qwen2_vl_2b, qwen3_moe_30b_a3b)
 
 
 def draft_for(cfg: ModelConfig) -> ModelConfig:

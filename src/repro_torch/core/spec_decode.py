@@ -208,10 +208,13 @@ def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 def _cache_geometry(t_cache: dict) -> tuple:
-    """Shapes of one layer's cache leaves and of the block table: what a
-    growth changes, and what the reference's jit would retrace on."""
+    """Shapes of every distinct layer cache (a ring, a page pool, a latent
+    pool) and of the block table: what a growth changes, and what the
+    reference's jit would retrace on."""
     pages = t_cache.get("pages")
-    return (tuple(tuple(v.shape) for v in t_cache["layers"][0].values()),
+    slots = dict.fromkeys(tuple((k, tuple(v.shape)) for k, v in slot.items())
+                          for slot in t_cache["layers"])
+    return (tuple(slots),
             None if pages is None else tuple(pages["table"].shape))
 
 
@@ -684,7 +687,9 @@ class SDEngine:
         The proposer builds its state over the full ``prompts`` (R, T_p).
         Lengths, proposer rows and first tokens are written into the live
         session in place; pad lanes (``valid`` False) replicate real rows
-        and are dropped.  Every target layer must be pool-backed."""
+        and are dropped.  Every target layer must be pool-backed
+        (full attention or MLA): a SWA ring or a recurrent state is dense
+        per row, and a tail extend cannot rebuild it."""
         tails = np.asarray(tails)
         prompts = np.asarray(prompts)
         R, Tt = tails.shape
@@ -745,7 +750,10 @@ class SDEngine:
         attends only to its own written positions, so chunked and one-shot
         prefills give the same tokens.  The rows stay out of the live
         session until the final chunk.  One chunked admission holds
-        prompts of EQUAL length."""
+        prompts of EQUAL length, and a target with SWA layers takes chunks
+        of at most SWA_RING_PAD + 1 (a wider chunk evicts ring entries still
+        inside earlier chunk queries' windows): the serving engine checks
+        both."""
         prompts = np.asarray(prompts)
         lengths = np.asarray(lengths, np.int32)
         if len(set(int(x) for x in lengths)) != 1:

@@ -3,8 +3,10 @@
 // and the dense decode/verify kernel
 // (kernels/decode_attention/csrc/decode_attention.cu).
 //
-// A block owns up to BM = 64 query rows that share one KV head and walks that
-// head's keys in chunks of BK = 64:
+// A block owns up to BM query rows that share one KV head and walks that
+// head's keys in chunks of BK = 64.  BM is 64 at head dims up to 128 and 32 at
+// head dim 256, where 64 fp32 rows of Q and O beside a K/V chunk would not fit
+// the 227 KB of shared memory a block may use:
 //
 //   out[row] = softmax_k( cap(q[row] . K[k] * scale) | visible(row, k) ) . V
 //
@@ -49,7 +51,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;           // query rows per block
 constexpr int BK = 64;           // keys per chunk
 constexpr int NT = 256;          // threads per block (8 warps)
 constexpr int NWARPS = NT / 32;
@@ -101,6 +102,9 @@ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
 template <typename T, int D>
 struct Layout {
   static constexpr bool TC = std::is_same<T, bf16>::value;
+  static constexpr int BM = D > 128 ? 32 : 64;     // query rows per block
+  static constexpr int MI = BM / 16;               // 16-row tiles per block
+  static constexpr int MIN_BLOCKS = D > 128 ? 1 : 2;
   static constexpr int QP = TC ? D + 8 : D;
   static constexpr int KP = TC ? D + 8 : D + 1;
   static constexpr int VP = TC ? D + 8 : D;
@@ -135,9 +139,10 @@ __device__ __forceinline__ void put16(T* dst, const uint4& raw) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, Layout<T, D>::MIN_BLOCKS)
 attention_tile_kernel(const Params p) {
   using L = Layout<T, D>;
+  constexpr int BM = L::BM, MI = L::MI;
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q_OFF);
@@ -242,9 +247,9 @@ attention_tile_kernel(const Params p) {
     } else {
       // thread (ty, tx): rows ty + 16 i, keys tx + 16 j
       const int ty = tid / 16, tx = tid % 16;
-      float s[4][4];
+      float s[MI][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
@@ -253,7 +258,7 @@ attention_tile_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) kv[j] = to_f(Ks[(tx + 16 * j) * L::KP + d]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < MI; ++i) {
           if (i < mt) {
             const float qv = to_f(Qs[(ty + 16 * i) * L::QP + d]);
 #pragma unroll
@@ -262,7 +267,7 @@ attention_tile_kernel(const Params p) {
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) Ss[(ty + 16 * i) * L::SP + tx + 16 * j] = s[i][j];
     }
@@ -336,9 +341,9 @@ attention_tile_kernel(const Params p) {
       // thread (ty, tx): rows ty + 16 i, columns tx + 16 j
       constexpr int CJ = D / 16;
       const int ty = tid / 16, tx = tid % 16;
-      float o[4][CJ];
+      float o[MI][CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < CJ; ++j)
           o[i][j] = i < mt ? Os[(ty + 16 * i) * L::OP + tx + 16 * j] : 0.f;
@@ -348,7 +353,7 @@ attention_tile_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < CJ; ++j) vv[j] = to_f(Vs[kk * L::VP + tx + 16 * j]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < MI; ++i) {
           if (i < mt) {
             const float pr = Ss[(ty + 16 * i) * L::SP + kk];
 #pragma unroll
@@ -357,7 +362,7 @@ attention_tile_kernel(const Params p) {
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
         if (i < mt)
 #pragma unroll
           for (int j = 0; j < CJ; ++j) Os[(ty + 16 * i) * L::OP + tx + 16 * j] = o[i][j];
@@ -378,6 +383,7 @@ attention_tile_kernel(const Params p) {
 template <typename T, int D>
 int launch(const Params& p, int B, void* stream) {
   using L = Layout<T, D>;
+  if (p.G > L::BM) return -1;
   static bool opted_in = false;                  // per instantiation
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(attention_tile_kernel<T, D>,
@@ -386,17 +392,18 @@ int launch(const Params& p, int B, void* stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  const int tp = BM / p.G;
+  const int tp = L::BM / p.G;
   dim3 grid((p.T + tp - 1) / tp, p.Hq / p.G, B);
   attention_tile_kernel<T, D><<<grid, NT, L::BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = bf16, 1 = fp32; head_dim: 32, 64 or 128.  Returns
+// dtype: 0 = bf16, 1 = fp32; head_dim: 32, 64, 128 or 256.  Returns
 // cudaGetLastError() after the launch, -1 for shapes the kernel does not take
-// and -2 for a dtype or head dim it is not built for.
+// (launch<> refuses a G above its BM) and -2 for a dtype or head dim it is
+// not built for.
 inline int launch_any(int dtype, int head_dim, const Params& p, int B, void* stream) {
-  if (p.G < 1 || p.G > BM || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
+  if (p.G < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
       (p.Hq / p.Hkv) % p.G != 0 || p.T < 1 || p.S < 1 || B < 1)
     return -1;
   if (dtype == 0) {
@@ -404,12 +411,14 @@ inline int launch_any(int dtype, int head_dim, const Params& p, int B, void* str
       case 32: return launch<bf16, 32>(p, B, stream);
       case 64: return launch<bf16, 64>(p, B, stream);
       case 128: return launch<bf16, 128>(p, B, stream);
+      case 256: return launch<bf16, 256>(p, B, stream);
     }
   } else if (dtype == 1) {
     switch (head_dim) {
       case 32: return launch<float, 32>(p, B, stream);
       case 64: return launch<float, 64>(p, B, stream);
       case 128: return launch<float, 128>(p, B, stream);
+      case 256: return launch<float, 256>(p, B, stream);
     }
   }
   return -2;

@@ -28,10 +28,13 @@
 //     TMA loads of 64-key chunks in flight in a ring; both products as wgmma
 //     with the online softmax in registers; a combine kernel merges the
 //     fp32 partials of rows with more than one live split.
-//   * bf16 otherwise (head dim 32, or g * T > 64, which the model's dense
-//     branch allows): attention_tile.cuh's WMMA body.  One block per
-//     (query tile, KV head, sequence), GQA folded into its 64 rows, the KV
-//     axis a loop inside the block, 16-row WMMA tiles.
+//   * bf16 otherwise (head dim 32 or 256, or g * T > 64, which the model's
+//     dense branch allows): attention_tile.cuh's WMMA body.  One block per
+//     (query tile, KV head, sequence), GQA folded into its 64 rows (32 at
+//     head dim 256: gemma3-12b's g = 2 and gemma-7b's g = 1 at T <= 9 are
+//     one or two blocks a KV head), the KV axis a loop inside the block,
+//     16-row WMMA tiles.  At D 256 it is right first, not fast (PERF.md
+//     section 6 row 4).
 //   * fp32 (the parity checks): the same body on the CUDA cores in full
 //     fp32.
 //   * lengths stay on the device: each block reads its own, the grid is
@@ -44,7 +47,7 @@
 #include "../../csrc/attention_tile.cuh"
 #include "decode_sm90.cuh"
 
-// dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64 or 128.  lengths: (B,) int32
+// dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64, 128 or 256.  lengths: (B,) int32
 // on the device.  strides: 12 element strides, q (b, t, h), k (b, s, h),
 // v (b, s, h), out (b, t, h); the head dim is contiguous and every row
 // 16-byte aligned; out is contiguous.  S is the number of cache positions

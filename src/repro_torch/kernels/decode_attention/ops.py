@@ -17,10 +17,11 @@ the same reference module is ``paged.paged_decode_attention``.
 
 Three bodies: bf16 at head dims 64 and 128 with g * T <= 64 query rows per
 KV head runs the split-KV TMA + wgmma body (``csrc/decode_sm90.cuh``),
-other bf16 calls the WMMA body and fp32 the CUDA-core body of
-``kernels/csrc/attention_tile.cuh``.  The launcher reports which one it
-launched, and ``LAST_ROUTE`` holds it (``"sm90"``, ``"wmma"`` or
-``"simt"``).  The split partials go into scratch the launcher sizes
+other bf16 calls (head dims 32 and 256 among them) the WMMA body and fp32
+the CUDA-core body of ``kernels/csrc/attention_tile.cuh``.  The launcher
+reports which one it launched, and ``LAST_ROUTE`` holds it (``"sm90"``,
+``"wmma"`` or ``"simt"``; ``ROUTE_LAUNCHES`` tallies launches by (route, head
+dim)).  The split partials go into scratch the launcher sizes
 (``decode_attention_scratch_bytes``) and this wrapper takes from torch's
 allocator on the current stream, so a call never syncs and can be captured
 in a CUDA graph.
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -42,12 +44,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 LAUNCHES = {"decode_attention": 0}
 # the body the last launch ran, as the launcher reported it
 LAST_ROUTE = {"decode_attention": None}
+# launches since the last reset by (route, head dim): eager calls and
+# the calls a CUDA graph captures (a replay runs what was captured)
+ROUTE_LAUNCHES: Counter = Counter()
 _ROUTES = ("sm90", "wmma", "simt")     # the launcher's kernel codes
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def _lib() -> ctypes.CDLL:
@@ -112,4 +118,5 @@ def decode_attention(
     build.check(status, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     LAST_ROUTE["decode_attention"] = _ROUTES[kernel.value]
+    ROUTE_LAUNCHES[LAST_ROUTE["decode_attention"], D] += 1
     return out

@@ -15,7 +15,8 @@ the kernel (one per call, whether or not it also ran its combine step).
 Two bodies: bf16 at head dims 64 and 128 with pages of 8, 16, 32 or a
 multiple of 64 runs the split-KV TMA + wgmma body (``csrc/paged_sm90.cuh``),
 everything else the CUDA-core body.  The launcher reports which one it
-launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or ``"simt"``).  The
+launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or ``"simt"``;
+``ROUTE_LAUNCHES`` tallies launches by (route, head dim)).  The
 split partials go into scratch the launcher sizes
 (``paged_decode_attention_scratch_bytes``) and this wrapper allocates.
 """
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -36,6 +38,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode_attention.cu"
 LAUNCHES = {"paged_decode_attention": 0}
 # the body the last launch ran, as the launcher reported it
 LAST_ROUTE = {"paged_decode_attention": None}
+# launches since the last reset by (route, head dim): eager calls and
+# the calls a CUDA graph captures (a replay runs what was captured)
+ROUTE_LAUNCHES: Counter = Counter()
 _ROUTES = ("sm90", "simt")     # the launcher's kernel codes
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -46,6 +51,7 @@ MAX_ROWS = 64                  # g * T query rows one block holds
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def _lib() -> ctypes.CDLL:
@@ -140,4 +146,5 @@ def paged_decode_attention(
     build.check(status, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     LAST_ROUTE["paged_decode_attention"] = _ROUTES[kernel.value]
+    ROUTE_LAUNCHES[LAST_ROUTE["paged_decode_attention"], D] += 1
     return out

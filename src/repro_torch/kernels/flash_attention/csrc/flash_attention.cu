@@ -26,9 +26,15 @@
 //     built only where a chunk crosses the diagonal, the window edge or S.
 //     Causal items stop at their last query and windowed items start at
 //     their first visible key, as the TPU kernel skips fully masked blocks.
+//   * bf16 at head dim 256 (gemma-7b, gemma3-12b): attention_tile.cuh's WMMA
+//     body, 32 positions of one head per block (G = 1).  flash_sm90.cuh's
+//     128-row tiles with a 256-wide O accumulator in registers and K/V stages
+//     in shared memory do not fit at D 256 as that body is laid out; the
+//     WMMA body keeps O in shared memory and is right first, not fast
+//     (PERF.md section 6 row 5).
 //   * fp32 (the parity checks): attention_tile.cuh's CUDA-core path in full
-//     fp32, 64 positions of one head per block (G = 1), the body and fp32
-//     numerics of the dense decode kernel.
+//     fp32, 64 positions (32 at head dim 256) of one head per block (G = 1),
+//     the body and fp32 numerics of the dense decode kernel.
 //   * q, k, v and out are read and written in place through strides, in the
 //     (B, H, T, D) layout of flash_attention_bhtd or the (B, T, H, D) layout
 //     of the model alike.
@@ -41,7 +47,7 @@
 namespace {
 
 template <int D>
-int launch_fp32(const long long* strides, const void* q, const void* k, const void* v,
+int launch_tile(int dtype, const long long* strides, const void* q, const void* k, const void* v,
                 void* out, int B, int T, int S, int Hq, int Hkv, int causal, int window,
                 float scale, float logit_cap, void* stream) {
   attn::Params p{};
@@ -55,21 +61,22 @@ int launch_fp32(const long long* strides, const void* q, const void* k, const vo
   p.S = S;
   p.Hq = Hq;
   p.Hkv = Hkv;
-  p.G = 1;                                   // 64 positions of one head per block
+  p.G = 1;                                   // positions of one head per block
   p.causal = causal;
   p.window = window;
   p.scale = scale;
   p.cap = logit_cap;
+  if (dtype == 0) return attn::launch<attn::bf16, D>(p, B, stream);
   return attn::launch<float, D>(p, B, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64 or 128.  strides: 12 element
-// strides, q (b, t, h), k (b, s, h), v (b, s, h), out (b, t, h); the head dim
-// is contiguous and every row 16-byte aligned.  *kernel is set to the kernel
-// the call launches: 0 = flash_sm90_kernel (TMA + wgmma), 1 = attention_tile's
-// CUDA-core body.  Returns cudaGetLastError() after the launch, -1 for shapes
+// dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64, 128 or 256.  strides: 12
+// element strides, q (b, t, h), k (b, s, h), v (b, s, h), out (b, t, h); the
+// head dim is contiguous and every row 16-byte aligned.  *kernel is set to the
+// kernel the call launches: 0 = flash_sm90_kernel (TMA + wgmma), 1 =
+// attention_tile's CUDA-core body, 2 = its WMMA body.  Returns cudaGetLastError() after the launch, -1 for shapes
 // the kernels do not take, -2 for a dtype or head dim they are not built for,
 // -3/-4 when the CUDA driver cannot encode the tensor maps.
 extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
@@ -79,6 +86,11 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
                                       float scale, float logit_cap, void* stream,
                                       int* kernel) {
   if (Hkv < 1 || Hq % Hkv != 0 || T < 1 || S < 1 || B < 1) return -1;
+  if (dtype == 0 && head_dim == 256) {
+    *kernel = 2;
+    return launch_tile<256>(0, strides, q, k, v, out, B, T, S, Hq, Hkv, causal, window,
+                            scale, logit_cap, stream);
+  }
   if (dtype == 0) {
     *kernel = 0;
     return flash90::launch_any(head_dim, q, k, v, out, strides, B, T, S, Hq, Hkv, causal,
@@ -87,11 +99,13 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
   if (dtype == 1) {
     *kernel = 1;
     switch (head_dim) {
-      case 32: return launch_fp32<32>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal, window,
-                                      scale, logit_cap, stream);
-      case 64: return launch_fp32<64>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal, window,
-                                      scale, logit_cap, stream);
-      case 128: return launch_fp32<128>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+      case 32: return launch_tile<32>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+                                      window, scale, logit_cap, stream);
+      case 64: return launch_tile<64>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+                                      window, scale, logit_cap, stream);
+      case 128: return launch_tile<128>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+                                        window, scale, logit_cap, stream);
+      case 256: return launch_tile<256>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
                                         window, scale, logit_cap, stream);
     }
   }
@@ -102,4 +116,22 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
 // nc consumer warpgroups (for reports), or -2 for a shape it is not built for.
 extern "C" int flash_sm90_smem_bytes(int head_dim, int nc) {
   return flash90::smem_bytes(head_dim, nc);
+}
+
+// Dynamic shared memory of a block of attention_tile.cuh's body (the fp32
+// flash and decode kernels, and the bf16 ones at head dim 256) for this dtype
+// (0 = bf16, 1 = fp32) and head dim (for reports), or -2 for one it is not
+// built for.
+extern "C" int attention_tile_smem_bytes(int dtype, int head_dim) {
+  switch (head_dim) {
+    case 32: return dtype == 0 ? attn::Layout<attn::bf16, 32>::BYTES
+                               : attn::Layout<float, 32>::BYTES;
+    case 64: return dtype == 0 ? attn::Layout<attn::bf16, 64>::BYTES
+                               : attn::Layout<float, 64>::BYTES;
+    case 128: return dtype == 0 ? attn::Layout<attn::bf16, 128>::BYTES
+                                : attn::Layout<float, 128>::BYTES;
+    case 256: return dtype == 0 ? attn::Layout<attn::bf16, 256>::BYTES
+                                : attn::Layout<float, 256>::BYTES;
+  }
+  return -2;
 }

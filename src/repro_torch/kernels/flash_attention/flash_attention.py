@@ -10,14 +10,17 @@ Port of ``repro.kernels.flash_attention.flash_attention.flash_attention_bhtd``:
 
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
 the kernel or raise.  ``LAUNCHES`` counts kernel launches.  bf16 runs the
-TMA + wgmma kernel (``csrc/flash_sm90.cuh``), fp32 the CUDA-core body of
-``kernels/csrc/attention_tile.cuh``; the launcher reports which one it
-launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or ``"simt"``).
+TMA + wgmma kernel (``csrc/flash_sm90.cuh``) at head dims up to 128 and the
+WMMA body of ``kernels/csrc/attention_tile.cuh`` at 256, fp32 that file's
+CUDA-core body; the launcher reports which one it launched, and
+``LAST_ROUTE`` holds it (``"sm90"``, ``"simt"`` or ``"wmma"``);
+``ROUTE_LAUNCHES`` tallies launches by (route, head dim).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -31,7 +34,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LAUNCHES = {"flash_attention": 0}
 # the kernel the last launch ran, as the launcher reported it
 LAST_ROUTE = {"flash_attention": None}
-_ROUTES = ("sm90", "simt")     # the launcher's kernel codes
+# launches since the last reset by (route, head dim): eager calls and
+# the calls a CUDA graph captures (a replay runs what was captured)
+ROUTE_LAUNCHES: Counter = Counter()
+_ROUTES = ("sm90", "simt", "wmma")     # the launcher's kernel codes
 BLOCK = 128                    # the reference's bq = bk
 NARROW_MAX_T = 512             # flash_sm90.cuh: 64-query items up to this T
 
@@ -39,6 +45,7 @@ NARROW_MAX_T = 512             # flash_sm90.cuh: 64-query items up to this T
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def _lib() -> ctypes.CDLL:
@@ -116,6 +123,7 @@ def flash_attention_btd(q, k, v, *, causal: bool = True, window: int = 0,
     build.check(status, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     LAST_ROUTE["flash_attention"] = _ROUTES[kernel.value]
+    ROUTE_LAUNCHES[LAST_ROUTE["flash_attention"], D] += 1
     return out
 
 

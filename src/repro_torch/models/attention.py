@@ -1,23 +1,34 @@
-"""GQA self-attention with a dense KV cache ("attn" block kind).
+"""Self-attention blocks: GQA ("attn"), sliding window ("swa") and
+multi-head latent attention ("mla").
 
-Port of ``repro.models.attention`` for the kinds this slice serves.  Two
-execution modes share one code path:
+Port of ``repro.models.attention`` for the decoder kinds (cross-attention is
+ROADMAP queue 1 item 9).  Two execution modes share one code path:
   * ``prefill`` — causal over the prompt, writes the KV cache from pos 0.
   * ``extend``  — T new tokens (T=1 → plain decode, T=γ+1 → SD verify)
                   appended at per-sequence offsets against a populated
                   cache.
 
-Cache: ``{"k": (B, S+1, Hkv, D), "v": ...}`` for a logical capacity of S
-positions.  Slot S is a trash slot: the reference's scatter drops writes past
-S (a row that ran ahead of its wave), and PyTorch's would fault, so such
-writes are clamped onto slot S, which attention never reads.
+Caches, for a logical capacity of S positions::
+
+    full attention   {"k": (B, S+1, Hkv, D), "v": ...}
+    sliding window   {"k": (B, W, Hkv, D), "v": ..., "pos": (B, W) int32}
+                     ring buffer, slot = position % W, ``pos`` starts at -1,
+                     W = min(sliding_window + SWA_RING_PAD, S)
+    MLA              {"latent": (B, S+1, r_kv), "k_rope": (B, S+1, Dr)}
+
+Slot S of a full-attention or MLA cache is a trash slot: the reference's
+scatter drops writes past S (a row that ran ahead of its wave), and
+PyTorch's would fault, so such writes are clamped onto slot S, which
+attention never reads.  A ring needs none: its slots are taken modulo W.
 
 RoPE is applied at write time for K (absolute positions), query side at read
 time, so cached K never needs re-rotation.
 
 Paged cache (``make_attn_cache(..., paged=True)``): ``{"k_pages": (NP, ps,
-Hkv, D), "v_pages": ...}``, a physical page pool shared by all rows and
-addressed through the model-level block table (B, MP).  Page 0 is the
+Hkv, D), "v_pages": ...}`` (MLA: ``{"latent_pages": (NP, ps, r_kv),
+"k_rope_pages": (NP, ps, Dr)}``), a physical page pool shared by all rows and
+addressed through the model-level block table (B, MP); SWA rings are bounded
+per row already and stay dense.  Page 0 is the
 trash page unallocated and retired rows point at.  Decode/verify extends
 (causal, T <= 8) attend straight from the pool through the CUDA kernel of
 ``kernels/decode_attention``; wider extends attend over the dense
@@ -31,7 +42,10 @@ causal prefill of T >= 128 tokens runs the flash kernel
 (``kernels/flash_attention``), and an extend against a dense cache of
 logical capacity S >= 512 with no logit cap runs the dense decode/verify
 kernel (``kernels/decode_attention/ops.py``), which reads the cache in place
-and never its trash slot.
+and never its trash slot.  A sliding window goes to the flash kernel and the
+chunked and masked paths; the decode kernel takes no window, so ring extends
+attend by mask as in the reference.  MLA calls no kernel in the reference and
+none here: it is explicit matmul + softmax over the expanded latent.
 """
 from __future__ import annotations
 
@@ -44,7 +58,8 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
 from repro_torch.kernels.decode_attention.ref import paged_view
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, softcap
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                      softcap)
 
 NEG_INF = -1e30
 
@@ -52,9 +67,10 @@ NEG_INF = -1e30
 # extends (a verify of gamma 8 and up) attend over the gathered view, as in
 # the reference (src/repro/models/attention.py, T <= 8)
 PAGED_KERNEL_MAX_T = 8
-# slots a sliding-window ring keeps beyond its window, as in the reference;
-# a chunked prefill wider than SWA_RING_PAD + 1 would evict entries still in
-# an earlier query's window ("swa" itself is ROADMAP queue 1 item 9)
+# slots a sliding-window ring keeps beyond its window, as in the reference,
+# so a batched extend of T <= SWA_RING_PAD + 1 tokens (an SD verify writes
+# gamma + 1 before any attends) never evicts an entry still inside an
+# earlier query's window
 SWA_RING_PAD = 8
 GATHER_ON_CUDA = ("paged_attention='gather' is a CPU cross-check of the "
                   "paged kernel path; on a CUDA device paged decode/verify "
@@ -81,35 +97,80 @@ def init_gqa(cfg, dtype, *, generator, device) -> dict:
     return p
 
 
+def init_mla(cfg, dtype, *, generator, device) -> dict:
+    d = cfg.d_model
+    r_kv, r_q = cfg.mla_kv_lora_rank, cfg.mla_q_lora_rank
+    dn, dr, dv = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_head_dim
+    H = cfg.num_heads
+    kw = dict(generator=generator, device=device)
+    p = {
+        "w_dkv": dense_init((d, r_kv + dr), dtype, **kw),     # latent + k_rope
+        "w_uk": dense_init((r_kv, H * dn), dtype, **kw),
+        "w_uv": dense_init((r_kv, H * dv), dtype, **kw),
+        "wo": dense_init((H * dv, d), dtype, **kw),
+        "kv_norm": torch.ones((r_kv,), dtype=dtype, device=device),
+    }
+    if r_q > 0:
+        p["w_dq"] = dense_init((d, r_q), dtype, **kw)
+        p["w_uq"] = dense_init((r_q, H * (dn + dr)), dtype, **kw)
+        p["q_norm"] = torch.ones((r_q,), dtype=dtype, device=device)
+    else:
+        p["wq"] = dense_init((d, H * (dn + dr)), dtype, **kw)
+    return p
+
+
 def make_attn_cache(cfg, batch: int, max_seq: int, kind: str, dtype, device,
                     *, paged: bool = False, page_size: int = 64,
                     pool_pages: Optional[int] = None) -> dict:
     """Per-layer decode cache: dense with one trailing trash slot, or a
     physical page pool (``pool_pages`` pages of ``page_size`` positions;
-    default: every row at ``max_seq`` plus the trash page)."""
-    if kind != "attn":
+    default: every row at ``max_seq`` plus the trash page).  A ``"swa"``
+    ring is dense either way."""
+    if kind not in ("attn", "swa", "mla"):
         raise NotImplementedError(
-            f"block kind {kind!r} is ROADMAP queue 1 item 9; this slice "
-            "ports 'attn' only")
+            f"block kind {kind!r} is ROADMAP queue 1 item 9")
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    if kind == "swa":
+        w = min(cfg.sliding_window + SWA_RING_PAD, max_seq)
+        return {"k": zeros(batch, w, hkv, hd), "v": zeros(batch, w, hkv, hd),
+                "pos": torch.full((batch, w), -1, dtype=torch.int32,
+                                  device=device)}
     if paged:
         npg = (batch * (-(-max_seq // page_size)) + 1
                if pool_pages is None else pool_pages)
-        shape = (npg, page_size, cfg.num_kv_heads, cfg.head_dim)
-        return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
-    shape = (batch, max_seq + 1, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if kind == "mla":
+            return {"latent_pages": zeros(npg, page_size, cfg.mla_kv_lora_rank),
+                    "k_rope_pages": zeros(npg, page_size, cfg.mla_qk_rope_dim)}
+        return {"k_pages": zeros(npg, page_size, hkv, hd),
+                "v_pages": zeros(npg, page_size, hkv, hd)}
+    if kind == "mla":
+        return {"latent": zeros(batch, max_seq + 1, cfg.mla_kv_lora_rank),
+                "k_rope": zeros(batch, max_seq + 1, cfg.mla_qk_rope_dim)}
+    return {"k": zeros(batch, max_seq + 1, hkv, hd),
+            "v": zeros(batch, max_seq + 1, hkv, hd)}
 
 
-def _write(cache: dict, positions: torch.Tensor, k, v) -> None:
-    """Write K/V at (B, T) positions in place (saves copying the whole cache
-    per token, which the reference's functional update does)."""
-    S = cache["k"].shape[1] - 1
+def _write(cache: dict, positions: torch.Tensor, **vals) -> None:
+    """Write each ``vals`` leaf at (B, T) positions of a dense cache in place
+    (saves copying the whole cache per token, which the reference's
+    functional update does); positions past capacity land on the trash
+    slot."""
     bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
-    slot = positions.clamp(max=S)
-    cache["k"][bidx, slot] = k
-    cache["v"][bidx, slot] = v
+    for name, val in vals.items():
+        slot = positions.clamp(max=cache[name].shape[1] - 1)
+        cache[name][bidx, slot] = val
+
+
+def _ring_write(cache: dict, positions: torch.Tensor, k, v) -> None:
+    """Write K/V and their positions into a sliding-window ring in place,
+    slot = position % W."""
+    w = cache["k"].shape[1]
+    bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    slots = positions % w
+    cache["k"][bidx, slots] = k
+    cache["v"][bidx, slots] = v
+    cache["pos"][bidx, slots] = positions.to(torch.int32)
 
 
 def _paged_write(pool: torch.Tensor, table: torch.Tensor,
@@ -213,7 +274,15 @@ def _project_qkv(params, cfg, x):
             v.reshape(B, T, cfg.num_kv_heads, hd))
 
 
-def _rotate(cfg, q, k, positions):
+def _rotate(cfg, q, k, positions, mrope_positions=None):
+    if cfg.rope_type == "mrope":
+        if mrope_positions is None:  # text only: all three components equal
+            mrope_positions = positions[..., None].expand(
+                positions.shape + (3,))
+        return (apply_mrope(q, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections))
     if cfg.rope_type != "rope":
         raise NotImplementedError(
             f"rope_type {cfg.rope_type!r} is ROADMAP queue 1 item 9")
@@ -227,49 +296,59 @@ def gqa_forward(
     x: torch.Tensor,                 # (B, T, d)
     positions: torch.Tensor,         # (B, T) absolute positions
     *,
-    kind: str = "attn",
+    kind: str = "attn",              # "attn" | "swa"
     cache: Optional[dict] = None,
     mode: str = "prefill",           # prefill | extend
+    mrope_positions: Optional[torch.Tensor] = None,
     use_flash: bool = False,
     causal: bool = True,
     page_table: Optional[torch.Tensor] = None,
     paged_attention: str = "kernel",
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    if kind != "attn":
+    if kind not in ("attn", "swa"):
         raise NotImplementedError(
             f"block kind {kind!r} is ROADMAP queue 1 item 9")
     if mode not in ("prefill", "extend"):
         raise ValueError(f"mode must be 'prefill' or 'extend', got {mode!r}")
     B, T, _ = x.shape
+    window = cfg.sliding_window if kind == "swa" else 0
     scale = 1.0 / math.sqrt(cfg.head_dim)
     q, k, v = _project_qkv(params, cfg, x)
-    q, k = _rotate(cfg, q, k, positions)
+    q, k = _rotate(cfg, q, k, positions, mrope_positions)
     cap = cfg.attn_logit_softcap
 
     def attend(q_, k_, v_, q_pos, k_pos):
         S = k_.shape[1]
         if use_flash and causal and T == S and T >= 128:
             # masks by index: every prefill's positions are arange(T)
-            return flash_attention(q_, k_, v_, causal=True, scale=scale,
-                                   logit_cap=cap)
+            return flash_attention(q_, k_, v_, causal=True, window=window,
+                                   scale=scale, logit_cap=cap)
         if T * S > 2_097_152:  # avoid materializing big (T,S) score tensors
             return chunked_sdpa(q_, k_, v_, q_pos, k_pos, scale=scale,
-                                logit_cap=cap, causal=causal)
-        mask = _causal_mask(q_pos, k_pos) if causal else (
+                                window=window, logit_cap=cap, causal=causal)
+        mask = _causal_mask(q_pos, k_pos, window) if causal else (
             (k_pos[:, None, :] >= 0)[:, None, :, :].expand(B, 1, T, S))
         return _sdpa(q_, k_, v_, mask, scale, cap)
 
     if mode == "prefill":
-        # attention over the in-flight K/V, never through the cache
+        # attention over the in-flight K/V, never through the cache (no
+        # ring-slot collisions, no S_max-wide scores)
         out = attend(q, k, v, positions, positions)
-        if cache is not None and "k_pages" in cache:
+        if cache is not None and kind == "swa":
+            tw = min(T, cache["k"].shape[1])   # the ring keeps the last w
+            _ring_write(cache, positions[:, -tw:], k[:, -tw:], v[:, -tw:])
+        elif cache is not None and "k_pages" in cache:
             _paged_write(cache["k_pages"], page_table, positions, k)
             _paged_write(cache["v_pages"], page_table, positions, v)
         elif cache is not None:
-            _write(cache, positions, k, v)
+            _write(cache, positions, k=k, v=v)
         return out.reshape(B, T, -1) @ params["wo"], cache
 
     # extend: write the new tokens first, then attend over the cache
+    if kind == "swa":
+        _ring_write(cache, positions, k, v)
+        out = attend(q, cache["k"], cache["v"], positions, cache["pos"])
+        return out.reshape(B, T, -1) @ params["wo"], cache
     if "k_pages" in cache:
         _paged_write(cache["k_pages"], page_table, positions, k)
         _paged_write(cache["v_pages"], page_table, positions, v)
@@ -297,9 +376,9 @@ def gqa_forward(
             out = attend(q, paged_view(cache["k_pages"], page_table), v_view,
                          positions, k_pos)
         return out.reshape(B, T, -1) @ params["wo"], cache
-    _write(cache, positions, k, v)
+    _write(cache, positions, k=k, v=v)
     S = cache["k"].shape[1] - 1                 # logical capacity: no trash slot
-    if use_flash and cap == 0.0 and S >= 512:
+    if use_flash and window == 0 and cap == 0.0 and S >= 512:
         # decode/verify kernel: T queries against the cache read in place,
         # per-sequence lengths = first query position
         out = decode_attention(q, cache["k"][:, :S], cache["v"][:, :S],
@@ -308,3 +387,91 @@ def gqa_forward(
     k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     out = attend(q, cache["k"][:, :S], cache["v"][:, :S], positions, k_pos)
     return out.reshape(B, T, -1) @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA forward (DeepSeek-V2 / MiniCPM3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def _rms(x, scale, eps):
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def _mla_q(params, cfg, x):
+    B, T, _ = x.shape
+    dn, dr = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim
+    if "w_dq" in params:
+        q = _rms(x @ params["w_dq"], params["q_norm"], cfg.norm_eps) \
+            @ params["w_uq"]
+    else:
+        q = x @ params["wq"]
+    q = q.reshape(B, T, cfg.num_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def mla_forward(
+    params: dict,
+    cfg,
+    x: torch.Tensor,                 # (B, T, d)
+    positions: torch.Tensor,         # (B, T)
+    *,
+    cache: Optional[dict] = None,
+    mode: str = "prefill",           # prefill | extend
+    page_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Latent attention: the cache holds the normalised KV latent and one
+    rope key shared by every head; each pass expands the latent it attends
+    over into per-head K_nope and V (``w_uk``, ``w_uv``).  Writes the cache
+    in place; plain PyTorch, as the reference is plain JAX."""
+    if mode not in ("prefill", "extend"):
+        raise ValueError(f"mode must be 'prefill' or 'extend', got {mode!r}")
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_head_dim
+    r_kv = cfg.mla_kv_lora_rank
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    q_nope, q_rope = _mla_q(params, cfg, x)                # (B,T,H,dn/(dr))
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = x @ params["w_dkv"]                              # (B,T,r_kv+dr)
+    latent = _rms(dkv[..., :r_kv], params["kv_norm"], cfg.norm_eps)
+    k_rope_new = apply_rope(dkv[..., None, r_kv:], positions,
+                            cfg.rope_theta)[..., 0, :]     # (B,T,dr), one head
+
+    paged = cache is not None and "latent_pages" in cache
+    if paged:
+        _paged_write(cache["latent_pages"], page_table, positions, latent)
+        _paged_write(cache["k_rope_pages"], page_table, positions, k_rope_new)
+    elif cache is not None:
+        _write(cache, positions, latent=latent, k_rope=k_rope_new)
+    if mode == "prefill" or cache is None:
+        lat_all, k_rope_all, k_pos = latent, k_rope_new, positions
+    elif paged:
+        S = page_table.shape[1] * cache["latent_pages"].shape[1]
+        k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        # latents past each row's newest query are zeroed, so a recycled
+        # page's stale NaN never reaches V (the GQA gathered view's rule)
+        lat_all = paged_view(cache["latent_pages"], page_table).masked_fill_(
+            (k_pos > positions[:, -1:])[:, :, None], 0.0)
+        k_rope_all = paged_view(cache["k_rope_pages"], page_table)
+    else:
+        S = cache["latent"].shape[1] - 1          # logical capacity
+        lat_all, k_rope_all = cache["latent"][:, :S], cache["k_rope"][:, :S]
+        k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    # expand the latent into per-head K_nope and V; fold the shared rope key
+    # into one concatenated head dim so plain SDPA applies:
+    #   q.k = q_nope.k_nope + q_rope.k_rope
+    S = lat_all.shape[1]
+    k_nope = (lat_all @ params["w_uk"]).reshape(B, S, H, dn)
+    v = (lat_all @ params["w_uv"]).reshape(B, S, H, dv)
+    k_cat = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(B, S, H, dr)],
+                      dim=-1)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    if T * S > 2_097_152:
+        out = chunked_sdpa(q_cat, k_cat, v, positions, k_pos, scale=scale)
+    else:
+        out = _sdpa(q_cat, k_cat, v, _causal_mask(positions, k_pos), scale)
+    return out.reshape(B, T, H * dv) @ params["wo"], cache

@@ -107,6 +107,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191).
+
+    ``positions``: (..., T, 3) (temporal, height, width) ids.  ``sections``:
+    the rotary half-dims each component drives, in order; they sum to
+    head_dim // 2.  With three equal ids it is 1-D RoPE exactly."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {d // 2}")
+    inv = rope_freqs(d, theta, x.device)                     # (D/2,)
+    comp = torch.cat([torch.full((s,), i, dtype=torch.int64, device=x.device)
+                      for i, s in enumerate(sections)])      # (D/2,)
+    pos = positions.float()[..., comp]                       # (..., T, D/2)
+    ang = pos * inv
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Decoder-only language model: embedding → decoder stack → head.
 
-Port of ``repro.models.model.Model`` for decoder-only attention configs:
+Port of ``repro.models.model.Model`` for decoder-only attention configs
+(block kinds ``"attn"``, ``"swa"`` and ``"mla"``):
 
     model  = Model(cfg, moe_dispatch="gmm")            # device="cuda" default
     params = model.init(torch.Generator(model.device).manual_seed(0))
@@ -16,9 +17,12 @@ scores an expert-prefetch plan while it verifies, and ``forward_hidden`` /
 
 Cache layout::
 
-    {"layers": [{"k", "v"} per layer], "lengths": (B,) int32}
-    paged:  {"layers": [{"k_pages", "v_pages"} per layer], "lengths": (B,),
-             "pages": {"table": (B, max_pages) int32}}
+    {"layers": [one dict per layer], "lengths": (B,) int32}
+    layer:  "attn" {"k", "v"}, "swa" {"k", "v", "pos"} (a ring), "mla"
+            {"latent", "k_rope"} (see attention.make_attn_cache)
+    paged:  "attn" {"k_pages", "v_pages"}, "mla" {"latent_pages",
+            "k_rope_pages"}, rings dense, plus
+            "pages": {"table": (B, max_pages) int32}
 
 ``extend`` consumes T tokens per sequence at offsets ``lengths`` — T=1 is
 plain decode, T=gamma+1 a speculative-decoding verify pass — and writes
@@ -49,7 +53,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import GATHER_ON_CUDA
+from repro_torch.models.attention import GATHER_ON_CUDA, SWA_RING_PAD
 from repro_torch.models.layers import (apply_norm, embed, init_embedding,
                                        init_norm, unembed)
 
@@ -79,7 +83,8 @@ def merge_cache_rows(old: dict, new: dict, mask) -> dict:
     return dict(old)
 
 
-_PAGED_LEAF_PAIRS = (("k_pages", "k"), ("v_pages", "v"))
+_PAGED_LEAF_PAIRS = (("k_pages", "k"), ("v_pages", "v"),
+                     ("latent_pages", "latent"), ("k_rope_pages", "k_rope"))
 
 
 def scatter_cache_rows(old: dict, new: dict, rows, *, valid=None,
@@ -350,13 +355,16 @@ def _pad_tail(leaf: torch.Tensor, axis: int, extra: int) -> torch.Tensor:
 def grow_cache_pages(cache: dict, pool_pages: int, max_pages: int) -> dict:
     """Pad a paged cache to a larger pool / logical capacity: pool leaves
     along the physical-page axis, the block table along the logical-page
-    axis (new entries point at trash page 0).  Lengths are untouched."""
+    axis (new entries point at trash page 0).  Dense leaves (SWA rings) and
+    lengths are untouched."""
     if cache.get("pages") is None:
         raise ValueError("grow_cache_pages: not a paged cache")
 
     def grow_slot(slot):
         out = dict(slot)
         for paged_key, _ in _PAGED_LEAF_PAIRS:
+            if paged_key not in slot:
+                continue
             extra = pool_pages - slot[paged_key].shape[0]
             if extra:
                 out[paged_key] = _pad_tail(slot[paged_key], 0, extra)
@@ -388,16 +396,19 @@ def copy_cache_pages(cache: dict, pairs) -> dict:
     dst = torch.as_tensor([p[1] for p in pairs], dtype=torch.int64, device=dev)
     for slot in cache["layers"]:
         for paged_key, _ in _PAGED_LEAF_PAIRS:
-            leaf = slot[paged_key]
-            leaf[dst] = leaf[src]       # the gather is read before the write
+            if paged_key in slot:
+                leaf = slot[paged_key]
+                leaf[dst] = leaf[src]   # the gather is read before the write
     return cache
 
 
 def grow_cache_seq(cache: dict, cfg: ModelConfig, new_max_seq: int) -> dict:
     """Raise a DENSE cache's logical capacity to ``new_max_seq``: the
-    draft-side companion of :func:`grow_cache_pages`.  New positions go
-    before the trailing trash slot, which stays last.  (``cfg`` keeps the
-    reference's signature; every ported layer is full attention.)"""
+    draft-side companion of :func:`grow_cache_pages`.  Full-attention K/V
+    and MLA latents take the new positions before the trailing trash slot,
+    which stays last.  A SWA ring only matches if its window already fit the
+    old capacity: a resize would remap the ``pos % w`` slots of live data,
+    so it raises, as in the reference."""
     def grow(leaf):
         S = leaf.shape[1] - 1
         if new_max_seq <= S:
@@ -407,8 +418,19 @@ def grow_cache_seq(cache: dict, cfg: ModelConfig, new_max_seq: int) -> dict:
         grown[:, :S] = leaf[:, :S]
         return grown
 
-    return dict(cache, layers=[{k: grow(v) for k, v in slot.items()}
-                               for slot in cache["layers"]])
+    def grow_slot(slot, kind):
+        if kind == "swa":
+            w_new = min(cfg.sliding_window + SWA_RING_PAD, new_max_seq)
+            if slot["k"].shape[1] != w_new:
+                raise NotImplementedError(
+                    "grow_cache_seq: SWA ring resize would remap live "
+                    "slots; size the stream so capacity >= window + pad")
+            return slot
+        return {k: grow(v) for k, v in slot.items()}
+
+    return dict(cache, layers=[
+        grow_slot(slot, kind)
+        for slot, (kind, _) in zip(cache["layers"], tfm.layer_kinds(cfg))])
 
 
 def _leaves(cache: dict) -> List[torch.Tensor]:
@@ -473,7 +495,10 @@ class Model:
         return params
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, inputs_embeds=None):
+        if inputs_embeds is not None:   # a frontend's embeddings (vision stub)
+            return torch.as_tensor(inputs_embeds, device=self.device).to(
+                self.dtype)
         return embed(params["embed"], tokens,
                      scale=self.cfg.name.startswith("gemma"))
 
@@ -501,9 +526,9 @@ class Model:
         capacity, growable with :func:`grow_cache_pages`.
 
         ``reuse``: a cache of exactly this shape, reset in place instead of
-        allocating (every leaf zeroed, ``lengths`` and the table included)
-        and returned, so tensors a captured round reads keep their
-        addresses.  ``device`` overrides the model's (``"meta"`` gives the
+        allocating (every leaf zeroed, ``lengths`` and the table included,
+        a ring's ``pos`` set back to -1) and returned, so tensors a captured
+        round reads keep their addresses.  ``device`` overrides the model's (``"meta"`` gives the
         shapes alone)."""
         dev = self.device if device is None else torch.device(device)
         if reuse is not None:
@@ -515,6 +540,9 @@ class Model:
                                  "does not have the requested shape")
             for leaf in _leaves(reuse):
                 leaf.zero_()
+            for slot in reuse["layers"]:
+                if "pos" in slot:
+                    slot["pos"].fill_(-1)
             return reuse
         cache: Dict[str, Any] = {
             "layers": tfm.make_stack_cache(self.cfg, batch, max_seq,
@@ -530,37 +558,54 @@ class Model:
         return cache
 
     # ----------------------------------------------------------------- train
-    def forward_hidden(self, params, tokens) -> Tuple[torch.Tensor, dict]:
+    def forward_hidden(self, params, tokens, *, inputs_embeds=None,
+                       mrope_positions=None) -> Tuple[torch.Tensor, dict]:
         """Final pre-head hidden states (B, T, d) of a cacheless causal
-        forward over ``tokens`` (B, T), and the MoE metrics summed over
-        layers (``aux_loss``, ``expert_counts``).  The reference's train
-        forward without the optimizer (ROADMAP queue 1 item 10)."""
-        tokens = self._tokens(tokens)
-        B, T = tokens.shape
+        forward over ``tokens`` (B, T) (or ``inputs_embeds`` (B, T, d), when
+        given, with ``tokens`` None), and the MoE metrics summed over layers
+        (``aux_loss``, ``expert_counts``).  The reference's train forward
+        without the optimizer (ROADMAP queue 1 item 10)."""
+        if inputs_embeds is None:
+            tokens = self._tokens(tokens)
+            B, T = tokens.shape
+        else:
+            B, T = inputs_embeds.shape[:2]
         positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
         x, metrics = tfm.stack_forward(
-            params["layers"], self.cfg, self._embed(params, tokens),
-            positions, None, mode="prefill", dispatch=self.moe_dispatch,
-            use_flash=self.use_flash, want_metrics=True)
+            params["layers"], self.cfg,
+            self._embed(params, tokens, inputs_embeds), positions, None,
+            mode="prefill", dispatch=self.moe_dispatch,
+            use_flash=self.use_flash, want_metrics=True,
+            mrope_positions=self._mrope(mrope_positions))
         self.forward_count += 1
         return x, metrics
 
-    def forward_train(self, params, tokens) -> Tuple[torch.Tensor, dict]:
+    def forward_train(self, params, tokens, **kw) -> Tuple[torch.Tensor, dict]:
         """Logits (B, T, V) of :meth:`forward_hidden` and its metrics."""
-        x, metrics = self.forward_hidden(params, tokens)
+        x, metrics = self.forward_hidden(params, tokens, **kw)
         return self._head(params, x), metrics
 
+    def _mrope(self, mrope_positions) -> Optional[torch.Tensor]:
+        return None if mrope_positions is None else torch.as_tensor(
+            mrope_positions, device=self.device)
+
     # --------------------------------------------------------------- prefill
-    def prefill(self, params, tokens, cache: dict, *,
-                lengths=None) -> Tuple[torch.Tensor, dict]:
+    def prefill(self, params, tokens, cache: dict, *, lengths=None,
+                inputs_embeds=None, mrope_positions=None
+                ) -> Tuple[torch.Tensor, dict]:
         """Prefill padded prompts (B, T); returns the logits at each
-        sequence's last prompt position (B, V) and the filled cache."""
-        last, _, cache = self.prefill_with_hidden(params, tokens, cache,
-                                                  lengths=lengths)
+        sequence's last prompt position (B, V) and the filled cache.
+        ``inputs_embeds`` (B, T, d) replaces the token embeddings (a
+        frontend's output); ``mrope_positions`` (B, T, 3) are M-RoPE's
+        (t, h, w) ids (text-only positions when None)."""
+        last, _, cache = self.prefill_with_hidden(
+            params, tokens, cache, lengths=lengths,
+            inputs_embeds=inputs_embeds, mrope_positions=mrope_positions)
         return last, cache
 
     def prefill_with_hidden(self, params, tokens, cache: dict, *,
-                            lengths=None
+                            lengths=None, inputs_embeds=None,
+                            mrope_positions=None
                             ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
         """:meth:`prefill` that also returns the pre-head hidden state at
         each sequence's last prompt position (B, d): the feature carry of
@@ -571,13 +616,14 @@ class Model:
             lengths = torch.full((B,), T, dtype=torch.int32, device=self.device)
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
         positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, inputs_embeds)
         x, _ = tfm.stack_forward(params["layers"], self.cfg, x, positions,
                                  cache["layers"], mode="prefill",
                                  dispatch=self.moe_dispatch,
                                  use_flash=self.use_flash,
                                  page_table=_page_table(cache),
-                                 paged_attention=self.paged_attention)
+                                 paged_attention=self.paged_attention,
+                                 mrope_positions=self._mrope(mrope_positions))
         self.forward_count += 1
         self.prefill_count += 1
         # head only at each sequence's last prompt position — never (B,T,V)

@@ -62,6 +62,7 @@ import torch
 from repro_torch.core.spec_decode import (PendingAdmission, SDStats,
                                           SessionState)
 from repro_torch.data.tokenizer import PAD
+from repro_torch.models.attention import SWA_RING_PAD
 from repro_torch.models.model import (PageAllocator, copy_cache_pages,
                                       grow_cache_seq)
 from repro_torch.serving.faults import poison_cache_row
@@ -285,6 +286,18 @@ class ContinuousScheduler:
 
     def _bucket(self, n: int) -> int:
         return _pow2_at_least(n) if self.engine.bucket_batches else n
+
+    def _swa_capacity_floor(self) -> int:
+        """The least paged logical capacity at which every SWA ring of the
+        target and the draft has its full width (window + pad) from round
+        0: a growth cannot resize a live ring (``pos % w`` would remap its
+        entries), so a paged session never starts below it."""
+        floor = 0
+        for m in (self.engine.target, self.engine.draft):
+            cfg = getattr(m, "cfg", None)
+            if cfg is not None and "swa" in cfg.layer_pattern:
+                floor = max(floor, cfg.sliding_window + SWA_RING_PAD)
+        return floor
 
     def _open_session(self, sess, max_seq: int) -> SessionState:
         """Open the pool with 1-token fillers; every real request enters
@@ -553,7 +566,8 @@ class ContinuousScheduler:
             ps = eng.page_size
             visible = [r for r in pending if r.arrival_round <= 0] \
                 or pending[:1]
-            cap = self._bucket(max(self._need(r) for r in visible))
+            cap = max(self._bucket(max(self._need(r) for r in visible)),
+                      self._swa_capacity_floor())
             max_seq = -(-cap // ps) * ps
             pool_pages = 1 + sum(-(-self._need(r) // ps)
                                  for r in visible[: self.pool])

@@ -5,7 +5,8 @@ bookkeeping, the two admission primitives (row scatter ≡ row merge), the
 sliced admission's shapes (keyed on the admitted rows, bucket reset per
 refill), a late request the stream was not sized for (rejected on a dense
 cache, admitted by growth on a paged one), watermark backpressure, a
-request too large for the pool cap, and chunked prefill (one chunk per
+request too large for the pool cap, an SWA target's paged growth (its
+capacity floored at the ring width), and chunked prefill (one chunk per
 round boundary) against the one-shot admission, dense and paged, with a
 growth while a chunked admission is in flight.  Where the reference runs
 the same stream, the port's admission and chunk traces, growths and greedy
@@ -79,14 +80,14 @@ class _MidStreamSubmitter:
         pass
 
 
-def _late_long_stream(cls, m, **kw):
+def _late_long_stream(cls, m, max_new_first=(8, 12), **kw):
     """Two short requests and one long one submitted mid-stream."""
     ref = []
     tuner = _MidStreamSubmitter(ref)
     eng = _engine(cls, m, tuner=tuner, **kw)
     ref.append(eng)
-    uids = [eng.submit(np.arange(3, 9), max_new_tokens=8),
-            eng.submit(np.arange(3, 10), max_new_tokens=12)]
+    uids = [eng.submit(np.arange(3, 9), max_new_tokens=max_new_first[0]),
+            eng.submit(np.arange(3, 10), max_new_tokens=max_new_first[1])]
     eng.run()
     return eng, uids, tuner.uid
 
@@ -288,6 +289,36 @@ def test_paged_session_grows_for_late_long_prompt(models, jax_streams):
     assert (paged.session_stats()["model"]["admit_traces"]
             == jeng.session_stats()["model"]["admit_traces"])
     paged._slot_scheduler._alloc.assert_no_leaks()
+
+
+def test_paged_growth_swa_target():
+    """SWA target under paged KV: the logical capacity starts at the full
+    ring width (window + pad), so the mid-stream growth for a late long
+    request never resizes a live ring; the short requests equal the dense
+    stream's, and every request equals the reference's paged stream."""
+    swa_cfg = ModelConfig("ad-swa", "dense", 2, 128, 4, 2, 256, 512,
+                          layer_pattern=("swa", "attn"), sliding_window=6,
+                          dtype="float32")
+    jt, jpt, tt, tpt = model_pair(swa_cfg)
+    jd, jpd, td, tpd = model_pair(DCFG, seed=1)
+    port, ref = (tt, td, tpt, tpd), (jt, jd, jpt, jpd)
+    dense, d_uids, _ = _late_long_stream(ServingEngine, port,
+                                         max_new_first=(8, 10))
+    paged, p_uids, long_uid = _late_long_stream(
+        ServingEngine, port, max_new_first=(8, 10), kv_layout="paged",
+        page_size=8)
+    jpaged, j_uids, j_long = _late_long_stream(
+        JaxServingEngine, ref, max_new_first=(8, 10), kv_layout="paged",
+        page_size=8)
+    assert paged.done[long_uid].finish_reason == "length"
+    assert len(paged.done[long_uid].output) == 6
+    assert paged.session_stats()["model"]["growths"]
+    for du, pu in zip(d_uids, p_uids):
+        np.testing.assert_array_equal(dense.done[du].output,
+                                      paged.done[pu].output)
+    for pu, ju in zip(p_uids + [long_uid], j_uids + [j_long]):
+        np.testing.assert_array_equal(paged.done[pu].output,
+                                      jpaged.done[ju].output)
 
 
 def test_watermark_backpressure_defers_then_admits(models):

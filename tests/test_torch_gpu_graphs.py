@@ -18,7 +18,9 @@ EAGLE and prefetch proposers' rounds replay to the bit of their eager
 rounds in bf16 and fp32 (and equal the CPU's in fp32, the prefetch hit
 counts too); a replayed prefetch round makes no host sync, its warm stage
 is captured once per key into fixed buffers, and ``session_stats()``
-carries the session's prefetch totals.
+carries the session's prefetch totals.  gemma3-12b-reduced (SWA rings
+in the session arenas) replays equal to eager and the CPU, wave and
+continuous paged.
 """
 import numpy as np
 import pytest
@@ -563,3 +565,35 @@ def test_prefetch_replays_make_no_host_sync_and_warm_in_place(cuda):
     assert totals["actual"] == sum(r.stats.prefetch_actual
                                    for r in eng.reports) > 0
     assert set(eng.session_stats()) == {"resilience", "prefetch"}
+
+
+@pytest.mark.parametrize("sched", ["wave", "continuous"])
+def test_gemma3_replay_equals_eager_and_cpu_greedy(cuda, sched):
+    """gemma3-12b-reduced (SWA rings beside a global layer, window 16) with
+    its ``draft_for`` draft, fp32: graph replay == eager on the card == the
+    CPU path, token for token.  The rings and their ``pos`` live in the
+    session arenas, so a replay reads them in place; prompts of up to 40
+    tokens overrun the window, and the continuous paged stream reuses rows."""
+    from repro_torch.configs.registry import draft_for
+    cfg = get_config("gemma3-12b", reduced=True)
+    dcfg = draft_for(cfg)
+    pt = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    pd = Model(dcfg, device="cpu").init(torch.Generator().manual_seed(1))
+    prompts = [np.random.default_rng(i).integers(3, cfg.vocab_size, n)
+               for i, n in enumerate((40, 9, 23, 31, 12))]
+
+    def serve(dev, **kw):
+        extra = (dict(scheduler="continuous", kv_layout="paged", page_size=8)
+                 if sched == "continuous" else {})
+        eng = ServingEngine(Model(cfg, device=dev), Model(dcfg, device=dev),
+                            _to(pt, dev), _to(pd, dev), max_batch=2, gamma=4,
+                            force_sd=True, seed=0, **extra, **kw)
+        uids = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        eng.run()
+        return eng, [np.asarray(eng.done[u].output) for u in uids]
+
+    graphs, replayed = serve("cuda")
+    assert sum(r.replays for r in graphs.reports) >= 1
+    for _, other in (serve("cuda", cuda_graphs=False), serve("cpu")):
+        for a, b in zip(replayed, other):
+            np.testing.assert_array_equal(a, b)

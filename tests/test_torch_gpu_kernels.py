@@ -421,6 +421,8 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
     ref = paged_decode_attention_plain(*case, logit_cap=cap)
     tol = PAGED_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _assert_rows_close(out, ref, PAGED_ROW_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -869,6 +871,77 @@ def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
                              torch.zeros((1,), dtype=torch.int32, device=cuda))
     assert (fa.LAUNCHES["flash_attention"],
             dec.LAUNCHES["decode_attention"]) == before
+
+
+# ------------------------------------- head dim 256 (gemma-7b, gemma3-12b)
+D256_ROUTE = {torch.bfloat16: "wmma", torch.float32: "simt"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hq,Hkv", [(16, 8), (16, 16)])
+@pytest.mark.parametrize("T,window", [(256, 1024), (256, 0), (2048, 1024),
+                                      (2048, 0)])
+def test_flash_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, window):
+    """gemma3-12b's 16/8 heads and gemma-7b's 16/16 at head dim 256, with
+    gemma3's window 1024 and without: the attention_tile body (WMMA in
+    bf16, CUDA cores in fp32) as the launcher reports it."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=cuda).manual_seed(T + window + Hkv)
+    B = 2 if T <= 256 else 1
+    q = _randn(cuda, (B, T, Hq, 256), dtype, g)
+    k, v = (_randn(cuda, (B, T, Hkv, 256), dtype, g) for _ in range(2))
+    before = fa.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAST_ROUTE["flash_attention"] == D256_ROUTE[dtype]
+    ref = flash_attention_plain(q, k, v, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _assert_rows_close(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hq,Hkv", [(16, 8), (16, 16)])
+@pytest.mark.parametrize("T,S", [(1, 1024), (5, 2048), (9, 4096)])
+def test_decode_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, S):
+    """The dense decode/verify kernel at head dim 256 (AR, gamma 4 and
+    gamma 8 verifies; g = 2 and 1) on the model's cache layout with a
+    poisoned trash slot, through the attention_tile body."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(T + S + Hkv)
+    B = 3
+    q = _randn(cuda, (B, T, Hq, 256), dtype, gen)
+    kc, vc = (_randn(cuda, (B, S + 1, Hkv, 256), dtype, gen) for _ in range(2))
+    kc[:, S], vc[:, S] = 1e3, -1e3
+    lengths = torch.tensor([0, S // 2, S - T], dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, kc[:, :S], vc[:, :S], lengths)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert ops.LAST_ROUTE["decode_attention"] == D256_ROUTE[dtype]
+    ref = decode_attention_plain(q, kc[:, :S], vc[:, :S], lengths)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _assert_rows_close(out, ref, DECODE_ROW_TOL)
+
+
+def test_head_dim_256_folds_at_most_32_heads(cuda):
+    """At head dim 256 a block holds 32 query rows: a KV head of 64 query
+    heads is refused on the card, not sent to the plain version."""
+    from repro_torch.kernels.decode_attention import ops
+    q = torch.zeros((1, 1, 64, 256), device=cuda)
+    kv = torch.zeros((1, 512, 1, 256), device=cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    with pytest.raises(ValueError, match="32 rows at head dim 256"):
+        ops.decode_attention(q, kv, kv,
+                             torch.zeros((1,), dtype=torch.int32, device=cuda))
+    assert ops.LAUNCHES["decode_attention"] == before
 
 
 # ----------------------------------------------- capacity-binned grouped matmul

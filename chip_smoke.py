@@ -205,6 +205,36 @@ Phases, each of which fails the run if it fails:
           replays, launches; on the use_flash paths every launch of
           kernels 3-5 at D 256 must report its D-256 body (WMMA for 4 and
           5, CUDA-core for 3), counted per route and head dim.
+  9. the recurrent and encoder-decoder archs (jamba-v0.1-52b, xlstm-1.3b,
+     whisper-base), each with its draft_for draft:
+       a. reduced, fp32, in phase 8a's loop (whose logit check is also a
+          verify with collected states, a commit with an inactive row and
+          the next decode step): card vs CPU logits, greedy waves SD from
+          graph replay == SD eager == SD on the CPU == AR (whisper through
+          SDEngine.generate with stub frames in prefill_kwargs:
+          ServingEngine refuses an encoder-decoder); jamba also on a
+          continuous paged stream with and without chunked admission; and
+          the recurrent-draft pair of the reference's
+          test_recurrent_draft_lossless (SD == AR);
+       b. in phase 8b's loop, at published width, random bf16 weights, SD
+          then AR, max-batch 8, gamma 4: wave-jamba (JAMBA_LAYERS = 8 of
+          32 layers, one whole period, use_flash, prompts of 130-256
+          tokens in a bucket of 256 at max_seq 512: kernels 1, 2, 4, 5),
+          continuous-jamba (paged, pages of 64: kernels 1, 2, 3),
+          wave-xlstm (all 48 layers, use_flash: no kernel in the target,
+          4 and 5 in its draft) and wave-whisper (6 + 6 layers, 1500
+          frames, through SDEngine.generate and the AR session with the
+          prompts and capacity of wave-jamba, use_flash: kernels 5 and 4
+          on the decoder); tok/s, captures, replays, graph pool, launches;
+       c. one recurrent layer at published width, B 8, device-only: an SD
+          verify (T 5, states collected) and a prefill (T 256) of Mamba
+          (jamba's width), mLSTM and sLSTM (xlstm's), each beside its
+          bound (weights and states at the memory rate against the
+          matmuls at the bf16 peak and the recurrence at the fp32 peak).
+     Phase 3 also holds kernels 1 and 2 at jamba's routing (E 16, top-2,
+     d 4096, f 14336) and kernels 4 and 5 at the shapes these paths give
+     them: T 256 prefills and T 5 / T 1 extends at S 512 of whisper's 8 / 8
+     heads of 64, jamba's 32 / 8 heads of 128 and the drafts' 8 / 2 of 64.
      Each path runs with every launch count set to 0 just before it and
      read just after (replays credit the launches their capture recorded):
      each gmm kernel's count must equal (MoE layers x that
@@ -216,8 +246,8 @@ Phases, each of which fails the run if it fails:
      the dense decode kernel's (attention layers x extend forwards), summed
      over target and draft; every other count must be 0.  The tuner's three
      paths (tuner/eta, tuner/wave, tuner/continuous), wave-prefetch,
-     wave-eagle, continuous-eagle and phase 8b's paths are counted the same
-     way (8b: the dense decode kernel on the global layers only, since a
+     wave-eagle, continuous-eagle and phases 8b's and 9b's paths are
+     counted the same way (8b: the dense decode kernel on the global layers only, since a
      sliding-window layer attends over its ring by mask; on
      continuous-gemma3 the flash count a positive multiple of the layers a
      prefill runs it on, as the 1-token fillers and short prompts take no
@@ -592,8 +622,9 @@ def prefixed_ragged_cases(prefix: str):
 def kernel_phase(seed: int):
     """Kernels 1 and 2 against their plain versions at the expert widths of
     every full-width MoE target: qwen2-57b-a14b (the serve and prefetch
-    paths), EAGLE_ARCH (the EAGLE paths) and dbrx-132b (wave-dbrx); every
-    bf16 case must take the TMA + wgmma route."""
+    paths), EAGLE_ARCH (the EAGLE paths), dbrx-132b (wave-dbrx) and
+    jamba-v0.1-52b (wave-jamba, continuous-jamba: E 16, top-2, d 4096,
+    f 14336); every bf16 case must take the TMA + wgmma route."""
     import torch
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
@@ -601,7 +632,9 @@ def kernel_phase(seed: int):
                for name in ("fused_gate_up", "ragged_gmm")}
     for arch, cases_fn in (("qwen2-57b-a14b", ragged_cases),
                            (EAGLE_ARCH, prefixed_ragged_cases("mixtral")),
-                           ("dbrx-132b", prefixed_ragged_cases("dbrx"))):
+                           ("dbrx-132b", prefixed_ragged_cases("dbrx")),
+                           ("jamba-v0.1-52b",
+                            prefixed_ragged_cases("jamba"))):
         _ragged_width_cases(arch, cases_fn, gen, results)
     return results
 
@@ -882,6 +915,13 @@ FLASH_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, window, cap)
     "gemma7b_2048": ("bfloat16", 2, 2048, 16, 16, 256, 0, 0.0),
     "fp32_gemma3_swa_2048": ("float32", 1, 2048, 16, 8, 256, 1024, 0.0),
     "fp32_gemma7b_256": ("float32", 2, 256, 16, 16, 256, 0, 0.0),
+    # the FLASH_PROMPTS paths' prefills (prompts of 130-256 tokens: bucket
+    # 256): whisper-base's decoder self-attention (8 / 8 heads of 64, g 1),
+    # jamba-v0.1-52b's attention layer (32 / 8 heads of 128, g 4) and the
+    # draft_for draft of every phase 8-9 path (8 / 2 heads of 64)
+    "whisper_prefill": ("bfloat16", 8, 256, 8, 8, 64, 0, 0.0),
+    "jamba_prefill": ("bfloat16", 8, 256, 32, 8, 128, 0, 0.0),
+    "draft_8x2_prefill": ("bfloat16", 8, 256, 8, 2, 64, 0, 0.0),
 }
 
 
@@ -998,6 +1038,16 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
     "gemma7b_sd_verify": ("bfloat16", 8, 5, 16, 16, 256, 2048, (1100, 1640)),
     "fp32_gemma3_sd_verify": ("float32", 8, 5, 16, 8, 256, 2048,
                               (1100, 1640)),
+    # the FLASH_PROMPTS paths' extends at FLASH_MAX_SEQ 512, SD verify and
+    # AR: whisper-base's decoder self-attention (8 / 8 heads of 64, g 1),
+    # jamba-v0.1-52b's attention layer (32 / 8 heads of 128, g 4) and the
+    # draft_for draft (8 / 2 heads of 64)
+    "whisper_sd_verify": ("bfloat16", 8, 5, 8, 8, 64, 512, (129, 290)),
+    "whisper_ar": ("bfloat16", 8, 1, 8, 8, 64, 512, (129, 290)),
+    "jamba_sd_verify": ("bfloat16", 8, 5, 32, 8, 128, 512, (129, 290)),
+    "jamba_ar": ("bfloat16", 8, 1, 32, 8, 128, 512, (129, 290)),
+    "draft_8x2_sd_verify": ("bfloat16", 8, 5, 8, 2, 64, 512, (129, 290)),
+    "draft_8x2_ar": ("bfloat16", 8, 1, 8, 2, 64, 512, (129, 290)),
 }
 
 
@@ -2170,8 +2220,8 @@ def proposer_reference_phase(seed: int):
             if label == "graphs":
                 runs["replayed again"] = eng.generate(p_t, p_d, toks, 24,
                                                       lengths=lengths)
-                caps, reps = (eng.graphs.total_captures,
-                              eng.graphs.total_replays)
+                graphs = eng.graphs
+                caps, reps = graphs.total_captures, graphs.total_replays
         tm, p_t, _ = on["cuda"]
         ar = generate_ar(tm, p_t, toks, 24, lengths=lengths)
         out, stats = runs["graphs"]
@@ -2606,25 +2656,48 @@ def eagle_phase(seed: int) -> dict:
     return launches
 
 
-# ------------------------------------------- the attention-only assigned archs
+# -------------- the assigned archs beyond phase 4's (phases 8 and 9)
+# attention-only (phase 8), then recurrent and encoder-decoder (phase 9)
 NEW_ARCHS = ("dbrx-132b", "gemma-7b", "gemma3-12b", "minicpm3-4b",
-             "qwen2-vl-2b")
+             "qwen2-vl-2b", "jamba-v0.1-52b", "xlstm-1.3b", "whisper-base")
+# the archs whose reduced config also serves a continuous paged stream, and
+# the prefill chunks it is served with (None: whole prompts)
+PAGED_STREAMS = {"gemma3-12b": (None,), "minicpm3-4b": (None,),
+                 "jamba-v0.1-52b": (None, 8)}
+
+
+def _frames(cfg, B: int, seed: int, dev):
+    """Stub encoder frames (B, encoder_seq_len, d) from ``seed``, in the
+    model's dtype (whisper's frontend is a stub in both packages)."""
+    import numpy as np
+    import torch
+    a = 0.5 * np.random.default_rng(seed).standard_normal(
+        (B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(a).to(dev)
 
 
 def arch_reference_phase(seed: int):
-    """The five attention-only archs, reduced, in fp32 (TF32 off), each with
-    its ``draft_for`` draft: prefill and verify logits on the card against
-    the CPU path (1e-3), then greedy waves (4 prompts of 5-40 tokens, past
-    gemma3-reduced's window of 16; max-batch 2, 8 new tokens, gamma 4): SD
-    from graph replay == SD eager on the card == SD on the CPU == AR on the
-    card, token for token.  gemma3-12b-reduced (rings dense inside a paged
-    cache; a row reused after a 40-token request, longer than its window)
-    and minicpm3-4b-reduced (latent pages) also serve a continuous paged
-    stream (5 requests, 2 slots, pages of 8) with the same four-way
-    equality."""
+    """Phases 8a and 9a: the NEW_ARCHS reduced, in fp32 (TF32 off), each
+    with its ``draft_for`` draft.  A ragged prefill (lengths 40, 23, 31), a
+    verify extend with collected states, a commit of (5, 2, 0) tokens (an
+    inactive row takes the last collected step) and the next decode step,
+    card against CPU logits (1e-3); then greedy waves (4 prompts of 5-40
+    tokens, past gemma3-reduced's window of 16; max-batch 2, 8 new tokens,
+    gamma 4): SD from graph replay == SD eager on the card == SD on the CPU
+    == AR on the card, token for token, through ServingEngine, and for
+    whisper-base (ServingEngine refuses an encoder-decoder) through
+    SDEngine.generate with stub frames in prefill_kwargs.  The archs of
+    PAGED_STREAMS also serve a continuous paged stream (5 requests, 2
+    slots, pages of 8) with the same four-way equality, once per prefill
+    chunk listed: gemma3-12b (rings dense inside a paged cache; a row
+    reused after a 40-token request, longer than its window), minicpm3-4b
+    (latent pages), jamba-v0.1-52b (dense recurrent rows, without and with
+    chunked admission)."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import draft_for, get_config
+    from repro_torch.core.proposer import make_proposer
+    from repro_torch.core.spec_decode import SDEngine
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServingEngine
 
@@ -2642,25 +2715,31 @@ def arch_reference_phase(seed: int):
                  m["cpu"][1].init(torch.Generator().manual_seed(seed + 1)))
         p = {"cpu": p_cpu,
              "cuda": tuple(_to_device(x, torch.device("cuda")) for x in p_cpu)}
+        enc = cfg.is_encoder_decoder
         toks = rng.integers(3, cfg.vocab_size, (3, 40)).astype(np.int32)
         lengths = np.array([40, 23, 31], np.int32)
         ver = rng.integers(3, cfg.vocab_size, (3, 5)).astype(np.int32)
         outs = []
         for d in ("cpu", "cuda"):
             t, pt = m[d][0], p[d][0]
+            kw = {"encoder_embeds": _frames(cfg, 3, seed, d)} if enc else {}
             last, cache = t.prefill(pt, toks, t.init_cache(3, 64),
-                                    lengths=lengths)
-            logits, _ = t.extend(pt, ver, cache)
-            outs.append((last.cpu(), logits.cpu()))
+                                    lengths=lengths, **kw)
+            logits, pend = t.extend(pt, ver, cache, collect=True)
+            cache = t.commit(pend, torch.tensor([5, 2, 0], device=d),
+                             collected=True)
+            nxt, _ = t.decode_step(pt, ver[:, 0], cache)
+            outs.append((last.cpu(), logits.cpu(), nxt.cpu()))
         err = max((a - b).abs().max().item() for a, b in zip(*outs))
         if not err <= 1e-3:
             raise AssertionError(f"arch-reference[{arch}]: CUDA path vs CPU "
                                  f"path max err {err:.3g}")
         prompts = [rng.integers(3, cfg.vocab_size, n) for n in (40, 5, 17, 28)]
-        streams = [("wave", {})]
-        if arch in ("gemma3-12b", "minicpm3-4b"):
-            streams.append(("continuous-paged", dict(
-                scheduler="continuous", kv_layout="paged", page_size=8)))
+        streams = [("wave", {})] + [
+            (f"continuous-paged chunk={chunk}", dict(
+                scheduler="continuous", kv_layout="paged", page_size=8,
+                prefill_chunk=chunk))
+            for chunk in PAGED_STREAMS.get(arch, ())]
         for sched, kw in streams:
             runs = {}
             for label, dev, proposer, graphs in (
@@ -2669,17 +2748,34 @@ def arch_reference_phase(seed: int):
                     ("SD cpu", "cpu", "model", None),
                     ("AR replay", "cuda", "none", None)):
                 (t, dm), (pt, pd) = m[dev], p[dev]
-                extra = {} if graphs is None else {"cuda_graphs": graphs}
-                eng = ServingEngine(
-                    t, dm if proposer == "model" else None, pt,
-                    pd if proposer == "model" else None, max_batch=2,
-                    gamma=4, proposer=proposer, force_sd=True, seed=seed,
-                    **kw, **extra)
-                uids = [eng.submit(q, max_new_tokens=8) for q in
-                        (prompts + [prompts[0][:12]] if kw else prompts)]
-                reports = eng.run()
-                runs[label] = [np.asarray(eng.done[u].output) for u in uids]
-                if label == "SD replay" and not sum(r.replays for r in reports):
+                sd = proposer == "model"
+                if enc:
+                    eng = SDEngine(t, make_proposer(proposer, t,
+                                                    dm if sd else None),
+                                   gamma=4 if sd else 0, cuda_graphs=graphs)
+                    bucket = np.zeros((4, 40), np.int32)
+                    for i, q in enumerate(prompts):
+                        bucket[i, :len(q)] = q
+                    out, _ = eng.generate(
+                        pt, pd if sd else None, bucket, 8,
+                        lengths=np.array([len(q) for q in prompts]),
+                        prefill_kwargs={"encoder_embeds": _frames(
+                            cfg, 4, seed + 1, dev)})
+                    runs[label] = list(out)
+                    replays = eng.graphs.total_replays
+                else:
+                    extra = {} if graphs is None else {"cuda_graphs": graphs}
+                    eng = ServingEngine(
+                        t, dm if sd else None, pt, pd if sd else None,
+                        max_batch=2, gamma=4, proposer=proposer,
+                        force_sd=True, seed=seed, **kw, **extra)
+                    uids = [eng.submit(q, max_new_tokens=8) for q in
+                            (prompts + [prompts[0][:12]] if kw else prompts)]
+                    reports = eng.run()
+                    runs[label] = [np.asarray(eng.done[u].output)
+                                   for u in uids]
+                    replays = sum(r.replays for r in reports)
+                if label == "SD replay" and not replays:
                     raise AssertionError(f"arch-reference[{arch}] {sched}: "
                                          "no round was replayed")
             base = runs["SD replay"]
@@ -2696,6 +2792,53 @@ def arch_reference_phase(seed: int):
     torch.cuda.empty_cache()
 
 
+def recurrent_draft_phase(seed: int):
+    """Phase 9a's last check, the pair of the reference's
+    test_recurrent_draft_lossless: a 2-layer mLSTM/sLSTM draft over a
+    4-layer dense target, fp32, gamma 3, 16 new tokens: SD from graph
+    replay == SD on the CPU == AR, token for token."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.proposer import make_proposer
+    from repro_torch.core.spec_decode import SDEngine, SpecDecoder
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = ModelConfig("t-dense", "dense", 4, 128, 4, 2, 256, 512,
+                       dtype="float32")
+    rcfg = ModelConfig("t-rnn-draft", "ssm", 2, 64, 2, 2, 0, 512,
+                       layer_pattern=("mlstm", "slstm"), rope_type="none",
+                       dtype="float32")
+    prompts = np.random.default_rng(seed).integers(0, 512, (2, 8)).astype(
+        np.int32)
+    p_cpu = (Model(tcfg, device="cpu").init(torch.Generator().manual_seed(seed)),
+             Model(rcfg, device="cpu").init(
+                 torch.Generator().manual_seed(seed + 9)))
+    outs = {}
+    for d in ("cpu", "cuda"):
+        t, dm = Model(tcfg, device=d), Model(rcfg, device=d)
+        pt, pd = (_to_device(x, torch.device(d)) for x in p_cpu)
+        sdec = SpecDecoder(t, dm, gamma=3)
+        outs[d], stats = sdec.generate(pt, pd, prompts, 16)
+        if d == "cuda":
+            ar = SDEngine(t, make_proposer("none", t), gamma=0).generate(
+                pt, None, prompts, 16)[0]
+            if not sdec.graphs.total_replays:
+                raise AssertionError("recurrent-draft: no round replayed")
+    if not (np.array_equal(outs["cuda"], outs["cpu"])
+            and np.array_equal(outs["cuda"], ar)):
+        raise AssertionError("recurrent-draft: SD replay, SD CPU and AR "
+                             "disagree")
+    log(f"recurrent-draft (2-layer mLSTM/sLSTM draft over a dense target): "
+        f"SD replay == SD CPU == AR over {outs['cuda'].size} tokens, "
+        f"alpha {stats.alpha:.3f}")
+    torch.cuda.empty_cache()
+
+
+# jamba-v0.1-52b at full width is ~99 GB of bf16 weights; one period of 8
+# layers (7 Mamba + 1 attention, 4 MoE FFNs) holds every kind it has
+JAMBA_LAYERS = 8
 # path label, arch, layers served (None: all), use_flash, workload
 ARCH_PATHS = (
     ("wave-gemma3", "gemma3-12b", None, True, "long"),
@@ -2704,15 +2847,25 @@ ARCH_PATHS = (
     ("wave-gemma7b", "gemma-7b", None, True, "long"),
     ("wave-minicpm3", "minicpm3-4b", None, False, "chat"),
     ("wave-qwen2vl", "qwen2-vl-2b", None, False, "chat"),
+    ("wave-jamba", "jamba-v0.1-52b", JAMBA_LAYERS, True, "flash"),
+    ("continuous-jamba", "jamba-v0.1-52b", JAMBA_LAYERS, False, "chat"),
+    ("wave-xlstm", "xlstm-1.3b", None, True, "flash"),
+    ("wave-whisper", "whisper-base", None, True, "flash"),
 )
 LONG_PROMPTS = (1100, 1600)          # the "long" paths: past the 1024 window
+# the "flash" paths: bucket 256, so every prefill takes kernel 5; the
+# capacity is FLASH_MAX_SEQ, the power of two ServingEngine gives that
+# bucket (>= 256 + 32 new tokens + gamma + 2), so every extend takes kernel
+# 4 (S >= 512)
+FLASH_PROMPTS = (129, 256)
+FLASH_MAX_SEQ = 512
 
 
 def arch_serve_phase(seed: int) -> dict:
-    """The five archs at their published widths, random bf16 weights from
-    --seed, each with its ``draft_for`` draft, greedy, gamma 4, max-batch
-    8, every round from CUDA graphs; each path SD ("model") then AR
-    ("none"), with every count zeroed before it:
+    """Phases 8b and 9b: the ARCH_PATHS at their published widths, random
+    bf16 weights from --seed, each with its ``draft_for`` draft, greedy,
+    gamma 4, max-batch 8, every round from CUDA graphs; each path SD
+    ("model") then AR ("none"), with every count zeroed before it:
       * wave-gemma3: gemma3-12b, all 48 layers, use_flash on target and
         draft, 16 prompts of LONG_PROMPTS tokens (bucket 2048, so the
         window of 1024 masks), 32 new tokens: every prefill runs kernel 5
@@ -2727,15 +2880,35 @@ def arch_serve_phase(seed: int) -> dict:
         256), use_flash, the prompts of wave-gemma3 (bucket 2048): kernel
         5 at D 256 on every prefill, kernel 4 at D 256 on every extend;
       * wave-minicpm3, wave-qwen2vl: minicpm3-4b and qwen2-vl-2b at full
-        depth, the wave workload of wave-dbrx.
-    On the use_flash paths every launch of kernels 3-5 at head dim 256 must
-    have run its D-256 body (_check_head_dim_256_routes).  Returns the
-    launch counts per path."""
+        depth, the wave workload of wave-dbrx;
+      * wave-jamba: jamba-v0.1-52b cut to JAMBA_LAYERS of 32 layers (one
+        whole period: 7 Mamba, 1 attention of 32 / 8 heads of 128, 4 MoE
+        FFNs of 16 experts top-2), use_flash, 16 prompts of FLASH_PROMPTS
+        tokens, 32 new tokens: kernels 1 and 2 on the MoE layers of every
+        target forward, kernel 5 on every prefill's attention layers,
+        kernel 4 on every extend's;
+      * continuous-jamba: the same model paged (pages of 64), the chat
+        workload of continuous-gemma3: kernels 1 and 2, kernel 3 on the
+        attention layer every round;
+      * wave-xlstm: xlstm-1.3b, all 48 layers (42 mLSTM, 6 sLSTM; no
+        kernel runs in the target), use_flash, the prompts of wave-jamba:
+        its draft runs kernels 4 and 5;
+      * wave-whisper: whisper-base, 6 + 6 layers, stub frames of 1500
+        (the encoder is plain attention, as in the reference), use_flash,
+        the prompts of wave-jamba in two batches of 8 on one engine,
+        through SDEngine.generate at FLASH_MAX_SEQ (ServingEngine refuses
+        an encoder-decoder): kernels 5 and 4 on the decoder's 8 / 8 heads
+        of 64.
+    On the use_flash paths at head dim 256 every launch of kernels 3-5
+    must have run its D-256 body (_check_head_dim_256_routes).  Returns
+    the launch counts per path."""
     import gc
 
     import numpy as np
     import torch
     from repro_torch.configs.registry import draft_for, get_config
+    from repro_torch.core.proposer import make_proposer
+    from repro_torch.core.spec_decode import SDEngine
     from repro_torch.data.pipeline import prompt_batch
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import layer_kinds
@@ -2771,69 +2944,101 @@ def arch_serve_phase(seed: int) -> dict:
             loaded = ((arch, layers), target, draft, params_t, params_d)
         _, target, draft, params_t, params_d = loaded
         target.use_flash = draft.use_flash = flash
-        if workload == "long":
-            prng = np.random.default_rng(seed + 11)
-            prompts = [prng.integers(3, cfg.vocab_size,
-                                     int(prng.integers(*LONG_PROMPTS) + 1))
-                       for _ in range(16)]
-        else:
+        if workload == "chat":
             pb = prompt_batch(cfg.vocab_size, 16, kind="chat", seed=seed)
             prompts = [pb["tokens"][i][: int(pb["lengths"][i])]
                        for i in range(16)]
-        # the layers the dense decode and paged kernels run on: full
-        # attention ("swa" rings attend by mask)
-        attn_global = sum(k == "attn" for k, _ in layer_kinds(cfg))
-        moe_layers = sum(cfg.moe_pattern[l % cfg.period]
-                         for l in range(cfg.num_layers))
+        else:
+            prng = np.random.default_rng(
+                seed + (11 if workload == "long" else 13))
+            span = LONG_PROMPTS if workload == "long" else FLASH_PROMPTS
+            prompts = [prng.integers(3, cfg.vocab_size,
+                                     int(prng.integers(*span) + 1))
+                       for _ in range(16)]
+        kinds = layer_kinds(cfg)
+        # the layers kernel 5 runs on at a prefill (rings too: it takes the
+        # window), and those the dense decode and paged kernels run on:
+        # full attention ("swa" rings attend by mask)
+        flash_layers = sum(k in ("attn", "swa") for k, _ in kinds)
+        attn_global = sum(k == "attn" for k, _ in kinds)
+        moe_layers = sum(is_moe for _, is_moe in kinds)
         paged = path_name.startswith("continuous")
         outputs = {}
         for kind in ("model", "none"):
             path = f"{path_name}/{kind}"
-            extra = (dict(scheduler="continuous", kv_layout="paged",
-                          page_size=64) if paged else {})
-            eng = ServingEngine(target, draft if kind == "model" else None,
-                                params_t, params_d if kind == "model" else None,
-                                max_batch=8, gamma=4, temperature=0.0,
-                                proposer=kind, seed=seed, **extra)
+            sd = kind == "model"
             reset_launch_counts()
             _reset_routes()
             for m in (target, draft):
                 m.forward_count = m.prefill_count = 0
             t_path = time.perf_counter()
-            if paged:
-                lens = np.array([len(q) for q in prompts])
-                toks = np.zeros((16, lens.max()), np.int32)
-                for i, q in enumerate(prompts):
-                    toks[i, :len(q)] = q
-                submit_poisson(eng, toks, lens, rate=0.5,
-                               max_new_choices=(8, 16, 32), seed=seed)
+            if cfg.is_encoder_decoder:
+                eng = SDEngine(target, make_proposer(
+                    kind, target, draft if sd else None),
+                    gamma=4 if sd else 0)
+                done, rounds = [], 0
+                for b0 in (0, 8):
+                    batch = prompts[b0:b0 + 8]
+                    toks = np.zeros((8, FLASH_PROMPTS[1]), np.int32)
+                    for i, q in enumerate(batch):
+                        toks[i, :len(q)] = q
+                    out, st = eng.generate(
+                        params_t, params_d if sd else None, toks, 32,
+                        lengths=np.array([len(q) for q in batch]),
+                        max_seq=FLASH_MAX_SEQ,
+                        prefill_kwargs={"encoder_embeds": _frames(
+                            cfg, 8, seed + b0, "cuda")})
+                    done += [np.asarray(o) for o in out]
+                    rounds += st.rounds
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t_path
+                toks_out = sum(o.size for o in done)
+                graphs = eng.graphs
             else:
-                for q in prompts:
-                    eng.submit(q, max_new_tokens=32)
-            reports = eng.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t_path
-            rounds = sum(r.stats.rounds for r in reports)
-            for r in reports:
-                log(_wave_line(path, "graphs", r)
-                    + (f" tokens={r.tokens_out}" if paged else ""))
-            done = [eng.done[u] for u in sorted(eng.done)]
-            if len(done) != 16 or {d.finish_reason for d in done} != {"length"}:
-                raise AssertionError(f"{path}: {len(done)} requests finished "
-                                     f"{ {d.finish_reason for d in done} }")
-            for d in done:
-                o = np.asarray(d.output)
+                extra = (dict(scheduler="continuous", kv_layout="paged",
+                              page_size=64) if paged else {})
+                eng = ServingEngine(target, draft if sd else None, params_t,
+                                    params_d if sd else None, max_batch=8,
+                                    gamma=4, temperature=0.0, proposer=kind,
+                                    seed=seed, **extra)
+                if paged:
+                    lens = np.array([len(q) for q in prompts])
+                    toks = np.zeros((16, lens.max()), np.int32)
+                    for i, q in enumerate(prompts):
+                        toks[i, :len(q)] = q
+                    submit_poisson(eng, toks, lens, rate=0.5,
+                                   max_new_choices=(8, 16, 32), seed=seed)
+                else:
+                    for q in prompts:
+                        eng.submit(q, max_new_tokens=32)
+                reports = eng.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t_path
+                rounds = sum(r.stats.rounds for r in reports)
+                for r in reports:
+                    log(_wave_line(path, "graphs", r)
+                        + (f" tokens={r.tokens_out}" if paged else ""))
+                fin = [eng.done[u] for u in sorted(eng.done)]
+                if len(fin) != 16 or {f.finish_reason for f in fin} != {
+                        "length"}:
+                    raise AssertionError(
+                        f"{path}: {len(fin)} requests finished "
+                        f"{ {f.finish_reason for f in fin} }")
+                if paged:
+                    eng._slot_scheduler._alloc.assert_no_leaks()
+                done = [np.asarray(f.output) for f in fin]
+                toks_out = sum(r.tokens_out for r in reports)
+                graphs = eng._session(kind).graphs
+            for o in done:
                 if o.min() < 0 or o.max() >= cfg.vocab_size:
                     raise AssertionError(f"{path}: token out of the vocab")
-            if paged:
-                eng._slot_scheduler._alloc.assert_no_leaks()
             got = launch_counts()
             expect = {name: 0 for name in got}
             if moe_layers:
                 expect["fused_gate_up"] = expect["ragged_gmm"] = \
                     moe_layers * target.forward_count
-            used = [(target, cfg.num_layers, attn_global)]
-            if kind == "model":
+            used = [(target, flash_layers, attn_global)]
+            if sd:
                 used.append((draft, dcfg.num_layers, dcfg.num_layers))
             if flash and not paged:
                 expect["flash_attention"] = sum(
@@ -2842,6 +3047,8 @@ def arch_serve_phase(seed: int) -> dict:
                     g * (m.forward_count - m.prefill_count)
                     for m, _, g in used)
             if paged:
+                expect["paged_decode_attention"] = attn_global * rounds
+            if paged and flash:
                 # fillers and short prompts prefill below 128 tokens (no
                 # flash); every admission prefills target and draft alike
                 per = sum(n for _, n, _ in used)
@@ -2850,15 +3057,15 @@ def arch_serve_phase(seed: int) -> dict:
                     raise AssertionError(f"{path}: {n_flash} flash launches, "
                                          f"not a positive multiple of {per}")
                 expect["flash_attention"] = n_flash
-                expect["paged_decode_attention"] = attn_global * rounds
-                if kind == "model":
+                if sd:
                     expect["decode_attention"] = dcfg.num_layers * (
                         draft.forward_count - draft.prefill_count)
-            stats = eng.session_stats()[kind]
-            toks_out = sum(r.tokens_out for r in reports)
             log(f"{path}: {toks_out} tokens in {wall:.2f} s "
-                f"({toks_out / wall:.2f} tok/s end to end, captures "
-                f"{stats['captures']}, replays {stats['replays']}); "
+                f"({toks_out / wall:.2f} tok/s end to end, max-batch 8, "
+                f"captures {graphs.total_captures}, replays "
+                f"{graphs.total_replays}, graph pool "
+                f"{graphs.pool_bytes() / 2**30:.2f} GiB, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB); "
                 f"{target.forward_count} target forwards "
                 f"({target.prefill_count} prefills), {draft.forward_count} "
                 f"draft forwards, {rounds} rounds; launches {got}, expected "
@@ -2866,11 +3073,13 @@ def arch_serve_phase(seed: int) -> dict:
             if got != expect:
                 raise AssertionError(f"{path}: launches {got} != {expect}")
             if moe_layers:
-                _check_routes(path, ("fused_gate_up", "ragged_gmm"))
-            if flash:
+                _check_routes(path, ("fused_gate_up", "ragged_gmm")
+                              + (("paged_decode_attention",) if paged
+                                 else ()))
+            if flash and cfg.head_dim == 256:
                 _check_head_dim_256_routes(path, paged)
             launches[path] = got
-            outputs[kind] = [np.asarray(d.output) for d in done]
+            outputs[kind] = done
             del eng
             gc.collect()
         agree = np.mean([float((a == b).mean()) for a, b in
@@ -2881,6 +3090,78 @@ def arch_serve_phase(seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def recurrent_layer_phase(seed: int) -> dict:
+    """One recurrent layer at published width, bf16 weights and the
+    reference's fp32 states, B 8: an SD verify (T 5, every step's state
+    collected) and a prefill (T 256, final state), device-only (captured
+    in a CUDA graph and replayed), beside the bound: the bytes of the
+    weights, the state read and the states written (collected: T of
+    them) at the card's memory rate, against the matmuls at the bf16 peak
+    plus the recurrence's elementwise work at the fp32 peak.  Mamba at
+    jamba-v0.1-52b's width (d_in 8192, 16 states), mLSTM and sLSTM at
+    xlstm-1.3b's (d 2048, 4 heads of 1024)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import ssm
+
+    card = card_line()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    B = 8
+    out = {}
+    for kind, arch in (("mamba", "jamba-v0.1-52b"), ("mlstm", "xlstm-1.3b"),
+                       ("slstm", "xlstm-1.3b")):
+        cfg = get_config(arch)
+        d = cfg.d_model
+        params = ssm.INIT[kind](cfg, torch.bfloat16, generator=gen,
+                                device=dev)
+        state = ssm.MAKE_STATE[kind](cfg, B, torch.bfloat16, dev)
+        w_bytes = sum(t.numel() * t.element_size() for t in params.values())
+        # matmul weights (the recurrent r_* of sLSTM are the step's work)
+        mm_elems = sum(t.numel() for k, t in params.items()
+                       if t.dim() == 2 and k not in ("conv_w", "A_log")
+                       and not k.startswith("r_"))
+        s_bytes = sum(t.numel() * t.element_size() for t in state.values())
+        if kind == "mamba":
+            step_elems = B * cfg.ssm_expand * d * cfg.ssm_state_dim * 7
+        elif kind == "mlstm":
+            hd = 2 * d // cfg.num_heads
+            step_elems = B * cfg.num_heads * hd * hd * 6
+        else:
+            step_elems = 4 * 2 * B * d * d + 12 * B * d
+        row = {}
+        for label, T, collect in (("verify", 5, True), ("prefill", 256, False)):
+            x = torch.randn((B, T, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            fn = (lambda x=x, c=collect: ssm.FORWARD[kind](
+                params, cfg, x, state, collect_states=c))
+            fn()
+            torch.cuda.synchronize()
+            ms = graph_time_ms(fn, calls=1, iters=3)
+            n_bytes = (w_bytes + s_bytes * (1 + (T if collect else 1))
+                       + 2 * x.numel() * x.element_size())
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = (2 * B * T * mm_elems / BF16_FLOPS
+                     + T * step_elems / FP32_FLOPS) * 1e3
+            b_ms = max(t_bytes, t_ops)
+            row[label] = dict(ms=ms, bound_ms=b_ms,
+                              bound_by="bytes" if t_bytes >= t_ops
+                              else "operations", bytes=n_bytes,
+                              bytes_ms=t_bytes, ops_ms=t_ops)
+            log(f"recurrent layer {kind} at {arch} width ({label}: B {B}, "
+                f"T {T}{', states collected' if collect else ''}): "
+                f"{_fmt(ms)} device-only, bound {b_ms:.4f} ms "
+                f"({row[label]['bound_by']}; {n_bytes / 1e6:.1f} MB = "
+                f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms), weights "
+                f"{w_bytes / 1e6:.1f} MB, state {s_bytes / 1e6:.1f} MB | "
+                f"{card}")
+            del x
+        out[kind] = row
+        del params, state
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------- tuner
@@ -3298,7 +3579,9 @@ def main() -> int:
     launches.update(eagle_phase(args.seed))
     tuner_reference_phase(args.seed)
     arch_reference_phase(args.seed)
+    recurrent_draft_phase(args.seed)
     launches.update(arch_serve_phase(args.seed))
+    recurrent_layer_phase(args.seed)
     launches[OPS_PATH] = capacity_ops_path(args.seed)
 
     tols = {"fused_gate_up": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",

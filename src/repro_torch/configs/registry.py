@@ -3,10 +3,10 @@
 Holds the configurations the port serves and prices: the paper's MoE
 target ``qwen2-57b-a14b`` and its draft ``qwen2-0.5b``, the dense and
 sparse comparisons the cost model prices (``qwen2-7b``, ``mixtral-8x7b``,
-``qwen3-moe-30b-a3b``), and the attention-only assigned archs
-(``dbrx-132b``, ``gemma-7b``, ``gemma3-12b``, ``minicpm3-4b``,
-``qwen2-vl-2b``).  The recurrent and encoder-decoder archs are ROADMAP
-queue 1 item 9."""
+``qwen3-moe-30b-a3b``), the attention-only assigned archs (``dbrx-132b``,
+``gemma-7b``, ``gemma3-12b``, ``minicpm3-4b``, ``qwen2-vl-2b``), the
+recurrent ones (``jamba-v0.1-52b``, Mamba + attention + MoE, and
+``xlstm-1.3b``, mLSTM + sLSTM) and the encoder-decoder ``whisper-base``."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -35,8 +35,9 @@ def get_config(name: str, *, reduced: bool = False, **overrides) -> ModelConfig:
 
 def _load_all():
     from repro_torch.configs import (  # noqa: F401
-        dbrx_132b, drafts, gemma3_12b, gemma_7b, minicpm3_4b, mixtral_8x7b,
-        qwen2_7b, qwen2_57b_a14b, qwen2_vl_2b, qwen3_moe_30b_a3b)
+        dbrx_132b, drafts, gemma3_12b, gemma_7b, jamba_v01_52b, minicpm3_4b,
+        mixtral_8x7b, qwen2_7b, qwen2_57b_a14b, qwen2_vl_2b,
+        qwen3_moe_30b_a3b, whisper_base, xlstm_1_3b)
 
 
 def draft_for(cfg: ModelConfig) -> ModelConfig:

@@ -86,11 +86,12 @@ class EagleHead:
         (next-token logits (B, V), predicted next feature (B, d), cache
         with ``lengths`` + 1).  The token's K/V is written in place."""
         tgt = self.target
-        emb = tgt._embed(params_target, token.to(torch.int64)[:, None])
+        positions = cache["lengths"].to(torch.int64)[:, None]
+        emb = tgt._embed(params_target, token.to(torch.int64)[:, None],
+                         positions)
         x = torch.cat([emb[:, 0], feat.to(emb.dtype)], dim=-1)
         x = (x @ params["fuse"])[:, None]                       # (B, 1, d)
-        positions = cache["lengths"].to(torch.int64)[:, None]
-        x, _ = tfm.stack_forward(params["layers"], self.cfg, x, positions,
+        x, _, _ = tfm.stack_forward(params["layers"], self.cfg, x, positions,
                                  cache["layers"], mode="extend")
         logits = tgt._head(params_target, x)[:, 0]             # tied head
         return logits, x[:, 0], dict(cache, lengths=cache["lengths"] + 1)

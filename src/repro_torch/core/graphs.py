@@ -256,6 +256,10 @@ class RoundGraphs:
         # would invalidate it, so collect them now and hold the collector
         # off until the capture ends
         gc.collect()
+        # the key's eager run just freed its intermediates (a recurrent
+        # verify's collected states: ~28 GB at xlstm-1.3b's width and B 8);
+        # hand the cached blocks back so the graph pool can take them
+        torch.cuda.empty_cache()
         collecting = gc.isenabled()
         gc.disable()
         try:

@@ -1,12 +1,12 @@
 """Proposer API — the drafting seam of the SD engine.
 
 Port of ``repro.core.proposer``.  Four drafters: ``"model"`` (a small
-attention draft model, the paper's configuration), ``"none"`` (zero
-drafts: the AR baseline), ``"eagle"`` (a one-block head on the target's
-features, ``core/eagle.py``) and ``"prefetch"`` (the draft model plus
-draft-phase expert warming, ``core/prefetch.py``); the last two are
-imported on first use.  ``params`` is always the dict ``{"target":
-params_t, "draft": params_p}``.
+draft model, attention or recurrent: the paper's configuration),
+``"none"`` (zero drafts: the AR baseline), ``"eagle"`` (a one-block head
+on the target's features, ``core/eagle.py``) and ``"prefetch"`` (the
+draft model plus draft-phase expert warming, ``core/prefetch.py``); the
+last two are imported on first use.  ``params`` is always the dict
+``{"target": params_t, "draft": params_p}``.
 
   * ``init_state(params, prompts, max_seq, *, lengths, reuse,
     last_hidden)`` → state, built once per generation after the target
@@ -40,6 +40,7 @@ import torch
 from repro_torch.core.rejection import probs_from_logits, sample_from
 from repro_torch.models.model import (grow_cache_seq, merge_cache_rows,
                                       scatter_cache_rows)
+from repro_torch.models.transformer import RECURRENT_KINDS, layer_kinds
 
 
 def stack_drafts(ds, qs, batch: int, vocab: int, device):
@@ -115,9 +116,26 @@ def make_proposer(kind: str, target, draft=None, *,
     return _REGISTRY[kind](target, draft, temperature=temperature, **opts)
 
 
+def _snapshot(cache: dict, cfg) -> dict:
+    """The pre-round draft cache a recurrent draft re-commits from: copies
+    of its recurrent states (the propose loop advances them in place), the
+    attention layers' K/V shared (the re-run writes the same positions
+    again before any query reads them)."""
+    return dict(cache, layers=[
+        {k: v.clone() for k, v in slot.items()}
+        if kind in RECURRENT_KINDS else slot
+        for slot, (kind, _) in zip(cache["layers"], layer_kinds(cfg))])
+
+
 class ModelProposer:
-    """Drafts with an autoregressive small attention model (paper Sec. 3.1).
-    State: ``{"cache": draft_cache}``."""
+    """Drafts with an autoregressive small model (paper Sec. 3.1).
+
+    State: ``{"cache": draft_cache}`` between rounds.  A recurrent draft's
+    propose loop advances its states in place, so its work state also
+    carries ``"snapshot"``, a copy of the pre-round state taken before the
+    loop, and ``commit`` re-runs the verify tokens from it and gathers the
+    accepted step (reference ``ModelProposer``; there the snapshot is the
+    old immutable cache, here the caches are written in place)."""
 
     kind = "model"
     needs_hidden = False
@@ -125,9 +143,6 @@ class ModelProposer:
     def __init__(self, target, draft, temperature: float = 0.0):
         if draft is None:
             raise ValueError("ModelProposer requires a draft Model")
-        if draft.cfg.is_recurrent:
-            raise NotImplementedError(
-                "recurrent drafts are ROADMAP queue 1 item 9")
         self.draft = draft
         self.temperature = temperature
 
@@ -147,6 +162,8 @@ class ModelProposer:
         last draft's KV so the cache is complete on full acceptance."""
         params_d = params["draft"]
         c = state["cache"]
+        snapshot = (_snapshot(c, self.draft.cfg)
+                    if self.draft.cfg.is_recurrent else None)
         token = last_token
         qs, ds = [], []
         for _ in range(gamma):
@@ -160,10 +177,20 @@ class ModelProposer:
         drafts, q_dist = stack_drafts(ds, qs, last_token.shape[0],
                                       self.draft.cfg.vocab_size,
                                       last_token.device)
-        return drafts, q_dist, {"cache": c}
+        work = {"cache": c}
+        if snapshot is not None:
+            work["snapshot"] = snapshot
+        return drafts, q_dist, work
 
     def commit(self, params, state, *, base_len, n_accept, n_commit,
                verify_tokens, hidden):
+        if "snapshot" in state:
+            # re-run the verify tokens from the pre-round state and gather
+            # each row's accepted step
+            _, pend = self.draft.extend(params["draft"], verify_tokens,
+                                        state["snapshot"], collect=True)
+            return {"cache": self.draft.commit(pend, n_commit,
+                                               collected=True)}
         # attention cache: rejected-suffix KV left stale (position-masked)
         return {"cache": dict(state["cache"], lengths=base_len + n_commit)}
 

@@ -61,6 +61,16 @@ geometry, and the admissions write into the arena in place.  A
 of the same shape changes what an older state holds, so callers keep only
 the newest state, and a state whose tensors are not its arena's is copied
 into the arena by the next round.
+
+Recurrent targets and drafts (Mamba, xLSTM): verify collects each layer's
+per-step states and ``Model.commit`` copies the accepted step into the
+live state in place; a recurrent draft re-runs the verify tokens from a
+copy of its pre-round state (``core/proposer.ModelProposer``).  A retired
+(inactive) row's recurrent state is garbage until re-admission scatters a
+fresh one.  An encoder-decoder target (whisper) reads ``encoder_embeds``
+through ``prefill_kwargs`` (``start``, ``generate``, ``generate_ar``); its
+cross K/V are written by the prefill into the arena's cache and read in
+place by every round.  The draft gets none.
 """
 from __future__ import annotations
 
@@ -471,12 +481,14 @@ class SDEngine:
     # --------------------------------------------------------------- prefill
     def _fresh_prefill(self, params, prompts, lengths, max_seq, *,
                        cache_opts: Optional[dict] = None, page_table=None,
-                       reuse: Optional[_Arena] = None):
+                       reuse: Optional[_Arena] = None,
+                       prefill_kwargs: Optional[dict] = None):
         """Prefill a batch into caches (fresh, or ``reuse``'s reset in
         place) and proposer state; returns (t_cache, p_state, last_logits).
         Behind ``start`` and the admissions (compact or full, dense).  A
         ``needs_hidden`` proposer starts from the prefill's last hidden
-        state."""
+        state.  ``prefill_kwargs`` go to the target's prefill only (an
+        encoder-decoder's ``encoder_embeds``)."""
         dev = self.target.device
         prompts = _on(prompts, torch.int64, dev)
         if lengths is not None:
@@ -487,7 +499,8 @@ class SDEngine:
         if page_table is not None:
             t_cache["pages"]["table"].copy_(_on(page_table, torch.int32, dev))
         last_l, last_h, t_cache = self.target.prefill_with_hidden(
-            params["target"], prompts, t_cache, lengths=lengths)
+            params["target"], prompts, t_cache, lengths=lengths,
+            **(prefill_kwargs or {}))
         p_state = self.proposer.init_state(
             params, prompts, max_seq, lengths=lengths,
             reuse=None if reuse is None else reuse.p_state,
@@ -497,8 +510,8 @@ class SDEngine:
     # --------------------------------------------------------------- session
     def start(self, params_t, params_p, prompts, *, max_seq: int,
               lengths=None, generator: Optional[torch.Generator] = None,
-              cache_opts: Optional[dict] = None, page_table=None
-              ) -> SessionState:
+              cache_opts: Optional[dict] = None, page_table=None,
+              prefill_kwargs: Optional[dict] = None) -> SessionState:
         """Open a decoding batch: prefill into the arena of its shape (reset
         in place; allocated the first time) → ``SessionState``.
         ``max_seq`` is the static capacity of a dense session, and only the
@@ -507,6 +520,7 @@ class SDEngine:
         ``{"paged": True, "page_size": 64, "pool_pages": N}``);
         ``page_table`` pre-assigns a paged cache's block table (a
         ``PageAllocator``'s) so the prefill lands in the rows' pages.
+        ``prefill_kwargs`` go to the target's prefill (``encoder_embeds``).
         Proposer caches stay dense."""
         params = {"target": params_t, "draft": params_p}
         B = int(np.shape(prompts)[0])
@@ -514,7 +528,8 @@ class SDEngine:
             B, max_seq, **(cache_opts or {}), device="meta"))
         t_cache, p_state, last_l = self._fresh_prefill(
             params, prompts, lengths, max_seq, cache_opts=cache_opts,
-            page_table=page_table, reuse=self._arenas.get(akey))
+            page_table=page_table, reuse=self._arenas.get(akey),
+            prefill_kwargs=prefill_kwargs)
         last = sample_from(probs_from_logits(last_l, self.temperature),
                            generator, self.temperature)
         arena = self._adopt(akey, t_cache, p_state, last)
@@ -847,14 +862,18 @@ class SDEngine:
     def generate(self, params_t, params_p, prompts, max_new_tokens: int, *,
                  gamma: Optional[int] = None, max_seq: Optional[int] = None,
                  lengths=None, generator: Optional[torch.Generator] = None,
+                 prefill_kwargs: Optional[dict] = None,
                  timed: bool = False) -> Tuple[np.ndarray, SDStats]:
-        """Run SD rounds until every sequence has >= max_new_tokens."""
+        """Run SD rounds until every sequence has >= max_new_tokens.
+        ``prefill_kwargs`` go to the target's prefill (an encoder-decoder's
+        ``encoder_embeds``)."""
         B, Tp = prompts.shape
         gamma = self.gamma if gamma is None else gamma
         if max_seq is None:
             max_seq = Tp + max_new_tokens + gamma + 2
         state = self.start(params_t, params_p, prompts, max_seq=max_seq,
-                           lengths=lengths, generator=generator)
+                           lengths=lengths, generator=generator,
+                           prefill_kwargs=prefill_kwargs)
         out = np.zeros((B, max_new_tokens + gamma + 1), np.int32)
         n_out = np.zeros((B,), np.int32)
         # the first sampled token (from prefill) counts as generated
@@ -912,9 +931,10 @@ def _ar_session(model: Model, temperature: float) -> SDEngine:
 
 def generate_ar(model: Model, params, prompts, max_new_tokens: int, *,
                 temperature: float = 0.0, lengths=None,
-                generator: Optional[torch.Generator] = None) -> np.ndarray:
+                generator: Optional[torch.Generator] = None,
+                prefill_kwargs: Optional[dict] = None) -> np.ndarray:
     """Plain autoregressive baseline — the gamma=0 / "none" path."""
     out, _ = _ar_session(model, temperature).generate(
         params, None, prompts, max_new_tokens, lengths=lengths,
-        generator=generator)
+        generator=generator, prefill_kwargs=prefill_kwargs)
     return out

@@ -12,6 +12,13 @@ with the continuous slot scheduler.
       --reduced --proposer eagle
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
       --reduced --proposer prefetch --prefetch-top-m 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --reduced --scheduler continuous --kv-layout paged
+
+Every registered arch serves but the encoder-decoder ``whisper-base``, whose
+requests carry no encoder frames: ``ServingEngine`` refuses it with a
+``ValueError`` (ROADMAP queue 3; ``SpecDecoder.generate``/``generate_ar``
+serve it with ``prefill_kwargs={"encoder_embeds": ...}``).
 
 Port of ``repro.launch.serve`` for the flags this slice implements.  The
 draft is the reference's default draft for the target (``draft_for``), or

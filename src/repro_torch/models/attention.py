@@ -1,9 +1,10 @@
-"""Self-attention blocks: GQA ("attn"), sliding window ("swa") and
-multi-head latent attention ("mla").
+"""Attention blocks: GQA ("attn"), sliding window ("swa"), multi-head
+latent attention ("mla") and cross-attention (whisper's decoder over its
+encoder's output).
 
-Port of ``repro.models.attention`` for the decoder kinds (cross-attention is
-ROADMAP queue 1 item 9).  Two execution modes share one code path:
-  * ``prefill`` — causal over the prompt, writes the KV cache from pos 0.
+Port of ``repro.models.attention``.  Two execution modes share one code path:
+  * ``prefill`` — over the prompt (or, cacheless and with ``causal=False``,
+                  an encoder's frames), writes the KV cache from pos 0.
   * ``extend``  — T new tokens (T=1 → plain decode, T=γ+1 → SD verify)
                   appended at per-sequence offsets against a populated
                   cache.
@@ -119,6 +120,10 @@ def init_mla(cfg, dtype, *, generator, device) -> dict:
     return p
 
 
+def init_cross_attn(cfg, dtype, *, generator, device) -> dict:
+    return init_gqa(cfg, dtype, generator=generator, device=device)
+
+
 def make_attn_cache(cfg, batch: int, max_seq: int, kind: str, dtype, device,
                     *, paged: bool = False, page_size: int = 64,
                     pool_pages: Optional[int] = None) -> dict:
@@ -128,7 +133,8 @@ def make_attn_cache(cfg, batch: int, max_seq: int, kind: str, dtype, device,
     ring is dense either way."""
     if kind not in ("attn", "swa", "mla"):
         raise NotImplementedError(
-            f"block kind {kind!r} is ROADMAP queue 1 item 9")
+            f"block kind {kind!r} has no KV cache; its recurrent state is "
+            "models/ssm.py's")
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     if kind == "swa":
@@ -283,11 +289,12 @@ def _rotate(cfg, q, k, positions, mrope_positions=None):
                             cfg.mrope_sections),
                 apply_mrope(k, mrope_positions, cfg.rope_theta,
                             cfg.mrope_sections))
-    if cfg.rope_type != "rope":
-        raise NotImplementedError(
-            f"rope_type {cfg.rope_type!r} is ROADMAP queue 1 item 9")
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    if cfg.rope_type == "rope":
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    # "none", "learned", "sinusoidal": positions (if any) enter at the
+    # embedding (Model._embed), as in the reference
+    return q, k
 
 
 def gqa_forward(
@@ -307,7 +314,8 @@ def gqa_forward(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     if kind not in ("attn", "swa"):
         raise NotImplementedError(
-            f"block kind {kind!r} is ROADMAP queue 1 item 9")
+            f"block kind {kind!r} is not a GQA kind; recurrent mixers are "
+            "models/ssm.py's")
     if mode not in ("prefill", "extend"):
         raise ValueError(f"mode must be 'prefill' or 'extend', got {mode!r}")
     B, T, _ = x.shape
@@ -475,3 +483,35 @@ def mla_forward(
     else:
         out = _sdpa(q_cat, k_cat, v, _causal_mask(positions, k_pos), scale)
     return out.reshape(B, T, H * dv) @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder -> encoder output)
+# ---------------------------------------------------------------------------
+
+def cross_attn_prefill_cache(params: dict, cfg, enc_out: torch.Tensor,
+                             dtype) -> dict:
+    """Project the encoder output to K/V once; static for the whole decode."""
+    B, S, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ params["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": k.to(dtype), "v": v.to(dtype)}
+
+
+def cross_attn_forward(params: dict, cfg, x: torch.Tensor, kv: dict
+                       ) -> torch.Tensor:
+    """Every query attends over every encoder frame (no mask, no RoPE);
+    plain PyTorch, as the reference is plain JAX."""
+    B, T, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    S = kv["k"].shape[1]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if T * S > 2_097_152:  # chunked online softmax for long decoder inputs
+        q_pos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+        k_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+        out = chunked_sdpa(q, kv["k"], kv["v"], q_pos, k_pos, scale=scale,
+                           causal=False, chunk=min(1024, S))
+    else:
+        mask = torch.ones((B, 1, T, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, kv["k"], kv["v"], mask, scale)
+    return out.reshape(B, T, -1) @ params["wo"]

@@ -31,16 +31,29 @@ def _map(tree: Any, fn) -> Any:
     return fn(tree)
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device) -> dict:
-    """Port parameters from the reference's numpy pytree.
-
-    Layer ``l`` of the port is period ``l // period`` of slot
+def _unstack(slots, period: int, num_layers: int, device) -> list:
+    """Layer ``l`` of the port is period ``l // period`` of slot
     ``l % period`` in the reference."""
+    return [_map(slots[l % period],
+                 lambda a, p=l // period: _tensor(np.asarray(a)[p], device))
+            for l in range(num_layers)]
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device) -> dict:
+    """Port parameters from the reference's numpy pytree: the decoder's
+    stacked layers (cross-attention sublayers and recurrent mixers
+    included), an encoder-decoder's encoder (one ``"attn"`` slot stacked
+    over ``encoder_layers``), and every other leaf as it is.  Each leaf
+    keeps its dtype: the fp32 leaves of a bf16 model (Mamba's ``A_log``,
+    ``D``, ``dt_bias``, the xLSTM gate weights and biases) stay fp32."""
     out = {k: _map(v, lambda a: _tensor(a, device))
-           for k, v in tree.items() if k != "layers"}
-    slots = tree["layers"]
-    out["layers"] = [
-        _map(slots[l % cfg.period],
-             lambda a, p=l // cfg.period: _tensor(np.asarray(a)[p], device))
-        for l in range(cfg.num_layers)]
+           for k, v in tree.items() if k not in ("layers", "encoder")}
+    out["layers"] = _unstack(tree["layers"], cfg.period, cfg.num_layers,
+                             device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": _unstack(enc["layers"], 1, cfg.encoder_layers, device),
+            "final_norm": _map(enc["final_norm"],
+                               lambda a: _tensor(a, device))}
     return out

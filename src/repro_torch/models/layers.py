@@ -130,6 +130,22 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
+def sinusoidal_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoidal embedding (fp32) at arbitrary positions (..., T) →
+    (..., T, d): [sin | cos] of pos / 10000^(2i/d)."""
+    pos = positions.float()[..., None]
+    i = torch.arange(d_model // 2, dtype=torch.float32,
+                     device=positions.device)
+    ang = pos / torch.pow(10_000.0, 2 * i / d_model)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(num_pos: int, d_model: int, device=None
+                         ) -> torch.Tensor:
+    """The standard sinusoidal table (num_pos, d) (whisper's encoder)."""
+    return sinusoidal_at(torch.arange(num_pos, device=device), d_model)
+
+
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------

@@ -1,14 +1,14 @@
-"""Decoder-only language model: embedding → decoder stack → head.
+"""Language model: embedding → (optional encoder) → decoder stack → head.
 
-Port of ``repro.models.model.Model`` for decoder-only attention configs
-(block kinds ``"attn"``, ``"swa"`` and ``"mla"``):
+Port of ``repro.models.model.Model`` (attention, recurrent and hybrid
+decoders, and whisper's encoder-decoder):
 
     model  = Model(cfg, moe_dispatch="gmm")            # device="cuda" default
     params = model.init(torch.Generator(model.device).manual_seed(0))
     cache  = model.init_cache(batch, max_seq)
     logits, cache = model.prefill(params, tokens, cache, lengths=...)
-    logits, pend  = model.extend(params, tokens, cache)
-    cache  = model.commit(pend, n_commit)
+    logits, pend  = model.extend(params, tokens, cache, collect=True)
+    cache  = model.commit(pend, n_commit, collected=True)
 
 ``prefill_with_hidden`` and ``extend_with_hidden`` also return the final
 pre-head hidden states (what an EAGLE head reads), ``extend_with_prefetch``
@@ -19,15 +19,25 @@ Cache layout::
 
     {"layers": [one dict per layer], "lengths": (B,) int32}
     layer:  "attn" {"k", "v"}, "swa" {"k", "v", "pos"} (a ring), "mla"
-            {"latent", "k_rope"} (see attention.make_attn_cache)
+            {"latent", "k_rope"} (see attention.make_attn_cache);
+            "mamba"/"mlstm"/"slstm": the recurrent state (models/ssm.py)
     paged:  "attn" {"k_pages", "v_pages"}, "mla" {"latent_pages",
-            "k_rope_pages"}, rings dense, plus
+            "k_rope_pages"}, rings and recurrent states dense, plus
             "pages": {"table": (B, max_pages) int32}
+    encoder-decoder: also "cross": [{"k", "v"} (B, S_enc, Hkv, D) per
+            layer], the encoder output's projections, written by prefill
 
 ``extend`` consumes T tokens per sequence at offsets ``lengths`` — T=1 is
 plain decode, T=gamma+1 a speculative-decoding verify pass — and writes
 their K/V into the cache in place; ``commit`` bumps ``lengths`` (stale
 entries of a rejected suffix are masked by position, see attention.py).
+Recurrent states cannot be rolled back: ``extend(collect=True)`` leaves
+them as they were and hands every per-step state (T, B, ...) to the
+pending cache (``pend["collected"]``), and ``commit(collected=True)``
+copies step ``n_commit - 1`` of each row into the live state, in place
+(taken modulo T: a row that commits 0 tokens takes the last step, as the
+reference's index -1 does).  ``extend(collect=False)`` advances them
+through all T tokens in place.
 
 Paged KV (``init_cache(..., paged=True)``): every layer stores its K/V in
 fixed-size pages of a physical pool (NP, page, Hkv, D), addressed through
@@ -52,10 +62,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import GATHER_ON_CUDA, SWA_RING_PAD
 from repro_torch.models.layers import (apply_norm, embed, init_embedding,
-                                       init_norm, unembed)
+                                       init_norm, sinusoidal_at, unembed)
+from repro_torch.models.transformer import RECURRENT_KINDS
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -69,7 +81,13 @@ def merge_cache_rows(old: dict, new: dict, mask) -> dict:
     keep ``old``.  The full-pool admission primitive (``SDEngine.admit``).
     ``mask`` is a host array; the rows are copied into ``old``'s tensors in
     place (a session's graphs read them there), and the cache dict is
-    returned."""
+    returned.  Recurrent states are taken whole per row.  An
+    encoder-decoder cache is refused, as in the reference (its cross K/V
+    are per wave)."""
+    if old.get("cross") is not None:
+        raise NotImplementedError(
+            "merge_cache_rows: encoder-decoder cross caches are static "
+            "per-wave; continuous admission is decoder-only")
     if old.get("pages") is not None:
         raise NotImplementedError(
             "merge_cache_rows needs two same-shape caches; a paged cache "
@@ -98,12 +116,16 @@ def scatter_cache_rows(old: dict, new: dict, rows, *, valid=None,
     host arrays from the scheduler, so the dropped lanes are filtered on
     the host: a boolean index on a device tensor would sync.
 
-    Dense leaves take whole rows; paged leaves take the first ``n_prompt``
-    positions (rounded up to whole pages) through ``old``'s block table,
-    which must already map the admitted rows.  ``new`` must be dense with
-    the live cache's logical capacity.  Updates ``old``'s tensors in place
-    (a functional update would copy the whole pool per admission) and
-    returns the cache dict."""
+    Dense leaves (recurrent states included) take whole rows; paged leaves
+    take the first ``n_prompt`` positions (rounded up to whole pages)
+    through ``old``'s block table, which must already map the admitted
+    rows.  ``new`` must be dense with the live cache's logical capacity.
+    Updates ``old``'s tensors in place (a functional update would copy the
+    whole pool per admission) and returns the cache dict.  An
+    encoder-decoder cache is refused, as in the reference."""
+    if old.get("cross") is not None:
+        raise NotImplementedError(
+            "scatter_cache_rows: continuous admission is decoder-only")
     rows = np.asarray(rows, np.int64)
     keep = (np.arange(rows.shape[0]) if valid is None
             else np.nonzero(np.asarray(valid, bool))[0])
@@ -408,7 +430,8 @@ def grow_cache_seq(cache: dict, cfg: ModelConfig, new_max_seq: int) -> dict:
     and MLA latents take the new positions before the trailing trash slot,
     which stays last.  A SWA ring only matches if its window already fit the
     old capacity: a resize would remap the ``pos % w`` slots of live data,
-    so it raises, as in the reference."""
+    so it raises, as in the reference.  Recurrent states have no sequence
+    axis and stay as they are."""
     def grow(leaf):
         S = leaf.shape[1] - 1
         if new_max_seq <= S:
@@ -419,6 +442,8 @@ def grow_cache_seq(cache: dict, cfg: ModelConfig, new_max_seq: int) -> dict:
         return grown
 
     def grow_slot(slot, kind):
+        if kind in RECURRENT_KINDS:
+            return slot
         if kind == "swa":
             w_new = min(cfg.sliding_window + SWA_RING_PAD, new_max_seq)
             if slot["k"].shape[1] != w_new:
@@ -436,6 +461,7 @@ def grow_cache_seq(cache: dict, cfg: ModelConfig, new_max_seq: int) -> dict:
 def _leaves(cache: dict) -> List[torch.Tensor]:
     """Every tensor of a decode cache, in a fixed order."""
     out = [leaf for slot in cache["layers"] for leaf in slot.values()]
+    out += [leaf for slot in cache.get("cross") or () for leaf in slot.values()]
     out.append(cache["lengths"])
     if cache.get("pages") is not None:
         out.append(cache["pages"]["table"])
@@ -452,7 +478,8 @@ def _page_table(cache: dict) -> Optional[torch.Tensor]:
 
 
 class Model:
-    """Decoder-only language model on one device."""
+    """Language model on one device: a decoder stack of any block kinds,
+    with an encoder in front for an encoder-decoder config."""
 
     def __init__(self, cfg: ModelConfig, *, moe_dispatch: str = "onehot",
                  use_flash: bool = False, paged_attention: str = "kernel",
@@ -461,10 +488,6 @@ class Model:
             raise ValueError(
                 f"paged_attention must be 'kernel' or 'gather', got "
                 f"{paged_attention!r}")
-        if cfg.is_encoder_decoder or cfg.is_recurrent:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder and recurrent stacks are ROADMAP "
-                "queue 1 item 9; this slice ports decoder-only attention")
         self.cfg = cfg
         self.moe_dispatch = moe_dispatch
         self.use_flash = use_flash
@@ -479,6 +502,14 @@ class Model:
         self.forward_count = 0
         self.prefill_count = 0
 
+    @property
+    def enc_cfg(self) -> ModelConfig:
+        """The encoder's config: ``encoder_layers`` dense attention blocks."""
+        cfg = self.cfg
+        return cfg.with_overrides(
+            num_layers=cfg.encoder_layers, layer_pattern=("attn",),
+            moe_pattern=(False,), num_experts=0, num_experts_per_tok=0)
+
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters on ``self.device`` drawn from ``generator``
@@ -488,19 +519,29 @@ class Model:
         params: Dict[str, Any] = {
             "embed": init_embedding(cfg.vocab_size, cfg.d_model, dt, **kw),
             "final_norm": init_norm(cfg, dt, self.device),
-            "layers": tfm.init_stack(cfg, dt, **kw),
+            "layers": tfm.init_stack(cfg, dt, cross=cfg.is_encoder_decoder,
+                                     **kw),
         }
         if not cfg.tie_embeddings:
             params["head"] = init_embedding(cfg.vocab_size, cfg.d_model, dt, **kw)
+        if cfg.is_encoder_decoder:
+            enc = self.enc_cfg
+            params["encoder"] = {"layers": tfm.init_stack(enc, dt, **kw),
+                                 "final_norm": init_norm(enc, dt, self.device)}
         return params
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, params, tokens, inputs_embeds=None):
+    def _embed(self, params, tokens, positions, inputs_embeds=None):
+        cfg = self.cfg
         if inputs_embeds is not None:   # a frontend's embeddings (vision stub)
-            return torch.as_tensor(inputs_embeds, device=self.device).to(
+            x = torch.as_tensor(inputs_embeds, device=self.device).to(
                 self.dtype)
-        return embed(params["embed"], tokens,
-                     scale=self.cfg.name.startswith("gemma"))
+        else:
+            x = embed(params["embed"], tokens,
+                      scale=cfg.name.startswith("gemma"))
+        if cfg.rope_type == "sinusoidal":
+            x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
+        return x
 
     def _head(self, params, x):
         cfg = self.cfg
@@ -510,6 +551,36 @@ class Model:
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
+
+    # --------------------------------------------------------------- encoder
+    def encode(self, params, encoder_embeds) -> torch.Tensor:
+        """Whisper-style encoder over stub frame embeddings (B, S_enc, d):
+        sinusoidal positions, ``encoder_layers`` bidirectional attention
+        blocks (plain attention, as in the reference: no kernel), final
+        norm."""
+        cfg = self.enc_cfg
+        x = torch.as_tensor(encoder_embeds, device=self.device).to(self.dtype)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
+        x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
+        x, _, _ = tfm.stack_forward(params["encoder"]["layers"], cfg, x,
+                                    positions, None, mode="prefill",
+                                    causal=False, use_flash=False)
+        return apply_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
+    def _cross_kvs(self, params, enc_out) -> List[dict]:
+        """The encoder output projected through every decoder layer's
+        cross-attention K/V."""
+        return [attn_mod.cross_attn_prefill_cache(lp["cross"], self.cfg,
+                                                  enc_out, self.dtype)
+                for lp in params["layers"]]
+
+    def _encoder_kvs(self, params, encoder_embeds) -> List[dict]:
+        if encoder_embeds is None:
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder: pass "
+                "encoder_embeds (B, S_enc, d), the frontend stub's frames")
+        return self._cross_kvs(params, self.encode(params, encoder_embeds))
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int, *, paged: bool = False,
@@ -523,13 +594,16 @@ class Model:
         positions (default: every row at ``max_seq`` plus the trash page),
         addressed through ``cache["pages"]["table"]``
         (B, ceil(max_seq / page_size)); ``max_seq`` is then the logical
-        capacity, growable with :func:`grow_cache_pages`.
+        capacity, growable with :func:`grow_cache_pages`.  Recurrent layers
+        hold their state (B, ...), zero; an encoder-decoder also holds the
+        cross K/V of ``encoder_seq_len`` frames, which prefill writes.
 
         ``reuse``: a cache of exactly this shape, reset in place instead of
-        allocating (every leaf zeroed, ``lengths`` and the table included,
-        a ring's ``pos`` set back to -1) and returned, so tensors a captured
-        round reads keep their addresses.  ``device`` overrides the model's (``"meta"`` gives the
-        shapes alone)."""
+        allocating (every leaf zeroed, ``lengths``, the table, recurrent
+        states and cross K/V included, a ring's ``pos`` set back to -1) and
+        returned, so tensors a captured round reads keep their addresses.
+        ``device`` overrides the model's (``"meta"`` gives the shapes
+        alone)."""
         dev = self.device if device is None else torch.device(device)
         if reuse is not None:
             want = self.init_cache(batch, max_seq, paged=paged,
@@ -544,8 +618,9 @@ class Model:
                 if "pos" in slot:
                     slot["pos"].fill_(-1)
             return reuse
+        cfg = self.cfg
         cache: Dict[str, Any] = {
-            "layers": tfm.make_stack_cache(self.cfg, batch, max_seq,
+            "layers": tfm.make_stack_cache(cfg, batch, max_seq,
                                            self.dtype, dev,
                                            paged=paged, page_size=page_size,
                                            pool_pages=pool_pages),
@@ -555,15 +630,23 @@ class Model:
             cache["pages"] = {"table": torch.zeros(
                 (batch, -(-max_seq // page_size)), dtype=torch.int32,
                 device=dev)}
+        if cfg.is_encoder_decoder:
+            shape = (batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                     cfg.head_dim)
+            cache["cross"] = [
+                {k: torch.zeros(shape, dtype=self.dtype, device=dev)
+                 for k in ("k", "v")} for _ in range(cfg.num_layers)]
         return cache
 
     # ----------------------------------------------------------------- train
     def forward_hidden(self, params, tokens, *, inputs_embeds=None,
-                       mrope_positions=None) -> Tuple[torch.Tensor, dict]:
+                       encoder_embeds=None, mrope_positions=None
+                       ) -> Tuple[torch.Tensor, dict]:
         """Final pre-head hidden states (B, T, d) of a cacheless causal
         forward over ``tokens`` (B, T) (or ``inputs_embeds`` (B, T, d), when
         given, with ``tokens`` None), and the MoE metrics summed over layers
-        (``aux_loss``, ``expert_counts``).  The reference's train forward
+        (``aux_loss``, ``expert_counts``).  An encoder-decoder reads
+        ``encoder_embeds`` (B, S_enc, d).  The reference's train forward
         without the optimizer (ROADMAP queue 1 item 10)."""
         if inputs_embeds is None:
             tokens = self._tokens(tokens)
@@ -571,11 +654,13 @@ class Model:
         else:
             B, T = inputs_embeds.shape[:2]
         positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
-        x, metrics = tfm.stack_forward(
+        cross_kvs = (self._encoder_kvs(params, encoder_embeds)
+                     if self.cfg.is_encoder_decoder else None)
+        x, metrics, _ = tfm.stack_forward(
             params["layers"], self.cfg,
-            self._embed(params, tokens, inputs_embeds), positions, None,
-            mode="prefill", dispatch=self.moe_dispatch,
-            use_flash=self.use_flash, want_metrics=True,
+            self._embed(params, tokens, positions, inputs_embeds), positions,
+            None, mode="prefill", dispatch=self.moe_dispatch,
+            use_flash=self.use_flash, cross_kvs=cross_kvs, want_metrics=True,
             mrope_positions=self._mrope(mrope_positions))
         self.forward_count += 1
         return x, metrics
@@ -591,21 +676,26 @@ class Model:
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params, tokens, cache: dict, *, lengths=None,
-                inputs_embeds=None, mrope_positions=None
-                ) -> Tuple[torch.Tensor, dict]:
+                inputs_embeds=None, encoder_embeds=None,
+                mrope_positions=None) -> Tuple[torch.Tensor, dict]:
         """Prefill padded prompts (B, T); returns the logits at each
         sequence's last prompt position (B, V) and the filled cache.
         ``inputs_embeds`` (B, T, d) replaces the token embeddings (a
-        frontend's output); ``mrope_positions`` (B, T, 3) are M-RoPE's
-        (t, h, w) ids (text-only positions when None)."""
+        frontend's output); ``encoder_embeds`` (B, S_enc, d) are an
+        encoder-decoder's frames, encoded once into the cache's cross K/V;
+        ``mrope_positions`` (B, T, 3) are M-RoPE's (t, h, w) ids (text-only
+        positions when None).  A recurrent layer runs over the whole padded
+        bucket, as the reference's does, so its state is only right for a
+        row that fills it (ROADMAP queue 3)."""
         last, _, cache = self.prefill_with_hidden(
             params, tokens, cache, lengths=lengths,
-            inputs_embeds=inputs_embeds, mrope_positions=mrope_positions)
+            inputs_embeds=inputs_embeds, encoder_embeds=encoder_embeds,
+            mrope_positions=mrope_positions)
         return last, cache
 
     def prefill_with_hidden(self, params, tokens, cache: dict, *,
                             lengths=None, inputs_embeds=None,
-                            mrope_positions=None
+                            encoder_embeds=None, mrope_positions=None
                             ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
         """:meth:`prefill` that also returns the pre-head hidden state at
         each sequence's last prompt position (B, d): the feature carry of
@@ -616,14 +706,24 @@ class Model:
             lengths = torch.full((B,), T, dtype=torch.int32, device=self.device)
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
         positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
-        x = self._embed(params, tokens, inputs_embeds)
-        x, _ = tfm.stack_forward(params["layers"], self.cfg, x, positions,
-                                 cache["layers"], mode="prefill",
-                                 dispatch=self.moe_dispatch,
-                                 use_flash=self.use_flash,
-                                 page_table=_page_table(cache),
-                                 paged_attention=self.paged_attention,
-                                 mrope_positions=self._mrope(mrope_positions))
+        if self.cfg.is_encoder_decoder:
+            for live, kv in zip(cache["cross"],
+                                self._encoder_kvs(params, encoder_embeds)):
+                if live["k"].shape != kv["k"].shape:
+                    raise ValueError(
+                        f"encoder_embeds give cross K/V {tuple(kv['k'].shape)}"
+                        f"; the cache holds {tuple(live['k'].shape)} "
+                        "(encoder_seq_len frames)")
+                live["k"].copy_(kv["k"])
+                live["v"].copy_(kv["v"])
+        x = self._embed(params, tokens, positions, inputs_embeds)
+        x, _, _ = tfm.stack_forward(
+            params["layers"], self.cfg, x, positions, cache["layers"],
+            mode="prefill", dispatch=self.moe_dispatch,
+            use_flash=self.use_flash, cross_kvs=cache.get("cross"),
+            page_table=_page_table(cache),
+            paged_attention=self.paged_attention,
+            mrope_positions=self._mrope(mrope_positions))
         self.forward_count += 1
         self.prefill_count += 1
         # head only at each sequence's last prompt position — never (B,T,V)
@@ -633,37 +733,42 @@ class Model:
         return last, last_h[:, 0], dict(cache, lengths=lengths)
 
     # ---------------------------------------------------------------- extend
-    def _extend_impl(self, params, tokens, cache, prefetch_masks=None):
+    def _extend_impl(self, params, tokens, cache, collect=False,
+                     prefetch_masks=None):
         tokens = self._tokens(tokens)
         B, T = tokens.shape
         positions = (cache["lengths"].to(torch.int64)[:, None]
                      + torch.arange(T, device=self.device)[None, :])
-        x = self._embed(params, tokens)
-        x, metrics = tfm.stack_forward(params["layers"], self.cfg, x,
-                                       positions, cache["layers"],
-                                       mode="extend",
-                                       dispatch=self.moe_dispatch,
-                                       use_flash=self.use_flash,
-                                       page_table=_page_table(cache),
-                                       paged_attention=self.paged_attention,
-                                       prefetch_masks=prefetch_masks)
+        x = self._embed(params, tokens, positions)
+        x, metrics, collected = tfm.stack_forward(
+            params["layers"], self.cfg, x, positions, cache["layers"],
+            mode="extend", collect=collect, dispatch=self.moe_dispatch,
+            use_flash=self.use_flash, cross_kvs=cache.get("cross"),
+            page_table=_page_table(cache),
+            paged_attention=self.paged_attention,
+            prefetch_masks=prefetch_masks)
         self.forward_count += 1
-        return self._head(params, x), x, dict(cache), metrics
+        pend = dict(cache)
+        if any(c is not None for c in collected):
+            pend["collected"] = collected
+        return self._head(params, x), x, pend, metrics
 
     def extend(self, params, tokens, cache: dict, *,
                collect: bool = False) -> Tuple[torch.Tensor, dict]:
         """Decode/verify T tokens per sequence at offsets ``lengths``:
         returns logits (B, T, V) and the pending cache (K/V written,
-        ``lengths`` unchanged until ``commit``).  ``collect`` gathers
-        recurrent states in the reference; attention stacks have none."""
-        logits, _, pend, _ = self._extend_impl(params, tokens, cache)
+        ``lengths`` unchanged until ``commit``).  ``collect`` keeps every
+        recurrent layer's per-step states for ``commit(collected=True)``
+        (module docstring); without it recurrent states advance through all
+        T tokens."""
+        logits, _, pend, _ = self._extend_impl(params, tokens, cache, collect)
         return logits, pend
 
     def extend_with_hidden(self, params, tokens, cache: dict, *,
                            collect: bool = False):
         """:meth:`extend` that also returns the final hidden states
         (B, T, d), which EAGLE-style heads (``core/eagle.py``) read."""
-        logits, x, pend, _ = self._extend_impl(params, tokens, cache)
+        logits, x, pend, _ = self._extend_impl(params, tokens, cache, collect)
         return logits, x, pend
 
     def extend_with_prefetch(self, params, tokens, cache: dict, plan, *,
@@ -675,7 +780,8 @@ class Model:
         states (B, T, d), the pending cache and ``{"hits", "actual",
         "predicted"}``: int32 device scalars summed over the MoE layers."""
         logits, x, pend, metrics = self._extend_impl(
-            params, tokens, cache, prefetch_masks=list(plan.masks))
+            params, tokens, cache, collect,
+            prefetch_masks=list(plan.masks))
         pf = {k: metrics[f"prefetch_{k}"]
               for k in ("hits", "actual", "predicted")}
         return logits, x, pend, pf
@@ -684,12 +790,34 @@ class Model:
     def commit(self, pend: dict, n_commit: torch.Tensor,
                collected: bool = False) -> dict:
         """Accept ``n_commit`` (B,) tokens of the last extend: attention
-        layers only bump ``lengths`` (stale K/V are masked out)."""
-        return dict(pend, lengths=pend["lengths"] + n_commit.to(torch.int32))
+        layers only bump ``lengths`` (stale K/V are masked out); with
+        ``collected``, every recurrent layer copies its collected step
+        ``(n_commit - 1) mod T`` of each row into its live state, in place
+        (the reference's index -1 of a row that commits nothing wraps to
+        the last step the same way)."""
+        n_commit = n_commit.to(torch.int32)
+        steps = pend.get("collected")
+        if steps is not None and not collected:
+            raise ValueError("commit: the extend collected per-step states; "
+                             "commit them with collected=True")
+        if steps is not None:
+            for slot, st in zip(pend["layers"], steps):
+                if st is None:
+                    continue
+                T = next(iter(st.values())).shape[0]
+                idx = torch.remainder(n_commit.to(torch.int64) - 1, T)
+                rows = torch.arange(idx.shape[0], device=idx.device)
+                for k, leaf in slot.items():
+                    leaf.copy_(st[k][idx, rows])
+        out = {k: v for k, v in pend.items() if k != "collected"}
+        out["lengths"] = pend["lengths"] + n_commit
+        return out
 
     # ------------------------------------------------------------ decode 1tk
     def decode_step(self, params, token: torch.Tensor, cache: dict):
         """Plain AR decode of one token per sequence. token: (B,) → (B,V)."""
-        logits, pend = self.extend(params, self._tokens(token)[:, None], cache)
-        cache = self.commit(pend, torch.ones_like(cache["lengths"]))
+        logits, pend = self.extend(params, self._tokens(token)[:, None], cache,
+                                   collect=True)
+        cache = self.commit(pend, torch.ones_like(cache["lengths"]),
+                            collected=True)
         return logits[:, 0], cache

@@ -1,9 +1,10 @@
 """Decoder block and stack.
 
-Port of ``repro.models.transformer`` for the attention kinds ``"attn"``,
-``"swa"`` and ``"mla"`` (the recurrent kinds and cross-attention are ROADMAP
-queue 1 item 9).  A *block* is an attention sublayer and
-an FFN sublayer (dense or MoE) with pre-norms and residuals.  The reference
+Port of ``repro.models.transformer``.  A *block* is a mixer sublayer
+(attention: ``"attn"``, ``"swa"``, ``"mla"``; recurrent: ``"mamba"``,
+``"mlstm"``, ``"slstm"``, models/ssm.py), an optional cross-attention
+sublayer over an encoder's output (whisper's decoder) and an optional FFN
+sublayer (dense or MoE), with pre-norms and residuals.  The reference
 scans over periods with per-slot parameters stacked over ``num_periods``;
 here the stack is a list of per-layer blocks and a Python loop, layer
 ``l`` having kind ``layer_pattern[l % period]``.
@@ -16,10 +17,12 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 
 ATTN_KINDS = ("attn", "swa", "mla")
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
 def layer_kinds(cfg):
@@ -28,16 +31,29 @@ def layer_kinds(cfg):
             for l in range(cfg.num_layers)]
 
 
+def _has_ffn(cfg, kind: str, is_moe: bool) -> bool:
+    if kind in ("mlstm", "slstm"):
+        return False  # xLSTM blocks are self-contained
+    return is_moe or cfg.d_ff > 0
+
+
 def init_block(cfg, kind: str, is_moe: bool, dtype, *, generator,
-               device) -> dict:
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is ROADMAP queue 1 item 9")
+               device, cross: bool = False) -> dict:
     kw = dict(generator=generator, device=device)
-    mixer = attn.init_mla if kind == "mla" else attn.init_gqa
+    if kind in ("attn", "swa"):
+        mixer = attn.init_gqa
+    elif kind == "mla":
+        mixer = attn.init_mla
+    elif kind in RECURRENT_KINDS:
+        mixer = ssm_mod.INIT[kind]
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     p: Dict[str, Any] = {"norm1": init_norm(cfg, dtype, device),
                          "mixer": mixer(cfg, dtype, **kw)}
-    if is_moe or cfg.d_ff > 0:
+    if cross:
+        p["cross_norm"] = init_norm(cfg, dtype, device)
+        p["cross"] = attn.init_cross_attn(cfg, dtype, **kw)
+    if _has_ffn(cfg, kind, is_moe):
         p["norm2"] = init_norm(cfg, dtype, device)
         p["ffn"] = (moe_mod.init_moe(cfg, dtype, **kw) if is_moe
                     else init_mlp(cfg.d_model, cfg.d_ff, dtype, **kw))
@@ -47,19 +63,38 @@ def init_block(cfg, kind: str, is_moe: bool, dtype, *, generator,
 def block_forward(params: dict, cfg, kind: str, is_moe: bool,
                   x: torch.Tensor, positions: torch.Tensor,
                   cache: Optional[dict], *, mode: str,
+                  collect: bool = False,
+                  causal: bool = True,
                   dispatch: str = "onehot",
                   use_flash: bool = False,
+                  cross_kv: Optional[dict] = None,
                   page_table: Optional[torch.Tensor] = None,
                   paged_attention: str = "kernel",
                   want_metrics: bool = False,
                   prefetch_mask: Optional[torch.Tensor] = None,
                   mrope_positions: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, dict]:
-    """One block; writes this layer's KV into ``cache`` in place.  Returns
-    the output and the MoE layer's metrics (``moe_forward``'s; empty for a
-    dense layer or when none are asked for)."""
+                  ) -> Tuple[torch.Tensor, dict, Optional[dict]]:
+    """One block; writes this layer's KV into ``cache`` in place.  A
+    recurrent layer writes its final state into ``cache`` in place, except
+    in an extend with ``collect``, which leaves the state as it was and
+    returns every per-step state (T, B, ...) for ``Model.commit`` to gather.
+    Returns the output, the MoE layer's metrics (``moe_forward``'s; empty
+    for a dense layer or when none are asked for) and the collected states
+    (None unless collected)."""
     h = apply_norm(params["norm1"], x, cfg.norm_eps)
-    if kind == "mla":
+    collected = None
+    if kind in RECURRENT_KINDS:
+        state = cache if cache is not None else ssm_mod.MAKE_STATE[kind](
+            cfg, x.shape[0], x.dtype, x.device)
+        collect = mode == "extend" and collect
+        out, new = ssm_mod.FORWARD[kind](params["mixer"], cfg, h, state,
+                                         collect_states=collect)
+        if collect:
+            collected = new
+        elif cache is not None:
+            for k, leaf in cache.items():
+                leaf.copy_(new[k])
+    elif kind == "mla":
         out, _ = attn.mla_forward(params["mixer"], cfg, h, positions,
                                   cache=cache, mode=mode,
                                   page_table=page_table)
@@ -67,9 +102,13 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
         out, _ = attn.gqa_forward(params["mixer"], cfg, h, positions,
                                   kind=kind, cache=cache, mode=mode,
                                   mrope_positions=mrope_positions,
-                                  use_flash=use_flash, page_table=page_table,
+                                  use_flash=use_flash, causal=causal,
+                                  page_table=page_table,
                                   paged_attention=paged_attention)
     x = x + out
+    if "cross" in params and cross_kv is not None:
+        h = apply_norm(params["cross_norm"], x, cfg.norm_eps)
+        x = x + attn.cross_attn_forward(params["cross"], cfg, h, cross_kv)
     metrics: dict = {}
     if "ffn" in params:
         h = apply_norm(params["norm2"], x, cfg.norm_eps)
@@ -80,13 +119,15 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
         else:
             y = apply_mlp(params["ffn"], h, cfg.mlp_activation)
         x = x + y
-    return x, metrics
+    return x, metrics, collected
 
 
-def init_stack(cfg, dtype, *, generator, device) -> List[dict]:
-    """Per-layer block params, in layer order."""
+def init_stack(cfg, dtype, *, generator, device,
+               cross: bool = False) -> List[dict]:
+    """Per-layer block params, in layer order; ``cross`` gives every block a
+    cross-attention sublayer (an encoder-decoder's decoder)."""
     return [init_block(cfg, kind, is_moe, dtype, generator=generator,
-                       device=device)
+                       device=device, cross=cross)
             for kind, is_moe in layer_kinds(cfg)]
 
 
@@ -95,10 +136,13 @@ def make_stack_cache(cfg, batch: int, max_seq: int, dtype, device, *,
                      pool_pages: Optional[int] = None) -> List[dict]:
     """One cache per layer; a paged cache gives every full-attention and
     MLA layer a pool of the same ``pool_pages`` (default: every row at
-    ``max_seq`` + trash page); SWA rings stay dense."""
+    ``max_seq`` + trash page); SWA rings and recurrent states are bounded
+    per row and stay dense."""
     if paged and pool_pages is None:
         pool_pages = batch * (-(-max_seq // page_size)) + 1
-    return [attn.make_attn_cache(cfg, batch, max_seq, kind, dtype, device,
+    return [ssm_mod.MAKE_STATE[kind](cfg, batch, dtype, device)
+            if kind in RECURRENT_KINDS else
+            attn.make_attn_cache(cfg, batch, max_seq, kind, dtype, device,
                                  paged=paged, page_size=page_size,
                                  pool_pages=pool_pages)
             for kind, _ in layer_kinds(cfg)]
@@ -106,15 +150,23 @@ def make_stack_cache(cfg, batch: int, max_seq: int, dtype, device, *,
 
 def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
                   positions: torch.Tensor, caches: Optional[List[dict]], *,
-                  mode: str, dispatch: str = "onehot",
+                  mode: str, collect: bool = False, causal: bool = True,
+                  dispatch: str = "onehot",
                   use_flash: bool = False,
+                  cross_kvs: Optional[List[dict]] = None,
                   page_table: Optional[torch.Tensor] = None,
                   paged_attention: str = "kernel",
                   want_metrics: bool = False,
                   prefetch_masks: Optional[List[torch.Tensor]] = None,
                   mrope_positions: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, dict]:
+                  ) -> Tuple[torch.Tensor, dict, List[Optional[dict]]]:
     """Run every layer in order (the reference's scan over periods).
+
+    ``collect`` (extend only) leaves recurrent states as they were and
+    returns each recurrent layer's per-step states (block_forward);
+    ``causal=False`` is the encoder's bidirectional attention;
+    ``cross_kvs`` (one {"k", "v"} per layer) the encoder's projected
+    output that cross-attention sublayers read.
 
     ``page_table`` (B, MP) is the block table of a paged cache, shared by
     every layer; ``paged_attention`` picks the paged extend backend:
@@ -127,7 +179,8 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
     ``models/moe.PrefetchPlan.masks``) the ``prefetch_hits``/``_actual``/
     ``_predicted`` counts, all on the device; nothing asked gives {}.
     ``mrope_positions`` (B, T, 3) are M-RoPE's (t, h, w) ids (text-only
-    positions when None)."""
+    positions when None).  The third value holds each layer's collected
+    states (None where nothing was collected)."""
     metrics: Dict[str, torch.Tensor] = {}
     dev = x.device
     if want_metrics:
@@ -137,16 +190,20 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
     if prefetch_masks is not None:
         for k in ("prefetch_hits", "prefetch_actual", "prefetch_predicted"):
             metrics[k] = torch.zeros((), dtype=torch.int32, device=dev)
+    collected: List[Optional[dict]] = []
     for l, (kind, is_moe) in enumerate(layer_kinds(cfg)):
-        x, m = block_forward(layer_params[l], cfg, kind, is_moe, x, positions,
-                             None if caches is None else caches[l], mode=mode,
-                             dispatch=dispatch, use_flash=use_flash,
-                             page_table=page_table,
-                             paged_attention=paged_attention,
-                             want_metrics=want_metrics,
-                             prefetch_mask=None if prefetch_masks is None
-                             else prefetch_masks[l],
-                             mrope_positions=mrope_positions)
+        x, m, c = block_forward(
+            layer_params[l], cfg, kind, is_moe, x, positions,
+            None if caches is None else caches[l], mode=mode,
+            collect=collect, causal=causal, dispatch=dispatch,
+            use_flash=use_flash,
+            cross_kv=None if cross_kvs is None else cross_kvs[l],
+            page_table=page_table, paged_attention=paged_attention,
+            want_metrics=want_metrics,
+            prefetch_mask=None if prefetch_masks is None
+            else prefetch_masks[l],
+            mrope_positions=mrope_positions)
         for k, v in m.items():
             metrics[k] = metrics[k] + v
-    return x, metrics
+        collected.append(c)
+    return x, metrics, collected

@@ -173,6 +173,15 @@ class ServingEngine:
         fault_injector=None,
         cuda_graphs: Optional[bool] = None,  # None: capture on a card
     ):
+        if target.cfg.is_encoder_decoder:
+            # the reference's engine passes no encoder_embeds and crashes in
+            # Model.encode; serve such a target through SDEngine.generate /
+            # generate_ar with prefill_kwargs={"encoder_embeds": ...}
+            raise ValueError(
+                f"ServingEngine cannot serve the encoder-decoder "
+                f"{target.cfg.name}: requests carry no encoder frames "
+                "(ROADMAP queue 3); use SpecDecoder.generate or generate_ar "
+                "with prefill_kwargs={'encoder_embeds': ...}")
         if scheduler not in ("wave", "continuous"):
             raise ValueError(f"scheduler must be 'wave' or 'continuous', "
                              f"got {scheduler!r}")

@@ -20,7 +20,9 @@ counts too); a replayed prefetch round makes no host sync, its warm stage
 is captured once per key into fixed buffers, and ``session_stats()``
 carries the session's prefetch totals.  gemma3-12b-reduced (SWA rings
 in the session arenas) replays equal to eager and the CPU, wave and
-continuous paged.
+continuous paged.  SD rounds over recurrent states (a Mamba hybrid target,
+an mLSTM/sLSTM draft), with a row inactive on every other round, replay
+equal to eager and the CPU, states included, with no host sync.
 """
 import numpy as np
 import pytest
@@ -597,3 +599,70 @@ def test_gemma3_replay_equals_eager_and_cpu_greedy(cuda, sched):
     for _, other in (serve("cuda", cuda_graphs=False), serve("cpu")):
         for a, b in zip(replayed, other):
             np.testing.assert_array_equal(a, b)
+
+
+RNN_DRAFT = dict(name="t-rnn-draft", family="ssm", num_layers=2, d_model=64,
+                 num_heads=2, num_kv_heads=2, d_ff=0, vocab_size=512,
+                 layer_pattern=("mlstm", "slstm"), rope_type="none",
+                 dtype="float32")
+
+
+@pytest.mark.parametrize("pair", ["recurrent-target", "recurrent-draft"])
+def test_recurrent_rounds_replay_equal_eager_and_cpu(cuda, pair):
+    """fp32 SD rounds over recurrent states: jamba-v0.1-52b-reduced (a
+    Mamba and an attention layer, MoE) under its ``draft_for`` draft, and
+    a dense target under a 2-layer mLSTM/sLSTM draft.  Six rounds with row
+    1 inactive on every other round (it commits 0 tokens and takes the
+    last collected step): the committed tokens and every recurrent leaf of
+    target and draft after each round are the same from graph replay as
+    eagerly on the card (to the bit) and on the CPU (1e-5), and a replayed
+    round makes no host sync before its readback."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.configs.registry import draft_for
+    from repro_torch.models.transformer import RECURRENT_KINDS, layer_kinds
+    if pair == "recurrent-target":
+        cfg = get_config("jamba-v0.1-52b", reduced=True)
+        dcfg = draft_for(cfg)
+    else:
+        cfg = ModelConfig("t-dense", "dense", 4, 128, 4, 2, 256, 512,
+                          dtype="float32")
+        dcfg = ModelConfig(**RNN_DRAFT)
+    disp = "gmm" if cfg.num_experts else "onehot"
+    pt = Model(cfg, moe_dispatch=disp, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    pd = Model(dcfg, device="cpu").init(torch.Generator().manual_seed(1))
+    prompts = np.random.default_rng(5).integers(3, 512, (3, 12)).astype(
+        np.int32)
+
+    def leaves(cache, c):
+        return [v.detach().cpu().numpy().copy()
+                for slot, (kind, _) in zip(cache["layers"], layer_kinds(c))
+                if kind in RECURRENT_KINDS for v in slot.values()]
+
+    def rounds(dev, graphs):
+        t = Model(cfg, moe_dispatch=disp, device=dev)
+        d = Model(dcfg, device=dev)
+        eng = SDEngine(t, make_proposer("model", t, d), gamma=3,
+                       cuda_graphs=graphs)
+        eng.sync_guard = True           # replayed rounds: no host sync
+        state = eng.start(_to(pt, dev), _to(pd, dev), prompts, max_seq=64)
+        trace = []
+        for r in range(6):
+            state, res = eng.round(state, active=np.array([True, r % 2 == 0,
+                                                           True]))
+            trace.append((res.committed.copy(), res.n_commit.copy(),
+                          leaves(state.t_cache, cfg)
+                          + leaves(state.p_state["cache"], dcfg)))
+        return eng, trace
+
+    eng, replayed = rounds("cuda", None)
+    assert eng.graphs.total_replays == 5
+    for dev, graphs, tol in (("cuda", False, 0.0), ("cpu", None, 1e-5)):
+        _, other = rounds(dev, graphs)
+        for (c, n, ls), (c2, n2, ls2) in zip(replayed, other):
+            np.testing.assert_array_equal(n, n2)
+            for b in range(3):
+                np.testing.assert_array_equal(c[b, :n[b]], c2[b, :n2[b]])
+            assert len(ls) == len(ls2) > 0
+            for a, b in zip(ls, ls2):
+                np.testing.assert_allclose(a, b, rtol=tol, atol=tol)

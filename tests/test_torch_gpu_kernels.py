@@ -11,7 +11,10 @@ Tolerances of the ragged kernels: 1e-4 in fp32; in bf16 the reference's
 3e-2 bound (rtol and atol, tests/test_ragged_gmm.py): both sides accumulate
 in fp32 in different orders and round once to bf16, so they differ by at
 most one bf16 ulp.  The paged, dense decode, flash and capacity kernels are
-held at the reference's own bounds, stated beside their tests.
+held at the reference's own bounds, stated beside their tests.  The last
+cases hold kernels 1-2 at jamba-v0.1-52b's routing (16 experts of 4096 x
+14336, top-2) and kernels 4-5 at whisper-base's, jamba-v0.1-52b's and
+the drafts' heads.
 """
 import pytest
 import torch
@@ -1044,3 +1047,76 @@ def test_capacity_ops_launch_counts_and_parity(cuda):
     assert gmm.LAUNCHES["gmm_capacity"] == before + 1
     torch.testing.assert_close(out, ops.gmm(xs, w8, sizes), rtol=2e-4,
                                atol=2e-4)
+
+
+# ------------------------- the recurrent and encoder-decoder archs' shapes
+@pytest.mark.parametrize("tokens", [40, 8, 512])
+def test_ragged_kernels_at_jamba_routing(cuda, tokens):
+    """Kernels 1 and 2 at jamba-v0.1-52b's experts (16 of 4096 x 14336,
+    top-2) for the SD verify (B 8 x 5 tokens), AR verify (8) and a prefill
+    (512) routing, bf16, through the TMA + wgmma route."""
+    g = torch.Generator(device=cuda).manual_seed(tokens + 16)
+    E, K, D, F = 16, 2, 4096, 14336
+    idx = torch.randn((tokens, E), generator=g, device=cuda).topk(K, -1).indices
+    sizes = torch.bincount(idx.reshape(-1), minlength=E).to(torch.int32)
+    N = tokens * K
+    xs = torch.randn((N, D), generator=g, device=cuda).bfloat16()
+    wg, wu = ((torch.randn((E, D, F), generator=g, device=cuda) / D ** 0.5
+               ).bfloat16() for _ in range(2))
+    wd = (torch.randn((E, F, D), generator=g, device=cuda) / F ** 0.5
+          ).bfloat16()
+    h = ragged.fused_gate_up(xs, wg, wu, sizes)
+    assert ragged.LAST_ROUTE["fused_gate_up"] == "sm90"
+    h_ref = fused_gate_up_ref(xs, wg, wu, sizes)
+    _close(h, h_ref, torch.bfloat16)
+    y = ragged.ragged_gmm(h_ref, wd, sizes)
+    assert ragged.LAST_ROUTE["ragged_gmm"] == "sm90"
+    _close(y, ragged_gmm_ref(h_ref, wd, sizes), torch.bfloat16)
+
+
+# the phase 8-9 paths' heads at kernels 4 and 5: whisper-base's decoder
+# self-attention, jamba-v0.1-52b's attention layer, the draft_for drafts
+PATH_HEADS = {"whisper": (8, 8, 64), "jamba": (32, 8, 128),
+              "draft": (8, 2, 64)}
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("heads", sorted(PATH_HEADS))
+def test_decode_kernel_at_path_heads(cuda, heads, T):
+    """Kernel 4 at the heads of PATH_HEADS on the cache layout at max_seq
+    512 (the capacity of the bucket-256 paths), bf16, split-KV body."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    Hq, Hkv, D = PATH_HEADS[heads]
+    S = 512
+    q, kc, vc, lengths = _decode_case(cuda, B=8, T=T, Hq=Hq, Hkv=Hkv, D=D,
+                                      S=S, lengths=[129, 150, 200, 233, 256,
+                                                    260, 290, 140],
+                                      seed=T + Hq + D)
+    k, v = kc[:, :S], vc[:, :S]
+    out = ops.decode_attention(q, k, v, lengths)
+    assert ops.LAST_ROUTE["decode_attention"] == "sm90"
+    ref = decode_attention_plain(q, k, v, lengths)
+    tol = DECODE_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref, DECODE_ROW_TOL)
+
+
+@pytest.mark.parametrize("heads", sorted(PATH_HEADS))
+def test_flash_kernel_at_path_heads(cuda, heads):
+    """Kernel 5 at the heads of PATH_HEADS: a 256-token causal prefill of 8
+    prompts (the bucket of the phase 8-9 flash paths), bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    Hq, Hkv, D = PATH_HEADS[heads]
+    g = torch.Generator(device=cuda).manual_seed(256 + Hq + D)
+    q = _randn(cuda, (8, 256, Hq, D), torch.bfloat16, g)
+    k, v = (_randn(cuda, (8, 256, Hkv, D), torch.bfloat16, g)
+            for _ in range(2))
+    out = ops.flash_attention(q, k, v)
+    assert fa.LAST_ROUTE["flash_attention"] == "sm90"
+    ref = flash_attention_plain(q, k, v)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref)

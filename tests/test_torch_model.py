@@ -131,6 +131,27 @@ def test_unported_paths_raise_naming_the_roadmap():
                         "continuous-scheduler features")):
         with pytest.raises(ValueError, match=match):
             ServingEngine(tm, None, tp, None, proposer="none", **opt)
+    # queue 1 item 9 is ported: the recurrent and encoder-decoder configs
+    # construct, prefill and decode; expert-parallel dispatch still cites
+    # its item (11)
+    from repro_torch.configs.registry import get_config as port_get_config
+    from repro_torch.models.model import Model
+    for arch in ("jamba-v0.1-52b", "xlstm-1.3b", "whisper-base"):
+        c = port_get_config(arch, reduced=True)
+        m = Model(c, device="cpu")
+        p = m.init(torch.Generator().manual_seed(0))
+        kw = ({"encoder_embeds": torch.zeros((1, c.encoder_seq_len,
+                                              c.d_model))}
+              if c.is_encoder_decoder else {})
+        _, cache = m.prefill(p, np.ones((1, 4), np.int32),
+                             m.init_cache(1, 8), **kw)
+        lg, _ = m.decode_step(p, np.ones((1,), np.int32), cache)
+        assert lg.shape == (1, c.vocab_size) and torch.isfinite(lg).all()
+    ep = Model(port_get_config("jamba-v0.1-52b", reduced=True),
+               moe_dispatch="ep", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        ep.forward_train(ep.init(torch.Generator().manual_seed(0)),
+                         np.ones((1, 4), np.int32))
     # use_flash is ported: a 128-token prefill and a verify at max_seq 512
     # run the kernel branches (their plain versions on the CPU)
     tm.use_flash = True

@@ -290,10 +290,11 @@ def test_simulator_prices_match_reference(arch):
     """forward_time, forward_costs (inference and train), sd_round_time,
     reject_time, sd_speedup and target_efficiency on V5E equal the
     reference's for every layer kind (attn, swa, mla, mamba, mlstm, slstm,
-    encoder-decoder) — configs the port cannot serve yet are priced from
-    the reference's fields."""
+    encoder-decoder), each config from the port's own registry, which
+    equals the reference's field for field."""
     rcfg = ref_get_config(arch)
-    cfg = port_config(rcfg)
+    cfg = get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(port_config(rcfg))
     rdraft = ref_draft_for(rcfg)
     draft = port_config(rdraft)
     sim, rs = Simulator(V5E), ref_sim.Simulator()

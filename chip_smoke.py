@@ -253,6 +253,32 @@ Phases, each of which fails the run if it fails:
      prefill runs it on, as the 1-token fillers and short prompts take no
      kernel).
 
+  10. training, after the serving phases have freed their models; no
+     kernel runs (none has a backward, and each wrapper refuses an input
+     that requires grad, as the reference's Pallas kernels refuse jax.grad):
+       a. reduced, fp32, TF32 off: qwen2-57b-a14b-reduced (experts, shared
+          expert, aux loss) and qwen2-0.5b-reduced, 3 AdamW steps from one
+          init on the card and on the CPU: loss, aux and grad norm of each
+          step within TRAIN_TOL, the parameters after step 3 within
+          TRAIN_PARAM_TOL x the sum of the steps' learning rates; and
+          chunked_sdpa's recompute backward at T 1536 (two key chunks, a
+          window and a softcap), card against CPU within TRAIN_TOL;
+       b. train/qwen2-0.5b: the draft at its published config (24 layers,
+          bf16 weights, fp32 moments) through launch/train.py's main,
+          --seq 2048 --batch 4 --steps 20 --kind code --lr 1e-3, its
+          checkpoint in a temporary directory restored bit for bit; every
+          loss finite, the last below the first by more than 1.0 (at T
+          2048 every attention takes chunked_sdpa's backward);
+       c. train/qwen2-57b-a14b: the target at published width, TRAIN_LAYERS
+          of 28 layers, onehot dispatch, remat, B 2, T 512, lr 1e-4, 5
+          steps, every loss finite and the last below the first.
+     b and c print the step's ms (median of the steps after the first two),
+     tokens/s, torch.cuda.max_memory_allocated and the step's FLOP bound at
+     the bf16 peak (8 x matmul parameters x tokens with remat, every expert
+     on every token under onehot, plus 4 x the causal attention's forward),
+     beside the card's name and power limit.  Every kernel's launch count
+     must be 0 over each of a, b and c.
+
 It ends with a JSON line of per-kernel numbers and, last, the device line.
 Without a card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -3164,6 +3190,244 @@ def recurrent_layer_phase(seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ training
+# card against CPU in fp32 with TF32 off: loss, aux, grad norm and gradients
+TRAIN_TOL = 1e-4
+# parameters after 3 AdamW steps, card against CPU, in units of the sum of
+# the steps' learning rates: an update divides by sqrt(v) + eps, so where a
+# gradient is near eps its last bits move that element by up to one step;
+# the mean over every element is held at TRAIN_PARAM_MEAN_TOL
+TRAIN_PARAM_TOL = 0.5
+TRAIN_PARAM_MEAN_TOL = 1e-3
+# qwen2-57b-a14b at full width: one layer is ~2.01 B parameters and the
+# untied embedding and head ~1.09 B; at 12 bytes a parameter (bf16 weight
+# and gradient, fp32 moments) 1 layer is ~37 GB, 2 layers ~61 GB before
+# AdamW's fp32 temporaries (~2.3 GB each for the 587 M-element expert
+# leaves).  So 1 layer fits the 80 GB card with room; 2 would not.
+TRAIN_LAYERS = 1
+
+
+def _train_flop_bound(params, cfg, B: int, T: int):
+    """(bound ms at the bf16 peak, FLOPs) of one train step with remat: 8 x
+    the matmul parameters x tokens (forward, the remat's forward, backward
+    at twice the forward; every expert on every token under onehot, the
+    embedding table once as the head whether tied or not) plus 4 x the
+    causal attention's forward (4 x D x Hq per visible query-key pair)."""
+    from repro_torch.training.tree import tree_items
+    n = sum(p.numel() for path, p in tree_items(params)
+            if p.dim() >= 2 and not (path == "embed/table"
+                                     and not cfg.tie_embeddings))
+    pairs = B * T * (T + 1) // 2
+    attn = 4 * cfg.head_dim * cfg.num_heads * pairs * cfg.num_layers
+    flops = 8 * n * B * T + 4 * attn
+    return flops / BF16_FLOPS * 1e3, flops
+
+
+def _train_line(path: str, cfg, B: int, T: int, step_s, losses, params,
+                card: str) -> None:
+    import numpy as np
+    import torch
+    ms = float(np.median(step_s[2:])) * 1e3
+    b_ms, flops = _train_flop_bound(params, cfg, B, T)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{path}: {cfg.name} {cfg.num_layers} layers, B {B}, T {T}, "
+        f"{len(losses)} steps: step {ms:.1f} ms (median of steps 3-"
+        f"{len(losses)}; first {step_s[0] * 1e3:.1f}, second "
+        f"{step_s[1] * 1e3:.1f}), {B * T / ms * 1e3:.0f} tokens/s, peak "
+        f"memory {peak / 2**30:.2f} GiB, FLOP bound {b_ms:.1f} ms "
+        f"({flops / 1e12:.2f} TFLOP at the bf16 peak; step at "
+        f"{b_ms / ms:.3f} of it); losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} | {card}")
+
+
+def _no_launches(path: str) -> dict:
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{path}: kernel launches {counts}: training "
+                             "must take no kernel route")
+    return counts
+
+
+def train_reference_phase(seed: int) -> dict:
+    """Phase 10a: reduced fp32 training, card against CPU, and
+    chunked_sdpa's backward at T 1536."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import packed_batches
+    from repro_torch.models.attention import chunked_sdpa
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import init_adam
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import tree_items
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launch_counts()
+    for arch in ("qwen2-57b-a14b", "qwen2-0.5b"):
+        cfg = get_config(arch, reduced=True)
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+        it = packed_batches(cfg.vocab_size, 4, 64, kind="code", seed=seed)
+        batches = [next(it) for _ in range(3)]
+        cpu_params = Model(cfg, device="cpu").init(
+            torch.Generator("cpu").manual_seed(seed))
+        # the step updates params in place: the card's copy is made first
+        start = {"cuda": _to_device(cpu_params, torch.device("cuda")),
+                 "cpu": cpu_params}
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = Model(cfg, remat=True, device=dev)
+            params = start[dev]
+            opt = init_adam(params)
+            step = make_train_step(model, tcfg)
+            mets = []
+            for b in batches:
+                params, opt, m = step(params, opt, b)
+                mets.append({k: float(m[k]) for k in
+                             ("loss", "aux_loss", "grad_norm", "lr")})
+            runs[dev] = (params, mets)
+        (pc, mc), (pg, mg) = runs["cpu"], runs["cuda"]
+        for i, (a, b) in enumerate(zip(mg, mc)):
+            for k in a:
+                if not np.isclose(a[k], b[k], rtol=TRAIN_TOL, atol=1e-6):
+                    raise AssertionError(f"train {cfg.name} step {i + 1}: "
+                                         f"{k} card {a[k]} cpu {b[k]}")
+        lr_sum = sum(m["lr"] for m in mc)
+        diffs = [(path, (g.cpu() - c).abs()) for (path, g), (_, c) in
+                 zip(tree_items(pg), tree_items(pc))]
+        worst_path, worst = max(((p, float(d.max())) for p, d in diffs),
+                                key=lambda x: x[1])
+        mean = float(sum(d.sum() for _, d in diffs)
+                     / sum(d.numel() for _, d in diffs))
+        log(f"train {cfg.name} fp32, 3 steps, card vs CPU: losses "
+            f"{[round(m['loss'], 6) for m in mg]} (cpu "
+            f"{[round(m['loss'], 6) for m in mc]}), aux "
+            f"{mg[-1]['aux_loss']:.6f}, grad norm {mg[-1]['grad_norm']:.6f}; "
+            f"parameters after step 3: max |diff| {worst:.3e} "
+            f"({worst / lr_sum:.4f} x the lr sum, {worst_path}), mean "
+            f"{mean:.3e} ({mean / lr_sum:.2e} x)")
+        if worst > TRAIN_PARAM_TOL * lr_sum or \
+                mean > TRAIN_PARAM_MEAN_TOL * lr_sum:
+            raise AssertionError(f"train {cfg.name}: parameters after step 3 "
+                                 "differ between card and CPU")
+    # chunked_sdpa's recompute backward at T 1536: keys in chunks of 1024
+    # (one full, one of 512), a window of 700 and a softcap of 30
+    rng = np.random.default_rng(seed)
+    T = 1536
+    arrs = [rng.standard_normal((1, T, h, 64)).astype(np.float32)
+            for h in (4, 2, 2)]
+    w = rng.standard_normal((1, T, 4, 64)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in arrs)
+        pos = torch.arange(T, device=dev)[None]
+        out = chunked_sdpa(q, k, v, pos, pos, scale=0.125, window=700,
+                           logit_cap=30.0)
+        (torch.tanh(out) * torch.from_numpy(w).to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in (q, k, v)]
+    errs = [float((a - b).abs().max()) for a, b in zip(grads["cuda"],
+                                                          grads["cpu"])]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        if not torch.allclose(a, b, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+            raise AssertionError(f"chunked_sdpa backward at T {T}: card vs "
+                                 f"CPU max |diff| {errs}")
+    log(f"train chunked_sdpa backward, T {T}, 4/2 heads of 64, window 700, "
+        f"softcap 30, fp32: dq, dk, dv card vs CPU max |diff| "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (tolerance {TRAIN_TOL})")
+    return {"train/reduced": _no_launches("train/reduced")}
+
+
+def train_phase(seed: int) -> dict:
+    """Phase 10b-c: the draft at its published config through the
+    launcher, and the MoE target at published width, TRAIN_LAYERS deep."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import packed_batches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import Model
+    from repro_torch.training.checkpoint import restore_checkpoint
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.training.tree import tree_items
+
+    card = card_line()
+    out = {}
+    # (b) qwen2-0.5b through the launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    B, T, steps = 4, 2048, 20
+    with tempfile.TemporaryDirectory() as d:
+        res = train_cli.main(["--arch", "qwen2-0.5b", "--seq", str(T),
+                              "--batch", str(B), "--steps", str(steps),
+                              "--kind", "code", "--lr", "1e-3",
+                              "--ckpt-dir", d, "--log-every", "5",
+                              "--seed", str(seed)])
+        path = "train/qwen2-0.5b"
+        out[path] = _no_launches(path)
+        cfg = get_config("qwen2-0.5b")
+        _train_line(path, cfg, B, T, res["step_seconds"], res["losses"],
+                    res["params"], card)
+        losses = res["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 1.0):
+            raise AssertionError(f"{path}: losses {losses}")
+        tree = {"params": res["params"], "opt": res["opt"]}
+        t0 = time.perf_counter()
+        restored, manifest = restore_checkpoint(res["ckpt"], tree)
+        bad = [k for (k, a), (_, b) in zip(tree_items(restored),
+                                           tree_items(tree))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        n_bytes = sum(os.path.getsize(os.path.join(res["ckpt"], f))
+                      for f in os.listdir(res["ckpt"]))
+        if bad or manifest["step"] != steps:
+            raise AssertionError(f"{path}: checkpoint differs at {bad[:5]}")
+        log(f"{path}: checkpoint {len(manifest['keys'])} leaves, "
+            f"{n_bytes / 1e9:.2f} GB, restored bit for bit in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del res, tree, restored
+    # (c) qwen2-57b-a14b at published width, TRAIN_LAYERS deep
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    cfg = get_config("qwen2-57b-a14b").with_overrides(num_layers=TRAIN_LAYERS)
+    B, T, steps = 2, 512, 5
+    model = Model(cfg, remat=True)
+    params, opt = init_train_state(
+        model, torch.Generator("cuda").manual_seed(seed))
+    # lr 1e-4: Adam's first steps move every weight by about lr, and at
+    # lr 1e-3 (the launcher's default) this one wide layer under an untied
+    # 3584-wide head overshot (loss 13.1 -> 31.8 at step 2 on an H100)
+    step = make_train_step(model, TrainConfig(learning_rate=1e-4,
+                                              warmup_steps=1,
+                                              total_steps=steps))
+    it = packed_batches(cfg.vocab_size, B, T, kind="code", seed=seed)
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, next(it))
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    path = "train/qwen2-57b-a14b"
+    out[path] = _no_launches(path)
+    _train_line(path, cfg, B, T, step_s, losses, params, card)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{path}: losses {losses}")
+    del params, opt, model, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------- tuner
 TUNER_BATCHES =(1, 2, 4, 8, 16, 32, 64, 128)
 ETA_PROMPT, ETA_SEQ = 64, 128       # the wave workload's prompt bucket, max_seq
@@ -3583,6 +3847,8 @@ def main() -> int:
     launches.update(arch_serve_phase(args.seed))
     recurrent_layer_phase(args.seed)
     launches[OPS_PATH] = capacity_ops_path(args.seed)
+    launches.update(train_reference_phase(args.seed))
+    launches.update(train_phase(args.seed))
 
     tols = {"fused_gate_up": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",
             "ragged_gmm": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",

@@ -1,4 +1,5 @@
-"""Model configuration (a copy of ``repro.configs.base.ModelConfig``).
+"""Model and training configuration (copies of ``repro.configs.base``'s
+``ModelConfig`` and ``TrainConfig``).
 
 A single flat dataclass covers every assigned architecture family
 (dense / MoE / SSM / hybrid / audio enc-dec / VLM).  Heterogeneous layer
@@ -247,3 +248,17 @@ def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
         cross = cfg.num_layers * (_attn_params(cfg, "attn") + cfg.d_model)
         n += enc + cross
     return n
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    remat: bool = True
+    seed: int = 0

@@ -1,22 +1,23 @@
-"""Synthetic serving prompts (numpy copy of ``repro.data.pipeline``'s
-serving half).
+"""Data pipeline: synthetic corpora, packing and host sharding (a numpy
+copy of ``repro.data.pipeline``).
 
 Two synthetic workload classes mirror the paper's datasets:
   * ``code``  — highly structured/repetitive token streams (HumanEval
                 stand-in: high draft acceptance),
   * ``chat``  — higher-entropy streams (MT-bench stand-in: lower
                 acceptance),
-generated by tiny deterministic template grammars.  ``prompt_batch``
-builds padded serving prompts.  Training batches are a later slice.
+generated by tiny deterministic template grammars.  ``packed_batches``
+yields fixed-shape {tokens, labels, mask} training batches;
+``prompt_batch`` builds padded serving prompts.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import List
+from typing import Iterator, List
 
 import numpy as np
 
-from repro_torch.data.tokenizer import PAD, ByteTokenizer
+from repro_torch.data.tokenizer import EOS, PAD, ByteTokenizer
 
 _CODE_TMPL = [
     "def f{i}(x):\n    return x + {j}\n",
@@ -51,6 +52,43 @@ def synthetic_text(kind: str, index: int, length: int = 400) -> str:
         parts.append(s)
         total += len(s)
     return "".join(parts)[:length]
+
+
+def token_stream(tok: ByteTokenizer, kind: str, seed: int = 0) -> Iterator[np.ndarray]:
+    i = seed * 1_000_003
+    while True:
+        ids = tok.encode(synthetic_text(kind, i))
+        yield np.concatenate([ids, [EOS]])
+        i += 1
+
+
+def packed_batches(
+    vocab_size: int,
+    batch: int,
+    seq_len: int,
+    *,
+    kind: str = "chat",
+    seed: int = 0,
+    host_id: int = 0,
+    num_hosts: int = 1,
+) -> Iterator[dict]:
+    """Infinite iterator of packed {tokens, labels, mask} of (B, T), numpy.
+
+    Documents are concatenated and chopped; each host takes a disjoint
+    document substream (host sharding for multi-host input pipelines)."""
+    tok = ByteTokenizer(vocab_size)
+    stream = token_stream(tok, kind, seed=seed * num_hosts + host_id)
+    buf = np.zeros((0,), np.int32)
+    while True:
+        need = batch * seq_len + 1
+        while buf.size < need:
+            buf = np.concatenate([buf, next(stream)])
+        chunk, buf = buf[:need], buf[need - 1:]
+        tokens = chunk[:-1].reshape(batch, seq_len)
+        labels = chunk[1:].reshape(batch, seq_len)
+        # loss mask: don't train on PAD (none here, but keep the contract)
+        mask = (labels != PAD).astype(np.float32)
+        yield {"tokens": tokens, "labels": labels, "mask": mask}
 
 
 def prompt_batch(vocab_size: int, batch: int, *, kind: str = "chat",

@@ -35,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import attention_launch, build
+from repro_torch.kernels import attention_launch, build, refuse_autograd
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
@@ -83,6 +83,7 @@ def decode_attention(
     """Causal decode/verify attention over the dense cache; the result is in
     q's dtype.  ``scale`` 0 means 1/sqrt(D); ``logit_cap`` > 0 softcaps the
     logits with tanh."""
+    refuse_autograd("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, scale=scale,
                                       logit_cap=logit_cap)

@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.decode_attention.ref import paged_decode_attention_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode_attention.cu"
@@ -114,6 +114,7 @@ def paged_decode_attention(
     """Causal decode/verify attention over the paged pool; the result is in
     q's dtype.  ``scale`` 0 means 1/sqrt(D); ``logit_cap`` > 0 softcaps the
     logits with tanh."""
+    refuse_autograd("paged_decode_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, lengths, table, scale=scale,

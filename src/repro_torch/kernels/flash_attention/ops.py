@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention.flash_attention import (
     check_blocks, flash_attention_btd)
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -24,6 +25,7 @@ def flash_attention(
     scale: float = 0.0,
     logit_cap: float = 0.0,
 ) -> torch.Tensor:             # (B, T, Hq, D)
+    refuse_autograd("flash_attention", q, k, v)
     check_blocks(q.shape[1], k.shape[1])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.gmm.ref import gmm_capacity_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gmm_capacity.cu"
@@ -82,6 +82,7 @@ def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
                  ) -> torch.Tensor:         # (E, C, F)
     """Batched per-expert product with fp32 accumulation, cast to x's
     dtype, through the kernel ``_route`` picks."""
+    refuse_autograd("gmm_capacity", x, w)
     if x.device.type == "cpu":
         return gmm_capacity_ref(x, w)
     if x.device.type != "cuda":

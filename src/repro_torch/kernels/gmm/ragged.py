@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.gmm.ref import (fused_gate_up_ref, ragged_gmm_ref,
                                          ragged_moe_ffn_ref)
 
@@ -300,6 +300,7 @@ def ragged_gmm(xs: torch.Tensor,            # (N, D) tokens sorted by expert
     tile, which is otherwise 64 rows for the TMA kernel and chosen from the
     rows per expert for the visit-list kernels; 16 takes the WMMA kernel in
     bf16."""
+    refuse_autograd("ragged_gmm", xs, w)
     if not _on_cuda(xs):
         return ragged_gmm_ref(xs, w, group_sizes)
     _check(xs, (w,), group_sizes)
@@ -318,6 +319,7 @@ def fused_gate_up(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     ``bm`` as for ``ragged_gmm``."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
+    refuse_autograd("fused_gate_up", xs, w_gate, w_up)
     if not _on_cuda(xs):
         return fused_gate_up_ref(xs, w_gate, w_up, group_sizes, activation)
     _check(xs, (w_gate, w_up), group_sizes)
@@ -341,6 +343,7 @@ def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
     list from ``group_sizes``; the visit-list kernels build theirs each."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
+    refuse_autograd("ragged_moe_ffn", xs, w_gate, w_up, w_down)
     if not _on_cuda(xs):
         return ragged_moe_ffn_ref(xs, w_gate, w_up, w_down, group_sizes,
                                   activation)

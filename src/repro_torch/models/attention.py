@@ -214,12 +214,26 @@ def _sdpa(q, k, v, mask, scale, logit_cap: float = 0.0):
     return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
 
 
-def chunked_sdpa(q, k, v, q_pos, k_pos, *, scale: float, window: int = 0,
-                 logit_cap: float = 0.0, chunk: int = 1024,
-                 causal: bool = True):
-    """Forward-only online-softmax attention over key chunks; never builds
-    the (T, S) score matrix.  q: (B,T,Hq,D), k/v: (B,S,Hkv,D), q_pos: (B,T),
-    k_pos: (B,S).  Invalid slots carry k_pos < 0."""
+def _chunk_scores(qg, k_t, p_t, q_pos, scale, logit_cap, causal, window):
+    """Masked, softcapped fp32 scores (B, Hkv, g, T, C) of one key chunk."""
+    B, T = q_pos.shape
+    s = torch.einsum("btkgd,bckd->bkgtc", qg, k_t) * scale
+    if logit_cap > 0:
+        s = softcap(s, logit_cap)
+    valid = p_t[:, None, :] >= 0
+    if causal:
+        valid = valid & (p_t[:, None, :] <= q_pos[:, :, None])
+        if window > 0:
+            valid = valid & (p_t[:, None, :] > q_pos[:, :, None] - window)
+    else:
+        valid = valid.expand(B, T, p_t.shape[-1])
+    return s.masked_fill(~valid[:, None, None], NEG_INF)
+
+
+def _chunked_fwd(q, k, v, q_pos, k_pos, scale, window, logit_cap, chunk,
+                 causal):
+    """Online softmax over key chunks: (out (B,T,Hq,Dv) in q's dtype, the
+    running max m and sum l (B,Hkv,g,T), fp32)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -229,19 +243,10 @@ def chunked_sdpa(q, k, v, q_pos, k_pos, *, scale: float, window: int = 0,
     l = torch.zeros((B, Hkv, g, T), device=q.device)
     acc = torch.zeros((B, Hkv, g, T, Dv), device=q.device)
     for s0 in range(0, S, chunk):
-        k_t, v_t = k[:, s0:s0 + chunk].float(), v[:, s0:s0 + chunk].float()
-        p_t = k_pos[:, s0:s0 + chunk]
-        s = torch.einsum("btkgd,bckd->bkgtc", qg, k_t) * scale
-        if logit_cap > 0:
-            s = softcap(s, logit_cap)
-        valid = p_t[:, None, :] >= 0
-        if causal:
-            valid = valid & (p_t[:, None, :] <= q_pos[:, :, None])
-            if window > 0:
-                valid = valid & (p_t[:, None, :] > q_pos[:, :, None] - window)
-        else:
-            valid = valid.expand(B, T, p_t.shape[-1])
-        s = s.masked_fill(~valid[:, None, None], NEG_INF)
+        v_t = v[:, s0:s0 + chunk].float()
+        s = _chunk_scores(qg, k[:, s0:s0 + chunk].float(),
+                          k_pos[:, s0:s0 + chunk], q_pos, scale, logit_cap,
+                          causal, window)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -249,7 +254,68 @@ def chunked_sdpa(q, k, v, q_pos, k_pos, *, scale: float, window: int = 0,
         acc = acc * corr[..., None] + torch.einsum("bkgtc,bckd->bkgtd", p, v_t)
         m = m_new
     out = acc / l.clamp(min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dv).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, Dv).to(q.dtype)
+    return out, m, l
+
+
+class _ChunkedSDPA(torch.autograd.Function):
+    """The reference's ``custom_vjp`` (``_make_chunked``): the backward
+    saves only (q, k, v, positions, out, m, l), never a chunk's scores, and
+    recomputes each chunk's probabilities from m and l."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, scale, window, logit_cap, chunk,
+                causal):
+        out, m, l = _chunked_fwd(q, k, v, q_pos, k_pos, scale, window,
+                                 logit_cap, chunk, causal)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, m, l)
+        ctx.args = (scale, window, logit_cap, chunk, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, out, m, l = ctx.saved_tensors
+        scale, window, logit_cap, chunk, causal = ctx.args
+        B, T, Hq, D = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        Dv = v.shape[-1]
+        g = Hq // Hkv
+        qg = q.reshape(B, T, Hkv, g, D).float()
+        do = dout.reshape(B, T, Hkv, g, Dv).permute(0, 2, 3, 1, 4).float()
+        og = out.reshape(B, T, Hkv, g, Dv).permute(0, 2, 3, 1, 4).float()
+        l_safe = l.clamp(min=1e-30)
+        drow = (do * og).sum(-1)                            # (B,Hkv,g,T)
+        dq = torch.zeros((B, T, Hkv, g, D), device=q.device)
+        dk = torch.empty((B, S, Hkv, D), dtype=k.dtype, device=k.device)
+        dv = torch.empty((B, S, Hkv, Dv), dtype=v.dtype, device=v.device)
+        for s0 in range(0, S, chunk):
+            k_t = k[:, s0:s0 + chunk].float()
+            v_t = v[:, s0:s0 + chunk].float()
+            s = _chunk_scores(qg, k_t, k_pos[:, s0:s0 + chunk], q_pos, scale,
+                              logit_cap, causal, window)
+            p = torch.exp(s - m[..., None]) / l_safe[..., None]
+            dp = torch.einsum("bkgtd,bckd->bkgtc", do, v_t)
+            ds = p * (dp - drow[..., None])
+            if logit_cap > 0:   # d softcap: 1 - tanh^2 of the raw scores
+                raw = torch.einsum("btkgd,bckd->bkgtc", qg, k_t) * scale
+                ds = ds * (1.0 - torch.square(torch.tanh(raw / logit_cap)))
+            dq += torch.einsum("bkgtc,bckd->btkgd", ds, k_t) * scale
+            dk[:, s0:s0 + chunk] = torch.einsum("bkgtc,btkgd->bckd", ds,
+                                                qg) * scale
+            dv[:, s0:s0 + chunk] = torch.einsum("bkgtc,bkgtd->bckd", p, do)
+        return (dq.reshape(B, T, Hq, D).to(q.dtype), dk, dv,
+                None, None, None, None, None, None, None)
+
+
+def chunked_sdpa(q, k, v, q_pos, k_pos, *, scale: float, window: int = 0,
+                 logit_cap: float = 0.0, chunk: int = 1024,
+                 causal: bool = True):
+    """Online-softmax attention over key chunks with the reference's
+    flash-style recompute backward; neither pass builds the (T, S) score
+    matrix.  q: (B,T,Hq,D), k/v: (B,S,Hkv,D), q_pos: (B,T), k_pos: (B,S).
+    Invalid slots carry k_pos < 0."""
+    return _ChunkedSDPA.apply(q, k, v, q_pos, k_pos, scale, window,
+                              logit_cap, chunk, causal)
 
 
 def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0):

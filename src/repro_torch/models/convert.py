@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.training.optimizer import AdamState
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -57,3 +58,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> dict:
             "final_norm": _map(enc["final_norm"],
                                lambda a: _tensor(a, device))}
     return out
+
+
+def opt_state_from_jax(state, cfg: ModelConfig, device):
+    """The port's ``AdamState`` from the reference's (``step``, ``mu``,
+    ``nu``) as numpy: the moments go through ``params_from_jax``'s
+    unstacking, so both packages can start from the same params and
+    moments."""
+    step, mu, nu = state
+    return AdamState(
+        step=torch.as_tensor(np.array(step), dtype=torch.int32,
+                             device=device),
+        mu=params_from_jax(mu, cfg, device),
+        nu=params_from_jax(nu, cfg, device))

@@ -482,8 +482,8 @@ class Model:
     with an encoder in front for an encoder-decoder config."""
 
     def __init__(self, cfg: ModelConfig, *, moe_dispatch: str = "onehot",
-                 use_flash: bool = False, paged_attention: str = "kernel",
-                 device=None):
+                 use_flash: bool = False, remat: bool = False,
+                 paged_attention: str = "kernel", device=None):
         if paged_attention not in ("kernel", "gather"):
             raise ValueError(
                 f"paged_attention must be 'kernel' or 'gather', got "
@@ -491,6 +491,8 @@ class Model:
         self.cfg = cfg
         self.moe_dispatch = moe_dispatch
         self.use_flash = use_flash
+        # per-layer checkpoints in a forward under autograd (training)
+        self.remat = remat
         self.paged_attention = paged_attention
         self.device = resolve_device(device)
         if paged_attention == "gather" and self.device.type == "cuda":
@@ -565,7 +567,8 @@ class Model:
         x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
         x, _, _ = tfm.stack_forward(params["encoder"]["layers"], cfg, x,
                                     positions, None, mode="prefill",
-                                    causal=False, use_flash=False)
+                                    causal=False, use_flash=False,
+                                    remat=self.remat)
         return apply_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
     def _cross_kvs(self, params, enc_out) -> List[dict]:
@@ -646,8 +649,9 @@ class Model:
         forward over ``tokens`` (B, T) (or ``inputs_embeds`` (B, T, d), when
         given, with ``tokens`` None), and the MoE metrics summed over layers
         (``aux_loss``, ``expert_counts``).  An encoder-decoder reads
-        ``encoder_embeds`` (B, S_enc, d).  The reference's train forward
-        without the optimizer (ROADMAP queue 1 item 10)."""
+        ``encoder_embeds`` (B, S_enc, d).  The train forward of
+        ``training/train_loop.py``; with ``remat``, under autograd, each
+        layer runs under a checkpoint."""
         if inputs_embeds is None:
             tokens = self._tokens(tokens)
             B, T = tokens.shape
@@ -661,7 +665,7 @@ class Model:
             self._embed(params, tokens, positions, inputs_embeds), positions,
             None, mode="prefill", dispatch=self.moe_dispatch,
             use_flash=self.use_flash, cross_kvs=cross_kvs, want_metrics=True,
-            mrope_positions=self._mrope(mrope_positions))
+            mrope_positions=self._mrope(mrope_positions), remat=self.remat)
         self.forward_count += 1
         return x, metrics
 

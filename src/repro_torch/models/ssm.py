@@ -16,12 +16,14 @@ Recurrent states:
   mlstm  {"conv": (B, c-1, d_in), "C": (B, H, hd, hd), "n": (B, H, hd), "m": (B, H)}
   slstm  {"c": (B, d), "n": (B, d), "m": (B, d), "h": (B, d)}
 
-The reference scans time with ``lax.scan`` (chunked and rematerialised for
-training); the forward here is the same recurrence as a per-step loop of
-torch ops, with the reference's casts: Mamba rounds ``dt``, ``B`` and ``C``
-to the model dtype and steps in fp32, mLSTM scales k after its fp32 cast,
-sLSTM runs its gates and recurrent products in fp32.  The reference has no
-Pallas kernel here, so neither is there a CUDA one.
+The reference scans time with ``lax.scan``; the forward here is the same
+recurrence as a per-step loop of torch ops, with the reference's casts:
+Mamba rounds ``dt``, ``B`` and ``C`` to the model dtype and steps in fp32,
+mLSTM scales k after its fp32 cast, sLSTM runs its gates and recurrent
+products in fp32.  Under autograd a loop of T > SCAN_CHUNK steps, T a
+multiple of it and nothing collected, runs as T / SCAN_CHUNK checkpointed
+slices (``_scan_time``), as the reference rematerialises its scan.  The
+reference has no Pallas kernel here, so neither is there a CUDA one.
 """
 from __future__ import annotations
 
@@ -29,10 +31,36 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init
 
 CONV_K = 4  # causal conv kernel size (mamba / mlstm)
+
+# Backward through a T-step loop keeps every step's state.  Checkpointing
+# each SCAN_CHUNK-step slice keeps only the carries between slices and
+# recomputes inside a slice (the reference's chunked remat).
+SCAN_CHUNK = 256
+
+
+def _scan_time(run, carry: tuple, xs: tuple, collect: bool):
+    """``run(carry, xs) -> (carry, ys)`` over the time axis (dim 1) of every
+    tensor of ``xs``; ``ys`` (B, T, ...).  Under autograd (grad on and an
+    input requiring grad), T > SCAN_CHUNK, T a multiple of it and nothing
+    collected, each slice runs under a non-reentrant checkpoint; otherwise
+    (serving, CUDA graphs) ``run`` runs once over all of T."""
+    T = xs[0].shape[1]
+    training = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*carry, *xs))
+    if collect or not training or T <= SCAN_CHUNK or T % SCAN_CHUNK:
+        return run(carry, xs)
+    ys = []
+    for t0 in range(0, T, SCAN_CHUNK):
+        carry, y = checkpoint(run, carry,
+                              tuple(x[:, t0:t0 + SCAN_CHUNK] for x in xs),
+                              use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys, dim=1)
 
 
 def _causal_conv(params, xb, conv_state):
@@ -110,19 +138,24 @@ def mamba_forward(params, cfg, x, state, collect_states: bool = False):
     C_s = dbc[..., r + n:].float().to(md).float()
     x_s = xc.float()
 
-    h = state["ssm"]
-    ys = []
-    hs = (torch.empty((T,) + tuple(h.shape), dtype=torch.float32,
+    hs = (torch.empty((T,) + tuple(state["ssm"].shape), dtype=torch.float32,
                       device=x.device) if collect_states else None)
-    for t in range(T):
-        dt_t = dt_s[:, t]
-        dec = torch.exp(dt_t[..., None] * A)                 # (B, d_in, n)
-        drv = (dt_t * x_s[:, t])[..., None] * B_s[:, t][:, None, :]
-        h = dec * h + drv
-        if hs is not None:
-            hs[t] = h
-        ys.append(torch.einsum("bdn,bn->bd", h, C_s[:, t]))
-    y = torch.stack(ys, dim=1)                               # (B, T, d_in)
+
+    def run(carry, xs):
+        (h,), (dt_c, B_c, C_c, x_c) = carry, xs
+        ys = []
+        for t in range(dt_c.shape[1]):
+            dt_t = dt_c[:, t]
+            dec = torch.exp(dt_t[..., None] * A)             # (B, d_in, n)
+            drv = (dt_t * x_c[:, t])[..., None] * B_c[:, t][:, None, :]
+            h = dec * h + drv
+            if hs is not None:
+                hs[t] = h
+            ys.append(torch.einsum("bdn,bn->bd", h, C_c[:, t]))
+        return (h,), torch.stack(ys, dim=1)
+
+    (h,), y = _scan_time(run, (state["ssm"],), (dt_s, B_s, C_s, x_s),
+                         collect_states)                     # (B, T, d_in)
     y = y + params["D"] * xc.float()
     y = y.to(md) * F.silu(z)
     out = y @ params["w_out"]
@@ -187,40 +220,44 @@ def mlstm_forward(params, cfg, x, state, collect_states: bool = False):
     i_raw = xf @ params["w_i"] + params["i_bias"]             # (B, T, H)
     f_log = F.logsigmoid(xf @ params["w_f"] + params["f_bias"])
 
-    C, n_s, m = state["C"], state["n"], state["m"]
     if collect_states:
-        Cs = torch.empty((T,) + tuple(C.shape), dtype=torch.float32,
-                         device=x.device)
-        ns = torch.empty((T,) + tuple(n_s.shape), dtype=torch.float32,
-                         device=x.device)
-        ms = torch.empty((T,) + tuple(m.shape), dtype=torch.float32,
-                         device=x.device)
-    hs = []
-    for t in range(T):
-        q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]            # (B, H, hd)
-        i_t, f_t = i_raw[:, t], f_log[:, t]                   # (B, H)
-        m_new = torch.maximum(f_t + m, i_t)
-        i_p = torch.exp(i_t - m_new)[..., None]               # (B, H, 1)
-        f_p = torch.exp(f_t + m - m_new)[..., None]
-        # C' = f C + (i v) k^T: two passes over C, the outer product
-        # accumulated by one batched rank-1 product; written straight into
-        # the step's collect slot when collecting (the (T, B, H, hd, hd)
-        # stack is the round's largest buffer at xlstm width)
-        C_new = Cs[t] if collect_states else None
-        C_new = torch.mul(f_p[..., None], C, out=C_new)
-        C_new.view(B * H, hd, hd).baddbmm_(
-            (i_p * v_t).reshape(B * H, hd, 1), k_t.reshape(B * H, 1, hd))
-        C = C_new
-        n_s = f_p * n_s + i_p * k_t
-        m = m_new
-        if collect_states:
-            ns[t] = n_s
-            ms[t] = m
-        h_num = torch.einsum("bhij,bhj->bhi", C, q_t)
-        h_den = torch.clamp(torch.einsum("bhd,bhd->bh", n_s, q_t).abs(),
-                            min=1.0)
-        hs.append(h_num / h_den[..., None])
-    h = torch.stack(hs, dim=1).reshape(B, T, d_in).to(x.dtype)
+        Cs, ns, ms = (torch.empty((T,) + tuple(state[k].shape),
+                                  dtype=torch.float32, device=x.device)
+                      for k in ("C", "n", "m"))
+
+    def run(carry, xs):
+        (C, n_s, m), (q_c, k_c, v_c, i_c, f_c) = carry, xs
+        hs = []
+        for t in range(q_c.shape[1]):
+            q_t, k_t, v_t = q_c[:, t], k_c[:, t], v_c[:, t]  # (B, H, hd)
+            i_t, f_t = i_c[:, t], f_c[:, t]                   # (B, H)
+            m_new = torch.maximum(f_t + m, i_t)
+            i_p = torch.exp(i_t - m_new)[..., None]           # (B, H, 1)
+            f_p = torch.exp(f_t + m - m_new)[..., None]
+            # C' = f C + (i v) k^T: two passes over C, the outer product
+            # accumulated by one batched rank-1 product; written straight
+            # into the step's collect slot when collecting (the (T, B, H,
+            # hd, hd) stack is the round's largest buffer at xlstm width).
+            # Autograd takes only the form without out=.
+            C_new = Cs[t] if collect_states else None
+            C_new = torch.mul(f_p[..., None], C, out=C_new)
+            C_new.view(B * H, hd, hd).baddbmm_(
+                (i_p * v_t).reshape(B * H, hd, 1), k_t.reshape(B * H, 1, hd))
+            C = C_new
+            n_s = f_p * n_s + i_p * k_t
+            m = m_new
+            if collect_states:
+                ns[t] = n_s
+                ms[t] = m
+            h_num = torch.einsum("bhij,bhj->bhi", C, q_t)
+            h_den = torch.clamp(torch.einsum("bhd,bhd->bh", n_s, q_t).abs(),
+                                min=1.0)
+            hs.append(h_num / h_den[..., None])
+        return (C, n_s, m), torch.stack(hs, dim=1)
+
+    (C, n_s, m), h = _scan_time(run, (state["C"], state["n"], state["m"]),
+                                (q, k, v, i_raw, f_log), collect_states)
+    h = h.reshape(B, T, d_in).to(x.dtype)
     out = (h * F.silu(z)) @ params["w_down"]
     if collect_states:
         return out, {"conv": _conv_history(conv_in, T), "C": Cs, "n": ns,
@@ -261,23 +298,32 @@ def slstm_forward(params, cfg, x, state, collect_states: bool = False):
     x32 = x.float()
     pre = {g: x32 @ params[f"w_{g}"].float() for g in _GATES}
     r32 = {g: params[f"r_{g}"].float() for g in _GATES}
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    steps = []
-    for t in range(T):
-        z_t = torch.tanh(pre["z"][:, t] + h @ r32["z"] + params["b_z"])
-        i_t = pre["i"][:, t] + h @ r32["i"] + params["b_i"]
-        f_t = F.logsigmoid(pre["f"][:, t] + h @ r32["f"] + params["b_f"])
-        o_t = torch.sigmoid(pre["o"][:, t] + h @ r32["o"] + params["b_o"])
-        m_new = torch.maximum(f_t + m, i_t)
-        i_p = torch.exp(i_t - m_new)
-        f_p = torch.exp(f_t + m - m_new)
-        c = f_p * c + i_p * z_t
-        n = f_p * n + i_p
-        h = o_t * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        steps.append((c, n, m, h))
-    hs = torch.stack([s[3] for s in steps], dim=1).to(x.dtype)
-    out = F.gelu(hs @ params["w_ffn_up"], approximate="tanh") \
+    steps = [] if collect_states else None
+
+    def run(carry, xs):
+        (c, n, m, h), (pz, pi, pf, po) = carry, xs
+        hs = []
+        for t in range(pz.shape[1]):
+            z_t = torch.tanh(pz[:, t] + h @ r32["z"] + params["b_z"])
+            i_t = pi[:, t] + h @ r32["i"] + params["b_i"]
+            f_t = F.logsigmoid(pf[:, t] + h @ r32["f"] + params["b_f"])
+            o_t = torch.sigmoid(po[:, t] + h @ r32["o"] + params["b_o"])
+            m_new = torch.maximum(f_t + m, i_t)
+            i_p = torch.exp(i_t - m_new)
+            f_p = torch.exp(f_t + m - m_new)
+            c = f_p * c + i_p * z_t
+            n = f_p * n + i_p
+            h = o_t * c / torch.clamp(n, min=1e-6)
+            m = m_new
+            if steps is not None:
+                steps.append((c, n, m, h))
+            hs.append(h)
+        return (c, n, m, h), torch.stack(hs, dim=1)
+
+    (c, n, m, h), hs = _scan_time(
+        run, tuple(state[k] for k in ("c", "n", "m", "h")),
+        tuple(pre[g] for g in _GATES), collect_states)
+    out = F.gelu(hs.to(x.dtype) @ params["w_ffn_up"], approximate="tanh") \
         @ params["w_ffn_down"]
     if collect_states:
         return out, {k: torch.stack([s[i] for s in steps])

@@ -14,11 +14,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.training.tree import tree_leaves
 
 
 ATTN_KINDS = ("attn", "swa", "mla")
@@ -158,7 +160,8 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
                   paged_attention: str = "kernel",
                   want_metrics: bool = False,
                   prefetch_masks: Optional[List[torch.Tensor]] = None,
-                  mrope_positions: Optional[torch.Tensor] = None
+                  mrope_positions: Optional[torch.Tensor] = None,
+                  remat: bool = False
                   ) -> Tuple[torch.Tensor, dict, List[Optional[dict]]]:
     """Run every layer in order (the reference's scan over periods).
 
@@ -180,7 +183,12 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
     ``_predicted`` counts, all on the device; nothing asked gives {}.
     ``mrope_positions`` (B, T, 3) are M-RoPE's (t, h, w) ids (text-only
     positions when None).  The third value holds each layer's collected
-    states (None where nothing was collected)."""
+    states (None where nothing was collected).
+
+    ``remat`` under autograd (grad on, a parameter requiring grad) runs
+    each layer under a non-reentrant checkpoint, the reference's per-layer
+    ``jax.checkpoint``: the backward recomputes one layer at a time
+    instead of keeping every layer's intermediates."""
     metrics: Dict[str, torch.Tensor] = {}
     dev = x.device
     if want_metrics:
@@ -191,8 +199,13 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
         for k in ("prefetch_hits", "prefetch_actual", "prefetch_predicted"):
             metrics[k] = torch.zeros((), dtype=torch.int32, device=dev)
     collected: List[Optional[dict]] = []
+    block = block_forward
+    if remat and torch.is_grad_enabled() and any(
+            p.requires_grad for p in tree_leaves(layer_params)):
+        block = lambda *a, **kw: checkpoint(block_forward, *a, **kw,
+                                            use_reentrant=False)
     for l, (kind, is_moe) in enumerate(layer_kinds(cfg)):
-        x, m, c = block_forward(
+        x, m, c = block(
             layer_params[l], cfg, kind, is_moe, x, positions,
             None if caches is None else caches[l], mode=mode,
             collect=collect, causal=causal, dispatch=dispatch,

@@ -14,8 +14,8 @@ the port's own AR wave token for token (whisper's wave goes through
 ``SpecDecoder.generate`` in ``tests/test_torch_encdec.py``: the serving
 engine refuses it), jamba's continuous paged stream equals the reference's
 request for request, and the serve CLI runs the SWA, MLA and recurrent
-archs end to end.  The train step of ``test_reduced_smoke`` waits for
-ROADMAP queue 1 item 10.
+archs end to end.  The train step of ``test_reduced_smoke`` is held
+against the reference's in ``tests/test_torch_train_archs.py``.
 
 Same weights on both sides (``model_pair``), fp32, TF32 off, 1e-4 on logits.
 """
@@ -50,9 +50,9 @@ def _dispatch(cfg):
 @pytest.mark.parametrize("arch", ALL)
 def test_reduced_smoke(arch):
     """Forward, prefill and one decode step of the reduced config equal the
-    reference's logits (the train step is queue 1 item 10); whisper reads
-    0.02-scaled frames of ``encoder_seq_len``, as the reference's smoke
-    test feeds it."""
+    reference's logits (the train step: test_torch_train_archs.py);
+    whisper reads 0.02-scaled frames of ``encoder_seq_len``, as the
+    reference's smoke test feeds it."""
     cfg = ref_get_config(arch, reduced=True)
     assert cfg.num_layers <= 2 and cfg.d_model <= 512 and cfg.num_experts <= 4
     jm, jp, tm, tp = model_pair(cfg, moe_dispatch=_dispatch(cfg))

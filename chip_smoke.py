@@ -278,6 +278,31 @@ Phases, each of which fails the run if it fails:
      on every token under onehot, plus 4 x the causal attention's forward),
      beside the card's name and power limit.  Every kernel's launch count
      must be 0 over each of a, b and c.
+  11. expert parallelism (ep_phase, run after phase 6 on phase 5's target
+     and weights, no second copy), on a NCCL world of one
+     (launch/mesh.make_ep_mesh(1)):
+       a. kernels 1 and 2 at the target's width on an expert-parallel
+          receive buffer: the SD verify's 320 routed rows of EP_ROWS = 384,
+          NaN in the rows past the groups, held against the plain version
+          on the real rows at rtol = atol = 3e-2, and device-only at N 320
+          and N 384 in turns (A B B A): the rows past the groups must cost
+          no tiles (the gap within the repeats' spread plus EP_TIME_NOISE
+          of the time);
+       b. distributed/collectives.moe_ep_forward against the gmm dispatch:
+          the reduced target's layer in fp32 (within 3e-4) and the served
+          layer in bf16 (printed) at an SD verify (B 8, T 5) and a
+          256-token prefill, each device-only with its NCCL all-to-alls
+          inside the captured call; EP_CALLS must be > 0;
+       c. wave-ep/model and wave-ep/none: phase 5's wave workload on a
+          Model(moe_dispatch="ep", mesh=...) engine, every round from CUDA
+          graphs, run twice (the repeat captures nothing; its rounds under
+          sync debug mode "error"); tok/s, the greedy tokens' agreement
+          with wave/model's and wave/none's (bf16, printed), launches of
+          kernels 1-2 and EP calls each = MoE layers x target forwards;
+          then the workload a third time under compile_guard,
+          transfer_guard and sharding_guard (analysis/runtime.py), which
+          must count 0, 0 and be ok; and the three guards over phase 5's
+          continuous paged stream (gmm) on a warm engine, likewise.
 
 It ends with a JSON line of per-kernel numbers and, last, the device line.
 Without a card, or outside a checkout of the repository, it exits non-zero
@@ -3433,6 +3458,240 @@ TUNER_BATCHES =(1, 2, 4, 8, 16, 32, 64, 128)
 ETA_PROMPT, ETA_SEQ = 64, 128       # the wave workload's prompt bucket, max_seq
 
 
+# ------------------------------------------------------ expert parallelism
+EP_PATHS = ("wave-ep/model", "wave-ep/none")
+EP_ROWS = 384                       # the receive buffer of phase 11a
+EP_TIME_NOISE = 0.05                # of the N = 320 time, beyond the spread
+
+
+def _ep_hold(label: str, out, ref, tol: float) -> float:
+    """Fail unless ``out`` is finite and within rtol = atol = ``tol`` of
+    ``ref``; returns the max abs error."""
+    import torch
+    err = (out.float() - ref.float()).abs()
+    over = err > tol + tol * ref.float().abs()
+    if not torch.isfinite(out).all() or over.any():
+        raise AssertionError(f"{label}: max abs err {err.max().item():.4g} "
+                             f"outside rtol=atol={tol}")
+    return err.max().item()
+
+
+def ep_phase(seed: int, served: dict) -> dict:
+    """Expert parallelism on a NCCL world of one (ROADMAP queue 1 item 11),
+    on the serve phase's target (its weights, no second copy):
+
+      a. kernels 1-2 at the target's width (E 64, d 3584, f 2560, bf16, the
+         TMA + wgmma route) on an expert-parallel receive buffer: the SD
+         verify's 320 routed rows of N = EP_ROWS, NaN in the rows past the
+         groups, held against the plain version on the real rows within
+         rtol = atol = TOL, and device-only times at N 320 and N 384 in
+         turns (A B B A): the rows past the groups must cost no tiles (the
+         times within the spread of the repeats plus EP_TIME_NOISE);
+      b. moe_ep_forward against moe_forward(dispatch="gmm"): the reduced
+         target in fp32 (within 3e-4, tests/test_ep_dispatch.py) and the
+         served layer in bf16 (agreement printed), at an SD verify (B 8,
+         T 5) and a 256-token prefill, each device-only (the NCCL
+         all-to-alls inside the captured call); EP_CALLS > 0;
+      c. wave-ep/model and wave-ep/none: the wave workload of phase 5 on
+         an "ep" engine, every round from CUDA graphs, run twice (the
+         repeat captures nothing), tok/s, the tokens' agreement with
+         wave/model's and wave/none's, launches of kernels 1-2 and EP
+         calls = MoE layers x target forwards; then the workload a third
+         time under compile_guard, transfer_guard and sharding_guard (0,
+         0, ok); and the guards over phase 5's continuous paged stream
+         (gmm), warm.
+    Returns the launch counts of the wave-ep paths."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import (compile_guard, sharding_guard,
+                                      transfer_guard)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels.gmm import ragged
+    from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
+    from repro_torch.launch.mesh import make_ep_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import init_moe, moe_forward
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import submit_poisson
+
+    card = card_line()
+    dev = torch.device("cuda")
+    cfg, dcfg = served["cfg"], served["dcfg"]
+    target, draft = served["target"], served["draft"]
+    params_t, params_d = served["params_t"], served["params_d"]
+    moe_layers, pb = served["moe_layers"], served["pb"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 25)
+
+    # a. kernels 1-2 with rows past the groups
+    ffn = params_t["layers"][0]["ffn"]
+    wg, wu, wd = ffn["w_gate"], ffn["w_up"], ffn["w_down"]
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    sizes = routed_sizes(40, E, K, gen, dev)            # B 8 x (gamma + 1)
+    real = int(sizes.sum())
+    xs = torch.randn((EP_ROWS, cfg.d_model), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    xs[real:] = float("nan")
+    h = ragged.fused_gate_up(xs, wg, wu, sizes)
+    y = ragged.ragged_gmm(h, wd, sizes)
+    torch.cuda.synchronize()
+    routes = dict(ragged.LAST_ROUTE)
+    if set(routes.values()) != {"sm90"}:
+        raise AssertionError(f"ep kernels: routes {routes}, expected sm90")
+    h_ref = fused_gate_up_ref(xs[:real], wg, wu, sizes)
+    err_h = _ep_hold("ep fused_gate_up [trailing rows]", h[:real], h_ref, TOL)
+    err_y = _ep_hold("ep ragged_gmm [trailing rows]", y[:real],
+                     ragged_gmm_ref(h_ref, wd, sizes), TOL)
+    times = {}
+    h_real = h[:real].contiguous()
+    fns = {("fused_gate_up", real): lambda: ragged.fused_gate_up(
+               xs[:real], wg, wu, sizes),
+           ("fused_gate_up", EP_ROWS): lambda: ragged.fused_gate_up(
+               xs, wg, wu, sizes),
+           ("ragged_gmm", real): lambda: ragged.ragged_gmm(h_real, wd, sizes),
+           ("ragged_gmm", EP_ROWS): lambda: ragged.ragged_gmm(h, wd, sizes)}
+    for name in ("fused_gate_up", "ragged_gmm"):
+        for n in (real, EP_ROWS, EP_ROWS, real):          # A B B A
+            times.setdefault((name, n), []).append(
+                graph_time_ms(fns[name, n], calls=10, iters=5))
+    for name in ("fused_gate_up", "ragged_gmm"):
+        a, b = times[name, real], times[name, EP_ROWS]
+        spread = max(abs(a[0] - a[1]), abs(b[0] - b[1]))
+        gap = abs(sum(b) / 2 - sum(a) / 2)
+        log(f"ep kernel {name:13s} [verify, {real} of {EP_ROWS} rows]: "
+            f"N {real} {a[0]:.4f}/{a[1]:.4f} ms, N {EP_ROWS} {b[0]:.4f}/"
+            f"{b[1]:.4f} ms device-only (A B B A), gap {gap:.4f} ms, spread "
+            f"{spread:.4f} ms; max abs err on the real rows "
+            f"{err_h if name == 'fused_gate_up' else err_y:.4g} "
+            f"(rtol=atol={TOL}), route {routes[name]} | {card}")
+        if gap > spread + EP_TIME_NOISE * sum(a) / 2:
+            raise AssertionError(f"ep kernel {name}: the rows past the groups "
+                                 f"cost {gap:.4f} ms (spread {spread:.4f})")
+    del xs, h, y, h_ref, h_real, fns
+    torch.cuda.empty_cache()
+
+    # b. the EP layer on a NCCL world of one against the gmm dispatch
+    mesh = make_ep_mesh(1)
+    collectives.reset_ep_calls()
+    rcfg = get_config("qwen2-57b-a14b", reduced=True)
+    rp = init_moe(rcfg, torch.float32, generator=gen, device=dev)
+    shapes = {"verify": (8, 5), "prefill": (1, 256)}
+    for label, c, p, dt in (("fp32 reduced", rcfg, rp, torch.float32),
+                            ("bf16 full width", cfg, ffn, torch.bfloat16)):
+        for case, (B, T) in shapes.items():
+            x = torch.randn((B, T, c.d_model), generator=gen, device=dev).to(dt)
+            y_ep = collectives.moe_ep_forward(p, c, x, mesh=mesh)
+            y_gmm = moe_forward(p, c, x, dispatch="gmm")[0]
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                err = _ep_hold(f"ep layer [{label}, {case}]", y_ep, y_gmm,
+                               3e-4)
+                agree = f"max abs err {err:.3g} (rtol=atol=3e-4)"
+            else:
+                err = (y_ep.float() - y_gmm.float()).abs().max().item()
+                rel = err / y_gmm.float().abs().max().item()
+                if not torch.isfinite(y_ep).all():
+                    raise AssertionError(f"ep layer [{label}, {case}]: "
+                                         "non-finite output")
+                agree = (f"max abs diff {err:.4g} ({rel:.3g} of the largest "
+                         "|y|; printed, bf16 sums in another order)")
+            t_ep = graph_time_ms(lambda: collectives.moe_ep_forward(
+                p, c, x, mesh=mesh), calls=5, iters=5)
+            t_gmm = graph_time_ms(lambda: moe_forward(p, c, x,
+                                                      dispatch="gmm"),
+                                  calls=5, iters=5)
+            if t_ep is None:
+                raise AssertionError("ep layer: the all-to-all dispatch "
+                                     "could not be captured in a CUDA graph")
+            log(f"ep layer [{label}, {case} B {B} T {T}]: {agree}; "
+                f"device-only ep {t_ep:.4f} ms, gmm {_fmt(t_gmm)} | {card}")
+    calls = collectives.EP_CALLS["moe_ep_forward"]
+    if calls <= 0:
+        raise AssertionError("ep layer: EP_CALLS is 0")
+    log(f"ep layer: EP_CALLS = {calls} (eager calls; captures credit none)")
+    del rp
+    torch.cuda.empty_cache()
+
+    # c. wave-ep, then the guards over warm streams
+    target_ep = Model(cfg, moe_dispatch="ep", mesh=mesh, device="cuda")
+    launches = {}
+
+    def guarded(eng, run, path: str):
+        with compile_guard() as cg, transfer_guard() as tg, \
+                sharding_guard(eng) as sg:
+            out = run("warm, under the guards")
+        log(f"{path}: warm repeat under the guards: compile_guard "
+            f"{cg.count}, transfer_guard {tg.count}, {sg.render()}")
+        if cg.count or tg.count or not sg.ok:
+            raise AssertionError(f"{path}: guard violation {tg.lines[:5]}")
+        return out
+
+    for path in EP_PATHS:
+        kind = path.split("/")[1]
+        eng = ServingEngine(target_ep, draft if kind == "model" else None,
+                            params_t, params_d if kind == "model" else None,
+                            max_batch=8, gamma=4, temperature=0.0,
+                            proposer=kind, seed=seed, mesh=mesh)
+
+        def run(label, eng=eng):
+            first = max(eng.done, default=0)
+            for i in range(16):
+                eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+                           max_new_tokens=32)
+            for r in eng.run():
+                log(_wave_line(path, label, r) + f" ep={r.ep}")
+            return np.stack([eng.done[u].output for u in sorted(eng.done)
+                             if u > first])
+
+        reset_launch_counts()
+        collectives.reset_ep_calls()
+        for m in (target_ep, draft):
+            m.forward_count = m.prefill_count = 0
+        out, _ = _path_runs(eng, kind, run, path, card)
+        launches[path] = launch_counts()
+        calls = collectives.EP_CALLS["moe_ep_forward"]
+        want = moe_layers * target_ep.forward_count
+        expect = {name: 0 for name in launches[path]}
+        expect["fused_gate_up"] = expect["ragged_gmm"] = want
+        log(f"{path}: {target_ep.forward_count} target forwards, launches "
+            f"(credited per replay) {launches[path]}, EP calls {calls}, "
+            f"expected {want} each")
+        if launches[path] != expect or calls != want or want <= 0:
+            raise AssertionError(f"{path}: launches {launches[path]}, EP "
+                                 f"calls {calls}, expected {want}")
+        ref = served["outputs"][f"wave/{kind}"]
+        log(f"{path}: greedy tokens vs wave/{kind}'s "
+            f"{float((out == ref).mean()):.3f} (bf16: the ep combine sums "
+            "in fp32, gmm in bf16; the fp32 phase requires equality)")
+        guarded(eng, run, path)
+        del eng
+
+    # the guards over phase 5's continuous paged stream (gmm), warm
+    eng = ServingEngine(target, draft, params_t, params_d, max_batch=8,
+                        gamma=4, temperature=0.0, proposer="model",
+                        seed=seed, scheduler="continuous", kv_layout="paged",
+                        page_size=64)
+
+    def stream(label):
+        first = max(eng.done, default=0)
+        submit_poisson(eng, pb["tokens"], pb["lengths"], rate=0.5,
+                       max_new_choices=(8, 16, 32), seed=seed)
+        eng.submit(served["long_prompt"], max_new_tokens=16, arrival_round=6)
+        (r,) = eng.run()
+        log(f"continuous/model ({label}): {r.tokens_per_second:.2f} tok/s "
+            f"rounds={r.stats.rounds} captures={r.captures} "
+            f"replays={r.replays}")
+        return {u - first: eng.done[u].output for u in eng.done if u > first}
+
+    stream("graphs, first run")
+    guarded(eng, stream, "continuous/model")
+    del eng, target_ep
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return launches
+
+
 def tuner_reference_phase(seed: int):
     """Reduced fp32 on the card: the serving CLI's AutoTuner (make_tuner)
     plans every wave and every continuous paged round, through gamma
@@ -3839,6 +4098,7 @@ def main() -> int:
     launches.update(prefix_faults_phase(args.seed, served))
     launches.update(prefetch_phase(args.seed, served))
     launches.update(tuner_phase(args.seed, served))
+    launches.update(ep_phase(args.seed, served))
     del served
     launches.update(eagle_phase(args.seed))
     tuner_reference_phase(args.seed)

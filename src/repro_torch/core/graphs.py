@@ -35,6 +35,12 @@ capture reads every counter before and after, takes the difference back
 (a capture launches nothing), and adds it on every replay: after any run,
 the counters hold what an eager run would have counted.
 
+``FIRST_RUNS`` counts, over every session, the round keys run for the
+first time (a capture on the card) and the admission shapes the engine
+ran for the first time (``SDEngine._log_shape``): ``analysis/runtime.py``'s
+``compile_guard`` reads it.  ``collectives.EP_CALLS`` is credited per
+replay like the kernels' launch counts.
+
 On the CPU there are no graphs.  The caller chose the CPU (or
 ``capture=False`` on the card, for A/B runs): the same stages run eagerly
 on the same static buffers every time, and the same key logic counts a
@@ -50,12 +56,19 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import host_crossing
+from repro_torch.distributed import collectives
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention import paged
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gmm import gmm, ragged
 
 KERNEL_MODULES = (ragged, paged, decode_ops, flash_attention, gmm)
+# the counters a replay credits: each kernel's launches, and the
+# expert-parallel dispatches
+_COUNTERS = tuple(m.LAUNCHES for m in KERNEL_MODULES) + (collectives.EP_CALLS,)
+# first runs of a round key and of an admission shape, over every session
+FIRST_RUNS = {"round_keys": 0, "admission_shapes": 0}
 _MODEL_COUNTERS = ("forward_count", "prefill_count")
 
 Stage = Callable[[object], object]
@@ -115,10 +128,12 @@ class StaticIO:
                             Optional[Dict[str, int]]]:
         """The round's one readback: (committed, n_commit, n_accept,
         finite, prefetch counts or None) as new host values.  On the card
-        this is the round's only host sync."""
+        this is the round's only host sync, an explicit crossing
+        (``device.host_crossing``)."""
         if self._out_host is not None:
             self._out_host.copy_(self.out, non_blocking=True)
-            torch.cuda.current_stream().synchronize()
+            with host_crossing():
+                torch.cuda.current_stream().synchronize()
             packed = self._out_host.numpy()
         else:
             packed = self.out.numpy()
@@ -169,8 +184,7 @@ class RoundGraphs:
         return sum(self.replays.values())
 
     def _slots(self):
-        slots = [(m.LAUNCHES, name) for m in KERNEL_MODULES
-                 for name in m.LAUNCHES]
+        slots = [(c, name) for c in _COUNTERS for name in c]
         return slots + [(model, attr) for model in self._models
                         for attr in _MODEL_COUNTERS]
 
@@ -210,6 +224,7 @@ class RoundGraphs:
         after = after_stage or (lambda i: None)
         first = key not in self.captures
         if first:
+            FIRST_RUNS["round_keys"] += 1
             out = None
             for i, stage in enumerate(stages):
                 out = stage(out)

@@ -82,9 +82,10 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.graphs import RoundGraphs, StaticIO
+from repro_torch.core.graphs import FIRST_RUNS, RoundGraphs, StaticIO
 from repro_torch.core.proposer import Proposer, make_proposer
 from repro_torch.core.rejection import probs_from_logits, rejection_sample, sample_from
+from repro_torch.device import host_crossing, sync_debug_mode
 from repro_torch.models.model import (Model, grow_cache_pages, merge_cache_rows,
                                       scatter_cache_rows)
 from repro_torch.models.moe import warm_experts
@@ -295,11 +296,26 @@ class SDEngine:
     A/B runs.  On the CPU rounds always run eagerly.  ``sync_guard`` runs
     every replayed untimed round, up to its readback, under
     ``torch.cuda.set_sync_debug_mode("error")``, so a host sync there
-    raises."""
+    raises; the readback, the admissions and the prefill are explicit
+    crossings (``device.host_crossing``).
+
+    ``mesh``/``mesh_layout`` default to the target's (one mesh a session);
+    under expert parallelism the prefetch warm gathers each rank's own
+    experts only (``models/moe.warm_experts``)."""
 
     def __init__(self, target: Model, proposer: Proposer, *,
                  gamma: int = 4, temperature: float = 0.0,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None, mesh=None,
+                 mesh_layout: Optional[str] = None):
+        if mesh is None and getattr(target, "mesh", None) is not None:
+            mesh = target.mesh
+            if mesh_layout is None:
+                mesh_layout = target.mesh_layout
+        if mesh is not None:
+            from repro_torch.distributed.constraints import resolve_mesh
+            mesh, mesh_layout = resolve_mesh(mesh, mesh_layout)
+        self.mesh = mesh
+        self.mesh_layout = mesh_layout
         self.target = target
         self.proposer = proposer
         self.gamma = gamma
@@ -381,12 +397,8 @@ class SDEngine:
         """The warm stage: the plan's experts' weights into the engine's
         warm buffers (allocated by the first call, written in place after,
         so captured rounds write the same addresses)."""
-        if self._warm is None:
-            self._warm = warm_experts(params_t["layers"], self.target.cfg,
-                                      plan)
-        else:
-            warm_experts(params_t["layers"], self.target.cfg, plan,
-                         out=self._warm)
+        self._warm = warm_experts(params_t["layers"], self.target.cfg, plan,
+                                  out=self._warm, mesh=self.mesh)
 
     def _finalize(self, params, pend, p_state, base_len, p_dist, q_dist,
                   drafts, hidden, last_token, active, finite, generator):
@@ -459,6 +471,7 @@ class SDEngine:
         if key not in self._shapes:
             self._shapes.add(key)
             log.append(entry)
+            FIRST_RUNS["admission_shapes"] += 1
 
     # ---------------------------------------------------------------- arenas
     def _adopt(self, akey: tuple, t_cache: dict, p_state, last_token
@@ -508,6 +521,7 @@ class SDEngine:
         return t_cache, p_state, last_l
 
     # --------------------------------------------------------------- session
+    @host_crossing()
     def start(self, params_t, params_p, prompts, *, max_seq: int,
               lengths=None, generator: Optional[torch.Generator] = None,
               cache_opts: Optional[dict] = None, page_table=None,
@@ -537,6 +551,15 @@ class SDEngine:
                             p_state=arena.p_state,
                             last_token=arena.last_token, max_seq=max_seq)
 
+    def round_key(self, state: SessionState, gamma: Optional[int] = None,
+                  timed: bool = False) -> tuple:
+        """The key of the graph set a round of ``state`` runs: (stage,
+        gamma, batch, max_seq, cache geometry)."""
+        gamma = self.gamma if gamma is None else gamma
+        staged = timed or _provides_prefetch(self.proposer)
+        return (("staged" if staged else "round", gamma)
+                + self._arena_key(state.batch, state.max_seq, state.t_cache))
+
     def round(self, state: SessionState, *, gamma: Optional[int] = None,
               generator: Optional[torch.Generator] = None, active=None,
               timed: bool = False) -> Tuple[SessionState, RoundResult]:
@@ -554,10 +577,10 @@ class SDEngine:
         if generator is None and self.temperature > 0.0:
             raise ValueError("round() needs a generator at temperature>0")
         B = state.batch
-        akey = self._arena_key(B, state.max_seq, state.t_cache)
+        key = self.round_key(state, gamma, timed)
+        akey = key[2:]
         prefetch = _provides_prefetch(self.proposer)
         staged = timed or prefetch
-        key = ("staged" if staged else "round", gamma) + akey
         io = self._io.get(key)
         if io is None:
             io = self._io[key] = StaticIO(B, self.target.device)
@@ -604,14 +627,11 @@ class SDEngine:
         if not (on and self.sync_guard and self.target.device.type == "cuda"):
             yield
             return
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with sync_debug_mode("error"):
             yield
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
 
     # -------------------------------------------------------------- admission
+    @host_crossing()
     def admit(self, state: SessionState, prompts, lengths, admit_mask, *,
               generator: Optional[torch.Generator] = None) -> SessionState:
         """Full-pool admission: prefill the whole (B, T_prompt) bucket into
@@ -659,6 +679,7 @@ class SDEngine:
         return replace(state, t_cache=t_cache, p_state=p_state,
                        last_token=last_token)
 
+    @host_crossing()
     def admit_rows(self, state: SessionState, prompts, lengths, rows, *,
                    valid=None, generator: Optional[torch.Generator] = None
                    ) -> SessionState:
@@ -684,6 +705,7 @@ class SDEngine:
         return self._scatter_admitted(state, fresh, rows, valid, generator,
                                       Tp)
 
+    @host_crossing()
     def admit_rows_prefix(self, state: SessionState, tails, tail_start,
                           tail_len, prompts, lengths, rows, *, valid=None,
                           generator: Optional[torch.Generator] = None
@@ -783,6 +805,7 @@ class SDEngine:
                                 rows=np.asarray(rows, np.int32),
                                 chunk=int(chunk), generator=generator)
 
+    @host_crossing()
     def admit_chunk(self, state: SessionState, pa: PendingAdmission
                     ) -> Tuple[SessionState, Optional[PendingAdmission]]:
         """Advance a chunked admission by ONE chunk, eagerly.
@@ -836,6 +859,7 @@ class SDEngine:
         return state, None
 
     # ---------------------------------------------------------------- growth
+    @host_crossing()
     def grow_session(self, state: SessionState, new_max_seq: int, *,
                      pool_pages: Optional[int] = None,
                      max_pages: Optional[int] = None) -> SessionState:
@@ -877,7 +901,8 @@ class SDEngine:
         out = np.zeros((B, max_new_tokens + gamma + 1), np.int32)
         n_out = np.zeros((B,), np.int32)
         # the first sampled token (from prefill) counts as generated
-        out[:, 0] = state.last_token.cpu().numpy()
+        with host_crossing():
+            out[:, 0] = state.last_token.cpu().numpy()
         n_out += 1
         stats = SDStats()
         while int(n_out.min()) < max_new_tokens:

@@ -32,6 +32,8 @@ PTXAS_VERBOSE = ["-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[Path, ctypes.CDLL] = {}
+# libraries built or loaded by this process (analysis/runtime.compile_guard)
+LOADS = {"libraries": 0}
 
 
 def find_nvcc() -> str:
@@ -123,6 +125,7 @@ def load(source: Path) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
+            LOADS["libraries"] += 1
         return lib
 
 

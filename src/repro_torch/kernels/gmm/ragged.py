@@ -21,6 +21,13 @@ reports; nothing on the kernel's path calls it.  Other bf16 shapes keep the
 WMMA kernels, fp32 the CUDA-core ones, both on ``make_group_metadata``'s
 visit list.
 
+The groups may cover fewer than N rows (``sum(group_sizes) <= N``, the
+expert-parallel receive buffer of ``distributed/collectives.py``): no route
+launches a tile or a visit for the rows past the last group, nor stores
+into them.  The TMA kernel's 64-row box of a chunk reads up to 63 rows
+past its expert's end (the next expert's rows, or these), multiplies them
+and never stores them, as at any group boundary.
+
 Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
 the two.  ``LAUNCHES`` counts kernel launches per kernel, so a run can show
@@ -296,10 +303,11 @@ def ragged_gmm(xs: torch.Tensor,            # (N, D) tokens sorted by expert
                group_sizes: torch.Tensor,   # (E,) rows per expert
                *, bm: Optional[int] = None) -> torch.Tensor:   # (N, F)
     """``xs[n] @ w[e(n)]`` with fp32 accumulation, cast to ``xs.dtype``.
-    ``group_sizes`` must sum to N.  ``bm`` (16 or 64) overrides the row
-    tile, which is otherwise 64 rows for the TMA kernel and chosen from the
-    rows per expert for the visit-list kernels; 16 takes the WMMA kernel in
-    bf16."""
+    ``group_sizes`` sums to at most N; the rows past the last group are
+    left unwritten (the plain version zeroes them).  ``bm`` (16 or 64)
+    overrides the row tile, which is otherwise 64 rows for the TMA kernel
+    and chosen from the rows per expert for the visit-list kernels; 16
+    takes the WMMA kernel in bf16."""
     refuse_autograd("ragged_gmm", xs, w)
     if not _on_cuda(xs):
         return ragged_gmm_ref(xs, w, group_sizes)

@@ -11,7 +11,10 @@ contiguous row slab by its weight matrix.  Accumulation is fp32 and the
 result is cast to the input dtype, as in the kernels.
 
 These are the CPU path of the wrappers in ``ragged.py`` and ``gmm.py`` and
-the yardstick the CUDA kernels are held against on the card.  The ragged loop
+the yardstick the CUDA kernels are held against on the card.  The ragged
+versions take ``sum(group_sizes) <= N``: the rows past the groups come out
+zero (the kernels leave them unwritten; their callers never read them).
+The ragged loop
 reads the group boundaries on the host, so it synchronises; the kernels and
 the capacity dispatch never do.
 """
@@ -25,10 +28,10 @@ from repro_torch.models.layers import act_fn
 
 
 def _group_bounds(group_sizes: torch.Tensor, n: int):
-    """Host (start, end) row range per expert.  Rows past the last group
-    belong to expert E-1, as the reference's clamped gather assigns them."""
+    """Host (start, end) row range per expert.  The groups may cover fewer
+    than ``n`` rows (an expert-parallel receive buffer's empty slots sort
+    past them): those rows belong to no expert and stay zero."""
     ends = torch.cumsum(group_sizes.to(torch.int64), 0).clamp(max=n).tolist()
-    ends[-1] = n
     starts = [0] + ends[:-1]
     return list(zip(starts, ends))
 

@@ -14,6 +14,10 @@ with the continuous slot scheduler.
       --reduced --proposer prefetch --prefetch-top-m 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
       --reduced --scheduler continuous --kv-layout paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-57b-a14b \
+      --reduced --moe-dispatch ep --ep-degree 1 --transfer-guard
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen2-57b-a14b --reduced --ep-degree 4
 
 Every registered arch serves but the encoder-decoder ``whisper-base``, whose
 requests carry no encoder frames: ``ServingEngine`` refuses it with a
@@ -32,6 +36,18 @@ line prints its plan and the tuner's alpha before and after the wave.
 Runs on ``--device cuda`` (the default) or ``--device cpu``; without a card
 and without ``--device cpu`` it stops.  Requests are submitted through
 ``submit_poisson`` (``--arrival-rate`` 0: all at round 0).
+
+``--moe-dispatch ep`` serves through the expert-parallel all-to-all
+dispatch on a ``(1, --ep-degree)`` mesh (``launch/mesh.make_ep_mesh``;
+``--ep-degree`` above 1 forces ``ep``).  A degree N above 1 runs one
+process a rank under ``torchrun --nproc-per-node N`` (a card each, NCCL;
+gloo with ``--device cpu``), every rank serving the same stream; only rank
+0 prints.  ``--ep-degree 1`` is a world of one the mesh starts itself.
+``--mesh-layout`` (tp, fsdp) is validated and threaded to the engine.
+``--transfer-guard`` serves the stream a second time, warm, under
+``transfer_guard``, ``sharding_guard`` and ``compile_guard``
+(``analysis/runtime.py``), prints their counts and exits non-zero on an
+implicit host sync or a second input signature; it needs a card.
 """
 from __future__ import annotations
 
@@ -43,9 +59,12 @@ import torch
 from repro_torch.configs.registry import draft_for, get_config
 from repro_torch.core.analytics import occupancy_timeline
 from repro_torch.core.autotune import AutoTuner
+from repro_torch.analysis import compile_guard, sharding_guard, transfer_guard
+from repro_torch.analysis.runtime import TRANSFER_GUARD_NEEDS_CUDA
 from repro_torch.core.proposer import registered_proposers
 from repro_torch.data.pipeline import prompt_batch
 from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.launch.mesh import make_ep_mesh, mesh_dims
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import ResilienceConfig
@@ -81,9 +100,24 @@ def main(argv=None):
                     help="--proposer prefetch: experts warmed per MoE "
                          "layer each round (default min(E, 2K), clamped to "
                          "[1, E])")
-    ap.add_argument("--moe-dispatch", default="gmm", choices=["gmm", "onehot"],
+    ap.add_argument("--moe-dispatch", default="gmm",
+                    choices=["gmm", "onehot", "ep"],
                     help="MoE dispatch for the decode path; gmm = the ragged "
-                         "grouped-matmul CUDA kernels")
+                         "grouped-matmul CUDA kernels; ep = experts sharded "
+                         "over a mesh, all-to-all dispatch into the same "
+                         "kernels (--ep-degree)")
+    ap.add_argument("--ep-degree", type=int, default=1,
+                    help="expert-parallel ranks: builds a (1, N) "
+                         "('data','model') mesh, shards the expert weights "
+                         "over it (forces --moe-dispatch ep when > 1; run "
+                         "under torchrun --nproc-per-node N)")
+    ap.add_argument("--mesh-layout", default="tp", choices=["tp", "fsdp"],
+                    help="parameter layout on the mesh for the non-expert "
+                         "weights (distributed/sharding.param_spec)")
+    ap.add_argument("--transfer-guard", action="store_true",
+                    help="after the stream, serve it again warm under the "
+                         "runtime guards and fail on an implicit host sync "
+                         "or a second round-input signature (needs a card)")
     ap.add_argument("--scheduler", default="wave",
                     choices=["wave", "continuous"],
                     help="wave = static batch per wave; continuous = slot "
@@ -149,8 +183,28 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.transfer_guard and torch.device(args.device).type != "cuda":
+        raise SystemExit(f"--transfer-guard: {TRANSFER_GUARD_NEEDS_CUDA}")
+    mesh, say, own_group = None, print, False
+    if args.ep_degree > 1 or args.moe_dispatch == "ep":
+        if cfg.num_experts % args.ep_degree != 0:
+            raise SystemExit(
+                f"--ep-degree {args.ep_degree} does not divide "
+                f"num_experts={cfg.num_experts} for {args.arch}")
+        own_group = not torch.distributed.is_initialized()
+        mesh = make_ep_mesh(args.ep_degree, device=args.device)
+        if torch.distributed.get_rank() != 0:
+            say = lambda *a, **k: None      # every rank serves; rank 0 prints
+        if args.moe_dispatch != "ep":
+            say(f"--ep-degree {args.ep_degree}: forcing --moe-dispatch ep")
+            args.moe_dispatch = "ep"
+        say(f"mesh: {mesh_dims(mesh)} layout={args.mesh_layout} "
+            f"({torch.distributed.get_world_size()} ranks, "
+            f"{torch.distributed.get_backend()})")
     target = Model(cfg, moe_dispatch=args.moe_dispatch,
-                   paged_attention=args.paged_attention, device=args.device)
+                   paged_attention=args.paged_attention, device=args.device,
+                   mesh=mesh,
+                   mesh_layout=args.mesh_layout if mesh is not None else None)
     if args.proposer == "eagle":
         from repro_torch.core.eagle import EagleHead
         draft = EagleHead(target)       # refuses a head it cannot build,
@@ -190,7 +244,9 @@ def main(argv=None):
                         kv_layout=args.kv_layout, page_size=args.page_size,
                         prefix_sharing=args.prefix_sharing,
                         admission_order=args.admission_order,
-                        resilience=resilience)
+                        resilience=resilience, mesh=mesh,
+                        mesh_layout=args.mesh_layout if mesh is not None
+                        else None)
     pb = prompt_batch(cfg.vocab_size, args.requests, kind=args.kind,
                       seed=args.seed)
     if args.shared_prefix > 0:
@@ -205,9 +261,12 @@ def main(argv=None):
         pb["lengths"] = [int(n) + args.shared_prefix for n in pb["lengths"]]
     max_new_choices = ([int(x) for x in args.mixed_max_new.split(",")]
                        if args.mixed_max_new else [args.max_new])
-    submit_poisson(eng, pb["tokens"], pb["lengths"], rate=args.arrival_rate,
-                   max_new_choices=max_new_choices, seed=args.seed)
+    def submit():
+        submit_poisson(eng, pb["tokens"], pb["lengths"],
+                       rate=args.arrival_rate,
+                       max_new_choices=max_new_choices, seed=args.seed)
 
+    submit()
     reports = eng.run()
     tok = ByteTokenizer(cfg.vocab_size)
     for r in reports:
@@ -223,55 +282,75 @@ def main(argv=None):
         pf = (f" prefetch_hit={r.prefetch_hit_rate:.2f} "
               f"({r.prefetch_hits}/{r.stats.prefetch_actual})"
               if r.stats and r.stats.prefetch_actual else "")
-        print(f"{r.scheduler}: B={r.batch}/{r.bucket} gamma={r.gamma} "
-              f"proposer={r.proposer} dispatch={r.moe_dispatch} "
-              f"sd={r.used_sd} {r.tokens_per_second:.1f} tok/s  "
-              f"{sd}{pf}{timing}  captures={r.captures} replays={r.replays}")
+        say(f"{r.scheduler}: B={r.batch}/{r.bucket} gamma={r.gamma} "
+            f"proposer={r.proposer} dispatch={r.moe_dispatch} "
+            f"sd={r.used_sd} {r.tokens_per_second:.1f} tok/s  "
+            f"{sd}{pf}{timing}  captures={r.captures} replays={r.replays}")
+        if r.ep is not None:
+            say(f"  ep: per_shard_load={r.ep['per_shard_load']} "
+                f"imbalance={r.ep['imbalance']:.3f} "
+                f"a2a_bytes_per_device={r.ep['a2a_bytes_per_device']:.0f}")
         if r.plan is not None:
-            print(f"  plan: gamma={r.plan['gamma']} use_sd={r.plan['use_sd']} "
-                  f"predicted={r.plan['predicted_speedup']:.3f}x "
-                  f"alpha {r.tuner_alpha[0]:.3f} -> {r.tuner_alpha[1]:.3f}")
+            say(f"  plan: gamma={r.plan['gamma']} use_sd={r.plan['use_sd']} "
+                f"predicted={r.plan['predicted_speedup']:.3f}x "
+                f"alpha {r.tuner_alpha[0]:.3f} -> {r.tuner_alpha[1]:.3f}")
         if r.steps:
             occ = occupancy_timeline([s.live for s in r.steps],
                                      [s.committed for s in r.steps])
             handoffs = sum(1 for a, b in zip(r.steps, r.steps[1:])
                            if a.used_sd != b.used_sd)
-            print(f"  N(t): peak={occ['peak_live']:.0f} "
-                  f"mean={occ['mean_live']:.2f} "
-                  f"token_weighted={occ['token_weighted_live']:.2f} "
-                  f"occupancy={occ['mean_occupancy']:.2f}  "
-                  f"admitted={sum(s.admitted for s in r.steps)} "
-                  f"retired={sum(s.retired for s in r.steps)} "
-                  f"sd_handoffs={handoffs}")
+            say(f"  N(t): peak={occ['peak_live']:.0f} "
+                f"mean={occ['mean_live']:.2f} "
+                f"token_weighted={occ['token_weighted_live']:.2f} "
+                f"occupancy={occ['mean_occupancy']:.2f}  "
+                f"admitted={sum(s.admitted for s in r.steps)} "
+                f"retired={sum(s.retired for s in r.steps)} "
+                f"sd_handoffs={handoffs}")
             if tuner is not None:
-                print(f"  plans (N(t)/gamma per round): "
-                      f"{plan_trajectory(r.steps)}  tuner alpha "
-                      f"{tuner.alpha:.3f}")
-            print(f"  admission: {sum(s.admit_rows for s in r.steps)} "
-                  f"prefill rows, {sum(s.admit_tokens for s in r.steps)} "
-                  f"row-tokens ({args.admit_mode}), "
-                  f"{sum(s.chunk_steps for s in r.steps)} chunk steps, "
-                  f"{sum(s.shared_tokens for s in r.steps)} shared prompt "
-                  "tokens not prefilled")
+                say(f"  plans (N(t)/gamma per round): "
+                    f"{plan_trajectory(r.steps)}  tuner alpha "
+                    f"{tuner.alpha:.3f}")
+            say(f"  admission: {sum(s.admit_rows for s in r.steps)} "
+                f"prefill rows, {sum(s.admit_tokens for s in r.steps)} "
+                f"row-tokens ({args.admit_mode}), "
+                f"{sum(s.chunk_steps for s in r.steps)} chunk steps, "
+                f"{sum(s.shared_tokens for s in r.steps)} shared prompt "
+                "tokens not prefilled")
     for kind, s in eng.session_stats().items():
         if kind == "resilience":
             if s:                 # fault/preemption/recovery counters
-                print("resilience:", " ".join(f"{k}={v}"
-                                              for k, v in sorted(s.items())))
+                say("resilience:", " ".join(f"{k}={v}"
+                                            for k, v in sorted(s.items())))
             continue
-        print(f"session[{kind}]: constructed {s['constructions']}x, "
-              f"gammas compiled {s['gammas_compiled']}, "
-              f"{len(s['traces'])} round traces, "
-              f"{s['captures']} round captures, {s['replays']} replays, "
-              f"{len(s['admit_traces'])} admit traces, "
-              f"{len(s['prefix_traces'])} prefix traces, "
-              f"{len(s['chunk_traces'])} chunk traces, "
-              f"{len(s['growths'])} growths")
-        print(f"  graph keys (gamma, batch, max_seq): captures/replays " +
-              " ".join(f"{k}:{c}/{n}" for k, (c, n) in sorted(s["keys"].items())))
+        say(f"session[{kind}]: constructed {s['constructions']}x, "
+            f"gammas compiled {s['gammas_compiled']}, "
+            f"{len(s['traces'])} round traces, "
+            f"{s['captures']} round captures, {s['replays']} replays, "
+            f"{len(s['admit_traces'])} admit traces, "
+            f"{len(s['prefix_traces'])} prefix traces, "
+            f"{len(s['chunk_traces'])} chunk traces, "
+            f"{len(s['growths'])} growths")
+        say(f"  graph keys (gamma, batch, max_seq): captures/replays " +
+            " ".join(f"{k}:{c}/{n}" for k, (c, n) in sorted(s["keys"].items())))
     sample = eng.done[1]
-    print(f"sample completion ({sample.finish_reason}):",
-          repr(tok.decode(sample.output)[:80]))
+    say(f"sample completion ({sample.finish_reason}):",
+        repr(tok.decode(sample.output)[:80]))
+    if args.transfer_guard:
+        # the first stream ran every round key and admission shape: the
+        # same stream again syncs only at the engine's explicit crossings
+        # and reads one input signature a round key
+        submit()
+        with compile_guard() as cg, transfer_guard() as tg, \
+                sharding_guard(eng) as sg:
+            eng.run()
+        say(f"transfer_guard: {tg.count} implicit host sync(s); "
+            f"compile_guard: {cg.count} new program(s); {sg.render()}")
+        if tg.count or not sg.ok:
+            for line in tg.lines[:10]:
+                say(" ", line)
+            raise SystemExit("guard violation on the warm stream replay")
+    if own_group:
+        torch.distributed.destroy_process_group()
     return reports
 
 

@@ -483,7 +483,8 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, *, moe_dispatch: str = "onehot",
                  use_flash: bool = False, remat: bool = False,
-                 paged_attention: str = "kernel", device=None):
+                 paged_attention: str = "kernel", device=None, mesh=None,
+                 mesh_layout: Optional[str] = None):
         if paged_attention not in ("kernel", "gather"):
             raise ValueError(
                 f"paged_attention must be 'kernel' or 'gather', got "
@@ -498,11 +499,22 @@ class Model:
         if paged_attention == "gather" and self.device.type == "cuda":
             raise ValueError(GATHER_ON_CUDA)
         self.dtype = torch_dtype(cfg)
+        # the mesh is threaded explicitly to every MoE layer's "ep" dispatch
+        # (distributed/collectives.py); None is one device
+        if mesh is not None:
+            from repro_torch.distributed.constraints import resolve_mesh
+            mesh, mesh_layout = resolve_mesh(mesh, mesh_layout)
+        self.mesh = mesh
+        self.mesh_layout = mesh_layout
         # target/draft forward passes run (prefill + extend) and the prefills
         # among them, for callers that check how many times each kernel of a
         # forward must launch
         self.forward_count = 0
         self.prefill_count = 0
+
+    @property
+    def _mesh_kw(self) -> dict:
+        return {"mesh": self.mesh, "mesh_layout": self.mesh_layout}
 
     @property
     def enc_cfg(self) -> ModelConfig:
@@ -664,6 +676,7 @@ class Model:
             params["layers"], self.cfg,
             self._embed(params, tokens, positions, inputs_embeds), positions,
             None, mode="prefill", dispatch=self.moe_dispatch,
+            **self._mesh_kw,
             use_flash=self.use_flash, cross_kvs=cross_kvs, want_metrics=True,
             mrope_positions=self._mrope(mrope_positions), remat=self.remat)
         self.forward_count += 1
@@ -724,6 +737,7 @@ class Model:
         x, _, _ = tfm.stack_forward(
             params["layers"], self.cfg, x, positions, cache["layers"],
             mode="prefill", dispatch=self.moe_dispatch,
+            **self._mesh_kw,
             use_flash=self.use_flash, cross_kvs=cache.get("cross"),
             page_table=_page_table(cache),
             paged_attention=self.paged_attention,
@@ -747,6 +761,7 @@ class Model:
         x, metrics, collected = tfm.stack_forward(
             params["layers"], self.cfg, x, positions, cache["layers"],
             mode="extend", collect=collect, dispatch=self.moe_dispatch,
+            **self._mesh_kw,
             use_flash=self.use_flash, cross_kvs=cache.get("cross"),
             page_table=_page_table(cache),
             paged_attention=self.paged_attention,

@@ -16,7 +16,11 @@ warm is a dispatch-level simulation, as in the reference.  ``moe_forward``
 scores the plan against the experts a forward actually routed to
 (``prefetch_hit_stats``: device int32 counts, no host sync).
 
-Expert-parallel dispatch (``ep``) is ROADMAP queue 1 item 11.
+  * ``ep``      — expert-parallel: the experts shard over a mesh's
+                  ``"model"`` axis and tokens reach them through two
+                  all-to-all hops into the same ragged kernels
+                  (``distributed/collectives.moe_ep_forward``); with no mesh
+                  it is ``onehot``, as in the reference.
 """
 from __future__ import annotations
 
@@ -53,8 +57,22 @@ def _expert_rows(w: torch.Tensor) -> torch.Tensor:
     return rows
 
 
+def _ep_block(mesh, cfg) -> Optional[Tuple[int, int]]:
+    """(first expert, experts) of this rank's block when ``mesh`` shards
+    the experts (a ``"model"`` axis wider than 1 that divides E), else
+    None."""
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import mesh_dims
+    m = mesh_dims(mesh).get("model", 1)
+    if m <= 1 or cfg.num_experts % m != 0:
+        return None
+    e_local = cfg.num_experts // m
+    return mesh.get_local_rank("model") * e_local, e_local
+
+
 def warm_experts(layer_params: List[dict], cfg, plan: PrefetchPlan, *,
-                 out: Optional[List[dict]] = None) -> List[dict]:
+                 out: Optional[List[dict]] = None, mesh=None) -> List[dict]:
     """Gather the predicted experts' FFN weights: per MoE layer
     ``{"w_gate": (M, d, f), "w_up": (M, d, f), "w_down": (M, f, d)}``, a
     bit copy of ``ffn[k][expert_ids]``.
@@ -62,7 +80,13 @@ def warm_experts(layer_params: List[dict], cfg, plan: PrefetchPlan, *,
     ``out`` (the list a previous call returned) receives the gather in
     place, so a captured round writes the same buffers every replay.  The
     values are not consumed: verify reads the original weights (the
-    reference's dispatch-level simulation, ``repro.models.moe``)."""
+    reference's dispatch-level simulation, ``repro.models.moe``).
+
+    ``mesh`` (expert-parallel serving, the experts over ``"model"``): each
+    rank gathers only the predicted ids in its own expert block and zeroes
+    the others' rows, the reference's shard_map branch (its result stacks
+    the ranks' buffers on a leading axis; here each rank holds its own).
+    The rank's expert leaves may be whole or already sharded."""
     kinds = [cfg.moe_pattern[l % cfg.period] for l in range(cfg.num_layers)]
     layers = [l for l, is_moe in enumerate(kinds)
               if is_moe and plan.expert_ids[l].shape[-1] > 0]
@@ -71,11 +95,21 @@ def warm_experts(layer_params: List[dict], cfg, plan: PrefetchPlan, *,
                     (plan.expert_ids[l].shape[-1],)
                     + layer_params[l]["ffn"][k].shape[1:])
                 for k in ("w_gate", "w_up", "w_down")} for l in layers]
+    block = _ep_block(mesh, cfg)
     for l, buf in zip(layers, out):
         ffn, ids = layer_params[l]["ffn"], plan.expert_ids[l]
+        if block is not None:
+            first, e_local = block
+            mine = (ids >= first) & (ids < first + e_local)
+            ids = (ids - first).clamp(0, e_local - 1)
         for k in ("w_gate", "w_up", "w_down"):
-            torch.index_select(_expert_rows(ffn[k]), 0, ids,
+            w = ffn[k]
+            if block is not None and w.shape[0] == cfg.num_experts:
+                w = w[first:first + e_local]
+            torch.index_select(_expert_rows(w), 0, ids,
                                out=_expert_rows(buf[k]))
+            if block is not None:
+                buf[k].masked_fill_(~mine[:, None, None], 0)
     return out
 
 
@@ -195,26 +229,36 @@ def _dispatch_gmm(params, cfg, x, weights, indices):
 
 def moe_forward(params: dict, cfg, x: torch.Tensor, *,
                 dispatch: str = "onehot", return_metrics: bool = False,
-                prefetch_mask: Optional[torch.Tensor] = None):
+                prefetch_mask: Optional[torch.Tensor] = None, mesh=None,
+                mesh_layout: Optional[str] = None):
     """Routed MoE FFN with the shared-expert add: (B, T, d) → (B, T, d).
 
-    Returns ``(output, metrics)``: ``return_metrics`` adds ``aux_loss`` and
+    ``dispatch`` "gmm", "onehot" or "ep" (``mesh``/``mesh_layout`` go to
+    the expert-parallel dispatch; the others ignore them).  Returns
+    ``(output, metrics)``: ``return_metrics`` adds ``aux_loss`` and
     ``expert_counts``, a ``prefetch_mask`` (E,) the ``prefetch_hit_stats``
     counts; nothing asked gives {}."""
-    if dispatch not in ("gmm", "onehot"):
-        raise NotImplementedError(
-            f"dispatch {dispatch!r}: expert-parallel serving is ROADMAP "
-            "queue 1 item 11; this slice ports 'gmm' and 'onehot'")
+    if dispatch not in ("gmm", "onehot", "ep"):
+        raise ValueError(f"dispatch must be 'gmm', 'onehot' or 'ep', got "
+                         f"{dispatch!r}")
     B, T, d = x.shape
     xf = x.reshape(B * T, d)
-    weights, indices, probs = router_topk(params, cfg, xf)
-    fn = _dispatch_gmm if dispatch == "gmm" else _dispatch_onehot
-    y = fn(params, cfg, xf, weights.to(x.dtype), indices)
-    if "shared" in params:
-        s = params["shared"]
-        h = act_fn(xf @ s["w_gate"], cfg.mlp_activation) * (xf @ s["w_up"])
-        y = y + h @ s["w_down"]
-    y = y.reshape(B, T, d)
+    if dispatch == "ep":
+        # the router runs inside each rank's shard; the metrics come from a
+        # replicated re-route, as in the reference
+        from repro_torch.distributed.collectives import moe_ep_forward
+        y = moe_ep_forward(params, cfg, x, mesh=mesh, layout=mesh_layout)
+        if return_metrics or prefetch_mask is not None:
+            _, indices, probs = router_topk(params, cfg, xf)
+    else:
+        weights, indices, probs = router_topk(params, cfg, xf)
+        fn = _dispatch_gmm if dispatch == "gmm" else _dispatch_onehot
+        y = fn(params, cfg, xf, weights.to(x.dtype), indices)
+        if "shared" in params:
+            s = params["shared"]
+            h = act_fn(xf @ s["w_gate"], cfg.mlp_activation) * (xf @ s["w_up"])
+            y = y + h @ s["w_down"]
+        y = y.reshape(B, T, d)
     metrics = {}
     if return_metrics:
         metrics["aux_loss"] = load_balance_loss(probs, indices,
@@ -225,4 +269,3 @@ def moe_forward(params: dict, cfg, x: torch.Tensor, *,
         metrics.update(prefetch_hit_stats(prefetch_mask, indices,
                                           cfg.num_experts))
     return y, metrics
-

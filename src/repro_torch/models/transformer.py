@@ -74,7 +74,8 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
                   paged_attention: str = "kernel",
                   want_metrics: bool = False,
                   prefetch_mask: Optional[torch.Tensor] = None,
-                  mrope_positions: Optional[torch.Tensor] = None
+                  mrope_positions: Optional[torch.Tensor] = None,
+                  mesh=None, mesh_layout: Optional[str] = None
                   ) -> Tuple[torch.Tensor, dict, Optional[dict]]:
     """One block; writes this layer's KV into ``cache`` in place.  A
     recurrent layer writes its final state into ``cache`` in place, except
@@ -117,7 +118,8 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
         if is_moe:
             y, metrics = moe_mod.moe_forward(
                 params["ffn"], cfg, h, dispatch=dispatch,
-                return_metrics=want_metrics, prefetch_mask=prefetch_mask)
+                return_metrics=want_metrics, prefetch_mask=prefetch_mask,
+                mesh=mesh, mesh_layout=mesh_layout)
         else:
             y = apply_mlp(params["ffn"], h, cfg.mlp_activation)
         x = x + y
@@ -161,7 +163,8 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
                   want_metrics: bool = False,
                   prefetch_masks: Optional[List[torch.Tensor]] = None,
                   mrope_positions: Optional[torch.Tensor] = None,
-                  remat: bool = False
+                  remat: bool = False, mesh=None,
+                  mesh_layout: Optional[str] = None
                   ) -> Tuple[torch.Tensor, dict, List[Optional[dict]]]:
     """Run every layer in order (the reference's scan over periods).
 
@@ -188,7 +191,9 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
     ``remat`` under autograd (grad on, a parameter requiring grad) runs
     each layer under a non-reentrant checkpoint, the reference's per-layer
     ``jax.checkpoint``: the backward recomputes one layer at a time
-    instead of keeping every layer's intermediates."""
+    instead of keeping every layer's intermediates.
+
+    ``mesh``/``mesh_layout`` go to every MoE layer's ``"ep"`` dispatch."""
     metrics: Dict[str, torch.Tensor] = {}
     dev = x.device
     if want_metrics:
@@ -215,7 +220,8 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
             want_metrics=want_metrics,
             prefetch_mask=None if prefetch_masks is None
             else prefetch_masks[l],
-            mrope_positions=mrope_positions)
+            mrope_positions=mrope_positions, mesh=mesh,
+            mesh_layout=mesh_layout)
         for k, v in m.items():
             metrics[k] = metrics[k] + v
         collected.append(c)

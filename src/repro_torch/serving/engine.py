@@ -23,6 +23,12 @@ cache lengths are bucketed too, as in the reference.  With a ``tuner``
 padded bucket and feeds the wave's acceptance rate back; the continuous
 scheduler re-plans on the live slot count every round.  Each gamma that
 runs is its own round key, captured once (``core/graphs.py``).
+
+With ``mesh=`` (a ``launch/mesh.make_ep_mesh`` mesh; an ``"ep"`` target)
+every rank serves the same stream: the engine threads the mesh to the
+target, the draft and each session, keeps the rank's expert block of the
+target's params (``distributed/sharding.shard_params``) and reports each
+wave's per-rank expert load (``WaveReport.ep``).
 """
 from __future__ import annotations
 
@@ -38,6 +44,11 @@ from repro_torch.core.autotune import AutoTuner
 from repro_torch.core.proposer import make_proposer
 from repro_torch.core.spec_decode import SDEngine, SDStats
 from repro_torch.data.tokenizer import PAD
+from repro_torch.device import host_crossing
+from repro_torch.distributed.collectives import ep_load_report
+from repro_torch.distributed.constraints import resolve_mesh
+from repro_torch.distributed.sharding import shard_params
+from repro_torch.launch.mesh import mesh_dims
 from repro_torch.models.attention import SWA_RING_PAD
 from repro_torch.models.model import Model
 from repro_torch.serving.faults import ResilienceConfig
@@ -101,6 +112,10 @@ class WaveReport:
     # its alpha before and after the wave's feedback
     plan: Optional[dict] = None
     tuner_alpha: Optional[Tuple[float, float]] = None
+    # an "ep" engine on a mesh: the finished outputs' per-rank expert
+    # loads, their imbalance (max/mean) and the modeled per-rank
+    # all-to-all volume (distributed.collectives.ep_load_report)
+    ep: Optional[dict] = None
 
     @property
     def tokens_per_second(self) -> float:
@@ -172,6 +187,8 @@ class ServingEngine:
         resilience: Optional[ResilienceConfig] = None,
         fault_injector=None,
         cuda_graphs: Optional[bool] = None,  # None: capture on a card
+        mesh=None,                          # DeviceMesh: sharded serving
+        mesh_layout: Optional[str] = None,  # "tp" | "fsdp" (with mesh)
     ):
         if target.cfg.is_encoder_decoder:
             # the reference's engine passes no encoder_embeds and crashes in
@@ -243,6 +260,26 @@ class ServingEngine:
                 "resilience deadlines and fault injection are continuous-"
                 "scheduler features (wave mode has no per-round requeue "
                 "path); use scheduler='continuous'")
+        # expert-parallel serving: the mesh is threaded explicitly to the
+        # target's and the draft's MoE layers and to every session, and
+        # each rank keeps its own experts' weights
+        if mesh is not None:
+            mesh, mesh_layout = resolve_mesh(mesh, mesh_layout)
+            if "model" not in mesh_dims(mesh):
+                raise ValueError(
+                    f"ServingEngine(mesh=...) needs a 'model' axis for the "
+                    f"expert dimension; got axes {tuple(mesh_dims(mesh))} "
+                    "(launch/mesh.make_ep_mesh builds a ('data','model') "
+                    "mesh)")
+            for m in (target, draft):
+                if isinstance(m, Model) and m.mesh is None:
+                    m.mesh, m.mesh_layout = mesh, mesh_layout
+            if params_t is not None:
+                params_t = shard_params(params_t, mesh, layout=mesh_layout)
+            if params_d is not None:
+                params_d = shard_params(params_d, mesh, layout=mesh_layout)
+        self.mesh = mesh
+        self.mesh_layout = mesh_layout
         self.proposer_kind = proposer
         self.proposer_opts = dict(proposer_opts or {})
         self.target, self.draft = target, draft
@@ -320,6 +357,17 @@ class ServingEngine:
     def moe_dispatch(self) -> str:
         return getattr(self.target, "moe_dispatch", "onehot")
 
+    def _ep_telemetry(self, outputs) -> Optional[dict]:
+        """``WaveReport.ep`` over the finished outputs; None unless this is
+        an "ep" engine on a mesh."""
+        if self.mesh is None or self.moe_dispatch != "ep":
+            return None
+        toks = [np.asarray(o).reshape(-1) for o in outputs if o is not None]
+        toks = np.concatenate(toks) if toks else np.zeros((0,), np.int32)
+        with host_crossing():
+            return ep_load_report(self.params_t, self.target.cfg, toks,
+                                  mesh_dims(self.mesh)["model"])
+
     # -------------------------------------------------------------- sessions
     def _session(self, kind: str) -> SDEngine:
         """The long-lived decoding session for one proposer kind."""
@@ -333,7 +381,8 @@ class ServingEngine:
                                  temperature=self.temperature, **opts)
             sess = SDEngine(self.target, prop, gamma=self.gamma,
                             temperature=self.temperature,
-                            cuda_graphs=self.cuda_graphs)
+                            cuda_graphs=self.cuda_graphs, mesh=self.mesh,
+                            mesh_layout=self.mesh_layout)
             self._sessions[kind] = sess
             self.session_constructions[kind] = \
                 self.session_constructions.get(kind, 0) + 1
@@ -457,7 +506,8 @@ class ServingEngine:
                             replays=graphs.total_replays - before[1],
                             plan=plan,
                             tuner_alpha=None if alpha_in is None
-                            else (alpha_in, self.tuner.alpha))
+                            else (alpha_in, self.tuner.alpha),
+                            ep=self._ep_telemetry([r.output for r in wave]))
         self.reports.append(report)
         return report
 
@@ -471,10 +521,14 @@ class ServingEngine:
             self._slot_scheduler = ContinuousScheduler(self)
         graphs = self._session(self.proposer_kind).graphs
         before = (graphs.total_captures, graphs.total_replays)
+        done_before = set(self.done)
         report = self._slot_scheduler.run_stream()
         if report is not None:
             report.captures = graphs.total_captures - before[0]
             report.replays = graphs.total_replays - before[1]
+            report.ep = self._ep_telemetry(
+                [r.output for uid, r in self.done.items()
+                 if uid not in done_before])
             self.reports.append(report)
         return report
 

@@ -62,6 +62,7 @@ import torch
 from repro_torch.core.spec_decode import (PendingAdmission, SDStats,
                                           SessionState)
 from repro_torch.data.tokenizer import PAD
+from repro_torch.device import host_crossing
 from repro_torch.models.attention import SWA_RING_PAD
 from repro_torch.models.model import (PageAllocator, copy_cache_pages,
                                       grow_cache_seq)
@@ -299,6 +300,7 @@ class ContinuousScheduler:
                 floor = max(floor, cfg.sliding_window + SWA_RING_PAD)
         return floor
 
+    @host_crossing()
     def _open_session(self, sess, max_seq: int) -> SessionState:
         """Open the pool with 1-token fillers; every real request enters
         through the admission path."""
@@ -316,6 +318,7 @@ class ContinuousScheduler:
                           generator=eng._next_generator(),
                           cache_opts=cache_opts, page_table=table)
 
+    @host_crossing()
     def _sync_table(self, state: SessionState) -> SessionState:
         """Push the allocator's host table into the session's table in
         place (a copy: the allocator keeps mutating its array; in place:
@@ -598,6 +601,7 @@ class ContinuousScheduler:
                 c.pa = pa
         return state, landed, rows_n, toks_n, steps
 
+    @host_crossing()
     def _admit_boundary(self, sess, state: SessionState, slots, round_idx,
                         max_seq: int):
         """Retire/refill at one round boundary.
@@ -801,7 +805,8 @@ class ContinuousScheduler:
              shared_n, chunk_n) = self._admit_boundary(
                 sess, state, slots, round_idx, max_seq)
             if landed:
-                first = state.last_token.cpu().numpy()
+                with host_crossing():
+                    first = state.last_token.cpu().numpy()
                 for s, r in landed:
                     s.request, s.active = r, True
                     resume = list(r.resume_tokens or [])
@@ -870,7 +875,8 @@ class ContinuousScheduler:
                     row = f.row if f.row is not None else next(
                         (s.index for s in slots if s.active), None)
                     if row is not None:
-                        poison_cache_row(state.t_cache, row)
+                        with host_crossing():
+                            poison_cache_row(state.t_cache, row)
                 delay = inj.slow_delay(round_idx)
                 if delay:
                     time.sleep(delay)

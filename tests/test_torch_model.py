@@ -132,8 +132,7 @@ def test_unported_paths_raise_naming_the_roadmap():
         with pytest.raises(ValueError, match=match):
             ServingEngine(tm, None, tp, None, proposer="none", **opt)
     # queue 1 item 9 is ported: the recurrent and encoder-decoder configs
-    # construct, prefill and decode; expert-parallel dispatch still cites
-    # its item (11)
+    # construct, prefill and decode
     from repro_torch.configs.registry import get_config as port_get_config
     from repro_torch.models.model import Model
     for arch in ("jamba-v0.1-52b", "xlstm-1.3b", "whisper-base"):
@@ -147,11 +146,17 @@ def test_unported_paths_raise_naming_the_roadmap():
                              m.init_cache(1, 8), **kw)
         lg, _ = m.decode_step(p, np.ones((1,), np.int32), cache)
         assert lg.shape == (1, c.vocab_size) and torch.isfinite(lg).all()
-    ep = Model(port_get_config("jamba-v0.1-52b", reduced=True),
-               moe_dispatch="ep", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        ep.forward_train(ep.init(torch.Generator().manual_seed(0)),
-                         np.ones((1, 4), np.int32))
+    # queue 1 item 11 is ported too: "ep" with no mesh is the one-hot
+    # dispatch, as in the reference
+    jcfg = port_get_config("jamba-v0.1-52b", reduced=True)
+    ep = Model(jcfg, moe_dispatch="ep", device="cpu")
+    one = Model(jcfg, moe_dispatch="onehot", device="cpu")
+    p = ep.init(torch.Generator().manual_seed(0))
+    toks = np.ones((1, 4), np.int32)
+    (lg_ep, m_ep), (lg_one, m_one) = (ep.forward_train(p, toks),
+                                      one.forward_train(p, toks))
+    assert torch.equal(lg_ep, lg_one)
+    assert torch.equal(m_ep["expert_counts"], m_one["expert_counts"])
     # use_flash is ported: a 128-token prefill and a verify at max_seq 512
     # run the kernel branches (their plain versions on the CPU)
     tm.use_flash = True

@@ -65,8 +65,18 @@ def test_router_breaks_ties_toward_lower_index():
 
 
 def test_unknown_dispatch_raises():
+    """``dispatch="ep"`` with no mesh is the one-hot dispatch, as the
+    reference's moe_ep_forward falls back (bit for bit: the same function
+    runs), with the same metrics; a name no dispatch has raises."""
     cfg = _cfg(2)
     _, tp, x = _layer(cfg, 0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tmoe.moe_forward(tp, port_config(cfg), torch.from_numpy(x),
-                         dispatch="ep")
+    tx = torch.from_numpy(x)
+    y_ep, m_ep = tmoe.moe_forward(tp, port_config(cfg), tx, dispatch="ep",
+                                  return_metrics=True)
+    y_one, m_one = tmoe.moe_forward(tp, port_config(cfg), tx,
+                                    dispatch="onehot", return_metrics=True)
+    assert torch.equal(y_ep, y_one)
+    assert torch.equal(m_ep["expert_counts"], m_one["expert_counts"])
+    assert int(m_ep["expert_counts"].sum()) == x.shape[0] * x.shape[1] * 2
+    with pytest.raises(ValueError, match="dispatch"):
+        tmoe.moe_forward(tp, port_config(cfg), tx, dispatch="bogus")

@@ -74,6 +74,41 @@ def test_ragged_moe_ffn_matches_reference(dtype):
     _close(out, jref.ragged_moe_ffn_ref(jx, jg, ju, jd, js), tol)
 
 
+# groups covering fewer rows than xs holds (sum(sizes) < N), as in an
+# expert-parallel receive buffer: (sizes, N)
+TRAILING_CASES = [([5, 0, 11], 24), ([37, 0, 1, 129, 0, 77, 13, 200], 480),
+                  ([0, 0, 0], 8), ([64, 0], 100)]
+
+
+@pytest.mark.parametrize("sizes,n", TRAILING_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trailing_rows_past_the_groups(sizes, n, dtype):
+    """sum(group_sizes) <= N: the plain versions equal the reference's
+    ragged_moe_ffn (interpret mode) and its oracles on the real rows and
+    zero the rows past the groups, on each of the three products."""
+    rng = np.random.default_rng(len(sizes) + n)
+    E, D, F, real = len(sizes), 64, 96, int(sum(sizes))
+    xs = rng.standard_normal((n, D)).astype(np.float32)
+    wg, wu = ((rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+              for _ in range(2))
+    wd = (rng.standard_normal((E, F, D)) / np.sqrt(F)).astype(np.float32)
+    (jx, tx), (jg, tg), (ju, tu), (jd, td) = (both(a, dtype)
+                                              for a in (xs, wg, wu, wd))
+    js, ts = both(np.asarray(sizes, np.int32))
+    tol = 2e-4 if dtype == "float32" else TOL[dtype]
+    y = tr.ragged_moe_ffn(tx, tg, tu, td, ts)
+    h = tr.fused_gate_up(tx, tg, tu, ts)
+    z = tr.ragged_gmm(tx, tg, ts)
+    assert y.shape == (n, D) and h.shape == (n, F) and z.shape == (n, F)
+    for out in (y, h, z):
+        assert not out[real:].any()
+    _close(y[:real], jr.ragged_moe_ffn(jx, jg, ju, jd, js,
+                                       interpret=True)[:real], tol)
+    _close(h[:real], jref.fused_gate_up_ref(jx, jg, ju, js)[:real],
+           TOL[dtype])
+    _close(z[:real], jref.ragged_gmm_ref(jx, jg, js)[:real], TOL[dtype])
+
+
 @pytest.mark.parametrize("sizes", GROUP_CASES + [[0] * 5 + [128] + [0] * 2])
 @pytest.mark.parametrize("bm", [16, 64])
 def test_group_metadata_matches_reference(sizes, bm):

@@ -303,6 +303,26 @@ Phases, each of which fails the run if it fails:
           transfer_guard and sharding_guard (analysis/runtime.py), which
           must count 0, 0 and be ok; and the three guards over phase 5's
           continuous paged stream (gmm) on a warm engine, likewise.
+  12. tensor parallelism (tp_phase, right after phase 11 on its target and
+     weights), on a new NCCL world of one:
+       a. kernel 4's partial entry (one key block of a cache split along
+          its sequence: output and log-sum-exp) at the target's 28/4 heads
+          of 128, bf16, B 8, T 5, S 512 and S 8192, the keys in 2 and in 4
+          blocks: each block against its plain version (4e-2; the lse at
+          -inf exactly where the plain version's is), the blocks merged by
+          log-sum-exp against the whole call (4e-2 and DECODE_ROW_TOL x a
+          row's rms), route sm90; device-only ms per block beside the whole
+          call, the block's byte bound and aten's efficient attention with
+          its log-sum-exp over the block;
+       b. wave-tp/model and wave-tp/none: phase 5's wave workload on
+          Model(moe_dispatch="ep", mesh=..., mesh_layout="tp") through
+          ServingEngine(mesh=..., mesh_layout="tp"): greedy tokens equal
+          to wave-ep's bit for bit (every spec resolves whole at m 1),
+          launches equal to wave-ep's, tok/s beside wave-ep's, and the
+          three guards 0 / 0 / ok on the warm repeat;
+       c. one sharded train step (params placed with fsdp=True, the model
+          on the mesh) of the reduced fp32 target equal to the unsharded
+          step, leaf for leaf.
 
 It ends with a JSON line of per-kernel numbers and, last, the device line.
 Without a card, or outside a checkout of the repository, it exits non-zero
@@ -3523,6 +3543,7 @@ def ep_phase(seed: int, served: dict) -> dict:
     params_t, params_d = served["params_t"], served["params_d"]
     moe_layers, pb = served["moe_layers"], served["pb"]
     gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    served.setdefault("tok_s", {})
 
     # a. kernels 1-2 with rows past the groups
     ffn = params_t["layers"][0]["ffn"]
@@ -3634,13 +3655,15 @@ def ep_phase(seed: int, served: dict) -> dict:
                             max_batch=8, gamma=4, temperature=0.0,
                             proposer=kind, seed=seed, mesh=mesh)
 
-        def run(label, eng=eng):
+        def run(label, eng=eng, path=path):
             first = max(eng.done, default=0)
             for i in range(16):
                 eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
                            max_new_tokens=32)
             for r in eng.run():
                 log(_wave_line(path, label, r) + f" ep={r.ep}")
+                served["tok_s"].setdefault(path, []).append(
+                    r.tokens_per_second)
             return np.stack([eng.done[u].output for u in sorted(eng.done)
                              if u > first])
 
@@ -3650,6 +3673,7 @@ def ep_phase(seed: int, served: dict) -> dict:
             m.forward_count = m.prefill_count = 0
         out, _ = _path_runs(eng, kind, run, path, card)
         launches[path] = launch_counts()
+        served["outputs"][path] = out
         calls = collectives.EP_CALLS["moe_ep_forward"]
         want = moe_layers * target_ep.forward_count
         expect = {name: 0 for name in launches[path]}
@@ -3690,6 +3714,318 @@ def ep_phase(seed: int, served: dict) -> dict:
     torch.cuda.empty_cache()
     dist.destroy_process_group()
     return launches
+
+
+TP_PATHS = ("wave-tp/model", "wave-tp/none")
+PARTIAL_MAIN_CASE = "sd_verify_4x1"
+# kernel 4's partial entry (phase 12a): the target's 28 / 4 heads of 128,
+# bf16, an SD verify over a cache split into 2 and 4 key blocks
+PARTIAL_CASES = {"sd_verify": (512, (129, 290)),
+                 "long_context": (8192, (8000, 8187))}
+# the partial entry's fp32 log-sum-exp against its plain version, rtol =
+# atol: a row's lse sums its block's visible keys' exp-scores, so leaving
+# out even one 64-key chunk of a 2048-key block moves it by ~log(1 + 64 /
+# 2048) ~ 3e-2 nats, well outside 1e-3 (+ 1e-3 x |lse| ~ 1e-2)
+PARTIAL_LSE_TOL = 1e-3
+
+
+def _hold_lse(label: str, got, want, tol: float) -> float:
+    """Fail unless two log-sum-exps are -inf at the same rows and within
+    rtol = atol = ``tol`` elsewhere; returns the max abs error."""
+    import torch
+    inf = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), inf) or torch.isnan(got).any():
+        raise AssertionError(f"{label}: lse -inf at other rows than the "
+                             "plain version's")
+    err = (got[~inf] - want[~inf]).abs()
+    if (err > tol + tol * want[~inf].abs()).any():
+        raise AssertionError(f"{label}: lse max abs err {err.max():.4g} "
+                             f"outside rtol=atol={tol}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _hold_block_rows(label: str, out, want, want_lse) -> float:
+    """Fail unless a block's output is exactly 0 at the rows that see no
+    key of it (plain lse -inf) and within DECODE_ROW_TOL x the rms of the
+    plain row elsewhere; returns the largest row-scaled error."""
+    import torch
+    seen = torch.isfinite(want_lse)
+    if (out[~seen] != 0).any():
+        raise AssertionError(f"{label}: nonzero output at a row that sees "
+                             "no key of the block")
+    if not seen.any():
+        return 0.0
+    err = row_scaled_err(out[seen], want[seen])
+    if err > DECODE_ROW_TOL:
+        raise AssertionError(f"{label}: {err:.3g} x a row's rms from the "
+                             f"plain version (bound {DECODE_ROW_TOL})")
+    return err
+
+
+def partial_kernel_phase(seed: int) -> dict:
+    """Phase 12a: kernel 4's partial entry (a key block of a cache split
+    along its sequence) against its plain version, element by element, row
+    by row and lse by lse; its blocks merged by log-sum-exp against the
+    whole call, and the plain blocks merged against the plain whole; timed
+    beside its bound and one library call per block; returns the entry's
+    case results."""
+    import torch
+    from repro_torch.distributed.collectives import lse_combine
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_partial_plain, decode_attention_plain)
+
+    card = card_line()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 26)
+    tol = DECODE_TOL["bfloat16"]
+    res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    for name, (S, span) in PARTIAL_CASES.items():
+        spec = ("bfloat16", 8, 5, 28, 4, 128, S, span)
+        _, B, T, Hq, Hkv, D, _, _ = spec
+        q, k, v, lengths = decode_inputs(spec, gen, dev)
+        whole = ops.decode_attention(q, k, v, lengths)
+        plain_whole = decode_attention_plain(q, k, v, lengths)
+        whole_ms = graph_time_ms(lambda: ops.decode_attention(q, k, v,
+                                                              lengths))
+        lens = [int(n) for n in lengths.tolist()]
+        for blocks in (2, 4):
+            n = S // blocks
+            outs, lses, p_outs, p_lses = [], [], [], []
+            for i in range(blocks):
+                kb, vb = k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n]
+                out, lse = ops.decode_attention_partial(q, kb, vb, lengths,
+                                                        k_lo=i * n)
+                route = ops.LAST_ROUTE["decode_attention_partial"]
+                if route != "sm90":
+                    raise AssertionError(f"decode_attention_partial: ran the "
+                                         f"{route} body, expected sm90")
+                p_out, p_lse = decode_attention_partial_plain(
+                    q, kb, vb, lengths, k_lo=i * n)
+                torch.cuda.synchronize()
+                case = f"{name}_{blocks}x{i}"
+                err = _hold("decode_attention_partial", case, out, p_out,
+                            tol, res)
+                row_err = _hold_block_rows(
+                    f"decode_attention_partial [{case}]", out, p_out, p_lse)
+                lse_err = _hold_lse(f"decode_attention_partial [{case}]",
+                                    lse, p_lse, PARTIAL_LSE_TOL)
+                outs.append(out)
+                lses.append(lse)
+                p_outs.append(p_out)
+                p_lses.append(p_lse)
+                # bytes: the block's visible keys, q, out and lse, lengths;
+                # FLOPs: 4 D per (query row, visible key of the block)
+                keys = sum(max(0, min(n, ln + T - i * n)) for ln in lens)
+                pairs = sum(max(0, min(n, ln + t + 1 - i * n))
+                            for ln in lens for t in range(T))
+                n_bytes = (keys * Hkv * D * 2 * 2 + 2 * q.numel() * 2
+                           + B * T * Hq * 4 + 4 * B)
+                b_ms, b_by = bound_ms(n_bytes, 4 * Hq * D * pairs)
+                ms = graph_time_ms(lambda: ops.decode_attention_partial(
+                    q, kb, vb, lengths, k_lo=i * n))
+                plain_ms = cuda_time_ms(lambda: decode_attention_partial_plain(
+                    q, kb, vb, lengths, k_lo=i * n), warmup=1, iters=3)
+                lib_fn, lib = sdpa_lse_block(q, kb, vb, lengths, i * n)
+                lib_ms = graph_time_ms(lib_fn) if lib_fn else None
+                res["cases"][case] = dict(
+                    S=S, blocks=blocks, block=i, keys=keys, route=route,
+                    kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms, library=lib,
+                    whole_ms=whole_ms, max_abs_err=err,
+                    row_scaled_err=row_err, lse_max_abs_err=lse_err,
+                    bytes=n_bytes)
+                log(f"kernel decode_attention_partial [{case:16s}] bf16 "
+                    f"route={route} B={B} T={T} heads={Hq}/{Hkv}x{D} block "
+                    f"[{i * n}, {(i + 1) * n}) keys={keys}  {_fmt(ms)} "
+                    f"device-only (whole call {_fmt(whole_ms)})  plain "
+                    f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                    f"library {_fmt(lib_ms)}  max err {err:.3g} "
+                    f"({row_err:.3g} x row rms), lse {lse_err:.3g} | "
+                    f"{card}")
+            merged = lse_combine(torch.stack(outs), torch.stack(lses)).to(
+                whole.dtype)
+            err = _hold("decode_attention_partial", f"{name} merged of "
+                        f"{blocks}", merged, whole, tol, res)
+            row_err = row_scaled_err(merged, whole)
+            if row_err > DECODE_ROW_TOL:
+                raise AssertionError(
+                    f"decode_attention_partial [{name}, {blocks} blocks]: "
+                    f"the merge is {row_err:.3g} x a row's rms from the "
+                    f"whole call (bound {DECODE_ROW_TOL})")
+            p_merged = lse_combine(torch.stack(p_outs),
+                                   torch.stack(p_lses)).to(whole.dtype)
+            p_err = row_scaled_err(p_merged, plain_whole)
+            if p_err > DECODE_ROW_TOL:
+                raise AssertionError(
+                    f"decode_attention_partial_plain [{name}, {blocks} "
+                    f"blocks]: the plain merge is {p_err:.3g} x a row's rms "
+                    f"from decode_attention_plain (bound {DECODE_ROW_TOL})")
+            log(f"kernel decode_attention_partial [{name}] {blocks} blocks "
+                f"merged by log-sum-exp vs the whole call: max err "
+                f"{err:.3g}, {row_err:.3g} x row rms; plain blocks merged "
+                f"vs the plain whole {p_err:.3g} x row rms")
+        del q, k, v, whole, plain_whole
+    torch.cuda.empty_cache()
+    return res
+
+
+def sdpa_lse_block(q, kb, vb, lengths, k_lo: int):
+    """``aten._scaled_dot_product_efficient_attention(compute_log_sumexp=
+    True)`` over one key block, K/V repeated to the query heads and the
+    causal mask as an additive bias, copies made beforehand: a yardstick
+    the port never calls.  Returns (fn or None, label)."""
+    import torch
+    B, T, Hq, _ = q.shape
+    n, Hkv = kb.shape[1], kb.shape[2]
+    g = Hq // Hkv
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+              for t in (kb, vb))
+    q_pos = lengths.to(torch.int64)[:, None] + torch.arange(T, device=q.device)
+    k_pos = k_lo + torch.arange(n, device=q.device)
+    bias = torch.zeros((B, Hq, T, n), dtype=q.dtype, device=q.device)
+    bias.masked_fill_((k_pos[None, None, :] > q_pos[:, :, None])[:, None],
+                      float("-inf"))
+    return _library(
+        lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, bias, True),
+        "aten._scaled_dot_product_efficient_attention(compute_log_sumexp) "
+        "over the block, K/V repeated to the query heads, copies excluded")
+
+
+def tp_phase(seed: int, served: dict) -> dict:
+    """Phase 12: tensor parallelism on a NCCL world of one, after phase 11
+    on its target and weights.
+
+      a. kernel 4's partial entry (``partial_kernel_phase``);
+      b. wave-tp/model and wave-tp/none: phase 5's wave workload on
+         ``Model(moe_dispatch="ep", mesh=make_ep_mesh(1), mesh_layout=
+         "tp")`` through ``ServingEngine(mesh=..., mesh_layout="tp")``
+         (every spec resolves whole at m 1): greedy tokens equal to
+         wave-ep's bit for bit, tok/s beside wave-ep's, launches per path
+         equal to wave-ep's, and the workload again under compile_guard,
+         transfer_guard and sharding_guard (0 / 0 / ok);
+      c. one sharded train step (``make_train_step`` on a model with the
+         mesh, params placed with fsdp=True) of the reduced fp32 target
+         equals the unsharded step on the card, leaf for leaf.
+    Returns (the partial entry's results, the wave-tp launch counts)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import (compile_guard, sharding_guard,
+                                      transfer_guard)
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import packed_batches
+    from repro_torch.launch.mesh import make_ep_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training.optimizer import init_adam
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import tree_items
+
+    t0 = time.perf_counter()
+    card = card_line()
+    partial = partial_kernel_phase(seed)
+
+    # b. wave-tp
+    cfg, draft = served["cfg"], served["draft"]
+    params_t, params_d = served["params_t"], served["params_d"]
+    pb = served["pb"]
+    mesh = make_ep_mesh(1)
+    target_tp = Model(cfg, moe_dispatch="ep", mesh=mesh, mesh_layout="tp",
+                      device="cuda")
+    draft.mesh, draft.mesh_layout = mesh, "tp"     # phase 11's world is gone
+    launches = {}
+    for path in TP_PATHS:
+        kind = path.split("/")[1]
+        eng = ServingEngine(target_tp, draft if kind == "model" else None,
+                            params_t, params_d if kind == "model" else None,
+                            max_batch=8, gamma=4, temperature=0.0,
+                            proposer=kind, seed=seed, mesh=mesh,
+                            mesh_layout="tp")
+        tps = []
+
+        def run(label, eng=eng, path=path, tps=tps):
+            first = max(eng.done, default=0)
+            for i in range(16):
+                eng.submit(pb["tokens"][i][: int(pb["lengths"][i])],
+                           max_new_tokens=32)
+            for r in eng.run():
+                log(_wave_line(path, label, r))
+                tps.append(r.tokens_per_second)
+            return np.stack([eng.done[u].output for u in sorted(eng.done)
+                             if u > first])
+
+        reset_launch_counts()
+        out, _ = _path_runs(eng, kind, run, path, card)
+        launches[path] = launch_counts()
+        ep_path = f"wave-ep/{kind}"
+        if launches[path] != served["launches"][ep_path]:
+            raise AssertionError(f"{path}: launches {launches[path]}, "
+                                 f"{ep_path}'s {served['launches'][ep_path]}")
+        if launches[path]["decode_attention_partial"] != 0:
+            raise AssertionError(f"{path}: the partial entry launched at m 1,"
+                                 " where no cache splits along its sequence")
+        if not np.array_equal(out, served["outputs"][ep_path]):
+            raise AssertionError(f"{path}: greedy tokens differ from "
+                                 f"{ep_path}'s at m 1")
+        log(f"{path}: greedy tokens equal {ep_path}'s bit for bit; launches "
+            f"{launches[path]} = {ep_path}'s; tok/s {tps} beside {ep_path}'s "
+            f"{served['tok_s'][ep_path]} | {card}")
+        with compile_guard() as cg, transfer_guard() as tg, \
+                sharding_guard(eng) as sg:
+            run("warm, under the guards")
+        log(f"{path}: warm repeat under the guards: compile_guard "
+            f"{cg.count}, transfer_guard {tg.count}, {sg.render()}")
+        if cg.count or tg.count or not sg.ok:
+            raise AssertionError(f"{path}: guard violation {tg.lines[:5]}")
+        del eng
+    del target_tp
+    torch.cuda.empty_cache()
+
+    # c. one sharded train step at m 1 == the unsharded step
+    rcfg = get_config("qwen2-57b-a14b", reduced=True)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    batch = next(packed_batches(rcfg.vocab_size, 4, 64, kind="code",
+                                seed=seed))
+    init = Model(rcfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(seed))
+    runs = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        model = Model(rcfg, remat=True, device="cuda", mesh=m)
+        params = model.place(_clone_tree(init), fsdp=True)
+        opt = init_adam(params)
+        params, opt, met = make_train_step(model, tcfg)(params, opt, batch)
+        runs[label] = (params, opt, met)
+    (pu, ou, mu), (ps, os_, ms) = runs["unsharded"], runs["sharded"]
+    for tree_u, tree_s, what in ((pu, ps, "params"), (ou.mu, os_.mu, "mu"),
+                                 (ou.nu, os_.nu, "nu")):
+        for (path, a), (_, b) in zip(tree_items(tree_u), tree_items(tree_s)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"train step at m 1: {what} {path} "
+                                     "differs from the unsharded step")
+    for k in ("loss", "aux_loss", "grad_norm", "total_loss"):
+        if not torch.equal(mu[k], ms[k]):
+            raise AssertionError(f"train step at m 1: {k} {float(ms[k])} vs "
+                                 f"{float(mu[k])}")
+    log(f"train step at m 1 (reduced fp32, fsdp=True placement): params, "
+        f"moments and metrics equal the unsharded step's (loss "
+        f"{float(ms['loss']):.6f}, grad norm {float(ms['grad_norm']):.6f})")
+    del runs, init
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    log(f"phase 12 (tensor parallelism): {time.perf_counter() - t0:.1f} s")
+    return partial, launches
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
 
 
 def tuner_reference_phase(seed: int):
@@ -4099,6 +4435,9 @@ def main() -> int:
     launches.update(prefetch_phase(args.seed, served))
     launches.update(tuner_phase(args.seed, served))
     launches.update(ep_phase(args.seed, served))
+    served["launches"] = launches
+    partial, tp_launches = tp_phase(args.seed, served)
+    launches.update(tp_launches)
     del served
     launches.update(eagle_phase(args.seed))
     tuner_reference_phase(args.seed)
@@ -4140,6 +4479,23 @@ def main() -> int:
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "library_ms": v["library_ms"],
             "library": v["library"], "cases": res["cases"]})
+        if name == "decode_attention":
+            # the partial entry of the same source: on no path of one card
+            # (a cache splits along its sequence only over 2 ranks or more)
+            pv = partial["cases"][PARTIAL_MAIN_CASE]
+            line[-1]["partial"] = {
+                "entry": "decode_attention_partial", "route": pv["route"],
+                "launches": launches[TP_PATHS[0]]["decode_attention_partial"],
+                "launches_by_path": {
+                    path: counts["decode_attention_partial"]
+                    for path, counts in launches.items()},
+                "main_path": TP_PATHS[0],
+                "max_abs_err": partial["max_abs_err"],
+                "max_err_over_tol": partial["max_err_over_tol"],
+                "ms": pv["kernel_ms"], "plain_ms": pv["plain_ms"],
+                "bound_ms": pv["bound_ms"], "bound_by": pv["bound_by"],
+                "library_ms": pv["library_ms"], "library": pv["library"],
+                "cases": partial["cases"]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": line}))

@@ -41,17 +41,25 @@ def _top(score: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def router_probe(params_t: dict, cfg, tokens: torch.Tensor, *,
-                 top_m: int) -> PrefetchPlan:
+                 top_m: int, shard=None) -> PrefetchPlan:
     """Predict the experts a verify pass over ``tokens`` (B, T) will
     activate: per MoE layer, each router applied to the raw token
     embeddings (the stand-in for that layer's hidden states), top-K
     routing per token, then the top-M experts by vote count with the mean
     router probability as the tie-break.  A dense layer gets an all-False
-    mask and no ids.  Everything stays on the device."""
+    mask and no ids.  Everything stays on the device.  A vocab-parallel
+    embedding (``shard``'s placement, the target's) is looked up across
+    the ranks."""
     E = max(cfg.num_experts, 1)
     K = max(cfg.num_experts_per_tok, 1)
     dev = tokens.device
-    x = params_t["embed"]["table"][tokens.reshape(-1).to(torch.int64)]
+    ids = tokens.reshape(-1).to(torch.int64)
+    table = params_t["embed"]["table"]
+    if shard is not None and shard.blocked("embed/table"):   # a vocab block
+        from repro_torch.distributed import collectives as col
+        x = col.vocab_embed(table, ids, shard)
+    else:
+        x = table[ids]
     x = x.float()                                                # (N, d)
     masks, ids = [], []
     for l in range(cfg.num_layers):
@@ -109,6 +117,7 @@ class PrefetchProposer:
         # this round's draft stream is the coming verify stream: probe it
         stream = torch.cat([last_token[:, None].to(drafts.dtype), drafts], 1)
         plan = router_probe(params["target"], self.target.cfg, stream,
+                            shard=self.target._shard(),
                             top_m=self.top_m)
         return drafts, q_dist, {"inner": work, "plan": plan}
 

@@ -229,6 +229,15 @@ def _cache_geometry(t_cache: dict) -> tuple:
             None if pages is None else tuple(pages["table"].shape))
 
 
+def _compact_opts(t_cache: dict) -> dict:
+    """``init_cache`` options of a compact admission cache for a live
+    cache, under a mesh: its rows whole over ``"data"`` (the scatter
+    takes, on each rank, the admitted rows it holds), and, scattered into
+    a page pool, its sequence whole, as the pool's."""
+    return {"kv_mode": "heads" if t_cache.get("pages") is not None
+            else "auto", "split_batch": False}
+
+
 def _copy_into(dst, src) -> None:
     """Copy every tensor leaf of ``src`` into the same leaf of ``dst`` (same
     structure and shapes), skipping leaves that already are ``dst``'s."""
@@ -246,7 +255,7 @@ def _copy_into(dst, src) -> None:
             raise ValueError("session tree does not match its arena")
         for d, s in zip(dst, src):
             _copy_into(d, s)
-    elif not (dst is None and src is None):
+    elif dst != src:         # None, or a cache's placement record
         raise ValueError("session tree does not match its arena")
 
 
@@ -301,7 +310,10 @@ class SDEngine:
 
     ``mesh``/``mesh_layout`` default to the target's (one mesh a session);
     under expert parallelism the prefetch warm gathers each rank's own
-    experts only (``models/moe.warm_experts``)."""
+    experts only (``models/moe.warm_experts``).  The target allocates its
+    session cache as this rank's blocks (``Model.init_cache(placed=True)``),
+    once an arena; admissions and growth keep them; the draft's stays
+    whole, as the reference places the target's session cache only."""
 
     def __init__(self, target: Model, proposer: Proposer, *,
                  gamma: int = 4, temperature: float = 0.0,
@@ -451,7 +463,8 @@ class SDEngine:
         def finalize(prev):
             drafts, q_dist, p_work, p_dist, hidden, pend, pf, finite = prev
             t_new, p_new, new_last, committed, n_commit, n_acc = \
-                self._finalize(params, pend, p_work, t_cache["lengths"],
+                self._finalize(params, pend, p_work,
+                               self.target.cache_lengths(t_cache),
                                p_dist, q_dist, drafts, hidden, last,
                                io.active, finite, generator)
             io.publish(committed, n_commit, n_acc, finite, pf)
@@ -507,9 +520,12 @@ class SDEngine:
         if lengths is not None:
             lengths = _on(lengths, torch.int32, dev)
         t_cache = self.target.init_cache(
-            prompts.shape[0], max_seq, **(cache_opts or {}),
+            prompts.shape[0], max_seq, placed=True, **(cache_opts or {}),
             reuse=None if reuse is None else reuse.t_cache)
         if page_table is not None:
+            rows = self.target.row_block(t_cache)
+            if rows is not None:      # the rows this rank's table holds
+                page_table = page_table[rows]
             t_cache["pages"]["table"].copy_(_on(page_table, torch.int32, dev))
         last_l, last_h, t_cache = self.target.prefill_with_hidden(
             params["target"], prompts, t_cache, lengths=lengths,
@@ -539,7 +555,7 @@ class SDEngine:
         params = {"target": params_t, "draft": params_p}
         B = int(np.shape(prompts)[0])
         akey = self._arena_key(B, max_seq, self.target.init_cache(
-            B, max_seq, **(cache_opts or {}), device="meta"))
+            B, max_seq, placed=True, **(cache_opts or {}), device="meta"))
         t_cache, p_state, last_l = self._fresh_prefill(
             params, prompts, lengths, max_seq, cache_opts=cache_opts,
             page_table=page_table, reuse=self._arenas.get(akey),
@@ -651,7 +667,8 @@ class SDEngine:
         first = sample_from(probs_from_logits(last_l, self.temperature),
                             generator, self.temperature)
         mask = np.asarray(admit_mask, bool)
-        t_cache = merge_cache_rows(state.t_cache, fresh_t, mask)
+        t_cache = merge_cache_rows(state.t_cache, fresh_t, mask,
+                                   self.target.row_block(state.t_cache))
         p_state = self.proposer.merge_state(state.p_state, fresh_p, mask)
         last_token = torch.where(
             torch.as_tensor(mask, device=self.target.device), first,
@@ -667,7 +684,12 @@ class SDEngine:
         fresh_t, fresh_p, last_l = fresh
         first = sample_from(probs_from_logits(last_l, self.temperature),
                             generator, self.temperature)
-        t_cache = scatter_cache_rows(state.t_cache, fresh_t, rows,
+        live = state.t_cache
+        t_cache = scatter_cache_rows(live, fresh_t, rows,
+                                     row_block=self.target.row_block(live),
+                                     table=None if live.get("pages") is None
+                                     else self.target.whole_rows(
+                                         live, live["pages"]["table"]),
                                      valid=valid, n_prompt=Tp)
         p_state = self.proposer.scatter_state(state.p_state, fresh_p, rows,
                                               valid=valid)
@@ -701,7 +723,8 @@ class SDEngine:
                         ("admit_rows", R, Tp, state.max_seq,
                          _cache_geometry(state.t_cache)))
         fresh = self._fresh_prefill(state.params, prompts, lengths,
-                                    state.max_seq)
+                                    state.max_seq,
+                                    cache_opts=_compact_opts(state.t_cache))
         return self._scatter_admitted(state, fresh, rows, valid, generator,
                                       Tp)
 
@@ -750,9 +773,11 @@ class SDEngine:
         dev = self.target.device
         t_cache = state.t_cache
         rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        # every rank extends every admitted row over its own whole pool
+        table = self.target.whole_rows(t_cache, t_cache["pages"]["table"])
         compact = {"layers": t_cache["layers"],
                    "lengths": _on(tail_start, torch.int32, dev),
-                   "pages": {"table": t_cache["pages"]["table"][rows_t]}}
+                   "pages": {"table": table[rows_t]}}
         logits, hidden, _ = self.target.extend_with_hidden(
             state.params["target"], tails, compact)
         idx = _on(np.asarray(tail_len, np.int64) - 1, torch.int64, dev)
@@ -773,7 +798,14 @@ class SDEngine:
         keep = np.nonzero(valid)[0]
         dst = torch.as_tensor(np.asarray(rows, np.int64)[keep], device=dev)
         src = torch.as_tensor(keep, device=dev)
-        t_cache["lengths"][dst] = lengths[src]
+        block = self.target.row_block(t_cache)
+        mine = keep
+        if block is not None:         # the lengths of the rows held here
+            r = np.asarray(rows, np.int64)[keep]
+            mine = keep[(r >= block.start) & (r < block.stop)]
+        t_cache["lengths"][torch.as_tensor(
+            np.asarray(rows, np.int64)[mine] - (block.start if block else 0),
+            device=dev)] = lengths[torch.as_tensor(mine, device=dev)]
         state.last_token[dst] = first[src]
         return replace(state, p_state=p_state)
 
@@ -828,7 +860,8 @@ class SDEngine:
         if done == 0:
             self._log_shape(self.chunk_trace_log, ("first", C, R),
                             ("chunk", "first", R, C, state.max_seq))
-            fresh_t = self.target.init_cache(R, state.max_seq)
+            fresh_t = self.target.init_cache(
+                R, state.max_seq, placed=True, **_compact_opts(state.t_cache))
             _, fresh_t = self.target.prefill(
                 params_t, toks, fresh_t,
                 lengths=_on(np.minimum(pa.lengths, C), torch.int32, dev))

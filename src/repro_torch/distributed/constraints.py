@@ -55,11 +55,18 @@ def data_axes_of(mesh, layout: str):
     return tuple(a for a in names if a in ("pod", "data")) or None
 
 
-def constrain(x, kind: str, *, mesh=None, layout: Optional[str] = None):
+def constrain(x, kind: str, *, mesh=None, layout: Optional[str] = None,
+              shard=None):
     """The reference pins an activation's sharding here (a GSPMD
-    annotation for its partitioner).  Torch has no partitioner: every rank
-    holds each activation whole, and the expert-parallel dispatch moves its
-    rows itself (``collectives.moe_ep_forward``).  So this validates the
-    pair and returns ``x`` unchanged."""
+    annotation for its partitioner).  Torch has no partitioner: this is
+    where an activation of a batch split over ``"data"`` (``shard``'s
+    ``batch_axes``, ``distributed/collectives.Shard``) is all-gathered into
+    the whole batch, which every rank then holds: ``"hidden"`` (the
+    pre-head states) and ``"logits"`` (the head's, already gathered over
+    the vocab), so rejection accepts the same prefix on every rank.
+    Without a split batch it validates the pair and returns ``x``."""
     resolve_mesh(mesh, layout)
-    return x
+    if shard is None or "data" not in shard.batch_axes:
+        return x
+    from repro_torch.distributed import collectives as col
+    return col.gather(x, 0, shard, "data")

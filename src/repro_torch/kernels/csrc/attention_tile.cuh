@@ -62,6 +62,8 @@ struct Params {
   const void* v;
   void* out;
   const int* lengths;            // (B,) query base positions, or nullptr: 0
+  float* lse;                    // partial entry: (B, T, Hq) log-sum-exp, or nullptr
+  int k_off;                     // partial entry: key 0's position
   long long sqb, sqt, sqh;       // strides in elements: batch, position, head
   long long skb, sks, skh;
   long long svb, svs, svh;
@@ -162,7 +164,8 @@ attention_tile_kernel(const Params p) {
   const int n_pos = min(tp, p.T - t0);
   const int rows = n_pos * G;
   const int kvh = hg * G / g;
-  const int base = p.lengths != nullptr ? p.lengths[b] : 0;
+  // key k sits at position k_off + k: a row's base shifts by -k_off
+  const int base = (p.lengths != nullptr ? p.lengths[b] : 0) - p.k_off;
   const T* kg = static_cast<const T*>(p.k) + b * p.skb + kvh * p.skh;
   const T* vg = static_cast<const T*>(p.v) + b * p.svb + kvh * p.svh;
 
@@ -370,6 +373,11 @@ attention_tile_kernel(const Params p) {
     __syncthreads();
   }
 
+  // a block that sees no key (the partial entry's rows all before its
+  // block) ran no chunk, whose barriers order the initialisation above
+  // before the reads below
+  if (kstart >= kend) __syncthreads();
+
   // ---- emit O / l in the element type
   T* out = static_cast<T*>(p.out);
   for (int i = tid; i < rows * D; i += NT) {
@@ -377,6 +385,14 @@ attention_tile_kernel(const Params p) {
     const int t = t0 + r / G, h = hg * G + r % G;
     const float inv = 1.f / fmaxf(Ls[r], 1e-30f);
     out[b * p.sob + t * p.sot + h * p.soh + d] = from_f<T>(Os[r * L::OP + d] * inv);
+  }
+  if (p.lse != nullptr) {
+    // natural log-sum-exp of the row's scores; -inf where it saw no key
+    for (int r = tid; r < rows; r += NT) {
+      const int t = t0 + r / G, h = hg * G + r % G;
+      p.lse[(static_cast<long long>(b) * p.T + t) * p.Hq + h] =
+          Ls[r] > 0.f ? Ms[r] + logf(Ls[r]) : __int_as_float(0xff800000);
+    }
   }
 }
 

@@ -77,8 +77,10 @@ struct Params {
   bf16* out;                                 // (B, T, Hq, D), contiguous
   float* part_o;                             // (B, Hkv, splits, rows, D) partial O
   float* part_ml;                            // (B, Hkv, splits, rows, 2) m, l
+  float* lse;                                // partial entry: (B, T, Hq) log-sum-exp
   int T, Hq, Hkv, g, rows, ps, MP, cps, splits;
   int limit;                                 // keys a row can hold: keys >= limit never exist
+  int k_off;                                 // partial entry: key 0's position (dense body)
   float scale, cap;
 };
 
@@ -308,13 +310,18 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, c
 
 // Merge the live splits of (KV head blockIdx.x, sequence blockIdx.y) into
 // the output, unless split 0 held every live key (its block wrote it).
+// The partial entry (lse non-null) always merges, even one live split (the
+// kernel sends every split to scratch then), and writes each row's natural
+// log-sum-exp, (M + log2 L) ln 2 from the log2 units the splits keep; a row
+// with no visible key of the block (no live split, or every score masked)
+// gets 0 and -inf.
 template <int D>
 __global__ void __launch_bounds__(256)
 combine_kernel(const Params p) {
   const int h = blockIdx.x, b = blockIdx.y;
-  const int last = last_key(p.lengths[b], p.T, p.limit);
-  const int live = last / (p.cps * BK) + 1;
-  if (live <= 1) return;
+  const int last = last_key(p.lengths[b] - p.k_off, p.T, p.limit);
+  const int live = last < 0 ? 0 : last / (p.cps * BK) + 1;
+  if (live <= 1 && p.lse == nullptr) return;
   const long long base = (static_cast<long long>(b) * p.Hkv + h) * p.splits * p.rows;
   for (int u = threadIdx.x; u < p.rows * (D / 4); u += blockDim.x) {
     const int r = u / (D / 4), col = (u % (D / 4)) * 4;
@@ -335,11 +342,13 @@ combine_kernel(const Params p) {
     }
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     const int t = r / p.g, gi = r % p.g;
-    bf16* dst = p.out + ((static_cast<long long>(b) * p.T + t) * p.Hq + h * p.g + gi) * D + col;
+    const long long row = (static_cast<long long>(b) * p.T + t) * p.Hq + h * p.g + gi;
     uint2 packed;
     packed.x = sm90::pack_bf16(acc.x * inv, acc.y * inv);
     packed.y = sm90::pack_bf16(acc.z * inv, acc.w * inv);
-    *reinterpret_cast<uint2*>(dst) = packed;
+    *reinterpret_cast<uint2*>(p.out + row * D + col) = packed;
+    if (p.lse != nullptr && col == 0)
+      p.lse[row] = lsum > 0.f ? (mmax + __log2f(lsum)) * 0.6931471805599453f : -INFINITY;
   }
 }
 
@@ -351,20 +360,22 @@ inline long long scratch_bytes(int head_dim, int B, int Hkv, int rows, int split
 }
 
 // Point the partials into `scratch` (the layout scratch_bytes sized), or
-// return -1 when more than one split needs scratch that is missing.
+// return -1 when more than one split (or the partial entry) needs scratch
+// that is missing.
 inline int set_partials(Params& p, void* scratch, int B, int D) {
-  if (p.splits <= 1) return 0;
+  if (p.splits <= 1 && p.lse == nullptr) return 0;
   if (scratch == nullptr) return -1;
   p.part_o = static_cast<float*>(scratch);
   p.part_ml = p.part_o + static_cast<long long>(B) * p.Hkv * p.splits * p.rows * D;
   return 0;
 }
 
-// The combine after the split kernel, when there is more than one split.
+// The combine after the split kernel: when there is more than one split,
+// and always for the partial entry.
 template <int D>
 inline int launch_combine(const Params& p, int B, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || p.splits <= 1) return static_cast<int>(e);
+  if (e != cudaSuccess || (p.splits <= 1 && p.lse == nullptr)) return static_cast<int>(e);
   combine_kernel<D><<<dim3(p.Hkv, B), 256, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

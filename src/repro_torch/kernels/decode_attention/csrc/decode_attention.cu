@@ -58,21 +58,33 @@
 // launch, -1 for shapes the kernels do not take or a missing scratch, -2
 // for a dtype or head dim they are not built for, -3/-4 when the CUDA
 // driver cannot encode the tensor maps.
+//
+// lse null: the whole call (k_off must be 0).  lse non-null: the partial
+// entry, the same attention over ONE block of a cache split along its
+// sequence, whose keys sit at positions k_off .. k_off + S - 1 (queries
+// still at lengths[b] + t), for the combine across blocks by log-sum-exp.
+// out then gets the block's output normalized over its visible keys, lse
+// (B, T, Hq) fp32 each row's natural log-sum-exp of those keys' scores; a
+// row that sees none gets 0 and -inf.  The sm90 body sends every live
+// split to scratch and combine_kernel (splitkv_sm90.cuh) merges them and
+// writes lse; the WMMA and CUDA-core bodies write lse beside their output.
 extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
                                        const void* k, const void* v,
-                                       const void* lengths, void* out, void* scratch,
-                                       const long long* strides, int B, int T, int S,
-                                       int Hq, int Hkv, float scale, float logit_cap,
-                                       void* stream, int* kernel) {
+                                       const void* lengths, void* out, void* lse,
+                                       void* scratch, const long long* strides, int B,
+                                       int T, int S, int Hq, int Hkv, int k_off,
+                                       float scale, float logit_cap, void* stream,
+                                       int* kernel) {
   if (Hkv < 1 || Hq % Hkv != 0 || T < 1 || S < 1 || B < 1) return -1;
+  float* lse_f = static_cast<float*>(lse);
   if (decode90::takes(dtype, head_dim, Hq / Hkv, T)) {
     *kernel = 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (head_dim == 64)
       return decode90::launch<64>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq, Hkv,
-                                  scale, logit_cap, s);
+                                  scale, logit_cap, s, lse_f, k_off);
     return decode90::launch<128>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq, Hkv,
-                                 scale, logit_cap, s);
+                                 scale, logit_cap, s, lse_f, k_off);
   }
   *kernel = dtype == 0 ? 1 : 2;
   attn::Params p{};
@@ -81,6 +93,8 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
   p.v = v;
   p.out = out;
   p.lengths = static_cast<const int*>(lengths);
+  p.lse = lse_f;
+  p.k_off = k_off;
   attn::set_strides(p, strides);
   p.T = T;
   p.S = S;
@@ -95,13 +109,14 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
 }
 
 // Bytes of scratch the call with these arguments needs (the split-KV
-// partials of the sm90 body; 0 when it runs one split or another body).
+// partials of the sm90 body; 0 when it runs one split or another body, and
+// every split's partial for the partial entry).
 extern "C" long long decode_attention_scratch_bytes(int dtype, int head_dim, int B, int T,
-                                                    int S, int Hq, int Hkv) {
+                                                    int S, int Hq, int Hkv, int partial) {
   if (Hkv < 1 || Hq % Hkv != 0 || S < 1 || B < 1 ||
       !decode90::takes(dtype, head_dim, Hq / Hkv, T))
     return 0;
-  return decode90::scratch_bytes(head_dim, B, T, Hq, Hkv, S);
+  return decode90::scratch_bytes(head_dim, B, T, Hq, Hkv, S, partial != 0);
 }
 
 // Dynamic shared memory of a block of the sm90 body at this head dim (for

@@ -51,12 +51,16 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap vmap, const Params p) {
   using L = Cfg<D>;
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int length = p.lengths[b];
+  // the partial entry's keys start at position k_off: local key i is
+  // position k_off + i, so a row's length shifts by -k_off (and may fall
+  // below 0: that row sees no key of the block)
+  const int length = p.lengths[b] - p.k_off;
   const int last = last_key(length, p.T, p.limit);
   const int k0 = sp * p.cps * BK;
   if (k0 > last) return;                     // nothing of this split is visible
   const int n_chunks = min(p.cps, (last - k0) / BK + 1);
-  const bool direct = last < p.cps * BK;     // split 0 holds every live key
+  // split 0 holds every live key; the partial entry always merges
+  const bool direct = p.lse == nullptr && last < p.cps * BK;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align1024(smem_raw);
@@ -96,19 +100,27 @@ inline bool takes(int dtype, int head_dim, int g, int T) {
          g * T <= ROWS;
 }
 
-// Bytes of scratch a call needs: the split partials, 0 with one split.
-inline long long scratch_bytes(int head_dim, int B, int T, int Hq, int Hkv, int S) {
+// Bytes of scratch a call needs: the split partials, 0 with one split
+// (the partial entry's, with any number of splits).
+inline long long scratch_bytes(int head_dim, int B, int T, int Hq, int Hkv, int S,
+                               bool partial = false) {
   int cps = 0, splits = 0;
   plan(B, Hkv, S, &cps, &splits);
+  if (partial)
+    return static_cast<long long>(B) * Hkv * splits * (Hq / Hkv) * T * (head_dim + 2) * 4;
   return splitkv::scratch_bytes(head_dim, B, Hkv, (Hq / Hkv) * T, splits);
 }
 
 // st: 12 element strides, q (b, t, h), k (b, s, h), v (b, s, h), out (b, t,
 // h); out must be contiguous (B, T, Hq, D).
+// The partial entry (lse non-null): keys are positions k_off .. k_off + S -
+// 1, every live split goes to scratch and combine_kernel writes the
+// output and the log-sum-exp.
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
            void* scratch, const long long* st, int B, int T, int S, int Hq, int Hkv,
-           float scale, float cap, cudaStream_t stream) {
+           float scale, float cap, cudaStream_t stream, float* lse = nullptr,
+           int k_off = 0) {
   using L = Cfg<D>;
   static bool opted_in = false;              // per instantiation, per library
   if (!opted_in) {
@@ -131,6 +143,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   p.limit = S;
   p.scale = scale;
   p.cap = cap;
+  p.lse = lse;
+  p.k_off = k_off;
   plan(B, Hkv, S, &p.cps, &p.splits);
   if (set_partials(p, scratch, B, D) != 0) return -1;
   // dims (D, heads, positions, batch); strides of heads, positions, batch

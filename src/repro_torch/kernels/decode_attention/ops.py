@@ -25,6 +25,13 @@ dim)).  The split partials go into scratch the launcher sizes
 (``decode_attention_scratch_bytes``) and this wrapper takes from torch's
 allocator on the current stream, so a call never syncs and can be captured
 in a CUDA graph.
+
+``decode_attention_partial`` is the same kernel's entry over one key block
+of a cache split along its sequence over the ranks of a mesh (keys at
+positions ``k_lo ..``): it returns the block's output and the fp32
+log-sum-exp of each row, which ``distributed/collectives.lse_combine``
+merges across the blocks; ``LAUNCHES["decode_attention_partial"]`` counts
+it.
 """
 from __future__ import annotations
 
@@ -32,19 +39,22 @@ import ctypes
 import math
 from collections import Counter
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import attention_launch, build, refuse_autograd
-from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_partial_plain, decode_attention_plain)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
 # kernel launches since the last reset
-LAUNCHES = {"decode_attention": 0}
+LAUNCHES = {"decode_attention": 0, "decode_attention_partial": 0}
 # the body the last launch ran, as the launcher reported it
-LAST_ROUTE = {"decode_attention": None}
-# launches since the last reset by (route, head dim): eager calls and
+LAST_ROUTE = {"decode_attention": None, "decode_attention_partial": None}
+# launches since the last reset by (route, head dim), both entries: eager
+# calls and
 # the calls a CUDA graph captures (a replay runs what was captured)
 ROUTE_LAUNCHES: Counter = Counter()
 _ROUTES = ("sm90", "wmma", "simt")     # the launcher's kernel codes
@@ -62,13 +72,58 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         st = ctypes.POINTER(ctypes.c_longlong)
         lib.decode_attention_launch.argtypes = [
-            i, i, p, p, p, p, p, p, st, i, i, i, i, i, f, f, p,
+            i, i, p, p, p, p, p, p, p, st, i, i, i, i, i, i, f, f, p,
             ctypes.POINTER(i)]
         lib.decode_attention_launch.restype = i
-        lib.decode_attention_scratch_bytes.argtypes = [i] * 7
+        lib.decode_attention_scratch_bytes.argtypes = [i] * 8
         lib.decode_attention_scratch_bytes.restype = ctypes.c_longlong
         lib._argtypes_set = True
     return lib
+
+
+def _launch(entry: str, q, k, v, lengths, scale: float, logit_cap: float,
+            k_lo: Optional[int]):
+    """Check, size scratch and launch the library's kernel: the whole call,
+    or the partial entry when ``k_lo`` is given; returns (out, lse or
+    None)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode attention kernel for device {q.device}")
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    attention_launch.check("decode attention", q, k, v,
+                           g_rows=Hq // max(Hkv, 1))
+    if (lengths.dtype != torch.int32 or lengths.device != q.device
+            or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
+        raise ValueError(f"lengths must be a contiguous int32 ({B},) tensor "
+                         f"on {q.device}")
+    if scale == 0.0:
+        scale = 1.0 / math.sqrt(D)
+    out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    lse = None if k_lo is None else torch.empty(
+        (B, T, Hq), dtype=torch.float32, device=q.device)
+    if B == 0 or T == 0:
+        return out, lse
+    st = attention_launch.strides(q, k, v, out)
+    kernel = ctypes.c_int(-1)
+    with torch.cuda.device(q.device):
+        lib = _lib()
+        dt = attention_launch.DTYPES[q.dtype]
+        n = lib.decode_attention_scratch_bytes(dt, D, B, T, S, Hq, Hkv,
+                                               int(k_lo is not None))
+        scratch = torch.empty((n,), dtype=torch.uint8, device=q.device) \
+            if n else None
+        status = lib.decode_attention_launch(
+            dt, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            scratch.data_ptr() if n else None, st, B, T, S, Hq, Hkv,
+            int(k_lo or 0), float(scale), float(logit_cap),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
+    build.check(status, entry)
+    LAUNCHES[entry] += 1
+    LAST_ROUTE[entry] = _ROUTES[kernel.value]
+    ROUTE_LAUNCHES[LAST_ROUTE[entry], D] += 1
+    return out, lse
 
 
 def decode_attention(
@@ -87,37 +142,31 @@ def decode_attention(
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, scale=scale,
                                       logit_cap=logit_cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"no decode attention kernel for device {q.device}")
-    B, T, Hq, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    attention_launch.check("decode attention", q, k, v,
-                           g_rows=Hq // max(Hkv, 1))
-    if (lengths.dtype != torch.int32 or lengths.device != q.device
-            or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
-        raise ValueError(f"lengths must be a contiguous int32 ({B},) tensor "
-                         f"on {q.device}")
-    if scale == 0.0:
-        scale = 1.0 / math.sqrt(D)
-    out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
-    if B == 0 or T == 0:
-        return out
-    st = attention_launch.strides(q, k, v, out)
-    kernel = ctypes.c_int(-1)
-    with torch.cuda.device(q.device):
-        lib = _lib()
-        dt = attention_launch.DTYPES[q.dtype]
-        n = lib.decode_attention_scratch_bytes(dt, D, B, T, S, Hq, Hkv)
-        scratch = torch.empty((n,), dtype=torch.uint8, device=q.device) \
-            if n else None
-        status = lib.decode_attention_launch(
-            dt, D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if n else None, st, B, T, S, Hq, Hkv,
-            float(scale), float(logit_cap),
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
-    build.check(status, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
-    LAST_ROUTE["decode_attention"] = _ROUTES[kernel.value]
-    ROUTE_LAUNCHES[LAST_ROUTE["decode_attention"], D] += 1
-    return out
+    return _launch("decode_attention", q, k, v, lengths, scale, logit_cap,
+                   None)[0]
+
+
+def decode_attention_partial(
+    q: torch.Tensor,           # (B, T, Hq, D)
+    k: torch.Tensor,           # (B, n, Hkv, D): the keys at k_lo .. k_lo + n - 1
+    v: torch.Tensor,
+    lengths: torch.Tensor,     # (B,) int32: queries sit at lengths + t
+    *,
+    k_lo: int,
+    scale: float = 0.0,
+    logit_cap: float = 0.0,
+):
+    """The partial entry: causal decode/verify attention over one block of
+    a cache split along its sequence (``ref.decode_attention_partial_plain``
+    states it): the block's normalized output in q's dtype and the fp32
+    log-sum-exp (B, T, Hq) of every row, -inf where the block holds no key
+    the row sees.  The same three bodies as :func:`decode_attention`; the
+    sm90 body writes every live split's partial to scratch and one merge
+    kernel normalizes them and writes the log-sum-exp."""
+    refuse_autograd("decode_attention_partial", q, k, v)
+    if q.device.type == "cpu":
+        return decode_attention_partial_plain(q, k, v, lengths, k_lo=k_lo,
+                                              scale=scale,
+                                              logit_cap=logit_cap)
+    return _launch("decode_attention_partial", q, k, v, lengths, scale,
+                   logit_cap, k_lo)

@@ -80,6 +80,48 @@ def decode_attention_plain(
     return out.transpose(1, 2)
 
 
+def decode_attention_partial_plain(
+    q: torch.Tensor,           # (B, T, Hq, D)
+    k: torch.Tensor,           # (B, n, Hkv, D): keys at positions k_lo + s
+    v: torch.Tensor,
+    lengths: torch.Tensor,     # (B,): queries sit at lengths + t
+    *,
+    k_lo: int,
+    scale: float = 0.0,
+    logit_cap: float = 0.0,
+):
+    """Decode/verify attention over ONE block of keys, the n positions
+    [k_lo, k_lo + n) of a cache split along its sequence: the output
+    normalized over the block's visible keys (q's dtype) and the fp32
+    log-sum-exp of their scores (B, T, Hq).  A row that sees no key of
+    the block gets 0 and -inf.  V rows past each row's newest query are
+    zeroed, as in :func:`decode_attention_ref`.  The partials of every
+    block merge into :func:`decode_attention_plain`'s result
+    (``distributed/collectives.lse_combine``)."""
+    B, T, Hq, D = q.shape
+    n, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    if scale == 0.0:
+        scale = 1.0 / math.sqrt(D)
+    kk = k.float().repeat_interleave(g, dim=2)
+    vv = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), kk) * scale
+    if logit_cap > 0:
+        s = torch.tanh(s / logit_cap) * logit_cap
+    dev = q.device
+    q_pos = (lengths.to(torch.int64)[:, None, None, None]
+             + torch.arange(T, device=dev)[None, None, :, None])
+    k_pos = k_lo + torch.arange(n, device=dev)[None, None, None, :]
+    s = s.masked_fill(k_pos > q_pos, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                          # (B, Hq, T)
+    safe = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(s - safe[..., None])
+    past = (k_pos[..., 0, :, None] > q_pos[:, :, -1:, :])[:, 0]   # (B, n, 1)
+    vv = vv.masked_fill(past[:, :, :, None], 0.0)
+    out = torch.einsum("bhts,bshd->bthd", p, vv)
+    return out.to(q.dtype), lse.transpose(1, 2).contiguous()
+
+
 def paged_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """The dense (B, MP*ps, ...) view of a (NP, ps, ...) pool through the
     block table (B, MP): logical position p of row b is

@@ -43,7 +43,12 @@ dispatch on a ``(1, --ep-degree)`` mesh (``launch/mesh.make_ep_mesh``;
 process a rank under ``torchrun --nproc-per-node N`` (a card each, NCCL;
 gloo with ``--device cpu``), every rank serving the same stream; only rank
 0 prints.  ``--ep-degree 1`` is a world of one the mesh starts itself.
-``--mesh-layout`` (tp, fsdp) is validated and threaded to the engine.
+``--mesh-layout`` places the non-expert weights as the reference's does:
+``tp`` splits attention heads, FFN columns/rows and the vocab over the
+model axis (``Model.place``, over ``distributed/sharding.shard_params``),
+``fsdp`` keeps them whole in serving; under both the target's KV cache
+splits its heads (or, where the model axis does not divide them, its
+sequence) over the ranks.
 ``--transfer-guard`` serves the stream a second time, warm, under
 ``transfer_guard``, ``sharding_guard`` and ``compile_guard``
 (``analysis/runtime.py``), prints their counts and exits non-zero on an

@@ -55,7 +55,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.distributed import collectives as col
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      decode_attention_partial)
 from repro_torch.kernels.decode_attention.paged import paged_decode_attention
 from repro_torch.kernels.decode_attention.ref import paged_view
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -157,14 +159,19 @@ def make_attn_cache(cfg, batch: int, max_seq: int, kind: str, dtype, device,
             "v": zeros(batch, max_seq + 1, hkv, hd)}
 
 
-def _write(cache: dict, positions: torch.Tensor, **vals) -> None:
+def _write(cache: dict, positions: torch.Tensor, lo: int = 0,
+           n: Optional[int] = None, **vals) -> None:
     """Write each ``vals`` leaf at (B, T) positions of a dense cache in place
     (saves copying the whole cache per token, which the reference's
-    functional update does); positions past capacity land on the trash
-    slot."""
+    functional update does).  The cache holds the positions [lo, lo + n)
+    (a block of a cache split along its sequence; by default all of them)
+    and a trash slot n past them, where every other position lands."""
     bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
     for name, val in vals.items():
-        slot = positions.clamp(max=cache[name].shape[1] - 1)
+        size = cache[name].shape[1] - 1 if n is None else n
+        slot = positions - lo
+        slot = torch.where((slot >= 0) & (slot < size), slot,
+                           torch.full_like(slot, size))
         cache[name][bidx, slot] = val
 
 
@@ -177,6 +184,21 @@ def _ring_write(cache: dict, positions: torch.Tensor, k, v) -> None:
     cache["k"][bidx, slots] = k
     cache["v"][bidx, slots] = v
     cache["pos"][bidx, slots] = positions.to(torch.int32)
+
+
+def _pool_write(cache: dict, table: torch.Tensor, positions: torch.Tensor,
+                shard, **vals) -> None:
+    """:func:`_paged_write` of each ``vals`` leaf.  A page pool is whole on
+    every rank of ``"data"`` while the rows in flight are the rank's only
+    (a batch split over ``"data"``): every rank writes every row, so the
+    pools stay equal and a page a row shares with another rank's row holds
+    what that row wrote."""
+    if shard is not None and "data" in shard.batch_axes:
+        rows = lambda t: col.gather(t, 0, shard, "data")
+        table, positions = rows(table), rows(positions)
+        vals = {k: rows(v) for k, v in vals.items()}
+    for name, val in vals.items():
+        _paged_write(cache[name], table, positions, val)
 
 
 def _paged_write(pool: torch.Tensor, table: torch.Tensor,
@@ -197,8 +219,11 @@ def _paged_write(pool: torch.Tensor, table: torch.Tensor,
 # core scaled-dot-product with GQA grouping
 # ---------------------------------------------------------------------------
 
-def _sdpa(q, k, v, mask, scale, logit_cap: float = 0.0):
-    """q: (B,T,Hq,D)  k/v: (B,S,Hkv,D)  mask: (B,1,T,S) bool → (B,T,Hq,Dv)."""
+def _sdpa(q, k, v, mask, scale, logit_cap: float = 0.0, lse: bool = False):
+    """q: (B,T,Hq,D)  k/v: (B,S,Hkv,D)  mask: (B,1,T,S) bool → (B,T,Hq,Dv).
+    With ``lse``, also the fp32 log-sum-exp of each row's scores (B,T,Hq),
+    a row with no visible key giving 0 and -inf: the partial over one key
+    block that ``collectives.lse_combine`` merges."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
@@ -208,10 +233,19 @@ def _sdpa(q, k, v, mask, scale, logit_cap: float = 0.0):
         logits = softcap(logits, logit_cap)
     # masked_fill takes the scalar as a kernel argument; a device tensor
     # made from it would be a host-to-device copy (a sync) per layer
-    logits = logits.masked_fill(~mask[:, :, None, :, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    logits = logits.masked_fill(~mask[:, :, None, :, :],
+                                float("-inf") if lse else NEG_INF)
+    if lse:
+        row = torch.logsumexp(logits, dim=-1)                  # (B,Hkv,g,T)
+        safe = torch.where(torch.isfinite(row), row, torch.zeros_like(row))
+        probs = torch.exp(logits - safe[..., None])
+    else:
+        probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
-    return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
+    out = out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
+    if not lse:
+        return out
+    return out, row.permute(0, 3, 1, 2).reshape(B, T, Hq)
 
 
 def _chunk_scores(qg, k_t, p_t, q_pos, scale, logit_cap, causal, window):
@@ -331,19 +365,67 @@ def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0):
 # GQA forward
 # ---------------------------------------------------------------------------
 
-def _project_qkv(params, cfg, x):
+def _blocked(shard, name: str) -> bool:
+    return shard is not None and shard.blocked(name)
+
+
+def _cols(x, xf, params, w: str, b: str, lo: int, hi: int, shard):
+    """``x @ params[w][:, lo:hi] (+ params[b][lo:hi])`` for a projection
+    that is whole or this rank's ``"model"`` block (``shard``'s placement;
+    ``xf`` is ``x`` after *f*): a block computes on its own columns only
+    when they are exactly [lo, hi); otherwise it is gathered first."""
+    wt, bt = params[w], params.get(b)
+    if _blocked(shard, w):
+        n = wt.shape[-1]
+        if (shard.j * n, shard.j * n + n) == (lo, hi):
+            y = xf @ wt
+            return y if bt is None else y + bt
+        wt = col.gather(wt, 1, shard)
+    if bt is not None and _blocked(shard, b):
+        bt = col.gather(bt, 0, shard)
+    y = x @ wt[:, lo:hi]
+    return y if bt is None else y + bt[lo:hi]
+
+
+def _rows_out(o: torch.Tensor, wo: torch.Tensor, lo: int, hi: int,
+              width: int, shard) -> torch.Tensor:
+    """The output projection of an attention output ``o`` (B, T, hi - lo)
+    that holds flattened head columns [lo, hi) of ``width``: ``wo`` whole,
+    or this rank's block of its rows (``shard``'s placement) and then *g*.
+    With a block, the heads computed are the block's or all of them (then
+    split to the block's columns first); with a whole ``wo`` and a rank's
+    heads, the product is a partial sum and *g* adds the ranks' up."""
+    if _blocked(shard, "wo"):
+        n = wo.shape[0]
+        rlo = shard.j * n
+        if (lo, hi) != (rlo, rlo + n):
+            o = col.split(o, -1, shard)
+        return col.reduce_from(o @ wo, shard)
+    if (lo, hi) == (0, width):
+        return o @ wo
+    return col.reduce_from(o @ wo[lo:hi], shard)
+
+
+def _project_qkv(params, cfg, x, heads=None, kv_heads=None, shard=None):
+    """q, k, v (B, T, heads, hd) of the query heads ``heads`` and KV heads
+    ``kv_heads`` ((lo, hi); all by default) from whole or ``"model"``-block
+    projections."""
     hd = cfg.head_dim
     B, T, _ = x.shape
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    return (q.reshape(B, T, cfg.num_heads, hd),
-            k.reshape(B, T, cfg.num_kv_heads, hd),
-            v.reshape(B, T, cfg.num_kv_heads, hd))
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    hq = heads or (0, H)
+    hk = kv_heads or (0, Hkv)
+    xf = col.copy_to(x, shard) if shard is not None else x
+
+    def proj(w, bias, h):
+        return _cols(x, xf, params, w, bias, h[0] * hd, h[1] * hd, shard)
+
+    q = proj("wq", "bq", hq)
+    k = proj("wk", "bk", hk)
+    v = proj("wv", "bv", hk)
+    return (q.reshape(B, T, hq[1] - hq[0], hd),
+            k.reshape(B, T, hk[1] - hk[0], hd),
+            v.reshape(B, T, hk[1] - hk[0], hd))
 
 
 def _rotate(cfg, q, k, positions, mrope_positions=None):
@@ -363,6 +445,65 @@ def _rotate(cfg, q, k, positions, mrope_positions=None):
     return q, k
 
 
+def _ring_write_block(cache: dict, positions: torch.Tensor, k, v, lo: int,
+                      w: int) -> None:
+    """:func:`_ring_write` into a block of ring slots [lo, lo + n) of a
+    ring of ``w`` slots: the positions whose slot it holds land there,
+    the others nowhere (a ring block has no trash slot).  ``pos`` is
+    whole on every rank and takes every write."""
+    B, T = positions.shape
+    n = cache["k"].shape[1]
+    bidx = torch.arange(B, device=positions.device)[:, None]
+    slots = positions % w
+    local = slots - lo
+    ok = (local >= 0) & (local < n)
+    idx = torch.where(ok, local, torch.zeros_like(local))
+    # the T slots of one write are distinct (T <= w): add each kept value
+    # onto zeros once, and take the slots that were hit
+    hit = torch.zeros((B, n), dtype=torch.int32, device=positions.device)
+    hit.index_put_((bidx.expand(B, T), idx), ok.to(torch.int32),
+                   accumulate=True)
+    for name, val in (("k", k), ("v", v)):
+        acc = torch.zeros_like(cache[name])
+        acc.index_put_((bidx.expand(B, T), idx),
+                       torch.where(ok[..., None, None], val,
+                                   torch.zeros_like(val)), accumulate=True)
+        cache[name].copy_(torch.where(hit[..., None, None] > 0, acc,
+                                      cache[name]))
+    cache["pos"][bidx, slots] = positions.to(torch.int32)
+
+
+def _kv_layout(cfg, kind, cache, shard):
+    """How this rank holds a GQA layer under a mesh (``shard``'s params and
+    cache placement): (query heads, KV heads, sequence block).  Heads are
+    (lo, hi), None for all; the block is (first slot, slots), None for the
+    whole sequence.
+
+    A cache whose KV heads are split over ``"model"`` gives the rank its
+    heads; a cacheless pass takes them when the KV heads divide and the
+    projections are blocks.  A cache split along its sequence (a ring
+    along its slots) and a whole cache give every head, computed on every
+    rank."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if shard is None:
+        return None, None, None
+    m, j = shard.m, shard.j
+    block = None
+    if cache is None:
+        local = Hkv % m == 0 and shard.blocked("wq")
+    else:
+        split = shard.cache_split("k_pages" if "k_pages" in cache else "k")
+        local = split == 2                     # (B or pages, S, Hkv, hd)
+        if split == 1:
+            # a ring has no trash slot; a dense cache keeps its own
+            n = cache["k"].shape[1] - (0 if kind == "swa" else 1)
+            block = (j * n, n)
+    if not local:
+        return None, None, block
+    return ((j * H // m, (j + 1) * H // m),
+            (j * Hkv // m, (j + 1) * Hkv // m), None)
+
+
 def gqa_forward(
     params: dict,
     cfg,
@@ -377,7 +518,14 @@ def gqa_forward(
     causal: bool = True,
     page_table: Optional[torch.Tensor] = None,
     paged_attention: str = "kernel",
+    shard=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """GQA over this rank's part under a mesh (``shard``,
+    ``distributed/collectives.Shard``, scoped to the mixer): its query and
+    KV heads, with the output projection's rows and *g*, when the cache
+    splits the KV heads over ``"model"``; every head otherwise, and over a
+    cache split along its sequence each rank attends over its own block
+    and the partials are merged by their log-sum-exp."""
     if kind not in ("attn", "swa"):
         raise NotImplementedError(
             f"block kind {kind!r} is not a GQA kind; recurrent mixers are "
@@ -385,11 +533,18 @@ def gqa_forward(
     if mode not in ("prefill", "extend"):
         raise ValueError(f"mode must be 'prefill' or 'extend', got {mode!r}")
     B, T, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
     window = cfg.sliding_window if kind == "swa" else 0
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    q, k, v = _project_qkv(params, cfg, x)
+    scale = 1.0 / math.sqrt(hd)
+    heads, kv_heads, block = _kv_layout(cfg, kind, cache, shard)
+    q, k, v = _project_qkv(params, cfg, x, heads, kv_heads, shard)
     q, k = _rotate(cfg, q, k, positions, mrope_positions)
     cap = cfg.attn_logit_softcap
+    hq = heads or (0, H)
+
+    def finish(out):
+        return _rows_out(out.reshape(B, T, -1), params["wo"], hq[0] * hd,
+                         hq[1] * hd, H * hd, shard)
 
     def attend(q_, k_, v_, q_pos, k_pos):
         S = k_.shape[1]
@@ -404,28 +559,45 @@ def gqa_forward(
             (k_pos[:, None, :] >= 0)[:, None, :, :].expand(B, 1, T, S))
         return _sdpa(q_, k_, v_, mask, scale, cap)
 
+    def attend_block(k_, v_, k_pos):
+        # this rank's keys only, then every rank's partial merged
+        out, lse = _sdpa(q, k_, v_, _causal_mask(positions, k_pos, window),
+                         scale, cap, lse=True)
+        return col.gather_partials(out, lse, shard)
+
     if mode == "prefill":
         # attention over the in-flight K/V, never through the cache (no
         # ring-slot collisions, no S_max-wide scores)
         out = attend(q, k, v, positions, positions)
         if cache is not None and kind == "swa":
-            tw = min(T, cache["k"].shape[1])   # the ring keeps the last w
-            _ring_write(cache, positions[:, -tw:], k[:, -tw:], v[:, -tw:])
+            tw = min(T, cache["pos"].shape[1])   # the ring keeps the last w
+            if block is not None:
+                _ring_write_block(cache, positions[:, -tw:], k[:, -tw:],
+                                  v[:, -tw:], block[0], cache["pos"].shape[1])
+            else:
+                _ring_write(cache, positions[:, -tw:], k[:, -tw:], v[:, -tw:])
         elif cache is not None and "k_pages" in cache:
-            _paged_write(cache["k_pages"], page_table, positions, k)
-            _paged_write(cache["v_pages"], page_table, positions, v)
+            _pool_write(cache, page_table, positions, shard, k_pages=k,
+                        v_pages=v)
+        elif cache is not None and block is not None:
+            _write(cache, positions, *block, k=k, v=v)
         elif cache is not None:
             _write(cache, positions, k=k, v=v)
-        return out.reshape(B, T, -1) @ params["wo"], cache
+        return finish(out), cache
 
     # extend: write the new tokens first, then attend over the cache
     if kind == "swa":
+        if block is not None:
+            lo, n = block
+            _ring_write_block(cache, positions, k, v, lo,
+                              cache["pos"].shape[1])
+            return finish(attend_block(cache["k"], cache["v"],
+                                       cache["pos"][:, lo:lo + n])), cache
         _ring_write(cache, positions, k, v)
         out = attend(q, cache["k"], cache["v"], positions, cache["pos"])
-        return out.reshape(B, T, -1) @ params["wo"], cache
+        return finish(out), cache
     if "k_pages" in cache:
-        _paged_write(cache["k_pages"], page_table, positions, k)
-        _paged_write(cache["v_pages"], page_table, positions, v)
+        _pool_write(cache, page_table, positions, shard, k_pages=k, v_pages=v)
         kernel_width = causal and T <= PAGED_KERNEL_MAX_T
         if kernel_width and paged_attention == "gather" and q.is_cuda:
             raise ValueError(GATHER_ON_CUDA)
@@ -449,7 +621,19 @@ def gqa_forward(
                 past[:, :, None, None], 0.0)       # a fresh gather: in place
             out = attend(q, paged_view(cache["k_pages"], page_table), v_view,
                          positions, k_pos)
-        return out.reshape(B, T, -1) @ params["wo"], cache
+        return finish(out), cache
+    if block is not None:
+        lo, n = block
+        _write(cache, positions, lo, n, k=k, v=v)
+        kb, vb = cache["k"][:, :n], cache["v"][:, :n]
+        if use_flash and window == 0 and cap == 0.0 and n * shard.m >= 512:
+            # kernel 4's partial entry over this rank's key block
+            out, lse = decode_attention_partial(
+                q, kb, vb, positions[:, 0].to(torch.int32), k_lo=lo,
+                scale=scale)
+            return finish(col.gather_partials(out, lse, shard)), cache
+        k_pos = (lo + torch.arange(n, device=x.device))[None, :].expand(B, n)
+        return finish(attend_block(kb, vb, k_pos)), cache
     _write(cache, positions, k=k, v=v)
     S = cache["k"].shape[1] - 1                 # logical capacity: no trash slot
     if use_flash and window == 0 and cap == 0.0 and S >= 512:
@@ -457,10 +641,10 @@ def gqa_forward(
         # per-sequence lengths = first query position
         out = decode_attention(q, cache["k"][:, :S], cache["v"][:, :S],
                                positions[:, 0].to(torch.int32), scale=scale)
-        return out.reshape(B, T, -1) @ params["wo"], cache
+        return finish(out), cache
     k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     out = attend(q, cache["k"][:, :S], cache["v"][:, :S], positions, k_pos)
-    return out.reshape(B, T, -1) @ params["wo"], cache
+    return finish(out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -494,11 +678,16 @@ def mla_forward(
     cache: Optional[dict] = None,
     mode: str = "prefill",           # prefill | extend
     page_table: Optional[torch.Tensor] = None,
+    shard=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Latent attention: the cache holds the normalised KV latent and one
     rope key shared by every head; each pass expands the latent it attends
     over into per-head K_nope and V (``w_uk``, ``w_uv``).  Writes the cache
-    in place; plain PyTorch, as the reference is plain JAX."""
+    in place; plain PyTorch, as the reference is plain JAX.  Under a mesh
+    the weights come whole (``Model`` gathers them) and every rank
+    computes every head; a dense cache split along its sequence
+    (``shard``'s cache placement) is attended block by block, the
+    partials merged by their log-sum-exp."""
     if mode not in ("prefill", "extend"):
         raise ValueError(f"mode must be 'prefill' or 'extend', got {mode!r}")
     B, T, _ = x.shape
@@ -515,13 +704,24 @@ def mla_forward(
                             cfg.rope_theta)[..., 0, :]     # (B,T,dr), one head
 
     paged = cache is not None and "latent_pages" in cache
+    block = None
+    if shard is not None and not paged and shard.cache_split("latent") == 1:
+        n = cache["latent"].shape[1] - 1
+        block = (shard.j * n, n)
     if paged:
-        _paged_write(cache["latent_pages"], page_table, positions, latent)
-        _paged_write(cache["k_rope_pages"], page_table, positions, k_rope_new)
+        _pool_write(cache, page_table, positions, shard, latent_pages=latent,
+                    k_rope_pages=k_rope_new)
+    elif block is not None:
+        _write(cache, positions, *block, latent=latent,
+               k_rope=k_rope_new)
     elif cache is not None:
         _write(cache, positions, latent=latent, k_rope=k_rope_new)
     if mode == "prefill" or cache is None:
         lat_all, k_rope_all, k_pos = latent, k_rope_new, positions
+    elif block is not None:
+        lo, n = block
+        lat_all, k_rope_all = cache["latent"][:, :n], cache["k_rope"][:, :n]
+        k_pos = (lo + torch.arange(n, device=x.device))[None, :].expand(B, n)
     elif paged:
         S = page_table.shape[1] * cache["latent_pages"].shape[1]
         k_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -544,7 +744,11 @@ def mla_forward(
     k_cat = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(B, S, H, dr)],
                       dim=-1)
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
-    if T * S > 2_097_152:
+    if block is not None:
+        part, lse = _sdpa(q_cat, k_cat, v, _causal_mask(positions, k_pos),
+                          scale, lse=True)
+        out = col.gather_partials(part, lse, shard)
+    elif T * S > 2_097_152:
         out = chunked_sdpa(q_cat, k_cat, v, positions, k_pos, scale=scale)
     else:
         out = _sdpa(q_cat, k_cat, v, _causal_mask(positions, k_pos), scale)
@@ -564,10 +768,15 @@ def cross_attn_prefill_cache(params: dict, cfg, enc_out: torch.Tensor,
     return {"k": k.to(dtype), "v": v.to(dtype)}
 
 
-def cross_attn_forward(params: dict, cfg, x: torch.Tensor, kv: dict
-                       ) -> torch.Tensor:
+def cross_attn_forward(params: dict, cfg, x: torch.Tensor, kv: dict,
+                       shard=None) -> torch.Tensor:
     """Every query attends over every encoder frame (no mask, no RoPE);
-    plain PyTorch, as the reference is plain JAX."""
+    plain PyTorch, as the reference is plain JAX.  Under a mesh the weights
+    come whole and the cross K/V block (heads or frames over ``"model"``)
+    is gathered first."""
+    split = None if shard is None else shard.cache_split("cross/k")
+    if split is not None:
+        kv = {n: col.gather(kv[n], split, shard) for n in ("k", "v")}
     B, T, _ = x.shape
     q = (x @ params["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
     S = kv["k"].shape[1]

@@ -79,10 +79,20 @@ def init_mlp(d_model: int, d_ff: int, dtype, *, generator, device) -> dict:
     }
 
 
-def apply_mlp(params: dict, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+def apply_mlp(params: dict, x: torch.Tensor, activation: str = "silu", *,
+              shard=None) -> torch.Tensor:
+    """Gated MLP.  When ``shard`` (``distributed/collectives.Shard``, scoped
+    to these params) places the leaves as this rank's ``"model"`` blocks
+    (gate/up columns, down rows), Megatron's split: *f* at the input, *g*
+    after down."""
+    from repro_torch.distributed import collectives as col
+    tp = shard is not None and shard.blocked("w_gate")
+    if tp:
+        x = col.copy_to(x, shard)
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
-    return (act_fn(gate, activation) * up) @ params["w_down"]
+    y = (act_fn(gate, activation) * up) @ params["w_down"]
+    return col.reduce_from(y, shard) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +167,13 @@ def init_embedding(vocab: int, d_model: int, dtype, *, generator, device) -> dic
 
 def embed(params: dict, tokens: torch.Tensor, scale: bool = False) -> torch.Tensor:
     x = params["table"][tokens]
-    if scale:  # gemma-style sqrt(d) scaling
-        # a 0-dim CPU tensor rides along as a scalar, rounded to x's dtype
-        x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype)
-    return x
+    return scale_embedding(x) if scale else x
+
+
+def scale_embedding(x: torch.Tensor) -> torch.Tensor:
+    """Gemma-style sqrt(d) scaling of looked-up embeddings."""
+    # a 0-dim CPU tensor rides along as a scalar, rounded to x's dtype
+    return x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype)
 
 
 def unembed(params: dict, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:

@@ -55,6 +55,7 @@ helpers below find batch on axis 0 where the reference finds it on axis 1.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,11 +63,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.constraints import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import GATHER_ON_CUDA, SWA_RING_PAD
 from repro_torch.models.layers import (apply_norm, embed, init_embedding,
-                                       init_norm, sinusoidal_at, unembed)
+                                       init_norm, scale_embedding,
+                                       sinusoidal_at, unembed)
 from repro_torch.models.transformer import RECURRENT_KINDS
 
 
@@ -75,7 +79,8 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
             "float16": torch.float16}[cfg.dtype]
 
 
-def merge_cache_rows(old: dict, new: dict, mask) -> dict:
+def merge_cache_rows(old: dict, new: dict, mask,
+                     row_block: Optional[slice] = None) -> dict:
     """Row-wise select between two same-shape DENSE decode caches: rows
     where ``mask`` (B,) is True take ``new`` (a fresh prefill), the others
     keep ``old``.  The full-pool admission primitive (``SDEngine.admit``).
@@ -83,11 +88,14 @@ def merge_cache_rows(old: dict, new: dict, mask) -> dict:
     place (a session's graphs read them there), and the cache dict is
     returned.  Recurrent states are taken whole per row.  An
     encoder-decoder cache is refused, as in the reference (its cross K/V
-    are per wave)."""
+    are per wave).  ``row_block``: the rows of ``mask`` that caches placed
+    with their batch over ``"data"`` hold (``Model.row_block``)."""
     if old.get("cross") is not None:
         raise NotImplementedError(
             "merge_cache_rows: encoder-decoder cross caches are static "
             "per-wave; continuous admission is decoder-only")
+    if row_block is not None:
+        mask = np.asarray(mask, bool)[row_block]
     if old.get("pages") is not None:
         raise NotImplementedError(
             "merge_cache_rows needs two same-shape caches; a paged cache "
@@ -106,7 +114,9 @@ _PAGED_LEAF_PAIRS = (("k_pages", "k"), ("v_pages", "v"),
 
 
 def scatter_cache_rows(old: dict, new: dict, rows, *, valid=None,
-                       n_prompt: Optional[int] = None) -> dict:
+                       n_prompt: Optional[int] = None,
+                       row_block: Optional[slice] = None,
+                       table: Optional[torch.Tensor] = None) -> dict:
     """Row-scatter a COMPACT (R-row) fresh cache into a live B-row cache.
 
     The row-sliced admission primitive (``SDEngine.admit_rows``): ``new``
@@ -122,7 +132,13 @@ def scatter_cache_rows(old: dict, new: dict, rows, *, valid=None,
     rows.  ``new`` must be dense with the live cache's logical capacity.
     Updates ``old``'s tensors in place (a functional update would copy the
     whole pool per admission) and returns the cache dict.  An
-    encoder-decoder cache is refused, as in the reference."""
+    encoder-decoder cache is refused, as in the reference.
+
+    A live cache placed with its batch over ``"data"`` holds the rows
+    ``row_block`` of the whole batch: its row leaves take the admitted rows
+    it holds, and its page pools, whole on every rank, take every admitted
+    row through the whole block ``table`` (``Model.whole_rows``); ``new``
+    must hold every admitted row."""
     if old.get("cross") is not None:
         raise NotImplementedError(
             "scatter_cache_rows: continuous admission is decoder-only")
@@ -132,12 +148,21 @@ def scatter_cache_rows(old: dict, new: dict, rows, *, valid=None,
     dev = old["lengths"].device
     dst = torch.as_tensor(rows[keep], device=dev)
     src = torch.as_tensor(keep, device=dev)
-    table = None if old.get("pages") is None else old["pages"]["table"]
+    # the admitted rows this rank's row leaves hold, at their local index
+    mine = keep
+    if row_block is not None:
+        held = (rows[keep] >= row_block.start) & (rows[keep] < row_block.stop)
+        mine = keep[held]
+    dst_row = torch.as_tensor(rows[mine] - (row_block.start if row_block
+                                            else 0), device=dev)
+    src_row = torch.as_tensor(mine, device=dev)
+    if table is None and old.get("pages") is not None:
+        table = old["pages"]["table"]
     paged_to_dense = dict(_PAGED_LEAF_PAIRS)
     for lo, ln in zip(old["layers"], new["layers"]):
         for k, leaf in lo.items():
             if k not in paged_to_dense:
-                leaf[dst] = ln[k][src]
+                leaf[dst_row] = ln[k][src_row]
                 continue
             n = ln[paged_to_dense[k]]
             ps, S_f = leaf.shape[1], n.shape[1] - 1     # minus the trash slot
@@ -147,7 +172,7 @@ def scatter_cache_rows(old: dict, new: dict, rows, *, valid=None,
             lp = (pos // ps).clamp(max=table.shape[1] - 1)
             pid = table[dst][:, lp].to(torch.int64)              # (R', span)
             leaf[pid, (pos % ps)[None, :]] = n[src, :span]
-    old["lengths"][dst] = new["lengths"][src]
+    old["lengths"][dst_row] = new["lengths"][src_row]
     return dict(old)
 
 
@@ -506,6 +531,9 @@ class Model:
             mesh, mesh_layout = resolve_mesh(mesh, mesh_layout)
         self.mesh = mesh
         self.mesh_layout = mesh_layout
+        # the resolved spec of every params leaf under the mesh, recorded by
+        # place(); None: the params are whole
+        self.placement = None
         # target/draft forward passes run (prefill + extend) and the prefills
         # among them, for callers that check how many times each kernel of a
         # forward must launch
@@ -515,6 +543,113 @@ class Model:
     @property
     def _mesh_kw(self) -> dict:
         return {"mesh": self.mesh, "mesh_layout": self.mesh_layout}
+
+    # ------------------------------------------------------------ placement
+    def place(self, params, *, fsdp: bool = False, fsdp_min_size: int = 0):
+        """This rank's blocks of whole ``params`` under the mesh
+        (``distributed/sharding.shard_params``: fsdp=False serves, True
+        trains), and the placement every forward on them reads; whole
+        ``params`` without a mesh."""
+        if self.mesh is None:
+            return params
+        from repro_torch.distributed import sharding as sh
+        specs = sh.param_placement(params, self.mesh, fsdp=fsdp,
+                                   fsdp_min_size=fsdp_min_size,
+                                   layout=self.mesh_layout)
+        self.placement = sh.resolve_tree(specs, sh.mesh_dims(self.mesh))
+        return sh.shard_params(params, self.mesh, fsdp=fsdp,
+                               fsdp_min_size=fsdp_min_size,
+                               layout=self.mesh_layout)
+
+    def _shard(self, batch_axes=()) -> Optional[col.Shard]:
+        """This rank's place on the mesh, with the params' placement (None
+        without a mesh)."""
+        if self.mesh is None:
+            return None
+        return col.Shard(self.mesh, self.mesh_layout, batch_axes,
+                         params=self.placement)
+
+    def _keep(self, kind: str, is_moe: bool):
+        """Which leaves of a layer of ``kind`` compute on their ``"model"``
+        block (Megatron's column/row split, the experts under the "ep"
+        dispatch); ``Model._prepare`` gathers the others."""
+        gqa = kind in ("attn", "swa")
+        experts = not is_moe or self.moe_dispatch == "ep"
+
+        def keep(path: str) -> bool:
+            if gqa and re.search(r"mixer/(wq|wk|wv|wo|bq|bk|bv)$", path):
+                return True
+            if "ffn/shared/" in path:
+                return True
+            return experts and bool(re.search(r"ffn/(w_gate|w_up|w_down)$",
+                                              path))
+        return keep
+
+    def _prepare(self, shard, cache=None, prefix: str = "layers"):
+        """``prepare(l, params)`` for ``stack_forward``: layer ``l``'s params
+        as it computes on them and its ``Shard`` (those params' remaining
+        specs, its cache's leaf specs); None without a mesh."""
+        if shard is None:
+            return None
+        specs = self.placement
+        for part in prefix.split("/"):
+            specs = None if specs is None else specs[part]
+        cfg = self.enc_cfg if prefix.startswith("encoder") else self.cfg
+        kinds = tfm.layer_kinds(cfg)
+        place = None if cache is None else cache.get("placement")
+
+        def prepare(l: int, params: dict):
+            params, left = col.materialize(
+                params, None if specs is None else specs[l], shard,
+                self._keep(*kinds[l]), f"{prefix}/{l}")
+            return params, shard.replace(
+                params=left, cache=None if place is None else place.layer(l))
+        return prepare
+
+    def _top(self, params, name: str, shard):
+        """A top-level leaf group (embed, head, final norms) as computed on,
+        and its ``Shard``: a vocab table keeps its ``"model"`` block."""
+        for part in name.split("/"):
+            params = params[part]
+        if shard is None:
+            return params, None
+        params, left = col.materialize(params, shard.sub(*name.split("/"))
+                                       .params, shard,
+                                       lambda path: path.endswith("table"),
+                                       name)
+        return params, shard.replace(params=left)
+
+    def row_block(self, cache: dict) -> Optional[slice]:
+        """The rows of the whole batch a cache placed with its batch over
+        ``"data"`` holds (its ``CachePlacement``); None when it holds them
+        all."""
+        place = cache.get("placement")
+        if place is None or place.rows is None:
+            return None
+        lo, n = place.rows
+        return slice(lo, lo + n)
+
+    def _rows(self, tokens: torch.Tensor, cache: dict):
+        """(shard, this rank's rows of ``tokens``, their slice) for a pass
+        over a cache: a cache placed with its batch over ``"data"`` holds
+        B / d rows, and the pass runs those rows only (slice None: all)."""
+        shard = self._shard()
+        rows = self.row_block(cache)
+        if rows is None:
+            return shard, tokens, None
+        return shard.with_batch(("data",)), tokens[rows], rows
+
+    def whole_rows(self, cache: dict, leaf: torch.Tensor) -> torch.Tensor:
+        """``leaf`` (a per-row leaf of ``cache``: ``lengths``, the block
+        table) over the whole batch, all-gathered when ``cache`` holds a
+        block of the rows."""
+        if self.row_block(cache) is None:
+            return leaf
+        return col.gather(leaf, 0, self._shard(), "data")
+
+    def cache_lengths(self, cache: dict) -> torch.Tensor:
+        """The cache's ``lengths`` over the whole batch."""
+        return self.whole_rows(cache, cache["lengths"])
 
     @property
     def enc_cfg(self) -> ModelConfig:
@@ -545,29 +680,44 @@ class Model:
         return params
 
     # ----------------------------------------------------------------- embed
-    def _embed(self, params, tokens, positions, inputs_embeds=None):
+    def _embed(self, params, tokens, positions, inputs_embeds=None,
+               shard=None):
         cfg = self.cfg
         if inputs_embeds is not None:   # a frontend's embeddings (vision stub)
             x = torch.as_tensor(inputs_embeds, device=self.device).to(
                 self.dtype)
         else:
-            x = embed(params["embed"], tokens,
-                      scale=cfg.name.startswith("gemma"))
+            table, tshard = self._top(params, "embed", shard)
+            gemma = cfg.name.startswith("gemma")
+            if tshard is not None and tshard.blocked("table"):  # vocab-parallel
+                x = col.vocab_embed(table["table"], tokens, tshard)
+                x = scale_embedding(x) if gemma else x
+            else:
+                x = embed(table, tokens, scale=gemma)
         if cfg.rope_type == "sinusoidal":
             x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
         return x
 
-    def _head(self, params, x):
+    def _head(self, params, x, shard=None):
+        """Full-vocab logits of ``x``'s rows: a vocab-parallel table gives
+        this rank's columns (*f* at its input), all-gathered over
+        ``"model"``."""
         cfg = self.cfg
-        x = apply_norm(params["final_norm"], x, cfg.norm_eps)
-        table = params["embed"] if cfg.tie_embeddings else params["head"]
-        return unembed(table, x, cfg.final_logit_softcap)
+        x = apply_norm(self._top(params, "final_norm", shard)[0], x,
+                       cfg.norm_eps)
+        table, tshard = self._top(
+            params, "embed" if cfg.tie_embeddings else "head", shard)
+        if tshard is None or not tshard.blocked("table"):
+            return unembed(table, x, cfg.final_logit_softcap)
+        logits = unembed(table, col.copy_to(x, shard),
+                         cfg.final_logit_softcap)
+        return col.gather(logits, logits.dim() - 1, shard)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
 
     # --------------------------------------------------------------- encoder
-    def encode(self, params, encoder_embeds) -> torch.Tensor:
+    def encode(self, params, encoder_embeds, shard=None) -> torch.Tensor:
         """Whisper-style encoder over stub frame embeddings (B, S_enc, d):
         sinusoidal positions, ``encoder_layers`` bidirectional attention
         blocks (plain attention, as in the reference: no kernel), final
@@ -580,27 +730,35 @@ class Model:
         x, _, _ = tfm.stack_forward(params["encoder"]["layers"], cfg, x,
                                     positions, None, mode="prefill",
                                     causal=False, use_flash=False,
-                                    remat=self.remat)
-        return apply_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+                                    remat=self.remat, shard=shard,
+                                    prepare=self._prepare(
+                                        shard, prefix="encoder/layers"))
+        return apply_norm(self._top(params, "encoder/final_norm", shard)[0],
+                          x, cfg.norm_eps)
 
-    def _cross_kvs(self, params, enc_out) -> List[dict]:
+    def _cross_kvs(self, params, enc_out, shard=None) -> List[dict]:
         """The encoder output projected through every decoder layer's
-        cross-attention K/V."""
-        return [attn_mod.cross_attn_prefill_cache(lp["cross"], self.cfg,
-                                                  enc_out, self.dtype)
-                for lp in params["layers"]]
+        cross-attention K/V (whole weights: ``_prepare`` gathers them)."""
+        prepare = self._prepare(shard)
+        return [attn_mod.cross_attn_prefill_cache(
+            (lp if prepare is None else prepare(l, lp)[0])["cross"],
+            self.cfg, enc_out, self.dtype)
+            for l, lp in enumerate(params["layers"])]
 
-    def _encoder_kvs(self, params, encoder_embeds) -> List[dict]:
+    def _encoder_kvs(self, params, encoder_embeds, shard=None) -> List[dict]:
         if encoder_embeds is None:
             raise ValueError(
                 f"{self.cfg.name} is an encoder-decoder: pass "
                 "encoder_embeds (B, S_enc, d), the frontend stub's frames")
-        return self._cross_kvs(params, self.encode(params, encoder_embeds))
+        return self._cross_kvs(params, self.encode(params, encoder_embeds,
+                                                   shard), shard)
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int, *, paged: bool = False,
                    page_size: int = 64, pool_pages: Optional[int] = None,
-                   reuse: Optional[dict] = None, device=None) -> dict:
+                   reuse: Optional[dict] = None, device=None,
+                   placed: bool = False, kv_mode: str = "auto",
+                   split_batch: bool = True) -> dict:
         """Allocate a decode cache.
 
         Dense (default): every attention layer holds (B, max_seq) K/V (plus
@@ -618,12 +776,26 @@ class Model:
         states and cross K/V included, a ring's ``pos`` set back to -1) and
         returned, so tensors a captured round reads keep their addresses.
         ``device`` overrides the model's (``"meta"`` gives the shapes
-        alone)."""
+        alone).
+
+        ``placed`` under a mesh (a session's target cache, as the
+        reference's SDEngine places it; a draft's stays whole): every leaf
+        is allocated at this rank's block (``distributed/sharding.
+        cache_spec``: batch over ``"data"``, KV heads or, when the model
+        axis does not divide them, the sequence over ``"model"``; recurrent
+        states over their first divisible dim), never whole, and the cache
+        carries its ``CachePlacement`` under ``"placement"``.
+        ``kv_mode="heads"`` keeps the sequence whole (a compact admission
+        cache scattered into a page pool, which splits heads only);
+        ``split_batch=False`` keeps the batch whole over ``"data"`` (a
+        compact admission cache, whose rows may go to any rank's)."""
         dev = self.device if device is None else torch.device(device)
         if reuse is not None:
             want = self.init_cache(batch, max_seq, paged=paged,
                                    page_size=page_size,
-                                   pool_pages=pool_pages, device="meta")
+                                   pool_pages=pool_pages, device="meta",
+                                   placed=placed, kv_mode=kv_mode,
+                                   split_batch=split_batch)
             if _leaf_shapes(want) != _leaf_shapes(reuse):
                 raise ValueError("init_cache(reuse=...): the cache to reuse "
                                  "does not have the requested shape")
@@ -633,6 +805,12 @@ class Model:
                 if "pos" in slot:
                     slot["pos"].fill_(-1)
             return reuse
+        if placed and self.mesh is not None:
+            return self._placed_cache(batch, max_seq, paged=paged,
+                                      page_size=page_size,
+                                      pool_pages=pool_pages, device=dev,
+                                      kv_mode=kv_mode,
+                                      split_batch=split_batch)
         cfg = self.cfg
         cache: Dict[str, Any] = {
             "layers": tfm.make_stack_cache(cfg, batch, max_seq,
@@ -653,39 +831,58 @@ class Model:
                  for k in ("k", "v")} for _ in range(cfg.num_layers)]
         return cache
 
+    def _placed_cache(self, batch: int, max_seq: int, *, paged, page_size,
+                      pool_pages, device, kv_mode, split_batch) -> dict:
+        from repro_torch.distributed import sharding as sh
+        whole = self.init_cache(batch, max_seq, paged=paged,
+                                page_size=page_size, pool_pages=pool_pages,
+                                device="meta")
+        dims = sh.mesh_dims(self.mesh)
+
+        def make(path, leaf, spec, trash):
+            shape = sh.local_cache_shape(leaf.shape, spec, trash, dims)
+            return torch.full(shape, -1 if path.endswith("/pos") else 0,
+                              dtype=leaf.dtype, device=device)
+
+        return sh.place_cache(whole, self.mesh, make, kv_mode, split_batch)
+
     # ----------------------------------------------------------------- train
     def forward_hidden(self, params, tokens, *, inputs_embeds=None,
-                       encoder_embeds=None, mrope_positions=None
-                       ) -> Tuple[torch.Tensor, dict]:
+                       encoder_embeds=None, mrope_positions=None,
+                       batch_axes=()) -> Tuple[torch.Tensor, dict]:
         """Final pre-head hidden states (B, T, d) of a cacheless causal
         forward over ``tokens`` (B, T) (or ``inputs_embeds`` (B, T, d), when
         given, with ``tokens`` None), and the MoE metrics summed over layers
         (``aux_loss``, ``expert_counts``).  An encoder-decoder reads
         ``encoder_embeds`` (B, S_enc, d).  The train forward of
         ``training/train_loop.py``; with ``remat``, under autograd, each
-        layer runs under a checkpoint."""
+        layer runs under a checkpoint.  Under a mesh the rows given are
+        this rank's, split over ``batch_axes`` (``sharding.shard_batch``)."""
         if inputs_embeds is None:
             tokens = self._tokens(tokens)
             B, T = tokens.shape
         else:
             B, T = inputs_embeds.shape[:2]
+        shard = self._shard(batch_axes)
         positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
-        cross_kvs = (self._encoder_kvs(params, encoder_embeds)
+        cross_kvs = (self._encoder_kvs(params, encoder_embeds, shard)
                      if self.cfg.is_encoder_decoder else None)
         x, metrics, _ = tfm.stack_forward(
             params["layers"], self.cfg,
-            self._embed(params, tokens, positions, inputs_embeds), positions,
-            None, mode="prefill", dispatch=self.moe_dispatch,
+            self._embed(params, tokens, positions, inputs_embeds, shard),
+            positions, None, mode="prefill", dispatch=self.moe_dispatch,
             **self._mesh_kw,
             use_flash=self.use_flash, cross_kvs=cross_kvs, want_metrics=True,
-            mrope_positions=self._mrope(mrope_positions), remat=self.remat)
+            mrope_positions=self._mrope(mrope_positions), remat=self.remat,
+            shard=shard, prepare=self._prepare(shard))
         self.forward_count += 1
         return x, metrics
 
     def forward_train(self, params, tokens, **kw) -> Tuple[torch.Tensor, dict]:
         """Logits (B, T, V) of :meth:`forward_hidden` and its metrics."""
         x, metrics = self.forward_hidden(params, tokens, **kw)
-        return self._head(params, x), metrics
+        return self._head(params, x, self._shard(kw.get("batch_axes", ()))
+                          ), metrics
 
     def _mrope(self, mrope_positions) -> Optional[torch.Tensor]:
         return None if mrope_positions is None else torch.as_tensor(
@@ -722,18 +919,35 @@ class Model:
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.int32, device=self.device)
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
+        shard, tokens, rows = self._rows(tokens, cache)
+        if rows is not None:       # this data group's rows of every input
+            lengths = lengths[rows]
+            pick = lambda a: None if a is None else a[rows]
+            inputs_embeds, encoder_embeds, mrope_positions = (
+                pick(inputs_embeds), pick(encoder_embeds),
+                pick(mrope_positions))
+            B = tokens.shape[0]
         positions = torch.arange(T, device=self.device)[None, :].expand(B, T)
         if self.cfg.is_encoder_decoder:
-            for live, kv in zip(cache["cross"],
-                                self._encoder_kvs(params, encoder_embeds)):
-                if live["k"].shape != kv["k"].shape:
-                    raise ValueError(
-                        f"encoder_embeds give cross K/V {tuple(kv['k'].shape)}"
-                        f"; the cache holds {tuple(live['k'].shape)} "
-                        "(encoder_seq_len frames)")
-                live["k"].copy_(kv["k"])
-                live["v"].copy_(kv["v"])
-        x = self._embed(params, tokens, positions, inputs_embeds)
+            place = cache.get("placement")
+            for l, (live, kv) in enumerate(zip(cache["cross"],
+                                               self._encoder_kvs(
+                    params, encoder_embeds, shard))):
+                for n in ("k", "v"):
+                    whole, blk = kv[n], live[n]
+                    dim = None if place is None else shard.replace(
+                        cache=place.layer(l)).cache_split(f"cross/{n}")
+                    if dim is not None:   # this rank's heads or frames
+                        whole = whole.narrow(dim, shard.j * blk.shape[dim],
+                                             blk.shape[dim])
+                    if blk.shape != whole.shape:
+                        raise ValueError(
+                            f"encoder_embeds give cross K/V "
+                            f"{tuple(kv['k'].shape)}; the cache holds "
+                            f"{tuple(live['k'].shape)} (encoder_seq_len "
+                            "frames)")
+                    blk.copy_(whole)
+        x = self._embed(params, tokens, positions, inputs_embeds, shard)
         x, _, _ = tfm.stack_forward(
             params["layers"], self.cfg, x, positions, cache["layers"],
             mode="prefill", dispatch=self.moe_dispatch,
@@ -741,23 +955,29 @@ class Model:
             use_flash=self.use_flash, cross_kvs=cache.get("cross"),
             page_table=_page_table(cache),
             paged_attention=self.paged_attention,
-            mrope_positions=self._mrope(mrope_positions))
+            mrope_positions=self._mrope(mrope_positions), shard=shard,
+            prepare=self._prepare(shard, cache))
         self.forward_count += 1
         self.prefill_count += 1
         # head only at each sequence's last prompt position — never (B,T,V)
         idx = (lengths.to(torch.int64) - 1)[:, None, None].expand(B, 1, x.shape[-1])
         last_h = torch.gather(x, 1, idx)
-        last = self._head(params, last_h)[:, 0]
-        return last, last_h[:, 0], dict(cache, lengths=lengths)
+        last = self._head(params, last_h, shard)[:, 0]
+        last = constrain(last, "logits", mesh=self.mesh,
+                         layout=self.mesh_layout, shard=shard)
+        last_h = constrain(last_h[:, 0], "hidden", mesh=self.mesh,
+                           layout=self.mesh_layout, shard=shard)
+        return last, last_h, dict(cache, lengths=lengths)
 
     # ---------------------------------------------------------------- extend
     def _extend_impl(self, params, tokens, cache, collect=False,
                      prefetch_masks=None):
         tokens = self._tokens(tokens)
+        shard, tokens, _ = self._rows(tokens, cache)
         B, T = tokens.shape
         positions = (cache["lengths"].to(torch.int64)[:, None]
                      + torch.arange(T, device=self.device)[None, :])
-        x = self._embed(params, tokens, positions)
+        x = self._embed(params, tokens, positions, shard=shard)
         x, metrics, collected = tfm.stack_forward(
             params["layers"], self.cfg, x, positions, cache["layers"],
             mode="extend", collect=collect, dispatch=self.moe_dispatch,
@@ -765,12 +985,15 @@ class Model:
             use_flash=self.use_flash, cross_kvs=cache.get("cross"),
             page_table=_page_table(cache),
             paged_attention=self.paged_attention,
-            prefetch_masks=prefetch_masks)
+            prefetch_masks=prefetch_masks, shard=shard,
+            prepare=self._prepare(shard, cache))
         self.forward_count += 1
         pend = dict(cache)
         if any(c is not None for c in collected):
             pend["collected"] = collected
-        return self._head(params, x), x, pend, metrics
+        kw = dict(mesh=self.mesh, layout=self.mesh_layout, shard=shard)
+        return (constrain(self._head(params, x, shard), "logits", **kw),
+                constrain(x, "hidden", **kw), pend, metrics)
 
     def extend(self, params, tokens, cache: dict, *,
                collect: bool = False) -> Tuple[torch.Tensor, dict]:
@@ -808,13 +1031,18 @@ class Model:
     # ---------------------------------------------------------------- commit
     def commit(self, pend: dict, n_commit: torch.Tensor,
                collected: bool = False) -> dict:
-        """Accept ``n_commit`` (B,) tokens of the last extend: attention
+        """Accept ``n_commit`` (B,) tokens of the last extend (the whole
+        batch's; a cache placed with its batch over ``"data"`` takes its
+        rows): attention
         layers only bump ``lengths`` (stale K/V are masked out); with
         ``collected``, every recurrent layer copies its collected step
         ``(n_commit - 1) mod T`` of each row into its live state, in place
         (the reference's index -1 of a row that commits nothing wraps to
         the last step the same way)."""
         n_commit = n_commit.to(torch.int32)
+        rows = self.row_block(pend)
+        if rows is not None:      # a cache with its batch over "data"
+            n_commit = n_commit[rows]
         steps = pend.get("collected")
         if steps is not None and not collected:
             raise ValueError("commit: the extend collected per-step states; "
@@ -837,6 +1065,7 @@ class Model:
         """Plain AR decode of one token per sequence. token: (B,) → (B,V)."""
         logits, pend = self.extend(params, self._tokens(token)[:, None], cache,
                                    collect=True)
-        cache = self.commit(pend, torch.ones_like(cache["lengths"]),
-                            collected=True)
+        cache = self.commit(pend, torch.ones(
+            token.shape, dtype=torch.int32, device=self.device),
+            collected=True)
         return logits[:, 0], cache

@@ -29,7 +29,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.gmm import ragged
-from repro_torch.models.layers import act_fn, dense_init
+from repro_torch.models.layers import act_fn, apply_mlp, dense_init
 
 
 class PrefetchPlan(NamedTuple):
@@ -227,17 +227,34 @@ def _dispatch_gmm(params, cfg, x, weights, indices):
     return slots.view(N, K, d).sum(1)
 
 
+def _global_balance_loss(probs, indices, num_experts: int, shard):
+    """:func:`load_balance_loss` over every rank's rows when the batch is
+    split (``shard.batch_axes``): the per-expert sums and the row count are
+    summed over those axes first, so the loss is the whole batch's."""
+    from repro_torch.distributed import collectives as col
+    axes = shard.batch_axes
+    one_hot = torch.nn.functional.one_hot(indices, num_experts).float()
+    n = probs.shape[0] * shard.size(axes)
+    f = col.reduce_over(one_hot.sum(1).sum(0), shard, axes) / n
+    p = col.reduce_over(probs.sum(0), shard, axes) / n
+    return num_experts * (f * p).sum()
+
+
 def moe_forward(params: dict, cfg, x: torch.Tensor, *,
                 dispatch: str = "onehot", return_metrics: bool = False,
                 prefetch_mask: Optional[torch.Tensor] = None, mesh=None,
-                mesh_layout: Optional[str] = None):
+                mesh_layout: Optional[str] = None, shard=None):
     """Routed MoE FFN with the shared-expert add: (B, T, d) → (B, T, d).
 
     ``dispatch`` "gmm", "onehot" or "ep" (``mesh``/``mesh_layout`` go to
     the expert-parallel dispatch; the others ignore them).  Returns
     ``(output, metrics)``: ``return_metrics`` adds ``aux_loss`` and
     ``expert_counts``, a ``prefetch_mask`` (E,) the ``prefetch_hit_stats``
-    counts; nothing asked gives {}."""
+    counts; nothing asked gives {}.  ``shard`` (the layer's,
+    ``distributed/collectives.Shard``, scoped to ``ffn``) carries the
+    rank's place: the shared expert's ``"model"`` blocks, the rows of a
+    split batch (the aux loss is then the whole batch's; the counts stay
+    the rank's)."""
     if dispatch not in ("gmm", "onehot", "ep"):
         raise ValueError(f"dispatch must be 'gmm', 'onehot' or 'ep', got "
                          f"{dispatch!r}")
@@ -247,7 +264,8 @@ def moe_forward(params: dict, cfg, x: torch.Tensor, *,
         # the router runs inside each rank's shard; the metrics come from a
         # replicated re-route, as in the reference
         from repro_torch.distributed.collectives import moe_ep_forward
-        y = moe_ep_forward(params, cfg, x, mesh=mesh, layout=mesh_layout)
+        y = moe_ep_forward(params, cfg, x, mesh=mesh, layout=mesh_layout,
+                           shard=shard)
         if return_metrics or prefetch_mask is not None:
             _, indices, probs = router_topk(params, cfg, xf)
     else:
@@ -255,14 +273,16 @@ def moe_forward(params: dict, cfg, x: torch.Tensor, *,
         fn = _dispatch_gmm if dispatch == "gmm" else _dispatch_onehot
         y = fn(params, cfg, xf, weights.to(x.dtype), indices)
         if "shared" in params:
-            s = params["shared"]
-            h = act_fn(xf @ s["w_gate"], cfg.mlp_activation) * (xf @ s["w_up"])
-            y = y + h @ s["w_down"]
+            y = y + apply_mlp(params["shared"], xf, cfg.mlp_activation,
+                              shard=None if shard is None
+                              else shard.sub("shared"))
         y = y.reshape(B, T, d)
     metrics = {}
     if return_metrics:
-        metrics["aux_loss"] = load_balance_loss(probs, indices,
-                                                cfg.num_experts)
+        metrics["aux_loss"] = (
+            _global_balance_loss(probs, indices, cfg.num_experts, shard)
+            if shard is not None and shard.batch_axes else
+            load_balance_loss(probs, indices, cfg.num_experts))
         metrics["expert_counts"] = expert_activation_counts(indices,
                                                             cfg.num_experts)
     if prefetch_mask is not None:

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as col
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -75,43 +76,59 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
                   want_metrics: bool = False,
                   prefetch_mask: Optional[torch.Tensor] = None,
                   mrope_positions: Optional[torch.Tensor] = None,
-                  mesh=None, mesh_layout: Optional[str] = None
-                  ) -> Tuple[torch.Tensor, dict, Optional[dict]]:
+                  mesh=None, mesh_layout: Optional[str] = None,
+                  shard=None) -> Tuple[torch.Tensor, dict, Optional[dict]]:
     """One block; writes this layer's KV into ``cache`` in place.  A
     recurrent layer writes its final state into ``cache`` in place, except
     in an extend with ``collect``, which leaves the state as it was and
     returns every per-step state (T, B, ...) for ``Model.commit`` to gather.
     Returns the output, the MoE layer's metrics (``moe_forward``'s; empty
     for a dense layer or when none are asked for) and the collected states
-    (None unless collected)."""
+    (None unless collected).
+
+    ``shard`` (``distributed/collectives.Shard``, the layer's) computes on
+    this rank's part of a mesh: ``params`` hold ``"model"`` blocks where
+    the layer computes on them (its ``params`` specs; ``Model`` gathers
+    the rest), the attention follows its cache's placement (its ``cache``
+    specs), and a recurrent state split over ``"model"`` is gathered
+    before the mixer and split back after it."""
     h = apply_norm(params["norm1"], x, cfg.norm_eps)
     collected = None
     if kind in RECURRENT_KINDS:
         state = cache if cache is not None else ssm_mod.MAKE_STATE[kind](
             cfg, x.shape[0], x.dtype, x.device)
+        split = {k: None if shard is None else shard.cache_split(k)
+                 for k in state}
+        state = {k: v if split[k] is None else col.gather(v, split[k], shard)
+                 for k, v in state.items()}
         collect = mode == "extend" and collect
         out, new = ssm_mod.FORWARD[kind](params["mixer"], cfg, h, state,
                                          collect_states=collect)
         if collect:
-            collected = new
+            collected = {k: v if split[k] is None else
+                         col.split(v, split[k] + 1, shard)
+                         for k, v in new.items()}
         elif cache is not None:
             for k, leaf in cache.items():
-                leaf.copy_(new[k])
+                leaf.copy_(new[k] if split[k] is None else
+                           col.split(new[k], split[k], shard))
     elif kind == "mla":
         out, _ = attn.mla_forward(params["mixer"], cfg, h, positions,
                                   cache=cache, mode=mode,
-                                  page_table=page_table)
+                                  page_table=page_table, shard=shard)
     else:
         out, _ = attn.gqa_forward(params["mixer"], cfg, h, positions,
                                   kind=kind, cache=cache, mode=mode,
                                   mrope_positions=mrope_positions,
                                   use_flash=use_flash, causal=causal,
                                   page_table=page_table,
-                                  paged_attention=paged_attention)
+                                  paged_attention=paged_attention,
+                                  shard=_sub(shard, "mixer"))
     x = x + out
     if "cross" in params and cross_kv is not None:
         h = apply_norm(params["cross_norm"], x, cfg.norm_eps)
-        x = x + attn.cross_attn_forward(params["cross"], cfg, h, cross_kv)
+        x = x + attn.cross_attn_forward(params["cross"], cfg, h, cross_kv,
+                                        shard=shard)
     metrics: dict = {}
     if "ffn" in params:
         h = apply_norm(params["norm2"], x, cfg.norm_eps)
@@ -119,11 +136,16 @@ def block_forward(params: dict, cfg, kind: str, is_moe: bool,
             y, metrics = moe_mod.moe_forward(
                 params["ffn"], cfg, h, dispatch=dispatch,
                 return_metrics=want_metrics, prefetch_mask=prefetch_mask,
-                mesh=mesh, mesh_layout=mesh_layout)
+                mesh=mesh, mesh_layout=mesh_layout, shard=_sub(shard, "ffn"))
         else:
-            y = apply_mlp(params["ffn"], h, cfg.mlp_activation)
+            y = apply_mlp(params["ffn"], h, cfg.mlp_activation,
+                          shard=_sub(shard, "ffn"))
         x = x + y
     return x, metrics, collected
+
+
+def _sub(shard, key: str):
+    return None if shard is None else shard.sub(key)
 
 
 def init_stack(cfg, dtype, *, generator, device,
@@ -164,7 +186,8 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
                   prefetch_masks: Optional[List[torch.Tensor]] = None,
                   mrope_positions: Optional[torch.Tensor] = None,
                   remat: bool = False, mesh=None,
-                  mesh_layout: Optional[str] = None
+                  mesh_layout: Optional[str] = None, shard=None,
+                  prepare=None
                   ) -> Tuple[torch.Tensor, dict, List[Optional[dict]]]:
     """Run every layer in order (the reference's scan over periods).
 
@@ -193,7 +216,11 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
     ``jax.checkpoint``: the backward recomputes one layer at a time
     instead of keeping every layer's intermediates.
 
-    ``mesh``/``mesh_layout`` go to every MoE layer's ``"ep"`` dispatch."""
+    ``mesh``/``mesh_layout`` go to every MoE layer's ``"ep"`` dispatch,
+    ``shard`` to every block (``block_forward``), and ``prepare(l,
+    params)`` gives layer ``l`` its params as it computes on them and its
+    ``Shard`` (``Model`` gathers what it does not compute on a block of),
+    inside the layer's checkpoint under ``remat``."""
     metrics: Dict[str, torch.Tensor] = {}
     dev = x.device
     if want_metrics:
@@ -204,14 +231,19 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
         for k in ("prefetch_hits", "prefetch_actual", "prefetch_predicted"):
             metrics[k] = torch.zeros((), dtype=torch.int32, device=dev)
     collected: List[Optional[dict]] = []
-    block = block_forward
+    def run(l, params, *a, **kw):
+        if prepare is not None:
+            params, kw["shard"] = prepare(l, params)
+        return block_forward(params, *a, **kw)
+
+    block = run
     if remat and torch.is_grad_enabled() and any(
             p.requires_grad for p in tree_leaves(layer_params)):
-        block = lambda *a, **kw: checkpoint(block_forward, *a, **kw,
+        block = lambda *a, **kw: checkpoint(run, *a, **kw,
                                             use_reentrant=False)
     for l, (kind, is_moe) in enumerate(layer_kinds(cfg)):
         x, m, c = block(
-            layer_params[l], cfg, kind, is_moe, x, positions,
+            l, layer_params[l], cfg, kind, is_moe, x, positions,
             None if caches is None else caches[l], mode=mode,
             collect=collect, causal=causal, dispatch=dispatch,
             use_flash=use_flash,
@@ -221,7 +253,7 @@ def stack_forward(layer_params: List[dict], cfg, x: torch.Tensor,
             prefetch_mask=None if prefetch_masks is None
             else prefetch_masks[l],
             mrope_positions=mrope_positions, mesh=mesh,
-            mesh_layout=mesh_layout)
+            mesh_layout=mesh_layout, shard=shard)
         for k, v in m.items():
             metrics[k] = metrics[k] + v
         collected.append(c)

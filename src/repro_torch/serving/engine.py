@@ -26,9 +26,9 @@ runs is its own round key, captured once (``core/graphs.py``).
 
 With ``mesh=`` (a ``launch/mesh.make_ep_mesh`` mesh; an ``"ep"`` target)
 every rank serves the same stream: the engine threads the mesh to the
-target, the draft and each session, keeps the rank's expert block of the
-target's params (``distributed/sharding.shard_params``) and reports each
-wave's per-rank expert load (``WaveReport.ep``).
+target, the draft and each session, places both models' params
+(``Model.place``: every leaf's block under ``param_spec``) and reports
+each wave's per-rank expert load (``WaveReport.ep``).
 """
 from __future__ import annotations
 
@@ -47,7 +47,6 @@ from repro_torch.data.tokenizer import PAD
 from repro_torch.device import host_crossing
 from repro_torch.distributed.collectives import ep_load_report
 from repro_torch.distributed.constraints import resolve_mesh
-from repro_torch.distributed.sharding import shard_params
 from repro_torch.launch.mesh import mesh_dims
 from repro_torch.models.attention import SWA_RING_PAD
 from repro_torch.models.model import Model
@@ -274,10 +273,12 @@ class ServingEngine:
             for m in (target, draft):
                 if isinstance(m, Model) and m.mesh is None:
                     m.mesh, m.mesh_layout = mesh, mesh_layout
+            # every leaf's block (Model.place records the placement the
+            # forward reads); an EAGLE head runs off the mesh, whole
             if params_t is not None:
-                params_t = shard_params(params_t, mesh, layout=mesh_layout)
-            if params_d is not None:
-                params_d = shard_params(params_d, mesh, layout=mesh_layout)
+                params_t = target.place(params_t)
+            if params_d is not None and isinstance(draft, Model):
+                params_d = draft.place(params_d)
         self.mesh = mesh
         self.mesh_layout = mesh_layout
         self.proposer_kind = proposer
@@ -366,7 +367,8 @@ class ServingEngine:
         toks = np.concatenate(toks) if toks else np.zeros((0,), np.int32)
         with host_crossing():
             return ep_load_report(self.params_t, self.target.cfg, toks,
-                                  mesh_dims(self.mesh)["model"])
+                                  mesh_dims(self.mesh)["model"],
+                                  shard=self.target._shard())
 
     # -------------------------------------------------------------- sessions
     def _session(self, kind: str) -> SDEngine:

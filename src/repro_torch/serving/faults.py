@@ -37,7 +37,9 @@ def logits_finite(logits: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(logits).reshape(logits.shape[0], -1).all(-1)
 
 
-def poison_cache_row(t_cache: dict, row: int) -> dict:
+def poison_cache_row(t_cache: dict, row: int,
+                     row_block: Optional[slice] = None, *,
+                     table: Optional[np.ndarray] = None) -> dict:
     """Set one row's target KV to NaN, in place, and return the cache.
 
     Fault-injection helper (never on the serving path): the next verify
@@ -46,11 +48,15 @@ def poison_cache_row(t_cache: dict, row: int) -> dict:
     maps (trash page 0 excluded), pages shared with a sibling included.
     The tensors are written where they are, because the session's round
     graphs read them there.  Co-batched rows are unaffected: attention is
-    per row and MoE routing per token."""
+    per row and MoE routing per token.  A cache placed with its batch over
+    ``"data"`` holds the rows ``row_block``: its row leaves take ``row``
+    only where they hold it, its pools (whole on every rank) take the
+    row's pages from the whole host ``table``."""
     pages = t_cache.get("pages")
     pids = None
     if pages is not None:
-        trow = pages["table"][row].cpu().numpy()
+        trow = (np.asarray(table)[row] if table is not None
+                else pages["table"][row].cpu().numpy())
         ids = np.unique(trow[trow > 0])
         pids = torch.as_tensor(ids, dtype=torch.int64,
                                device=pages["table"].device)
@@ -62,8 +68,10 @@ def poison_cache_row(t_cache: dict, row: int) -> dict:
             if k in paged_keys:
                 if pids is not None and pids.numel():
                     leaf[pids] = float("nan")
-            else:
+            elif row_block is None:
                 leaf[row] = float("nan")
+            elif row_block.start <= row < row_block.stop:
+                leaf[row - row_block.start] = float("nan")
     return t_cache
 
 

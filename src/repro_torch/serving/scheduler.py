@@ -324,8 +324,9 @@ class ContinuousScheduler:
         place (a copy: the allocator keeps mutating its array; in place:
         the session's round graphs read that tensor).  A growth has already
         given the session a table of the allocator's new shape."""
+        rows = self.engine.target.row_block(state.t_cache)
         state.t_cache["pages"]["table"].copy_(
-            torch.from_numpy(self._alloc.table))
+            torch.from_numpy(self._alloc.table[rows or slice(None)]))
         return state
 
     def _grow(self, sess, state: SessionState, pool_pages: int,
@@ -876,7 +877,11 @@ class ContinuousScheduler:
                         (s.index for s in slots if s.active), None)
                     if row is not None:
                         with host_crossing():
-                            poison_cache_row(state.t_cache, row)
+                            poison_cache_row(
+                                state.t_cache, row,
+                                self.engine.target.row_block(state.t_cache),
+                                table=None if self._alloc is None
+                                else self._alloc.table)
                 delay = inj.slow_delay(round_idx)
                 if delay:
                     time.sleep(delay)

@@ -63,12 +63,15 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: AdamState, cfg: TrainConfig
-                 ) -> Tuple[dict, AdamState, dict]:
+def adamw_update(params, grads, state: AdamState, cfg: TrainConfig, *,
+                 norm_fn=None) -> Tuple[dict, AdamState, dict]:
     """One AdamW step, in place: ``params`` and the moments of ``state``
     are updated and returned (the same objects; ``step`` is a new tensor).
-    ``grads`` is a tree like ``params``; it is read, never written."""
-    gnorm = _global_norm(grads)
+    ``grads`` is a tree like ``params``; it is read, never written.
+    ``norm_fn(grads)`` gives the global norm the clip reads (a sharded
+    step's sums each leaf's block over the axes it is split on); each
+    leaf, whole or a block, is updated elementwise."""
+    gnorm = (norm_fn or _global_norm)(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = cosine_schedule(step, cfg)

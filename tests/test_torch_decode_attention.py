@@ -209,3 +209,54 @@ def test_gqa_extend_below_512_or_capped_takes_the_plain_branch():
     finally:
         tattn.decode_attention = real
     assert called == []
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("T", [1, 5])
+def test_partial_blocks_merge_into_the_whole_call(T, blocks, cap):
+    """Kernel 4's partial entry over a cache split along its sequence: the
+    plain partials of 2 and 4 key blocks (each at its global offset), merged
+    by their log-sum-exp (``collectives.lse_combine``), equal the whole
+    plain call and the reference's Pallas kernel (3e-5).  Row 0 sits at
+    position 17, so every block past the first holds no key it sees (lse
+    -inf, output 0) and merges in as nothing."""
+    from repro_torch.distributed.collectives import lse_combine
+    B, Hkv, g, S, D = 3, 2, 4, 512, 64
+    (jq, tq), (jk, tk), (jv, tv) = _case(B, Hkv * g, Hkv, T, S, D,
+                                         100 + T + blocks, "float32")
+    jl, tl = both(np.array([17, 300, S - T], np.int32))
+    q, k, v = (x.transpose(1, 2) for x in (tq, tk, tv))
+    whole = tref.decode_attention_plain(q, k, v, tl, logit_cap=cap)
+    n = S // blocks
+    parts = [tops.decode_attention_partial(q, k[:, i * n:(i + 1) * n],
+                                           v[:, i * n:(i + 1) * n], tl,
+                                           k_lo=i * n, logit_cap=cap)
+             for i in range(blocks)]
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([l for _, l in parts])
+    assert torch.isinf(lses[1:, 0]).all() and not outs[1:, 0].any()
+    assert torch.isfinite(lses[0]).all()
+    merged = lse_combine(outs, lses)
+    _close(merged, whole, TOL["float32"])
+    if cap == 0.0:
+        ref = jdec.decode_attention_bhtd(jq, jk, jv, jl, interpret=True)
+        _close(merged.transpose(1, 2), ref, TOL["float32"])
+
+
+def test_partial_row_that_sees_no_key_merges_to_zero():
+    """A row no block shows a key (every block past its position): each
+    partial is 0 with lse -inf, and the merge is 0, not NaN."""
+    from repro_torch.distributed.collectives import lse_combine
+    B, Hkv, T, S, D = 1, 1, 1, 128, 32
+    (_, tq), (_, tk), (_, tv) = _case(B, 2, Hkv, T, S, D, 7, "float32")
+    q, k, v = (x.transpose(1, 2) for x in (tq, tk, tv))
+    parts = [tops.decode_attention_partial(q, k[:, i * 64:(i + 1) * 64],
+                                           v[:, i * 64:(i + 1) * 64],
+                                           torch.tensor([-1], dtype=torch.int32),
+                                           k_lo=i * 64) for i in range(2)]
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([l for _, l in parts])
+    assert torch.isneginf(lses).all()
+    merged = lse_combine(outs, lses)
+    assert torch.equal(merged, torch.zeros_like(merged))

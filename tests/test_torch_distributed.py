@@ -186,8 +186,9 @@ def test_batch_spec_matches_reference(layout):
 
 def test_shard_params_keeps_each_ranks_block(tmp_path):
     """On a world of two ranks each expert leaf keeps the block of E/2
-    experts of the rank's "model" coordinate; the router, the shared
-    expert and the embedding stay whole (the same tensors)."""
+    experts of the rank's "model" coordinate, the router stays whole, and
+    the embedding keeps its vocab block under "tp" (the reference's
+    ``param_spec`` gives ("model", None))."""
     rng = np.random.default_rng(0)
     params = {k: rng.standard_normal(s).astype(np.float32) for k, s in (
         ("router", (16, 8)), ("w_gate", (8, 16, 12)), ("w_up", (8, 16, 12)),
@@ -203,7 +204,13 @@ def test_shard_params_keeps_each_ranks_block(tmp_path):
             want = params[k] if k == "router" else \
                 params[k][rank * 4:(rank + 1) * 4]
             np.testing.assert_array_equal(leaf, want, err_msg=path)
-        assert r["shard"]["embed_is_same"]
+        spec = jsh.param_spec("embed/table", (4, 2), mesh=_abstract(
+            {"data": 1, "model": 2}), fsdp=False, stacked=False)
+        assert tuple(spec) == ("model", None)
+        np.testing.assert_array_equal(
+            r["shard"]["embed"],
+            np.arange(8.0).reshape(4, 2)[rank * 2:(rank + 1) * 2])
+        assert not r["shard"]["embed_is_same"]
 
 
 @pytest.fixture(scope="module")

@@ -9,11 +9,13 @@ Phases, each of which fails the run if it fails:
   2. build every CUDA kernel of the path from the sources in this checkout,
      one nvcc per source, all at once, and print the build time; beside it
      ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
-     64, 128 with one and two consumer warpgroups; capacity GEMM with 1 and 2 consumer warpgroups and column
-     tiles of 128 and 256; paged and dense decode/verify at head dims 64 and
-     128; ragged down and fused gate/up GEMMs, silu and gelu) and of
-     attention_tile.cuh's body at head dim 256 in bf16 and fp32 (kernels 4
-     and 5 at D 256): registers, dynamic shared memory, spills;
+     64, 128 with one and two consumer warpgroups, 256 with two; capacity GEMM with 1
+     and 2 consumer warpgroups and column tiles of 128 and 256; paged
+     decode/verify at head dims 64, 128, 256, dense at 64 and 128; ragged
+     down and fused gate/up GEMMs, silu and gelu) and of attention_tile.cuh's
+     body at head dim 256 (kernel 4 in bf16 and fp32, kernel 5 in fp32):
+     registers, dynamic shared memory, spills (none allowed in the D-256
+     TMA + wgmma bodies);
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
@@ -33,18 +35,18 @@ Phases, each of which fails the run if it fails:
          lengths): SD verify (B 8, T 5), AR verify (T 1), long context
          (~8k positions), logit cap 30, head dims 64 and 256, and at
          gemma3-12b's 16/8 and gemma-7b's 16/16 heads of 256 (1100-1640
-         cached positions, the CUDA-core body), bf16 at
-         rtol = atol = 2e-2 and, on either body (paged.LAST_ROUTE "sm90"
-         at head dims 64 and 128, "simt" at 256), every element within
-         PAGED_ROW_TOL x the rms of its output row; SD verify
+         cached positions), bf16 at rtol = atol = 2e-2 through the split-KV
+         TMA + wgmma body (paged.LAST_ROUTE "sm90" at every head dim) and
+         every element within PAGED_ROW_TOL x the rms of its output row,
+         with the body's shared memory on the line; SD verify
          and long context also in fp32 at 2e-5 (the reference's bound,
          src/repro/kernels/decode_attention/decode_attention.py:288);
        * the flash prefill kernel (prefill of 8 prompts of 256 tokens at the
          target's 28/4 heads of 128 and the draft's 14/2 heads of 64, a 4096-
          token prefill, a window-and-cap case; at head dim 256 gemma3-12b's
          16/8 heads with its window of 1024 and without, gemma-7b's 16/16,
-         T 256 and 2048, through attention_tile's WMMA body in bf16 and its
-         CUDA-core body in fp32), bf16 at rtol = atol = 3e-2
+         T 256 and 2048, through the TMA + wgmma body in bf16 and
+         attention_tile's CUDA-core body in fp32), bf16 at rtol = atol = 3e-2
          and every element within 5e-2 of the rms of its output row (the
          late rows of a long prefill are smaller than 3e-2) through the
          TMA + wgmma kernel, and fp32 at the reference's 2e-5 through the
@@ -203,8 +205,8 @@ Phases, each of which fails the run if it fails:
           the prompts of wave-gemma3: kernels 4 and 5 at D 256),
           wave-minicpm3 and wave-qwen2vl (full depth); tok/s, captures,
           replays, launches; on the use_flash paths every launch of
-          kernels 3-5 at D 256 must report its D-256 body (WMMA for 4 and
-          5, CUDA-core for 3), counted per route and head dim.
+          kernels 3-5 at D 256 must report its D-256 body (TMA + wgmma for
+          3 and 5, WMMA for 4), counted per route and head dim.
   9. the recurrent and encoder-decoder archs (jamba-v0.1-52b, xlstm-1.3b,
      whisper-base), each with its draft_for draft:
        a. reduced, fp32, in phase 8a's loop (whose logit check is also a
@@ -352,11 +354,11 @@ PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # patched copies of the kernel (kernel_variants.py mutants) a dropped split
 # put the long-context case's worst element at 2.6 x its row's rms and a
 # stale 64-key chunk at 1.6 x; the sound kernel stays at <= 0.025 x (bf16
-# rounding of P and of the output; PERF.md).  The CUDA-core body (head dim
-# 256, gemma's 1100-1640 positions, |out| ~ 0.045, near PAGED_TOL) is held
-# to the same bound: it read <= 0.0125 x there (NVIDIA H100 80GB HBM3,
-# 700.00 W), and kernel_variants.py's paged_simt_last_chunk fault must
-# fail it.
+# rounding of P and of the output; PERF.md).  At head dim 256 (gemma's
+# 1100-1640 positions, |out| ~ 0.045, near PAGED_TOL) the same body is held
+# to the same bound: it read <= 0.028 x there (NVIDIA H100 80GB HBM3,
+# 700.00 W), and kernel_variants.py's paged_last_chunk fault (each split
+# skips its last chunk) must fail it.
 PAGED_ROW_TOL = 5e-2
 # the reference's bounds, tests/test_kernels.py
 FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
@@ -528,12 +530,12 @@ def build_kernels():
                 dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
                 ragged.SOURCE).ragged_sm90_smem_bytes}     # (nmat, act)
-    # attention_tile.cuh's body at head dim 256 (both dtypes), in the flash
-    # and dense decode libraries: the bodies of kernels 4 and 5 at D 256
+    # attention_tile.cuh's body at head dim 256: kernel 4's in both dtypes
+    # (dense decode library), kernel 5's in fp32 (flash library)
     tile_smem = build.load(flash_attention.SOURCE).attention_tile_smem_bytes
     smem["attention_tile_kernel"] = lambda dt, d: tile_smem(
         0 if dt == "bf16" else 1, d)
-    seen, tiles = set(), set()
+    seen, tiles, spilled = set(), set(), []
     for src, text in reports.items():
         for line in text.splitlines():
             if "(C75" in line and "sm90_kernel" in line:   # ptxas's advisories
@@ -545,25 +547,37 @@ def build_kernels():
                 tiles.add((src.name, args[0]))
             else:
                 seen.add((kernel, args))
+                if (args[0] == 256 and kernel in D256_SM90
+                        and not re.search(r"\b0 bytes spill stores, 0 bytes "
+                                          r"spill loads", spills or "")):
+                    spilled.append((kernel, args, spills))
             log(f"ptxas {kernel}<{', '.join(map(str, args))}> ({src.name}): "
                 f"{regs} registers at entry, {smem[kernel](*args)} bytes "
                 f"dynamic shared memory, {spills}")
+    if spilled:
+        raise AssertionError(f"ptxas -v: the head-dim-256 TMA + wgmma bodies "
+                             f"spill: {spilled}")
     want = ({("flash_sm90_kernel", (d, nc)) for d in (32, 64, 128)
-             for nc in (1, 2)}
+             for nc in (1, 2)} | {("flash_sm90_kernel", (256, 2))}
             | {("gmm_capacity_sm90_kernel", a)
                for a in ((1, 128), (2, 128), (2, 256))}
-            | {("paged_sm90_kernel", (d,)) for d in (64, 128)}
+            | {("paged_sm90_kernel", (d,)) for d in (64, 128, 256)}
             | {("decode_sm90_kernel", (d,)) for d in (64, 128)}
             | {("ragged_sm90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))})
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
                              f", expected {sorted(want)}")
-    want = {(src.name, dt) for src in (flash_attention.SOURCE, dec_ops.SOURCE)
-            for dt in ("bf16", "fp32")}
+    # kernel 4 in both dtypes; flash in fp32 (bf16 runs flash_sm90 at 256)
+    want = {(dec_ops.SOURCE.name, "bf16"), (dec_ops.SOURCE.name, "fp32"),
+            (flash_attention.SOURCE.name, "fp32")}
     if tiles != want:
         raise AssertionError(f"ptxas -v shows attention_tile_kernel at head "
                              f"dim 256 as {sorted(tiles)}, expected "
                              f"{sorted(want)}")
+
+
+# the TMA + wgmma bodies of kernels 3 and 5 at head dim 256: no spills
+D256_SM90 = ("flash_sm90_kernel", "paged_sm90_kernel")
 
 
 def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
@@ -824,8 +838,8 @@ PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
     # the EAGLE paths' target (EAGLE_ARCH: 32 query / 8 KV heads of 128)
     "mixtral_sd_verify": ("bfloat16", 5, 128, (16, 130), 0.0),
     "mixtral_ar_verify": ("bfloat16", 1, 128, (16, 130), 0.0),
-    # continuous-gemma3's global layers (16 / 8 heads of 256, the CUDA-core
-    # body) at the path's lengths, and gemma-7b's 16 / 16
+    # continuous-gemma3's global layers (16 / 8 heads of 256, the split-KV
+    # TMA + wgmma body) at the path's lengths, and gemma-7b's 16 / 16
     "gemma3_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
     "gemma3_ar_verify": ("bfloat16", 1, 256, (1100, 1640), 0.0),
     "gemma7b_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
@@ -891,6 +905,7 @@ def paged_kernel_phase(seed: int):
     serve widths (28 query / 4 KV heads, pages of 64) and at the EAGLE
     paths' (32 / 8)."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.decode_attention.ref import \
         paged_decode_attention_plain
@@ -908,7 +923,7 @@ def paged_kernel_phase(seed: int):
         route = paged.LAST_ROUTE["paged_decode_attention"]
         ref = paged_decode_attention_plain(*args, logit_cap=cap)
         torch.cuda.synchronize()
-        want = "sm90" if dtype_name == "bfloat16" and D in (64, 128) else "simt"
+        want = "sm90" if dtype_name == "bfloat16" else "simt"
         if route != want:
             raise AssertionError(f"paged_decode_attention [{case}]: ran the "
                                  f"{route} body, expected {want}")
@@ -943,9 +958,11 @@ def paged_kernel_phase(seed: int):
         graph_ms = graph_time_ms(lambda: paged.paged_decode_attention(
             *args, logit_cap=cap))
         sdpa_graph_ms = graph_time_ms(sdpa_fn) if sdpa_fn is not None else None
+        smem = (build.load(paged.SOURCE).paged_sm90_smem_bytes(D)
+                if route == "sm90" else None)
         res["cases"][case] = dict(
             dtype=dtype_name, route=route, B=B, T=T, Hq=Hq, Hkv=Hkv,
-            head_dim=D, page_size=ps,
+            head_dim=D, page_size=ps, smem_bytes=smem,
             lengths=[int(n) for n in lengths.tolist()], keys=keys,
             pages_touched=touched,
             kernel_ms=ms, kernel_graph_ms=graph_ms, plain_ms=plain_ms,
@@ -956,7 +973,7 @@ def paged_kernel_phase(seed: int):
             sdpa_gathered=sdpa_label,
             max_abs_err=err, tol=tol, max_row_scaled_err=row_err)
         log(f"kernel paged_decode_attention [{case:17s}] {dtype_name} "
-            f"route={route} T={T} H={Hq}/{Hkv} "
+            f"route={route} smem={smem} T={T} H={Hq}/{Hkv} "
             f"D={D} keys={keys:5d} pages={touched:4d}  {ms:.4f} ms "
             f"(graph {_fmt(graph_ms)})  "
             f"plain {plain_ms:.3f} ms  "
@@ -975,9 +992,9 @@ FLASH_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, window, cap)
     "long_prefill": ("bfloat16", 1, 4096, 28, 4, 128, 0, 0.0),
     "window_cap": ("bfloat16", 2, 512, 28, 4, 128, 256, 30.0),
     "fp32_prefill": ("float32", 2, 256, 28, 4, 128, 0, 0.0),
-    # head dim 256 (attention_tile's WMMA body in bf16): gemma3-12b's 16 / 8
-    # heads on its sliding-window (1024) and global layers, gemma-7b's 16 /
-    # 16, at a short prefill (B 8, T 256) and wave-gemma3's bucket (T 2048)
+    # head dim 256 (TMA + wgmma in bf16): gemma3-12b's 16 / 8 heads on its
+    # sliding-window (1024) and global layers, gemma-7b's 16 / 16, at a
+    # short prefill (B 8, T 256) and wave-gemma3's bucket (T 2048)
     "gemma3_swa_256": ("bfloat16", 8, 256, 16, 8, 256, 1024, 0.0),
     "gemma3_global_256": ("bfloat16", 8, 256, 16, 8, 256, 0, 0.0),
     "gemma3_swa_2048": ("bfloat16", 2, 2048, 16, 8, 256, 1024, 0.0),
@@ -996,13 +1013,10 @@ FLASH_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, window, cap)
 }
 
 
-def flash_route(dtype_name: str, D: int) -> str:
-    """The body the flash launcher must report: TMA + wgmma for bf16 up to
-    head dim 128, attention_tile's WMMA body for bf16 at 256, its CUDA-core
-    body for fp32."""
-    if dtype_name != "bfloat16":
-        return "simt"
-    return "wmma" if D == 256 else "sm90"
+def flash_route(dtype_name: str) -> str:
+    """The body the flash launcher must report: TMA + wgmma for bf16 at
+    every head dim (32 to 256), attention_tile's CUDA-core body for fp32."""
+    return "sm90" if dtype_name == "bfloat16" else "simt"
 
 
 def flash_kernel_phase(seed: int):
@@ -1010,6 +1024,7 @@ def flash_kernel_phase(seed: int):
     calls, against its plain version, at the serve prefill shapes."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention, ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
@@ -1026,10 +1041,10 @@ def flash_kernel_phase(seed: int):
         ref = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         route = flash_attention.LAST_ROUTE["flash_attention"]
-        if route != flash_route(dtype_name, D):
+        if route != flash_route(dtype_name):
             raise AssertionError(f"flash_attention [{case}]: {dtype_name} ran "
                                  f"the {route} kernel, expected "
-                                 f"{flash_route(dtype_name, D)}")
+                                 f"{flash_route(dtype_name)}")
         err = _hold("flash_attention", case, out, ref, FLASH_TOL[dtype_name],
                     res)
         row_err = row_scaled_err(out, ref)
@@ -1070,6 +1085,10 @@ def flash_kernel_phase(seed: int):
         lib_ms = cuda_time_ms(lib_fn, warmup=3, iters=20) if lib_fn else None
         graph_ms = graph_time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         lib_graph_ms = graph_time_ms(lib_fn) if lib_fn else None
+        # the bf16 body's shared memory at its consumer count
+        smem = (build.load(flash_attention.SOURCE).flash_sm90_smem_bytes(
+                    D, flash_attention.consumers(T, D))
+                if route == "sm90" else None)
         res["cases"][case] = dict(
             dtype=dtype_name, route=route, B=B, T=T, heads=(Hq, Hkv),
             head_dim=D, window=window, cap=cap, kernel_ms=ms,
@@ -1077,9 +1096,10 @@ def flash_kernel_phase(seed: int):
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
             flops=flops, library_ms=lib_ms, library_graph_ms=lib_graph_ms,
             library=lib, max_abs_err=err, tol=FLASH_TOL[dtype_name],
-            max_row_scaled_err=row_err)
+            max_row_scaled_err=row_err, smem_bytes=smem)
         log(f"kernel flash_attention [{case:14s}] {dtype_name} route={route} "
-            f"B={B} T={T} heads={Hq}/{Hkv}x{D} w={window} cap={cap:g}  "
+            f"smem={smem} B={B} T={T} heads={Hq}/{Hkv}x{D} w={window} "
+            f"cap={cap:g}  "
             f"{ms:.4f} ms "
             f"(graph {_fmt(graph_ms)})  plain {plain_ms:.3f} ms  bound "
             f"{b_ms:.4f} ms ({b_by})  library {_fmt(lib_ms)} (graph "
@@ -2401,15 +2421,15 @@ def _check_routes(path: str, names) -> None:
 def _check_head_dim_256_routes(path: str, paged: bool) -> None:
     """Fail unless every launch of kernels 3-5 at head dim 256 since the
     counts were reset (eager, or a stage's capture: a replay runs what was
-    captured) ran its D-256 body: the WMMA body for flash and dense decode,
-    the CUDA-core body for paged; and the path's prefill kernel and its
-    extend kernel (paged if ``paged``, else dense) each ran at D 256."""
+    captured) ran its D-256 body: TMA + wgmma for flash and paged, the WMMA
+    body for dense decode; and the path's prefill kernel and its extend
+    kernel (paged if ``paged``, else dense) each ran at D 256."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.decode_attention import paged as pg
     from repro_torch.kernels.flash_attention import flash_attention as fa
-    tallies = {"flash_attention": (fa.ROUTE_LAUNCHES, "wmma"),
+    tallies = {"flash_attention": (fa.ROUTE_LAUNCHES, "sm90"),
                "decode_attention": (dec.ROUTE_LAUNCHES, "wmma"),
-               "paged_decode_attention": (pg.ROUTE_LAUNCHES, "simt")}
+               "paged_decode_attention": (pg.ROUTE_LAUNCHES, "sm90")}
     must = ("flash_attention",
             "paged_decode_attention" if paged else "decode_attention")
     for name, (tally, want) in tallies.items():
@@ -2932,7 +2952,7 @@ FLASH_PROMPTS = (129, 256)
 FLASH_MAX_SEQ = 512
 
 
-def arch_serve_phase(seed: int) -> dict:
+def arch_serve_phase(seed: int, paths=None) -> dict:
     """Phases 8b and 9b: the ARCH_PATHS at their published widths, random
     bf16 weights from --seed, each with its ``draft_for`` draft, greedy,
     gamma 4, max-batch 8, every round from CUDA graphs; each path SD
@@ -2940,7 +2960,7 @@ def arch_serve_phase(seed: int) -> dict:
       * wave-gemma3: gemma3-12b, all 48 layers, use_flash on target and
         draft, 16 prompts of LONG_PROMPTS tokens (bucket 2048, so the
         window of 1024 masks), 32 new tokens: every prefill runs kernel 5
-        on all 48 + 4 layers (WMMA body at D 256 on the target), every
+        on all 48 + 4 layers (TMA + wgmma at D 256 on the target), every
         extend kernel 4 on the 8 global layers and the draft's 4;
       * continuous-gemma3: the same model, paged (pages of 64), the same
         prompts with Poisson arrivals (0.5 a round, 8/16/32 new tokens):
@@ -2971,9 +2991,12 @@ def arch_serve_phase(seed: int) -> dict:
         an encoder-decoder): kernels 5 and 4 on the decoder's 8 / 8 heads
         of 64.
     On the use_flash paths at head dim 256 every launch of kernels 3-5
-    must have run its D-256 body (_check_head_dim_256_routes).  Returns
-    the launch counts per path."""
+    must have run its D-256 body (_check_head_dim_256_routes).  Each path
+    prints a digest of its greedy tokens (serve_ab.py --arch compares two
+    trees' digests).  ``paths`` names the ARCH_PATHS to run (default all).
+    Returns the launch counts per path."""
     import gc
+    import hashlib
 
     import numpy as np
     import torch
@@ -2989,6 +3012,8 @@ def arch_serve_phase(seed: int) -> dict:
     card = card_line()
     launches, loaded = {}, None
     for path_name, arch, layers, flash, workload in ARCH_PATHS:
+        if paths is not None and path_name not in paths:
+            continue
         full = get_config(arch)
         cfg = full if layers is None else full.with_overrides(num_layers=layers)
         dcfg = draft_for(full)
@@ -3103,6 +3128,12 @@ def arch_serve_phase(seed: int) -> dict:
             for o in done:
                 if o.min() < 0 or o.max() >= cfg.vocab_size:
                     raise AssertionError(f"{path}: token out of the vocab")
+            per_req = [hashlib.sha256(o.astype(np.int64).tobytes()
+                                      ).hexdigest()[:8] for o in done]
+            digest = hashlib.sha256(" ".join(per_req).encode()
+                                    ).hexdigest()[:16]
+            log(f"{path}: tokens digest {digest} (requests "
+                f"{' '.join(per_req)})")
             got = launch_counts()
             expect = {name: 0 for name in got}
             if moe_layers:

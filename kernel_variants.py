@@ -48,7 +48,6 @@ SPLITKV = "kernels/csrc/splitkv_sm90.cuh"
 FLASH = "kernels/flash_attention/csrc/flash_sm90.cuh"
 RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
 TILE = "kernels/csrc/attention_tile.cuh"
-PAGED_SIMT = "kernels/decode_attention/csrc/paged_decode_attention.cu"
 
 FAULTS = {
     # the combine step (shared by the paged and dense bodies) leaves out the
@@ -68,16 +67,18 @@ FAULTS = {
     # expert's end, over the next expert's first rows (never past N)
     "ragged_rows_past_end": [(RAGGED, "if (r < w.row_end && c < F) {",
                               "if (r < min(w.row_end + 8, off[E]) && c < F) {")],
-    # the head-dim-256 bodies skip their last key chunk: attention_tile's
-    # (dense decode's WMMA body, and flash's) and the paged CUDA-core body
+    # attention_tile's body (dense decode's at head dim 256, in bf16 the
+    # WMMA one) skips its last key chunk
     "tile_last_chunk": [(TILE, "for (int kbase = kstart; kbase < kend; "
                                "kbase += BK) {",
                          "for (int kbase = kstart; kbase + BK < kend; "
                          "kbase += BK) {")],
-    "paged_simt_last_chunk": [(PAGED_SIMT, "for (int kbase = 0; kbase <= last; "
-                                           "kbase += KT) {",
-                               "for (int kbase = 0; kbase + KT <= last; "
-                               "kbase += KT) {")],
+    # every split of the paged split-KV body (at every head dim) that holds
+    # more than one chunk skips its last
+    "paged_last_chunk": [(PAGED, "const int n_chunks = min(p.cps, (last - k0) "
+                                 "/ BK + 1);",
+                          "const int n_chunks = max(1, min(p.cps, (last - k0) "
+                          "/ BK + 1) - 1);")],
 }
 RAGGED_KINDS = ("fused", "down")
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
@@ -95,7 +96,7 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                "ragged_rows_past_end": {"fused": SERVING_CASES,
                                         "down": SERVING_CASES},
                "tile_last_chunk": {"decode": GEMMA_DECODE},
-               "paged_simt_last_chunk": {"paged": GEMMA_PAGED}}
+               "paged_last_chunk": {"paged": GEMMA_PAGED + ("long_context",)}}
 TUNING = {
     # splits for 2 or 4 blocks per SM at long context instead of 1
     "paged_waves2": [(PAGED, "constexpr int WAVES = 1;",
@@ -105,6 +106,9 @@ TUNING = {
     # 6 chunks of K and V in flight instead of 4 (paged and dense bodies)
     "splitkv_stages6": [(SPLITKV, "constexpr int STAGES = 4;",
                          "constexpr int STAGES = 6;")],
+    # 2 chunks in flight at head dim 256 instead of 3 (160 KB a block)
+    "splitkv_stages256_2": [(SPLITKV, "constexpr int STAGES_256 = 3;",
+                             "constexpr int STAGES_256 = 2;")],
     # dense decode splits of at least 2 or 4 chunks instead of 8: the serve
     # shape (S 512) then runs 4 or 2 splits and the combine kernel
     "decode_min_chunks2": [(DECODE, "constexpr int MIN_CHUNKS = 8;",

@@ -4,7 +4,7 @@ that the fixed-gamma serve lines of two versions are compared in one run on
 one card.
 
     python3 serve_ab.py ROOT [ROOT ...] [--repeat N] [--seed S]
-                        [--prefix | --full]
+                        [--prefix | --full | --arch PATH[,PATH ...]]
 
 Each ROOT is a directory holding ``chip_smoke.py`` and ``src/repro_torch``:
 this checkout (``.``) or another commit unpacked with ``git archive`` into
@@ -29,6 +29,12 @@ every phase before the serve phase runs before it as it does there) and
 keeps, besides the serve lines, the tok/s line of every later path
 ("continuous-prefix/model (again): ... tok/s", "tuner continuous (again):
 ... tok/s", ...).
+``--arch`` runs the named ARCH_PATHS of this checkout's ``chip_smoke.py``
+(``arch_serve_phase``, e.g. ``wave-gemma3,continuous-gemma3,wave-gemma7b``)
+on each ROOT's ``src/repro_torch`` and kernels, keeps every wave's tok/s
+line and each path's digests of its greedy tokens, and reports in how
+many requests every run of every tree agrees.  The routes each launch took
+are logged, not held: each tree's own chip_smoke.py holds its routes.
 """
 from __future__ import annotations
 
@@ -51,6 +57,27 @@ SHARE = re.compile(r"^serve\[(?P<path>[^\]]+)\] \((?P<mode>\w+)\): propose "
 # (again): 193.91 tok/s ...", "wave-eagle/eagle (graphs, again): ... tok/s"
 PATH_TOK_S = re.compile(r"^(?P<path>(?:tuner )?[\w-]+(?:/\w+)?) "
                         r"\((?P<mode>[^)]+)\): (?:.*? )?(?P<tps>[\d.]+) tok/s")
+# "wave-gemma3/model: tokens digest 0123456789abcdef (requests 01234567 ...)"
+DIGEST = re.compile(r"^(?P<path>[\w-]+/\w+): tokens digest (?P<digest>\w+) "
+                    r"\(requests (?P<requests>[\w ]+)\)$")
+
+
+def arch_child(root: Path, seed: int, paths) -> None:
+    """This checkout's arch_serve_phase(seed, paths) on ROOT's port and
+    kernels, in this process."""
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from repro_torch.kernels import build
+    build.build_all(tuple(m.SOURCE for m in chip_smoke._counted_modules()))
+
+    def log_routes(path: str, paged: bool) -> None:
+        tallies = [m.ROUTE_LAUNCHES for m in chip_smoke._counted_modules()
+                   if hasattr(m, "ROUTE_LAUNCHES")]
+        chip_smoke.log(f"{path}: launches by (route, head dim) " + "; ".join(
+            str(dict(sorted(t.items()))) for t in tallies))
+    chip_smoke._check_head_dim_256_routes = log_routes
+    chip_smoke.arch_serve_phase(seed, paths=paths)
 
 
 def child(root: Path, seed: int, prefix: bool) -> None:
@@ -85,6 +112,10 @@ def parse(text: str) -> dict:
         if m and not line.startswith("serve "):
             key = f"{m['path']} ({m['mode']}) tok/s"
             got.setdefault(key, []).append(float(m["tps"]))
+            continue
+        m = DIGEST.match(line)
+        if m:
+            got.setdefault(f"{m['path']} digest", []).append(m["requests"])
     return got
 
 
@@ -99,9 +130,15 @@ def main() -> int:
                       help="also run each ROOT's prefix_faults_phase")
     mode.add_argument("--full", action="store_true",
                       help="run each ROOT's whole chip_smoke.py")
+    mode.add_argument("--arch", default=None,
+                      help="comma-separated ARCH_PATHS of this checkout's "
+                           "chip_smoke.py to run on each ROOT")
     args = ap.parse_args()
     if args.child is not None:
-        child(args.child.resolve(), args.seed, args.prefix)
+        if args.arch:
+            arch_child(args.child.resolve(), args.seed, args.arch.split(","))
+        else:
+            child(args.child.resolve(), args.seed, args.prefix)
         return 0
     if not args.roots:
         ap.error("name at least one ROOT")
@@ -113,7 +150,8 @@ def main() -> int:
                if args.full else
                [sys.executable, str(Path(__file__).resolve()), "--child",
                 str(root), "--seed", str(args.seed)]
-               + (["--prefix"] if args.prefix else []))
+               + (["--prefix"] if args.prefix else [])
+               + (["--arch", args.arch] if args.arch else []))
         proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n",
@@ -128,9 +166,19 @@ def main() -> int:
             runs[str(root)].setdefault(key, []).extend(vals)
             print(f"run {i} {root}: {key} {vals}", flush=True)
     medians = {root: {key: statistics.median(vals)
-                      for key, vals in sorted(per.items())}
+                      for key, vals in sorted(per.items())
+                      if not key.endswith(" digest")}
                for root, per in runs.items()}
-    print(json.dumps({"medians": medians}), flush=True)
+    # per path, the requests whose greedy tokens are equal in every run of
+    # every tree (a run's digests list the requests in order)
+    equal = {}
+    for key in sorted({k for per in runs.values() for k in per
+                       if k.endswith(" digest")}):
+        seen = [d.split() for per in runs.values() for d in per.get(key, [])]
+        n = min(len(d) for d in seen)
+        same = sum(len({d[i] for d in seen}) == 1 for i in range(n))
+        equal[key.replace(" digest", "")] = f"{same}/{n} requests"
+    print(json.dumps({"medians": medians, "tokens_equal": equal}), flush=True)
     return 0
 
 

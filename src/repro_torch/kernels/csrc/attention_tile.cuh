@@ -1,7 +1,8 @@
 // One block of online-softmax attention for Hopper (sm_90a): the body shared
-// by the flash prefill kernel (kernels/flash_attention/csrc/flash_attention.cu)
-// and the dense decode/verify kernel
-// (kernels/decode_attention/csrc/decode_attention.cu).
+// by the flash prefill kernel (kernels/flash_attention/csrc/flash_attention.cu,
+// fp32 only: bf16 runs flash_sm90.cuh) and the dense decode/verify kernel
+// (kernels/decode_attention/csrc/decode_attention.cu, bf16 off the split-KV
+// body's shapes, head dim 256 included, and fp32).
 //
 // A block owns up to BM query rows that share one KV head and walks that
 // head's keys in chunks of BK = 64.  BM is 64 at head dims up to 128 and 32 at
@@ -412,32 +413,6 @@ int launch(const Params& p, int B, void* stream) {
   dim3 grid((p.T + tp - 1) / tp, p.Hq / p.G, B);
   attention_tile_kernel<T, D><<<grid, NT, L::BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-// dtype: 0 = bf16, 1 = fp32; head_dim: 32, 64, 128 or 256.  Returns
-// cudaGetLastError() after the launch, -1 for shapes the kernel does not take
-// (launch<> refuses a G above its BM) and -2 for a dtype or head dim it is
-// not built for.
-inline int launch_any(int dtype, int head_dim, const Params& p, int B, void* stream) {
-  if (p.G < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
-      (p.Hq / p.Hkv) % p.G != 0 || p.T < 1 || p.S < 1 || B < 1)
-    return -1;
-  if (dtype == 0) {
-    switch (head_dim) {
-      case 32: return launch<bf16, 32>(p, B, stream);
-      case 64: return launch<bf16, 64>(p, B, stream);
-      case 128: return launch<bf16, 128>(p, B, stream);
-      case 256: return launch<bf16, 256>(p, B, stream);
-    }
-  } else if (dtype == 1) {
-    switch (head_dim) {
-      case 32: return launch<float, 32>(p, B, stream);
-      case 64: return launch<float, 64>(p, B, stream);
-      case 128: return launch<float, 128>(p, B, stream);
-      case 256: return launch<float, 256>(p, B, stream);
-    }
-  }
-  return -2;
 }
 
 // The 12 strides in the order q (b, t, h), k (b, s, h), v (b, s, h),

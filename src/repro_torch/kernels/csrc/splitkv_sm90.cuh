@@ -28,16 +28,19 @@
 //     one wgmma m64 tile; the producer loads them with one 4-D TMA box (64
 //     columns, g heads, T steps, 1) over q (B, T, Hq, D), which delivers
 //     them in that row order.  The consumers zero the pad rows [g * T, 64).
-//   * K and V: STAGES chunks in flight in a ring with full barriers for K
-//     and V and one empty barrier; 128-byte swizzle, a chunk of BK rows per
+//   * K and V: Cfg<D>::RING chunks in flight in a ring with full barriers
+//     for K and V and one empty barrier (4 up to D 128; 3 at D 256, where a
+//     chunk of K and V is 64 KB); 128-byte swizzle, a chunk of BK rows per
 //     64-column box.  The producer never loads a chunk that starts past
 //     length + T - 1; the last chunk it loads may reach past it.  Those K
 //     rows are masked out of the scores, and those V rows are zeroed in
 //     shared memory before the P V product, so no stale value, however
 //     large or NaN, enters the result.
 //   * S = Q K^T: wgmma m64n64k16, Q and K (K-major) from shared memory.
-//     O += P V: wgmma m64nDk16 with P from registers (the score
-//     accumulator rounded to bf16 is wgmma's register-A fragment) and V
+//     O += P V: wgmma m64nDk16 (at D 256 one m64n256k16: O is 128
+//     registers a thread, in the one consumer warpgroup) with P from
+//     registers (the score accumulator rounded to bf16 is wgmma's
+//     register-A fragment) and V
 //     read MN-major through the transpose bit.  The online softmax runs in
 //     registers (quad shuffles), exp2 with scale * log2(e) folded in, the
 //     tanh cap before the mask; row t is masked at keys > length + t.
@@ -57,18 +60,20 @@ constexpr int BK = 64;                       // keys per chunk (= ROWS: zero_row
 constexpr int ROWS = 64;                     // query rows of one wgmma tile
 constexpr int SW = 128;                      // swizzle bytes = one 64-column box row
 constexpr int NT = 256;                      // consumer warpgroup + producer warpgroup
-constexpr int STAGES = 4;
+constexpr int STAGES = 4;                    // ring stages at head dims 64 and 128
+constexpr int STAGES_256 = 3;                // at 256: 32 KB of Q + 3 x 64 KB of K/V
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
   static constexpr int NB = D / 64;          // 64-column boxes of a row
+  static constexpr int RING = D == 256 ? STAGES_256 : STAGES;
   static constexpr int Q_BYTES = ROWS * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one chunk of K (or V)
   static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;   // + alignment
+  static constexpr int V_OFF = K_OFF + RING * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + RING * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + (1 + 3 * RING) * 8 + 1024;   // + alignment
 };
 
 struct Params {
@@ -107,7 +112,8 @@ __device__ __forceinline__ float ex2(float x) {
 template <int D>
 __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&a)[4],
                                            uint64_t db) {
-  if constexpr (D == 128) sm90::wgmma_rs_n128<1>(o, a, db, 1);
+  if constexpr (D == 256) sm90::wgmma_rs_n256<1>(o, a, db, 1);
+  else if constexpr (D == 128) sm90::wgmma_rs_n128<1>(o, a, db, 1);
   else sm90::wgmma_rs_n64<1>(o, a, db, 1);
 }
 
@@ -144,11 +150,11 @@ __device__ __forceinline__ Bars init_bars(unsigned char* smem) {
   Bars bars;
   bars.q_full = reinterpret_cast<uint64_t*>(smem + Cfg<D>::BAR_OFF);
   bars.k_full = bars.q_full + 1;
-  bars.v_full = bars.k_full + STAGES;
-  bars.empty = bars.v_full + STAGES;
+  bars.v_full = bars.k_full + Cfg<D>::RING;
+  bars.empty = bars.v_full + Cfg<D>::RING;
   if (threadIdx.x == 0) {
     sm90::mbar_init(bars.q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < Cfg<D>::RING; ++s) {
       sm90::mbar_init(&bars.k_full[s], 1);
       sm90::mbar_init(&bars.v_full[s], 1);
       sm90::mbar_init(&bars.empty[s], 1);
@@ -189,8 +195,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, c
 
   sm90::mbar_wait(bars.q_full, 0);
   for (int i = 0; i < n_chunks; ++i) {
-    const int s = i % STAGES;
-    const uint32_t ph = (i / STAGES) & 1;
+    const int s = i % L::RING;
+    const uint32_t ph = (i / L::RING) & 1;
     const int kb = k0 + i * BK;
     unsigned char* vs = smem + L::V_OFF + s * L::KV_BYTES;
     const uint32_t kbase = sm90::smem_u32(smem + L::K_OFF + s * L::KV_BYTES);

@@ -47,6 +47,38 @@
 #include "../../csrc/attention_tile.cuh"
 #include "decode_sm90.cuh"
 
+namespace {
+
+// attention_tile.cuh's body for dtype 0 = bf16 (WMMA), 1 = fp32 (CUDA
+// cores) at head_dim 32, 64, 128 or 256 (here, not in the header: the flash
+// library, which includes the header too, builds only its fp32 bodies).
+// Returns cudaGetLastError() after the launch, -1 for shapes the kernel does
+// not take (launch<> refuses a G above its BM) and -2 for a dtype or head
+// dim it is not built for.
+int launch_tile_any(int dtype, int head_dim, const attn::Params& p, int B, void* stream) {
+  if (p.G < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
+      (p.Hq / p.Hkv) % p.G != 0 || p.T < 1 || p.S < 1 || B < 1)
+    return -1;
+  if (dtype == 0) {
+    switch (head_dim) {
+      case 32: return attn::launch<attn::bf16, 32>(p, B, stream);
+      case 64: return attn::launch<attn::bf16, 64>(p, B, stream);
+      case 128: return attn::launch<attn::bf16, 128>(p, B, stream);
+      case 256: return attn::launch<attn::bf16, 256>(p, B, stream);
+    }
+  } else if (dtype == 1) {
+    switch (head_dim) {
+      case 32: return attn::launch<float, 32>(p, B, stream);
+      case 64: return attn::launch<float, 64>(p, B, stream);
+      case 128: return attn::launch<float, 128>(p, B, stream);
+      case 256: return attn::launch<float, 256>(p, B, stream);
+    }
+  }
+  return -2;
+}
+
+}  // namespace
+
 // dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64, 128 or 256.  lengths: (B,) int32
 // on the device.  strides: 12 element strides, q (b, t, h), k (b, s, h),
 // v (b, s, h), out (b, t, h); the head dim is contiguous and every row
@@ -105,7 +137,7 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
   p.window = 0;
   p.scale = scale;
   p.cap = logit_cap;
-  return attn::launch_any(dtype, head_dim, p, B, stream);
+  return launch_tile_any(dtype, head_dim, p, B, stream);
 }
 
 // Bytes of scratch the call with these arguments needs (the split-KV

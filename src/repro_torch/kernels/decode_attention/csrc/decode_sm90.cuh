@@ -76,9 +76,9 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int c = 0; c < L::NB; ++c)
       sm90::tma_load_4d(smem + c * ROWS * SW, &qmap, bars.q_full, 64 * c, h * p.g, 0, b);
     for (int i = 0; i < n_chunks; ++i) {
-      const int s = i % STAGES;
+      const int s = i % L::RING;
       const int kb = k0 + i * BK;            // the chunk's first key
-      sm90::mbar_wait(&bars.empty[s], ((i / STAGES) & 1) ^ 1);
+      sm90::mbar_wait(&bars.empty[s], ((i / L::RING) & 1) ^ 1);
       for (int kv = 0; kv < 2; ++kv) {          // K, then V
         unsigned char* dst = smem + (kv ? L::V_OFF : L::K_OFF) + s * L::KV_BYTES;
         uint64_t* bar = kv ? &bars.v_full[s] : &bars.k_full[s];

@@ -21,17 +21,17 @@
 // keys have to be spread over every SM with loads in flight on each.
 //
 // Two bodies; the launcher picks one per call and reports which:
-//   * bf16 at head dims 64 and 128, pages of 8, 16, 32 or a multiple of 64
-//     (every call of the served models): paged_sm90.cuh.  Split-KV over a
-//     (splits, Hkv, B) grid with a combine kernel, a producer warp keeping
-//     TMA page loads in flight in a ring of 64-key chunks, both products as
-//     wgmma with the softmax in registers.
+//   * bf16 at head dims 64, 128 and 256, pages of 8, 16, 32 or a multiple
+//     of 64 (every call of the served models): paged_sm90.cuh.  Split-KV
+//     over a (splits, Hkv, B) grid with a combine kernel, a producer warp
+//     keeping TMA page loads in flight in a ring of 64-key chunks, both
+//     products as wgmma with the softmax in registers.  At D 256 the O
+//     accumulator is 128 registers a thread and a K+V chunk 64 KB, so the
+//     ring holds 3 chunks.
 //   * everything else: the CUDA-core body below, one block per (KV head,
 //     sequence), unchanged since it was written.  fp32 (the parity checks)
-//     keeps its numerics; head dim 256 stays here because its O accumulator
-//     alone would take 128 registers a thread in the wgmma body and a
-//     64-key K+V chunk 64 KB of shared memory (two ring stages); other page
-//     sizes do not tile a 64-key chunk with TMA boxes.
+//     keeps its numerics; other page sizes do not tile a 64-key chunk with
+//     TMA boxes.
 //
 // The CUDA-core body:
 //   * One block per (KV head h, sequence b).  The TPU kernel's grid
@@ -360,7 +360,11 @@ int launch_d(int head_dim, const void* q, const void* kp, const void* vp,
     case 128:
       return launch<T, 128>(q, kp, vp, lengths, table, out, B, T_q, Hq, Hkv, ps, MP, scale, cap, stream);
     case 256:
-      return launch<T, 256>(q, kp, vp, lengths, table, out, B, T_q, Hq, Hkv, ps, MP, scale, cap, stream);
+      // bf16 at head dim 256 runs paged_sm90.cuh only (pages that tile a chunk)
+      if constexpr (sizeof(T) == 4)
+        return launch<T, 256>(q, kp, vp, lengths, table, out, B, T_q, Hq, Hkv, ps, MP, scale,
+                              cap, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -373,8 +377,10 @@ int launch_d(int head_dim, const void* q, const void* kp, const void* vp,
 // int32; scratch: paged_decode_attention_scratch_bytes() bytes (null when 0).
 // All contiguous, on the device, 16-byte aligned.  *kernel is set to the body
 // the call launches: 0 = paged_sm90_kernel (split-KV, TMA + wgmma), 1 = the
-// CUDA-core body.  Returns cudaGetLastError() after the launch, -1 for a
-// missing scratch, -3/-4 when the CUDA driver cannot encode the tensor maps.
+// CUDA-core body (fp32, and bf16 at head dims 64 and 128 with pages that do
+// not tile a 64-key chunk; bf16 at 256 with such pages is refused).  Returns
+// cudaGetLastError() after the launch, -1 for a missing scratch, -3/-4 when
+// the CUDA driver cannot encode the tensor maps.
 extern "C" int paged_decode_attention_launch(int dtype, int head_dim, const void* q,
                                              const void* k_pages, const void* v_pages,
                                              const void* lengths, const void* table,
@@ -389,7 +395,10 @@ extern "C" int paged_decode_attention_launch(int dtype, int head_dim, const void
     if (head_dim == 64)
       return paged90::launch<64>(q, k_pages, v_pages, lengths, table, out, scratch, B, T_q,
                                  Hq, Hkv, NP, ps, MP, scale, logit_cap, s);
-    return paged90::launch<128>(q, k_pages, v_pages, lengths, table, out, scratch, B, T_q,
+    if (head_dim == 128)
+      return paged90::launch<128>(q, k_pages, v_pages, lengths, table, out, scratch, B, T_q,
+                                  Hq, Hkv, NP, ps, MP, scale, logit_cap, s);
+    return paged90::launch<256>(q, k_pages, v_pages, lengths, table, out, scratch, B, T_q,
                                 Hq, Hkv, NP, ps, MP, scale, logit_cap, s);
   }
   *kernel = 1;
@@ -417,5 +426,6 @@ extern "C" long long paged_decode_attention_scratch_bytes(int dtype, int head_di
 extern "C" int paged_sm90_smem_bytes(int head_dim) {
   if (head_dim == 64) return paged90::Cfg<64>::BYTES;
   if (head_dim == 128) return paged90::Cfg<128>::BYTES;
+  if (head_dim == 256) return paged90::Cfg<256>::BYTES;
   return -2;
 }

@@ -1,5 +1,5 @@
 // Paged decode / SD-verify attention in bf16 on Hopper (sm_90a): the body of
-// the bf16 path of paged_decode_attention.cu at head dims 64 and 128.
+// the bf16 path of paged_decode_attention.cu at head dims 64, 128 and 256.
 //
 //   out[b, t, h*g + i] = softmax_k( cap(q . K[b, k] * scale) | k <= len + t ) . V
 //
@@ -10,11 +10,12 @@
 // (decode_sm90.cuh).  What is paged is the producer and the split plan:
 //   * Splits: plan() over the table width MP * ps, so that at long context
 //     B * Hkv * splits fills the SMs once (one block an SM; splits for two
-//     or four were slower, PERF.md), and at the serve shape one split holds
-//     every key.
+//     or four were slower, PERF.md, at D 128 and at D 256), and at the
+//     serve shape one split holds every key.  At gemma3's B 8 x Hkv 8 at
+//     D 256 that is two splits a pair, 128 blocks.
 //   * K and V: the producer looks each page up in the block table and keeps
-//     STAGES chunks in flight.  TMA reads a 3-D tensor map over the pool
-//     viewed as (D, Hkv, NP * ps), 128-byte swizzle, boxes of 64 columns x
+//     Cfg<D>::RING chunks in flight.  TMA reads a 3-D tensor map over the
+//     pool viewed as (D, Hkv, NP * ps), 128-byte swizzle, boxes of 64 columns x
 //     1 head x min(ps, BK) positions at coordinate page * ps + offset: one
 //     box per 64 columns when a chunk lies in one page (ps a multiple of
 //     64), else one per page of the chunk (ps 8, 16, 32).  Pages past the
@@ -73,7 +74,7 @@ paged_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const int* trow = p.table + static_cast<long long>(b) * p.MP;
     const int per = p.ps < BK ? p.ps : BK;   // positions of one box
     for (int i = 0; i < n_chunks; ++i) {
-      const int s = i % STAGES;
+      const int s = i % L::RING;
       const int kb = k0 + i * BK;
       // the boxes of this chunk that hold keys <= last: page ids first
       const int nbox = p.ps >= BK ? 1 : min(BK / p.ps, (last - kb) / p.ps + 1);
@@ -85,7 +86,7 @@ paged_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
           pos[j] = trow[lk / p.ps] * p.ps + lk % p.ps;
         }
       }
-      sm90::mbar_wait(&bars.empty[s], ((i / STAGES) & 1) ^ 1);
+      sm90::mbar_wait(&bars.empty[s], ((i / L::RING) & 1) ^ 1);
       for (int kv = 0; kv < 2; ++kv) {          // K, then V
         unsigned char* dst = smem + (kv ? L::V_OFF : L::K_OFF) + s * L::KV_BYTES;
         uint64_t* bar = kv ? &bars.v_full[s] : &bars.k_full[s];
@@ -105,12 +106,12 @@ paged_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   consume<D>(smem, bars, p, b, h, sp, length, last, k0, n_chunks, direct);
 }
 
-// Whether this body takes the call: bf16 at head dim 64 or 128, pages whose
-// boxes tile a 64-key chunk (ps a multiple of 64, or 8, 16, 32), at most 64
-// query rows.  (Alignment is the wrapper's check.)
+// Whether this body takes the call: bf16 at head dim 64, 128 or 256, pages
+// whose boxes tile a 64-key chunk (ps a multiple of 64, or 8, 16, 32), at
+// most 64 query rows.  (Alignment is the wrapper's check.)
 inline bool takes(int dtype, int head_dim, int ps, int g, int T) {
-  return dtype == 0 && (head_dim == 64 || head_dim == 128) && ps % 8 == 0 &&
-         (ps % BK == 0 || BK % ps == 0) && g * T <= ROWS && g >= 1 && T >= 1;
+  return dtype == 0 && (head_dim == 64 || head_dim == 128 || head_dim == 256) &&
+         ps % 8 == 0 && (ps % BK == 0 || BK % ps == 0) && g * T <= ROWS && g >= 1 && T >= 1;
 }
 
 // Bytes of scratch a call needs: the split partials, 0 with one split.

@@ -12,13 +12,15 @@ wrapper checks dtypes, devices, shapes and contiguity, never table values,
 because reading them would sync.  ``LAUNCHES`` counts calls that launched
 the kernel (one per call, whether or not it also ran its combine step).
 
-Two bodies: bf16 at head dims 64 and 128 with pages of 8, 16, 32 or a
+Two bodies: bf16 at head dims 64, 128 and 256 with pages of 8, 16, 32 or a
 multiple of 64 runs the split-KV TMA + wgmma body (``csrc/paged_sm90.cuh``),
-everything else the CUDA-core body.  The launcher reports which one it
-launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or ``"simt"``;
-``ROUTE_LAUNCHES`` tallies launches by (route, head dim)).  The
-split partials go into scratch the launcher sizes
-(``paged_decode_attention_scratch_bytes``) and this wrapper allocates.
+everything else the CUDA-core body (fp32, and bf16 pages of other sizes at
+head dims 64 and 128; the launcher refuses bf16 at 256 on pages that do not
+tile a 64-key chunk).  The launcher reports which one it launched, and
+``LAST_ROUTE`` holds it (``"sm90"`` or ``"simt"``; ``ROUTE_LAUNCHES``
+tallies launches by (route, head dim)).  The split partials go into
+scratch the launcher sizes (``paged_decode_attention_scratch_bytes``) and
+this wrapper allocates.
 """
 from __future__ import annotations
 

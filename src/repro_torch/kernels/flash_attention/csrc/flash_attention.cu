@@ -16,8 +16,9 @@
 // have to run on the tensor cores at a rate near wgmma's.
 //
 // What the design does about it:
-//   * bf16 (every call of the model): flash_sm90.cuh.  A work item is 128
-//     query positions of one head; a persistent grid of one block per SM
+//   * bf16 (every call of the model, head dims 32 to 256): flash_sm90.cuh.
+//     A work item is 128 query positions of one head (64 up to T 512); a
+//     persistent grid of one block per SM
 //     walks the heaviest-first items with a static stride, so a short
 //     prefill pays the block start once per SM.  TMA fills a ring of
 //     128-key K/V chunks that runs on across items, a producer warp keeps
@@ -26,12 +27,9 @@
 //     built only where a chunk crosses the diagonal, the window edge or S.
 //     Causal items stop at their last query and windowed items start at
 //     their first visible key, as the TPU kernel skips fully masked blocks.
-//   * bf16 at head dim 256 (gemma-7b, gemma3-12b): attention_tile.cuh's WMMA
-//     body, 32 positions of one head per block (G = 1).  flash_sm90.cuh's
-//     128-row tiles with a 256-wide O accumulator in registers and K/V stages
-//     in shared memory do not fit at D 256 as that body is laid out; the
-//     WMMA body keeps O in shared memory and is right first, not fast
-//     (PERF.md section 6 row 5).
+//     At head dim 256 (gemma-7b, gemma3-12b) the chunks are 64 keys, the
+//     ring 2 stages and the wide shape's Q one buffer, so a 64 x 256 O
+//     accumulator per consumer warpgroup and the tiles fit (flash_sm90.cuh).
 //   * fp32 (the parity checks): attention_tile.cuh's CUDA-core path in full
 //     fp32, 64 positions (32 at head dim 256) of one head per block (G = 1),
 //     the body and fp32 numerics of the dense decode kernel.
@@ -46,8 +44,9 @@
 
 namespace {
 
+// fp32 on attention_tile.cuh's CUDA-core body
 template <int D>
-int launch_tile(int dtype, const long long* strides, const void* q, const void* k, const void* v,
+int launch_tile(const long long* strides, const void* q, const void* k, const void* v,
                 void* out, int B, int T, int S, int Hq, int Hkv, int causal, int window,
                 float scale, float logit_cap, void* stream) {
   attn::Params p{};
@@ -66,7 +65,6 @@ int launch_tile(int dtype, const long long* strides, const void* q, const void* 
   p.window = window;
   p.scale = scale;
   p.cap = logit_cap;
-  if (dtype == 0) return attn::launch<attn::bf16, D>(p, B, stream);
   return attn::launch<float, D>(p, B, stream);
 }
 
@@ -76,7 +74,7 @@ int launch_tile(int dtype, const long long* strides, const void* q, const void* 
 // element strides, q (b, t, h), k (b, s, h), v (b, s, h), out (b, t, h); the
 // head dim is contiguous and every row 16-byte aligned.  *kernel is set to the
 // kernel the call launches: 0 = flash_sm90_kernel (TMA + wgmma), 1 =
-// attention_tile's CUDA-core body, 2 = its WMMA body.  Returns cudaGetLastError() after the launch, -1 for shapes
+// attention_tile's CUDA-core body.  Returns cudaGetLastError() after the launch, -1 for shapes
 // the kernels do not take, -2 for a dtype or head dim they are not built for,
 // -3/-4 when the CUDA driver cannot encode the tensor maps.
 extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
@@ -86,11 +84,6 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
                                       float scale, float logit_cap, void* stream,
                                       int* kernel) {
   if (Hkv < 1 || Hq % Hkv != 0 || T < 1 || S < 1 || B < 1) return -1;
-  if (dtype == 0 && head_dim == 256) {
-    *kernel = 2;
-    return launch_tile<256>(0, strides, q, k, v, out, B, T, S, Hq, Hkv, causal, window,
-                            scale, logit_cap, stream);
-  }
   if (dtype == 0) {
     *kernel = 0;
     return flash90::launch_any(head_dim, q, k, v, out, strides, B, T, S, Hq, Hkv, causal,
@@ -99,13 +92,13 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
   if (dtype == 1) {
     *kernel = 1;
     switch (head_dim) {
-      case 32: return launch_tile<32>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+      case 32: return launch_tile<32>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
                                       window, scale, logit_cap, stream);
-      case 64: return launch_tile<64>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+      case 64: return launch_tile<64>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
                                       window, scale, logit_cap, stream);
-      case 128: return launch_tile<128>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+      case 128: return launch_tile<128>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
                                         window, scale, logit_cap, stream);
-      case 256: return launch_tile<256>(1, strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
+      case 256: return launch_tile<256>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
                                         window, scale, logit_cap, stream);
     }
   }
@@ -119,7 +112,8 @@ extern "C" int flash_sm90_smem_bytes(int head_dim, int nc) {
 }
 
 // Dynamic shared memory of a block of attention_tile.cuh's body (the fp32
-// flash and decode kernels, and the bf16 ones at head dim 256) for this dtype
+// flash and decode kernels, and the bf16 dense decode kernel at head dim
+// 256) for this dtype
 // (0 = bf16, 1 = fp32) and head dim (for reports), or -2 for one it is not
 // built for.
 extern "C" int attention_tile_smem_bytes(int dtype, int head_dim) {

@@ -17,6 +17,15 @@
 //     the time goes to each item's start and end, not to its products.
 //     Two blocks share an SM, so one's softmax, epilogue and waits run
 //     under the other's wgmma, and 64-row items even out the SMs' loads.
+// Head dim 256 (gemma-7b, gemma3-12b) runs the wide shape at every T,
+// with other sizes (Cfg), as FlashAttention-3 lays out D 256: a
+// warpgroup's 64 x 256 fp32 O is 128 registers a thread and a 64-key chunk
+// of K or V 32 KB, so BK is 64, the ring 2 stages (128 KB) and Q ONE
+// buffer of 128 x 256 (64 KB), 192 KB in all; setmaxnreg gives the
+// consumers 240.  The producer issues an item's first ring chunks ahead of
+// its Q, whose buffer frees only after the previous item's epilogue staged
+// its output there.  O += P V is one m64n256k16 per 16 keys.  (A narrow
+// shape at D 256, one block an SM, was slower at T 256: PERF.md.)
 // Either way:
 //   * Persistent grid: as many blocks as fit the SMs walk the
 //     heaviest-first item list with a static stride, in snake order (round
@@ -27,18 +36,18 @@
 //     K/V round trip) is paid once per block, not once per item.
 //   * The last warpgroup is the producer: one thread issues every TMA load,
 //     and the warpgroup gives its registers to the consumers (setmaxnreg).
-//   * Q is double-buffered: the producer loads item n + 1's Q (and its
-//     first K/V chunks, the ring running on across items) while the
-//     consumers finish item n; a Q buffer is released (q_empty) after the
-//     epilogue that staged its output in it.  K and V chunks go into a ring
-//     of STAGES with a full barrier each for K and V, so the score product
-//     starts before V has landed, and one empty barrier the consumers
-//     release after their PV product.
+//   * Q is double-buffered (but at D 256): the producer
+//     loads item n + 1's Q (and its first K/V chunks, the ring running on
+//     across items) while the consumers finish item n; a Q buffer is
+//     released (q_empty) after the epilogue that staged its output in it.
+//     K and V chunks go into a ring of STAGES with a full barrier each for
+//     K and V, so the score product starts before V has landed, and one
+//     empty barrier the consumers release after their PV product.
 //   * Tensor maps are 4-D over (D, heads, positions, batch) with the element
 //     strides the wrapper hands over, so the model's (B, T, H, D) tensors and
 //     the (B, H, T, D) views of flash_attention_bhtd are read in place.  Rows
 //     past T or S are TMA zero fill.  128-byte swizzle (64-byte at D 32): a
-//     row of D is one (D <= 64) or two 64-element boxes.
+//     row of D is one (D <= 64), two or four 64-element boxes.
 //   * S = Q K^T: wgmma m64nBKk16, A = Q and B = K (K-major) from shared
 //     memory.  O += P V: wgmma m64nDk16 with A = P from registers (the score
 //     accumulator rounded to bf16 is already in wgmma's register-A order)
@@ -70,24 +79,31 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int NARROW_MAX_T = 512;            // prefills up to this many queries run narrow
+                                             // (below head dim 256)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D, int NC>
 struct Cfg {
   static constexpr int BM = 64 * NC;              // query positions of an item
-  static constexpr int BK = NC == 2 ? 128 : 64;   // keys of a chunk
+  // keys of a chunk: 128 on the wide shape, but 64 at D 256, where the
+  // 64 x 256 fp32 O takes 128 registers a thread beside the scores
+  static constexpr int BK = NC == 2 && D < 256 ? 128 : 64;
   static constexpr int NT = 128 * (NC + 1);       // consumers + producer warpgroup
   static constexpr int MIN_BLOCKS = NC == 2 ? 1 : 2;   // blocks an SM holds
   static constexpr int CONSUMER_REGS = NC == 2 ? 240 : 232;
   static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle = bytes of a box row
   static constexpr int DC = SW / 2;               // elements of a box row
-  static constexpr int STAGES = D == 128 ? 2 : (NC == 2 ? 3 : 4);
-  static constexpr int Q_BYTES = BM * D * 2;      // one of two Q buffers
+  static constexpr int STAGES = D >= 128 ? 2 : (NC == 2 ? 3 : 4);
+  // Q buffers: two, so the next item's Q lands under this one's last
+  // chunks; one at D 256 (64 KB of Q, 128 KB of ring)
+  static constexpr int Q_BUFS = D == 256 ? 1 : 2;
+  static_assert(D < 256 || NC == 2, "D 256 runs the wide shape only");
+  static constexpr int Q_BYTES = BM * D * 2;      // one Q buffer
   static constexpr int KV_BYTES = BK * D * 2;     // one chunk of K (or V)
-  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int K_OFF = Q_BUFS * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BYTES = BAR_OFF + (4 + 3 * STAGES) * 8 + 1024;   // + alignment
+  static constexpr int BYTES = BAR_OFF + (2 * Q_BUFS + 3 * STAGES) * 8 + 1024;   // + alignment
   static_assert(D % DC == 0, "a row of D is whole boxes");
 };
 
@@ -97,8 +113,8 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Consumer warpgroups per block for a prefill of T queries.
-inline int consumers(int T) { return T <= NARROW_MAX_T ? 1 : 2; }
+// Consumer warpgroups per block for a prefill of T queries at head dim D.
+inline int consumers(int T, int D) { return T <= NARROW_MAX_T && D < 256 ? 1 : 2; }
 
 struct Params {
   bf16* out;
@@ -150,7 +166,8 @@ __device__ __forceinline__ void qk_product(float (&sc)[BK / 2], uint64_t da, uin
 template <int D>
 __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&a)[4],
                                            uint64_t db) {
-  if constexpr (D == 128) sm90::wgmma_rs_n128<1>(o, a, db, 1);
+  if constexpr (D == 256) sm90::wgmma_rs_n256<1>(o, a, db, 1);
+  else if constexpr (D == 128) sm90::wgmma_rs_n128<1>(o, a, db, 1);
   else if constexpr (D == 64) sm90::wgmma_rs_n64<1>(o, a, db, 1);
   else sm90::wgmma_rs_n32<1>(o, a, db, 1);
 }
@@ -164,15 +181,15 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int SW = L::SW, BM = L::BM, BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align1024(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);   // [2]
-  uint64_t* q_empty = q_full + 2;                                      // [2]
-  uint64_t* k_full = q_empty + 2;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);   // [Q_BUFS]
+  uint64_t* q_empty = q_full + L::Q_BUFS;                              // [Q_BUFS]
+  uint64_t* k_full = q_empty + L::Q_BUFS;
   uint64_t* v_full = k_full + L::STAGES;
   uint64_t* empty = v_full + L::STAGES;
 
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < L::Q_BUFS; ++qb) {
       sm90::mbar_init(&q_full[qb], 1);
       sm90::mbar_init(&q_empty[qb], NC);
     }
@@ -186,7 +203,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   if (wg == NC) {
-    // ---- producer: Q of each item into buffer n % 2, K/V into the ring
+    // ---- producer: Q of each item into buffer n % Q_BUFS, K/V into the ring
     sm90::reg_dealloc<24>();
     if (threadIdx.x == 128 * NC) {
       sm90::prefetch_map(&qmap);
@@ -197,15 +214,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         const int idx = item_index(n);
         if (idx >= p.n_items) break;
         const Item it = item_at<BM, BK>(p, idx);
-        const int qb = n & 1;
+        const int qb = n % L::Q_BUFS;
         const int kvh = it.h / (p.Hq / p.Hkv);
-        sm90::mbar_wait(&q_empty[qb], ((n >> 1) & 1) ^ 1);
-        unsigned char* qs = smem + qb * L::Q_BYTES;
-        sm90::mbar_expect_tx(&q_full[qb], L::Q_BYTES);
-        for (int c = 0; c < D / L::DC; ++c)
-          sm90::tma_load_4d(qs + c * BM * SW, &qmap, &q_full[qb], c * L::DC, it.h, it.qt * BM,
-                            it.b);
-        for (int j = 0; j < it.n_chunks; ++j, ++i) {
+        auto load_chunk = [&](int j) {
           const int s = i % L::STAGES;
           const int kb = it.kstart + j * BK;
           sm90::mbar_wait(&empty[s], ((i / L::STAGES) & 1) ^ 1);
@@ -217,7 +228,21 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
           sm90::mbar_expect_tx(&v_full[s], L::KV_BYTES);
           for (int c = 0; c < D / L::DC; ++c)
             sm90::tma_load_4d(vs + c * BK * SW, &vmap, &v_full[s], c * L::DC, kvh, kb, it.b);
-        }
+          ++i;
+        };
+        // with one Q buffer, the item's first chunks go ahead of its Q: the
+        // buffer frees only after the previous item's epilogue, and the
+        // ring's slots free before it
+        int j = 0;
+        if constexpr (L::Q_BUFS == 1)
+          for (; j < min(L::STAGES, it.n_chunks); ++j) load_chunk(j);
+        sm90::mbar_wait(&q_empty[qb], ((n / L::Q_BUFS) & 1) ^ 1);
+        unsigned char* qs = smem + qb * L::Q_BYTES;
+        sm90::mbar_expect_tx(&q_full[qb], L::Q_BYTES);
+        for (int c = 0; c < D / L::DC; ++c)
+          sm90::tma_load_4d(qs + c * BM * SW, &qmap, &q_full[qb], c * L::DC, it.h, it.qt * BM,
+                            it.b);
+        for (; j < it.n_chunks; ++j) load_chunk(j);
       }
     }
   } else {
@@ -234,7 +259,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       const int idx = item_index(n);
       if (idx >= p.n_items) break;
       const Item it = item_at<BM, BK>(p, idx);
-      const int qb = n & 1;
+      const int qb = n % L::Q_BUFS;
       const int qa = it.qt * BM + 64 * wg;
       const int qr = qa + warp * 16 + lane / 4;  // this thread's rows: qr, qr + 8
       float o[D / 2];
@@ -244,7 +269,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       unsigned char* qs = smem + qb * L::Q_BYTES + wg * 64 * SW;
       const uint32_t qbase = sm90::smem_u32(qs);
 
-      sm90::mbar_wait(&q_full[qb], (n >> 1) & 1);
+      sm90::mbar_wait(&q_full[qb], (n / L::Q_BUFS) & 1);
       for (int j = 0; j < it.n_chunks; ++j, ++i) {
         const int s = i % L::STAGES;
         const uint32_t ph = (i / L::STAGES) & 1;
@@ -425,12 +450,15 @@ template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, const long long* st, int B,
              int T, int S, int Hq, int Hkv, int causal, int window, float scale, float cap,
              cudaStream_t stream) {
-  if (consumers(T) == 1)
-    return launch<D, 1>(q, k, v, out, st, B, T, S, Hq, Hkv, causal, window, scale, cap, stream);
+  if constexpr (D < 256) {
+    if (consumers(T, D) == 1)
+      return launch<D, 1>(q, k, v, out, st, B, T, S, Hq, Hkv, causal, window, scale, cap,
+                          stream);
+  }
   return launch<D, 2>(q, k, v, out, st, B, T, S, Hq, Hkv, causal, window, scale, cap, stream);
 }
 
-// head_dim 32, 64 or 128; -2 for another.
+// head_dim 32, 64, 128 or 256; -2 for another.
 inline int launch_any(int head_dim, const void* q, const void* k, const void* v, void* out,
                       const long long* st, int B, int T, int S, int Hq, int Hkv, int causal,
                       int window, float scale, float cap, cudaStream_t stream) {
@@ -440,6 +468,8 @@ inline int launch_any(int head_dim, const void* q, const void* k, const void* v,
     case 64: return launch_d<64>(q, k, v, out, st, B, T, S, Hq, Hkv, causal, window, scale,
                                  cap, stream);
     case 128: return launch_d<128>(q, k, v, out, st, B, T, S, Hq, Hkv, causal, window, scale,
+                                   cap, stream);
+    case 256: return launch_d<256>(q, k, v, out, st, B, T, S, Hq, Hkv, causal, window, scale,
                                    cap, stream);
   }
   return -2;
@@ -453,6 +483,7 @@ inline int smem_bytes(int head_dim, int nc) {
     case 32: return nc == 1 ? Cfg<32, 1>::BYTES : Cfg<32, 2>::BYTES;
     case 64: return nc == 1 ? Cfg<64, 1>::BYTES : Cfg<64, 2>::BYTES;
     case 128: return nc == 1 ? Cfg<128, 1>::BYTES : Cfg<128, 2>::BYTES;
+    case 256: return nc == 2 ? Cfg<256, 2>::BYTES : -2;
   }
   return -2;
 }

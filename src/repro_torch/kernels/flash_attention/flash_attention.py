@@ -10,11 +10,10 @@ Port of ``repro.kernels.flash_attention.flash_attention.flash_attention_bhtd``:
 
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
 the kernel or raise.  ``LAUNCHES`` counts kernel launches.  bf16 runs the
-TMA + wgmma kernel (``csrc/flash_sm90.cuh``) at head dims up to 128 and the
-WMMA body of ``kernels/csrc/attention_tile.cuh`` at 256, fp32 that file's
-CUDA-core body; the launcher reports which one it launched, and
-``LAST_ROUTE`` holds it (``"sm90"``, ``"simt"`` or ``"wmma"``);
-``ROUTE_LAUNCHES`` tallies launches by (route, head dim).
+TMA + wgmma kernel (``csrc/flash_sm90.cuh``) at every head dim (32 to 256),
+fp32 the CUDA-core body of ``kernels/csrc/attention_tile.cuh``; the launcher
+reports which one it launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or
+``"simt"``); ``ROUTE_LAUNCHES`` tallies launches by (route, head dim).
 """
 from __future__ import annotations
 
@@ -37,7 +36,7 @@ LAST_ROUTE = {"flash_attention": None}
 # launches since the last reset by (route, head dim): eager calls and
 # the calls a CUDA graph captures (a replay runs what was captured)
 ROUTE_LAUNCHES: Counter = Counter()
-_ROUTES = ("sm90", "simt", "wmma")     # the launcher's kernel codes
+_ROUTES = ("sm90", "simt")     # the launcher's kernel codes
 BLOCK = 128                    # the reference's bq = bk
 NARROW_MAX_T = 512             # flash_sm90.cuh: 64-query items up to this T
 
@@ -61,16 +60,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def schedule(T: int, B: int, Hq: int, sm_count: int) -> list:
+def consumers(T: int, head_dim: int) -> int:
+    """Consumer warpgroups of the bf16 kernel's block (``flash_sm90.cuh``
+    ``consumers``): one (64-query items, two blocks an SM) up to
+    ``NARROW_MAX_T`` queries below head dim 256, else two (128-query items,
+    one block an SM)."""
+    return 1 if T <= NARROW_MAX_T and head_dim < 256 else 2
+
+
+def schedule(T: int, B: int, Hq: int, sm_count: int,
+             head_dim: int = 128) -> list:
     """The bf16 kernel's persistent schedule, as ``csrc/flash_sm90.cuh``
     computes it on the device: per block of the grid, the (query tile,
-    head, sequence) items it runs, in order.  Up to ``NARROW_MAX_T`` queries
-    an item is 64 positions and two blocks share an SM, beyond it 128 and
-    one; the grid is one block per slot, at most one per item.  The item
+    head, sequence) items it runs, in order.  With one consumer warpgroup
+    (``consumers``) an item is 64 positions and two blocks share an SM,
+    with two 128 and one; the grid is one block per slot, at most one per
+    item.  The item
     list is heaviest first (the last query tile of every (sequence, head)
     before the one before it); block j of G takes item r * G + j in round r
     when r is even and r * G + G - 1 - j when it is odd."""
-    rows, per_sm = (64, 2) if T <= NARROW_MAX_T else (128, 1)
+    rows, per_sm = (64, 2) if consumers(T, head_dim) == 1 else (128, 1)
     n_qt = -(-T // rows)
     n_items = n_qt * B * Hq
     grid = min(n_items, per_sm * sm_count)

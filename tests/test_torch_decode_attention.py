@@ -95,20 +95,43 @@ def test_split_plain_matches_reference(splits, T):
     _close(out.transpose(1, 2), ref, TOL["float32"])
 
 
-@pytest.mark.parametrize("B,Hkv,S,sms,min_chunks", [
-    (8, 4, 512, 132, tref.DENSE_MIN_CHUNKS),     # target verify: one split
-    (8, 4, 8192, 132, tref.DENSE_MIN_CHUNKS),    # long context: 4 splits
-    (8, 2, 512, 132, tref.DENSE_MIN_CHUNKS),     # the draft's heads
-    (1, 1, 8192, 132, tref.DENSE_MIN_CHUNKS),    # one pair: 16 splits
-    (8, 4, 8256, 132, tref.PAGED_MIN_CHUNKS),    # the paged long context
-    (3, 2, 1000, 132, 2),                        # a ragged last chunk
-    (2, 2, 64, 132, tref.DENSE_MIN_CHUNKS)])     # one chunk
-def test_split_planner_covers_every_key_once(B, Hkv, S, sms, min_chunks):
-    cps, splits = tref.split_plan(B, Hkv, S, sms, min_chunks=min_chunks)
+def _plan_case(B, Hkv, S, sms, min_chunks, waves=1):
+    """A case keeps the id it had before waves were a parameter; other
+    waves add "-w<waves>"."""
+    return pytest.param(B, Hkv, S, sms, min_chunks, waves,
+                        id=f"{B}-{Hkv}-{S}-{sms}-{min_chunks}" + (
+                            f"-w{waves}" if waves != 1 else ""))
+
+
+@pytest.mark.parametrize("B,Hkv,S,sms,min_chunks,waves", [
+    # target verify: one split; long context: 4 splits; the draft's heads;
+    # one pair: 16 splits; the paged long context; a ragged last chunk;
+    # one chunk
+    _plan_case(8, 4, 512, 132, tref.DENSE_MIN_CHUNKS),
+    _plan_case(8, 4, 8192, 132, tref.DENSE_MIN_CHUNKS),
+    _plan_case(8, 2, 512, 132, tref.DENSE_MIN_CHUNKS),
+    _plan_case(1, 1, 8192, 132, tref.DENSE_MIN_CHUNKS),
+    _plan_case(8, 4, 8256, 132, tref.PAGED_MIN_CHUNKS),
+    _plan_case(3, 2, 1000, 132, 2),
+    _plan_case(2, 2, 64, 132, tref.DENSE_MIN_CHUNKS),
+    # the paged body at head dim 256: gemma3-12b's B 8 x Hkv 8 over a table
+    # of 27 pages of 64 (~1640 keys a row; 2 splits a pair, 128 blocks),
+    # 104 pages of 16; and at 2 and 4 blocks an SM (slower, PERF.md)
+    _plan_case(8, 8, 1728, 132, tref.PAGED_MIN_CHUNKS),
+    _plan_case(8, 8, 1664, 132, tref.PAGED_MIN_CHUNKS),
+    _plan_case(8, 8, 1728, 132, tref.PAGED_MIN_CHUNKS, 2),
+    _plan_case(8, 8, 1728, 132, tref.PAGED_MIN_CHUNKS, 4)])
+def test_split_planner_covers_every_key_once(B, Hkv, S, sms, min_chunks,
+                                             waves):
+    cps, splits = tref.split_plan(B, Hkv, S, sms, min_chunks=min_chunks,
+                                  waves=waves)
     n_chunks = -(-S // tref.CHUNK)
     assert (splits - 1) * cps < n_chunks <= splits * cps
     assert splits == 1 or (cps >= min_chunks
-                           and splits <= sms // (B * Hkv))
+                           and splits <= waves * sms // (B * Hkv))
+    if S >= waves * sms // (B * Hkv) * min_chunks * tref.CHUNK:
+        # long rows: the splits fill waves x the SMs (within a pair's worth)
+        assert waves * sms - B * Hkv < B * Hkv * splits <= waves * sms
     for T in (1, 5):
         for length in sorted({0, 1, 63, 64, S // 3, S // 2, S - T, S - 1}):
             if length < 0:

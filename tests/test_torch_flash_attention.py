@@ -10,7 +10,10 @@ are the reference's: 2e-5 in fp32, 3e-2 in bf16 (rtol and atol).
 The bf16 kernel's persistent schedule (mirrored on the host by
 ``flash_attention.schedule``) runs each (query tile, head, sequence) item
 exactly once, heaviest first within each block, and no block carries more
-causal chunks than the mean plus one item's."""
+causal chunks than the mean plus one item's, at head dims up to 128 and at
+256 (gemma), which takes 128-query items at every T.  Head dim 256 is
+also held against the reference (the plain version the card's body is held
+against)."""
 import numpy as np
 import pytest
 import torch
@@ -43,6 +46,28 @@ def _close(a, b, tol):
 def test_flash_attention_sweep_matches_reference(T, window, cap, dtype):
     B, Hq, Hkv, D = 2, 4, 2, 64
     (jq, tq), (jk, tk), (jv, tv) = _qkv((B, Hq, T, D), (B, Hkv, T, D), T, dtype)
+    out = tflash.flash_attention_bhtd(tq, tk, tv, causal=True, window=window,
+                                      logit_cap=cap)
+    assert out.dtype == tq.dtype and out.shape == (B, Hq, T, D)
+    _close(out, jflash.flash_attention_bhtd(jq, jk, jv, causal=True,
+                                            window=window, logit_cap=cap,
+                                            interpret=True), TOL[dtype])
+    _close(out, jref.flash_attention_ref(jq, jk, jv, causal=True,
+                                         window=window, logit_cap=cap),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("T,window,cap", [(256, 0, 0.0), (256, 100, 0.0),
+                                          (128, 64, 30.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_head_dim_256_matches_reference(T, window, cap, dtype):
+    """Head dim 256 (gemma-7b, gemma3-12b; the TMA + wgmma body on the
+    card) at a 2:1 grouping like gemma3's 16/8, with a window that crosses
+    key blocks and a tanh cap: the plain version ≡ the reference's
+    interpret-mode kernel ≡ its oracle."""
+    B, Hq, Hkv, D = 1, 2, 1, 256
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((B, Hq, T, D), (B, Hkv, T, D),
+                                        T + window + 256, dtype)
     out = tflash.flash_attention_bhtd(tq, tk, tv, causal=True, window=window,
                                       logit_cap=cap)
     assert out.dtype == tq.dtype and out.shape == (B, Hq, T, D)
@@ -99,14 +124,30 @@ def test_flash_refuses_what_the_reference_asserts(T, S):
         assert out.shape == q.shape
 
 
-@pytest.mark.parametrize("T,B,Hq,sms", [(256, 8, 28, 132), (256, 8, 14, 132),
-                                        (4096, 1, 28, 132), (512, 2, 28, 132),
-                                        (128, 1, 2, 132), (384, 3, 7, 16),
-                                        (1024, 2, 28, 132)])
+def _schedule_case(T, B, Hq, sms, head_dim=128):
+    """A case keeps the id it had before head dims were a parameter; head
+    dim 256 (128-query items at every T) adds "-d256"."""
+    return pytest.param(T, B, Hq, sms, head_dim, id=f"{T}-{B}-{Hq}-{sms}" + (
+        "-d256" if head_dim == 256 else ""))
+
+
+@pytest.mark.parametrize("T,B,Hq,sms,head_dim", [
+    _schedule_case(256, 8, 28, 132), _schedule_case(256, 8, 14, 132),
+    _schedule_case(4096, 1, 28, 132), _schedule_case(512, 2, 28, 132),
+    _schedule_case(128, 1, 2, 132), _schedule_case(384, 3, 7, 16),
+    _schedule_case(1024, 2, 28, 132),
+    # head dim 256 at gemma3-12b's 16 query heads: the short prefill (B 8,
+    # T 256), wave-gemma3's bucket (B 2, T 2048), one tile; and 16 SMs
+    _schedule_case(256, 8, 16, 132, 256),
+    _schedule_case(2048, 2, 16, 132, 256),
+    _schedule_case(64, 2, 16, 132, 256), _schedule_case(384, 3, 7, 16, 256)])
 def test_flash_persistent_schedule_runs_each_item_once_heaviest_first(
-        T, B, Hq, sms):
-    blocks = tflash.schedule(T, B, Hq, sms)
-    narrow = T <= tflash.NARROW_MAX_T
+        T, B, Hq, sms, head_dim):
+    blocks = tflash.schedule(T, B, Hq, sms, head_dim)
+    # 64-query items, two blocks an SM, up to NARROW_MAX_T below head dim
+    # 256; else 128-query items, one block an SM
+    narrow = T <= tflash.NARROW_MAX_T and head_dim < 256
+    assert tflash.consumers(T, head_dim) == (1 if narrow else 2)
     n_qt = -(-T // (64 if narrow else 128))
     items = [it for blk in blocks for it in blk]
     assert len(blocks) == min(n_qt * B * Hq, (2 if narrow else 1) * sms)

@@ -421,6 +421,9 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
     out = paged.paged_decode_attention(*case, logit_cap=cap)
     torch.cuda.synchronize()
     assert paged.LAUNCHES["paged_decode_attention"] == before + 1
+    # bf16 runs the split-KV body at every head dim, 256 included
+    assert paged.LAST_ROUTE["paged_decode_attention"] == (
+        "sm90" if dtype == torch.bfloat16 else "simt")
     ref = paged_decode_attention_plain(*case, logit_cap=cap)
     tol = PAGED_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -877,7 +880,10 @@ def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
 
 
 # ------------------------------------- head dim 256 (gemma-7b, gemma3-12b)
-D256_ROUTE = {torch.bfloat16: "wmma", torch.float32: "simt"}
+# flash: TMA + wgmma in bf16, attention_tile's CUDA cores in fp32; dense
+# decode: attention_tile's WMMA body in bf16
+D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "simt"}
+DECODE_D256_ROUTE = {torch.bfloat16: "wmma", torch.float32: "simt"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -886,8 +892,9 @@ D256_ROUTE = {torch.bfloat16: "wmma", torch.float32: "simt"}
                                       (2048, 0)])
 def test_flash_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, window):
     """gemma3-12b's 16/8 heads and gemma-7b's 16/16 at head dim 256, with
-    gemma3's window 1024 and without: the attention_tile body (WMMA in
-    bf16, CUDA cores in fp32) as the launcher reports it."""
+    gemma3's window 1024 and without: the TMA + wgmma body in bf16 (the
+    narrow shape at T 256, the wide one at 2048), attention_tile's CUDA
+    cores in fp32, as the launcher reports it."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -926,12 +933,81 @@ def test_decode_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, S):
     out = ops.decode_attention(q, kc[:, :S], vc[:, :S], lengths)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["decode_attention"] == before + 1
-    assert ops.LAST_ROUTE["decode_attention"] == D256_ROUTE[dtype]
+    assert ops.LAST_ROUTE["decode_attention"] == DECODE_D256_ROUTE[dtype]
     ref = decode_attention_plain(q, kc[:, :S], vc[:, :S], lengths)
     tol = DECODE_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     if dtype == torch.bfloat16:
         _assert_rows_close(out, ref, DECODE_ROW_TOL)
+
+
+@pytest.mark.parametrize("T,window,cap", [(2048, 1000, 0.0), (2048, 0, 0.0),
+                                          (64, 0, 0.0), (1024, 200, 30.0)])
+def test_flash_sm90_head_dim_256_edges(cuda, T, window, cap):
+    """The bf16 TMA + wgmma body at gemma3-12b's 16/8 heads of 256: a
+    window edge that crosses 64-key chunks (1000, 200) at T 2048 and 1024
+    (the wide shape, one Q buffer), the global T 2048, one 64-query tile
+    (T 64, the narrow shape), and a tanh cap before the window mask."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=cuda).manual_seed(T + window)
+    B = 2
+    q = _randn(cuda, (B, T, 16, 256), torch.bfloat16, g)
+    k, v = (_randn(cuda, (B, T, 8, 256), torch.bfloat16, g) for _ in range(2))
+    out = ops.flash_attention(q, k, v, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAST_ROUTE["flash_attention"] == "sm90"
+    ref = flash_attention_plain(q, k, v, window=window, logit_cap=cap)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref)
+
+
+# gemma3's continuous paged lengths: ragged 1100-1640 cached positions
+GEMMA_LENGTHS = [1100, 1163, 1230, 1299, 1380, 1455, 1533, 1640]
+
+
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("T", [1, 5])
+def test_paged_sm90_head_dim_256_gemma3(cuda, ps, T):
+    """The bf16 split-KV body at gemma3-12b's 16/8 heads of 256, pages of
+    16 and 64, ragged lengths of 1100-1640: several splits a row and the
+    combine, held against the plain version; then NaN in every position
+    past length + T - 1 (the last chunk of a row runs past it into them,
+    and the pages beyond) and in the trash page must not move the output
+    by one bit."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_plain
+    B, Hq, Hkv, D = len(GEMMA_LENGTHS), 16, 8, 256
+    MP = -(-(max(GEMMA_LENGTHS) + T) // ps) + 1
+    q, kp, vp, lengths, table = _paged_case(
+        cuda, torch.bfloat16, B=B, Hq=Hq, Hkv=Hkv, D=D, T=T, ps=ps, MP=MP,
+        seed=ps + T, lengths=GEMMA_LENGTHS)
+    out = paged.paged_decode_attention(q, kp, vp, lengths, table)
+    torch.cuda.synchronize()
+    assert paged.LAST_ROUTE["paged_decode_attention"] == "sm90"
+    # several splits: the partials need scratch, merged by the combine
+    assert build.load(paged.SOURCE).paged_decode_attention_scratch_bytes(
+        0, D, B, T, Hq, Hkv, ps, MP) > 0
+    ref = paged_decode_attention_plain(q, kp, vp, lengths, table)
+    tol = PAGED_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref, PAGED_ROW_TOL)
+    pk, pv = kp.clone(), vp.clone()
+    pk[0], pv[0] = float("nan"), float("inf")
+    for b, n in enumerate(GEMMA_LENGTHS):
+        first_dead = n + T
+        for lp in range(MP):
+            lo = max(0, first_dead - lp * ps)
+            if lo < ps:
+                page = int(table[b, lp])
+                pk[page, lo:], pv[page, lo:] = float("nan"), float("nan")
+    after = paged.paged_decode_attention(q, pk, pv, lengths, table)
+    assert torch.isfinite(after).all()
+    torch.testing.assert_close(after, out, rtol=0, atol=0)
 
 
 def test_head_dim_256_folds_at_most_32_heads(cuda):

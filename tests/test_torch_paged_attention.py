@@ -42,16 +42,16 @@ B, HQ, HKV, D, MP = 3, 4, 2, 16, 4
 TOL = 2e-5
 
 
-def _paged_case(seed: int, ps: int, T: int):
+def _paged_case(seed: int, ps: int, T: int, d: int = D):
     """Random pool + bijective table + ragged lengths; every physical page
     (trash page included) is noise, so an unmasked stale read shows."""
     rng = np.random.default_rng(seed)
     pool_n = B * MP + 1
-    k_pages = rng.normal(size=(pool_n, ps, HKV, D)).astype(np.float32)
-    v_pages = rng.normal(size=(pool_n, ps, HKV, D)).astype(np.float32)
+    k_pages = rng.normal(size=(pool_n, ps, HKV, d)).astype(np.float32)
+    v_pages = rng.normal(size=(pool_n, ps, HKV, d)).astype(np.float32)
     table = rng.permutation(np.arange(1, pool_n)).reshape(B, MP)
     lengths = rng.integers(0, MP * ps - T + 1, size=B).astype(np.int32)
-    q = rng.normal(size=(B, T, HQ, D)).astype(np.float32)
+    q = rng.normal(size=(B, T, HQ, d)).astype(np.float32)
     return q, k_pages, v_pages, lengths, table.astype(np.int32)
 
 
@@ -70,14 +70,12 @@ def _jax_kernel(q, k_pages, v_pages, lengths, table, cap=0.0):
         logit_cap=cap, interpret=True))
 
 
-@pytest.mark.parametrize("cap", [0.0, 30.0])
-@pytest.mark.parametrize("T", [1, 3, 5, 8])
-@pytest.mark.parametrize("ps", [8, 16, 64])
-def test_plain_paged_attention_matches_reference_kernel(ps, T, cap):
+def _hold_paged_against_reference(seeds, ps: int, T: int, cap: float,
+                                  d: int = D) -> None:
     """The port's plain version ≡ the reference's interpret-mode kernel ≡
-    its paged oracle, in both layouts, over two seeds."""
-    for seed in (ps * 10 + T, ps * 10 + T + 1):
-        case = _paged_case(seed, ps, T)
+    its paged oracle, in both layouts, for each seed."""
+    for seed in seeds:
+        case = _paged_case(seed, ps, T, d)
         q, kp, vp, lengths, table = case
         out = _port(*case, cap=cap)
         np.testing.assert_allclose(out, _jax_kernel(*case, cap=cap),
@@ -92,6 +90,26 @@ def test_plain_paged_attention_matches_reference_kernel(ps, T, cap):
         np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
         np.testing.assert_allclose(out, want.transpose(0, 2, 1, 3),
                                    rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("T", [1, 3, 5, 8])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_plain_paged_attention_matches_reference_kernel(ps, T, cap):
+    """The port's plain version ≡ the reference's interpret-mode kernel ≡
+    its paged oracle, in both layouts, over two seeds."""
+    _hold_paged_against_reference((ps * 10 + T, ps * 10 + T + 1), ps, T, cap)
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_plain_paged_attention_head_dim_256_matches_reference_kernel(ps, T,
+                                                                     cap):
+    """Head dim 256 (gemma3-12b's global layers; the split-KV body on the
+    card) at a 2:1 grouping like gemma3's 16/8, pages of 16 and 64: the
+    plain version ≡ the reference's interpret-mode kernel ≡ its oracle."""
+    _hold_paged_against_reference((ps * 10 + T + 256,), ps, T, cap, d=256)
 
 
 @pytest.mark.parametrize("T", [16, 9])

@@ -55,11 +55,12 @@ Phases, each of which fails the run if it fails:
          SD verify (B 8, T 5, S 512, lengths 129-290), AR (T 1), the draft's
          14/2 heads of 64 at T 1 and T 5, long context (S 8192), and at
          head dim 256 gemma3-12b's 16/8 heads (T 1, 5, 9) and gemma-7b's
-         16/16 (T 5) at S 2048 (attention_tile's WMMA body), bf16 at
+         16/16 (T 5) at S 2048 (the split-KV body too) and gemma3's heads
+         at T 33 (66 rows a KV head: attention_tile's WMMA body), bf16 at
          4e-2 through the split-KV TMA + wgmma body (decode_attention
-         .LAST_ROUTE "sm90") and the WMMA body ("wmma" at head dim 256),
-         and every element within DECODE_ROW_TOL x the rms of its output
-         row on both, SD verify and long context also in fp32 at
+         .LAST_ROUTE "sm90") and the WMMA body ("wmma"), and every
+         element within DECODE_ROW_TOL x the rms of its output row on
+         both, SD verify and long context also in fp32 at
          3e-5 through the CUDA-core body (tests/test_kernels.py);
        * the capacity-binned expert GEMM at the full expert widths (E 64,
          D 3584, F 2560, gate/up and down) at the SD-verify capacity
@@ -206,7 +207,7 @@ Phases, each of which fails the run if it fails:
           wave-minicpm3 and wave-qwen2vl (full depth); tok/s, captures,
           replays, launches; on the use_flash paths every launch of
           kernels 3-5 at D 256 must report its D-256 body (TMA + wgmma for
-          3 and 5, WMMA for 4), counted per route and head dim.
+          3, 4 and 5), counted per route and head dim.
   9. the recurrent and encoder-decoder archs (jamba-v0.1-52b, xlstm-1.3b,
      whisper-base), each with its draft_for draft:
        a. reduced, fp32, in phase 8a's loop (whose logit check is also a
@@ -309,8 +310,8 @@ Phases, each of which fails the run if it fails:
      weights), on a new NCCL world of one:
        a. kernel 4's partial entry (one key block of a cache split along
           its sequence: output and log-sum-exp) at the target's 28/4 heads
-          of 128, bf16, B 8, T 5, S 512 and S 8192, the keys in 2 and in 4
-          blocks: each block against its plain version (4e-2; the lse at
+          of 128, bf16, B 8, T 5, S 512 and S 8192, and at gemma3-12b's
+          16/8 heads of 256 at S 2048, the keys in 2 and in 4 blocks: each block against its plain version (4e-2; the lse at
           -inf exactly where the plain version's is), the blocks merged by
           log-sum-exp against the whole call (4e-2 and DECODE_ROW_TOL x a
           row's rms), route sm90; device-only ms per block beside the whole
@@ -374,11 +375,12 @@ DECODE_TOL = {"bfloat16": 4e-2, "float32": 3e-5}
 # 0.011, below DECODE_TOL itself; the faults of kernel_variants.py (the
 # combine leaving out the last live split, a chunk loaded from the previous
 # chunk's keys) must fail it at long context while the sound kernel passes.
-# The WMMA body (head dim 256, gemma's 1100-1640 positions, |out| ~ 0.045,
-# near DECODE_TOL) is held to the same bound: it read <= 0.027 x there
-# (NVIDIA H100 80GB HBM3, 700.00 W), and kernel_variants.py's
-# tile_last_chunk fault (attention_tile skips its last key chunk) must
-# fail it.
+# At head dim 256 (gemma's 1100-1640 positions, |out| ~ 0.045, near
+# DECODE_TOL) both bf16 bodies are held to the same bound: the WMMA body
+# read <= 0.027 x there (NVIDIA H100 80GB HBM3, 700.00 W), and
+# kernel_variants.py's decode_last_chunk fault (each split of the split-KV
+# body skips its last chunk) and tile_last_chunk fault (attention_tile
+# skips its last key chunk) must fail it.
 DECODE_ROW_TOL = 5e-2
 GMM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # Target depth at full width: the bf16 weights of all 28 layers (57.4B
@@ -562,7 +564,7 @@ def build_kernels():
             | {("gmm_capacity_sm90_kernel", a)
                for a in ((1, 128), (2, 128), (2, 256))}
             | {("paged_sm90_kernel", (d,)) for d in (64, 128, 256)}
-            | {("decode_sm90_kernel", (d,)) for d in (64, 128)}
+            | {("decode_sm90_kernel", (d,)) for d in (64, 128, 256)}
             | {("ragged_sm90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))})
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
@@ -576,8 +578,8 @@ def build_kernels():
                              f"{sorted(want)}")
 
 
-# the TMA + wgmma bodies of kernels 3 and 5 at head dim 256: no spills
-D256_SM90 = ("flash_sm90_kernel", "paged_sm90_kernel")
+# the TMA + wgmma bodies of kernels 3, 4 and 5 at head dim 256: no spills
+D256_SM90 = ("flash_sm90_kernel", "paged_sm90_kernel", "decode_sm90_kernel")
 
 
 def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
@@ -1119,14 +1121,16 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
     "fp32_sd_verify": ("float32", 8, 5, 28, 4, 128, 512, (129, 290)),
     # at ~8k keys a typical |out| is ~0.02, near the bf16 bound
     "fp32_long_context": ("float32", 8, 5, 28, 4, 128, 8192, (8000, 8187)),
-    # head dim 256 (attention_tile's WMMA body in bf16): wave-gemma3's
-    # global layers (16 / 8 heads) at its lengths, gamma 4 and 8 verifies
-    # and AR, and gemma-7b's 16 / 16
+    # head dim 256 (the split-KV body in bf16): wave-gemma3's global layers
+    # (16 / 8 heads) at its lengths, gamma 4 and 8 verifies and AR, and
+    # gemma-7b's 16 / 16; and a gamma-32 verify of gemma3's heads, 66 rows
+    # a KV head, which only the WMMA body takes (no serving path sends it)
     "gemma3_sd_verify": ("bfloat16", 8, 5, 16, 8, 256, 2048, (1100, 1640)),
     "gemma3_ar": ("bfloat16", 8, 1, 16, 8, 256, 2048, (1100, 1640)),
     "gemma3_gamma8_verify": ("bfloat16", 8, 9, 16, 8, 256, 2048,
                              (1100, 1640)),
     "gemma7b_sd_verify": ("bfloat16", 8, 5, 16, 16, 256, 2048, (1100, 1640)),
+    "gemma3_wide_verify": ("bfloat16", 8, 33, 16, 8, 256, 2048, (1100, 1640)),
     "fp32_gemma3_sd_verify": ("float32", 8, 5, 16, 8, 256, 2048,
                               (1100, 1640)),
     # the FLASH_PROMPTS paths' extends at FLASH_MAX_SEQ 512, SD verify and
@@ -1197,7 +1201,7 @@ def decode_kernel_phase(seed: int):
         ref = decode_attention_plain(q, k, v, lengths)
         torch.cuda.synchronize()
         want = ("simt" if dtype_name != "bfloat16" else "sm90"
-                if D in (64, 128) and (Hq // Hkv) * T <= 64 else "wmma")
+                if D in (64, 128, 256) and (Hq // Hkv) * T <= 64 else "wmma")
         if route != want:
             raise AssertionError(f"decode_attention [{case}]: ran the {route} "
                                  f"body, expected {want}")
@@ -2421,14 +2425,14 @@ def _check_routes(path: str, names) -> None:
 def _check_head_dim_256_routes(path: str, paged: bool) -> None:
     """Fail unless every launch of kernels 3-5 at head dim 256 since the
     counts were reset (eager, or a stage's capture: a replay runs what was
-    captured) ran its D-256 body: TMA + wgmma for flash and paged, the WMMA
-    body for dense decode; and the path's prefill kernel and its extend
+    captured) ran its D-256 TMA + wgmma body (at most 64 query rows a KV
+    head on every path); and the path's prefill kernel and its extend
     kernel (paged if ``paged``, else dense) each ran at D 256."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.decode_attention import paged as pg
     from repro_torch.kernels.flash_attention import flash_attention as fa
     tallies = {"flash_attention": (fa.ROUTE_LAUNCHES, "sm90"),
-               "decode_attention": (dec.ROUTE_LAUNCHES, "wmma"),
+               "decode_attention": (dec.ROUTE_LAUNCHES, "sm90"),
                "paged_decode_attention": (pg.ROUTE_LAUNCHES, "sm90")}
     must = ("flash_attention",
             "paged_decode_attention" if paged else "decode_attention")
@@ -3749,10 +3753,13 @@ def ep_phase(seed: int, served: dict) -> dict:
 
 TP_PATHS = ("wave-tp/model", "wave-tp/none")
 PARTIAL_MAIN_CASE = "sd_verify_4x1"
-# kernel 4's partial entry (phase 12a): the target's 28 / 4 heads of 128,
-# bf16, an SD verify over a cache split into 2 and 4 key blocks
-PARTIAL_CASES = {"sd_verify": (512, (129, 290)),
-                 "long_context": (8192, (8000, 8187))}
+# kernel 4's partial entry (phase 12a), bf16, an SD verify over a cache
+# split into 2 and 4 key blocks: the target's 28 / 4 heads of 128, and
+# gemma3-12b's 16 / 8 heads of 256 at wave-gemma3's lengths (the split-KV
+# body at D 256).  name: (Hq, Hkv, D, S, (min, max) length)
+PARTIAL_CASES = {"sd_verify": (28, 4, 128, 512, (129, 290)),
+                 "long_context": (28, 4, 128, 8192, (8000, 8187)),
+                 "gemma3_sd_verify": (16, 8, 256, 2048, (1100, 1640))}
 # the partial entry's fp32 log-sum-exp against its plain version, rtol =
 # atol: a row's lse sums its block's visible keys' exp-scores, so leaving
 # out even one 64-key chunk of a 2048-key block moves it by ~log(1 + 64 /
@@ -3811,8 +3818,8 @@ def partial_kernel_phase(seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed + 26)
     tol = DECODE_TOL["bfloat16"]
     res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    for name, (S, span) in PARTIAL_CASES.items():
-        spec = ("bfloat16", 8, 5, 28, 4, 128, S, span)
+    for name, (Hq, Hkv, D, S, span) in PARTIAL_CASES.items():
+        spec = ("bfloat16", 8, 5, Hq, Hkv, D, S, span)
         _, B, T, Hq, Hkv, D, _, _ = spec
         q, k, v, lengths = decode_inputs(spec, gen, dev)
         whole = ops.decode_attention(q, k, v, lengths)

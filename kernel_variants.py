@@ -14,19 +14,20 @@ its own ``build/kernels``.
 
 ``mutants`` runs every bf16 case of chip_smoke.py's paged and dense decode
 phases (``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
-``decode_inputs``) and of its ragged phase (the fused gate/up and down
+``decode_inputs``; the dense decode's fp32 cases at head dim 256 too, which
+attention_tile's CUDA-core body runs) and of its ragged phase (the fused gate/up and down
 kernels on ``ragged_cases``), same seeds, through this tree and each
 ``FAULTS`` variant, and prints, per case, the largest elementwise error
 over the kernel's tolerance (``PAGED_TOL``, ``DECODE_TOL``, ``TOL``) and,
 for the attention kernels, the largest error over the rms of its output row
 over its row bound (``PAGED_ROW_TOL``, ``DECODE_ROW_TOL``); above 1 fails
-chip_smoke.py (a non-finite output counts as infinitely far).  Then one
-JSON line.  It exits non-zero unless every fault is caught in each case
-``FAULT_CASES`` names for it: an attention fault by the row bound (the TMA
-+ wgmma bodies' faults at long context, the head-dim-256 bodies' at
-gemma's heads and lengths), a ragged fault by the tolerance at every
-serving case (SD verify, AR verify, prefill); and this tree passes every
-bound everywhere.
+chip_smoke.py (a non-finite output counts as infinitely far; an fp32 case
+has no row bound).  Then one JSON line.  It exits non-zero unless every
+fault is caught in each case ``FAULT_CASES`` names for it: a bf16 attention
+fault by the row bound (the TMA + wgmma bodies' faults at long context,
+the head-dim-256 bodies' at gemma's heads and lengths), an fp32 one and a
+ragged one by the tolerance (ragged at every serving case: SD verify, AR
+verify, prefill); and this tree passes every bound everywhere.
 
 ``tune`` times the named ``TUNING`` variants against this tree with
 kernel_ab.py (this tree first, A B ... B A), on the cases of the kernels
@@ -67,8 +68,8 @@ FAULTS = {
     # expert's end, over the next expert's first rows (never past N)
     "ragged_rows_past_end": [(RAGGED, "if (r < w.row_end && c < F) {",
                               "if (r < min(w.row_end + 8, off[E]) && c < F) {")],
-    # attention_tile's body (dense decode's at head dim 256, in bf16 the
-    # WMMA one) skips its last key chunk
+    # attention_tile's body (dense decode's at head dim 256 in fp32, and in
+    # bf16 with more than 64 rows a KV head) skips its last key chunk
     "tile_last_chunk": [(TILE, "for (int kbase = kstart; kbase < kend; "
                                "kbase += BK) {",
                          "for (int kbase = kstart; kbase + BK < kend; "
@@ -79,12 +80,20 @@ FAULTS = {
                                  "/ BK + 1);",
                           "const int n_chunks = max(1, min(p.cps, (last - k0) "
                           "/ BK + 1) - 1);")],
+    # every split of the dense split-KV body (at every head dim) that holds
+    # more than one chunk skips its last
+    "decode_last_chunk": [(DECODE, "const int n_chunks = min(p.cps, (last - k0) "
+                                   "/ BK + 1);",
+                           "const int n_chunks = max(1, min(p.cps, (last - k0) "
+                           "/ BK + 1) - 1);")],
 }
-RAGGED_KINDS = ("fused", "down")
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
-# chip_smoke's bf16 cases at head dim 256 on gemma's heads and lengths
+# chip_smoke's bf16 cases at head dim 256 on gemma's heads and lengths (the
+# split-KV body), and the dense decode cases attention_tile's body still
+# runs at head dim 256 (fp32; bf16 with 66 rows a KV head)
 GEMMA_DECODE = ("gemma3_sd_verify", "gemma3_ar", "gemma3_gamma8_verify",
                 "gemma7b_sd_verify")
+TILE_DECODE = ("fp32_gemma3_sd_verify", "gemma3_wide_verify")
 GEMMA_PAGED = ("gemma3_sd_verify", "gemma3_ar_verify", "gemma7b_sd_verify")
 # fault: {kernel it is planted in: the cases of that kernel that must each
 # catch it}
@@ -95,7 +104,8 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                "fused_wu_from_wg_map": {"fused": SERVING_CASES},
                "ragged_rows_past_end": {"fused": SERVING_CASES,
                                         "down": SERVING_CASES},
-               "tile_last_chunk": {"decode": GEMMA_DECODE},
+               "tile_last_chunk": {"decode": TILE_DECODE},
+               "decode_last_chunk": {"decode": GEMMA_DECODE},
                "paged_last_chunk": {"paged": GEMMA_PAGED + ("long_context",)}}
 TUNING = {
     # splits for 2 or 4 blocks per SM at long context instead of 1
@@ -115,6 +125,15 @@ TUNING = {
                             "constexpr int MIN_CHUNKS = 2;")],
     "decode_min_chunks4": [(DECODE, "constexpr int MIN_CHUNKS = 8;",
                             "constexpr int MIN_CHUNKS = 4;")],
+    # gemma3-12b's dense decode at head dim 256 (B 8 x Hkv 8 at S 2048, 32
+    # chunks a row; 1 split by default): 2 splits (of at least 8 chunks),
+    # or 4 (and splits for 2 blocks per SM)
+    "decode256_min_chunks8": [(DECODE, "constexpr int MIN_CHUNKS_256 = 32;",
+                               "constexpr int MIN_CHUNKS_256 = 8;")],
+    "decode256_min_chunks8_waves2": [
+        (DECODE, "constexpr int MIN_CHUNKS_256 = 32;",
+         "constexpr int MIN_CHUNKS_256 = 8;"),
+        (DECODE, "constexpr int WAVES = 1;", "constexpr int WAVES = 2;")],
     # flash: one block per item (the grid of the kernel before it was made
     # persistent), and the persistent grid's plain static stride
     "flash_one_item_per_block": [
@@ -149,6 +168,7 @@ TUNING = {
 VARIANTS = {**FAULTS, **TUNING}
 # the kernel_ab.py kinds a tuning variant changes, by its name's prefix
 TUNE_KINDS = {"paged": ("paged",), "decode": ("decode",),
+              "decode256": ("decode",),
               "splitkv": ("paged", "decode"), "flash": ("flash",),
               "ragged": ("down",), "fused": ("fused",)}
 
@@ -213,11 +233,13 @@ def child_errors(root: Path, label: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(4)   # chip_smoke's seed 0
     for case, spec in chip_smoke.DECODE_CASES.items():
         args = chip_smoke.decode_inputs(spec, gen, dev)
-        if spec[0] != "bfloat16":
+        bf16 = spec[0] == "bfloat16"
+        if not bf16 and spec[5] != 256:
             continue
         out = ops.decode_attention(*args)
         report("decode", case, out, decode_attention_plain(*args),
-               chip_smoke.DECODE_TOL[spec[0]], chip_smoke.DECODE_ROW_TOL,
+               chip_smoke.DECODE_TOL[spec[0]],
+               chip_smoke.DECODE_ROW_TOL if bf16 else None,
                ops.LAST_ROUTE["decode_attention"])
     del args, out
     # chip_smoke.kernel_phase's inputs at seed 0, in its order
@@ -264,8 +286,9 @@ def mutants() -> int:
     sound = [r for r in rows if r["tree"] == "."]
 
     def caught(name, kernel, case):
-        key = "err_over_tol" if kernel in RAGGED_KINDS else "row_err_over_bound"
-        return any(r[key] > 1 for r in rows if r["tree"] == name
+        return any((r["err_over_tol"] if r["row_err_over_bound"] is None
+                    else r["row_err_over_bound"]) > 1
+                   for r in rows if r["tree"] == name
                    and r["kernel"] == kernel and r["case"] == case)
 
     missed = [(name, kernel, case) for name, kernels in FAULT_CASES.items()

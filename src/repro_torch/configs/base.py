@@ -1,5 +1,6 @@
-"""Model and training configuration (copies of ``repro.configs.base``'s
-``ModelConfig`` and ``TrainConfig``).
+"""Model, input-shape and training configuration (copies of
+``repro.configs.base``'s ``ModelConfig``, ``ShapeConfig`` with
+``INPUT_SHAPES``, and ``TrainConfig``).
 
 A single flat dataclass covers every assigned architecture family
 (dense / MoE / SSM / hybrid / audio enc-dec / VLM).  Heterogeneous layer
@@ -248,6 +249,27 @@ def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
         cross = cfg.num_layers * (_attn_params(cfg, "attn") + cfg.d_model)
         n += enc + cross
     return n
+
+
+# ---------------------------------------------------------------------------
+# Run / shape configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                                # "train" | "prefill" | "decode"
+
+
+# the input shapes the dry-run tools (launch/dryrun.py) count a step at
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -33,6 +33,12 @@ def get_config(name: str, *, reduced: bool = False, **overrides) -> ModelConfig:
     return cfg.with_overrides(**overrides) if overrides else cfg
 
 
+def registered() -> list:
+    """Every arch name ``get_config`` resolves, sorted."""
+    _load_all()
+    return sorted(_REGISTRY)
+
+
 def _load_all():
     from repro_torch.configs import (  # noqa: F401
         dbrx_132b, drafts, gemma3_12b, gemma_7b, jamba_v01_52b, minicpm3_4b,

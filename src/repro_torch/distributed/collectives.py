@@ -22,6 +22,15 @@ vocab-parallel lookup and ``lse_combine`` merges per-rank partial
 attention outputs by their log-sum-exp.  At a group of one every operator
 is the identity and issues nothing, as GSPMD issues nothing.
 
+Census mode.  Over a ``launch/mesh.CensusMesh`` (the dry-run's: axis
+sizes alone, rank 0, no process group) every collective records its
+kind, its operand bytes on this rank, its axes and whether a layer of the
+stack issued it (``launch/costs.record_collective``), and returns a result
+of the right shape without communicating (an all-gather's other blocks
+and a reduction's sum are left as they are: the dry-run's tensors are on
+the meta device and hold no values).  The EP dispatch's all-to-alls have
+no census: the dry-run refuses ``"ep"``.
+
 Expert parallelism (``moe_ep_forward``).  The one-hot dispatch runs every
 token through every expert and the ``gmm`` dispatch needs every expert on
 one device; this module shards the experts over the mesh's ``"model"`` axis
@@ -70,7 +79,8 @@ from repro_torch.core.perf_model import ep_a2a_bytes
 from repro_torch.distributed.constraints import resolve_mesh
 from repro_torch.distributed.sharding import mesh_coords
 from repro_torch.kernels.gmm import ragged
-from repro_torch.launch.mesh import mesh_dims
+from repro_torch.launch import costs
+from repro_torch.launch.mesh import CensusGroup, CensusMesh, mesh_dims
 from repro_torch.models.layers import apply_mlp
 
 # expert-parallel forwards that went through the all-to-all dispatch
@@ -81,10 +91,33 @@ def reset_ep_calls() -> None:
     EP_CALLS["moe_ep_forward"] = 0
 
 
+def _census(kind: str, x: torch.Tensor, group) -> bool:
+    """Record a collective over a census group and return True; False for
+    a process group (the caller communicates)."""
+    if not isinstance(group, CensusGroup):
+        return False
+    costs.record_collective(kind, x.numel() * x.element_size(), group.axes,
+                            group.in_loop)
+    return True
+
+
+def _rank(group) -> int:
+    return 0 if isinstance(group, CensusGroup) else dist.get_rank(group)
+
+
 def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    if _census("all-gather", inp, group):
+        return
     # all_gather_single is all_gather_into_tensor's newer name
     fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     fn(out, inp, group=group)
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over ``group`` in place (recorded, over a census group)."""
+    if not _census("all-reduce", x, group):
+        dist.all_reduce(x, group=group)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -102,17 +135,18 @@ class Shard:
     ``sharding.CachePlacement`` layer; None for a whole cache)."""
 
     def __init__(self, mesh, layout: str = "tp", batch_axes=(),
-                 params=None, cache=None):
+                 params=None, cache=None, in_stack: bool = False):
         dims, coords = mesh_dims(mesh), mesh_coords(mesh)
         self.mesh, self.layout, self.dims = mesh, layout, dims
         self.m, self.j = dims["model"], coords["model"]
         self.d, self.di = dims.get("data", 1), coords.get("data", 0)
         self.batch_axes = tuple(batch_axes)
         self.params, self.cache = params, cache
+        self.in_stack = in_stack
 
     def replace(self, **kw) -> "Shard":
         args = dict(batch_axes=self.batch_axes, params=self.params,
-                    cache=self.cache)
+                    cache=self.cache, in_stack=self.in_stack)
         args.update(kw)
         return Shard(self.mesh, self.layout, **args)
 
@@ -143,8 +177,11 @@ class Shard:
 
     def group(self, axes):
         """The process group of one axis or a tuple of axes (the whole
-        mesh, which is the world, for both)."""
+        mesh, which is the world, for both); on a census mesh its census
+        group, marked as a layer's when this is a layer's place."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if isinstance(self.mesh, CensusMesh):
+            return self.mesh.group(axes, in_loop=self.in_stack)
         if len(axes) == 1:
             return self.mesh.get_group(axes[0])
         return dist.group.WORLD
@@ -161,9 +198,7 @@ class Shard:
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
-    return out
+    return all_reduce_(x.contiguous().clone(), group)
 
 
 def _gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -176,10 +211,12 @@ def _gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 def _block(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     per = x.shape[dim] // n
-    return x.narrow(dim, dist.get_rank(group) * per, per).contiguous()
+    return x.narrow(dim, _rank(group) * per, per).contiguous()
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    if _census("reduce-scatter", x, group):
+        return _block(x, dim, group, n)
     if dist.get_backend(group) == "nccl":
         xm = x.movedim(dim, 0).contiguous()
         out = torch.empty((xm.shape[0] // n,) + tuple(xm.shape[1:]),

@@ -20,9 +20,12 @@ def _validate(mesh, layout: str) -> None:
                          f"got {layout!r}")
     if mesh is not None:
         from torch.distributed.device_mesh import DeviceMesh
-        if not isinstance(mesh, DeviceMesh):
-            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
-                            f"got {type(mesh)!r}")
+
+        from repro_torch.launch.mesh import CensusMesh
+        if not isinstance(mesh, (DeviceMesh, CensusMesh)):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(or the dry-run's CensusMesh), got "
+                            f"{type(mesh)!r}")
 
 
 def set_mesh(mesh, layout: str = "tp"):

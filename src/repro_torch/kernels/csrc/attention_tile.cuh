@@ -2,7 +2,7 @@
 // by the flash prefill kernel (kernels/flash_attention/csrc/flash_attention.cu,
 // fp32 only: bf16 runs flash_sm90.cuh) and the dense decode/verify kernel
 // (kernels/decode_attention/csrc/decode_attention.cu, bf16 off the split-KV
-// body's shapes, head dim 256 included, and fp32).
+// body's shapes: head dim 32, or more than 64 rows a KV head; and fp32).
 //
 // A block owns up to BM query rows that share one KV head and walks that
 // head's keys in chunks of BK = 64.  BM is 64 at head dims up to 128 and 32 at

@@ -20,21 +20,21 @@
 //
 // What the design does about it.  Three bodies; the launcher picks one per
 // call and reports which:
-//   * bf16 at head dims 64 and 128 with g * T <= 64 query rows per KV head
-//     (every extend of the served models: the target's verify and AR steps,
-//     the draft's steps): decode_sm90.cuh.  Split-KV over a (splits, Hkv, B)
-//     grid planned on the host from S, so the 8k case fills the SMs once and
-//     the serve shape runs one split and one kernel; a producer warp keeps
-//     TMA loads of 64-key chunks in flight in a ring; both products as wgmma
-//     with the online softmax in registers; a combine kernel merges the
-//     fp32 partials of rows with more than one live split.
-//   * bf16 otherwise (head dim 32 or 256, or g * T > 64, which the model's
-//     dense branch allows): attention_tile.cuh's WMMA body.  One block per
+//   * bf16 at head dims 64, 128 and 256 with g * T <= 64 query rows per KV
+//     head (every extend of the served models: the target's verify and AR
+//     steps, the draft's steps, gemma's global layers at 256):
+//     decode_sm90.cuh.  Split-KV over a (splits, Hkv, B) grid planned on
+//     the host from S, so the 8k case fills the SMs once and the serve
+//     shape runs one split and one kernel; a producer warp keeps TMA loads
+//     of 64-key chunks in flight in a ring (3 chunks of K and V at D 256,
+//     230,480 B a block); both products as wgmma with the online softmax in
+//     registers (at D 256 one m64n256k16 accumulator); a combine kernel
+//     merges the fp32 partials of rows with more than one live split.
+//   * bf16 otherwise (head dim 32, or g * T > 64, which the model's dense
+//     branch allows): attention_tile.cuh's WMMA body.  One block per
 //     (query tile, KV head, sequence), GQA folded into its 64 rows (32 at
-//     head dim 256: gemma3-12b's g = 2 and gemma-7b's g = 1 at T <= 9 are
-//     one or two blocks a KV head), the KV axis a loop inside the block,
-//     16-row WMMA tiles.  At D 256 it is right first, not fast (PERF.md
-//     section 6 row 4).
+//     head dim 256), the KV axis a loop inside the block, 16-row WMMA
+//     tiles.
 //   * fp32 (the parity checks): the same body on the CUDA cores in full
 //     fp32.
 //   * lengths stay on the device: each block reads its own, the grid is
@@ -112,11 +112,17 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
   if (decode90::takes(dtype, head_dim, Hq / Hkv, T)) {
     *kernel = 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (head_dim == 64)
-      return decode90::launch<64>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq, Hkv,
-                                  scale, logit_cap, s, lse_f, k_off);
-    return decode90::launch<128>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq, Hkv,
-                                 scale, logit_cap, s, lse_f, k_off);
+    switch (head_dim) {
+      case 64:
+        return decode90::launch<64>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq, Hkv,
+                                    scale, logit_cap, s, lse_f, k_off);
+      case 128:
+        return decode90::launch<128>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq,
+                                     Hkv, scale, logit_cap, s, lse_f, k_off);
+      default:
+        return decode90::launch<256>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq,
+                                     Hkv, scale, logit_cap, s, lse_f, k_off);
+    }
   }
   *kernel = dtype == 0 ? 1 : 2;
   attn::Params p{};
@@ -156,5 +162,6 @@ extern "C" long long decode_attention_scratch_bytes(int dtype, int head_dim, int
 extern "C" int decode_sm90_smem_bytes(int head_dim) {
   if (head_dim == 64) return splitkv::Cfg<64>::BYTES;
   if (head_dim == 128) return splitkv::Cfg<128>::BYTES;
+  if (head_dim == 256) return splitkv::Cfg<256>::BYTES;
   return -2;
 }

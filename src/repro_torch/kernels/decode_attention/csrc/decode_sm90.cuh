@@ -1,6 +1,6 @@
 // Dense decode / SD-verify attention in bf16 on Hopper (sm_90a): the body of
-// the bf16 path of decode_attention.cu at head dims 64 and 128 with at most
-// 64 query rows per KV head (g * T <= 64).
+// the bf16 path of decode_attention.cu at head dims 64, 128 and 256 with at
+// most 64 query rows per KV head (g * T <= 64).
 //
 //   out[b, t, h*g + i] = softmax_s( cap(q . k[b, s, h] * scale)
 //                                   | s <= lengths[b] + t, s < S ) . v[b, :, h]
@@ -12,7 +12,13 @@
 //   * Splits: plan() over S, so that at long context (S 8192) B * Hkv *
 //     splits fills the SMs once, and at the serve shape (S 512, lengths
 //     129-290) one split holds every key and one kernel runs (MIN_CHUNKS
-//     chunks a split at least).
+//     chunks a split at least; MIN_CHUNKS_256 at head dim 256).  At D 256
+//     (one block an SM: Cfg<256> takes 230,480 B) a split holds 32 chunks
+//     at least, so gemma3-12b's B 8 x Hkv 8 at S 2048 runs one split, 64
+//     blocks and no combine: 6-15 % faster than two splits of 16 chunks
+//     (128 blocks and the combine) and 11-20 % faster than four at gemma3's
+//     lengths (PERF.md section 6).  gemma-7b's 8 x 16 pairs run one split
+//     either way.
 //   * K and V: a 4-D tensor map over the cache as (D, Hkv, S, B) with the
 //     strides the wrapper hands over, so the model's (B, S+1, Hkv, D) cache
 //     sliced to S is read in place: batch stride (S+1) * Hkv * D, and the
@@ -23,7 +29,8 @@
 //     length + T - 1 are masked in the scores and zeroed in shared memory
 //     (splitkv::consume).
 //   * q is read in place through its strides too: one 4-D box (64, g, T, 1)
-//     over (D, Hq, T, B) lands the g * T rows of a KV head in one m64 tile.
+//     over (D, Hq, T, B) per 64 columns (four at D 256) lands the g * T
+//     rows of a KV head in one m64 tile.
 //
 // Internal linkage throughout (see sm90.cuh).
 
@@ -37,11 +44,13 @@ namespace {
 using namespace splitkv;
 
 constexpr int MIN_CHUNKS = 8;                // chunks a split holds at least
+constexpr int MIN_CHUNKS_256 = 32;           // the same at head dim 256
 constexpr int WAVES = 1;                     // blocks per SM the split count aims at
 
 // Chunks per split and number of splits for a cache of S positions.
-inline void plan(int B, int Hkv, int S, int* cps, int* splits) {
-  splitkv::plan(B, Hkv, S, MIN_CHUNKS, WAVES, cps, splits);
+inline void plan(int B, int Hkv, int S, int head_dim, int* cps, int* splits) {
+  splitkv::plan(B, Hkv, S, head_dim == 256 ? MIN_CHUNKS_256 : MIN_CHUNKS, WAVES, cps,
+                splits);
 }
 
 template <int D>
@@ -93,11 +102,12 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   consume<D>(smem, bars, p, b, h, sp, length, last, k0, n_chunks, direct);
 }
 
-// Whether this body takes the call: bf16 at head dim 64 or 128, at most 64
-// query rows per KV head.  (Strides and alignment are the wrapper's check.)
+// Whether this body takes the call: bf16 at head dim 64, 128 or 256, at
+// most 64 query rows per KV head.  (Strides and alignment are the wrapper's
+// check.)
 inline bool takes(int dtype, int head_dim, int g, int T) {
-  return dtype == 0 && (head_dim == 64 || head_dim == 128) && g >= 1 && T >= 1 &&
-         g * T <= ROWS;
+  return dtype == 0 && (head_dim == 64 || head_dim == 128 || head_dim == 256) &&
+         g >= 1 && T >= 1 && g * T <= ROWS;
 }
 
 // Bytes of scratch a call needs: the split partials, 0 with one split
@@ -105,7 +115,7 @@ inline bool takes(int dtype, int head_dim, int g, int T) {
 inline long long scratch_bytes(int head_dim, int B, int T, int Hq, int Hkv, int S,
                                bool partial = false) {
   int cps = 0, splits = 0;
-  plan(B, Hkv, S, &cps, &splits);
+  plan(B, Hkv, S, head_dim, &cps, &splits);
   if (partial)
     return static_cast<long long>(B) * Hkv * splits * (Hq / Hkv) * T * (head_dim + 2) * 4;
   return splitkv::scratch_bytes(head_dim, B, Hkv, (Hq / Hkv) * T, splits);
@@ -145,7 +155,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   p.cap = cap;
   p.lse = lse;
   p.k_off = k_off;
-  plan(B, Hkv, S, &p.cps, &p.splits);
+  plan(B, Hkv, S, D, &p.cps, &p.splits);
   if (set_partials(p, scratch, B, D) != 0) return -1;
   // dims (D, heads, positions, batch); strides of heads, positions, batch
   CUtensorMap qm, km, vm;

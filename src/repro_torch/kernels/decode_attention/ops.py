@@ -15,10 +15,11 @@ would sync.  ``LAUNCHES`` counts calls that launched the kernel (one per
 call, whether or not it also ran its combine step).  The paged wrapper of
 the same reference module is ``paged.paged_decode_attention``.
 
-Three bodies: bf16 at head dims 64 and 128 with g * T <= 64 query rows per
-KV head runs the split-KV TMA + wgmma body (``csrc/decode_sm90.cuh``),
-other bf16 calls (head dims 32 and 256 among them) the WMMA body and fp32
-the CUDA-core body of ``kernels/csrc/attention_tile.cuh``.  The launcher
+Three bodies: bf16 at head dims 64, 128 and 256 with g * T <= 64 query
+rows per KV head runs the split-KV TMA + wgmma body
+(``csrc/decode_sm90.cuh``), other bf16 calls (head dim 32, or more rows)
+the WMMA body and fp32 the CUDA-core body of
+``kernels/csrc/attention_tile.cuh``.  The launcher
 reports which one it launched, and ``LAST_ROUTE`` holds it (``"sm90"``,
 ``"wmma"`` or ``"simt"``; ``ROUTE_LAUNCHES`` tallies launches by (route, head
 dim)).  The split partials go into scratch the launcher sizes

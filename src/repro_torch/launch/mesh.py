@@ -13,6 +13,10 @@ The process group is the caller's when one is running: ``torchrun
 the mesh starts a single-rank group itself through a store it owns, so
 ``--ep-degree 1`` needs no launcher.
 
+``CensusMesh`` is a mesh of axis sizes alone, with no process group: the
+dry-run (``launch/dryrun.py``) runs rank 0's step on it, and every
+collective over it is recorded (``launch/costs.py``) instead of issued.
+
 ``make_production_mesh`` and ``make_test_mesh`` describe TPU pods (16 x 16
 v5e chips, forced host devices) and have no counterpart here (the README's
 list of what does not port).
@@ -69,12 +73,46 @@ def make_ep_mesh(ep_degree: int, *, data_degree: int = 1,
                             mesh_dim_names=AXES)
 
 
+class CensusGroup:
+    """The process group of ``axes`` on a ``CensusMesh``: a collective over
+    it records itself and returns a result of the right shape without
+    communicating (``distributed/collectives.py``).  ``in_loop``: it was
+    taken by a layer of the stack."""
+
+    def __init__(self, axes: tuple, in_loop: bool = False):
+        self.axes, self.in_loop = tuple(axes), in_loop
+
+
+class CensusMesh:
+    """A ``("data", "model")`` mesh (or any axes) of sizes alone, seen from
+    rank 0, with no process group: the dry-run's.  It answers what the
+    layers ask of a ``DeviceMesh`` (axis names and sizes, this rank's
+    coordinates, the group of an axis)."""
+
+    def __init__(self, dims: Dict[str, int]):
+        self.dims = dict(dims)
+        self.mesh_dim_names = tuple(self.dims)
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
+
+    def group(self, axes, in_loop: bool = False) -> CensusGroup:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return CensusGroup(tuple(a for a in self.dims if a in axes),  # mesh order
+                           in_loop)
+
+    def get_group(self, axis: str) -> CensusGroup:
+        return self.group(axis)
+
+
 def mesh_dims(mesh) -> Dict[str, int]:
-    """Axis name -> size, in the mesh's axis order: a ``DeviceMesh``'s, or a
-    mapping given as it is (the placement rules take either, so they can be
-    read without a process group)."""
+    """Axis name -> size, in the mesh's axis order: a ``DeviceMesh``'s, a
+    ``CensusMesh``'s, or a mapping given as it is (the placement rules take
+    either, so they can be read without a process group)."""
     if isinstance(mesh, dict):
         return dict(mesh)
+    if isinstance(mesh, CensusMesh):
+        return dict(mesh.dims)
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 

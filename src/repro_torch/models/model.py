@@ -588,9 +588,11 @@ class Model:
     def _prepare(self, shard, cache=None, prefix: str = "layers"):
         """``prepare(l, params)`` for ``stack_forward``: layer ``l``'s params
         as it computes on them and its ``Shard`` (those params' remaining
-        specs, its cache's leaf specs); None without a mesh."""
+        specs, its cache's leaf specs, marked as a layer's: a census counts
+        what it issues ``in_loop``); None without a mesh."""
         if shard is None:
             return None
+        shard = shard.replace(in_stack=True)
         specs = self.placement
         for part in prefix.split("/"):
             specs = None if specs is None else specs[part]

@@ -22,7 +22,9 @@ Mamba rounds ``dt``, ``B`` and ``C`` to the model dtype and steps in fp32,
 mLSTM scales k after its fp32 cast, sLSTM runs its gates and recurrent
 products in fp32.  Under autograd a loop of T > SCAN_CHUNK steps, T a
 multiple of it and nothing collected, runs as T / SCAN_CHUNK checkpointed
-slices (``_scan_time``), as the reference rematerialises its scan.  The
+slices (``_scan_time``), as the reference rematerialises its scan.  On the
+meta device, where the dry-run only counts a step (``launch/dryrun.py``),
+the loop runs one step counted T times (``_scan_counted``).  The
 reference has no Pallas kernel here, so neither is there a CUDA one.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import costs
 from repro_torch.models.layers import dense_init
 
 CONV_K = 4  # causal conv kernel size (mamba / mlstm)
@@ -43,24 +46,102 @@ CONV_K = 4  # causal conv kernel size (mamba / mlstm)
 SCAN_CHUNK = 256
 
 
-def _scan_time(run, carry: tuple, xs: tuple, collect: bool):
-    """``run(carry, xs) -> (carry, ys)`` over the time axis (dim 1) of every
-    tensor of ``xs``; ``ys`` (B, T, ...).  Under autograd (grad on and an
-    input requiring grad), T > SCAN_CHUNK, T a multiple of it and nothing
-    collected, each slice runs under a non-reentrant checkpoint; otherwise
-    (serving, CUDA graphs) ``run`` runs once over all of T."""
+def _scan_time(run, carry: tuple, xs: tuple, collect: bool,
+               consts: tuple = ()):
+    """``run(carry, xs, consts) -> (carry, ys)`` over the time axis (dim 1)
+    of every tensor of ``xs``; ``ys`` (B, T, ...); ``consts``, the tensors
+    from outside the loop that every step reads (a gradient flows to them
+    through ``run``'s argument, never through what it closes over).  Under
+    autograd (grad on and an input requiring grad), T > SCAN_CHUNK, T a
+    multiple of it and nothing collected, each slice runs under a
+    non-reentrant checkpoint; otherwise (serving, CUDA graphs) ``run`` runs
+    once over all of T."""
+    if xs[0].device.type == "meta" and not collect and xs[0].shape[1] > 1:
+        return _scan_counted(run, carry, xs, consts)
+    return _scan_loop(run, carry, xs, collect, consts)
+
+
+def _scan_loop(run, carry: tuple, xs: tuple, collect: bool, consts: tuple):
+    """``_scan_time`` step by step, on any device."""
     T = xs[0].shape[1]
     training = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (*carry, *xs))
+        t.requires_grad for t in (*carry, *xs, *consts))
     if collect or not training or T <= SCAN_CHUNK or T % SCAN_CHUNK:
-        return run(carry, xs)
+        return run(carry, xs, consts)
     ys = []
     for t0 in range(0, T, SCAN_CHUNK):
         carry, y = checkpoint(run, carry,
                               tuple(x[:, t0:t0 + SCAN_CHUNK] for x in xs),
-                              use_reentrant=False)
+                              consts, use_reentrant=False)
         ys.append(y)
     return carry, torch.cat(ys, dim=1)
+
+
+def _all_steps(y: torch.Tensor, T: int) -> torch.Tensor:
+    """A fresh (B, T, ...) tensor standing for one step's (B, 1, ...)
+    output at every step."""
+    return y.new_empty((y.shape[0], T) + tuple(y.shape[2:]))
+
+
+class _CountedStep(torch.autograd.Function):
+    """One step standing for ``n`` under autograd: counted ``n`` times
+    forward, and ``n`` times recomputed and differentiated backward (a
+    middle step's: its carry's gradient comes from the next step), as the
+    checkpointed slices of ``_scan_loop`` are.  Their FLOPs agree within a
+    few per cent; their bytes do not: the loop's backward of each step's
+    slice ``x[:, t]`` writes a gradient buffer of the whole slice, which
+    one step of length 1 does not (reduced jamba and xlstm at T 512: the
+    loop moves about twice the bytes)."""
+
+    @staticmethod
+    def forward(ctx, n, run, n_carry, n_xs, *ts):
+        ctx.n, ctx.run, ctx.split = n, run, (n_carry, n_carry + n_xs)
+        ctx.save_for_backward(*ts)
+        with costs.repeat(n):
+            carry, y = run(*_split(ts, ctx.split))
+        return (*carry, _all_steps(y, n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ts = tuple(t.detach().requires_grad_(t.requires_grad)
+                   for t in ctx.saved_tensors)
+        with torch.enable_grad(), costs.repeat(ctx.n):
+            carry, y = ctx.run(*_split(ts, ctx.split))
+            # the carry's gradient stands in for the next step's (allocated,
+            # not counted as moved bytes)
+            outs = [(o, torch.empty_like(o)) for o in carry]
+            if grads[-1] is not None:
+                outs.append((y, grads[-1][:, :1]))
+            outs = [(o, g) for o, g in outs if o.requires_grad]
+            need = [t for t in ts if t.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in outs], need, [g for _, g in outs],
+                allow_unused=True) if outs and need else ())
+        return (None, None, None, None) + tuple(
+            next(got) if t.requires_grad else None for t in ts)
+
+
+def _split(ts: tuple, at: tuple):
+    return ts[:at[0]], ts[at[0]:at[1]], ts[at[1]:]
+
+
+def _scan_counted(run, carry: tuple, xs: tuple, consts: tuple):
+    """The loop on the meta device, for the dry-run's counts: its T steps
+    cost the same, so one step runs, counted T times
+    (``launch/costs.repeat``), and its output stands for every step's
+    (``_all_steps``).  Under autograd the step is recomputed and
+    differentiated T times in the backward, as the checkpointed slices
+    are."""
+    T = xs[0].shape[1]
+    xs1 = tuple(x[:, :1] for x in xs)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*carry, *xs1, *consts)):
+        out = _CountedStep.apply(T, run, len(carry), len(xs1), *carry, *xs1,
+                                 *consts)
+        return tuple(out[:-1]), out[-1]
+    with costs.repeat(T):
+        carry, y = run(carry, xs1, consts)
+    return carry, _all_steps(y, T)
 
 
 def _causal_conv(params, xb, conv_state):
@@ -141,8 +222,8 @@ def mamba_forward(params, cfg, x, state, collect_states: bool = False):
     hs = (torch.empty((T,) + tuple(state["ssm"].shape), dtype=torch.float32,
                       device=x.device) if collect_states else None)
 
-    def run(carry, xs):
-        (h,), (dt_c, B_c, C_c, x_c) = carry, xs
+    def run(carry, xs, consts):
+        (h,), (dt_c, B_c, C_c, x_c), (A,) = carry, xs, consts
         ys = []
         for t in range(dt_c.shape[1]):
             dt_t = dt_c[:, t]
@@ -155,7 +236,7 @@ def mamba_forward(params, cfg, x, state, collect_states: bool = False):
         return (h,), torch.stack(ys, dim=1)
 
     (h,), y = _scan_time(run, (state["ssm"],), (dt_s, B_s, C_s, x_s),
-                         collect_states)                     # (B, T, d_in)
+                         collect_states, (A,))               # (B, T, d_in)
     y = y + params["D"] * xc.float()
     y = y.to(md) * F.silu(z)
     out = y @ params["w_out"]
@@ -225,7 +306,7 @@ def mlstm_forward(params, cfg, x, state, collect_states: bool = False):
                                   dtype=torch.float32, device=x.device)
                       for k in ("C", "n", "m"))
 
-    def run(carry, xs):
+    def run(carry, xs, consts):
         (C, n_s, m), (q_c, k_c, v_c, i_c, f_c) = carry, xs
         hs = []
         for t in range(q_c.shape[1]):
@@ -297,17 +378,20 @@ def slstm_forward(params, cfg, x, state, collect_states: bool = False):
     B, T, d = x.shape
     x32 = x.float()
     pre = {g: x32 @ params[f"w_{g}"].float() for g in _GATES}
-    r32 = {g: params[f"r_{g}"].float() for g in _GATES}
+    # the recurrent weights in fp32 and the biases, read by every step
+    consts = (tuple(params[f"r_{g}"].float() for g in _GATES)
+              + tuple(params[f"b_{g}"] for g in _GATES))
     steps = [] if collect_states else None
 
-    def run(carry, xs):
+    def run(carry, xs, consts):
         (c, n, m, h), (pz, pi, pf, po) = carry, xs
+        r_z, r_i, r_f, r_o, b_z, b_i, b_f, b_o = consts
         hs = []
         for t in range(pz.shape[1]):
-            z_t = torch.tanh(pz[:, t] + h @ r32["z"] + params["b_z"])
-            i_t = pi[:, t] + h @ r32["i"] + params["b_i"]
-            f_t = F.logsigmoid(pf[:, t] + h @ r32["f"] + params["b_f"])
-            o_t = torch.sigmoid(po[:, t] + h @ r32["o"] + params["b_o"])
+            z_t = torch.tanh(pz[:, t] + h @ r_z + b_z)
+            i_t = pi[:, t] + h @ r_i + b_i
+            f_t = F.logsigmoid(pf[:, t] + h @ r_f + b_f)
+            o_t = torch.sigmoid(po[:, t] + h @ r_o + b_o)
             m_new = torch.maximum(f_t + m, i_t)
             i_p = torch.exp(i_t - m_new)
             f_p = torch.exp(f_t + m - m_new)
@@ -322,7 +406,7 @@ def slstm_forward(params, cfg, x, state, collect_states: bool = False):
 
     (c, n, m, h), hs = _scan_time(
         run, tuple(state[k] for k in ("c", "n", "m", "h")),
-        tuple(pre[g] for g in _GATES), collect_states)
+        tuple(pre[g] for g in _GATES), collect_states, consts)
     out = F.gelu(hs.to(x.dtype) @ params["w_ffn_up"], approximate="tanh") \
         @ params["w_ffn_down"]
     if collect_states:

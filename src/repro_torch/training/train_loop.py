@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -102,7 +101,7 @@ def _sync_grads(shard, grads: list, split: list) -> None:
     for g, axes in zip(grads, split):
         over = tuple(a for a in shard.batch_axes if a not in axes)
         if over and shard.size(over) > 1:
-            dist.all_reduce(g, group=shard.group(over))
+            col.all_reduce_(g, shard.group(over))
 
 
 def _sharded_norm(shard, split: list):
@@ -117,7 +116,7 @@ def _sharded_norm(shard, split: list):
         for axes, sq in groups.items():
             if axes:
                 sq = sq.clone()
-                dist.all_reduce(sq, group=shard.group(axes))
+                col.all_reduce_(sq, shard.group(axes))
             total = total + sq
         return torch.sqrt(total)
     return norm

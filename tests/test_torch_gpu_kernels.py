@@ -720,10 +720,10 @@ def _decode_case(dev, *, B, T, Hq, Hkv, D, S, lengths, seed=0):
 @pytest.mark.parametrize("S", [512, 8192])
 @pytest.mark.parametrize("g", [1, 2, 4, 7])
 @pytest.mark.parametrize("T", [1, 2, 5])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_decode_sm90_kernel_matches_plain(cuda, D, T, g, S):
     """The bf16 split-KV TMA + wgmma body of the dense decode kernel on the
-    cache layout, at both head dims, T 1, 2, 5 and g 1, 2, 4, 7: at S 512
+    cache layout, at every head dim it takes, T 1, 2, 5 and g 1, 2, 4, 7: at S 512
     one split, at S 8192 several, with rows whose keys fit split 0, rows
     that span every split and a row whose queries run past S."""
     from repro_torch.kernels.decode_attention import ops
@@ -744,15 +744,17 @@ def test_decode_sm90_kernel_matches_plain(cuda, D, T, g, S):
 
 
 @pytest.mark.parametrize("S", [512, 8192])
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 28, 4), (256, 16, 8)])
 def test_decode_sm90_kernel_ignores_poisoned_stale_keys_and_trash_slot(
-        cuda, S):
+        cuda, S, D, Hq, Hkv):
     """bf16: NaN and Inf in every cache position past length + T - 1 and in
     the trash slot S: the split-KV body's output must not move by one bit,
-    with one split and with several combined."""
+    with one split and with several combined (the target's heads of 128
+    and gemma3-12b's of 256)."""
     from repro_torch.kernels.decode_attention import ops
     T = 5
     lens = [3, 200, S // 2 + 7, S - 2]
-    q, kc, vc, lengths = _decode_case(cuda, B=4, T=T, Hq=28, Hkv=4, D=128,
+    q, kc, vc, lengths = _decode_case(cuda, B=4, T=T, Hq=Hq, Hkv=Hkv, D=D,
                                       S=S, lengths=lens, seed=S)
     before = ops.decode_attention(q, kc[:, :S], vc[:, :S], lengths)
     pk, pv = kc.clone(), vc.clone()
@@ -768,12 +770,13 @@ def test_decode_sm90_kernel_ignores_poisoned_stale_keys_and_trash_slot(
 @pytest.mark.parametrize("dtype,D,g,T,route", [
     (torch.bfloat16, 128, 7, 5, "sm90"), (torch.bfloat16, 64, 7, 1, "sm90"),
     (torch.bfloat16, 64, 8, 8, "sm90"), (torch.bfloat16, 32, 7, 5, "wmma"),
-    (torch.bfloat16, 128, 7, 10, "wmma"), (torch.float32, 128, 7, 5, "simt"),
-    (torch.float32, 64, 2, 1, "simt")])
+    (torch.bfloat16, 128, 7, 10, "wmma"), (torch.bfloat16, 256, 2, 5, "sm90"),
+    (torch.bfloat16, 256, 1, 1, "sm90"), (torch.bfloat16, 256, 2, 33, "wmma"),
+    (torch.float32, 128, 7, 5, "simt"), (torch.float32, 64, 2, 1, "simt")])
 def test_decode_kernel_routes_are_what_the_launcher_reports(cuda, dtype, D,
                                                             g, T, route):
-    """bf16 at head dims 64 and 128 with g * T <= 64 rows takes the split-KV
-    body; head dim 32 and g * T > 64 the WMMA body; fp32 the CUDA-core
+    """bf16 at head dims 64, 128 and 256 with g * T <= 64 rows takes the
+    split-KV body; head dim 32 and g * T > 64 the WMMA body; fp32 the CUDA-core
     body: each as the launcher reports it, each against the plain version."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
@@ -880,10 +883,10 @@ def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
 
 
 # ------------------------------------- head dim 256 (gemma-7b, gemma3-12b)
-# flash: TMA + wgmma in bf16, attention_tile's CUDA cores in fp32; dense
-# decode: attention_tile's WMMA body in bf16
+# flash and dense decode: TMA + wgmma in bf16, attention_tile's CUDA cores
+# in fp32
 D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "simt"}
-DECODE_D256_ROUTE = {torch.bfloat16: "wmma", torch.float32: "simt"}
+DECODE_D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "simt"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -920,7 +923,8 @@ def test_flash_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, window):
 def test_decode_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, S):
     """The dense decode/verify kernel at head dim 256 (AR, gamma 4 and
     gamma 8 verifies; g = 2 and 1) on the model's cache layout with a
-    poisoned trash slot, through the attention_tile body."""
+    poisoned trash slot: the split-KV TMA + wgmma body in bf16,
+    attention_tile's CUDA cores in fp32."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
     gen = torch.Generator(device=cuda).manual_seed(T + S + Hkv)

@@ -54,7 +54,7 @@ def _close(got, want, tol):
 
 @pytest.mark.parametrize("dtype,D,Hq,Hkv,route", [
     (torch.bfloat16, 128, 28, 4, "sm90"), (torch.bfloat16, 64, 14, 2, "sm90"),
-    (torch.bfloat16, 256, 16, 8, "wmma"), (torch.float32, 128, 28, 4, "simt")])
+    (torch.bfloat16, 256, 16, 8, "sm90"), (torch.float32, 128, 28, 4, "simt")])
 @pytest.mark.parametrize("blocks", [2, 4])
 def test_partial_entry_matches_plain_and_merges(cuda, dtype, D, Hq, Hkv,
                                                 route, blocks):

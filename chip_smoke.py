@@ -506,7 +506,8 @@ def _counted_modules():
 def build_kernels():
     """Build every library (one nvcc each, all at once); print the build
     time and, from ``ptxas -v`` of the build, the registers, shared memory
-    and spills of the TMA + wgmma kernels."""
+    and spills of the TMA + wgmma kernels and of kernels 5 and 6's fp32
+    CUDA-core bodies."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import paged
@@ -525,16 +526,22 @@ def build_kernels():
         str(build.library_path(src).relative_to(ROOT)) for src in sources))
     smem = {"flash_sm90_kernel": build.load(
                 flash_attention.SOURCE).flash_sm90_smem_bytes,
+            "flash_f32_kernel": build.load(
+                flash_attention.SOURCE).flash_f32_smem_bytes,
+            "flash_f32_qreg_kernel": build.load(
+                flash_attention.SOURCE).flash_f32_smem_bytes,
             "gmm_capacity_sm90_kernel": build.load(
                 gmm.SOURCE).gmm_capacity_sm90_smem_bytes,
+            "gmm_capacity_simt90_kernel": build.load(
+                gmm.SOURCE).gmm_capacity_simt90_smem_bytes,   # (rows)
             "paged_sm90_kernel": build.load(paged.SOURCE).paged_sm90_smem_bytes,
             "decode_sm90_kernel": build.load(
                 dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
                 ragged.SOURCE).ragged_sm90_smem_bytes}     # (nmat, act)
     # attention_tile.cuh's body at head dim 256: kernel 4's in both dtypes
-    # (dense decode library), kernel 5's in fp32 (flash library)
-    tile_smem = build.load(flash_attention.SOURCE).attention_tile_smem_bytes
+    # (dense decode library)
+    tile_smem = build.load(dec_ops.SOURCE).attention_tile_smem_bytes
     smem["attention_tile_kernel"] = lambda dt, d: tile_smem(
         0 if dt == "bf16" else 1, d)
     seen, tiles, spilled = set(), set(), []
@@ -565,13 +572,16 @@ def build_kernels():
                for a in ((1, 128), (2, 128), (2, 256))}
             | {("paged_sm90_kernel", (d,)) for d in (64, 128, 256)}
             | {("decode_sm90_kernel", (d,)) for d in (64, 128, 256)}
-            | {("ragged_sm90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))})
+            | {("ragged_sm90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))}
+            # the fp32 CUDA-core bodies of kernels 5 and 6
+            | {("flash_f32_kernel", (d,)) for d in (32, 64, 128)}
+            | {("flash_f32_qreg_kernel", (256,))}
+            | {("gmm_capacity_simt90_kernel", (r,)) for r in (64, 128)})
     if seen != want:
-        raise AssertionError(f"ptxas -v shows TMA + wgmma kernels {sorted(seen)}"
-                             f", expected {sorted(want)}")
-    # kernel 4 in both dtypes; flash in fp32 (bf16 runs flash_sm90 at 256)
-    want = {(dec_ops.SOURCE.name, "bf16"), (dec_ops.SOURCE.name, "fp32"),
-            (flash_attention.SOURCE.name, "fp32")}
+        raise AssertionError(f"ptxas -v shows TMA + wgmma and fp32 kernels "
+                             f"{sorted(seen)}, expected {sorted(want)}")
+    # kernel 4 in both dtypes (kernel 5 runs flash_sm90 and flash_f32)
+    want = {(dec_ops.SOURCE.name, "bf16"), (dec_ops.SOURCE.name, "fp32")}
     if tiles != want:
         raise AssertionError(f"ptxas -v shows attention_tile_kernel at head "
                              f"dim 256 as {sorted(tiles)}, expected "
@@ -583,7 +593,10 @@ D256_SM90 = ("flash_sm90_kernel", "paged_sm90_kernel", "decode_sm90_kernel")
 
 
 def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
+                                        "flash_f32_kernel",
+                                        "flash_f32_qreg_kernel",
                                         "gmm_capacity_sm90_kernel",
+                                        "gmm_capacity_simt90_kernel",
                                         "paged_sm90_kernel",
                                         "decode_sm90_kernel",
                                         "ragged_sm90_kernel",
@@ -1005,6 +1018,8 @@ FLASH_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, window, cap)
     "gemma7b_2048": ("bfloat16", 2, 2048, 16, 16, 256, 0, 0.0),
     "fp32_gemma3_swa_2048": ("float32", 1, 2048, 16, 8, 256, 1024, 0.0),
     "fp32_gemma7b_256": ("float32", 2, 256, 16, 16, 256, 0, 0.0),
+    # the draft's 14 / 2 heads of 64 in fp32 (flash_f32.cuh at head dim 64)
+    "fp32_draft_prefill": ("float32", 8, 256, 14, 2, 64, 0, 0.0),
     # the FLASH_PROMPTS paths' prefills (prompts of 130-256 tokens: bucket
     # 256): whisper-base's decoder self-attention (8 / 8 heads of 64, g 1),
     # jamba-v0.1-52b's attention layer (32 / 8 heads of 128, g 4) and the
@@ -1017,15 +1032,36 @@ FLASH_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, window, cap)
 
 def flash_route(dtype_name: str) -> str:
     """The body the flash launcher must report: TMA + wgmma for bf16 at
-    every head dim (32 to 256), attention_tile's CUDA-core body for fp32."""
-    return "sm90" if dtype_name == "bfloat16" else "simt"
+    every head dim (32 to 256), flash_f32.cuh's CUDA cores for fp32."""
+    return "sm90" if dtype_name == "bfloat16" else "f32"
+
+
+def flash_library(q, k, v, window: int, cap: float):
+    """One PyTorch call computing the flash kernel's function on (B, T, H,
+    D) inputs, over (B, H, T, D) copies made here, and its label; (None,
+    reason) with a tanh cap, which SDPA has not."""
+    import torch
+    import torch.nn.functional as F
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if cap != 0.0:
+        return None, "sdpa has no tanh logit cap"
+    if window == 0:
+        return (lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True),
+                "F.scaled_dot_product_attention(is_causal, enable_gqa), "
+                "(B, H, T, D) copies excluded")
+    pos = torch.arange(q.shape[1], device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    return (lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=band, enable_gqa=True),
+            "F.scaled_dot_product_attention(window band mask, enable_gqa), "
+            "(B, H, T, D) copies excluded")
 
 
 def flash_kernel_phase(seed: int):
     """The flash prefill kernel through the (B, T, H, D) wrapper the model
     calls, against its plain version, at the serve prefill shapes."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention, ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -1066,31 +1102,16 @@ def flash_kernel_phase(seed: int):
                           warmup=3, iters=20)
         plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                                 warmup=1, iters=3)
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if cap == 0.0 and window == 0:
-            lib_fn, lib = _library(
-                lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True, enable_gqa=True),
-                "F.scaled_dot_product_attention(is_causal, enable_gqa), "
-                "(B, H, T, D) copies excluded")
-        elif cap == 0.0:
-            pos = torch.arange(T, device=dev)
-            band = ((pos[None, :] <= pos[:, None])
-                    & (pos[None, :] > pos[:, None] - window))
-            lib_fn, lib = _library(
-                lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=band, enable_gqa=True),
-                "F.scaled_dot_product_attention(window band mask, "
-                "enable_gqa), (B, H, T, D) copies excluded")
-        else:
-            lib_fn, lib = None, "sdpa has no tanh logit cap"
+        lib_fn, lib = flash_library(q, k, v, window, cap)
+        if lib_fn is not None:
+            lib_fn, lib = _library(lib_fn, lib)
         lib_ms = cuda_time_ms(lib_fn, warmup=3, iters=20) if lib_fn else None
         graph_ms = graph_time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         lib_graph_ms = graph_time_ms(lib_fn) if lib_fn else None
-        # the bf16 body's shared memory at its consumer count
-        smem = (build.load(flash_attention.SOURCE).flash_sm90_smem_bytes(
-                    D, flash_attention.consumers(T, D))
-                if route == "sm90" else None)
+        # the body's shared memory (the bf16 one at its consumer count)
+        lib_so = build.load(flash_attention.SOURCE)
+        smem = (lib_so.flash_sm90_smem_bytes(D, flash_attention.consumers(T, D))
+                if route == "sm90" else lib_so.flash_f32_smem_bytes(D))
         res["cases"][case] = dict(
             dtype=dtype_name, route=route, B=B, T=T, heads=(Hq, Hkv),
             head_dim=D, window=window, cap=cap, kernel_ms=ms,
@@ -1267,29 +1288,65 @@ def capacity_cases() -> dict:
         "sd_verify_down": ("bfloat16", E, c_verify, F, D),
         "prefill_gate_up": ("bfloat16", E, c_prefill, D, F),
         "prefill_down": ("bfloat16", E, c_prefill, F, D),
+        # fp32 (the parity checks, the ops path): the cp.async CUDA-core
+        # kernel; C 512 is the compute-bound shape
         "fp32_sd_verify_gate_up": ("float32", E, c_verify, D, F),
+        "fp32_sd_verify_down": ("float32", E, c_verify, F, D),
+        "fp32_prefill_gate_up": ("float32", E, c_prefill, D, F),
+        # x 4 bytes past a 16-byte boundary: the element-by-element body
+        "fp32_unaligned_sd_verify_gate_up": ("float32", E, c_verify, D, F),
     }
+
+
+# capacity cases whose x starts 4 bytes past a 16-byte boundary
+UNALIGNED_CAPACITY = ("fp32_unaligned_sd_verify_gate_up",)
+
+
+def capacity_route(case: str, dtype_name: str) -> str:
+    """The body gmm._route must pick for a capacity case: TMA + wgmma for
+    bf16, the cp.async CUDA-core body for aligned fp32, the
+    element-by-element one for unaligned fp32."""
+    if dtype_name == "bfloat16":
+        return "sm90"
+    return "simt" if case in UNALIGNED_CAPACITY else "simt90"
+
+
+def capacity_inputs(case: str, spec: tuple, gen, dev):
+    """x (E, C, in width) and w (E, in width, out width) of a capacity
+    case, x moved 4 bytes off its 16-byte base for UNALIGNED_CAPACITY."""
+    import torch
+    dtype_name, E, C, Din, Dout = spec
+    dt = getattr(torch, dtype_name)
+    x = torch.randn((E, C, Din), generator=gen, device=dev).to(dt)
+    w = (torch.randn((E, Din, Dout), generator=gen, device=dev)
+         / Din ** 0.5).to(dt)
+    if case in UNALIGNED_CAPACITY:
+        buf = torch.empty((x.numel() + 1,), dtype=dt, device=dev)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(x.shape)
+    return x, w
 
 
 def capacity_kernel_phase(seed: int):
     """The capacity-binned expert GEMM at capacity_cases()."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_capacity_ref
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 torch.bmm in fp32
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
-    for case, (dtype_name, E, C, Din, Dout) in capacity_cases().items():
-        dt = getattr(torch, dtype_name)
-        x = torch.randn((E, C, Din), generator=gen, device=dev).to(dt)
-        w = (torch.randn((E, Din, Dout), generator=gen, device=dev)
-             / Din ** 0.5).to(dt)
+    for case, spec in capacity_cases().items():
+        dtype_name, E, C, Din, Dout = spec
+        x, w = capacity_inputs(case, spec, gen, dev)
         out = gmm.gmm_capacity(x, w)
-        route = gmm._route(x, w)                  # the wrapper's dispatch
-        if dtype_name == "bfloat16" and route != "sm90":
-            raise AssertionError(f"gmm_capacity [{case}]: bf16 ran the "
-                                 f"{route} kernel, not the TMA + wgmma one")
+        route = gmm.LAST_ROUTE["gmm_capacity"]    # the wrapper's dispatch
+        want = capacity_route(case, dtype_name)
+        if route != want:
+            raise AssertionError(f"gmm_capacity [{case}]: {dtype_name} ran "
+                                 f"the {route} kernel, expected {want}")
         ref = gmm_capacity_ref(x, w)
         torch.cuda.synchronize()
         err = _hold("gmm_capacity", case, out, ref, GMM_TOL[dtype_name], res)
@@ -1298,6 +1355,11 @@ def capacity_kernel_phase(seed: int):
         flops = 2 * E * C * Din * Dout
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS
                               if dtype_name == "bfloat16" else FP32_FLOPS)
+        # the dynamic shared memory of the launcher's block for C rows (the
+        # element-by-element body's is static: None)
+        smem = (build.load(gmm.SOURCE).gmm_capacity_smem_bytes(
+                    ("sm90", "simt90").index(route), C)
+                if route != "simt" else None)
         ms = cuda_time_ms(lambda: gmm.gmm_capacity(x, w), warmup=2, iters=10)
         plain_ms = cuda_time_ms(lambda: gmm_capacity_ref(x, w), warmup=1,
                                 iters=3)
@@ -1312,9 +1374,10 @@ def capacity_kernel_phase(seed: int):
             kernel_ms=ms, kernel_graph_ms=graph_ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops,
             library_ms=lib_ms, library_graph_ms=lib_graph_ms, library=lib,
-            max_abs_err=err, tol=GMM_TOL[dtype_name])
+            max_abs_err=err, tol=GMM_TOL[dtype_name], smem_bytes=smem)
         log(f"kernel gmm_capacity [{case:22s}] {dtype_name} route={route} "
-            f"E={E} C={C} {Din}->{Dout}  {ms:.3f} ms (graph {_fmt(graph_ms)})"
+            f"smem={smem} E={E} C={C} {Din}->{Dout}  {ms:.3f} ms (graph "
+            f"{_fmt(graph_ms)})"
             f"  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})  library "
             f"{_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)}; {lib})  "
             f"max err {err:.3g}")
@@ -1330,7 +1393,7 @@ def capacity_ops_path(seed: int):
     ragged dispatch, moe_ffn_ref and ragged_gmm."""
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.gmm import ops, ragged
+    from repro_torch.kernels.gmm import gmm, ops, ragged
     from repro_torch.kernels.gmm.ref import moe_ffn_ref
     from repro_torch.models import moe
 
@@ -1361,11 +1424,15 @@ def capacity_ops_path(seed: int):
     counts = launch_counts()
     expect = {n: 0 for n in counts}
     expect["gmm_capacity"] = 3 + 1
+    routes = dict(gmm.ROUTE_LAUNCHES)
     log(f"ops[{OPS_PATH}]: capacity {cap}, dropped {int(dropped)}; launches "
-        f"counted {counts}, expected {expect}")
+        f"counted {counts}, expected {expect}; routes {routes}")
     if counts != expect or int(dropped) != 0:
         raise AssertionError(f"ops[{OPS_PATH}]: launches {counts} != {expect} "
                              f"or dropped {int(dropped)} != 0")
+    if routes != {"simt90": 4}:        # every fp32 operand here is aligned
+        raise AssertionError(f"ops[{OPS_PATH}]: capacity routes {routes}, "
+                             f"expected 4 on simt90")
     ragged_y = moe._dispatch_gmm({"w_gate": wg, "w_up": wu, "w_down": wd},
                                  cfg, x, weights, idx)
     checks = {"moe_ffn_gmm vs ragged dispatch": (y, ragged_y, 1e-4),
@@ -1490,6 +1557,7 @@ def flash_reference_phase(seed: int):
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import prompt_batch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServingEngine
 
@@ -1524,6 +1592,10 @@ def flash_reference_phase(seed: int):
     if not (counts["flash_attention"] and counts["decode_attention"]):
         raise AssertionError(f"reference use_flash: the kernels were not "
                              f"launched ({counts})")
+    flash_routes = {r for r, _ in fa.ROUTE_LAUNCHES}
+    if flash_routes != {"f32"}:
+        raise AssertionError(f"reference use_flash: fp32 flash launches took "
+                             f"{sorted(flash_routes)}, expected f32 only")
     (tc, tdisp, pt), (dc, _, pd) = params["target"], params["draft"]
     pb = prompt_batch(tc.vocab_size, 6, seed=seed, min_len=129, max_len=256)
     outputs = {}
@@ -1548,7 +1620,8 @@ def flash_reference_phase(seed: int):
                                  f"{key} != (use_flash, SD)")
     log(f"reference use_flash: reduced fp32 logits CUDA vs CPU max err "
         f"target {errs['target']:.2e}, draft {errs['draft']:.2e} (<= 1e-3), "
-        f"launches {counts}; greedy SD == AR == use_flash=False "
+        f"launches {counts}, flash routes {dict(fa.ROUTE_LAUNCHES)}; greedy "
+        f"SD == AR == use_flash=False "
         f"({base.shape[0]} prompts of 129-256 tokens x 24 tokens)")
 
 

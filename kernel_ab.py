@@ -18,11 +18,12 @@ each in a process of its own that builds its kernels into
 chip_smoke.py's: every bf16 case of its flash, capacity, paged, dense
 decode and ragged phases (``FLASH_CASES``, ``capacity_cases``,
 ``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
-``decode_inputs``, ``ragged_cases``) is held against its plain PyTorch
-version at chip_smoke.py's tolerance and timed as calls captured in one CUDA
-graph (``graph_time_ms``), beside the PyTorch call that computes the same
-function where there is one (``F.scaled_dot_product_attention``,
-``torch.bmm``, ``sdpa_gathered``, ``sdpa_dense``, ``grouped_mm_library``).
+``decode_inputs``, ``ragged_cases``), and every fp32 case of the first four,
+is held against its plain PyTorch version at chip_smoke.py's tolerance and
+timed as calls captured in one CUDA graph (``graph_time_ms``), beside the
+PyTorch call that computes the same function where there is one
+(``flash_library``: ``F.scaled_dot_product_attention``; ``torch.bmm`` with
+TF32 off; ``sdpa_gathered``, ``sdpa_dense``, ``grouped_mm_library``).
 Prints a line per (tree, case) and, last, a JSON object of the median time
 of each (tree, case).  ``--only`` keeps the named kinds of case: flash, gmm
 (the capacity GEMM), paged, decode (dense decode/verify), fused (ragged
@@ -48,7 +49,6 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
     line each."""
     sys.path.insert(0, str(root / "src"))
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -60,6 +60,7 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
                                              gmm_capacity_ref, ragged_gmm_ref)
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 torch.bmm in fp32
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
 
@@ -78,37 +79,32 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
 
     for case, (dtype_name, B, T, Hq, Hkv, D, window, cap) in \
             chip_smoke.FLASH_CASES.items():
-        if dtype_name != "bfloat16" or "flash" not in kinds:
+        if "flash" not in kinds:
             continue
-        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).bfloat16()
+        dt = getattr(torch, dtype_name)
+        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
         k, v = (torch.randn((B, T, Hkv, D), generator=gen, device=dev
-                            ).bfloat16() for _ in range(2))
+                            ).to(dt) for _ in range(2))
         kw = dict(window=window, logit_cap=cap)
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = None                 # SDPA has no tanh cap of its own
-        if window == 0 and cap == 0.0:
-            def lib():
-                return F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True, enable_gqa=True)
+        lib, _ = chip_smoke.flash_library(q, k, v, window, cap)
         emit("flash", case, flash.flash_attention(q, k, v, **kw),
              flash_attention_plain(q, k, v, **kw),
              chip_smoke.FLASH_TOL[dtype_name],
              lambda: flash.flash_attention(q, k, v, **kw), lib, 20)
-        del q, k, v, qh, kh, vh
-    for case, (dtype_name, E, C, K, Fo) in chip_smoke.capacity_cases().items():
-        if dtype_name != "bfloat16" or "gmm" not in kinds:
+        del q, k, v, lib
+    for case, spec in chip_smoke.capacity_cases().items():
+        if "gmm" not in kinds:
             continue
-        x = torch.randn((E, C, K), generator=gen, device=dev).bfloat16()
-        w = (torch.randn((E, K, Fo), generator=gen, device=dev) / K ** 0.5
-             ).bfloat16()
+        dt = getattr(torch, spec[0])
+        x, w = chip_smoke.capacity_inputs(case, spec, gen, dev)
         emit("gmm", case, gmm.gmm_capacity(x, w), gmm_capacity_ref(x, w),
-             chip_smoke.GMM_TOL[dtype_name], lambda: gmm.gmm_capacity(x, w),
-             lambda: torch.bmm(x, w), 10)
+             chip_smoke.GMM_TOL[spec[0]], lambda: gmm.gmm_capacity(x, w),
+             lambda: torch.bmm(x, w), 10 if dt == torch.bfloat16 else 3)
         del x, w
         torch.cuda.empty_cache()
     for case, spec in chip_smoke.PAGED_CASES.items():
         dtype_name, _, _, _, cap = spec
-        if dtype_name != "bfloat16" or "paged" not in kinds:
+        if "paged" not in kinds:
             continue
         heads = chip_smoke.PAGED_HEADS.get(case, chip_smoke.SERVE_HEADS)
         args = chip_smoke.paged_inputs(spec, gen, dev, heads)
@@ -122,7 +118,7 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
         del args, lib
         torch.cuda.empty_cache()
     for case, spec in chip_smoke.DECODE_CASES.items():
-        if spec[0] != "bfloat16" or "decode" not in kinds:
+        if "decode" not in kinds:
             continue
         args = chip_smoke.decode_inputs(spec, gen, dev)
         lib, _ = chip_smoke.sdpa_dense(*args)

@@ -3,7 +3,7 @@
 on the card: faults that a tolerance must catch, and the tile and split
 choices of the TMA + wgmma kernels.
 
-    python3 kernel_variants.py mutants
+    python3 kernel_variants.py mutants [NAME ...]
     python3 kernel_variants.py tune NAME [NAME ...]
 
 Each variant is this checkout's ``src/repro_torch`` copied to the ignored
@@ -15,10 +15,14 @@ its own ``build/kernels``.
 ``mutants`` runs every bf16 case of chip_smoke.py's paged and dense decode
 phases (``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
 ``decode_inputs``; the dense decode's fp32 cases at head dim 256 too, which
-attention_tile's CUDA-core body runs) and of its ragged phase (the fused gate/up and down
-kernels on ``ragged_cases``), same seeds, through this tree and each
-``FAULTS`` variant, and prints, per case, the largest elementwise error
-over the kernel's tolerance (``PAGED_TOL``, ``DECODE_TOL``, ``TOL``) and,
+attention_tile's CUDA-core body runs), of its ragged phase (the fused gate/up and down
+kernels on ``ragged_cases``) and every fp32 case of its flash and capacity
+GEMM phases (``FLASH_CASES``, ``capacity_cases``), same seeds, through this
+tree and each ``FAULTS`` variant named (every one by default; a fault tree
+runs only the kinds of case its fault is planted in), and prints, per case,
+the largest elementwise error
+over the kernel's tolerance (``PAGED_TOL``, ``DECODE_TOL``, ``TOL``,
+``FLASH_TOL``, ``GMM_TOL``) and,
 for the attention kernels, the largest error over the rms of its output row
 over its row bound (``PAGED_ROW_TOL``, ``DECODE_ROW_TOL``); above 1 fails
 chip_smoke.py (a non-finite output counts as infinitely far; an fp32 case
@@ -27,7 +31,8 @@ fault is caught in each case ``FAULT_CASES`` names for it: a bf16 attention
 fault by the row bound (the TMA + wgmma bodies' faults at long context,
 the head-dim-256 bodies' at gemma's heads and lengths), an fp32 one and a
 ragged one by the tolerance (ragged at every serving case: SD verify, AR
-verify, prefill); and this tree passes every bound everywhere.
+verify, prefill), a fault of kernels 5 and 6's fp32 bodies by the tolerance
+in every fp32 case; and this tree passes every bound everywhere.
 
 ``tune`` times the named ``TUNING`` variants against this tree with
 kernel_ab.py (this tree first, A B ... B A), on the cases of the kernels
@@ -49,6 +54,8 @@ SPLITKV = "kernels/csrc/splitkv_sm90.cuh"
 FLASH = "kernels/flash_attention/csrc/flash_sm90.cuh"
 RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
 TILE = "kernels/csrc/attention_tile.cuh"
+FLASH32 = "kernels/flash_attention/csrc/flash_f32.cuh"
+CAPACITY = "kernels/gmm/csrc/gmm_capacity.cu"
 
 FAULTS = {
     # the combine step (shared by the paged and dense bodies) leaves out the
@@ -86,6 +93,22 @@ FAULTS = {
                                    "/ BK + 1);",
                            "const int n_chunks = max(1, min(p.cps, (last - k0) "
                            "/ BK + 1) - 1);")],
+    # kernel 5's fp32 bodies (both: Q in shared memory, Q in registers) skip
+    # their last key chunk, or do not rescale O when a row's max rises
+    "flash32_last_chunk": [(FLASH32, "for (int c = 0; c < n_chunks; ++c) {",
+                            "for (int c = 0; c + 1 < n_chunks; ++c) {"),
+                           (FLASH32, "for (int c = 0; c < tl.n_chunks; ++c) {",
+                            "for (int c = 0; c + 1 < tl.n_chunks; ++c) {")],
+    "flash32_no_rescale": [(FLASH32, "o[i][cc] *= corr;", "o[i][cc] *= 1.f;"),
+                           (FLASH32, "o[i][cc] *= ci;", "o[i][cc] *= 1.f;")],
+    # kernel 6's fp32 body drops the last K tile, or stages the first K
+    # column of every tile of x as zeros
+    "simt90_last_k_tile": [(CAPACITY, "for (int kt = 0; kt < nk; ++kt) {",
+                            "for (int kt = 0; kt + 1 < nk; ++kt) {")],
+    "simt90_x_col0_zero": [(CAPACITY, "xr[q][0] = v.x;\n        xr[q][1] = v.y;\n"
+                                      "        xr[q][2] = v.z;",
+                            "xr[q][0] = kq == 0 ? 0.f : v.x;\n        "
+                            "xr[q][1] = v.y;\n        xr[q][2] = v.z;")],
 }
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
 # chip_smoke's bf16 cases at head dim 256 on gemma's heads and lengths (the
@@ -95,6 +118,26 @@ GEMMA_DECODE = ("gemma3_sd_verify", "gemma3_ar", "gemma3_gamma8_verify",
                 "gemma7b_sd_verify")
 TILE_DECODE = ("fp32_gemma3_sd_verify", "gemma3_wide_verify")
 GEMMA_PAGED = ("gemma3_sd_verify", "gemma3_ar_verify", "gemma7b_sd_verify")
+
+
+def _fp32_cases(cases: dict) -> tuple:
+    return tuple(name for name, spec in cases.items() if spec[0] == "float32")
+
+
+def flash_fp32_cases() -> tuple:
+    """chip_smoke.py's fp32 flash cases (head dims 64, 128, 256)."""
+    import chip_smoke
+    return _fp32_cases(chip_smoke.FLASH_CASES)
+
+
+def gmm_fp32_cases() -> tuple:
+    """chip_smoke.py's fp32 capacity GEMM cases on the simt90 body (the
+    unaligned one runs the element-by-element body)."""
+    import chip_smoke
+    return tuple(c for c in _fp32_cases(chip_smoke.capacity_cases())
+                 if c not in chip_smoke.UNALIGNED_CAPACITY)
+
+
 # fault: {kernel it is planted in: the cases of that kernel that must each
 # catch it}
 FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
@@ -106,7 +149,12 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                                         "down": SERVING_CASES},
                "tile_last_chunk": {"decode": TILE_DECODE},
                "decode_last_chunk": {"decode": GEMMA_DECODE},
-               "paged_last_chunk": {"paged": GEMMA_PAGED + ("long_context",)}}
+               "paged_last_chunk": {"paged": GEMMA_PAGED + ("long_context",)},
+               # every fp32 case of kernels 5 and 6, by the tolerance
+               "flash32_last_chunk": {"flash": flash_fp32_cases},
+               "flash32_no_rescale": {"flash": flash_fp32_cases},
+               "simt90_last_k_tile": {"gmm": gmm_fp32_cases},
+               "simt90_x_col0_zero": {"gmm": gmm_fp32_cases}}
 TUNING = {
     # splits for 2 or 4 blocks per SM at long context instead of 1
     "paged_waves2": [(PAGED, "constexpr int WAVES = 1;",
@@ -164,12 +212,25 @@ TUNING = {
                     "BN = NMAT == 1 ? 128 : 64;"),
                    (RAGGED, "STAGES = NMAT == 1 ? 5 : 5;",
                     "STAGES = NMAT == 1 ? 5 : 8;")],
+    # kernel 6's fp32 body: K 16 deep a stage; 4 stages (room for one
+    # block an SM)
+    "simt90_bk16": [(CAPACITY, "constexpr int BK = 32;                       // K per stage",
+                     "constexpr int BK = 16;")],
+    "simt90_stages4": [(CAPACITY, "constexpr int STAGES = 3;",
+                        "constexpr int STAGES = 4;")],
+    # kernel 5's fp32 bodies: q in registers at head dim 128 too; 16-key
+    # chunks for it at 256
+    "flash32_qreg_d128": [(FLASH32, "constexpr int QREG_MIN_D = 256;",
+                           "constexpr int QREG_MIN_D = 128;")],
+    "flash32_qreg_bn16": [(FLASH32, "static constexpr int BN = 32;",
+                           "static constexpr int BN = 16;")],
 }
 VARIANTS = {**FAULTS, **TUNING}
 # the kernel_ab.py kinds a tuning variant changes, by its name's prefix
 TUNE_KINDS = {"paged": ("paged",), "decode": ("decode",),
               "decode256": ("decode",),
               "splitkv": ("paged", "decode"), "flash": ("flash",),
+              "flash32": ("flash",), "simt90": ("gmm",),
               "ragged": ("down",), "fused": ("fused",)}
 
 
@@ -190,9 +251,15 @@ def make_tree(name: str) -> Path:
     return tree
 
 
+KINDS = ("paged", "decode", "fused", "down", "flash", "gmm")
+
+
 def child_errors(root: Path, label: str) -> None:
-    """One JSON line per bf16 paged, dense decode and ragged case: errors
-    over the bounds."""
+    """One JSON line per case: the bf16 paged, dense decode and ragged
+    cases, the dense decode's fp32 ones at head dim 256, and the fp32 flash
+    and capacity GEMM cases (a fault tree's: only those of the kinds its
+    fault is planted in); errors over the bounds."""
+    kinds = tuple(FAULT_CASES[label]) if label in FAULTS else KINDS
     sys.path.insert(0, str(root / "src"))
     import torch
 
@@ -201,8 +268,12 @@ def child_errors(root: Path, label: str) -> None:
     from repro_torch.kernels.decode_attention import ops, paged
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain, paged_decode_attention_plain)
-    from repro_torch.kernels.gmm import ragged
-    from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.gmm import gmm, ragged
+    from repro_torch.kernels.gmm.ref import (fused_gate_up_ref,
+                                             gmm_capacity_ref, ragged_gmm_ref)
 
     def report(kernel, case, out, ref, tol, row_tol, route):
         out, ref = out.float(), ref.float()
@@ -218,12 +289,43 @@ def child_errors(root: Path, label: str) -> None:
               flush=True)
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the fp32 GEMM's oracle
+    gen = torch.Generator(device=dev).manual_seed(3)   # chip_smoke's seed 0
+    for case, (dtype_name, B, T, Hq, Hkv, D, window, cap) in \
+            chip_smoke.FLASH_CASES.items():
+        if "flash" not in kinds:
+            break
+        dt = getattr(torch, dtype_name)
+        q = torch.randn((B, T, Hq, D), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        if dtype_name != "float32":
+            continue
+        kw = dict(window=window, logit_cap=cap)
+        report("flash", case, flash_ops.flash_attention(q, k, v, **kw),
+               flash_attention_plain(q, k, v, **kw),
+               chip_smoke.FLASH_TOL[dtype_name], None,
+               flash_attention.LAST_ROUTE["flash_attention"])
+        del q, k, v
+    gen = torch.Generator(device=dev).manual_seed(5)   # chip_smoke's seed 0
+    for case, spec in chip_smoke.capacity_cases().items():
+        if "gmm" not in kinds:
+            break
+        dtype_name = spec[0]
+        x, w = chip_smoke.capacity_inputs(case, spec, gen, dev)
+        if dtype_name != "float32":
+            continue
+        report("gmm", case, gmm.gmm_capacity(x, w), gmm_capacity_ref(x, w),
+               chip_smoke.GMM_TOL[dtype_name], None,
+               gmm.LAST_ROUTE["gmm_capacity"])
+        del x, w
+        torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(2)   # chip_smoke's seed 0
     for case, spec in chip_smoke.PAGED_CASES.items():
         heads = chip_smoke.PAGED_HEADS.get(case, chip_smoke.SERVE_HEADS)
         args = chip_smoke.paged_inputs(spec, gen, dev, heads)
         dtype_name, _, _, _, cap = spec
-        if dtype_name != "bfloat16":
+        if dtype_name != "bfloat16" or "paged" not in kinds:
             continue
         out = paged.paged_decode_attention(*args, logit_cap=cap)
         report("paged", case, out,
@@ -234,14 +336,15 @@ def child_errors(root: Path, label: str) -> None:
     for case, spec in chip_smoke.DECODE_CASES.items():
         args = chip_smoke.decode_inputs(spec, gen, dev)
         bf16 = spec[0] == "bfloat16"
-        if not bf16 and spec[5] != 256:
+        if (not bf16 and spec[5] != 256) or "decode" not in kinds:
             continue
         out = ops.decode_attention(*args)
         report("decode", case, out, decode_attention_plain(*args),
                chip_smoke.DECODE_TOL[spec[0]],
                chip_smoke.DECODE_ROW_TOL if bf16 else None,
                ops.LAST_ROUTE["decode_attention"])
-    del args, out
+    if not {"fused", "down"} & set(kinds):
+        return
     # chip_smoke.kernel_phase's inputs at seed 0, in its order
     cfg = get_config("qwen2-57b-a14b")
     E, K, D, F = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
@@ -255,15 +358,25 @@ def child_errors(root: Path, label: str) -> None:
         xs = torch.randn((int(sizes.sum()), D), generator=gen, device=dev
                          ).bfloat16()
         h = fused_gate_up_ref(xs, wg, wu, sizes)
-        report("fused", case, ragged.fused_gate_up(xs, wg, wu, sizes), h,
-               chip_smoke.TOL, None, ragged.LAST_ROUTE["fused_gate_up"])
-        report("down", case, ragged.ragged_gmm(h, wd, sizes),
-               ragged_gmm_ref(h, wd, sizes), chip_smoke.TOL, None,
-               ragged.LAST_ROUTE["ragged_gmm"])
+        if "fused" in kinds:
+            report("fused", case, ragged.fused_gate_up(xs, wg, wu, sizes), h,
+                   chip_smoke.TOL, None, ragged.LAST_ROUTE["fused_gate_up"])
+        if "down" in kinds:
+            report("down", case, ragged.ragged_gmm(h, wd, sizes),
+                   ragged_gmm_ref(h, wd, sizes), chip_smoke.TOL, None,
+                   ragged.LAST_ROUTE["ragged_gmm"])
 
 
-def mutants() -> int:
-    trees = {".": ROOT, **{name: make_tree(name) for name in FAULTS}}
+def _fault_cases(name: str) -> dict:
+    """{kernel: the cases that must each catch fault ``name``}."""
+    return {kernel: cases() if callable(cases) else cases
+            for kernel, cases in FAULT_CASES[name].items()}
+
+
+def mutants(names=()) -> int:
+    """This tree and each fault of ``names`` (every fault by default)."""
+    names = tuple(names) or tuple(FAULTS)
+    trees = {".": ROOT, **{name: make_tree(name) for name in names}}
     rows = []
     for label, tree in trees.items():
         proc = subprocess.run([sys.executable, __file__, "--child-errors",
@@ -291,9 +404,9 @@ def mutants() -> int:
                    for r in rows if r["tree"] == name
                    and r["kernel"] == kernel and r["case"] == case)
 
-    missed = [(name, kernel, case) for name, kernels in FAULT_CASES.items()
-              for kernel, cases in kernels.items() for case in cases
-              if not caught(name, kernel, case)]
+    missed = [(name, kernel, case) for name in names
+              for kernel, cases in _fault_cases(name).items()
+              for case in cases if not caught(name, kernel, case)]
     ok = (all(r["err_over_tol"] <= 1 and (r["row_err_over_bound"] is None
                                           or r["row_err_over_bound"] <= 1)
               for r in sound) and not missed)
@@ -316,8 +429,12 @@ def main() -> int:
     if args.child_errors:
         child_errors(Path(args.child_errors[0]), args.child_errors[1])
         return 0
+    sys.path.insert(0, str(ROOT / "src"))   # chip_smoke's case lists
     if args.mode == "mutants":
-        return mutants()
+        unknown = [n for n in args.names if n not in FAULTS]
+        if unknown:
+            ap.error(f"unknown faults {unknown}; known: {sorted(FAULTS)}")
+        return mutants(args.names)
     if args.mode != "tune" or not args.names:
         ap.error("give mutants, or tune with variant names from TUNING")
     unknown = [n for n in args.names if n not in TUNING]

@@ -1,5 +1,5 @@
-"""Checks and launch arguments shared by the wrappers of the two kernels
-built on ``csrc/attention_tile.cuh`` (flash prefill and dense decode/verify).
+"""Checks and launch arguments shared by the wrappers of the flash prefill
+and dense decode/verify kernels.
 
 Both kernels read q, k, v and write out in place through element strides, so
 a wrapper hands them the model's (B, T, H, D) tensors, a (B, H, T, D) view

@@ -1,8 +1,8 @@
-// One block of online-softmax attention for Hopper (sm_90a): the body shared
-// by the flash prefill kernel (kernels/flash_attention/csrc/flash_attention.cu,
-// fp32 only: bf16 runs flash_sm90.cuh) and the dense decode/verify kernel
-// (kernels/decode_attention/csrc/decode_attention.cu, bf16 off the split-KV
-// body's shapes: head dim 32, or more than 64 rows a KV head; and fp32).
+// One block of online-softmax attention for Hopper (sm_90a): a body of the
+// dense decode/verify kernel (kernels/decode_attention/csrc/decode_attention.cu,
+// bf16 off the split-KV body's shapes: head dim 32, or more than 64 rows a KV
+// head; and fp32).  The flash prefill kernel has bodies of its own
+// (flash_sm90.cuh in bf16, flash_f32.cuh in fp32).
 //
 // A block owns up to BM query rows that share one KV head and walks that
 // head's keys in chunks of BK = 64.  BM is 64 at head dims up to 128 and 32 at
@@ -12,11 +12,11 @@
 //   out[row] = softmax_k( cap(q[row] . K[k] * scale) | visible(row, k) ) . V
 //
 // Row r of a block is query position t = t0 + r / G of query head
-// hg * G + r % G.  The flash kernel takes G = 1 (64 positions of one head);
-// the decode kernel folds the g = Hq / Hkv heads of a KV head into the rows
-// (G = g, as the TPU kernel folds them), so each staged K/V chunk serves every
-// query head that reads it.  A row sits at query position base + t, where base
-// is lengths[b] (decode) or 0 (flash, which masks by index).  Key k is visible
+// hg * G + r % G: the decode kernel folds the g = Hq / Hkv heads of a KV head
+// into the rows (G = g, as the TPU kernel folds them), so each staged K/V
+// chunk serves every query head that reads it.  A row sits at query position
+// base + t, where base is lengths[b] (or 0 without lengths, masking by
+// index).  Key k is visible
 // if k < kend and, when causal, k <= base + t and (window > 0) k > base + t -
 // window; otherwise every key below S is.  Keys at or past kend = min(S, last
 // query position + 1) are never read, so a dense cache's trash slot S is not
@@ -43,10 +43,10 @@
 
 #include <type_traits>
 
-// Internal linkage: two libraries built from this header (flash and decode)
-// are loaded into one process, and a template's static local (the opt-in flag
-// of launch<>) with external linkage would be one object shared by both, so
-// the second library would skip its own shared-memory opt-in.
+// Internal linkage: several kernel libraries are loaded into one process,
+// and a template's static local (the opt-in flag of launch<>) with external
+// linkage would be one object shared by every library built from this
+// header, so a second one would skip its own shared-memory opt-in.
 namespace attn {
 namespace {
 

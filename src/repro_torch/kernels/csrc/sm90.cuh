@@ -2,9 +2,10 @@
 // shared-memory tiles filled by the Tensor Memory Accelerator (TMA) and
 // consumed by warpgroup matrix multiplies (wgmma): mbarriers, TMA loads,
 // wgmma shared-memory descriptors and instructions, register reallocation
-// (setmaxnreg), and the host-side encoding of a tensor map.
+// (setmaxnreg), and the host-side encoding of a tensor map; and the per-thread
+// cp.async copies of the fp32 CUDA-core bodies.
 //
-// Used by kernels/flash_attention/csrc/flash_sm90.cuh,
+// Used by kernels/flash_attention/csrc/flash_sm90.cuh and flash_f32.cuh,
 // kernels/decode_attention/csrc/paged_sm90.cuh, kernels/gmm/csrc/gmm_capacity.cu
 // and kernels/gmm/csrc/ragged_sm90.cuh.  Everything is raw PTX; no CUTLASS.
 //
@@ -114,6 +115,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Per-thread asynchronous copies, global -> shared (cp.async): each thread
+// issues its own 16-byte pieces, closes them into a group, and waits until
+// at most N of its newest groups are still in flight; a barrier then makes
+// every thread's pieces visible.  A piece with `valid` false reads nothing
+// and writes zeros (source size 0).  The fp32 CUDA-core bodies
+// (flash_f32.cuh, gmm_capacity.cu's simt90 kernel) fill their rings so.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Order this thread's generic-proxy writes to shared memory before later

@@ -165,3 +165,21 @@ extern "C" int decode_sm90_smem_bytes(int head_dim) {
   if (head_dim == 256) return splitkv::Cfg<256>::BYTES;
   return -2;
 }
+
+// Dynamic shared memory of a block of attention_tile.cuh's body (the fp32
+// dense decode kernel, and the bf16 one off the split-KV body's shapes) for
+// this dtype (0 = bf16, 1 = fp32) and head dim (for reports), or -2 for one
+// it is not built for.
+extern "C" int attention_tile_smem_bytes(int dtype, int head_dim) {
+  switch (head_dim) {
+    case 32: return dtype == 0 ? attn::Layout<attn::bf16, 32>::BYTES
+                               : attn::Layout<float, 32>::BYTES;
+    case 64: return dtype == 0 ? attn::Layout<attn::bf16, 64>::BYTES
+                               : attn::Layout<float, 64>::BYTES;
+    case 128: return dtype == 0 ? attn::Layout<attn::bf16, 128>::BYTES
+                                : attn::Layout<float, 128>::BYTES;
+    case 256: return dtype == 0 ? attn::Layout<attn::bf16, 256>::BYTES
+                                : attn::Layout<float, 256>::BYTES;
+  }
+  return -2;
+}

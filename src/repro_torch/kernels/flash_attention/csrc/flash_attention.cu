@@ -30,51 +30,25 @@
 //     At head dim 256 (gemma-7b, gemma3-12b) the chunks are 64 keys, the
 //     ring 2 stages and the wide shape's Q one buffer, so a 64 x 256 O
 //     accumulator per consumer warpgroup and the tiles fit (flash_sm90.cuh).
-//   * fp32 (the parity checks): attention_tile.cuh's CUDA-core path in full
-//     fp32, 64 positions (32 at head dim 256) of one head per block (G = 1),
-//     the body and fp32 numerics of the dense decode kernel.
+//   * fp32 (the parity checks, at every head dim): flash_f32.cuh, full fp32
+//     on the CUDA cores.  64 query positions of one head a block with O and
+//     the softmax state in registers (at head dim 256 q too, on d-slices
+//     whose partial scores shuffles sum), float4 shared-memory reads, K/V
+//     chunks through a 2-stage cp.async ring, and the grid heaviest first.
 //   * q, k, v and out are read and written in place through strides, in the
 //     (B, H, T, D) layout of flash_attention_bhtd or the (B, T, H, D) layout
 //     of the model alike.
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
-#include "../../csrc/attention_tile.cuh"
+#include "flash_f32.cuh"
 #include "flash_sm90.cuh"
-
-namespace {
-
-// fp32 on attention_tile.cuh's CUDA-core body
-template <int D>
-int launch_tile(const long long* strides, const void* q, const void* k, const void* v,
-                void* out, int B, int T, int S, int Hq, int Hkv, int causal, int window,
-                float scale, float logit_cap, void* stream) {
-  attn::Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.lengths = nullptr;                       // positions are indices
-  attn::set_strides(p, strides);
-  p.T = T;
-  p.S = S;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.G = 1;                                   // positions of one head per block
-  p.causal = causal;
-  p.window = window;
-  p.scale = scale;
-  p.cap = logit_cap;
-  return attn::launch<float, D>(p, B, stream);
-}
-
-}  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64, 128 or 256.  strides: 12
 // element strides, q (b, t, h), k (b, s, h), v (b, s, h), out (b, t, h); the
 // head dim is contiguous and every row 16-byte aligned.  *kernel is set to the
 // kernel the call launches: 0 = flash_sm90_kernel (TMA + wgmma), 1 =
-// attention_tile's CUDA-core body.  Returns cudaGetLastError() after the launch, -1 for shapes
+// flash_f32_kernel (CUDA cores).  Returns cudaGetLastError() after the launch, -1 for shapes
 // the kernels do not take, -2 for a dtype or head dim they are not built for,
 // -3/-4 when the CUDA driver cannot encode the tensor maps.
 extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
@@ -91,16 +65,8 @@ extern "C" int flash_attention_launch(int dtype, int head_dim, const void* q,
   }
   if (dtype == 1) {
     *kernel = 1;
-    switch (head_dim) {
-      case 32: return launch_tile<32>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
-                                      window, scale, logit_cap, stream);
-      case 64: return launch_tile<64>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
-                                      window, scale, logit_cap, stream);
-      case 128: return launch_tile<128>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
-                                        window, scale, logit_cap, stream);
-      case 256: return launch_tile<256>(strides, q, k, v, out, B, T, S, Hq, Hkv, causal,
-                                        window, scale, logit_cap, stream);
-    }
+    return flash32::launch_any(head_dim, q, k, v, out, strides, B, T, S, Hq, Hkv, causal,
+                               window, scale, logit_cap, static_cast<cudaStream_t>(stream));
   }
   return -2;
 }
@@ -111,21 +77,6 @@ extern "C" int flash_sm90_smem_bytes(int head_dim, int nc) {
   return flash90::smem_bytes(head_dim, nc);
 }
 
-// Dynamic shared memory of a block of attention_tile.cuh's body (the fp32
-// flash and decode kernels, and the bf16 dense decode kernel at head dim
-// 256) for this dtype
-// (0 = bf16, 1 = fp32) and head dim (for reports), or -2 for one it is not
-// built for.
-extern "C" int attention_tile_smem_bytes(int dtype, int head_dim) {
-  switch (head_dim) {
-    case 32: return dtype == 0 ? attn::Layout<attn::bf16, 32>::BYTES
-                               : attn::Layout<float, 32>::BYTES;
-    case 64: return dtype == 0 ? attn::Layout<attn::bf16, 64>::BYTES
-                               : attn::Layout<float, 64>::BYTES;
-    case 128: return dtype == 0 ? attn::Layout<attn::bf16, 128>::BYTES
-                                : attn::Layout<float, 128>::BYTES;
-    case 256: return dtype == 0 ? attn::Layout<attn::bf16, 256>::BYTES
-                                : attn::Layout<float, 256>::BYTES;
-  }
-  return -2;
-}
+// Dynamic shared memory of a block of the fp32 body at this head dim (for
+// reports), or -2 for a head dim it is not built for.
+extern "C" int flash_f32_smem_bytes(int head_dim) { return flash32::smem_bytes(head_dim); }

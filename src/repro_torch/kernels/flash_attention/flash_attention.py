@@ -11,9 +11,9 @@ Port of ``repro.kernels.flash_attention.flash_attention.flash_attention_bhtd``:
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
 the kernel or raise.  ``LAUNCHES`` counts kernel launches.  bf16 runs the
 TMA + wgmma kernel (``csrc/flash_sm90.cuh``) at every head dim (32 to 256),
-fp32 the CUDA-core body of ``kernels/csrc/attention_tile.cuh``; the launcher
+fp32 the CUDA-core body of ``csrc/flash_f32.cuh``; the launcher
 reports which one it launched, and ``LAST_ROUTE`` holds it (``"sm90"`` or
-``"simt"``); ``ROUTE_LAUNCHES`` tallies launches by (route, head dim).
+``"f32"``); ``ROUTE_LAUNCHES`` tallies launches by (route, head dim).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ LAST_ROUTE = {"flash_attention": None}
 # launches since the last reset by (route, head dim): eager calls and
 # the calls a CUDA graph captures (a replay runs what was captured)
 ROUTE_LAUNCHES: Counter = Counter()
-_ROUTES = ("sm90", "simt")     # the launcher's kernel codes
+_ROUTES = ("sm90", "f32")      # the launcher's kernel codes
 BLOCK = 128                    # the reference's bq = bk
 NARROW_MAX_T = 512             # flash_sm90.cuh: 64-query items up to this T
 

@@ -17,7 +17,8 @@
 // have to run on the tensor cores and each weight tile should be read from
 // device memory as few times as the bins allow.
 //
-// Three kernels; the wrapper (gmm.py, _route) picks one per call:
+// Four kernels; the wrapper (gmm.py, _route) picks one per call, before the
+// launch, from the operands' dtype, pitches and bases:
 //
 //   * gmm_capacity_sm90_kernel, bf16 whenever TMA can address the operands
 //     (K and F multiples of 8 elements, 16-byte aligned bases): the shapes of
@@ -46,8 +47,32 @@
 //   * gmm_capacity_tc_kernel, bf16 shapes TMA cannot address (a row pitch
 //     that is not a multiple of 16 bytes, an unaligned base): WMMA 16x16x16
 //     tiles of 64 (or 16) rows x 64 columns staged through registers.
-//   * gmm_capacity_simt_kernel, fp32 (used by the parity checks), on the CUDA
-//     cores in full fp32.
+//   * gmm_capacity_simt90_kernel, fp32 (the parity checks and the ops path)
+//     whenever every 16-byte piece it copies is aligned (K and F multiples of
+//     4, 16-byte aligned bases).  Full fp32 on the CUDA cores (fmaf, no TF32),
+//     so the bound is operations at 67 TFLOP/s: 2.2 ms at the SD-verify
+//     capacity, against 0.7 ms of bytes.
+//       - A block tile is 128 x 128 outputs (64 x 128 for bins of at most 64
+//         rows), 256 threads of 8 x 8 (4 x 8) outputs each: thread (ty, tx)
+//         owns rows 4 ty + 64 g + {0..3} and columns 4 tx + 64 h + {0..3}.
+//       - x is staged K-major, w row-major, so each k step is two float4
+//         reads of x and two of w for 64 FMAs.  An SM issues 4 warp
+//         instructions a cycle, as many as its FMA units take, so every
+//         other instruction costs an FMA: x goes through registers (a float4
+//         along K of each of 4 rows a thread, loaded two tiles ahead, stored
+//         as 4 float4s of the transposed tile after this tile's FMAs), which
+//         measured 12-14 % faster than per-element cp.async copies of it
+//         (PERF.md, section 6).
+//       - A ring of 3 stages of BK = 32 (100 KB, two blocks an SM); w's
+//         tile arrives by cp.async, in flight two stages ahead, with one
+//         barrier a stage.
+//       - Rows past C and columns or K past the operands are zero fill (a bin
+//         never reads another expert's rows); the store masks rows >= C and
+//         columns >= F.  Adjacent blocks take the row tiles of one weight
+//         tile, so at C 512 the four reads of it meet in L2.
+//   * gmm_capacity_simt_kernel, fp32 operands simt90 cannot copy (a pitch
+//     not a multiple of 16 bytes, an unaligned base): 64 x 64 tiles staged
+//     element by element through registers.
 //
 // Plain C interface for ctypes; the launchers return cudaGetLastError(), or
 // a negative code for arguments they refuse.
@@ -68,13 +93,14 @@ using bf16 = __nv_bfloat16;
 constexpr int BN = 64;                       // output columns per block
 
 // Stage a ROWS x COLS tile of a row-major matrix (leading dimension ld) into
-// shared memory (pitch PITCH elements).  Tile row i is global row row0 + i,
-// read only if it is below row_end, and column c only if it is below col_end;
-// everything else is 0.  With vec, aligned 16-byte chunks are loaded whole.
+// shared memory (pitch PITCH elements), element by element (the operands
+// that come here are not 16-byte aligned).  Tile row i is global row
+// row0 + i, read only if it is below row_end, and column c only if it is
+// below col_end; everything else is 0.
 template <typename T, int ROWS, int COLS, int PITCH, int NT>
 __device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src,
                                            long long ld, int row0, int row_end,
-                                           int col0, int col_end, bool vec) {
+                                           int col0, int col_end) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS_PER_ROW = COLS / VEC;
   constexpr int CHUNKS = ROWS * CHUNKS_PER_ROW;
@@ -86,14 +112,9 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src,
     T* d = dst + i * PITCH + j;
     const bool row_ok = grow < row_end;
     alignas(16) T vals[VEC];
-    if (row_ok && vec && gcol + VEC <= col_end) {
-      *reinterpret_cast<uint4*>(vals) =
-          __ldg(reinterpret_cast<const uint4*>(src + grow * ld + gcol));
-    } else {
 #pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        vals[v] = (row_ok && gcol + v < col_end) ? src[grow * ld + gcol + v] : T(0.0f);
-    }
+    for (int v = 0; v < VEC; ++v)
+      vals[v] = (row_ok && gcol + v < col_end) ? src[grow * ld + gcol + v] : T(0.0f);
     if constexpr (PITCH * sizeof(T) % 16 == 0) {
       *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(vals);
     } else {
@@ -144,8 +165,8 @@ gmm_capacity_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   for (int t = 0; t < TPW; ++t) wmma::fill_fragment(acc[t], 0.0f);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_tile<bf16, BM, BK, XP, NT>(xs, xe, K, row0, C, k0, K, false);
-    stage_tile<bf16, BK, BN, WP, NT>(ws, we, F, k0, K, col0, F, false);
+    stage_tile<bf16, BM, BK, XP, NT>(xs, xe, K, row0, C, k0, K);
+    stage_tile<bf16, BK, BN, WP, NT>(ws, we, F, k0, K, col0, F);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -178,11 +199,11 @@ gmm_capacity_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-// ---------------------------------------------------------------- fp32 path
+// ------------------------------------------------------ fp32, unaligned
 template <int BM>
 __global__ void __launch_bounds__(256)
 gmm_capacity_simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                         float* __restrict__ out, int C, int K, int F, bool vec) {
+                         float* __restrict__ out, int C, int K, int F) {
   constexpr int NT = 256;
   constexpr int BK = 32;
   constexpr int COL_GROUPS = BN / 4;         // 16 threads span 64 columns
@@ -207,8 +228,8 @@ gmm_capacity_simt_kernel(const float* __restrict__ x, const float* __restrict__ 
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_tile<float, BM, BK, XP, NT>(xs, xe, K, row0, C, k0, K, vec);
-    stage_tile<float, BK, BN, WP, NT>(ws, we, F, k0, K, col0, F, vec);
+    stage_tile<float, BM, BK, XP, NT>(xs, xe, K, row0, C, k0, K);
+    stage_tile<float, BK, BN, WP, NT>(ws, we, F, k0, K, col0, F);
     __syncthreads();
 #pragma unroll 8
     for (int k = 0; k < BK; ++k) {
@@ -236,6 +257,187 @@ gmm_capacity_simt_kernel(const float* __restrict__ x, const float* __restrict__ 
     }
   }
 }
+
+// -------------------------------------------------- fp32, CUDA cores, cp.async
+namespace simt90 {
+
+constexpr int BN = 128;                      // output columns per block
+constexpr int BK = 32;                       // K per stage
+constexpr int STAGES = 3;                    // ring depth
+constexpr int NT = 256;                      // 16 x 16 threads
+
+template <int BM>                            // 128, or 64 for bins of <= 64 rows
+struct Cfg {
+  static constexpr int MG = BM / 64;         // 64-row groups: 4 rows a thread each
+  static constexpr int XP = BM + 4;          // x tile pitch (K-major), 16B rows
+  static constexpr int X_FLOATS = BK * XP;
+  static constexpr int STAGE = X_FLOATS + BK * BN;
+  static constexpr int BYTES = STAGES * STAGE * 4;
+  static constexpr int KT = BM * BK / NT / 4;   // x: 4 rows x KT k a thread
+  static constexpr int KQ = BK / KT;            // threads along K of a row quad
+  static constexpr int W_PER_THREAD = BK * BN / 4 / NT;    // 16-byte copies
+  static_assert(KT * 4 * NT == BM * BK && BK * BN / 4 % NT == 0, "even staging");
+};
+
+// One block: expert blockIdx.z, rows [blockIdx.x * BM, + BM) of its bin,
+// columns [blockIdx.y * BN, + BN).  K and F multiples of 4, x, w and out
+// 16-byte aligned (the launcher checks).
+template <int BM>
+__global__ void __launch_bounds__(NT, 2)
+gmm_capacity_simt90_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                           float* __restrict__ out, int C, int K, int F) {
+  using L = Cfg<BM>;
+  constexpr int MG = L::MG;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int e = blockIdx.z, row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const float* xe = x + static_cast<long long>(e) * C * K;
+  const float* we = w + static_cast<long long>(e) * K * F;
+
+  // w: K tile kt into stage s by cp.async, as it is
+  auto stage_w = [&](int kt, int s) {
+    float* ws = smem + s * L::STAGE + L::X_FLOATS;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int n = 0; n < L::W_PER_THREAD; ++n) {
+      const int idx = tid + n * NT;
+      const int kk = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+      const bool ok = k0 + kk < K && col0 + c < F;
+      sm90::cp_async16(ws + kk * BN + c,
+                       ok ? we + static_cast<long long>(k0 + kk) * F + col0 + c : w, ok);
+    }
+  };
+  // x: K tile kt through registers, transposed on the way: this thread
+  // loads rows 4 m4 + {0..3} at k KT kq + {0..KT-1} (zeros past C and K)
+  // and stores each k's 4 rows as one float4 of xs[k][m]
+  const int m4 = tid / L::KQ, kq = tid % L::KQ;
+  float xr[4][L::KT];
+  auto load_x = [&](int kt) {
+    const int k = kt * BK + L::KT * kq;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = row0 + 4 * m4 + q;
+      const float* src = xe + static_cast<long long>(r) * K + k;
+      const bool ok = r < C && k < K;                 // K % 4 == 0: all KT or none
+      if constexpr (L::KT == 4) {
+        const float4 v = ok ? *reinterpret_cast<const float4*>(src)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        xr[q][0] = v.x;
+        xr[q][1] = v.y;
+        xr[q][2] = v.z;
+        xr[q][3] = v.w;
+      } else if constexpr (L::KT == 2) {
+        const float2 v = ok ? *reinterpret_cast<const float2*>(src) : make_float2(0.f, 0.f);
+        xr[q][0] = v.x;
+        xr[q][1] = v.y;
+      } else {
+        xr[q][0] = ok ? *src : 0.f;
+      }
+    }
+  };
+  auto store_x = [&](int s) {
+    float* xs = smem + s * L::STAGE;
+#pragma unroll
+    for (int j = 0; j < L::KT; ++j)
+      *reinterpret_cast<float4*>(xs + (L::KT * kq + j) * L::XP + 4 * m4) =
+          make_float4(xr[0][j], xr[1][j], xr[2][j], xr[3][j]);
+  };
+
+  float acc[4 * MG][8];
+#pragma unroll
+  for (int i = 0; i < 4 * MG; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      stage_w(s, s);
+      load_x(s);
+      store_x(s);
+    }
+    sm90::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // tile kt has landed (this thread's copies and stores; the barrier:
+    // everyone's), and every thread is done with the stage that tile
+    // kt + STAGES - 1 overwrites; its x loads land during this tile's FMAs
+    sm90::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < nk) {
+      stage_w(next, next % STAGES);
+      load_x(next);
+    }
+    sm90::cp_async_commit();
+    const float* xs = smem + (kt % STAGES) * L::STAGE;
+    const float* ws = xs + L::X_FLOATS;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[4 * MG], b[8];
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        const float4 av = *reinterpret_cast<const float4*>(xs + k * L::XP + 64 * g + 4 * ty);
+        a[4 * g] = av.x; a[4 * g + 1] = av.y; a[4 * g + 2] = av.z; a[4 * g + 3] = av.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 bv = *reinterpret_cast<const float4*>(ws + k * BN + 64 * h + 4 * tx);
+        b[4 * h] = bv.x; b[4 * h + 1] = bv.y; b[4 * h + 2] = bv.z; b[4 * h + 3] = bv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * MG; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (next < nk) store_x(next % STAGES);
+  }
+  sm90::cp_async_wait<0>();
+
+  float* oe = out + static_cast<long long>(e) * C * F;
+#pragma unroll
+  for (int i = 0; i < 4 * MG; ++i) {
+    const int r = row0 + 64 * (i / 4) + 4 * ty + i % 4;
+    if (r >= C) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = col0 + 64 * h + 4 * tx;
+      if (c < F)
+        *reinterpret_cast<float4*>(oe + static_cast<long long>(r) * F + c) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+  }
+}
+
+// The tile rows the launcher takes for bins of C rows.
+inline int rows_for(int C) { return C <= 64 ? 64 : 128; }
+
+template <int BM>
+int launch(const float* x, const float* w, float* out, int E, int C, int K, int F,
+           cudaStream_t stream) {
+  using L = Cfg<BM>;
+  static bool opted_in = false;              // per instantiation, per library
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(gmm_capacity_simt90_kernel<BM>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           L::BYTES);
+    if (err == cudaSuccess)                  // room for two blocks an SM
+      err = cudaFuncSetAttribute(gmm_capacity_simt90_kernel<BM>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const long long tiles_m = (C + BM - 1) / BM;
+  const int tiles_n = (F + BN - 1) / BN;
+  if (tiles_m > 0x7fffffffLL || tiles_n > 65535) return -1;
+  const dim3 grid(static_cast<unsigned>(tiles_m), tiles_n, E);
+  gmm_capacity_simt90_kernel<BM><<<grid, NT, L::BYTES, stream>>>(x, w, out, C, K, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace simt90
 
 // ------------------------------------------------------------ bf16, TMA + wgmma
 namespace cap90 {
@@ -390,11 +592,18 @@ int launch(const void* x, const void* w, void* out, int E, int C, int K, int F,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tile the launcher takes for bins of C rows: one consumer warpgroup
+// for at most 64 rows, else two; 256 columns past 128 rows, else 128.
+inline void tile_for(int C, int* consumers, int* columns) {
+  *consumers = C <= 64 ? 1 : 2;
+  *columns = C > 128 ? 256 : 128;
+}
+
 }  // namespace cap90
 
 template <int BM>
 int launch(int dtype, const void* x, const void* w, void* out, int E, int C,
-           int K, int F, int vec, void* stream) {
+           int K, int F, void* stream) {
   const dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, E);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -404,7 +613,7 @@ int launch(int dtype, const void* x, const void* w, void* out, int E, int C,
   } else if (dtype == 1) {
     gmm_capacity_simt_kernel<BM><<<grid, 256, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), C, K, F, vec != 0);
+        static_cast<float*>(out), C, K, F);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -414,17 +623,41 @@ int launch(int dtype, const void* x, const void* w, void* out, int E, int C,
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  bm: 16 or 64.  x (E, C, K), w (E, K, F),
-// out (E, C, F), all contiguous on the device.  vec (fp32 only): every 16-byte
-// chunk the kernel loads is aligned (K and F multiples of 16 bytes, aligned
-// pointers); the bf16 WMMA kernel ignores it.
+// out (E, C, F), all contiguous on the device; the kernels read them element
+// by element (bf16: WMMA, fp32: the CUDA-core simt kernel), so any pitch or
+// base is taken.
 extern "C" int gmm_capacity_launch(int dtype, int bm, const void* x, const void* w,
-                                   void* out, int E, int C, int K, int F, int vec,
-                                   void* stream) {
+                                   void* out, int E, int C, int K, int F, void* stream) {
   if (E < 1 || C < 1 || K < 1 || F < 1 || E > 65535 || (C + bm - 1) / bm > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bm == 16) return launch<16>(dtype, x, w, out, E, C, K, F, vec, stream);
-  if (bm == 64) return launch<64>(dtype, x, w, out, E, C, K, F, vec, stream);
+  if (bm == 16) return launch<16>(dtype, x, w, out, E, C, K, F, stream);
+  if (bm == 64) return launch<64>(dtype, x, w, out, E, C, K, F, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// fp32 on the CUDA cores through the cp.async ring.  x (E, C, K), w (E, K, F),
+// out (E, C, F), all contiguous on the device, K and F multiples of 4, every
+// base 16-byte aligned (the wrapper's _route).  -1 for arguments it refuses.
+extern "C" int gmm_capacity_simt90_launch(const void* x, const void* w, void* out, int E,
+                                          int C, int K, int F, void* stream) {
+  if (E < 1 || C < 1 || K < 1 || F < 1 || E > 65535 || K % 4 != 0 || F % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return -1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* of = static_cast<float*>(out);
+  if (simt90::rows_for(C) == 64) return simt90::launch<64>(xf, wf, of, E, C, K, F, s);
+  return simt90::launch<128>(xf, wf, of, E, C, K, F, s);
+}
+
+// Dynamic shared memory of a block of the fp32 simt90 kernel with 64- or
+// 128-row tiles (for reports), or -1.
+extern "C" int gmm_capacity_simt90_smem_bytes(int rows) {
+  if (rows == 64) return simt90::Cfg<64>::BYTES;
+  if (rows == 128) return simt90::Cfg<128>::BYTES;
+  return -1;
 }
 
 // bf16 through TMA and wgmma.  x (E, C, K), w (E, K, F), out (E, C, F), all
@@ -438,8 +671,10 @@ extern "C" int gmm_capacity_sm90_launch(const void* x, const void* w, void* out,
       reinterpret_cast<uintptr_t>(out) % 4 != 0)
     return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 64) return cap90::launch<1, 128>(x, w, out, E, C, K, F, s);
-  if (C <= 128) return cap90::launch<2, 128>(x, w, out, E, C, K, F, s);
+  int consumers, columns;
+  cap90::tile_for(C, &consumers, &columns);
+  if (consumers == 1) return cap90::launch<1, 128>(x, w, out, E, C, K, F, s);
+  if (columns == 128) return cap90::launch<2, 128>(x, w, out, E, C, K, F, s);
   return cap90::launch<2, 256>(x, w, out, E, C, K, F, s);
 }
 
@@ -450,4 +685,16 @@ extern "C" int gmm_capacity_sm90_smem_bytes(int consumers, int columns) {
   if (consumers == 2 && columns == 128) return cap90::Cfg<2, 128>::BYTES;
   if (consumers == 2 && columns == 256) return cap90::Cfg<2, 256>::BYTES;
   return -1;
+}
+
+// Dynamic shared memory of a block that the launcher of route 0 (bf16,
+// sm90) or 1 (fp32, simt90) takes for bins of C rows, by the launcher's
+// own tile choice (for reports), or -1.
+extern "C" int gmm_capacity_smem_bytes(int route, int C) {
+  if (C < 1) return -1;
+  if (route == 1) return gmm_capacity_simt90_smem_bytes(simt90::rows_for(C));
+  if (route != 0) return -1;
+  int consumers, columns;
+  cap90::tile_for(C, &consumers, &columns);
+  return gmm_capacity_sm90_smem_bytes(consumers, columns);
 }

@@ -7,16 +7,21 @@ cast to x's dtype.  The reference asserts that C, F and D are multiples of
 its blocks (min(128, ·), min(512, D)); the kernels mask ragged edges, so
 they take any C (the reference's own tests use C = 4).
 
-Three kernels, chosen per call by ``_route``: ``"sm90"`` (bf16 through TMA
-and wgmma, whenever TMA can address x and w), ``"wmma"`` (bf16 shapes whose
-row pitch or base TMA cannot take) and ``"simt"`` (fp32).
+Four kernels, chosen per call by ``_route`` before the launch: ``"sm90"``
+(bf16 through TMA and wgmma, whenever TMA can address x and w), ``"wmma"``
+(bf16 shapes whose row pitch or base TMA cannot take), ``"simt90"`` (fp32 on
+the CUDA cores through a ring of shared-memory tiles, whenever its 16-byte
+copies and loads are aligned) and ``"simt"`` (fp32 operands that are not).
 
 CPU tensors take the plain PyTorch version (``ref.gmm_capacity_ref``); CUDA
-tensors launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+tensors launch the kernel or raise.  ``LAUNCHES`` counts kernel launches,
+``LAST_ROUTE`` holds the route of the last one and ``ROUTE_LAUNCHES``
+tallies them by route.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -28,6 +33,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "gmm_capacity.cu"
 
 # kernel launches since the last reset
 LAUNCHES = {"gmm_capacity": 0}
+# the route of the last launch, and launches since the last reset by route
+LAST_ROUTE = {"gmm_capacity": None}
+ROUTE_LAUNCHES: Counter = Counter()
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GRID = 65535
@@ -36,16 +44,19 @@ _MAX_GRID = 65535
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_capacity_launch.argtypes = [i, i, p, p, p, i, i, i, i, i, p]
+        lib.gmm_capacity_launch.argtypes = [i, i, p, p, p, i, i, i, i, p]
         lib.gmm_capacity_launch.restype = i
-        lib.gmm_capacity_sm90_launch.argtypes = [p, p, p, i, i, i, i, p]
-        lib.gmm_capacity_sm90_launch.restype = i
+        for fn in (lib.gmm_capacity_sm90_launch,
+                   lib.gmm_capacity_simt90_launch):
+            fn.argtypes = [p, p, p, i, i, i, i, p]
+            fn.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -65,16 +76,17 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _route(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The kernel a call takes: ``"simt"`` for fp32; for bf16 ``"sm90"``
-    when TMA can address both operands (row pitches D and F multiples of
-    16 bytes, 16-byte aligned bases), else ``"wmma"``."""
-    if x.dtype == torch.float32:
-        return "simt"
+    """The kernel a call takes.  When the row pitches D and F are multiples
+    of 16 bytes and both bases 16-byte aligned (the output, a new tensor,
+    always is): ``"sm90"`` for bf16 (TMA can address both operands),
+    ``"simt90"`` for fp32 (its 16-byte copies are aligned).  Otherwise the
+    element-by-element kernels: ``"wmma"`` for bf16, ``"simt"`` for fp32."""
     vec = 16 // x.element_size()
-    if (x.shape[2] % vec == 0 and w.shape[2] % vec == 0
-            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
-        return "sm90"
-    return "wmma"
+    aligned = (x.shape[2] % vec == 0 and w.shape[2] % vec == 0
+               and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if x.dtype == torch.float32:
+        return "simt90" if aligned else "simt"
+    return "sm90" if aligned else "wmma"
 
 
 def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
@@ -96,19 +108,18 @@ def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
     route = _route(x, w)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        if route == "sm90":
-            status = _lib().gmm_capacity_sm90_launch(
-                x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+        if route in ("sm90", "simt90"):
+            launch = (_lib().gmm_capacity_sm90_launch if route == "sm90"
+                      else _lib().gmm_capacity_simt90_launch)
+            status = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C,
+                            D, F, stream)
         else:
             bm = 64 if C >= 64 else 16
-            # fp32 loads 16-byte vectors where every row and base allows;
-            # the WMMA kernel serves only shapes that do not
-            aligned = route == "simt" and (
-                D % 4 == 0 and F % 4 == 0
-                and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
             status = _lib().gmm_capacity_launch(
                 _DTYPES[x.dtype], bm, x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), E, C, D, F, int(aligned), stream)
+                out.data_ptr(), E, C, D, F, stream)
     build.check(status, "gmm_capacity")
     LAUNCHES["gmm_capacity"] += 1
+    LAST_ROUTE["gmm_capacity"] = route
+    ROUTE_LAUNCHES[route] += 1
     return out

@@ -172,8 +172,12 @@ def _operands(E, C, D, F, dtype, offset=0):
 
 
 @pytest.mark.parametrize("dtype,E,C,D,F,offset,route", [
-    ("float32", 2, 4, 32, 48, 0, "simt"),          # fp32: the parity path
-    ("float32", 64, 128, 3584, 2560, 0, "simt"),
+    ("float32", 2, 4, 32, 48, 0, "simt90"),        # fp32: the parity path
+    ("float32", 64, 128, 3584, 2560, 0, "simt90"),
+    ("float32", 64, 512, 3584, 2560, 0, "simt90"),  # a prefill capacity
+    ("float32", 2, 4, 30, 48, 0, "simt"),          # D pitch 120 bytes
+    ("float32", 2, 4, 32, 42, 0, "simt"),          # F pitch 168 bytes
+    ("float32", 2, 4, 32, 48, 1, "simt"),          # x base off 4 bytes
     ("bfloat16", 2, 4, 32, 48, 0, "sm90"),         # the reference's C = 4
     ("bfloat16", 3, 100, 72, 40, 0, "sm90"),       # ragged C and F
     ("bfloat16", 1, 512, 64, 384, 0, "sm90"),
@@ -183,7 +187,8 @@ def _operands(E, C, D, F, dtype, offset=0):
 ])
 def test_gmm_capacity_route(dtype, E, C, D, F, offset, route):
     """bf16 takes the TMA + wgmma kernel whenever TMA can address x and w,
-    the WMMA kernel otherwise; fp32 the CUDA-core kernel."""
+    the WMMA kernel otherwise; fp32 the cp.async CUDA-core kernel whenever
+    its 16-byte copies are aligned, the element-by-element one otherwise."""
     x, w = _operands(E, C, D, F, dtype, offset)
     assert tgmm._route(x, w) == route
 
@@ -202,3 +207,21 @@ def test_every_model_shape_routes_to_sm90():
             for din, dout in ((D, F), (F, D)):
                 assert tgmm._route(*_operands(E, C, din, dout, "bfloat16")) \
                     == "sm90", (name, reduced, C, din, dout)
+
+
+def test_every_model_shape_routes_to_simt90_in_fp32():
+    """In fp32 (the parity checks and the ops path) the same capacity
+    products all take the cp.async CUDA-core kernel; a weight whose base
+    is 4 bytes off takes the element-by-element one."""
+    from repro_torch.configs.registry import get_config
+    for name, reduced in (("qwen2-57b-a14b", False), ("qwen2-57b-a14b", True)):
+        cfg = get_config(name, reduced=reduced)
+        E, K = cfg.num_experts, cfg.num_experts_per_tok
+        D, F = cfg.d_model, cfg.moe_d_ff
+        for n_tokens in (8, 40, 2048):
+            C = tops.expert_capacity(n_tokens, K, E)
+            for din, dout in ((D, F), (F, D)):
+                x, w = _operands(E, C, din, dout, "float32")
+                assert tgmm._route(x, w) == "simt90", (name, reduced, C)
+                w_off = torch.empty((dout + 1,))[1:].expand(E, din, dout)
+                assert tgmm._route(x, w_off) == "simt"

@@ -159,3 +159,12 @@ def test_flash_persistent_schedule_runs_each_item_once_heaviest_first(
     # causal: query tile qt reads qt + 1 chunks (as many keys as rows)
     loads = [sum(qt + 1 for qt, _, _ in blk) for blk in blocks]
     assert max(loads) <= sum(loads) / len(loads) + n_qt
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"),
+                                         (torch.float32, "f32")])
+def test_flash_route_by_dtype(dtype, route):
+    """The launcher runs the TMA + wgmma body for bf16 and the CUDA-core
+    fp32 body for fp32 at every head dim; the wrapper names them by the
+    launcher's codes (0 and 1)."""
+    assert tflash._ROUTES[tflash.attention_launch.DTYPES[dtype]] == route

@@ -564,7 +564,7 @@ def test_flash_kernel_model_layout_and_non_causal(cuda, dtype, Hq, Hkv, D, T):
         out = ops.flash_attention(q, k, v, causal=causal)
         # the kernel the launcher reports it ran
         assert fa.LAST_ROUTE["flash_attention"] == (
-            "sm90" if dtype == torch.bfloat16 else "simt")
+            "sm90" if dtype == torch.bfloat16 else "f32")
         ref = flash_attention_plain(q, k, v, causal=causal)
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
@@ -883,9 +883,9 @@ def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
 
 
 # ------------------------------------- head dim 256 (gemma-7b, gemma3-12b)
-# flash and dense decode: TMA + wgmma in bf16, attention_tile's CUDA cores
-# in fp32
-D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "simt"}
+# flash: TMA + wgmma in bf16, flash_f32.cuh's CUDA cores in fp32; dense
+# decode: TMA + wgmma in bf16, attention_tile's CUDA cores in fp32
+D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "f32"}
 DECODE_D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "simt"}
 
 
@@ -896,8 +896,8 @@ DECODE_D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "simt"}
 def test_flash_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, window):
     """gemma3-12b's 16/8 heads and gemma-7b's 16/16 at head dim 256, with
     gemma3's window 1024 and without: the TMA + wgmma body in bf16 (the
-    narrow shape at T 256, the wide one at 2048), attention_tile's CUDA
-    cores in fp32, as the launcher reports it."""
+    narrow shape at T 256, the wide one at 2048), the fp32 CUDA-core body
+    in fp32, as the launcher reports it."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -915,6 +915,53 @@ def test_flash_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, window):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     if dtype == torch.bfloat16:
         _assert_rows_close(out, ref)
+
+
+# ------------------------------------------------- kernel 5's fp32 body
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("T,window,cap", [(100, 0, 0.0), (40, 0, 0.0),
+                                          (384, 0, 0.0), (384, 100, 0.0),
+                                          (256, 0, 30.0), (128, 70, 20.0)])
+def test_flash_f32_kernel_matches_plain(cuda, D, T, window, cap):
+    """The fp32 CUDA-core body at every head dim: T not a multiple of its
+    64-row tile (100, 40: one partial tile), several tiles, a window, a
+    tanh cap, GQA 4 over 2; the (B, H, T, D) wrapper's strided views."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=cuda).manual_seed(T + window + D)
+    q = _randn(cuda, (2, 4, T, D), torch.float32, g)
+    k, v = (_randn(cuda, (2, 2, T, D), torch.float32, g) for _ in range(2))
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention_bhtd(q, k, v, causal=True, window=window,
+                                  logit_cap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAST_ROUTE["flash_attention"] == "f32"
+    ref = flash_attention_ref(q, k, v, causal=True, window=window,
+                              logit_cap=cap)
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_kernel_on_packed_model_layout(cuda, D, causal):
+    """The fp32 body on (B, T, H, D) views of one packed qkv tensor (row
+    pitch (Hq + 2 Hkv) D, q, k, v at head offsets), read in place, causal
+    and not, at g 7 and a T of one and a half row tiles."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    g = torch.Generator(device=cuda).manual_seed(D + causal)
+    B, T, Hq, Hkv = 2, 96, 7, 1
+    qkv = _randn(cuda, (B, T, Hq + 2 * Hkv, D), torch.float32, g)
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAST_ROUTE["flash_attention"] == "f32"
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1077,11 +1124,14 @@ def test_gmm_capacity_sm90_kernel_matches_plain(cuda, C):
 @pytest.mark.parametrize("dtype,E,C,D,F,route", [
     (torch.bfloat16, 2, 100, 36, 40, "wmma"),      # D pitch 72 bytes
     (torch.bfloat16, 2, 64, 64, 200, "sm90"),       # F ragged, not a tile
-    (torch.float32, 2, 100, 72, 40, "simt"),
+    (torch.float32, 2, 100, 72, 40, "simt90"),
+    (torch.float32, 2, 100, 70, 40, "simt"),        # D pitch 280 bytes
 ])
 def test_gmm_capacity_routes_match_plain(cuda, dtype, E, C, D, F, route):
-    """A shape TMA cannot address keeps the WMMA kernel, fp32 the CUDA-core
-    kernel; each matches the plain version at its bound."""
+    """A shape TMA cannot address keeps the WMMA kernel; fp32 takes the
+    cp.async CUDA-core kernel where its 16-byte copies are aligned, the
+    element-by-element one otherwise; each matches the plain version at
+    its bound and the wrapper reports the route it launched."""
     from repro_torch.kernels.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_capacity_ref
     gen = torch.Generator(device=cuda).manual_seed(D + F)
@@ -1090,9 +1140,64 @@ def test_gmm_capacity_routes_match_plain(cuda, dtype, E, C, D, F, route):
          ).to(dtype)
     assert gmm._route(x, w) == route
     out = gmm.gmm_capacity(x, w)
+    assert gmm.LAST_ROUTE["gmm_capacity"] == route
     tol = GMM_TOL[dtype]
     torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("C", [1, 40, 128, 512])
+@pytest.mark.parametrize("K,F", [(72, 200), (256, 384), (3584, 132)])
+def test_gmm_capacity_simt90_kernel_matches_plain(cuda, C, K, F):
+    """The fp32 cp.async CUDA-core kernel: one row of a bin, a 64-row tile
+    holding 40, one and four 128-row tiles; K not a multiple of its 16-deep
+    stages, F not a multiple of its 128 columns; three experts, so a bin
+    that read past C would take the next expert's rows."""
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+    gen = torch.Generator(device=cuda).manual_seed(C + K + F)
+    x = _randn(cuda, (3, C, K), torch.float32, gen)
+    w = torch.randn((3, K, F), generator=gen, device=cuda) / K ** 0.5
+    assert gmm._route(x, w) == "simt90"
+    before = gmm.LAUNCHES["gmm_capacity"]
+    out = gmm.gmm_capacity(x, w)
+    torch.cuda.synchronize()
+    assert gmm.LAUNCHES["gmm_capacity"] == before + 1
+    assert gmm.LAST_ROUTE["gmm_capacity"] == "simt90"
+    tol = GMM_TOL[torch.float32]
+    torch.testing.assert_close(out, gmm_capacity_ref(x, w), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_gmm_capacity_unaligned_fp32_takes_simt(cuda, which):
+    """An fp32 operand whose base is 4 bytes off 16 takes the
+    element-by-element kernel, chosen before the launch."""
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    E, C, K, F = 2, 40, 64, 96
+    x = _randn(cuda, (E, C, K), torch.float32, gen)
+    w = torch.randn((E, K, F), generator=gen, device=cuda) / K ** 0.5
+
+    def off4(t):           # the same values, the base 4 bytes past 16
+        buf = torch.empty((t.numel() + 1,), device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    if which == "x":
+        x = off4(x)
+    else:
+        w = off4(w)
+    assert (x.data_ptr() % 16 != 0) == (which == "x")
+    assert (w.data_ptr() % 16 != 0) == (which == "w")
+    assert gmm._route(x, w) == "simt"
+    out = gmm.gmm_capacity(x, w)
+    torch.cuda.synchronize()
+    assert gmm.LAST_ROUTE["gmm_capacity"] == "simt"
+    tol = GMM_TOL[torch.float32]
+    torch.testing.assert_close(out, gmm_capacity_ref(x, w), rtol=tol,
+                               atol=tol)
 
 
 def test_capacity_ops_launch_counts_and_parity(cuda):

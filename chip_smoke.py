@@ -11,9 +11,11 @@ Phases, each of which fails the run if it fails:
      ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
      64, 128 with one and two consumer warpgroups, 256 with two; capacity GEMM with 1
      and 2 consumer warpgroups and column tiles of 128 and 256; paged
-     decode/verify at head dims 64, 128, 256, dense at 64 and 128; ragged
-     down and fused gate/up GEMMs, silu and gelu) and of attention_tile.cuh's
-     body at head dim 256 (kernel 4 in bf16 and fp32, kernel 5 in fp32):
+     decode/verify at head dims 64, 128, 256, dense at 64, 128 and 256;
+     ragged down and fused gate/up GEMMs, silu and gelu), of the fp32
+     CUDA-core bodies (flash, capacity GEMM, and decode_f32.cuh's split-KV
+     body of kernels 3 and 4 at head dims 64, 128 and 256) and of
+     attention_tile.cuh's body at head dim 32 (kernel 4 in bf16 and fp32):
      registers, dynamic shared memory, spills (none allowed in the D-256
      TMA + wgmma bodies);
   3. kernels: at the main paths' shapes, run each kernel and its plain
@@ -40,7 +42,10 @@ Phases, each of which fails the run if it fails:
          every element within PAGED_ROW_TOL x the rms of its output row,
          with the body's shared memory on the line; SD verify
          and long context also in fp32 at 2e-5 (the reference's bound,
-         src/repro/kernels/decode_attention/decode_attention.py:288);
+         src/repro/kernels/decode_attention/decode_attention.py:288)
+         through the split-KV CUDA-core body ("f32"); SD verify on pages
+         of 24, which tile no 64-key chunk, in bf16 through the old
+         CUDA-core body ("simt", at the same bounds) and in fp32 ("f32");
        * the flash prefill kernel (prefill of 8 prompts of 256 tokens at the
          target's 28/4 heads of 128 and the draft's 14/2 heads of 64, a 4096-
          token prefill, a window-and-cap case; at head dim 256 gemma3-12b's
@@ -55,13 +60,18 @@ Phases, each of which fails the run if it fails:
          SD verify (B 8, T 5, S 512, lengths 129-290), AR (T 1), the draft's
          14/2 heads of 64 at T 1 and T 5, long context (S 8192), and at
          head dim 256 gemma3-12b's 16/8 heads (T 1, 5, 9) and gemma-7b's
-         16/16 (T 5) at S 2048 (the split-KV body too) and gemma3's heads
-         at T 33 (66 rows a KV head: attention_tile's WMMA body), bf16 at
-         4e-2 through the split-KV TMA + wgmma body (decode_attention
-         .LAST_ROUTE "sm90") and the WMMA body ("wmma"), and every
-         element within DECODE_ROW_TOL x the rms of its output row on
-         both, SD verify and long context also in fp32 at
-         3e-5 through the CUDA-core body (tests/test_kernels.py);
+         16/16 (T 5) at S 2048 (the split-KV body too), verifies wider than
+         one 64-row tile (gemma3's heads at T 33, 66 rows a KV head; the
+         target's at T 10 and 17, 70 and 119 rows, S 512 and 8192: row
+         tiles) and the reduced draft's 4/2 heads of 32 (attention_tile's
+         WMMA body), bf16 at 4e-2 through the split-KV TMA + wgmma body
+         (decode_attention.LAST_ROUTE "sm90" at head dims 64 to 256) and
+         the WMMA body ("wmma", head dim 32), and every element within
+         DECODE_ROW_TOL x the rms of its output row on both; SD verify,
+         long context and gemma3's SD verify also in fp32 at 3e-5 through
+         the split-KV CUDA-core body ("f32"; tests/test_kernels.py), and
+         the reduced draft's at head dim 32 through attention_tile's
+         CUDA-core body ("simt");
        * the capacity-binned expert GEMM at the full expert widths (E 64,
          D 3584, F 2560, gate/up and down) at the SD-verify capacity
          expert_capacity(40, 8, 64) = 128 and a prefill capacity
@@ -507,7 +517,7 @@ def build_kernels():
     """Build every library (one nvcc each, all at once); print the build
     time and, from ``ptxas -v`` of the build, the registers, shared memory
     and spills of the TMA + wgmma kernels and of kernels 5 and 6's fp32
-    CUDA-core bodies."""
+    CUDA-core bodies and of kernels 3 and 4's fp32 body."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import paged
@@ -535,11 +545,13 @@ def build_kernels():
             "gmm_capacity_simt90_kernel": build.load(
                 gmm.SOURCE).gmm_capacity_simt90_smem_bytes,   # (rows)
             "paged_sm90_kernel": build.load(paged.SOURCE).paged_sm90_smem_bytes,
+            "decode_f32_kernel": lambda d, _paged, _kg: build.load(
+                dec_ops.SOURCE).decode_f32_smem_bytes(d),  # (D, paged, KG)
             "decode_sm90_kernel": build.load(
                 dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
                 ragged.SOURCE).ragged_sm90_smem_bytes}     # (nmat, act)
-    # attention_tile.cuh's body at head dim 256: kernel 4's in both dtypes
+    # attention_tile.cuh's body at head dim 32: kernel 4's in both dtypes
     # (dense decode library)
     tile_smem = build.load(dec_ops.SOURCE).attention_tile_smem_bytes
     smem["attention_tile_kernel"] = lambda dt, d: tile_smem(
@@ -551,7 +563,7 @@ def build_kernels():
                 log(f"ptxas ({src.name}): {line.strip()[:240]}")
         for kernel, args, regs, spills in _ptxas_entries(text):
             if kernel == "attention_tile_kernel":
-                if args[1] != 256:
+                if args[1] != 32:
                     continue
                 tiles.add((src.name, args[0]))
             else:
@@ -576,7 +588,11 @@ def build_kernels():
             # the fp32 CUDA-core bodies of kernels 5 and 6
             | {("flash_f32_kernel", (d,)) for d in (32, 64, 128)}
             | {("flash_f32_qreg_kernel", (256,))}
-            | {("gmm_capacity_simt90_kernel", (r,)) for r in (64, 128)})
+            | {("gmm_capacity_simt90_kernel", (r,)) for r in (64, 128)}
+            # kernels 3 and 4's fp32 split-KV body (paged 1, dense 0; key
+            # groups 1, 2, 4, 8)
+            | {("decode_f32_kernel", (d, pg, kg)) for d in (64, 128, 256)
+               for pg in (0, 1) for kg in (1, 2, 4, 8)})
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma and fp32 kernels "
                              f"{sorted(seen)}, expected {sorted(want)}")
@@ -584,7 +600,7 @@ def build_kernels():
     want = {(dec_ops.SOURCE.name, "bf16"), (dec_ops.SOURCE.name, "fp32")}
     if tiles != want:
         raise AssertionError(f"ptxas -v shows attention_tile_kernel at head "
-                             f"dim 256 as {sorted(tiles)}, expected "
+                             f"dim 32 as {sorted(tiles)}, expected "
                              f"{sorted(want)}")
 
 
@@ -600,6 +616,7 @@ def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
                                         "paged_sm90_kernel",
                                         "decode_sm90_kernel",
                                         "ragged_sm90_kernel",
+                                        "decode_f32_kernel",
                                         "attention_tile_kernel")):
     """(kernel, template arguments, registers, spill line) for each entry
     function of ``kernels`` in ``ptxas -v`` output; a type argument
@@ -845,9 +862,9 @@ PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
     "capped": ("bfloat16", 5, 128, (16, 130), 30.0),
     "head_dim_64": ("bfloat16", 5, 64, (16, 130), 0.0),
     "head_dim_256": ("bfloat16", 5, 256, (16, 130), 0.0),
-    # fp32 runs the CUDA-core body: its long page walk is held at the fp32
-    # bound (a typical |out| at ~8k keys is near the bf16 bound; the bf16
-    # split-KV body is held at PAGED_ROW_TOL for that)
+    # fp32 runs the split-KV CUDA-core body: its long page walk is held at
+    # the fp32 bound (a typical |out| at ~8k keys is near the bf16 bound;
+    # the bf16 split-KV body is held at PAGED_ROW_TOL for that)
     "fp32_sd_verify": ("float32", 5, 128, (16, 130), 0.0),
     "fp32_long_context": ("float32", 5, 128, (8000, 8192), 0.0),
     # the EAGLE paths' target (EAGLE_ARCH: 32 query / 8 KV heads of 128)
@@ -858,11 +875,28 @@ PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
     "gemma3_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
     "gemma3_ar_verify": ("bfloat16", 1, 256, (1100, 1640), 0.0),
     "gemma7b_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
+    # pages of 24 tile no 64-key chunk (no served path has them): bf16 runs
+    # the old CUDA-core body ("simt"), fp32 the split-KV CUDA-core body
+    "odd_pages_sd_verify": ("bfloat16", 5, 128, (16, 130), 0.0),
+    "fp32_odd_pages_sd_verify": ("float32", 5, 128, (16, 130), 0.0),
 }
 SERVE_HEADS = (28, 4)               # qwen2-57b-a14b's query / KV heads
 PAGED_HEADS = {"mixtral_sd_verify": (32, 8), "mixtral_ar_verify": (32, 8),
                "gemma3_sd_verify": (16, 8), "gemma3_ar_verify": (16, 8),
                "gemma7b_sd_verify": (16, 16)}
+PAGED_PAGE_SIZE = {"odd_pages_sd_verify": 24,        # else 64
+                   "fp32_odd_pages_sd_verify": 24}
+
+
+def paged_route(dtype_name: str, ps: int) -> str:
+    """The body the paged launcher must report: TMA + wgmma for bf16 on
+    pages that tile a 64-key chunk (8, 16, 32 or a multiple of 64), the old
+    CUDA-core body for bf16 on other pages, the split-KV CUDA-core body for
+    fp32 on any page."""
+    if dtype_name == "float32":
+        return "f32"
+    tiles = ps % 8 == 0 and (ps % 64 == 0 or 64 % ps == 0)
+    return "sm90" if tiles else "simt"
 
 
 def sdpa_gathered(q, kp, vp, lengths, table):
@@ -930,7 +964,8 @@ def paged_kernel_phase(seed: int):
     res = {"cases": {}, "max_abs_err": 0.0, "max_err_over_tol": 0.0}
     for case, spec in PAGED_CASES.items():
         dtype_name, T, D, _, cap = spec
-        args = paged_inputs(spec, gen, dev, PAGED_HEADS.get(case, SERVE_HEADS))
+        args = paged_inputs(spec, gen, dev, PAGED_HEADS.get(case, SERVE_HEADS),
+                            ps=PAGED_PAGE_SIZE.get(case, 64))
         q, kp, vp, lengths, table = args
         B, Hq, Hkv = q.shape[0], q.shape[2], kp.shape[2]
         MP, ps = table.shape[1], kp.shape[1]
@@ -938,7 +973,7 @@ def paged_kernel_phase(seed: int):
         route = paged.LAST_ROUTE["paged_decode_attention"]
         ref = paged_decode_attention_plain(*args, logit_cap=cap)
         torch.cuda.synchronize()
-        want = "sm90" if dtype_name == "bfloat16" else "simt"
+        want = paged_route(dtype_name, ps)
         if route != want:
             raise AssertionError(f"paged_decode_attention [{case}]: ran the "
                                  f"{route} body, expected {want}")
@@ -973,8 +1008,10 @@ def paged_kernel_phase(seed: int):
         graph_ms = graph_time_ms(lambda: paged.paged_decode_attention(
             *args, logit_cap=cap))
         sdpa_graph_ms = graph_time_ms(sdpa_fn) if sdpa_fn is not None else None
-        smem = (build.load(paged.SOURCE).paged_sm90_smem_bytes(D)
-                if route == "sm90" else None)
+        lib_so = build.load(paged.SOURCE)
+        smem = {"sm90": lib_so.paged_sm90_smem_bytes,
+                "f32": lib_so.paged_f32_smem_bytes}.get(
+                    route, lambda _d: None)(D)       # simt: sized per call
         res["cases"][case] = dict(
             dtype=dtype_name, route=route, B=B, T=T, Hq=Hq, Hkv=Hkv,
             head_dim=D, page_size=ps, smem_bytes=smem,
@@ -1142,10 +1179,16 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
     "fp32_sd_verify": ("float32", 8, 5, 28, 4, 128, 512, (129, 290)),
     # at ~8k keys a typical |out| is ~0.02, near the bf16 bound
     "fp32_long_context": ("float32", 8, 5, 28, 4, 128, 8192, (8000, 8187)),
+    # verifies wider than one 64-row tile (row tiles of the split-KV body;
+    # no default path sends them, a user's --gamma does): the target's g 7
+    # at gamma 9 (70 rows a KV head) and 16 (119), at S 512 and 8192
+    "wide_verify": ("bfloat16", 8, 10, 28, 4, 128, 512, (129, 290)),
+    "gamma16_verify": ("bfloat16", 8, 17, 28, 4, 128, 512, (129, 290)),
+    "wide_long_context": ("bfloat16", 8, 10, 28, 4, 128, 8192, (8000, 8182)),
     # head dim 256 (the split-KV body in bf16): wave-gemma3's global layers
     # (16 / 8 heads) at its lengths, gamma 4 and 8 verifies and AR, and
     # gemma-7b's 16 / 16; and a gamma-32 verify of gemma3's heads, 66 rows
-    # a KV head, which only the WMMA body takes (no serving path sends it)
+    # a KV head (two row tiles, 34 + 32 rows)
     "gemma3_sd_verify": ("bfloat16", 8, 5, 16, 8, 256, 2048, (1100, 1640)),
     "gemma3_ar": ("bfloat16", 8, 1, 16, 8, 256, 2048, (1100, 1640)),
     "gemma3_gamma8_verify": ("bfloat16", 8, 9, 16, 8, 256, 2048,
@@ -1164,7 +1207,22 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
     "jamba_ar": ("bfloat16", 8, 1, 32, 8, 128, 512, (129, 290)),
     "draft_8x2_sd_verify": ("bfloat16", 8, 5, 8, 2, 64, 512, (129, 290)),
     "draft_8x2_ar": ("bfloat16", 8, 1, 8, 2, 64, 512, (129, 290)),
+    # head dim 32 (attention_tile.cuh's WMMA body in bf16, its CUDA-core
+    # body in fp32): the reduced draft's 4 / 2 heads, the only configs with
+    # that head dim
+    "reduced_d32_sd_verify": ("bfloat16", 8, 5, 4, 2, 32, 512, (129, 290)),
+    "fp32_reduced_d32_sd_verify": ("float32", 8, 5, 4, 2, 32, 512,
+                                   (129, 290)),
 }
+
+
+def decode_route(dtype_name: str, D: int) -> str:
+    """The body the dense decode launcher must report: the split-KV bodies
+    at head dims 64, 128 and 256 (TMA + wgmma in bf16, the CUDA cores in
+    fp32) at any number of rows, attention_tile.cuh's at head dim 32."""
+    if D in (64, 128, 256):
+        return "sm90" if dtype_name == "bfloat16" else "f32"
+    return "wmma" if dtype_name == "bfloat16" else "simt"
 
 
 def decode_inputs(spec, gen, dev):
@@ -1221,8 +1279,7 @@ def decode_kernel_phase(seed: int):
         route = ops.LAST_ROUTE["decode_attention"]
         ref = decode_attention_plain(q, k, v, lengths)
         torch.cuda.synchronize()
-        want = ("simt" if dtype_name != "bfloat16" else "sm90"
-                if D in (64, 128, 256) and (Hq // Hkv) * T <= 64 else "wmma")
+        want = decode_route(dtype_name, D)
         if route != want:
             raise AssertionError(f"decode_attention [{case}]: ran the {route} "
                                  f"body, expected {want}")

@@ -107,7 +107,8 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
         if "paged" not in kinds:
             continue
         heads = chip_smoke.PAGED_HEADS.get(case, chip_smoke.SERVE_HEADS)
-        args = chip_smoke.paged_inputs(spec, gen, dev, heads)
+        args = chip_smoke.paged_inputs(
+            spec, gen, dev, heads, ps=chip_smoke.PAGED_PAGE_SIZE.get(case, 64))
         lib, _ = (chip_smoke.sdpa_gathered(*args) if cap == 0.0
                   else (None, None))
         emit("paged", case, paged.paged_decode_attention(*args, logit_cap=cap),

@@ -12,12 +12,13 @@ Each variant is this checkout's ``src/repro_torch`` copied to the ignored
 fails instead of measuring the unpatched kernel); it builds its kernels into
 its own ``build/kernels``.
 
-``mutants`` runs every bf16 case of chip_smoke.py's paged and dense decode
+``mutants`` runs every case of chip_smoke.py's paged and dense decode
 phases (``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
-``decode_inputs``; the dense decode's fp32 cases at head dim 256 too, which
-attention_tile's CUDA-core body runs), of its ragged phase (the fused gate/up and down
-kernels on ``ragged_cases``) and every fp32 case of its flash and capacity
-GEMM phases (``FLASH_CASES``, ``capacity_cases``), same seeds, through this
+``decode_inputs``; bf16 on the TMA + wgmma bodies and attention_tile's at
+head dim 32, fp32 on the split-KV CUDA-core body), every bf16 case of its
+ragged phase (the fused gate/up and down kernels on ``ragged_cases``) and
+every fp32 case of its flash and capacity GEMM phases (``FLASH_CASES``,
+``capacity_cases``), same seeds, through this
 tree and each ``FAULTS`` variant named (every one by default; a fault tree
 runs only the kinds of case its fault is planted in), and prints, per case,
 the largest elementwise error
@@ -29,10 +30,12 @@ chip_smoke.py (a non-finite output counts as infinitely far; an fp32 case
 has no row bound).  Then one JSON line.  It exits non-zero unless every
 fault is caught in each case ``FAULT_CASES`` names for it: a bf16 attention
 fault by the row bound (the TMA + wgmma bodies' faults at long context,
-the head-dim-256 bodies' at gemma's heads and lengths), an fp32 one and a
-ragged one by the tolerance (ragged at every serving case: SD verify, AR
-verify, prefill), a fault of kernels 5 and 6's fp32 bodies by the tolerance
-in every fp32 case; and this tree passes every bound everywhere.
+the head-dim-256 bodies' at gemma's heads and lengths, the row tiles' in
+every case wider than 64 rows a KV head), an fp32 one and a ragged one by
+the tolerance (ragged at every serving case: SD verify, AR verify,
+prefill), a fault of kernels 5 and 6's fp32 bodies by the tolerance in
+every fp32 case, of kernels 3 and 4's in the fp32 cases it reaches; and
+this tree passes every bound everywhere.
 
 ``tune`` times the named ``TUNING`` variants against this tree with
 kernel_ab.py (this tree first, A B ... B A), on the cases of the kernels
@@ -54,6 +57,7 @@ SPLITKV = "kernels/csrc/splitkv_sm90.cuh"
 FLASH = "kernels/flash_attention/csrc/flash_sm90.cuh"
 RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
 TILE = "kernels/csrc/attention_tile.cuh"
+DECODE32 = "kernels/csrc/decode_f32.cuh"
 FLASH32 = "kernels/flash_attention/csrc/flash_f32.cuh"
 CAPACITY = "kernels/gmm/csrc/gmm_capacity.cu"
 
@@ -75,8 +79,8 @@ FAULTS = {
     # expert's end, over the next expert's first rows (never past N)
     "ragged_rows_past_end": [(RAGGED, "if (r < w.row_end && c < F) {",
                               "if (r < min(w.row_end + 8, off[E]) && c < F) {")],
-    # attention_tile's body (dense decode's at head dim 256 in fp32, and in
-    # bf16 with more than 64 rows a KV head) skips its last key chunk
+    # attention_tile's body (dense decode's at head dim 32) skips its last
+    # key chunk
     "tile_last_chunk": [(TILE, "for (int kbase = kstart; kbase < kend; "
                                "kbase += BK) {",
                          "for (int kbase = kstart; kbase + BK < kend; "
@@ -93,6 +97,19 @@ FAULTS = {
                                    "/ BK + 1);",
                            "const int n_chunks = max(1, min(p.cps, (last - k0) "
                            "/ BK + 1) - 1);")],
+    # the dense TMA + wgmma body loads every row tile's q from position 0
+    # (a tile's t0 ignored)
+    "decode_tile_t0": [(DECODE, "64 * c, h * p.g, rt.t0, b);",
+                        "64 * c, h * p.g, 0, b);")],
+    # the combine leaves out the last live split of every row of an fp32
+    # output (kernels 3 and 4's fp32 body), or that body skips the last
+    # chunk of every split
+    "f32_dropped_split": [(SPLITKV, "for (int s = 0; s < live; ++s) {\n"
+                                    "      const long long at",
+                           "for (int s = 0; s < live - (sizeof(OutT) == 4); "
+                           "++s) {\n      const long long at")],
+    "f32_last_stage": [(DECODE32, "for (int c = 0; c < n_stages; ++c) {",
+                        "for (int c = 0; c + 1 < n_stages; ++c) {")],
     # kernel 5's fp32 bodies (both: Q in shared memory, Q in registers) skip
     # their last key chunk, or do not rescale O when a row's max rises
     "flash32_last_chunk": [(FLASH32, "for (int c = 0; c < n_chunks; ++c) {",
@@ -112,11 +129,13 @@ FAULTS = {
 }
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
 # chip_smoke's bf16 cases at head dim 256 on gemma's heads and lengths (the
-# split-KV body), and the dense decode cases attention_tile's body still
-# runs at head dim 256 (fp32; bf16 with 66 rows a KV head)
+# split-KV body), the dense decode cases attention_tile's body still runs
+# (head dim 32) and those wider than 64 rows a KV head (row tiles)
 GEMMA_DECODE = ("gemma3_sd_verify", "gemma3_ar", "gemma3_gamma8_verify",
                 "gemma7b_sd_verify")
-TILE_DECODE = ("fp32_gemma3_sd_verify", "gemma3_wide_verify")
+TILE_DECODE = ("reduced_d32_sd_verify", "fp32_reduced_d32_sd_verify")
+WIDE_DECODE = ("wide_verify", "gamma16_verify", "wide_long_context",
+               "gemma3_wide_verify")
 GEMMA_PAGED = ("gemma3_sd_verify", "gemma3_ar_verify", "gemma7b_sd_verify")
 
 
@@ -128,6 +147,20 @@ def flash_fp32_cases() -> tuple:
     """chip_smoke.py's fp32 flash cases (head dims 64, 128, 256)."""
     import chip_smoke
     return _fp32_cases(chip_smoke.FLASH_CASES)
+
+
+def decode_fp32_cases() -> tuple:
+    """chip_smoke.py's fp32 dense decode cases on the split-KV CUDA-core
+    body (head dim 32 runs attention_tile's)."""
+    import chip_smoke
+    return tuple(c for c in _fp32_cases(chip_smoke.DECODE_CASES)
+                 if chip_smoke.DECODE_CASES[c][5] != 32)
+
+
+def paged_fp32_cases() -> tuple:
+    """chip_smoke.py's fp32 paged cases (the same body, paged)."""
+    import chip_smoke
+    return _fp32_cases(chip_smoke.PAGED_CASES)
 
 
 def gmm_fp32_cases() -> tuple:
@@ -148,6 +181,14 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                "ragged_rows_past_end": {"fused": SERVING_CASES,
                                         "down": SERVING_CASES},
                "tile_last_chunk": {"decode": TILE_DECODE},
+               "decode_tile_t0": {"decode": WIDE_DECODE},
+               # every fp32 case of kernels 3 and 4 with more than one
+               # live split (the paged SD verify holds one), by the
+               # tolerance; every one for the skipped chunk
+               "f32_dropped_split": {"decode": decode_fp32_cases,
+                                     "paged": ("fp32_long_context",)},
+               "f32_last_stage": {"decode": decode_fp32_cases,
+                                  "paged": paged_fp32_cases},
                "decode_last_chunk": {"decode": GEMMA_DECODE},
                "paged_last_chunk": {"paged": GEMMA_PAGED + ("long_context",)},
                # every fp32 case of kernels 5 and 6, by the tolerance
@@ -196,6 +237,32 @@ TUNING = {
                          "constexpr int NARROW_MAX_T = 0;")],
     "flash_narrow_all": [(FLASH, "constexpr int NARROW_MAX_T = 512;",
                           "constexpr int NARROW_MAX_T = 1 << 30;")],
+    # kernels 3 and 4's fp32 body: 2 ring stages at head dims 64 and 128
+    # instead of 3
+    "f32_stages2": [(DECODE32, "static constexpr int STAGES = D == 256 ? 2 : 3;",
+                     "static constexpr int STAGES = 2;")],
+    # dense fp32 splits for one block an SM at every head dim (2 up to D
+    # 128 by default); row tiles of 64 rows (one tile up to 64 rows, 5
+    # busy warps at 35), 24 or 16 instead of 32
+    "f32_waves1": [(DECODE32, "const int waves = head_dim == 256 ? Cfg<256>::MIN_BLOCKS "
+                              ": Cfg<128>::MIN_BLOCKS;", "const int waves = 1;")],
+    "f32_tile64": [(DECODE32, "constexpr int TILE_ROWS = 32;",
+                    "constexpr int TILE_ROWS = 64;")],
+    "f32_tile24": [(DECODE32, "constexpr int TILE_ROWS = 32;",
+                    "constexpr int TILE_ROWS = 24;")],
+    "f32_tile16": [(DECODE32, "constexpr int TILE_ROWS = 32;",
+                    "constexpr int TILE_ROWS = 16;")],
+    # one block an SM at every head dim (all 255 registers a thread, one
+    # wave of splits); 64-key stages up to D 128 (one block an SM)
+    "f32_one_block": [(DECODE32, "MIN_BLOCKS = 2 * (BYTES + 1024) <= 228 * 1024 ? 2 : 1;",
+                       "MIN_BLOCKS = 1;")],
+    "f32_bn64": [(DECODE32, "static constexpr int BN = 32;              // keys of a ring stage",
+                  "static constexpr int BN = D == 256 ? 32 : 64;")],
+    # the bf16 dense body's splits planned over (sequence, KV head) pairs
+    # alone, not over their row tiles: twice the splits of a two-tile
+    # verify at 8k keys, two waves
+    "decode_tiles_plan_off": [(DECODE, "splitkv::plan(B * n_tiles, Hkv, S,",
+                               "splitkv::plan(B, Hkv, S,")],
     # 8 stages of the down kernel's ring instead of 5
     "ragged_stages8": [(RAGGED, "STAGES = NMAT == 1 ? 5 : 5;",
                         "STAGES = NMAT == 1 ? 8 : 5;")],
@@ -231,6 +298,7 @@ TUNE_KINDS = {"paged": ("paged",), "decode": ("decode",),
               "decode256": ("decode",),
               "splitkv": ("paged", "decode"), "flash": ("flash",),
               "flash32": ("flash",), "simt90": ("gmm",),
+              "f32": ("paged", "decode"),
               "ragged": ("down",), "fused": ("fused",)}
 
 
@@ -255,10 +323,10 @@ KINDS = ("paged", "decode", "fused", "down", "flash", "gmm")
 
 
 def child_errors(root: Path, label: str) -> None:
-    """One JSON line per case: the bf16 paged, dense decode and ragged
-    cases, the dense decode's fp32 ones at head dim 256, and the fp32 flash
-    and capacity GEMM cases (a fault tree's: only those of the kinds its
-    fault is planted in); errors over the bounds."""
+    """One JSON line per case: the paged and dense decode cases, the bf16
+    ragged cases, and the fp32 flash and capacity GEMM cases (a fault
+    tree's: only those of the kinds its fault is planted in); errors over
+    the bounds."""
     kinds = tuple(FAULT_CASES[label]) if label in FAULTS else KINDS
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -323,20 +391,22 @@ def child_errors(root: Path, label: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(2)   # chip_smoke's seed 0
     for case, spec in chip_smoke.PAGED_CASES.items():
         heads = chip_smoke.PAGED_HEADS.get(case, chip_smoke.SERVE_HEADS)
-        args = chip_smoke.paged_inputs(spec, gen, dev, heads)
+        args = chip_smoke.paged_inputs(
+            spec, gen, dev, heads, ps=chip_smoke.PAGED_PAGE_SIZE.get(case, 64))
         dtype_name, _, _, _, cap = spec
-        if dtype_name != "bfloat16" or "paged" not in kinds:
+        if "paged" not in kinds:
             continue
         out = paged.paged_decode_attention(*args, logit_cap=cap)
         report("paged", case, out,
                paged_decode_attention_plain(*args, logit_cap=cap),
-               chip_smoke.PAGED_TOL[dtype_name], chip_smoke.PAGED_ROW_TOL,
+               chip_smoke.PAGED_TOL[dtype_name],
+               chip_smoke.PAGED_ROW_TOL if dtype_name == "bfloat16" else None,
                paged.LAST_ROUTE["paged_decode_attention"])
     gen = torch.Generator(device=dev).manual_seed(4)   # chip_smoke's seed 0
     for case, spec in chip_smoke.DECODE_CASES.items():
         args = chip_smoke.decode_inputs(spec, gen, dev)
         bf16 = spec[0] == "bfloat16"
-        if (not bf16 and spec[5] != 256) or "decode" not in kinds:
+        if "decode" not in kinds:
             continue
         out = ops.decode_attention(*args)
         report("decode", case, out, decode_attention_plain(*args),

@@ -13,18 +13,16 @@ import torch
 
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-
-
-def max_rows(head_dim: int) -> int:
-    """Query rows of one block of ``attention_tile.cuh`` at this head dim:
-    the most query heads a block may fold."""
-    return 32 if head_dim > 128 else 64
+# query rows of one row tile of the decode bodies (one block of
+# ``attention_tile.cuh`` at head dim 32): the most query heads a KV head
+# may fold, since one query position's rows share a tile
+MAX_G = 64
 
 
 def check(what: str, q, k, v, *, g_rows: int) -> None:
     """Raise unless the kernel takes these (B, T, H, D)-indexed views: one
     dtype and device, a head dim it is built for, a contiguous head dim,
-    16-byte aligned rows, and at most ``max_rows(D)`` heads folded per block."""
+    16-byte aligned rows, and at most ``MAX_G`` heads folded per block."""
     if q.dtype not in DTYPES:
         raise TypeError(f"{what} takes bf16 or fp32, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -40,9 +38,9 @@ def check(what: str, q, k, v, *, g_rows: int) -> None:
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"{what}: {Hq} query heads do not group over {Hkv} "
                          "KV heads")
-    if g_rows > max_rows(D):
+    if g_rows > MAX_G:
         raise ValueError(f"{what}: {g_rows} query heads per block exceed the "
-                         f"kernel's {max_rows(D)} rows at head dim {D}")
+                         f"kernel's {MAX_G} rows at head dim {D}")
     vec = 16 // q.element_size()
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype:

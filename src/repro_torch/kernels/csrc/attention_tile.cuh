@@ -1,13 +1,13 @@
-// One block of online-softmax attention for Hopper (sm_90a): a body of the
-// dense decode/verify kernel (kernels/decode_attention/csrc/decode_attention.cu,
-// bf16 off the split-KV body's shapes: head dim 32, or more than 64 rows a KV
-// head; and fp32).  The flash prefill kernel has bodies of its own
-// (flash_sm90.cuh in bf16, flash_f32.cuh in fp32).
+// One block of online-softmax attention for Hopper (sm_90a): the body of the
+// dense decode/verify kernel (kernels/decode_attention/csrc/decode_attention.cu)
+// at head dim 32, in bf16 and fp32, which only reduced configs have; head
+// dims 64, 128 and 256 run the split-KV bodies (decode_sm90.cuh in bf16,
+// decode_f32.cuh in fp32) at any number of query rows.  The flash prefill
+// kernel has bodies of its own (flash_sm90.cuh in bf16, flash_f32.cuh in
+// fp32).  The layout below is built for head dim 32 only.
 //
-// A block owns up to BM query rows that share one KV head and walks that
-// head's keys in chunks of BK = 64.  BM is 64 at head dims up to 128 and 32 at
-// head dim 256, where 64 fp32 rows of Q and O beside a K/V chunk would not fit
-// the 227 KB of shared memory a block may use:
+// A block owns up to BM = 64 query rows that share one KV head and walks
+// that head's keys in chunks of BK = 64:
 //
 //   out[row] = softmax_k( cap(q[row] . K[k] * scale) | visible(row, k) ) . V
 //
@@ -104,10 +104,11 @@ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
 // column hit 16 banks.
 template <typename T, int D>
 struct Layout {
+  static_assert(D == 32, "built for head dim 32 only");
   static constexpr bool TC = std::is_same<T, bf16>::value;
-  static constexpr int BM = D > 128 ? 32 : 64;     // query rows per block
+  static constexpr int BM = 64;                    // query rows per block
   static constexpr int MI = BM / 16;               // 16-row tiles per block
-  static constexpr int MIN_BLOCKS = D > 128 ? 1 : 2;
+  static constexpr int MIN_BLOCKS = 2;
   static constexpr int QP = TC ? D + 8 : D;
   static constexpr int KP = TC ? D + 8 : D + 1;
   static constexpr int VP = TC ? D + 8 : D;

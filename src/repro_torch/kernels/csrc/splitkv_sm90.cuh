@@ -4,30 +4,47 @@
 // and the dense body (kernels/decode_attention/csrc/decode_sm90.cuh, keys
 // from a contiguous cache).  Each of those defines its kernel: the grid
 // decode, its producer (which keys land in which ring stage), and calls
-// consume<D>() for the consumer warpgroup and combine_kernel<D> for the
-// merge.
+// consume<D>() for the consumer warpgroup and combine_kernel<D, bf16> for
+// the merge.  The fp32 CUDA-core body (decode_f32.cuh) shares the plan, the
+// row tiles, the partials' layout and the combine (combine_kernel<D,
+// float>).
 //
 //   out[b, t, h*g + i] = softmax_k( cap(q . K[b, k] * scale) | k <= len + t ) . V
 //
-// Split-KV.  The grid is (splits, Hkv, B): split s of (KV head h, sequence
-// b) owns the logical keys [s * cps * BK, (s + 1) * cps * BK), cps whole
-// chunks of BK = 64 keys.  plan() picks cps on the host from the number of
-// keys a row may hold (nothing waits on the device) so that at long context
-// B * Hkv * splits fills the SMs once, and a short row keeps one split.  A
-// split that starts past length + T - 1 returns at once.
+// Split-KV.  The grid is (splits * n_tiles, Hkv, B): split s of (KV head h,
+// sequence b) owns the logical keys [s * cps * BK, (s + 1) * cps * BK), cps
+// whole chunks of BK = 64 keys.  plan() picks cps on the host from the
+// number of keys a row may hold (nothing waits on the device) so that at
+// long context B * Hkv * splits fills the SMs once, and a short row keeps
+// one split.  A block whose split starts past its last query's position
+// returns at once.
 //
-// Combine.  When split 0 holds every live key of (b, h), its block writes
-// the output directly.  Otherwise each live split writes its unnormalised
-// accumulator O and its row max m and sum l in fp32 into the wrapper's
-// scratch, and combine_kernel merges them:
+// Row tiles.  A KV head's g * T query rows are cut into n_tiles tiles of tp
+// whole query positions (row_tiles(): at most 64 rows a tile, tiles as even
+// as whole positions allow; one tile when g * T <= 64), so that a verify
+// wider than one m64 tile (gemma3-12b at gamma 32: g 2, T 33) runs 34 + 32
+// rows, not 64 + 2.  Tile j holds positions [t0, t0 + npos), t0 = j * tp;
+// its row r is position t0 + r / g of query head h * g + r % g, and its last
+// key is length + t0 + npos - 1, so an earlier tile loads fewer chunks.
+// The n_tiles blocks of one (split, KV head, sequence) are adjacent in
+// blockIdx.x (x = split * n_tiles + tile), so they run together and their
+// K/V chunk reads meet in L2.
+//
+// Combine.  When split 0 holds every live key of a row tile, its block
+// writes the output directly.  Otherwise each live split writes its
+// unnormalised accumulator O and its row max m and sum l in fp32 into the
+// wrapper's scratch (at the rows' places among the g * T), and
+// combine_kernel merges them row by row (a row's live splits are its
+// tile's):
 //   out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s,   M = max_s m_s.
 //
 // Block: one consumer warpgroup and one producer warp (in a warpgroup of
 // its own, whose other warps exit).
-//   * Q: the g * T <= 64 query rows of one KV head (row r = t * g + i) are
-//     one wgmma m64 tile; the producer loads them with one 4-D TMA box (64
-//     columns, g heads, T steps, 1) over q (B, T, Hq, D), which delivers
-//     them in that row order.  The consumers zero the pad rows [g * T, 64).
+//   * Q: the g * npos <= 64 query rows of one row tile (row r = (t - t0) *
+//     g + i) are one wgmma m64 tile; the producer loads them with one 4-D
+//     TMA box (64 columns, g heads, tp steps, 1) at step t0 over q (B, T,
+//     Hq, D), which delivers them in that row order (steps past T zero
+//     filled).  The consumers zero the pad rows [g * tp, 64).
 //   * K and V: Cfg<D>::RING chunks in flight in a ring with full barriers
 //     for K and V and one empty barrier (4 up to D 128; 3 at D 256, where a
 //     chunk of K and V is 64 KB); 128-byte swizzle, a chunk of BK rows per
@@ -78,16 +95,40 @@ struct Cfg {
 
 struct Params {
   const int* lengths;
-  const int* table;                          // paged body only
-  bf16* out;                                 // (B, T, Hq, D), contiguous
+  const int* table;                          // paged bodies only
+  void* out;                                 // (B, T, Hq, D), contiguous, bf16 or fp32
   float* part_o;                             // (B, Hkv, splits, rows, D) partial O
   float* part_ml;                            // (B, Hkv, splits, rows, 2) m, l
   float* lse;                                // partial entry: (B, T, Hq) log-sum-exp
   int T, Hq, Hkv, g, rows, ps, MP, cps, splits;
+  int tp, n_tiles;                           // row tiles: tp query positions each
   int limit;                                 // keys a row can hold: keys >= limit never exist
-  int k_off;                                 // partial entry: key 0's position (dense body)
+  int k_off;                                 // partial entry: key 0's position (dense bodies)
   float scale, cap;
 };
+
+// Row tiles of a KV head's g * T rows (g <= ROWS): as few tiles as hold at
+// most max_rows rows each in whole query positions (one position a tile
+// when g > max_rows), the positions spread as evenly as whole tiles allow
+// (tp a tile, the last one may hold fewer).
+inline void row_tiles(int g, int T, int* tp, int* n_tiles, int max_rows = ROWS) {
+  const int most = max_rows >= g ? max_rows / g : 1;   // positions of a full tile
+  const int n = (T + most - 1) / most;
+  *tp = (T + n - 1) / n;
+  *n_tiles = (T + *tp - 1) / *tp;
+}
+
+// Query positions [t0, t0 + npos) of row tile j.
+struct RowTile {
+  int t0, npos;
+};
+
+__device__ __forceinline__ RowTile row_tile(const Params& p, int j) {
+  RowTile rt;
+  rt.t0 = j * p.tp;
+  rt.npos = min(p.tp, p.T - rt.t0);
+  return rt;
+}
 
 // Chunks per split and number of splits for rows of at most n_keys keys:
 // as many splits as fill `waves` blocks per SM over the B * Hkv (sequence,
@@ -166,23 +207,26 @@ __device__ __forceinline__ Bars init_bars(unsigned char* smem) {
 }
 
 // The consumer warpgroup (threads 0..127) of split sp of (KV head h,
-// sequence b): n_chunks chunks from key k0 as the producer fills the ring,
-// then the output itself (direct) or this split's partial (O, m, l).
+// sequence b), row tile `rt`: n_chunks chunks from key k0 as the producer
+// fills the ring, then the output itself (direct) or this split's partial
+// (O, m, l).  `base` is the position of the tile's first query (length +
+// t0), `last` the tile's last visible key.
 template <int D>
 __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, const Params& p,
-                                        int b, int h, int sp, int length, int last, int k0,
-                                        int n_chunks, bool direct) {
+                                        int b, int h, int sp, const RowTile& rt, int base,
+                                        int last, int k0, int n_chunks, bool direct) {
   using L = Cfg<D>;
   // rows r0 = 16 warp + lane / 4 and r0 + 8
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int kc = 2 * (lane % 4);             // key (and output) columns kc, kc + 1 of 8
+  const int rows = p.g * rt.npos;            // the tile's query rows
   int row[2], qlim[2];                       // rows held; last visible key (-1: pad row)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     row[hh] = warp * 16 + lane / 4 + 8 * hh;
-    qlim[hh] = row[hh] < p.rows ? min(length + row[hh] / p.g, last) : -1;
+    qlim[hh] = row[hh] < rows ? min(base + row[hh] / p.g, last) : -1;
   }
-  zero_rows<L::NB>(smem, p.rows, tid);       // Q's pad rows: the box fills g * T
+  zero_rows<L::NB>(smem, p.g * p.tp, tid);   // Q's pad rows: the box fills g * tp
 
   float o[D / 2];
 #pragma unroll
@@ -225,7 +269,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, c
     }
 #pragma unroll
     for (int e = 0; e < 32; ++e) sc[e] *= mul;
-    if (kb + BK - 1 > min(length, last)) {
+    if (kb + BK - 1 > min(base, last)) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int key = kb + 8 * (e / 4) + kc + (e & 1);
@@ -288,49 +332,75 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, c
   if (direct) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      if (row[hh] >= p.rows) continue;
+      if (row[hh] >= rows) continue;
       const float inv = 1.f / fmaxf(l[hh], 1e-30f);
-      const int t = row[hh] / p.g, gi = row[hh] % p.g;
-      bf16* dst = p.out + ((static_cast<long long>(b) * p.T + t) * p.Hq + h * p.g + gi) * D;
+      const int t = rt.t0 + row[hh] / p.g, gi = row[hh] % p.g;
+      bf16* dst = static_cast<bf16*>(p.out) +
+                  ((static_cast<long long>(b) * p.T + t) * p.Hq + h * p.g + gi) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + 8 * j + kc) =
             sm90::pack_bf16(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
     }
   } else {
-    const long long base =
-        ((static_cast<long long>(b) * p.Hkv + h) * p.splits + sp) * p.rows;
+    // the tile's rows sit at t0 * g + r among the g * T
+    const long long at =
+        ((static_cast<long long>(b) * p.Hkv + h) * p.splits + sp) * p.rows + rt.t0 * p.g;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      if (row[hh] >= p.rows) continue;
-      float* dst = p.part_o + (base + row[hh]) * D;
+      if (row[hh] >= rows) continue;
+      float* dst = p.part_o + (at + row[hh]) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(dst + 8 * j + kc) =
             make_float2(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
       if (lane % 4 == 0)
-        *reinterpret_cast<float2*>(p.part_ml + (base + row[hh]) * 2) = make_float2(m[hh], l[hh]);
+        *reinterpret_cast<float2*>(p.part_ml + (at + row[hh]) * 2) = make_float2(m[hh], l[hh]);
     }
   }
 }
 
+// The live splits of row tile j of (b, .): those that start at or before
+// the tile's last visible key (the partial entry's keys shifted by k_off).
+__device__ __forceinline__ int live_splits(const Params& p, int length, int j) {
+  const RowTile rt = row_tile(p, j);
+  const int last = last_key(length + rt.t0, rt.npos, p.limit);
+  return last < 0 ? 0 : last / (p.cps * BK) + 1;
+}
+
+// Four outputs as one store: 16 bytes of fp32, or 8 of bf16.
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(bf16* dst, float4 v) {
+  uint2 packed;
+  packed.x = sm90::pack_bf16(v.x, v.y);
+  packed.y = sm90::pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
+
 // Merge the live splits of (KV head blockIdx.x, sequence blockIdx.y) into
-// the output, unless split 0 held every live key (its block wrote it).
-// The partial entry (lse non-null) always merges, even one live split (the
-// kernel sends every split to scratch then), and writes each row's natural
-// log-sum-exp, (M + log2 L) ln 2 from the log2 units the splits keep; a row
-// with no visible key of the block (no live split, or every score masked)
-// gets 0 and -inf.
-template <int D>
+// the output (OutT: bf16 for the TMA + wgmma bodies, float for the fp32
+// body), row by row, skipping the rows whose tile's split 0 held every live
+// key (its block wrote them).  The partial entry (lse non-null) always
+// merges, even one live split (the kernels send every split to scratch
+// then), and writes each row's natural log-sum-exp, (M + log2 L) ln 2 from
+// the log2 units the splits keep; a row with no visible key of the block
+// (no live split, or every score masked) gets 0 and -inf.
+template <int D, typename OutT>
 __global__ void __launch_bounds__(256)
 combine_kernel(const Params p) {
   const int h = blockIdx.x, b = blockIdx.y;
-  const int last = last_key(p.lengths[b] - p.k_off, p.T, p.limit);
-  const int live = last < 0 ? 0 : last / (p.cps * BK) + 1;
-  if (live <= 1 && p.lse == nullptr) return;
+  const int length = p.lengths[b] - p.k_off;
+  // the last tile holds the most live splits
+  if (live_splits(p, length, p.n_tiles - 1) <= 1 && p.lse == nullptr) return;
   const long long base = (static_cast<long long>(b) * p.Hkv + h) * p.splits * p.rows;
+  OutT* out = static_cast<OutT*>(p.out);
   for (int u = threadIdx.x; u < p.rows * (D / 4); u += blockDim.x) {
     const int r = u / (D / 4), col = (u % (D / 4)) * 4;
+    const int t = r / p.g, gi = r % p.g;
+    const int live = live_splits(p, length, t / p.tp);
+    if (live <= 1 && p.lse == nullptr) continue;
     float mmax = -INFINITY;
     for (int s = 0; s < live; ++s) mmax = fmaxf(mmax, p.part_ml[(base + s * p.rows + r) * 2]);
     float lsum = 0.f;
@@ -347,12 +417,8 @@ combine_kernel(const Params p) {
       acc.w += w * v.w;
     }
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    const int t = r / p.g, gi = r % p.g;
     const long long row = (static_cast<long long>(b) * p.T + t) * p.Hq + h * p.g + gi;
-    uint2 packed;
-    packed.x = sm90::pack_bf16(acc.x * inv, acc.y * inv);
-    packed.y = sm90::pack_bf16(acc.z * inv, acc.w * inv);
-    *reinterpret_cast<uint2*>(p.out + row * D + col) = packed;
+    store4(out + row * D + col, make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
     if (p.lse != nullptr && col == 0)
       p.lse[row] = lsum > 0.f ? (mmax + __log2f(lsum)) * 0.6931471805599453f : -INFINITY;
   }
@@ -378,11 +444,11 @@ inline int set_partials(Params& p, void* scratch, int B, int D) {
 
 // The combine after the split kernel: when there is more than one split,
 // and always for the partial entry.
-template <int D>
+template <int D, typename OutT = bf16>
 inline int launch_combine(const Params& p, int B, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || (p.splits <= 1 && p.lse == nullptr)) return static_cast<int>(e);
-  combine_kernel<D><<<dim3(p.Hkv, B), 256, 0, stream>>>(p);
+  combine_kernel<D, OutT><<<dim3(p.Hkv, B), 256, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,23 +20,26 @@
 //
 // What the design does about it.  Three bodies; the launcher picks one per
 // call and reports which:
-//   * bf16 at head dims 64, 128 and 256 with g * T <= 64 query rows per KV
-//     head (every extend of the served models: the target's verify and AR
-//     steps, the draft's steps, gemma's global layers at 256):
-//     decode_sm90.cuh.  Split-KV over a (splits, Hkv, B) grid planned on
-//     the host from S, so the 8k case fills the SMs once and the serve
-//     shape runs one split and one kernel; a producer warp keeps TMA loads
-//     of 64-key chunks in flight in a ring (3 chunks of K and V at D 256,
-//     230,480 B a block); both products as wgmma with the online softmax in
-//     registers (at D 256 one m64n256k16 accumulator); a combine kernel
-//     merges the fp32 partials of rows with more than one live split.
-//   * bf16 otherwise (head dim 32, or g * T > 64, which the model's dense
-//     branch allows): attention_tile.cuh's WMMA body.  One block per
-//     (query tile, KV head, sequence), GQA folded into its 64 rows (32 at
-//     head dim 256), the KV axis a loop inside the block, 16-row WMMA
-//     tiles.
-//   * fp32 (the parity checks): the same body on the CUDA cores in full
-//     fp32.
+//   * bf16 at head dims 64, 128 and 256 (every extend of the served models:
+//     the target's verify and AR steps, the draft's steps, gemma's global
+//     layers at 256, and a verify of any gamma, which the model's dense
+//     branch allows): decode_sm90.cuh.  Split-KV over a (splits * n_tiles,
+//     Hkv, B) grid planned on the host from S, so the 8k case fills the SMs
+//     once and the serve shape runs one split and one kernel; a KV head's
+//     g * T query rows in row tiles of at most 64 (one, up to 64 rows); a
+//     producer warp keeps TMA loads of 64-key chunks in flight in a ring (3
+//     chunks of K and V at D 256, 230,480 B a block); both products as
+//     wgmma with the online softmax in registers (at D 256 one m64n256k16
+//     accumulator); a combine kernel merges the fp32 partials of rows with
+//     more than one live split.
+//   * fp32 at head dims 64, 128 and 256 (the parity checks):
+//     kernels/csrc/decode_f32.cuh.  The same split plan (splits of at
+//     least 2 chunks), row tiles and combine, on the CUDA cores in full
+//     fp32: K/V chunks by cp.async into a ring, q and O in registers.
+//   * head dim 32 (only reduced configs have it), bf16 and fp32:
+//     kernels/csrc/attention_tile.cuh, WMMA in bf16 and the CUDA cores in
+//     fp32.  One block per (query tile, KV head, sequence), GQA folded
+//     into its 64 rows, the KV axis a loop inside the block.
 //   * lengths stay on the device: each block reads its own, the grid is
 //     static, nothing waits on the host.
 //   * The cache is read in place through strides, the model's (B, S+1, Hkv, D)
@@ -45,35 +48,22 @@
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
 #include "../../csrc/attention_tile.cuh"
+#include "../../csrc/decode_f32.cuh"
 #include "decode_sm90.cuh"
 
 namespace {
 
 // attention_tile.cuh's body for dtype 0 = bf16 (WMMA), 1 = fp32 (CUDA
-// cores) at head_dim 32, 64, 128 or 256 (here, not in the header: the flash
-// library, which includes the header too, builds only its fp32 bodies).
-// Returns cudaGetLastError() after the launch, -1 for shapes the kernel does
-// not take (launch<> refuses a G above its BM) and -2 for a dtype or head
-// dim it is not built for.
+// cores) at head dim 32.  Returns cudaGetLastError() after the launch, -1
+// for shapes the kernel does not take (launch<> refuses a G above its BM)
+// and -2 for a dtype or head dim it is not built for.
 int launch_tile_any(int dtype, int head_dim, const attn::Params& p, int B, void* stream) {
   if (p.G < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
       (p.Hq / p.Hkv) % p.G != 0 || p.T < 1 || p.S < 1 || B < 1)
     return -1;
-  if (dtype == 0) {
-    switch (head_dim) {
-      case 32: return attn::launch<attn::bf16, 32>(p, B, stream);
-      case 64: return attn::launch<attn::bf16, 64>(p, B, stream);
-      case 128: return attn::launch<attn::bf16, 128>(p, B, stream);
-      case 256: return attn::launch<attn::bf16, 256>(p, B, stream);
-    }
-  } else if (dtype == 1) {
-    switch (head_dim) {
-      case 32: return attn::launch<float, 32>(p, B, stream);
-      case 64: return attn::launch<float, 64>(p, B, stream);
-      case 128: return attn::launch<float, 128>(p, B, stream);
-      case 256: return attn::launch<float, 256>(p, B, stream);
-    }
-  }
+  if (head_dim != 32) return -2;
+  if (dtype == 0) return attn::launch<attn::bf16, 32>(p, B, stream);
+  if (dtype == 1) return attn::launch<float, 32>(p, B, stream);
   return -2;
 }
 
@@ -86,10 +76,11 @@ int launch_tile_any(int dtype, int head_dim, const attn::Params& p, int B, void*
 // that may be read.  scratch: decode_attention_scratch_bytes() bytes (null
 // when 0).  *kernel is set to the body the call launches: 0 =
 // decode_sm90_kernel (split-KV, TMA + wgmma), 1 = attention_tile's WMMA
-// body, 2 = its CUDA-core body.  Returns cudaGetLastError() after the
-// launch, -1 for shapes the kernels do not take or a missing scratch, -2
-// for a dtype or head dim they are not built for, -3/-4 when the CUDA
-// driver cannot encode the tensor maps.
+// body, 2 = its CUDA-core body, 3 = decode_f32_kernel (split-KV, CUDA
+// cores).  Returns cudaGetLastError() after the launch, -1 for shapes the
+// kernels do not take or a missing scratch, -2 for a dtype or head dim they
+// are not built for, -3/-4 when the CUDA driver cannot encode the tensor
+// maps.
 //
 // lse null: the whole call (k_off must be 0).  lse non-null: the partial
 // entry, the same attention over ONE block of a cache split along its
@@ -97,9 +88,9 @@ int launch_tile_any(int dtype, int head_dim, const attn::Params& p, int B, void*
 // still at lengths[b] + t), for the combine across blocks by log-sum-exp.
 // out then gets the block's output normalized over its visible keys, lse
 // (B, T, Hq) fp32 each row's natural log-sum-exp of those keys' scores; a
-// row that sees none gets 0 and -inf.  The sm90 body sends every live
-// split to scratch and combine_kernel (splitkv_sm90.cuh) merges them and
-// writes lse; the WMMA and CUDA-core bodies write lse beside their output.
+// row that sees none gets 0 and -inf.  The sm90 and f32 bodies send every
+// live split to scratch and combine_kernel (splitkv_sm90.cuh) merges them
+// and writes lse; attention_tile's bodies write lse beside their output.
 extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
                                        const void* k, const void* v,
                                        const void* lengths, void* out, void* lse,
@@ -122,6 +113,21 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
       default:
         return decode90::launch<256>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq,
                                      Hkv, scale, logit_cap, s, lse_f, k_off);
+    }
+  }
+  if (decode32::takes(dtype, head_dim, Hq / Hkv, T)) {
+    *kernel = 3;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (head_dim) {
+      case 64:
+        return decode32::launch_dense<64>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq,
+                                          Hkv, scale, logit_cap, s, lse_f, k_off);
+      case 128:
+        return decode32::launch_dense<128>(q, k, v, lengths, out, scratch, strides, B, T, S,
+                                           Hq, Hkv, scale, logit_cap, s, lse_f, k_off);
+      default:
+        return decode32::launch_dense<256>(q, k, v, lengths, out, scratch, strides, B, T, S,
+                                           Hq, Hkv, scale, logit_cap, s, lse_f, k_off);
     }
   }
   *kernel = dtype == 0 ? 1 : 2;
@@ -147,14 +153,17 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
 }
 
 // Bytes of scratch the call with these arguments needs (the split-KV
-// partials of the sm90 body; 0 when it runs one split or another body, and
-// every split's partial for the partial entry).
+// partials of the sm90 and f32 bodies; 0 when they run one split or for
+// attention_tile's bodies, and every split's partial for the partial
+// entry).
 extern "C" long long decode_attention_scratch_bytes(int dtype, int head_dim, int B, int T,
                                                     int S, int Hq, int Hkv, int partial) {
-  if (Hkv < 1 || Hq % Hkv != 0 || S < 1 || B < 1 ||
-      !decode90::takes(dtype, head_dim, Hq / Hkv, T))
-    return 0;
-  return decode90::scratch_bytes(head_dim, B, T, Hq, Hkv, S, partial != 0);
+  if (Hkv < 1 || Hq % Hkv != 0 || S < 1 || B < 1) return 0;
+  if (decode90::takes(dtype, head_dim, Hq / Hkv, T))
+    return decode90::scratch_bytes(head_dim, B, T, Hq, Hkv, S, partial != 0);
+  if (decode32::takes(dtype, head_dim, Hq / Hkv, T))
+    return decode32::scratch_bytes_dense(head_dim, B, T, Hq, Hkv, S, partial != 0);
+  return 0;
 }
 
 // Dynamic shared memory of a block of the sm90 body at this head dim (for
@@ -166,20 +175,14 @@ extern "C" int decode_sm90_smem_bytes(int head_dim) {
   return -2;
 }
 
-// Dynamic shared memory of a block of attention_tile.cuh's body (the fp32
-// dense decode kernel, and the bf16 one off the split-KV body's shapes) for
-// this dtype (0 = bf16, 1 = fp32) and head dim (for reports), or -2 for one
-// it is not built for.
+// Dynamic shared memory of a block of the f32 body at this head dim (for
+// reports), or -2 for a head dim it is not built for.
+extern "C" int decode_f32_smem_bytes(int head_dim) { return decode32::smem_bytes(head_dim); }
+
+// Dynamic shared memory of a block of attention_tile.cuh's body (head dim
+// 32) for this dtype (0 = bf16, 1 = fp32) and head dim (for reports), or -2
+// for one it is not built for.
 extern "C" int attention_tile_smem_bytes(int dtype, int head_dim) {
-  switch (head_dim) {
-    case 32: return dtype == 0 ? attn::Layout<attn::bf16, 32>::BYTES
-                               : attn::Layout<float, 32>::BYTES;
-    case 64: return dtype == 0 ? attn::Layout<attn::bf16, 64>::BYTES
-                               : attn::Layout<float, 64>::BYTES;
-    case 128: return dtype == 0 ? attn::Layout<attn::bf16, 128>::BYTES
-                                : attn::Layout<float, 128>::BYTES;
-    case 256: return dtype == 0 ? attn::Layout<attn::bf16, 256>::BYTES
-                                : attn::Layout<float, 256>::BYTES;
-  }
-  return -2;
+  if (head_dim != 32) return -2;
+  return dtype == 0 ? attn::Layout<attn::bf16, 32>::BYTES : attn::Layout<float, 32>::BYTES;
 }

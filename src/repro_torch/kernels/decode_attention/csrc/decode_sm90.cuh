@@ -1,13 +1,13 @@
 // Dense decode / SD-verify attention in bf16 on Hopper (sm_90a): the body of
-// the bf16 path of decode_attention.cu at head dims 64, 128 and 256 with at
-// most 64 query rows per KV head (g * T <= 64).
+// the bf16 path of decode_attention.cu at head dims 64, 128 and 256, at any
+// T and up to 64 query heads per KV head.
 //
 //   out[b, t, h*g + i] = softmax_s( cap(q . k[b, s, h] * scale)
 //                                   | s <= lengths[b] + t, s < S ) . v[b, :, h]
 //
-// The split-KV grid, the consumer warpgroup (both products as wgmma, the
-// online softmax in registers), the split partials and their combine are
-// kernels/csrc/splitkv_sm90.cuh's, shared with the paged body
+// The split-KV grid, the row tiles, the consumer warpgroup (both products
+// as wgmma, the online softmax in registers), the split partials and their
+// combine are kernels/csrc/splitkv_sm90.cuh's, shared with the paged body
 // (paged_sm90.cuh).  What is dense is the producer and the split plan:
 //   * Splits: plan() over S, so that at long context (S 8192) B * Hkv *
 //     splits fills the SMs once, and at the serve shape (S 512, lengths
@@ -28,9 +28,12 @@
 //     past length + T - 1 are never loaded.  Rows of the last chunk past
 //     length + T - 1 are masked in the scores and zeroed in shared memory
 //     (splitkv::consume).
-//   * q is read in place through its strides too: one 4-D box (64, g, T, 1)
-//     over (D, Hq, T, B) per 64 columns (four at D 256) lands the g * T
-//     rows of a KV head in one m64 tile.
+//   * q is read in place through its strides too: one 4-D box (64, g, tp, 1)
+//     at step t0 over (D, Hq, T, B) per 64 columns (four at D 256) lands a
+//     row tile's g * npos rows in one m64 tile.  With more than 64 rows a
+//     KV head (a verify at gamma >= 9 on qwen2-57b-a14b's g 7, >= 16 on
+//     mixtral's g 4, >= 32 on gemma3's g 2) the grid holds splits x
+//     n_tiles blocks a (KV head, sequence), a split's tiles side by side.
 //
 // Internal linkage throughout (see sm90.cuh).
 
@@ -47,10 +50,12 @@ constexpr int MIN_CHUNKS = 8;                // chunks a split holds at least
 constexpr int MIN_CHUNKS_256 = 32;           // the same at head dim 256
 constexpr int WAVES = 1;                     // blocks per SM the split count aims at
 
-// Chunks per split and number of splits for a cache of S positions.
-inline void plan(int B, int Hkv, int S, int head_dim, int* cps, int* splits) {
-  splitkv::plan(B, Hkv, S, head_dim == 256 ? MIN_CHUNKS_256 : MIN_CHUNKS, WAVES, cps,
-                splits);
+// Chunks per split and number of splits for a cache of S positions, over
+// the B * Hkv * n_tiles row tiles (a split's tiles share its K/V reads in
+// L2, so at 8k keys two tiles of a verify run half as many splits each).
+inline void plan(int B, int Hkv, int S, int head_dim, int n_tiles, int* cps, int* splits) {
+  splitkv::plan(B * n_tiles, Hkv, S, head_dim == 256 ? MIN_CHUNKS_256 : MIN_CHUNKS, WAVES,
+                cps, splits);
 }
 
 template <int D>
@@ -59,16 +64,17 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, const Params p) {
   using L = Cfg<D>;
-  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x / p.n_tiles, h = blockIdx.y, b = blockIdx.z;
+  const RowTile rt = row_tile(p, blockIdx.x % p.n_tiles);
   // the partial entry's keys start at position k_off: local key i is
   // position k_off + i, so a row's length shifts by -k_off (and may fall
   // below 0: that row sees no key of the block)
-  const int length = p.lengths[b] - p.k_off;
-  const int last = last_key(length, p.T, p.limit);
+  const int base = p.lengths[b] - p.k_off + rt.t0;   // the tile's first query
+  const int last = last_key(base, rt.npos, p.limit);
   const int k0 = sp * p.cps * BK;
   if (k0 > last) return;                     // nothing of this split is visible
   const int n_chunks = min(p.cps, (last - k0) / BK + 1);
-  // split 0 holds every live key; the partial entry always merges
+  // split 0 holds every live key of the tile; the partial entry always merges
   const bool direct = p.lse == nullptr && last < p.cps * BK;
 
   extern __shared__ unsigned char smem_raw[];
@@ -81,9 +87,9 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::prefetch_map(&qmap);
     sm90::prefetch_map(&kmap);
     sm90::prefetch_map(&vmap);
-    sm90::mbar_expect_tx(bars.q_full, L::NB * p.rows * SW);
+    sm90::mbar_expect_tx(bars.q_full, L::NB * p.g * p.tp * SW);   // steps past T: zero fill
     for (int c = 0; c < L::NB; ++c)
-      sm90::tma_load_4d(smem + c * ROWS * SW, &qmap, bars.q_full, 64 * c, h * p.g, 0, b);
+      sm90::tma_load_4d(smem + c * ROWS * SW, &qmap, bars.q_full, 64 * c, h * p.g, rt.t0, b);
     for (int i = 0; i < n_chunks; ++i) {
       const int s = i % L::RING;
       const int kb = k0 + i * BK;            // the chunk's first key
@@ -99,23 +105,24 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     return;
   }
-  consume<D>(smem, bars, p, b, h, sp, length, last, k0, n_chunks, direct);
+  consume<D>(smem, bars, p, b, h, sp, rt, base, last, k0, n_chunks, direct);
 }
 
-// Whether this body takes the call: bf16 at head dim 64, 128 or 256, at
-// most 64 query rows per KV head.  (Strides and alignment are the wrapper's
-// check.)
+// Whether this body takes the call: bf16 at head dim 64, 128 or 256, any T
+// and at most 64 query heads per KV head (one query position's rows fit a
+// tile).  (Strides and alignment are the wrapper's check.)
 inline bool takes(int dtype, int head_dim, int g, int T) {
   return dtype == 0 && (head_dim == 64 || head_dim == 128 || head_dim == 256) &&
-         g >= 1 && T >= 1 && g * T <= ROWS;
+         g >= 1 && g <= ROWS && T >= 1;
 }
 
 // Bytes of scratch a call needs: the split partials, 0 with one split
 // (the partial entry's, with any number of splits).
 inline long long scratch_bytes(int head_dim, int B, int T, int Hq, int Hkv, int S,
                                bool partial = false) {
-  int cps = 0, splits = 0;
-  plan(B, Hkv, S, head_dim, &cps, &splits);
+  int tp = 0, n_tiles = 0, cps = 0, splits = 0;
+  row_tiles(Hq / Hkv, T, &tp, &n_tiles);
+  plan(B, Hkv, S, head_dim, n_tiles, &cps, &splits);
   if (partial)
     return static_cast<long long>(B) * Hkv * splits * (Hq / Hkv) * T * (head_dim + 2) * 4;
   return splitkv::scratch_bytes(head_dim, B, Hkv, (Hq / Hkv) * T, splits);
@@ -144,30 +151,32 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
     return -1;
   Params p{};
   p.lengths = static_cast<const int*>(lengths);
-  p.out = static_cast<bf16*>(out);
+  p.out = out;
   p.T = T;
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.g = Hq / Hkv;
   p.rows = p.g * T;
+  row_tiles(p.g, T, &p.tp, &p.n_tiles);
   p.limit = S;
   p.scale = scale;
   p.cap = cap;
   p.lse = lse;
   p.k_off = k_off;
-  plan(B, Hkv, S, D, &p.cps, &p.splits);
+  plan(B, Hkv, S, D, p.n_tiles, &p.cps, &p.splits);
   if (set_partials(p, scratch, B, D) != 0) return -1;
   // dims (D, heads, positions, batch); strides of heads, positions, batch
   CUtensorMap qm, km, vm;
   const long long qd[4] = {D, Hq, T, B}, kd[4] = {D, Hkv, S, B};
   const long long qs[3] = {st[2], st[1], st[0]}, ks[3] = {st[5], st[4], st[3]},
                   vs[3] = {st[8], st[7], st[6]};
-  const int qb[4] = {64, p.g, T, 1}, kb[4] = {64, 1, BK, 1};
+  const int qb[4] = {64, p.g, p.tp, 1}, kb[4] = {64, 1, BK, 1};
   int rc = sm90::make_map_bf16<4>(&qm, q, qd, qs, qb, SW);
   if (rc == 0) rc = sm90::make_map_bf16<4>(&km, k, kd, ks, kb, SW);
   if (rc == 0) rc = sm90::make_map_bf16<4>(&vm, v, kd, vs, kb, SW);
   if (rc != 0) return rc;
-  decode_sm90_kernel<D><<<dim3(p.splits, Hkv, B), NT, L::BYTES, stream>>>(qm, km, vm, p);
+  decode_sm90_kernel<D>
+      <<<dim3(p.splits * p.n_tiles, Hkv, B), NT, L::BYTES, stream>>>(qm, km, vm, p);
   return launch_combine<D>(p, B, stream);
 }
 

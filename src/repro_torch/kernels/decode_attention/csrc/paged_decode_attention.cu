@@ -20,7 +20,7 @@
 // reads ~134 MB, a floor of ~40 us, and the kernel is memory bound: the
 // keys have to be spread over every SM with loads in flight on each.
 //
-// Two bodies; the launcher picks one per call and reports which:
+// Three bodies; the launcher picks one per call and reports which:
 //   * bf16 at head dims 64, 128 and 256, pages of 8, 16, 32 or a multiple
 //     of 64 (every call of the served models): paged_sm90.cuh.  Split-KV
 //     over a (splits, Hkv, B) grid with a combine kernel, a producer warp
@@ -28,10 +28,13 @@
 //     products as wgmma with the softmax in registers.  At D 256 the O
 //     accumulator is 128 registers a thread and a K+V chunk 64 KB, so the
 //     ring holds 3 chunks.
-//   * everything else: the CUDA-core body below, one block per (KV head,
-//     sequence), unchanged since it was written.  fp32 (the parity checks)
-//     keeps its numerics; other page sizes do not tile a 64-key chunk with
-//     TMA boxes.
+//   * fp32 (the parity checks) at the same head dims and any page size:
+//     kernels/csrc/decode_f32.cuh, the same split plan and combine on the
+//     CUDA cores in full fp32 (K/V chunks by cp.async, each key's page
+//     looked up in the table; q and O in registers).
+//   * bf16 on pages that do not tile a 64-key chunk, at head dims 64 and
+//     128 (no served path has them): the CUDA-core body below, one block
+//     per (KV head, sequence), unchanged since it was written.
 //
 // The CUDA-core body:
 //   * One block per (KV head h, sequence b).  The TPU kernel's grid
@@ -57,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/decode_f32.cuh"
 #include "paged_sm90.cuh"
 
 namespace {
@@ -71,18 +75,6 @@ constexpr float NEG_INF = -1e30f;
 
 // 16-byte loads of the element type, converted to fp32
 template <typename T> struct Vec;
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void unpack(const uint4& raw, float* dst) {
-    const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[e] = f[e];
-  }
-  __device__ __forceinline__ static void store4(float* dst, const float* v) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
 
 template <> struct Vec<bf16> {
   static constexpr int N = 8;
@@ -359,13 +351,7 @@ int launch_d(int head_dim, const void* q, const void* kp, const void* vp,
       return launch<T, 64>(q, kp, vp, lengths, table, out, B, T_q, Hq, Hkv, ps, MP, scale, cap, stream);
     case 128:
       return launch<T, 128>(q, kp, vp, lengths, table, out, B, T_q, Hq, Hkv, ps, MP, scale, cap, stream);
-    case 256:
-      // bf16 at head dim 256 runs paged_sm90.cuh only (pages that tile a chunk)
-      if constexpr (sizeof(T) == 4)
-        return launch<T, 256>(q, kp, vp, lengths, table, out, B, T_q, Hq, Hkv, ps, MP, scale,
-                              cap, stream);
-      return static_cast<int>(cudaErrorInvalidValue);
-    default:
+    default:                                   // bf16 at 256 runs paged_sm90.cuh only
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -377,10 +363,10 @@ int launch_d(int head_dim, const void* q, const void* kp, const void* vp,
 // int32; scratch: paged_decode_attention_scratch_bytes() bytes (null when 0).
 // All contiguous, on the device, 16-byte aligned.  *kernel is set to the body
 // the call launches: 0 = paged_sm90_kernel (split-KV, TMA + wgmma), 1 = the
-// CUDA-core body (fp32, and bf16 at head dims 64 and 128 with pages that do
-// not tile a 64-key chunk; bf16 at 256 with such pages is refused).  Returns
-// cudaGetLastError() after the launch, -1 for a missing scratch, -3/-4 when
-// the CUDA driver cannot encode the tensor maps.
+// CUDA-core body (bf16 on pages that do not tile a 64-key chunk; at 256
+// refused), 2 = decode_f32_kernel (split-KV, CUDA cores, fp32, any page
+// size).  Returns cudaGetLastError() after the launch, -1 for a missing
+// scratch, -3/-4 when the CUDA driver cannot encode the tensor maps.
 extern "C" int paged_decode_attention_launch(int dtype, int head_dim, const void* q,
                                              const void* k_pages, const void* v_pages,
                                              const void* lengths, const void* table,
@@ -401,25 +387,42 @@ extern "C" int paged_decode_attention_launch(int dtype, int head_dim, const void
     return paged90::launch<256>(q, k_pages, v_pages, lengths, table, out, scratch, B, T_q,
                                 Hq, Hkv, NP, ps, MP, scale, logit_cap, s);
   }
+  if (decode32::takes(dtype, head_dim, Hq / Hkv, T_q)) {
+    *kernel = 2;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int cps = 0, splits = 0;
+    paged90::plan(B, Hkv, ps, MP, &cps, &splits);
+    if (head_dim == 64)
+      return decode32::launch_paged<64>(q, k_pages, v_pages, lengths, table, out, scratch, B,
+                                        T_q, Hq, Hkv, ps, MP, cps, splits, scale, logit_cap, s);
+    if (head_dim == 128)
+      return decode32::launch_paged<128>(q, k_pages, v_pages, lengths, table, out, scratch, B,
+                                         T_q, Hq, Hkv, ps, MP, cps, splits, scale, logit_cap, s);
+    return decode32::launch_paged<256>(q, k_pages, v_pages, lengths, table, out, scratch, B,
+                                       T_q, Hq, Hkv, ps, MP, cps, splits, scale, logit_cap, s);
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   *kernel = 1;
-  if (dtype == 0)
-    return launch_d<bf16>(head_dim, q, k_pages, v_pages, lengths, table, out, B, T_q, Hq,
-                          Hkv, ps, MP, scale, logit_cap, stream);
-  if (dtype == 1)
-    return launch_d<float>(head_dim, q, k_pages, v_pages, lengths, table, out, B, T_q, Hq,
-                           Hkv, ps, MP, scale, logit_cap, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_d<bf16>(head_dim, q, k_pages, v_pages, lengths, table, out, B, T_q, Hq, Hkv,
+                        ps, MP, scale, logit_cap, stream);
 }
 
 // Bytes of scratch the call with these arguments needs (the split-KV
-// partials of the sm90 body; 0 when it runs one split or the CUDA-core body).
+// partials of the sm90 and f32 bodies, which share the paged plan; 0 when
+// they run one split or for the old CUDA-core body).
 extern "C" long long paged_decode_attention_scratch_bytes(int dtype, int head_dim, int B,
                                                           int T_q, int Hq, int Hkv, int ps,
                                                           int MP) {
-  if (Hkv < 1 || Hq % Hkv != 0 || !paged90::takes(dtype, head_dim, ps, Hq / Hkv, T_q))
-    return 0;
-  return paged90::scratch_bytes(head_dim, B, T_q, Hq, Hkv, ps, MP);
+  if (Hkv < 1 || Hq % Hkv != 0) return 0;
+  const int g = Hq / Hkv;
+  if (paged90::takes(dtype, head_dim, ps, g, T_q) || decode32::takes(dtype, head_dim, g, T_q))
+    return paged90::scratch_bytes(head_dim, B, T_q, Hq, Hkv, ps, MP);
+  return 0;
 }
+
+// Dynamic shared memory of a block of the f32 body at this head dim (for
+// reports), or -2 for a head dim it is not built for.
+extern "C" int paged_f32_smem_bytes(int head_dim) { return decode32::smem_bytes(head_dim); }
 
 // Dynamic shared memory of a block of the sm90 body at this head dim (for
 // reports), or -2 for a head dim it is not built for.

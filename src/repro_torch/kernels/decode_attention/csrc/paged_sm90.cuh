@@ -57,6 +57,7 @@ paged_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   if (k0 > last) return;                     // nothing of this split is visible
   const int n_chunks = min(p.cps, (last - k0) / BK + 1);
   const bool direct = last < p.cps * BK;     // split 0 holds every live key
+  const RowTile rt{0, p.T};                  // one row tile: g * T <= 64
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align1024(smem_raw);
@@ -103,15 +104,19 @@ paged_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     return;
   }
-  consume<D>(smem, bars, p, b, h, sp, length, last, k0, n_chunks, direct);
+  consume<D>(smem, bars, p, b, h, sp, rt, length, last, k0, n_chunks, direct);
 }
 
+// Whether pages of ps positions tile a 64-key chunk (ps a multiple of 64,
+// or 8, 16, 32): the page sizes the split-KV bodies take.
+inline bool tiles_chunk(int ps) { return ps % 8 == 0 && (ps % BK == 0 || BK % ps == 0); }
+
 // Whether this body takes the call: bf16 at head dim 64, 128 or 256, pages
-// whose boxes tile a 64-key chunk (ps a multiple of 64, or 8, 16, 32), at
-// most 64 query rows.  (Alignment is the wrapper's check.)
+// that tile a chunk, at most 64 query rows.  (Alignment is the wrapper's
+// check.)
 inline bool takes(int dtype, int head_dim, int ps, int g, int T) {
   return dtype == 0 && (head_dim == 64 || head_dim == 128 || head_dim == 256) &&
-         ps % 8 == 0 && (ps % BK == 0 || BK % ps == 0) && g * T <= ROWS && g >= 1 && T >= 1;
+         tiles_chunk(ps) && g * T <= ROWS && g >= 1 && T >= 1;
 }
 
 // Bytes of scratch a call needs: the split partials, 0 with one split.
@@ -136,12 +141,14 @@ int launch(const void* q, const void* kp, const void* vp, const void* lengths,
   Params p{};
   p.lengths = static_cast<const int*>(lengths);
   p.table = static_cast<const int*>(table);
-  p.out = static_cast<bf16*>(out);
+  p.out = out;
   p.T = T;
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.g = Hq / Hkv;
   p.rows = p.g * T;
+  p.tp = T;
+  p.n_tiles = 1;
   p.ps = ps;
   p.MP = MP;
   p.limit = MP * ps;

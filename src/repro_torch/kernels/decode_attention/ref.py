@@ -13,11 +13,12 @@ These are the CPU path of ``ops.decode_attention`` and
 ``paged.paged_decode_attention`` and the yardsticks their CUDA kernels are
 held against on the card.
 
-``split_plan`` and ``split_chunks`` mirror the host planner and the per-block
-key ranges of the split-KV bodies (``kernels/csrc/splitkv_sm90.cuh``), and
-``decode_attention_split_plain`` computes the dense attention split by split
-and merges the partials as their combine kernel does; the CPU tests hold
-them against the reference.  Nothing on the card's path calls them.
+``split_plan``, ``split_chunks`` and ``row_tiles`` mirror the host planner,
+the per-block key ranges and the row tiles of the split-KV bodies
+(``kernels/csrc/splitkv_sm90.cuh``), and ``decode_attention_split_plain``
+computes the dense attention split by split (and row tile by row tile) and
+merges the partials as their combine kernel does; the CPU tests hold them
+against the reference.  Nothing on the card's path calls them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ import torch
 
 NEG_INF = -1e30
 CHUNK = 64                 # keys of one chunk of the split-KV bodies (BK)
+TILE_ROWS = 64             # query rows of one row tile (splitkv ROWS)
+F32_TILE_ROWS = 32         # the same of the fp32 body (decode_f32 TILE_ROWS)
 DENSE_MIN_CHUNKS = 8       # decode_sm90.cuh's MIN_CHUNKS
 PAGED_MIN_CHUNKS = 4       # paged_sm90.cuh's MIN_CHUNKS
 
@@ -194,6 +197,20 @@ def split_chunks(length: int, T: int, limit: int, cps: int, splits: int):
     return out
 
 
+def row_tiles(g: int, T: int, rows: int = TILE_ROWS):
+    """(positions per tile tp, tiles n) as ``splitkv::row_tiles`` cuts a KV
+    head's g * T query rows: as few tiles as hold at most ``rows`` rows each
+    in whole query positions (one position a tile when g > ``rows``), the
+    positions spread as evenly as whole tiles allow; tile j holds positions
+    [j tp, min((j + 1) tp, T)), its row r position j tp + r // g of head
+    r % g.  The TMA + wgmma body cuts at 64 rows, the fp32 body
+    (``decode_f32.cuh``) at ``F32_TILE_ROWS``."""
+    most = rows // g if rows >= g else 1
+    n = -(-T // most)
+    tp = -(-T // n)
+    return tp, -(-T // tp)
+
+
 def decode_attention_split_plain(
     q: torch.Tensor,           # (B, T, Hq, D)
     k: torch.Tensor,           # (B, S, Hkv, D)
@@ -201,6 +218,7 @@ def decode_attention_split_plain(
     lengths: torch.Tensor,     # (B,)
     *,
     splits: int,
+    tiled: bool = False,
     scale: float = 0.0,
     logit_cap: float = 0.0,
 ) -> torch.Tensor:             # (B, T, Hq, D)
@@ -210,7 +228,11 @@ def decode_attention_split_plain(
     unnormalised accumulator O_s, row max m_s and sum l_s in fp32 with the
     scores in log2 units, then merged as the combine kernel merges them:
     out = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s with M = max_s m_s,
-    a range with no visible key (m_s = -inf) weighing 0."""
+    a range with no visible key (m_s = -inf) weighing 0.  With
+    ``tiled`` the query positions are cut as :func:`row_tiles` cuts
+    them and each (split, row tile) is a partial of its own, merged per
+    row over the splits its tile sees (those that start at or before the
+    tile's last query; the rest, whose keys it cannot see, are left out)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -229,18 +251,29 @@ def decode_attention_split_plain(
              + torch.arange(T, device=q.device)[None, None, :, None])
     k_pos = torch.arange(S, device=q.device)[None, None, None, :]
     s = s.masked_fill(k_pos > q_pos, float("-inf"))
-    parts = []
-    for lo in range(0, S, span):
-        x = s[..., lo:lo + span]
-        m = x.amax(-1, keepdim=True)
-        p = torch.exp2(x - torch.where(m == float("-inf"), 0.0, m))
-        parts.append((m, p.sum(-1, keepdim=True), p @ vf[:, :, lo:lo + span]))
-    top = torch.stack([m for m, _, _ in parts]).amax(0)
-    num = torch.zeros_like(parts[0][2])
-    den = torch.zeros_like(parts[0][1])
-    for m, l, o in parts:
-        w = torch.where(m == float("-inf"), 0.0, torch.exp2(m - top))
-        num = num + w * o
-        den = den + w * l
-    out = num / den.clamp_min(1e-30)
+    tp, n_tiles = row_tiles(g, T) if tiled else (T, 1)
+    outs = []
+    for j in range(n_tiles):
+        t0, t1 = j * tp, min((j + 1) * tp, T)
+        # the splits this tile sees: those starting at or before the last
+        # key of its last query, min(length + t1 - 1, S - 1), in any row
+        last = (lengths.to(torch.int64) + t1 - 1).clamp(max=S - 1).amax()
+        parts = []
+        for lo in range(0, S, span):
+            if lo > last:
+                break
+            x = s[:, :, t0:t1, lo:lo + span]
+            m = x.amax(-1, keepdim=True)
+            p = torch.exp2(x - torch.where(m == float("-inf"), 0.0, m))
+            parts.append((m, p.sum(-1, keepdim=True),
+                          p @ vf[:, :, lo:lo + span]))
+        top = torch.stack([m for m, _, _ in parts]).amax(0)
+        num = torch.zeros_like(parts[0][2])
+        den = torch.zeros_like(parts[0][1])
+        for m, l, o in parts:
+            w = torch.where(m == float("-inf"), 0.0, torch.exp2(m - top))
+            num = num + w * o
+            den = den + w * l
+        outs.append(num / den.clamp_min(1e-30))
+    out = torch.cat(outs, dim=2)
     return out.to(q.dtype).transpose(1, 2)

@@ -8,9 +8,11 @@ tests/test_kernels.py::test_decode_attention_sweep (3e-5) and
 test_decode_attention_bf16 (4e-2), plus the serve models' grouping g = 7.
 Split-KV: the plain split version (per-range partials merged as the card's
 combine kernel merges them) equals the reference's kernel at 1, 2 and 5
-splits (3e-5), and the Python mirror of the host split planner covers every
-key of every row exactly once and leaves a split that starts past a row's
-last key empty.
+splits (3e-5), also cut into row tiles where g * T > 64 rows; the Python
+mirror of the host split planner covers every key of every row exactly once
+and leaves a split that starts past a row's last key empty, and the mirror
+of the row-tile planner covers every query row once in tiles of at most 64
+rows.
 Layer level: ``gqa_forward`` extends with ``use_flash`` against the
 reference's, on a cache of logical capacity 512 with one row whose
 positions pass it: the reference drops those writes, the port sends them to
@@ -46,9 +48,15 @@ def _close(a, b, tol):
     np.testing.assert_allclose(to_np(a), to_np(b), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("T", [1, 4, 5])
-@pytest.mark.parametrize("g", [1, 2, 4, 7])
-def test_decode_attention_sweep_matches_reference(T, g):
+# (g, T): the reference's sweep, then verifies wider than one 64-row tile
+# (g 7 at gamma 9 and 16, gemma3's g 2 at gamma 32)
+SWEEP = [pytest.param(g, T, id=f"{g}-{T}") for g in (1, 2, 4, 7)
+         for T in (1, 4, 5)] + [pytest.param(g, T, id=f"{g}-{T}")
+                                for g, T in ((7, 10), (7, 17), (2, 33))]
+
+
+@pytest.mark.parametrize("g,T", SWEEP)
+def test_decode_attention_sweep_matches_reference(g, T):
     B, Hkv, S, D = 3, 2, 1024, 64
     (jq, tq), (jk, tk), (jv, tv) = _case(B, Hkv * g, Hkv, T, S, D, 10 * g + T,
                                          "float32")
@@ -77,22 +85,65 @@ def test_decode_attention_bf16_matches_reference():
            TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("T", [1, 5])
-@pytest.mark.parametrize("splits", [1, 2, 5])
-def test_split_plain_matches_reference(splits, T):
+# (splits, T, g): g 4 at T 1 and 5 (one row tile), then g * T > 64 rows in
+# row tiles (70, 119 and 66 rows: two tiles each)
+SPLIT_CASES = [pytest.param(sp, T, 4, id=f"{sp}-{T}") for sp in (1, 2, 5)
+               for T in (1, 5)] + [
+    pytest.param(sp, T, g, id=f"{sp}-{T}-g{g}") for sp in (1, 5)
+    for g, T in ((7, 10), (7, 17), (2, 33))]
+
+
+@pytest.mark.parametrize("splits,T,g", SPLIT_CASES)
+def test_split_plain_matches_reference(splits, T, g):
     """S 640 (10 chunks of 64) cut into 1, 2 and 5 ranges: a row whose keys
     fit the first range, one that spans several, and one whose last query
     sits at S - 1 (the reference pads S to its 512-key block with zero keys,
-    which a query past S would see); fp32 at the reference's 3e-5."""
-    B, Hkv, g, S, D = 3, 2, 4, 640, 64
+    which a query past S would see); fp32 at the reference's 3e-5.  Where
+    g * T > 64 the rows are cut into row tiles, each (split, tile) a
+    partial of its own."""
+    B, Hkv, S, D = 3, 2, 640, 64
     (jq, tq), (jk, tk), (jv, tv) = _case(B, Hkv * g, Hkv, T, S, D,
                                          100 * splits + T, "float32")
     jl, tl = both(np.array([20, 333, S - T], np.int32))
     ref = jdec.decode_attention_bhtd(jq, jk, jv, jl, interpret=True)
     out = tref.decode_attention_split_plain(
         tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2), tl,
-        splits=splits)
+        splits=splits, tiled=g * T > tref.TILE_ROWS)
     _close(out.transpose(1, 2), ref, TOL["float32"])
+
+
+# (g, T) at the TMA + wgmma body's 64 rows a tile, then (g, T, rows) at the
+# fp32 body's 32 (one position a tile past g 32)
+TILE_CASES = [pytest.param(g, T, tref.TILE_ROWS, id=f"{g}-{T}") for g, T in (
+    (1, 1), (7, 1), (7, 5), (7, 9), (7, 10), (7, 17), (4, 17), (2, 33),
+    (64, 1), (64, 3), (40, 3), (33, 2), (1, 200), (3, 65))] + [
+    pytest.param(g, T, tref.F32_TILE_ROWS, id=f"{g}-{T}-r32") for g, T in (
+        (7, 5), (2, 5), (7, 1), (40, 3), (64, 2))]
+
+
+@pytest.mark.parametrize("g,T,rows", TILE_CASES)
+def test_row_tiles_cover_every_query_row_once(g, T, rows):
+    """The mirror of ``splitkv::row_tiles``: tiles of whole query
+    positions cover every (t, i) of a KV head once, none holds more than
+    ``rows`` rows (one position of g rows past g = ``rows``) or is empty,
+    every tile but the last holds tp positions, there are as few tiles as
+    fit, and g * T <= ``rows`` keeps one tile (the tile the kernels ran
+    before)."""
+    tp, n = tref.row_tiles(g, T, rows)
+    most = max(1, rows // g)
+    seen = np.zeros((T, g), np.int64)
+    sizes = []
+    for j in range(n):
+        t0, t1 = j * tp, min((j + 1) * tp, T)
+        assert t1 > t0 and g * (t1 - t0) <= max(rows, g)
+        sizes.append(t1 - t0)
+        for r in range(g * (t1 - t0)):
+            seen[t0 + r // g, r % g] += 1
+    assert (seen == 1).all()
+    assert sizes[:-1] == [tp] * (n - 1)             # only the last is short
+    assert n == -(-T // most)                       # as few tiles as fit
+    if g * T <= rows:
+        assert (tp, n) == (T, 1)
 
 
 def _plan_case(B, Hkv, S, sms, min_chunks, waves=1):
@@ -234,9 +285,14 @@ def test_gqa_extend_below_512_or_capped_takes_the_plain_branch():
     assert called == []
 
 
-@pytest.mark.parametrize("cap", [0.0, 30.0])
-@pytest.mark.parametrize("blocks", [2, 4])
-@pytest.mark.parametrize("T", [1, 5])
+# (T, blocks, cap); T 17 at g 4 is 68 rows a KV head (row tiles on the card)
+PARTIAL_CASES = [pytest.param(T, blocks, cap, id=f"{T}-{blocks}-{cap}")
+                 for cap in (0.0, 30.0) for blocks in (2, 4)
+                 for T in (1, 5)] + [pytest.param(17, 2, 0.0,
+                                                  id="17-2-0.0")]
+
+
+@pytest.mark.parametrize("T,blocks,cap", PARTIAL_CASES)
 def test_partial_blocks_merge_into_the_whole_call(T, blocks, cap):
     """Kernel 4's partial entry over a cache split along its sequence: the
     plain partials of 2 and 4 key blocks (each at its global offset), merged

@@ -421,9 +421,10 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
     out = paged.paged_decode_attention(*case, logit_cap=cap)
     torch.cuda.synchronize()
     assert paged.LAUNCHES["paged_decode_attention"] == before + 1
-    # bf16 runs the split-KV body at every head dim, 256 included
+    # bf16 runs the split-KV TMA + wgmma body at every head dim, 256
+    # included, fp32 the split-KV CUDA-core body
     assert paged.LAST_ROUTE["paged_decode_attention"] == (
-        "sm90" if dtype == torch.bfloat16 else "simt")
+        "sm90" if dtype == torch.bfloat16 else "f32")
     ref = paged_decode_attention_plain(*case, logit_cap=cap)
     tol = PAGED_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -435,9 +436,9 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
 def test_paged_attention_kernel_long_context_and_no_sync(cuda, dtype):
     """~8k cached positions at the serve widths, with the device never
     waiting on the host for lengths or the table.  A typical |out| there is
-    ~0.02, near the bf16 bound, so fp32 holds the CUDA-core page walk at
-    2e-5 and bf16 (the split-KV body, several splits and the combine) is
-    also held at PAGED_ROW_TOL x each row's rms."""
+    ~0.02, near the bf16 bound, so fp32 holds the split-KV CUDA-core body
+    (several splits and the fp32 combine) at 2e-5 and bf16 (the TMA +
+    wgmma body) is also held at PAGED_ROW_TOL x each row's rms."""
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.decode_attention.ref import \
         paged_decode_attention_plain
@@ -454,9 +455,68 @@ def test_paged_attention_kernel_long_context_and_no_sync(cuda, dtype):
     tol = PAGED_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     assert paged.LAST_ROUTE["paged_decode_attention"] == (
-        "sm90" if dtype == torch.bfloat16 else "simt")
+        "sm90" if dtype == torch.bfloat16 else "f32")
     if dtype == torch.bfloat16:
         _assert_rows_close(out, ref, PAGED_ROW_TOL)
+
+
+@pytest.mark.parametrize("ps", [16, 64, 24])
+@pytest.mark.parametrize("T,Hq,Hkv,D", [(5, 28, 4, 128), (1, 28, 4, 128),
+                                        (5, 16, 8, 256), (8, 8, 2, 64)])
+def test_paged_f32_kernel_long_table(cuda, ps, T, Hq, Hkv, D):
+    """The fp32 split-KV CUDA-core body over a long table (4096 keys and
+    up): pages of 16 and 64, and of 24, which tile no 64-key chunk and take
+    the same body, rows with one live split and rows with many (the
+    fp32 combine), at the target's, gemma3's and a draft's heads, at the
+    reference's 2e-5; then NaN past every row's last key and in the trash
+    page must not move the output by one bit."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_plain
+    MP = -(-4096 // ps)
+    q, kp, vp, lengths, table = _paged_case(
+        cuda, torch.float32, B=4, Hq=Hq, Hkv=Hkv, D=D, T=T, ps=ps,
+        MP=MP, seed=ps + T + D, lengths=SPLIT_LENGTHS)
+    out = paged.paged_decode_attention(q, kp, vp, lengths, table)
+    torch.cuda.synchronize()
+    assert paged.LAST_ROUTE["paged_decode_attention"] == "f32"
+    assert build.load(paged.SOURCE).paged_decode_attention_scratch_bytes(
+        1, D, 4, T, Hq, Hkv, ps, MP) > 0
+    ref = paged_decode_attention_plain(q, kp, vp, lengths, table)
+    tol = PAGED_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    pk, pv = kp.clone(), vp.clone()
+    pk[0], pv[0] = float("nan"), float("inf")
+    for b, n in enumerate(SPLIT_LENGTHS):
+        first_dead = n + T
+        for lp in range(table.shape[1]):
+            lo = max(0, first_dead - lp * ps)
+            if lo < ps:
+                page = int(table[b, lp])
+                pk[page, lo:], pv[page, lo:] = float("nan"), float("nan")
+    after = paged.paged_decode_attention(q, pk, pv, lengths, table)
+    assert torch.isfinite(after).all()
+    torch.testing.assert_close(after, out, rtol=0, atol=0)
+
+
+def test_paged_odd_page_size_keeps_the_old_body(cuda):
+    """Pages of 24 tile no 64-key chunk: bf16 at head dim 128 takes the old
+    CUDA-core body (route simt); fp32 the split-KV CUDA-core body (route
+    f32), which looks every key's page up and takes any page size; both
+    held at the same bounds."""
+    from repro_torch.kernels.decode_attention import paged
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_plain
+    for dtype, route in ((torch.float32, "f32"), (torch.bfloat16, "simt")):
+        case = _paged_case(cuda, dtype, B=3, Hq=28, Hkv=4, D=128, T=5, ps=24,
+                           MP=12, seed=24)
+        out = paged.paged_decode_attention(*case)
+        torch.cuda.synchronize()
+        assert paged.LAST_ROUTE["paged_decode_attention"] == route
+        ref = paged_decode_attention_plain(*case)
+        tol = PAGED_TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
 def test_paged_gather_refused_on_cuda(cuda):
@@ -770,14 +830,17 @@ def test_decode_sm90_kernel_ignores_poisoned_stale_keys_and_trash_slot(
 @pytest.mark.parametrize("dtype,D,g,T,route", [
     (torch.bfloat16, 128, 7, 5, "sm90"), (torch.bfloat16, 64, 7, 1, "sm90"),
     (torch.bfloat16, 64, 8, 8, "sm90"), (torch.bfloat16, 32, 7, 5, "wmma"),
-    (torch.bfloat16, 128, 7, 10, "wmma"), (torch.bfloat16, 256, 2, 5, "sm90"),
-    (torch.bfloat16, 256, 1, 1, "sm90"), (torch.bfloat16, 256, 2, 33, "wmma"),
-    (torch.float32, 128, 7, 5, "simt"), (torch.float32, 64, 2, 1, "simt")])
+    (torch.bfloat16, 128, 7, 10, "sm90"), (torch.bfloat16, 256, 2, 5, "sm90"),
+    (torch.bfloat16, 256, 1, 1, "sm90"), (torch.bfloat16, 256, 2, 33, "sm90"),
+    (torch.float32, 128, 7, 5, "f32"), (torch.float32, 64, 2, 1, "f32"),
+    (torch.float32, 32, 2, 5, "simt")])
 def test_decode_kernel_routes_are_what_the_launcher_reports(cuda, dtype, D,
                                                             g, T, route):
-    """bf16 at head dims 64, 128 and 256 with g * T <= 64 rows takes the
-    split-KV body; head dim 32 and g * T > 64 the WMMA body; fp32 the CUDA-core
-    body: each as the launcher reports it, each against the plain version."""
+    """bf16 at head dims 64, 128 and 256 takes the split-KV TMA + wgmma
+    body at any g * T (row tiles past 64 rows), fp32 there the split-KV
+    CUDA-core body; head dim 32 attention_tile's WMMA (bf16) and CUDA-core
+    (fp32) bodies: each as the launcher reports it, each against the plain
+    version."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
     gen = torch.Generator(device=cuda).manual_seed(D + g + T)
@@ -816,6 +879,157 @@ def test_decode_sm90_kernel_with_combine_never_syncs(cuda):
     tol = DECODE_TOL[torch.bfloat16]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     _assert_rows_close(out, ref, DECODE_ROW_TOL)
+
+
+# (g, T) of more than 64 query rows a KV head: 65 (g 13 at gamma 4), 70
+# (qwen2-57b-a14b's g 7 at gamma 9), 119 (gamma 16), 231 (gamma 32)
+WIDE_ROWS = [(13, 5), (7, 10), (7, 17), (7, 33)]
+WIDE_ROUTE = {torch.bfloat16: "sm90", torch.float32: "f32"}
+
+
+@pytest.mark.parametrize("S", [512, 8192])
+@pytest.mark.parametrize("g,T", WIDE_ROWS)
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_row_tiles_match_plain(cuda, dtype, D, g, T, S):
+    """More than 64 query rows a KV head, cut into row tiles: the bf16 TMA
+    + wgmma body and the fp32 CUDA-core body on the cache layout, at one
+    split (S 512) and several (S 8192), with a row at length 0, one whose
+    last query sits at S - 1, one whose queries run past S and one in the
+    middle; bf16 also at DECODE_ROW_TOL x each row's rms."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    lens = [0, S - T, S - 2, S // 2 + 3]
+    gen = torch.Generator(device=cuda).manual_seed(D + g + T + S)
+    q = _randn(cuda, (4, T, 2 * g, D), dtype, gen)
+    kc, vc = (_randn(cuda, (4, S + 1, 2, D), dtype, gen) for _ in range(2))
+    kc[:, S], vc[:, S] = 1e3, -1e3
+    k, v = kc[:, :S], vc[:, :S]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert ops.LAST_ROUTE["decode_attention"] == WIDE_ROUTE[dtype]
+    ref = decode_attention_plain(q, k, v, lengths)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _assert_rows_close(out, ref, DECODE_ROW_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("T,g", [(1, 7), (5, 7), (5, 2), (9, 1)])
+@pytest.mark.parametrize("S", [512, 8192])
+def test_decode_f32_kernel_matches_plain(cuda, D, T, g, S):
+    """The fp32 split-KV CUDA-core body at every head dim it takes, with
+    AR steps and verifies of 7 to 35 rows a KV head (key groups of 8, 4, 2
+    and 1 warps), at one split and several (the fp32 combine), on the cache
+    layout with a poisoned trash slot, at the reference's 3e-5; then NaN and
+    Inf past every row's last key must not move the output by one bit."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(D + T + g + S)
+    lens = [5, S // 2 - 3, S - T - 1, S - 2]
+    q = _randn(cuda, (4, T, 2 * g, D), torch.float32, gen)
+    kc, vc = (_randn(cuda, (4, S + 1, 2, D), torch.float32, gen)
+              for _ in range(2))
+    kc[:, S], vc[:, S] = 1e3, -1e3
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, kc[:, :S], vc[:, :S], lengths)
+    torch.cuda.synchronize()
+    assert ops.LAST_ROUTE["decode_attention"] == "f32"
+    ref = decode_attention_plain(q, kc[:, :S], vc[:, :S], lengths)
+    tol = DECODE_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    pk, pv = kc.clone(), vc.clone()
+    for b, n in enumerate(lens):
+        pk[b, n + T:], pv[b, n + T:] = float("nan"), float("inf")
+    after = ops.decode_attention(q, pk[:, :S], pv[:, :S], lengths)
+    assert torch.isfinite(after).all()
+    torch.testing.assert_close(after, out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,D,g,T", [
+    (torch.bfloat16, 128, 7, 10), (torch.bfloat16, 256, 2, 33),
+    (torch.float32, 128, 7, 5), (torch.float32, 128, 7, 10),
+    (torch.float32, 256, 2, 5)])
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_partial_entry_on_row_tiles_and_fp32(cuda, dtype, D, g, T, blocks):
+    """Kernel 4's partial entry where g * T > 64 (row tiles) and in fp32
+    (the CUDA-core body's partials, its lse from the fp32 combine): each
+    block against its plain version (the lse -inf exactly where the plain
+    one's is), the blocks merged by log-sum-exp against the whole plain
+    call."""
+    from repro_torch.distributed.collectives import lse_combine
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_partial_plain, decode_attention_plain)
+    gen = torch.Generator(device=cuda).manual_seed(D + g + T + blocks)
+    B, S = 4, 2048
+    q = _randn(cuda, (B, T, 2 * g, D), dtype, gen)
+    k, v = (_randn(cuda, (B, S, 2, D), dtype, gen) for _ in range(2))
+    lengths = torch.tensor([17, 700, 1300, S - T], dtype=torch.int32,
+                           device=cuda)
+    n = S // blocks
+    outs, lses = [], []
+    tol = DECODE_TOL[dtype]
+    for i in range(blocks):
+        kb, vb = k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n]
+        out, lse = ops.decode_attention_partial(q, kb, vb, lengths,
+                                                k_lo=i * n)
+        assert ops.LAST_ROUTE["decode_attention_partial"] == WIDE_ROUTE[dtype]
+        p_out, p_lse = decode_attention_partial_plain(q, kb, vb, lengths,
+                                                      k_lo=i * n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), p_out.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(torch.isinf(lse), torch.isinf(p_lse))
+        fin = torch.isfinite(p_lse)
+        torch.testing.assert_close(lse[fin], p_lse[fin], rtol=tol, atol=tol)
+        outs.append(out)
+        lses.append(lse)
+    merged = lse_combine(torch.stack(outs), torch.stack(lses))
+    torch.testing.assert_close(
+        merged.float(), decode_attention_plain(q, k, v, lengths).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 10), (torch.float32, 5),
+                                     (torch.float32, 10)])
+def test_decode_row_tiles_and_f32_capture_without_sync(cuda, dtype, T):
+    """The new routes in a CUDA graph: a row-tiled bf16 verify (70 rows)
+    and fp32 verifies at 8k keys (several splits, the combine, scratch from
+    torch's allocator), captured with the device never waiting on the host
+    and replayed on new inputs to the eager call's bits."""
+    from repro_torch.kernels.decode_attention import ops
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    B, S = 8, 8192
+    q = _randn(cuda, (B, T, 28, 128), dtype, gen)
+    k, v = (_randn(cuda, (B, S, 4, 128), dtype, gen) for _ in range(2))
+    lengths = torch.randint(7900, S - T, (B,), generator=gen, device=cuda
+                            ).to(torch.int32)
+    ops.decode_attention(q, k, v, lengths)           # build + load first
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            out = ops.decode_attention(q, k, v, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.LAST_ROUTE["decode_attention"] == WIDE_ROUTE[dtype]
+    q.copy_(_randn(cuda, q.shape, dtype, gen))
+    lengths.copy_(torch.randint(7000, S - T, (B,), generator=gen,
+                                device=cuda).to(torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.decode_attention(q, k, v, lengths))
 
 
 @pytest.mark.parametrize("causal,window,cap", [(True, 300, 30.0),
@@ -884,9 +1098,9 @@ def test_attention_wrappers_raise_on_unsupported_head_dim(cuda):
 
 # ------------------------------------- head dim 256 (gemma-7b, gemma3-12b)
 # flash: TMA + wgmma in bf16, flash_f32.cuh's CUDA cores in fp32; dense
-# decode: TMA + wgmma in bf16, attention_tile's CUDA cores in fp32
+# decode: TMA + wgmma in bf16, decode_f32.cuh's CUDA cores in fp32
 D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "f32"}
-DECODE_D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "simt"}
+DECODE_D256_ROUTE = {torch.bfloat16: "sm90", torch.float32: "f32"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -970,8 +1184,8 @@ def test_flash_f32_kernel_on_packed_model_layout(cuda, D, causal):
 def test_decode_kernel_head_dim_256(cuda, dtype, Hq, Hkv, T, S):
     """The dense decode/verify kernel at head dim 256 (AR, gamma 4 and
     gamma 8 verifies; g = 2 and 1) on the model's cache layout with a
-    poisoned trash slot: the split-KV TMA + wgmma body in bf16,
-    attention_tile's CUDA cores in fp32."""
+    poisoned trash slot: the split-KV TMA + wgmma body in bf16, the
+    split-KV CUDA-core body in fp32."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
     gen = torch.Generator(device=cuda).manual_seed(T + S + Hkv)
@@ -1062,13 +1276,25 @@ def test_paged_sm90_head_dim_256_gemma3(cuda, ps, T):
 
 
 def test_head_dim_256_folds_at_most_32_heads(cuda):
-    """At head dim 256 a block holds 32 query rows: a KV head of 64 query
-    heads is refused on the card, not sent to the plain version."""
+    """At head dim 256 a row tile holds 64 query rows: 64 query heads a KV
+    head run one position a tile in both dtypes, 65 are refused on the card,
+    not sent to the plain version."""
     from repro_torch.kernels.decode_attention import ops
-    q = torch.zeros((1, 1, 64, 256), device=cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    lengths = torch.tensor([300], dtype=torch.int32, device=cuda)
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "f32")):
+        q = _randn(cuda, (1, 2, 64, 256), dtype, gen)
+        k, v = (_randn(cuda, (1, 512, 1, 256), dtype, gen) for _ in range(2))
+        out = ops.decode_attention(q, k, v, lengths)
+        assert ops.LAST_ROUTE["decode_attention"] == route
+        tol = DECODE_TOL[dtype]
+        torch.testing.assert_close(out.float(), decode_attention_plain(
+            q, k, v, lengths).float(), rtol=tol, atol=tol)
+    q = torch.zeros((1, 1, 65, 256), device=cuda)
     kv = torch.zeros((1, 512, 1, 256), device=cuda)
     before = ops.LAUNCHES["decode_attention"]
-    with pytest.raises(ValueError, match="32 rows at head dim 256"):
+    with pytest.raises(ValueError, match="64 rows at head dim 256"):
         ops.decode_attention(q, kv, kv,
                              torch.zeros((1,), dtype=torch.int32, device=cuda))
     assert ops.LAUNCHES["decode_attention"] == before

@@ -9,8 +9,8 @@ NVIDIA GPU:
 
 The partial entry (``decode_attention_partial``: one key block of a cache
 split along its sequence) is held against its plain version on every body
-(sm90 for bf16 at head dims 64 and 128, WMMA at 256, the CUDA cores in
-fp32) at kernel 4's tolerances (4e-2 in bf16, 3e-5 in fp32), and its
+(sm90 for bf16 at head dims 64, 128 and 256, the split-KV CUDA-core body
+f32 in fp32) at kernel 4's tolerances (4e-2 in bf16, 3e-5 in fp32), and its
 blocks merged by log-sum-exp against the whole call.  The collectives run
 on a NCCL world of one (the mesh starts it): captured in a CUDA graph and
 replayed on new inputs, they equal the eager calls bit for bit.
@@ -54,7 +54,7 @@ def _close(got, want, tol):
 
 @pytest.mark.parametrize("dtype,D,Hq,Hkv,route", [
     (torch.bfloat16, 128, 28, 4, "sm90"), (torch.bfloat16, 64, 14, 2, "sm90"),
-    (torch.bfloat16, 256, 16, 8, "sm90"), (torch.float32, 128, 28, 4, "simt")])
+    (torch.bfloat16, 256, 16, 8, "sm90"), (torch.float32, 128, 28, 4, "f32")])
 @pytest.mark.parametrize("blocks", [2, 4])
 def test_partial_entry_matches_plain_and_merges(cuda, dtype, D, Hq, Hkv,
                                                 route, blocks):

@@ -37,7 +37,9 @@ def ep_a2a_bytes(tokens: int, top_k: int, d_model: int, ep_degree: int,
     """Per-device all-to-all volume of one EP MoE layer: each routed copy
     crosses the interconnect twice (dispatch + combine), N·K·d·2·bytes
     total, split over ep_degree devices (``repro.distributed.collectives``'s
-    function, copied until expert parallelism is ported)."""
+    function).  The mean: ``distributed/collectives.moe_ep_forward`` sends
+    drop-free slot buffers sized for the worst case, ep_degree times this
+    (the dry-run counts those, ``launch/dryrun.py``)."""
     if ep_degree <= 1:
         return 0.0
     return 2.0 * tokens * top_k * d_model * dtype_bytes / ep_degree

@@ -28,8 +28,9 @@ kind, its operand bytes on this rank, its axes and whether a layer of the
 stack issued it (``launch/costs.record_collective``), and returns a result
 of the right shape without communicating (an all-gather's other blocks
 and a reduction's sum are left as they are: the dry-run's tensors are on
-the meta device and hold no values).  The EP dispatch's all-to-alls have
-no census: the dry-run refuses ``"ep"``.
+the meta device and hold no values).  The EP dispatch's all-to-alls
+record the padded slot buffers they send, as issued; its ragged FFN
+runs on the stated routing (``launch/costs.stated_group_sizes``).
 
 Expert parallelism (``moe_ep_forward``).  The one-hot dispatch runs every
 token through every expert and the ``gmm`` dispatch needs every expert on
@@ -63,8 +64,9 @@ Every shape comes from ``slots`` alone, and nothing reads the device from
 the host, so an EP round is captured in the session's CUDA graphs like
 any other (``core/graphs.py``).  ``EP_CALLS`` counts the calls that
 really dispatched (a graph replay credits it, as it credits kernel
-launches).  Per-layer collective cost: 2 x N·K·d / ep elements a rank,
-``core/perf_model.ep_a2a_bytes``.
+launches).  Per-layer collective cost: 2 x N·K·d / ep elements a rank on
+the mean (``core/perf_model.ep_a2a_bytes``); the drop-free slot buffers
+sent are ep times that, each destination's sized for all N_loc·K pairs.
 """
 from __future__ import annotations
 
@@ -111,6 +113,12 @@ def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     # all_gather_single is all_gather_into_tensor's newer name
     fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     fn(out, inp, group=group)
+
+
+def _all_to_all(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    if _census("all-to-all", inp, group):
+        return
+    dist.all_to_all_single(out, inp, group=group)
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
@@ -434,8 +442,8 @@ def _ragged_ep_shard(x: torch.Tensor, params: dict, cfg, *, slots: int,
     send_eid.index_put_((dest_eff, slot), (flat_e % e_local).to(torch.int32))
     recv = torch.empty((m, slots, d), dtype=x.dtype, device=dev)
     recv_eid = torch.empty((m, slots), dtype=torch.int32, device=dev)
-    dist.all_to_all_single(recv, send[:m], group=group)
-    dist.all_to_all_single(recv_eid, send_eid[:m], group=group)
+    _all_to_all(recv, send[:m], group)
+    _all_to_all(recv_eid, send_eid[:m], group)
 
     # 4. the shared expert on the local rows, between the hops
     shared_out = None
@@ -450,8 +458,11 @@ def _ragged_ep_shard(x: torch.Tensor, params: dict, cfg, *, slots: int,
     sizes = torch.zeros((e_local + 1,), dtype=torch.int32, device=dev)
     sizes.scatter_add_(0, eid, torch.ones_like(eid, dtype=torch.int32))
     sizes = sizes[:e_local]
+    # the meta device (the dry-run) holds no routing: a stated one, under
+    # which each of the m ranks sends this one N·K/m of its pairs
     ys = ragged.ragged_moe_ffn(xs[order].contiguous(), w_gate.contiguous(),
-                               w_up.contiguous(), w_down.contiguous(), sizes,
+                               w_up.contiguous(), w_down.contiguous(),
+                               costs.stated_group_sizes(sizes, N * K),
                                activation=cfg.mlp_activation)
     real = torch.arange(m * slots, device=dev) < sizes.sum()
     ys = torch.where(real[:, None], ys, torch.zeros_like(ys)).to(x.dtype)
@@ -461,7 +472,7 @@ def _ragged_ep_shard(x: torch.Tensor, params: dict, cfg, *, slots: int,
     #    (token, k) order summed by one reduction (the same bits eager and
     #    replayed; the reference scatter-adds them)
     ret = torch.empty_like(back)
-    dist.all_to_all_single(ret, back, group=group)
+    _all_to_all(ret, back, group)
     gathered = ret[torch.where(kept, dest, torch.zeros_like(dest)), slot]
     wk = weights.reshape(-1) * kept
     out = (gathered.float() * wk[:, None]).view(N, K, d).sum(1).to(x.dtype)
@@ -509,7 +520,7 @@ def moe_ep_forward(params: dict, cfg, x: torch.Tensor, *, mesh=None,
         want = -(-int(n_local * K * capacity_factor) // m)
         slots = max(8, min(n_local * K, -(-want // 8) * 8))
     grp = shard.group(row_group)
-    r = dist.get_rank(grp)
+    r = _rank(grp)
     lo, hi = r * n_local, min((r + 1) * n_local, B * T)
     x_loc = x.new_zeros((n_local, d))
     if hi > lo:

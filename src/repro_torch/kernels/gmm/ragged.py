@@ -30,10 +30,14 @@ and never stores them, as at any group boundary.
 
 Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
-the two.  ``LAUNCHES`` counts kernel launches per kernel, so a run can show
-that its main path went through them; ``LAST_ROUTE`` holds the kernel the
-last launch of each ran, as its launcher reported it (``"sm90"``,
-``"wmma"`` or ``"simt"``).
+the two.  On the meta device (the dry-run, ``launch/dryrun.py``) it
+launches nothing: it records its kernel's work in the active step
+counters (``launch/costs.record_kernel``) and returns an empty result of
+its shape; its group sizes must then hold values (a stated routing,
+``launch/costs.stated_group_sizes``).  ``LAUNCHES`` counts kernel
+launches per kernel, so a run can show that its main path went through
+them; ``LAST_ROUTE`` holds the kernel the last launch of each ran, as its
+launcher reported it (``"sm90"``, ``"wmma"`` or ``"simt"``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch
 from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.gmm.ref import (fused_gate_up_ref, ragged_gmm_ref,
                                          ragged_moe_ffn_ref)
+from repro_torch.launch import costs
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ragged_gmm.cu"
 
@@ -290,6 +295,29 @@ def _launch_ragged_sm90(xs, w, group_sizes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _counted(xs: torch.Tensor, ws, group_sizes: torch.Tensor
+             ) -> torch.Tensor:
+    """A product on the meta device: record its work (PERF.md's bound rule
+    for kernels 1-2: 2·rows·D·F FLOPs a weight; the rows of ``xs``, the
+    weights of every expert with a row, the sizes and the output rows
+    moved once each) and return its empty (N, F) result."""
+    if group_sizes.is_meta:
+        raise ValueError("a ragged kernel on the meta device needs group "
+                         "sizes with values (launch/costs."
+                         "stated_group_sizes)")
+    sizes = group_sizes.tolist()
+    N, D = xs.shape
+    F = ws[0].shape[2]
+    rows = min(sum(sizes), N)
+    active = sum(s > 0 for s in sizes)
+    es = xs.element_size()
+    costs.record_kernel(
+        2 * rows * D * F * len(ws),
+        rows * D * es + active * len(ws) * D * F * ws[0].element_size()
+        + len(sizes) * group_sizes.element_size() + rows * F * es)
+    return xs.new_empty((N, F))
+
+
 def _on_cuda(xs: torch.Tensor) -> bool:
     if xs.device.type == "cpu":
         return False
@@ -309,6 +337,8 @@ def ragged_gmm(xs: torch.Tensor,            # (N, D) tokens sorted by expert
     and chosen from the rows per expert for the visit-list kernels; 16
     takes the WMMA kernel in bf16."""
     refuse_autograd("ragged_gmm", xs, w)
+    if xs.is_meta:
+        return _counted(xs, (w,), group_sizes)
     if not _on_cuda(xs):
         return ragged_gmm_ref(xs, w, group_sizes)
     _check(xs, (w,), group_sizes)
@@ -328,6 +358,8 @@ def fused_gate_up(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
     refuse_autograd("fused_gate_up", xs, w_gate, w_up)
+    if xs.is_meta:
+        return _counted(xs, (w_gate, w_up), group_sizes)
     if not _on_cuda(xs):
         return fused_gate_up_ref(xs, w_gate, w_up, group_sizes, activation)
     _check(xs, (w_gate, w_up), group_sizes)
@@ -352,15 +384,16 @@ def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
     refuse_autograd("ragged_moe_ffn", xs, w_gate, w_up, w_down)
-    if not _on_cuda(xs):
-        return ragged_moe_ffn_ref(xs, w_gate, w_up, w_down, group_sizes,
-                                  activation)
-    _check(xs, (w_gate, w_up), group_sizes)
-    E, D, F = w_gate.shape
-    if (w_down.shape != (E, F, D) or w_down.dtype != xs.dtype
-            or w_down.device != xs.device or not w_down.is_contiguous()):
-        raise ValueError(f"w_down must be a contiguous ({E}, {F}, {D}) "
-                         f"{xs.dtype} tensor on {xs.device}")
+    if not xs.is_meta:
+        if not _on_cuda(xs):
+            return ragged_moe_ffn_ref(xs, w_gate, w_up, w_down, group_sizes,
+                                      activation)
+        _check(xs, (w_gate, w_up), group_sizes)
+        E, D, F = w_gate.shape
+        if (w_down.shape != (E, F, D) or w_down.dtype != xs.dtype
+                or w_down.device != xs.device or not w_down.is_contiguous()):
+            raise ValueError(f"w_down must be a contiguous ({E}, {F}, {D}) "
+                             f"{xs.dtype} tensor on {xs.device}")
     h = fused_gate_up(xs, w_gate, w_up, group_sizes, activation=activation,
                       bm=bm)
     return ragged_gmm(h, w_down, group_sizes, bm=bm)

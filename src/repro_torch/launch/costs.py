@@ -20,6 +20,15 @@ counted.
   issues over a ``launch/mesh.CensusMesh`` (``record_collective``): its
   operand bytes on this rank, by kind, by mesh axis, and ``in_loop``
   (issued by a layer of the stack) or ``outside``.
+* Kernels: a kernel wrapper that launches nothing on the meta device (the
+  ragged expert products, ``kernels/gmm/ragged.py``) records its own
+  FLOPs and bytes (``record_kernel``).
+
+Stated routing.  The ragged expert products' work follows the routing's
+group sizes, which a meta tensor does not hold.  ``stated_group_sizes``
+stands a uniform routing in for them on the meta device (every expert
+receives floor(R/E) of the R routed rows, the first R mod E one more),
+and the dry-run's record names it (``knobs["routing"]``).
 
 ``repeat(n)`` counts every operation inside it n times in every active
 counter: ``models/ssm.py`` runs one step of a recurrence whose steps all
@@ -33,7 +42,8 @@ import weakref
 from typing import Dict, Iterable, List
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils.flop_counter import flop_registry
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -206,6 +216,28 @@ def record_collective(kind: str, nbytes: int, axes, in_loop: bool) -> None:
     counter."""
     for c in _ACTIVE:
         c.record(kind, nbytes, tuple(axes), in_loop)
+
+
+def record_kernel(flops: int, nbytes: int) -> None:
+    """Record one kernel's FLOPs and the bytes it moves in every active
+    counter (a wrapper that launches nothing on the meta device)."""
+    for c in _ACTIVE:
+        c.flops += c.weight * int(flops)
+        c.bytes += c.weight * int(nbytes)
+
+
+def stated_group_sizes(sizes: torch.Tensor, rows: int) -> torch.Tensor:
+    """The group sizes a ragged kernel runs on: ``sizes`` itself off the
+    meta device; on it, the stated uniform routing of ``rows`` routed rows
+    over ``sizes.numel()`` experts (module docstring), a real int32 CPU
+    tensor made outside every counter (no operation of the step)."""
+    if not sizes.is_meta:
+        return sizes
+    n = sizes.numel()
+    with _disable_current_modes():
+        out = torch.full((n,), rows // n, dtype=torch.int32)
+        out[:rows % n] += 1
+    return out
 
 
 @contextlib.contextmanager

@@ -36,9 +36,17 @@ group), and ``launch/costs.StepCounter`` counts what runs:
 A recurrence's steps are counted by one step repeated (``models/ssm.py``),
 so a 32k-token prefill of a recurrent arch takes seconds.
 
-``--moe-dispatch`` is ``onehot``, as the reference's dry-run defaults to:
-``gmm`` and ``ep`` size their groups from the routing (data the meta
-device does not hold) and are refused with a ValueError.
+``--moe-dispatch`` is ``onehot`` (the reference's default), ``gmm`` or
+``ep``.  ``gmm`` and ``ep`` size their expert groups from the routing,
+which the meta device does not hold: their ragged products are counted on
+a stated uniform routing (``launch/costs.stated_group_sizes``: every
+expert receives floor(R/E) of the R routed rows, the first R mod E one
+more), and the record says so (``knobs["routing"]: "uniform"``).  Under
+``ep`` the all-to-all census counts the padded slot buffers the dispatch
+sends (drop-free: N_loc·K slots a destination), not
+``core/perf_model.ep_a2a_bytes``'s mean.  Under either, a step under
+autograd (``train_4k`` of a MoE arch) stops at the kernels' refusal, as
+in the reference.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-node --out results/dryrun.jsonl
@@ -60,6 +68,7 @@ import torch
 
 from repro_torch.configs.base import INPUT_SHAPES, TrainConfig
 from repro_torch.configs.registry import registered
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.costs import StepCounter
 from repro_torch.launch.mesh import CensusMesh
@@ -72,7 +81,7 @@ from repro_torch.training.optimizer import init_adam
 from repro_torch.training.train_loop import make_train_step
 
 MESHES = {"1x8": {"data": 1, "model": 8}, "4x8": {"data": 4, "model": 8}}
-DISPATCHES = ("onehot",)
+DISPATCHES = ("onehot", "gmm", "ep")
 
 
 def _batch_bytes(batch: dict, mesh, layout: str) -> int:
@@ -99,8 +108,7 @@ def count_combo(arch: str, shape_name: str, *, multi_node: bool = False,
     if moe_dispatch not in DISPATCHES:
         raise ValueError(
             f"--moe-dispatch {moe_dispatch!r}: the dry-run counts "
-            f"{DISPATCHES}; gmm and ep size their expert groups from the "
-            "routing, which the meta device does not compute")
+            f"{DISPATCHES}")
     shape = INPUT_SHAPES[shape_name]
     cfg = arch_for_shape(arch, shape, gamma)
     if extra_overrides:
@@ -117,6 +125,7 @@ def count_combo(arch: str, shape_name: str, *, multi_node: bool = False,
     specs = input_specs(cfg, shape, model, gamma)
     counter = StepCounter()
     resident = {"params": counter.pin(params)}
+    ep_calls = col.EP_CALLS["moe_ep_forward"]
     t0 = time.time()
     if train:
         opt = init_adam(params)
@@ -148,6 +157,14 @@ def count_combo(arch: str, shape_name: str, *, multi_node: bool = False,
     argument = sum(resident.values())
     coll = dict(counter.collectives)
     coll["in_loop"] = coll["in_loop"] / cfg.num_periods
+    knobs = {"moe_dispatch": moe_dispatch, "kv_mode": kv_mode,
+             "fsdp_min_size": fsdp_min_size, "layout": layout}
+    if (moe_dispatch == "ep" and any(cfg.moe_pattern)
+            and col.EP_CALLS["moe_ep_forward"] == ep_calls):
+        # the experts do not divide over "model": moe_ep_forward ran onehot
+        knobs["dispatch_ran"] = "onehot"
+    elif moe_dispatch != "onehot":
+        knobs["routing"] = "uniform"
     return {
         "arch": arch, "config": cfg.name, "shape": shape_name,
         "mesh": "x".join(str(n) for n in dims.values()),
@@ -168,8 +185,7 @@ def count_combo(arch: str, shape_name: str, *, multi_node: bool = False,
         },
         "real_tensors": counter.real,
         "count_s": round(t_count, 2),
-        "knobs": {"moe_dispatch": moe_dispatch, "kv_mode": kv_mode,
-                  "fsdp_min_size": fsdp_min_size, "layout": layout},
+        "knobs": knobs,
     }
 
 
@@ -197,8 +213,7 @@ def main(argv=None) -> int:
     else:
         ap.error("give --arch and --shape, or --all")
     if args.moe_dispatch not in DISPATCHES:
-        ap.error(f"--moe-dispatch must be one of {DISPATCHES} on the meta "
-                 "device (gmm and ep size their groups from the routing)")
+        ap.error(f"--moe-dispatch must be one of {DISPATCHES}")
     for arch, shape in combos:
         try:
             res = count_combo(arch, shape, multi_node=args.multi_node,

@@ -29,6 +29,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.gmm import ragged
+from repro_torch.launch import costs
 from repro_torch.models.layers import act_fn, apply_mlp, dense_init
 
 
@@ -213,6 +214,8 @@ def _dispatch_gmm(params, cfg, x, weights, indices):
     group_sizes = torch.zeros((E,), dtype=torch.int32, device=x.device)
     group_sizes.scatter_add_(0, flat_expert,
                              torch.ones_like(flat_expert, dtype=torch.int32))
+    # the meta device (the dry-run) holds no routing: a stated one
+    group_sizes = costs.stated_group_sizes(group_sizes, N * K)
     ys = ragged.ragged_moe_ffn(xs, params["w_gate"], params["w_up"],
                                params["w_down"], group_sizes,
                                activation=cfg.mlp_activation)  # (N*K, d)

@@ -11,7 +11,10 @@ collective census of a one-layer decode at m 2 holds two all-reduces of
 the hidden states; the counter's FLOPs equal ``FlopCounterMode``'s; a
 recurrence counted by one repeated step equals the step-by-step loop;
 and the whole CLI runs with neither ``jax`` nor ``repro`` imported and no
-tensor off the meta device.  The reference's HLO-parser tests have no
+tensor off the meta device.  Under ``gmm`` and ``ep`` (a stated uniform
+routing) the counts are held against plain counts of the port's own
+operations: the meta FLOPs equal a real CPU step's, the ``ep`` census
+equals the padded buffers sent.  The reference's HLO-parser tests have no
 counterpart: the port emits no HLO.
 """
 import dataclasses
@@ -34,7 +37,8 @@ from repro.models.model import Model as JaxModel
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.configs.registry import get_config, registered
 from repro_torch.core.simulator import V5E
-from repro_torch.launch import dryrun, roofline, specs
+from repro_torch.kernels.gmm import ragged
+from repro_torch.launch import costs, dryrun, roofline, specs
 from repro_torch.launch.costs import StepCounter
 from repro_torch.models import ssm
 from repro_torch.models.model import Model
@@ -208,10 +212,159 @@ def test_dryrun_contract_in_process():
 
 
 def test_dryrun_refuses_data_dependent_dispatch():
+    """gmm and ep, whose groups follow the routing, are counted on the
+    stated uniform routing with no tensor off the meta device; a dispatch
+    the dry-run does not know is still refused."""
     for dispatch in ("gmm", "ep"):
-        with pytest.raises(ValueError, match="routing"):
-            dryrun.count_combo("qwen2-57b-a14b", "decode_32k",
-                               moe_dispatch=dispatch)
+        rec = dryrun.count_combo("qwen2-57b-a14b", "decode_32k",
+                                 moe_dispatch=dispatch,
+                                 extra_overrides={"num_layers": 2})
+        assert rec["real_tensors"] == 0
+        assert rec["knobs"]["routing"] == "uniform"
+        assert rec["knobs"]["moe_dispatch"] == dispatch
+        assert "dispatch_ran" not in rec["knobs"]
+    rec = dryrun.count_combo("qwen2-57b-a14b", "decode_32k",
+                             extra_overrides={"num_layers": 2})
+    assert "routing" not in rec["knobs"]
+    with pytest.raises(ValueError, match="counts"):
+        dryrun.count_combo("qwen2-57b-a14b", "decode_32k",
+                           moe_dispatch="capacity")
+
+
+def test_stated_group_sizes_are_uniform_and_real():
+    got = costs.stated_group_sizes(torch.empty((5,), dtype=torch.int32,
+                                               device="meta"), 23)
+    assert got.device.type == "cpu" and got.dtype == torch.int32
+    assert got.tolist() == [5, 5, 5, 4, 4]
+    few = costs.stated_group_sizes(specs.meta((8,), torch.int32), 3)
+    assert few.tolist() == [1, 1, 1, 0, 0, 0, 0, 0]
+    real = torch.tensor([3, 0, 1], dtype=torch.int32)
+    assert costs.stated_group_sizes(real, 99) is real
+
+
+def test_ragged_kernels_count_their_work_on_meta():
+    """Each ragged product on the meta device records 2·rows·D·F FLOPs a
+    weight and moves the rows of x, the weights of every expert with a
+    row, the sizes and the output rows once; it launches nothing, and
+    still refuses an input that requires grad, and meta group sizes."""
+    N, D, F, E = 40, 16, 24, 4
+    xs = specs.meta((N, D), torch.bfloat16)
+    wg, wu = specs.meta((E, D, F), torch.bfloat16), \
+        specs.meta((E, D, F), torch.bfloat16)
+    wd = specs.meta((E, F, D), torch.bfloat16)
+    sizes = torch.tensor([10, 0, 20, 6], dtype=torch.int32)
+    rows, active = 36, 3
+    before = dict(ragged.LAUNCHES)
+    c = StepCounter()
+    with c:
+        h = ragged.fused_gate_up(xs, wg, wu, sizes)
+    assert h.is_meta and h.shape == (N, F) and h.dtype == torch.bfloat16
+    assert c.flops == 2 * 2 * rows * D * F
+    assert c.bytes == (rows * D * 2 + active * 2 * D * F * 2 + E * 4
+                       + rows * F * 2)
+    c = StepCounter()
+    with c:
+        y = ragged.ragged_moe_ffn(xs, wg, wu, wd, sizes)
+    assert y.shape == (N, D) and c.flops == 3 * 2 * rows * D * F
+    assert c.real == 0 and dict(ragged.LAUNCHES) == before
+    with pytest.raises(ValueError, match="stated_group_sizes"):
+        ragged.ragged_gmm(xs, wg, specs.meta((E,), torch.int32))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ragged.ragged_gmm(xs, wg.requires_grad_(), sizes)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-57b-a14b", "mixtral-8x7b"])
+def test_gmm_meta_flops_equal_the_cpu_count(arch):
+    """The reduced verify step under gmm counted on the meta device (the
+    stated routing) and run on real CPU tensors through the plain loop
+    (the routing of random weights) gives the same FLOPs: the ragged
+    products' depend on N·K alone."""
+    cfg = get_config(arch, reduced=True)
+    B, T, S = 2, 5, 64
+    counts = {}
+    for dev in ("meta", "cpu"):
+        model = Model(cfg, moe_dispatch="gmm", device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        g = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                             dtype=torch.int32).to(dev)
+        n = torch.full((B,), 3, dtype=torch.int32, device=dev)
+        cache = model.init_cache(B, S)
+        counts[dev] = _count(lambda: make_verify_step(model, T - 1)(
+            params, toks, n, cache), params)
+    assert counts["meta"].real == 0 and counts["cpu"].real > 0
+    assert counts["meta"].flops == counts["cpu"].flops > 0
+
+
+def _expert_flops(monkeypatch):
+    got = []
+    record = costs.record_kernel
+    monkeypatch.setattr(costs, "record_kernel",
+                        lambda flops, nbytes: (got.append(flops),
+                                               record(flops, nbytes)))
+    return got
+
+
+@pytest.mark.parametrize("dims,gamma", [({"model": 2}, 0),
+                                        ({"data": 2, "model": 2}, 0),
+                                        ({"data": 2, "model": 2}, 4)])
+def test_ep_census_equals_the_issued_buffers(dims, gamma, monkeypatch):
+    """One MoE layer of qwen2-57b-a14b under ep: the all-to-all census is
+    the two hops' padded slot buffers and the expert ids, as sent
+    (drop-free: N_loc·K slots a destination), and the ragged products run
+    the N_loc·K pairs this rank receives under the uniform routing."""
+    cfg = get_config("qwen2-57b-a14b")
+    shape = INPUT_SHAPES["decode_32k"]
+    flops = _expert_flops(monkeypatch)
+    rec = dryrun.count_combo("qwen2-57b-a14b", "decode_32k", gamma=gamma,
+                             moe_dispatch="ep", dims=dims,
+                             extra_overrides={"num_layers": 1})
+    m, d, f = dims["model"], cfg.d_model, cfg.moe_d_ff
+    K = cfg.num_experts_per_tok
+    n_local = shape.global_batch * (gamma + 1) // (m * dims.get("data", 1))
+    slots = n_local * K
+    coll = rec["collective_bytes_per_device"]
+    assert coll["all-to-all"] == 2 * m * slots * d * 2 + m * slots * 4
+    assert sum(flops) == 6 * n_local * K * d * f
+    assert rec["real_tensors"] == 0 and rec["knobs"]["routing"] == "uniform"
+
+
+def test_ep_falls_back_to_onehot_where_experts_do_not_divide():
+    rec = dryrun.count_combo("qwen2-57b-a14b", "decode_32k",
+                             moe_dispatch="ep", dims={"model": 2},
+                             extra_overrides={"num_layers": 1,
+                                              "num_experts": 7,
+                                              "num_experts_per_tok": 2})
+    assert rec["knobs"]["dispatch_ran"] == "onehot"
+    assert "routing" not in rec["knobs"]
+    assert rec["collective_bytes_per_device"]["all-to-all"] == 0
+
+
+def test_ep_decode_of_the_full_target_on_one_node():
+    """qwen2-57b-a14b decode_32k on "1x8": 28 layers of two 7,340,032-byte
+    hops and 4,096 bytes of expert ids; the all-gathers are the outputs'
+    and the non-expert ones onehot issues too, without its expert blocks."""
+    ep = dryrun.count_combo("qwen2-57b-a14b", "decode_32k",
+                            moe_dispatch="ep")
+    one = dryrun.count_combo("qwen2-57b-a14b", "decode_32k")
+    cfg = get_config("qwen2-57b-a14b")
+    ce, co = (r["collective_bytes_per_device"] for r in (ep, one))
+    assert ce["all-to-all"] == 411_156_480 and co["all-to-all"] == 0
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    expert_blocks = cfg.num_layers * 3 * (E // 8) * d * f * 2
+    out_gathers = cfg.num_layers * 16 * d * 2
+    assert ce["all-gather"] == co["all-gather"] - expert_blocks + out_gathers
+    assert ep["memory"]["peak_bytes"] < one["memory"]["peak_bytes"]
+    assert ep["flops_per_device"] < one["flops_per_device"]
+
+
+@pytest.mark.parametrize("dispatch", ["gmm", "ep"])
+def test_train_under_ragged_dispatch_stops_at_the_refusal(dispatch, capsys):
+    assert dryrun.main(["--arch", "qwen2-57b-a14b", "--shape", "train_4k",
+                        "--moe-dispatch", dispatch]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["status"] == "fail"
+    assert "no backward" in rec["error"]
 
 
 def _count(step, pinned):

@@ -11,13 +11,12 @@ Phases, each of which fails the run if it fails:
      ``ptxas -v`` of the TMA + wgmma kernels (flash prefill at head dims 32,
      64, 128 with one and two consumer warpgroups, 256 with two; capacity GEMM with 1
      and 2 consumer warpgroups and column tiles of 128 and 256; paged
-     decode/verify at head dims 64, 128, 256, dense at 64, 128 and 256;
+     decode/verify and dense at head dims 32, 64, 128 and 256;
      ragged down and fused gate/up GEMMs, silu and gelu), of the fp32
      CUDA-core bodies (flash, capacity GEMM, and decode_f32.cuh's split-KV
-     body of kernels 3 and 4 at head dims 64, 128 and 256) and of
-     attention_tile.cuh's body at head dim 32 (kernel 4 in bf16 and fp32):
-     registers, dynamic shared memory, spills (none allowed in the D-256
-     TMA + wgmma bodies);
+     body of kernels 3 and 4 at head dims 32, 64, 128 and 256): registers,
+     dynamic shared memory, spills (none allowed in the D-256 TMA + wgmma
+     bodies, nor in kernels 3 and 4's bodies at head dim 32);
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
@@ -43,9 +42,12 @@ Phases, each of which fails the run if it fails:
          with the body's shared memory on the line; SD verify
          and long context also in fp32 at 2e-5 (the reference's bound,
          src/repro/kernels/decode_attention/decode_attention.py:288)
-         through the split-KV CUDA-core body ("f32"); SD verify on pages
-         of 24, which tile no 64-key chunk, in bf16 through the old
-         CUDA-core body ("simt", at the same bounds) and in fp32 ("f32");
+         through the split-KV CUDA-core body ("f32"); pages that are not a
+         multiple of 64 on the same bodies and bounds: pages of 24 (boxes
+         of 8 rows) at SD verify in both dtypes and at ~8k keys in bf16,
+         gemma3-12b's SD verify on pages of 48 (boxes of 16), bf16 on
+         pages of 12 and of 7 (chunks staged by cp.async); the reduced
+         draft's 4/2 heads of 32 in both dtypes;
        * the flash prefill kernel (prefill of 8 prompts of 256 tokens at the
          target's 28/4 heads of 128 and the draft's 14/2 heads of 64, a 4096-
          token prefill, a window-and-cap case; at head dim 256 gemma3-12b's
@@ -63,15 +65,13 @@ Phases, each of which fails the run if it fails:
          16/16 (T 5) at S 2048 (the split-KV body too), verifies wider than
          one 64-row tile (gemma3's heads at T 33, 66 rows a KV head; the
          target's at T 10 and 17, 70 and 119 rows, S 512 and 8192: row
-         tiles) and the reduced draft's 4/2 heads of 32 (attention_tile's
-         WMMA body), bf16 at 4e-2 through the split-KV TMA + wgmma body
-         (decode_attention.LAST_ROUTE "sm90" at head dims 64 to 256) and
-         the WMMA body ("wmma", head dim 32), and every element within
-         DECODE_ROW_TOL x the rms of its output row on both; SD verify,
-         long context and gemma3's SD verify also in fp32 at 3e-5 through
-         the split-KV CUDA-core body ("f32"; tests/test_kernels.py), and
-         the reduced draft's at head dim 32 through attention_tile's
-         CUDA-core body ("simt");
+         tiles) and the reduced draft's 4/2 heads of 32, bf16 at 4e-2
+         through the split-KV TMA + wgmma body (decode_attention.LAST_ROUTE
+         "sm90" at head dims 32 to 256), and every element within
+         DECODE_ROW_TOL x the rms of its output row; SD verify, long
+         context, gemma3's SD verify and the reduced draft's also in fp32 at
+         3e-5 through the split-KV CUDA-core body ("f32";
+         tests/test_kernels.py);
        * the capacity-binned expert GEMM at the full expert widths (E 64,
          D 3584, F 2560, gate/up and down) at the SD-verify capacity
          expert_capacity(40, 8, 64) = 128 and a prefill capacity
@@ -211,7 +211,12 @@ Phases, each of which fails the run if it fails:
           gamma 4: wave-gemma3 (all 48 layers, use_flash, 16 prompts of
           1100-1600 tokens: kernel 5 at D 256 with the window, kernel 4 at
           D 256 on the global layers), continuous-gemma3 (the same model
-          paged, pages of 64: kernel 3 at D 256), wave-dbrx (4 of 40
+          paged, pages of 64: kernel 3 at D 256), continuous-gemma3-p48
+          (the same on pages of 48, which tile no 64-key chunk: every
+          kernel 3 launch at D 256 on the TMA + wgmma body; its greedy
+          tokens against continuous-gemma3's, request for request, with the
+          top-2 logit margin at the first step where a request differs),
+          wave-dbrx (4 of 40
           layers: kernels 1 and 2), wave-gemma7b (full depth, use_flash,
           the prompts of wave-gemma3: kernels 4 and 5 at D 256),
           wave-minicpm3 and wave-qwen2vl (full depth); tok/s, captures,
@@ -320,8 +325,10 @@ Phases, each of which fails the run if it fails:
      weights), on a new NCCL world of one:
        a. kernel 4's partial entry (one key block of a cache split along
           its sequence: output and log-sum-exp) at the target's 28/4 heads
-          of 128, bf16, B 8, T 5, S 512 and S 8192, and at gemma3-12b's
-          16/8 heads of 256 at S 2048, the keys in 2 and in 4 blocks: each block against its plain version (4e-2; the lse at
+          of 128, bf16, B 8, T 5, S 512 and S 8192, at gemma3-12b's
+          16/8 heads of 256 at S 2048 and at the reduced draft's 4/2 heads
+          of 32 at S 512, the keys in 2 and in 4 blocks: each block against
+          its plain version (4e-2; the lse at
           -inf exactly where the plain version's is), the blocks merged by
           log-sum-exp against the whole call (4e-2 and DECODE_ROW_TOL x a
           row's rms), route sm90; device-only ms per block beside the whole
@@ -386,11 +393,9 @@ DECODE_TOL = {"bfloat16": 4e-2, "float32": 3e-5}
 # combine leaving out the last live split, a chunk loaded from the previous
 # chunk's keys) must fail it at long context while the sound kernel passes.
 # At head dim 256 (gemma's 1100-1640 positions, |out| ~ 0.045, near
-# DECODE_TOL) both bf16 bodies are held to the same bound: the WMMA body
-# read <= 0.027 x there (NVIDIA H100 80GB HBM3, 700.00 W), and
-# kernel_variants.py's decode_last_chunk fault (each split of the split-KV
-# body skips its last chunk) and tile_last_chunk fault (attention_tile
-# skips its last key chunk) must fail it.
+# DECODE_TOL) the split-KV body is held to the same bound, and
+# kernel_variants.py's decode_last_chunk fault (each split skips its last
+# chunk) must fail it.
 DECODE_ROW_TOL = 5e-2
 GMM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # Target depth at full width: the bf16 weights of all 28 layers (57.4B
@@ -551,39 +556,31 @@ def build_kernels():
                 dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
                 ragged.SOURCE).ragged_sm90_smem_bytes}     # (nmat, act)
-    # attention_tile.cuh's body at head dim 32: kernel 4's in both dtypes
-    # (dense decode library)
-    tile_smem = build.load(dec_ops.SOURCE).attention_tile_smem_bytes
-    smem["attention_tile_kernel"] = lambda dt, d: tile_smem(
-        0 if dt == "bf16" else 1, d)
-    seen, tiles, spilled = set(), set(), []
+    seen, spilled = set(), []
     for src, text in reports.items():
         for line in text.splitlines():
             if "(C75" in line and "sm90_kernel" in line:   # ptxas's advisories
                 log(f"ptxas ({src.name}): {line.strip()[:240]}")
         for kernel, args, regs, spills in _ptxas_entries(text):
-            if kernel == "attention_tile_kernel":
-                if args[1] != 32:
-                    continue
-                tiles.add((src.name, args[0]))
-            else:
-                seen.add((kernel, args))
-                if (args[0] == 256 and kernel in D256_SM90
-                        and not re.search(r"\b0 bytes spill stores, 0 bytes "
-                                          r"spill loads", spills or "")):
-                    spilled.append((kernel, args, spills))
+            seen.add((kernel, args))
+            if (((args[0] == 256 and kernel in D256_SM90)
+                 or (args[0] == 32 and kernel in D32_DECODE))
+                    and not re.search(r"\b0 bytes spill stores, 0 bytes "
+                                      r"spill loads", spills or "")):
+                spilled.append((kernel, args, spills))
             log(f"ptxas {kernel}<{', '.join(map(str, args))}> ({src.name}): "
                 f"{regs} registers at entry, {smem[kernel](*args)} bytes "
                 f"dynamic shared memory, {spills}")
     if spilled:
         raise AssertionError(f"ptxas -v: the head-dim-256 TMA + wgmma bodies "
-                             f"spill: {spilled}")
+                             f"or kernels 3-4's head-dim-32 bodies spill: "
+                             f"{spilled}")
     want = ({("flash_sm90_kernel", (d, nc)) for d in (32, 64, 128)
              for nc in (1, 2)} | {("flash_sm90_kernel", (256, 2))}
             | {("gmm_capacity_sm90_kernel", a)
                for a in ((1, 128), (2, 128), (2, 256))}
-            | {("paged_sm90_kernel", (d,)) for d in (64, 128, 256)}
-            | {("decode_sm90_kernel", (d,)) for d in (64, 128, 256)}
+            | {("paged_sm90_kernel", (d,)) for d in (32, 64, 128, 256)}
+            | {("decode_sm90_kernel", (d,)) for d in (32, 64, 128, 256)}
             | {("ragged_sm90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))}
             # the fp32 CUDA-core bodies of kernels 5 and 6
             | {("flash_f32_kernel", (d,)) for d in (32, 64, 128)}
@@ -591,21 +588,18 @@ def build_kernels():
             | {("gmm_capacity_simt90_kernel", (r,)) for r in (64, 128)}
             # kernels 3 and 4's fp32 split-KV body (paged 1, dense 0; key
             # groups 1, 2, 4, 8)
-            | {("decode_f32_kernel", (d, pg, kg)) for d in (64, 128, 256)
-               for pg in (0, 1) for kg in (1, 2, 4, 8)})
+            | {("decode_f32_kernel", (d, pg, kg))
+               for d in (32, 64, 128, 256) for pg in (0, 1)
+               for kg in (1, 2, 4, 8)})
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma and fp32 kernels "
                              f"{sorted(seen)}, expected {sorted(want)}")
-    # kernel 4 in both dtypes (kernel 5 runs flash_sm90 and flash_f32)
-    want = {(dec_ops.SOURCE.name, "bf16"), (dec_ops.SOURCE.name, "fp32")}
-    if tiles != want:
-        raise AssertionError(f"ptxas -v shows attention_tile_kernel at head "
-                             f"dim 32 as {sorted(tiles)}, expected "
-                             f"{sorted(want)}")
 
 
 # the TMA + wgmma bodies of kernels 3, 4 and 5 at head dim 256: no spills
 D256_SM90 = ("flash_sm90_kernel", "paged_sm90_kernel", "decode_sm90_kernel")
+# kernels 3 and 4's bodies at head dim 32 (both dtypes): no spills either
+D32_DECODE = ("paged_sm90_kernel", "decode_sm90_kernel", "decode_f32_kernel")
 
 
 def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
@@ -616,22 +610,18 @@ def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
                                         "paged_sm90_kernel",
                                         "decode_sm90_kernel",
                                         "ragged_sm90_kernel",
-                                        "decode_f32_kernel",
-                                        "attention_tile_kernel")):
+                                        "decode_f32_kernel")):
     """(kernel, template arguments, registers, spill line) for each entry
-    function of ``kernels`` in ``ptxas -v`` output; a type argument
-    (attention_tile_kernel's) comes first, as "bf16" or "fp32"."""
+    function of ``kernels`` in ``ptxas -v`` output."""
     pattern = re.compile(r"Compiling entry function '\w*?(%s)"
-                         r"(?:I(13__nv_bfloat16|f)?((?:Li\d+E)+)E)?"
-                         % "|".join(kernels))
+                         r"(?:I((?:Li\d+E)+)E)?" % "|".join(kernels))
     name = args = spills = None
     for line in text.splitlines():
         m = pattern.search(line)
         if m:
             name = m.group(1)
-            dt = {None: (), "f": ("fp32",)}.get(m.group(2), ("bf16",))
-            args = dt + tuple(int(a) for a in re.findall(r"Li(\d+)E",
-                                                         m.group(3) or ""))
+            args = tuple(int(a) for a in re.findall(r"Li(\d+)E",
+                                                    m.group(2) or ""))
         elif name and "spill stores" in line:
             spills = line.strip()
         elif name and "Used" in line:
@@ -875,28 +865,41 @@ PAGED_CASES = {        # name: (dtype, T, head dim, (min, max) length, cap)
     "gemma3_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
     "gemma3_ar_verify": ("bfloat16", 1, 256, (1100, 1640), 0.0),
     "gemma7b_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
-    # pages of 24 tile no 64-key chunk (no served path has them): bf16 runs
-    # the old CUDA-core body ("simt"), fp32 the split-KV CUDA-core body
+    # pages that tile no 64-key chunk on the same bodies (PAGED_PAGE_SIZE):
+    # pages of 24 (TMA boxes of 8 rows) at SD verify in both dtypes and at
+    # ~8k keys, gemma3's global layers on pages of 48 (boxes of 16), and
+    # pages of 12 and 7 (not a multiple of 8: chunks staged by cp.async)
     "odd_pages_sd_verify": ("bfloat16", 5, 128, (16, 130), 0.0),
     "fp32_odd_pages_sd_verify": ("float32", 5, 128, (16, 130), 0.0),
+    "pages24_long_context": ("bfloat16", 5, 128, (8000, 8192), 0.0),
+    "gemma3_pages48_sd_verify": ("bfloat16", 5, 256, (1100, 1640), 0.0),
+    "pages12_sd_verify": ("bfloat16", 5, 128, (16, 130), 0.0),
+    "pages7_sd_verify": ("bfloat16", 5, 128, (16, 130), 0.0),
+    # the reduced draft's 4 / 2 heads of 32 (the only configs with that
+    # head dim), both dtypes
+    "reduced_d32_sd_verify": ("bfloat16", 5, 32, (16, 130), 0.0),
+    "fp32_reduced_d32_sd_verify": ("float32", 5, 32, (16, 130), 0.0),
 }
 SERVE_HEADS = (28, 4)               # qwen2-57b-a14b's query / KV heads
 PAGED_HEADS = {"mixtral_sd_verify": (32, 8), "mixtral_ar_verify": (32, 8),
                "gemma3_sd_verify": (16, 8), "gemma3_ar_verify": (16, 8),
-               "gemma7b_sd_verify": (16, 16)}
+               "gemma7b_sd_verify": (16, 16),
+               "gemma3_pages48_sd_verify": (16, 8),
+               "reduced_d32_sd_verify": (4, 2),
+               "fp32_reduced_d32_sd_verify": (4, 2)}
 PAGED_PAGE_SIZE = {"odd_pages_sd_verify": 24,        # else 64
-                   "fp32_odd_pages_sd_verify": 24}
+                   "fp32_odd_pages_sd_verify": 24,
+                   "pages24_long_context": 24,
+                   "gemma3_pages48_sd_verify": 48,
+                   "pages12_sd_verify": 12,
+                   "pages7_sd_verify": 7}
 
 
-def paged_route(dtype_name: str, ps: int) -> str:
-    """The body the paged launcher must report: TMA + wgmma for bf16 on
-    pages that tile a 64-key chunk (8, 16, 32 or a multiple of 64), the old
-    CUDA-core body for bf16 on other pages, the split-KV CUDA-core body for
-    fp32 on any page."""
-    if dtype_name == "float32":
-        return "f32"
-    tiles = ps % 8 == 0 and (ps % 64 == 0 or 64 % ps == 0)
-    return "sm90" if tiles else "simt"
+def paged_route(dtype_name: str) -> str:
+    """The body the paged launcher must report, on any page size and head
+    dim: the split-KV TMA + wgmma body for bf16, the split-KV CUDA-core
+    body for fp32."""
+    return "f32" if dtype_name == "float32" else "sm90"
 
 
 def sdpa_gathered(q, kp, vp, lengths, table):
@@ -973,7 +976,7 @@ def paged_kernel_phase(seed: int):
         route = paged.LAST_ROUTE["paged_decode_attention"]
         ref = paged_decode_attention_plain(*args, logit_cap=cap)
         torch.cuda.synchronize()
-        want = paged_route(dtype_name, ps)
+        want = paged_route(dtype_name)
         if route != want:
             raise AssertionError(f"paged_decode_attention [{case}]: ran the "
                                  f"{route} body, expected {want}")
@@ -1010,8 +1013,7 @@ def paged_kernel_phase(seed: int):
         sdpa_graph_ms = graph_time_ms(sdpa_fn) if sdpa_fn is not None else None
         lib_so = build.load(paged.SOURCE)
         smem = {"sm90": lib_so.paged_sm90_smem_bytes,
-                "f32": lib_so.paged_f32_smem_bytes}.get(
-                    route, lambda _d: None)(D)       # simt: sized per call
+                "f32": lib_so.paged_f32_smem_bytes}[route](D)
         res["cases"][case] = dict(
             dtype=dtype_name, route=route, B=B, T=T, Hq=Hq, Hkv=Hkv,
             head_dim=D, page_size=ps, smem_bytes=smem,
@@ -1207,22 +1209,19 @@ DECODE_CASES = {  # name: (dtype, B, T, Hq, Hkv, D, S, (min, max) length)
     "jamba_ar": ("bfloat16", 8, 1, 32, 8, 128, 512, (129, 290)),
     "draft_8x2_sd_verify": ("bfloat16", 8, 5, 8, 2, 64, 512, (129, 290)),
     "draft_8x2_ar": ("bfloat16", 8, 1, 8, 2, 64, 512, (129, 290)),
-    # head dim 32 (attention_tile.cuh's WMMA body in bf16, its CUDA-core
-    # body in fp32): the reduced draft's 4 / 2 heads, the only configs with
-    # that head dim
+    # head dim 32 (the split-KV bodies, a row one 32-column box): the
+    # reduced draft's 4 / 2 heads, the only configs with that head dim
     "reduced_d32_sd_verify": ("bfloat16", 8, 5, 4, 2, 32, 512, (129, 290)),
     "fp32_reduced_d32_sd_verify": ("float32", 8, 5, 4, 2, 32, 512,
                                    (129, 290)),
 }
 
 
-def decode_route(dtype_name: str, D: int) -> str:
-    """The body the dense decode launcher must report: the split-KV bodies
-    at head dims 64, 128 and 256 (TMA + wgmma in bf16, the CUDA cores in
-    fp32) at any number of rows, attention_tile.cuh's at head dim 32."""
-    if D in (64, 128, 256):
-        return "sm90" if dtype_name == "bfloat16" else "f32"
-    return "wmma" if dtype_name == "bfloat16" else "simt"
+def decode_route(dtype_name: str) -> str:
+    """The body the dense decode launcher must report at every head dim
+    (32 to 256) and number of rows: the split-KV TMA + wgmma body in bf16,
+    the split-KV CUDA-core body in fp32."""
+    return "sm90" if dtype_name == "bfloat16" else "f32"
 
 
 def decode_inputs(spec, gen, dev):
@@ -1279,7 +1278,7 @@ def decode_kernel_phase(seed: int):
         route = ops.LAST_ROUTE["decode_attention"]
         ref = decode_attention_plain(q, k, v, lengths)
         torch.cuda.synchronize()
-        want = decode_route(dtype_name, D)
+        want = decode_route(dtype_name)
         if route != want:
             raise AssertionError(f"decode_attention [{case}]: ran the {route} "
                                  f"body, expected {want}")
@@ -3068,6 +3067,7 @@ JAMBA_LAYERS = 8
 ARCH_PATHS = (
     ("wave-gemma3", "gemma3-12b", None, True, "long"),
     ("continuous-gemma3", "gemma3-12b", None, True, "long"),
+    ("continuous-gemma3-p48", "gemma3-12b", None, True, "long"),
     ("wave-dbrx", "dbrx-132b", LAYERS, False, "chat"),
     ("wave-gemma7b", "gemma-7b", None, True, "long"),
     ("wave-minicpm3", "minicpm3-4b", None, False, "chat"),
@@ -3077,6 +3077,11 @@ ARCH_PATHS = (
     ("wave-xlstm", "xlstm-1.3b", None, True, "flash"),
     ("wave-whisper", "whisper-base", None, True, "flash"),
 )
+# the continuous paths' page size (else 64): pages of 48 tile no 64-key
+# chunk (boxes of 16 rows), and the path whose greedy tokens those are held
+# against, request for request
+ARCH_PAGE_SIZE = {"continuous-gemma3-p48": 48}
+PAGES_AGAINST = {"continuous-gemma3-p48": "continuous-gemma3"}
 LONG_PROMPTS = (1100, 1600)          # the "long" paths: past the 1024 window
 # the "flash" paths: bucket 256, so every prefill takes kernel 5; the
 # capacity is FLASH_MAX_SEQ, the power of two ServingEngine gives that
@@ -3099,6 +3104,10 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
       * continuous-gemma3: the same model, paged (pages of 64), the same
         prompts with Poisson arrivals (0.5 a round, 8/16/32 new tokens):
         kernel 3 at D 256 on the global layers every round, rings dense;
+      * continuous-gemma3-p48: the same on pages of 48 (kernel 3's TMA
+        boxes of 16 rows); its greedy tokens against continuous-gemma3's,
+        request for request, and for a request that differs the top-2
+        logit margin at its first differing step (_pages_agreement);
       * wave-dbrx: dbrx-132b cut to LAYERS of 40 layers, gmm dispatch, 16
         chat prompts, 32 new tokens: kernels 1 and 2 in every forward;
       * wave-gemma7b: gemma-7b at full depth (28 layers, 16 / 16 heads of
@@ -3144,7 +3153,7 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
     from repro_torch.serving.scheduler import submit_poisson
 
     card = card_line()
-    launches, loaded = {}, None
+    launches, loaded, served = {}, None, {}
     for path_name, arch, layers, flash, workload in ARCH_PATHS:
         if paths is not None and path_name not in paths:
             continue
@@ -3226,7 +3235,8 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
                 graphs = eng.graphs
             else:
                 extra = (dict(scheduler="continuous", kv_layout="paged",
-                              page_size=64) if paged else {})
+                              page_size=ARCH_PAGE_SIZE.get(path_name, 64))
+                         if paged else {})
                 eng = ServingEngine(target, draft if sd else None, params_t,
                                     params_d if sd else None, max_batch=8,
                                     gamma=4, temperature=0.0, proposer=kind,
@@ -3236,11 +3246,12 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
                     toks = np.zeros((16, lens.max()), np.int32)
                     for i, q in enumerate(prompts):
                         toks[i, :len(q)] = q
-                    submit_poisson(eng, toks, lens, rate=0.5,
-                                   max_new_choices=(8, 16, 32), seed=seed)
+                    uids = submit_poisson(eng, toks, lens, rate=0.5,
+                                          max_new_choices=(8, 16, 32),
+                                          seed=seed)
                 else:
-                    for q in prompts:
-                        eng.submit(q, max_new_tokens=32)
+                    uids = [eng.submit(q, max_new_tokens=32)
+                            for q in prompts]
                 reports = eng.run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t_path
@@ -3316,6 +3327,16 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
                 _check_head_dim_256_routes(path, paged)
             launches[path] = got
             outputs[kind] = done
+            if not cfg.is_encoder_decoder:
+                # (prompt, tokens) of each request, in uid order
+                which = {u: i for i, u in enumerate(uids)}
+                served[path] = [(prompts[which[u]], o)
+                                for u, o in zip(sorted(eng.done), done)]
+                against = PAGES_AGAINST.get(path_name)
+                if against is not None:
+                    _pages_agreement(path, served[path],
+                                     served[f"{against}/{kind}"], target,
+                                     params_t)
             del eng
             gc.collect()
         agree = np.mean([float((a == b).mean()) for a, b in
@@ -3326,6 +3347,36 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _pages_agreement(path: str, got, want, model, params) -> dict:
+    """Greedy tokens of ``path`` against those of the same workload on
+    pages of 64 (``want``), both lists of (prompt, tokens) in uid order:
+    how many requests agree token for token and, for each that does not,
+    the top-2 margin of the logits of a cacheless forward of the target
+    over its prompt and the tokens both runs share, at the first step
+    they differ (bf16 sums in another order may flip a near tie)."""
+    import numpy as np
+    import torch
+    equal, margins = 0, {}
+    for i, ((prompt, a), (_, b)) in enumerate(zip(got, want)):
+        n = min(len(a), len(b))
+        diff = np.flatnonzero(a[:n] != b[:n])
+        if len(a) == len(b) and not len(diff):
+            equal += 1
+            continue
+        j = int(diff[0]) if len(diff) else n
+        toks = np.concatenate([prompt, a[:j]])[None]
+        with torch.no_grad():
+            x, _ = model.forward_hidden(params, toks)
+            top = model._head(params, x[:, -1]).float().topk(2, dim=-1)
+        margins[i] = dict(step=j, margin=float(top.values[0, 0]
+                                               - top.values[0, 1]))
+    log(f"{path}: greedy tokens against pages of 64: {equal} of {len(got)} "
+        f"requests equal" + "".join(
+            f"; request {i} first differs at step {m['step']}, top-2 logit "
+            f"margin {m['margin']:.4g}" for i, m in margins.items()))
+    return dict(equal=equal, requests=len(got), margins=margins)
 
 
 def recurrent_layer_phase(seed: int) -> dict:
@@ -3884,12 +3935,14 @@ def ep_phase(seed: int, served: dict) -> dict:
 TP_PATHS = ("wave-tp/model", "wave-tp/none")
 PARTIAL_MAIN_CASE = "sd_verify_4x1"
 # kernel 4's partial entry (phase 12a), bf16, an SD verify over a cache
-# split into 2 and 4 key blocks: the target's 28 / 4 heads of 128, and
+# split into 2 and 4 key blocks: the target's 28 / 4 heads of 128,
 # gemma3-12b's 16 / 8 heads of 256 at wave-gemma3's lengths (the split-KV
-# body at D 256).  name: (Hq, Hkv, D, S, (min, max) length)
+# body at D 256) and the reduced draft's 4 / 2 of 32.  name: (Hq, Hkv, D,
+# S, (min, max) length)
 PARTIAL_CASES = {"sd_verify": (28, 4, 128, 512, (129, 290)),
                  "long_context": (28, 4, 128, 8192, (8000, 8187)),
-                 "gemma3_sd_verify": (16, 8, 256, 2048, (1100, 1640))}
+                 "gemma3_sd_verify": (16, 8, 256, 2048, (1100, 1640)),
+                 "reduced_d32_sd_verify": (4, 2, 32, 512, (129, 290))}
 # the partial entry's fp32 log-sum-exp against its plain version, rtol =
 # atol: a row's lse sums its block's visible keys' exp-scores, so leaving
 # out even one 64-key chunk of a 2048-key block moves it by ~log(1 + 64 /

@@ -24,10 +24,17 @@ timed as calls captured in one CUDA graph (``graph_time_ms``), beside the
 PyTorch call that computes the same function where there is one
 (``flash_library``: ``F.scaled_dot_product_attention``; ``torch.bmm`` with
 TF32 off; ``sdpa_gathered``, ``sdpa_dense``, ``grouped_mm_library``).
-Prints a line per (tree, case) and, last, a JSON object of the median time
-of each (tree, case).  ``--only`` keeps the named kinds of case: flash, gmm
-(the capacity GEMM), paged, decode (dense decode/verify), fused (ragged
-gate/up), down (ragged down).  Needs an NVIDIA GPU.
+A tree whose kernel refuses a case (a head dim or page size an older body
+did not take) reports the case as refused instead of a time.  The kind
+oldgmm times the routes of the ragged kernels that no served path takes
+(fp32 on the CUDA cores, ``"simt"``; bf16 in 16-row tiles, ``"wmma"``), both
+products at the routings of ``ragged_cases``' serving cases, beside the
+card's bound for the same work and ``torch._grouped_mm`` where it takes the
+call.  Prints a line per (tree, case) and, last, a JSON object of the median
+time of each (tree, case).  ``--only`` keeps the named kinds of case: flash,
+gmm (the capacity GEMM), paged, decode (dense decode/verify), fused (ragged
+gate/up), down (ragged down), oldgmm (the old ragged routes; only when
+named).  Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import chip_smoke
 
 
 KINDS = ("flash", "gmm", "paged", "decode", "fused", "down")
+EXTRA_KINDS = ("oldgmm",)            # run only when named in --only
 
 
 def child(root: Path, label: str, kinds=KINDS) -> None:
@@ -64,13 +72,20 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
 
-    def emit(kind, case, out, ref, tol, fn, lib_fn, calls):
+    def emit(kind, case, fn, ref, tol, lib_fn, calls, **extra):
         if kind not in kinds:
+            return
+        rec = {"tree": label, "kernel": kind, "case": case, **extra}
+        try:
+            out = fn()
+        except (ValueError, RuntimeError) as e:     # a body that refuses it
+            print(json.dumps({**rec, "ms": None, "library_ms": None,
+                              "refused": str(e).splitlines()[0]}),
+                  flush=True)
             return
         err = chip_smoke._hold(f"{label} {kind}", case, out, ref, tol, res)
         print(json.dumps({
-            "tree": label, "kernel": kind, "case": case,
-            "ms": chip_smoke.graph_time_ms(fn, calls=calls),
+            **rec, "ms": chip_smoke.graph_time_ms(fn, calls=calls),
             "library_ms": (chip_smoke.graph_time_ms(lib_fn, calls=calls)
                            if lib_fn else None),
             "max_abs_err": err,
@@ -87,18 +102,17 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
                             ).to(dt) for _ in range(2))
         kw = dict(window=window, logit_cap=cap)
         lib, _ = chip_smoke.flash_library(q, k, v, window, cap)
-        emit("flash", case, flash.flash_attention(q, k, v, **kw),
+        emit("flash", case, lambda: flash.flash_attention(q, k, v, **kw),
              flash_attention_plain(q, k, v, **kw),
-             chip_smoke.FLASH_TOL[dtype_name],
-             lambda: flash.flash_attention(q, k, v, **kw), lib, 20)
+             chip_smoke.FLASH_TOL[dtype_name], lib, 20)
         del q, k, v, lib
     for case, spec in chip_smoke.capacity_cases().items():
         if "gmm" not in kinds:
             continue
         dt = getattr(torch, spec[0])
         x, w = chip_smoke.capacity_inputs(case, spec, gen, dev)
-        emit("gmm", case, gmm.gmm_capacity(x, w), gmm_capacity_ref(x, w),
-             chip_smoke.GMM_TOL[spec[0]], lambda: gmm.gmm_capacity(x, w),
+        emit("gmm", case, lambda: gmm.gmm_capacity(x, w),
+             gmm_capacity_ref(x, w), chip_smoke.GMM_TOL[spec[0]],
              lambda: torch.bmm(x, w), 10 if dt == torch.bfloat16 else 3)
         del x, w
         torch.cuda.empty_cache()
@@ -111,11 +125,10 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
             spec, gen, dev, heads, ps=chip_smoke.PAGED_PAGE_SIZE.get(case, 64))
         lib, _ = (chip_smoke.sdpa_gathered(*args) if cap == 0.0
                   else (None, None))
-        emit("paged", case, paged.paged_decode_attention(*args, logit_cap=cap),
+        emit("paged", case,
+             lambda: paged.paged_decode_attention(*args, logit_cap=cap),
              paged_decode_attention_plain(*args, logit_cap=cap),
-             chip_smoke.PAGED_TOL[dtype_name],
-             lambda: paged.paged_decode_attention(*args, logit_cap=cap), lib,
-             20)
+             chip_smoke.PAGED_TOL[dtype_name], lib, 20)
         del args, lib
         torch.cuda.empty_cache()
     for case, spec in chip_smoke.DECODE_CASES.items():
@@ -123,12 +136,12 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
             continue
         args = chip_smoke.decode_inputs(spec, gen, dev)
         lib, _ = chip_smoke.sdpa_dense(*args)
-        emit("decode", case, dec_ops.decode_attention(*args),
+        emit("decode", case, lambda: dec_ops.decode_attention(*args),
              decode_attention_plain(*args), chip_smoke.DECODE_TOL[spec[0]],
-             lambda: dec_ops.decode_attention(*args), lib, 20)
+             lib, 20)
         del args, lib
         torch.cuda.empty_cache()
-    if not {"fused", "down"} & set(kinds):
+    if not {"fused", "down", "oldgmm"} & set(kinds):
         return
     from repro_torch.configs.registry import get_config
     cfg = get_config("qwen2-57b-a14b")
@@ -142,17 +155,58 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
         xs = torch.randn((int(sizes.sum()), D), generator=gen, device=dev
                          ).bfloat16()
         h = fused_gate_up_ref(xs, wg, wu, sizes)
-        if "fused" in kinds:
-            emit("fused", case, ragged.fused_gate_up(xs, wg, wu, sizes), h,
-                 chip_smoke.TOL,
-                 lambda: ragged.fused_gate_up(xs, wg, wu, sizes), None, 10)
-        lib, _ = chip_smoke.grouped_mm_library(h, wd, sizes)
-        emit("down", case, ragged.ragged_gmm(h, wd, sizes),
-             ragged_gmm_ref(h, wd, sizes), chip_smoke.TOL,
-             lambda: ragged.ragged_gmm(h, wd, sizes), lib, 10)
+        emit("fused", case, lambda: ragged.fused_gate_up(xs, wg, wu, sizes),
+             h, chip_smoke.TOL, None, 10)
+        lib, _ = (chip_smoke.grouped_mm_library(h, wd, sizes)
+                  if "down" in kinds else (None, None))
+        emit("down", case, lambda: ragged.ragged_gmm(h, wd, sizes),
+             ragged_gmm_ref(h, wd, sizes), chip_smoke.TOL, lib, 10)
+        if "oldgmm" in kinds and case in ("verify", "ar_verify", "prefill"):
+            old_routes(emit, case, xs, wg, wu, wd, sizes)
         del xs, h, lib
     del wg, wu, wd
     torch.cuda.empty_cache()
+
+
+def old_routes(emit, case, xs, wg, wu, wd, sizes) -> None:
+    """The ragged kernels' routes that no served path takes, at one
+    routing: fp32 (``"simt"``) and bf16 in 16-row tiles (``"wmma"``), each
+    product beside its bound (each operand read once: x, the weights of the
+    experts that hold rows, the output written once; 2 N K F FLOPs a
+    product at the dtype's peak) and ``torch._grouped_mm`` where it takes
+    the call."""
+    import torch
+    from repro_torch.kernels.gmm import ragged
+    from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
+    N, D = xs.shape
+    E, _, F = wg.shape
+    active = int((sizes > 0).sum())
+    for dt, bm, route in ((torch.float32, None, "simt"),
+                          (torch.bfloat16, 16, "wmma")):
+        x, g, u, d = (a.to(dt) for a in (xs, wg, wu, wd))
+        peak = (chip_smoke.BF16_FLOPS if dt == torch.bfloat16
+                else chip_smoke.FP32_FLOPS)
+        tol = 1e-4 if dt == torch.float32 else chip_smoke.TOL
+        el = x.element_size()
+        h = fused_gate_up_ref(x, g, u, sizes)
+        for name, fn, ref, n_bytes, flops, lib in (
+                ("fused", lambda: ragged.fused_gate_up(x, g, u, sizes, bm=bm),
+                 h, (N * D + 2 * active * D * F + N * F) * el + 4 * E,
+                 4 * N * D * F, None),
+                ("down", lambda: ragged.ragged_gmm(h, d, sizes, bm=bm),
+                 ragged_gmm_ref(h, d, sizes),
+                 (N * F + active * F * D + N * D) * el + 4 * E,
+                 2 * N * F * D, chip_smoke.grouped_mm_library(h, d, sizes)[0])):
+            b_ms, b_by = chip_smoke.bound_ms(n_bytes, flops, peak)
+            emit("oldgmm", f"{name}_{route}_{case}", fn, ref, tol, lib, 5,
+                 route=route, bound_ms=b_ms, bound_by=b_by, rows=N)
+            got = ragged.LAST_ROUTE["fused_gate_up" if name == "fused"
+                                    else "ragged_gmm"]
+            if got != route:
+                raise AssertionError(f"oldgmm {name} [{case}]: ran {got}, "
+                                     f"expected {route}")
+        del x, g, u, d, h
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -164,8 +218,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     kinds = tuple(args.only.split(","))
-    if set(kinds) - set(KINDS):
-        ap.error(f"--only takes kinds from {KINDS}")
+    if set(kinds) - set(KINDS + EXTRA_KINDS):
+        ap.error(f"--only takes kinds from {KINDS + EXTRA_KINDS}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -195,10 +249,19 @@ def main() -> int:
                 continue
             rec = json.loads(line)
             lib = rec["library_ms"]
-            print(f"{rec['tree']:24s} {rec['kernel']:6s} {rec['case']:18s} "
-                  f"{chip_smoke._fmt(rec['ms'])}  library "
-                  f"{chip_smoke._fmt(lib)}  max err {rec['max_abs_err']:.3g}"
-                  f", {rec['row_scaled_err']:.3g} x row rms", flush=True)
+            if "refused" in rec:
+                print(f"{rec['tree']:24s} {rec['kernel']:6s} "
+                      f"{rec['case']:18s} refused: {rec['refused']}",
+                      flush=True)
+            else:
+                bound = (f"  bound {rec['bound_ms']:.4f} ms "
+                         f"({rec['bound_by']}) route={rec['route']}"
+                         if "bound_ms" in rec else "")
+                print(f"{rec['tree']:24s} {rec['kernel']:6s} "
+                      f"{rec['case']:18s} {chip_smoke._fmt(rec['ms'])}  "
+                      f"library {chip_smoke._fmt(lib)}{bound}  max err "
+                      f"{rec['max_abs_err']:.3g}, "
+                      f"{rec['row_scaled_err']:.3g} x row rms", flush=True)
             key = f"{rec['tree']}|{rec['kernel']}|{rec['case']}"
             times.setdefault(key, {"ms": [], "library_ms": []})
             times[key]["ms"].append(rec["ms"])

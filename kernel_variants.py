@@ -14,8 +14,8 @@ its own ``build/kernels``.
 
 ``mutants`` runs every case of chip_smoke.py's paged and dense decode
 phases (``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
-``decode_inputs``; bf16 on the TMA + wgmma bodies and attention_tile's at
-head dim 32, fp32 on the split-KV CUDA-core body), every bf16 case of its
+``decode_inputs``; bf16 on the TMA + wgmma bodies, fp32 on the split-KV
+CUDA-core body), every bf16 case of its
 ragged phase (the fused gate/up and down kernels on ``ragged_cases``) and
 every fp32 case of its flash and capacity GEMM phases (``FLASH_CASES``,
 ``capacity_cases``), same seeds, through this
@@ -31,7 +31,8 @@ has no row bound).  Then one JSON line.  It exits non-zero unless every
 fault is caught in each case ``FAULT_CASES`` names for it: a bf16 attention
 fault by the row bound (the TMA + wgmma bodies' faults at long context,
 the head-dim-256 bodies' at gemma's heads and lengths, the row tiles' in
-every case wider than 64 rows a KV head), an fp32 one and a ragged one by
+every case wider than 64 rows a KV head, the paged producer's on the page
+sizes it is planted for), an fp32 one and a ragged one by
 the tolerance (ragged at every serving case: SD verify, AR verify,
 prefill), a fault of kernels 5 and 6's fp32 bodies by the tolerance in
 every fp32 case, of kernels 3 and 4's in the fp32 cases it reaches; and
@@ -56,7 +57,6 @@ DECODE = "kernels/decode_attention/csrc/decode_sm90.cuh"
 SPLITKV = "kernels/csrc/splitkv_sm90.cuh"
 FLASH = "kernels/flash_attention/csrc/flash_sm90.cuh"
 RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
-TILE = "kernels/csrc/attention_tile.cuh"
 DECODE32 = "kernels/csrc/decode_f32.cuh"
 FLASH32 = "kernels/flash_attention/csrc/flash_f32.cuh"
 CAPACITY = "kernels/gmm/csrc/gmm_capacity.cu"
@@ -71,20 +71,30 @@ FAULTS = {
     # chunk 5 of every split is loaded from chunk 4's keys again (stale)
     "paged_stale_chunk": [(PAGED, "const int lk = kb + j * per;",
                            "const int lk = (i == 5 ? kb - BK : kb) + j * per;")],
-    "decode_stale_chunk": [(DECODE, "map, bar, 64 * c, h, kb, b);",
-                            "map, bar, 64 * c, h, i == 5 ? kb - BK : kb, b);")],
+    "decode_stale_chunk": [(DECODE, "map, bar, L::DC * c, h, kb, b);",
+                            "map, bar, L::DC * c, h, i == 5 ? kb - BK : kb, "
+                            "b);")],
+    # on pages of 24 (TMA boxes of 8 rows) the second box of every chunk is
+    # never loaded, the full barriers expecting its bytes no more (its rows
+    # keep what the ring stage held before)
+    "paged_box_dropped": [
+        (PAGED, "if (j < nbox) {\n            for (int c = 0; c < L::NB; ++c)",
+         "if (j < nbox && !(p.ps == 24 && j == 1)) {\n            for (int c "
+         "= 0; c < L::NB; ++c)"),
+        (PAGED, "static_cast<uint32_t>(nbox * per * D * 2)",
+         "static_cast<uint32_t>((nbox - (p.ps == 24 && nbox > 1)) * per * D "
+         "* 2)")],
+    # the producer that stages chunks by cp.async (pages not a multiple of
+    # 8) leaves out row 9 of every chunk
+    "paged_staged_row_dropped": [
+        (PAGED, "const int r = u / UPR, w = u % UPR;",
+         "const int r = u / UPR, w = u % UPR;\n        if (r == 9) continue;")],
     # the fused kernel loads Wu's tile from Wg's map (computes act(g) * g)
     "fused_wu_from_wg_map": [(RAGGED, "m == 0 ? &wmap : &umap", "&wmap")],
     # the epilogue (shared by both ragged products) stores 8 rows past the
     # expert's end, over the next expert's first rows (never past N)
     "ragged_rows_past_end": [(RAGGED, "if (r < w.row_end && c < F) {",
                               "if (r < min(w.row_end + 8, off[E]) && c < F) {")],
-    # attention_tile's body (dense decode's at head dim 32) skips its last
-    # key chunk
-    "tile_last_chunk": [(TILE, "for (int kbase = kstart; kbase < kend; "
-                               "kbase += BK) {",
-                         "for (int kbase = kstart; kbase + BK < kend; "
-                         "kbase += BK) {")],
     # every split of the paged split-KV body (at every head dim) that holds
     # more than one chunk skips its last
     "paged_last_chunk": [(PAGED, "const int n_chunks = min(p.cps, (last - k0) "
@@ -99,8 +109,8 @@ FAULTS = {
                            "/ BK + 1) - 1);")],
     # the dense TMA + wgmma body loads every row tile's q from position 0
     # (a tile's t0 ignored)
-    "decode_tile_t0": [(DECODE, "64 * c, h * p.g, rt.t0, b);",
-                        "64 * c, h * p.g, 0, b);")],
+    "decode_tile_t0": [(DECODE, "L::DC * c, h * p.g, rt.t0, b);",
+                        "L::DC * c, h * p.g, 0, b);")],
     # the combine leaves out the last live split of every row of an fp32
     # output (kernels 3 and 4's fp32 body), or that body skips the last
     # chunk of every split
@@ -129,14 +139,17 @@ FAULTS = {
 }
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
 # chip_smoke's bf16 cases at head dim 256 on gemma's heads and lengths (the
-# split-KV body), the dense decode cases attention_tile's body still runs
-# (head dim 32) and those wider than 64 rows a KV head (row tiles)
+# split-KV body), the dense decode cases wider than 64 rows a KV head (row
+# tiles), and the paged cases on pages of 24 (TMA boxes of 8 rows) and on
+# pages that are not a multiple of 8 (chunks staged by cp.async)
 GEMMA_DECODE = ("gemma3_sd_verify", "gemma3_ar", "gemma3_gamma8_verify",
                 "gemma7b_sd_verify")
-TILE_DECODE = ("reduced_d32_sd_verify", "fp32_reduced_d32_sd_verify")
 WIDE_DECODE = ("wide_verify", "gamma16_verify", "wide_long_context",
                "gemma3_wide_verify")
-GEMMA_PAGED = ("gemma3_sd_verify", "gemma3_ar_verify", "gemma7b_sd_verify")
+GEMMA_PAGED = ("gemma3_sd_verify", "gemma3_ar_verify", "gemma7b_sd_verify",
+               "gemma3_pages48_sd_verify")
+PAGES24 = ("odd_pages_sd_verify", "pages24_long_context")
+STAGED_PAGES = ("pages12_sd_verify", "pages7_sd_verify")
 
 
 def _fp32_cases(cases: dict) -> tuple:
@@ -150,11 +163,10 @@ def flash_fp32_cases() -> tuple:
 
 
 def decode_fp32_cases() -> tuple:
-    """chip_smoke.py's fp32 dense decode cases on the split-KV CUDA-core
-    body (head dim 32 runs attention_tile's)."""
+    """chip_smoke.py's fp32 dense decode cases (the split-KV CUDA-core
+    body at every head dim)."""
     import chip_smoke
-    return tuple(c for c in _fp32_cases(chip_smoke.DECODE_CASES)
-                 if chip_smoke.DECODE_CASES[c][5] != 32)
+    return _fp32_cases(chip_smoke.DECODE_CASES)
 
 
 def paged_fp32_cases() -> tuple:
@@ -180,7 +192,8 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                "fused_wu_from_wg_map": {"fused": SERVING_CASES},
                "ragged_rows_past_end": {"fused": SERVING_CASES,
                                         "down": SERVING_CASES},
-               "tile_last_chunk": {"decode": TILE_DECODE},
+               "paged_box_dropped": {"paged": PAGES24},
+               "paged_staged_row_dropped": {"paged": STAGED_PAGES},
                "decode_tile_t0": {"decode": WIDE_DECODE},
                # every fp32 case of kernels 3 and 4 with more than one
                # live split (the paged SD verify holds one), by the
@@ -197,6 +210,20 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                "simt90_last_k_tile": {"gmm": gmm_fp32_cases},
                "simt90_x_col0_zero": {"gmm": gmm_fp32_cases}}
 TUNING = {
+    # K/V boxes of 4 rows on pages of 12 or 20 (TMA writing half of an
+    # 8-row swizzle atom), or of any height on every page size (pages of 7:
+    # 64 one-row boxes a chunk), instead of staging those by cp.async
+    "paged_tma_box4": [(PAGED, "constexpr int MIN_BOX = 8;",
+                        "constexpr int MIN_BOX = 4;")],
+    "paged_tma_box1": [(PAGED, "constexpr int MIN_BOX = 8;",
+                        "constexpr int MIN_BOX = 1;")],
+    # every page size staged by cp.async (the TMA boxes never used)
+    "paged_staged_all": [(PAGED, "    if (per < MIN_BOX) {\n      stage_chunks",
+                          "    if (per > 0) {\n      stage_chunks")],
+    # one producer lane issuing every TMA box of a chunk (up to 8 on pages of
+    # 8 or 24) instead of a lane a box
+    "paged_one_issuer": [(PAGED, "constexpr int BOX_LANES = 8;",
+                          "constexpr int BOX_LANES = 1;")],
     # splits for 2 or 4 blocks per SM at long context instead of 1
     "paged_waves2": [(PAGED, "constexpr int WAVES = 1;",
                       "constexpr int WAVES = 2;")],

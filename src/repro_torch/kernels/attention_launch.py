@@ -13,9 +13,8 @@ import torch
 
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-# query rows of one row tile of the decode bodies (one block of
-# ``attention_tile.cuh`` at head dim 32): the most query heads a KV head
-# may fold, since one query position's rows share a tile
+# query rows of one row tile of the decode bodies: the most query heads a KV
+# head may fold, since one query position's rows share a tile
 MAX_G = 64
 
 

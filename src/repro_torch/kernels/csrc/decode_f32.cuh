@@ -1,7 +1,7 @@
 // Decode / SD-verify attention in full fp32 on the CUDA cores of an H100:
 // the fp32 body of kernel 4 (decode_attention.cu, a contiguous cache read
 // through strides) and of kernel 3 (paged_decode_attention.cu, K/V pages
-// through a block table) at head dims 64, 128 and 256.  It computes what
+// through a block table) at head dims 32, 64, 128 and 256.  It computes what
 // the Pallas TPU kernels _decode_kernel and _paged_decode_kernel of
 // src/repro/kernels/decode_attention/decode_attention.py compute:
 //
@@ -40,10 +40,11 @@
 //     large or NaN, enters.
 //   * q and the running O stay in registers, as in flash_f32.cuh's
 //     flash_f32_qreg_kernel: a half-warp holds 4 query rows, lane ds the
-//     d-slice 64 c + 4 ds + {0..3} of each; for every 4 keys the 16
-//     slices' partial dot products (4 rows x 4 keys) are summed and
-//     scattered by 4 shuffle rounds, P goes through shared memory inside
-//     the half-warp.
+//     d-slice 64 c + 4 ds + {0..3} of each (at D 32, where 16 lanes of 4
+//     would cover 64 columns, 2 ds + {0, 1}: Cfg::VW floats a vector); for
+//     every 4 keys the 16 slices' partial dot products (4 rows x 4 keys)
+//     are summed and scattered by 4 shuffle rounds, P goes through shared
+//     memory inside the half-warp.
 //   * Few rows (an AR step, a gemma verify of 10 rows) do not leave warps
 //     idle: a tile's rows take RW = 8 / KG warps (8 rows a warp), and the 8
 //     warps form KG key groups (8, 4, 2 or 1, a template argument) that
@@ -81,11 +82,33 @@ constexpr float NEG_INF = -1e30f;            // running max before any key
 // -inf, a masked score: 2^(-inf - m) = 0 for the finite running max m
 __device__ __forceinline__ float masked() { return __int_as_float(0xff800000); }
 
+// VW floats of a row at p, as one 16- or 8-byte load or store.
+template <int VW>
+__device__ __forceinline__ void ld_vec(float (&d)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+  }
+}
+template <int VW>
+__device__ __forceinline__ void st_vec(float* p, const float* s) {
+  if constexpr (VW == 4) *reinterpret_cast<float4*>(p) = make_float4(s[0], s[1], s[2], s[3]);
+  else *reinterpret_cast<float2*>(p) = make_float2(s[0], s[1]);
+}
+
 template <int D>
 struct Cfg {
   static constexpr int BN = 32;              // keys of a ring stage
   static constexpr int NBT = BN / KB;        // key batches of a stage
-  static constexpr int NC = D / 64;          // float4s of a lane's d-slice of a row
+  static constexpr int VW = D >= 64 ? 4 : 2; // floats of a lane's vector
+  static constexpr int NC = D / (16 * VW);   // vectors of a lane's d-slice of a row
   static constexpr int STAGES = D == 256 ? 2 : 3;
   static constexpr int RV = D / 4;           // float4s of a row
   static constexpr int STAGE = 2 * BN * D;   // floats: K, then V
@@ -118,7 +141,8 @@ template <int D, int PAGED, int KG>
 __global__ void __launch_bounds__(NT, Cfg<D>::MIN_BLOCKS)
 decode_f32_kernel(const Params p, const Src src) {
   using L = Cfg<D>;
-  constexpr int NC = L::NC, BN = L::BN;
+  constexpr int NC = L::NC, VW = L::VW, BN = L::BN;
+  constexpr int CW = 16 * VW;                // columns of one vector of the 16 lanes
   constexpr int RW = WARPS / KG;             // row warps: 8 RW rows a tile at most
   constexpr int NBW = L::NBT / KG;           // a group's batches of a stage
   constexpr unsigned FULL = 0xffffffffu;
@@ -181,16 +205,21 @@ decode_f32_kernel(const Params p, const Src src) {
   // takes key n ^ kp of every 4 as its n-th, so each reduce-scatter round
   // keeps the lower half of its values and sends the upper.
   const int rp = ds / 4, kp = ds % 4;
-  float4 q[4][NC];
+  float q[4][NC][VW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * rg + (i ^ rp);
     const int t = rt.t0 + r / p.g, hq = h * p.g + r % p.g;
     const float* qg = src.q + b * src.sqb + t * src.sqt + hq * src.sqh;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      q[i][c] = active && r < rows ? *reinterpret_cast<const float4*>(qg + 64 * c + 4 * ds)
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < NC; ++c) {
+      if (active && r < rows) {
+        ld_vec<VW>(q[i][c], qg + CW * c + VW * ds);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) q[i][c][e] = 0.f;
+      }
+    }
   }
 
   // row 4 rg + rp: its last visible key (a pad row sees every loaded key),
@@ -199,11 +228,11 @@ decode_f32_kernel(const Params p, const Src src) {
   const int qlim = r_own < rows ? min(base + r_own / p.g, last) : last;
   const bool capped = p.cap > 0.f;
   float m = NEG_INF, l = 0.f;
-  float o[4][4 * NC];
+  float o[4][VW * NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < VW * NC; ++c) o[i][c] = 0.f;
 
   for (int c = 0; c < n_stages; ++c) {
     // chunk c has landed, and every thread is done with the stage the next
@@ -226,20 +255,17 @@ decode_f32_kernel(const Params p, const Src src) {
       float part[4 * KB];                    // [row i][key n] at KB i + n
 #pragma unroll
       for (int n = 0; n < KB; ++n) {
-        float4 kv[NC];
+        float kv[NC][VW];
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc)
-          kv[cc] = *reinterpret_cast<const float4*>(Ks + (KB * nb + (n ^ kp)) * D + 64 * cc +
-                                                    4 * ds);
+          ld_vec<VW>(kv[cc], Ks + (KB * nb + (n ^ kp)) * D + CW * cc + VW * ds);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float a = 0.f;
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc) {
-            a = fmaf(q[i][cc].x, kv[cc].x, a);
-            a = fmaf(q[i][cc].y, kv[cc].y, a);
-            a = fmaf(q[i][cc].z, kv[cc].z, a);
-            a = fmaf(q[i][cc].w, kv[cc].w, a);
+#pragma unroll
+            for (int e = 0; e < VW; ++e) a = fmaf(q[i][cc][e], kv[cc][e], a);
           }
           part[KB * i + n] = a;
         }
@@ -279,7 +305,7 @@ decode_f32_kernel(const Params p, const Src src) {
     for (int i = 0; i < 4; ++i) {
       const float ci = __shfl_sync(FULL, corr, half + 4 * i);
 #pragma unroll
-      for (int cc = 0; cc < 4 * NC; ++cc) o[i][cc] *= ci;
+      for (int cc = 0; cc < VW * NC; ++cc) o[i][cc] *= ci;
     }
     __syncwarp();                            // P rows are the half-warp's own
 
@@ -295,15 +321,13 @@ decode_f32_kernel(const Params p, const Src src) {
       for (int e = 0; e < KB; ++e) {
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(Vs + (KB * nb + e) * D + 64 * cc + 4 * ds);
+          float vv[VW];
+          ld_vec<VW>(vv, Vs + (KB * nb + e) * D + CW * cc + VW * ds);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float pr = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
-            o[i][4 * cc] = fmaf(pr, vv.x, o[i][4 * cc]);
-            o[i][4 * cc + 1] = fmaf(pr, vv.y, o[i][4 * cc + 1]);
-            o[i][4 * cc + 2] = fmaf(pr, vv.z, o[i][4 * cc + 2]);
-            o[i][4 * cc + 3] = fmaf(pr, vv.w, o[i][4 * cc + 3]);
+#pragma unroll
+            for (int f = 0; f < VW; ++f) o[i][VW * cc + f] = fmaf(pr, vv[f], o[i][VW * cc + f]);
           }
         }
       }
@@ -329,8 +353,7 @@ decode_f32_kernel(const Params p, const Src src) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc)
-        *reinterpret_cast<float4*>(Om + (kg * rows8 + 4 * rg + i) * D + 64 * cc + 4 * ds) =
-            make_float4(o[i][4 * cc], o[i][4 * cc + 1], o[i][4 * cc + 2], o[i][4 * cc + 3]);
+        st_vec<VW>(Om + (kg * rows8 + 4 * rg + i) * D + CW * cc + VW * ds, &o[i][VW * cc]);
   }
   __syncthreads();
 
@@ -434,11 +457,12 @@ inline void set_shape(Params& p, const void* lengths, void* out, int T, int Hq, 
   p.cap = cap;
 }
 
-// Whether the body takes the call: fp32 at head dim 64, 128 or 256, at most
-// 64 query heads per KV head (the paged caller adds its page sizes).
+// Whether the body takes the call: fp32 at head dim 32, 64, 128 or 256, at
+// most 64 query heads per KV head, any page size.
 inline bool takes(int dtype, int head_dim, int g, int T) {
-  return dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 256) && g >= 1 &&
-         g <= MAX_ROWS && T >= 1;
+  return dtype == 1 &&
+         (head_dim == 32 || head_dim == 64 || head_dim == 128 || head_dim == 256) &&
+         g >= 1 && g <= MAX_ROWS && T >= 1;
 }
 
 // Dense (kernel 4): st as decode_sm90.cuh's launch, out contiguous (B, T,
@@ -498,6 +522,7 @@ inline long long scratch_bytes_dense(int head_dim, int B, int T, int Hq, int Hkv
 
 // Dynamic shared memory of a block at this head dim (for reports), or -2.
 inline int smem_bytes(int head_dim) {
+  if (head_dim == 32) return Cfg<32>::BYTES;
   if (head_dim == 64) return Cfg<64>::BYTES;
   if (head_dim == 128) return Cfg<128>::BYTES;
   if (head_dim == 256) return Cfg<256>::BYTES;

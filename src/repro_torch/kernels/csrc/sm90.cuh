@@ -3,11 +3,13 @@
 // consumed by warpgroup matrix multiplies (wgmma): mbarriers, TMA loads,
 // wgmma shared-memory descriptors and instructions, register reallocation
 // (setmaxnreg), and the host-side encoding of a tensor map; and the per-thread
-// cp.async copies of the fp32 CUDA-core bodies.
+// cp.async copies of the fp32 CUDA-core bodies and of the paged producer on
+// pages that TMA boxes cannot tile.
 //
 // Used by kernels/flash_attention/csrc/flash_sm90.cuh and flash_f32.cuh,
-// kernels/decode_attention/csrc/paged_sm90.cuh, kernels/gmm/csrc/gmm_capacity.cu
-// and kernels/gmm/csrc/ragged_sm90.cuh.  Everything is raw PTX; no CUTLASS.
+// kernels/csrc/splitkv_sm90.cuh and decode_f32.cuh (kernels 3 and 4),
+// kernels/gmm/csrc/gmm_capacity.cu and kernels/gmm/csrc/ragged_sm90.cuh.
+// Everything is raw PTX; no CUTLASS.
 //
 // The tensor-map encoder, cuTensorMapEncodeTiled, is a CUDA driver API call; it
 // is fetched through the runtime's cudaGetDriverEntryPoint, so the libraries
@@ -122,7 +124,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 // at most N of its newest groups are still in flight; a barrier then makes
 // every thread's pieces visible.  A piece with `valid` false reads nothing
 // and writes zeros (source size 0).  The fp32 CUDA-core bodies
-// (flash_f32.cuh, gmm_capacity.cu's simt90 kernel) fill their rings so.
+// (flash_f32.cuh, decode_f32.cuh, gmm_capacity.cu's simt90 kernel) fill
+// their rings so, and the paged split-KV producer its swizzled tiles on pages
+// of fewer than 8 rows a box (paged_sm90.cuh).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
@@ -381,6 +385,33 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D (64 x N) += A (64 x 16, registers) * B (16 x N) at N = 32, 64, 128 or 256:
+// the P V product of the attention bodies at head dim N.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "no wgmma_rs at this width");
+  if constexpr (N == 256) wgmma_rs_n256<TRANS_B>(d, a, db, scale_d);
+  else if constexpr (N == 128) wgmma_rs_n128<TRANS_B>(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, db, scale_d);
+  else wgmma_rs_n32<TRANS_B>(d, a, db, scale_d);
+}
+
+// The swizzle of a tile of rows of D bf16 columns, cut into TMA boxes of
+// box_cols(D) columns: 128 bytes (boxes of 64 columns) from D 64 up, 64 bytes
+// at D 32 (a row is one 64-byte box).
+__host__ __device__ constexpr int box_swizzle(int D) { return D >= 64 ? 128 : 64; }
+__host__ __device__ constexpr int box_cols(int D) { return box_swizzle(D) / 2; }
+
+// Where TMA puts byte `off` of a tile written with this swizzle (128 or 64
+// bytes), the tile starting on a 1024-byte boundary: the 16-byte unit's
+// index within its row, XORed with bits 7.. of the offset (the row within
+// the swizzle atom; Swizzle<3,4,3> and <2,4,3> in CUTLASS's terms).  For
+// threads that write a tile the wgmma descriptors read as TMA's.
+__device__ __forceinline__ uint32_t swizzled(uint32_t off, int swizzle_bytes) {
+  return off ^ ((off >> 3) & static_cast<uint32_t>(swizzle_bytes - 16));
 }
 
 // -------------------------------------------------------------------- host

@@ -48,14 +48,15 @@
 //   * K and V: Cfg<D>::RING chunks in flight in a ring with full barriers
 //     for K and V and one empty barrier (4 up to D 128; 3 at D 256, where a
 //     chunk of K and V is 64 KB); 128-byte swizzle, a chunk of BK rows per
-//     64-column box.  The producer never loads a chunk that starts past
+//     64-column box (at D 32, where a row is 64 bytes, one 32-column box and
+//     the 64-byte swizzle).  The producer never loads a chunk that starts past
 //     length + T - 1; the last chunk it loads may reach past it.  Those K
 //     rows are masked out of the scores, and those V rows are zeroed in
 //     shared memory before the P V product, so no stale value, however
 //     large or NaN, enters the result.
 //   * S = Q K^T: wgmma m64n64k16, Q and K (K-major) from shared memory.
-//     O += P V: wgmma m64nDk16 (at D 256 one m64n256k16: O is 128
-//     registers a thread, in the one consumer warpgroup) with P from
+//     O += P V: wgmma m64nDk16, D 32 to 256 (at D 256 one m64n256k16: O is
+//     128 registers a thread, in the one consumer warpgroup) with P from
 //     registers (the score accumulator rounded to bf16 is wgmma's
 //     register-A fragment) and V
 //     read MN-major through the transpose bit.  The online softmax runs in
@@ -75,7 +76,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BK = 64;                       // keys per chunk (= ROWS: zero_rows)
 constexpr int ROWS = 64;                     // query rows of one wgmma tile
-constexpr int SW = 128;                      // swizzle bytes = one 64-column box row
 constexpr int NT = 256;                      // consumer warpgroup + producer warpgroup
 constexpr int STAGES = 4;                    // ring stages at head dims 64 and 128
 constexpr int STAGES_256 = 3;                // at 256: 32 KB of Q + 3 x 64 KB of K/V
@@ -83,7 +83,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
-  static constexpr int NB = D / 64;          // 64-column boxes of a row
+  // a row of a tile in boxes of DC columns, SW bytes a box row and the
+  // swizzle: 64 columns, 128 bytes from D 64 up; at D 32 one box of 32
+  // columns, 64 bytes
+  static constexpr int SW = sm90::box_swizzle(D);
+  static constexpr int DC = sm90::box_cols(D);
+  static constexpr int NB = D / DC;          // boxes of a row
   static constexpr int RING = D == 256 ? STAGES_256 : STAGES;
   static constexpr int Q_BYTES = ROWS * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one chunk of K (or V)
@@ -101,6 +106,7 @@ struct Params {
   float* part_ml;                            // (B, Hkv, splits, rows, 2) m, l
   float* lse;                                // partial entry: (B, T, Hq) log-sum-exp
   int T, Hq, Hkv, g, rows, ps, MP, cps, splits;
+  int box;                                   // paged TMA body: rows of a K/V box
   int tp, n_tiles;                           // row tiles: tp query positions each
   int limit;                                 // keys a row can hold: keys >= limit never exist
   int k_off;                                 // partial entry: key 0's position (dense bodies)
@@ -150,19 +156,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Zero rows [first, 64) of each of the NB 64-row boxes of a swizzled tile of
+// head dim D (a row keeps its SW bytes under the swizzle), by the consumer
+// warpgroup, then order the stores before the wgmma reads and the next TMA
+// writes.
 template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (D == 256) sm90::wgmma_rs_n256<1>(o, a, db, 1);
-  else if constexpr (D == 128) sm90::wgmma_rs_n128<1>(o, a, db, 1);
-  else sm90::wgmma_rs_n64<1>(o, a, db, 1);
-}
-
-// Zero rows [first, 64) of each of NB 64-row boxes of a swizzled tile (a
-// row keeps its 128 bytes under the swizzle), by the consumer warpgroup,
-// then order the stores before the wgmma reads and the next TMA writes.
-template <int NB>
 __device__ __forceinline__ void zero_rows(unsigned char* tile, int first, int tid) {
+  constexpr int NB = Cfg<D>::NB, SW = Cfg<D>::SW;
   constexpr int UNITS = NB * SW / 16;        // 16-byte units of a row
   for (int u = tid; u < (64 - first) * UNITS; u += 128) {
     const int r = first + u / UNITS, c = u / (SW / 16) % NB, v = u % (SW / 16);
@@ -226,7 +226,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, c
     row[hh] = warp * 16 + lane / 4 + 8 * hh;
     qlim[hh] = row[hh] < rows ? min(base + row[hh] / p.g, last) : -1;
   }
-  zero_rows<L::NB>(smem, p.g * p.tp, tid);   // Q's pad rows: the box fills g * tp
+  constexpr int SW = L::SW;
+  zero_rows<D>(smem, p.g * p.tp, tid);       // Q's pad rows: the box fills g * tp
 
   float o[D / 2];
 #pragma unroll
@@ -252,7 +253,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, c
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 / 64, off = (kk * 16 % 64) * 2;
+      const int c = kk * 16 / L::DC, off = (kk * 16 % L::DC) * 2;
       const uint64_t da = sm90::make_desc(qbase + c * ROWS * SW + off, 16, 8 * SW, SW);
       const uint64_t db = sm90::make_desc(kbase + c * BK * SW + off, 16, 8 * SW, SW);
       sm90::wgmma_ss_n64<0>(sc, da, db, kk > 0);
@@ -309,13 +310,13 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Bars& bars, c
 
     // ---- O += P V; V rows past `last` (stale or never loaded) zeroed first
     sm90::mbar_wait(&bars.v_full[s], ph);
-    if (kb + BK - 1 > last) zero_rows<L::NB>(vs, last - kb + 1, tid);
+    if (kb + BK - 1 > last) zero_rows<D>(vs, last - kb + 1, tid);
     sm90::fence_regs(o);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t db = sm90::make_desc(vbase + kk * 16 * SW, BK * SW, 8 * SW, SW);
-      pv_product<D>(o, pa[kk], db);
+      sm90::wgmma_rs<D, 1>(o, pa[kk], db, 1);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();

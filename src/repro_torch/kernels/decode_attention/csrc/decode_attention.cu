@@ -18,28 +18,26 @@
 // and one block's serial chunk loop set its time; at 8k positions it reads
 // ~134 MB, ~40 us, and the kernel is memory bound.
 //
-// What the design does about it.  Three bodies; the launcher picks one per
-// call and reports which:
-//   * bf16 at head dims 64, 128 and 256 (every extend of the served models:
-//     the target's verify and AR steps, the draft's steps, gemma's global
-//     layers at 256, and a verify of any gamma, which the model's dense
-//     branch allows): decode_sm90.cuh.  Split-KV over a (splits * n_tiles,
+// What the design does about it.  Two bodies, both split-KV with the same
+// row tiles, partials and combine kernel; the launcher picks one per call
+// and reports which:
+//   * bf16 at head dims 32, 64, 128 and 256 (every extend of the served
+//     models: the target's verify and AR steps, the draft's steps, gemma's
+//     global layers at 256, the reduced drafts at 32, and a verify of any
+//     gamma, which the model's dense branch allows): decode_sm90.cuh.  Split-KV over a (splits * n_tiles,
 //     Hkv, B) grid planned on the host from S, so the 8k case fills the SMs
 //     once and the serve shape runs one split and one kernel; a KV head's
 //     g * T query rows in row tiles of at most 64 (one, up to 64 rows); a
 //     producer warp keeps TMA loads of 64-key chunks in flight in a ring (3
 //     chunks of K and V at D 256, 230,480 B a block); both products as
 //     wgmma with the online softmax in registers (at D 256 one m64n256k16
-//     accumulator); a combine kernel merges the fp32 partials of rows with
-//     more than one live split.
-//   * fp32 at head dims 64, 128 and 256 (the parity checks):
+//     accumulator; at D 32 one 32-column box a row in the 64-byte swizzle
+//     and an m64n32k16 P V); a combine kernel merges the fp32 partials of
+//     rows with more than one live split.
+//   * fp32 at the same head dims (the parity checks):
 //     kernels/csrc/decode_f32.cuh.  The same split plan (splits of at
 //     least 2 chunks), row tiles and combine, on the CUDA cores in full
 //     fp32: K/V chunks by cp.async into a ring, q and O in registers.
-//   * head dim 32 (only reduced configs have it), bf16 and fp32:
-//     kernels/csrc/attention_tile.cuh, WMMA in bf16 and the CUDA cores in
-//     fp32.  One block per (query tile, KV head, sequence), GQA folded
-//     into its 64 rows, the KV axis a loop inside the block.
 //   * lengths stay on the device: each block reads its own, the grid is
 //     static, nothing waits on the host.
 //   * The cache is read in place through strides, the model's (B, S+1, Hkv, D)
@@ -47,27 +45,8 @@
 
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
-#include "../../csrc/attention_tile.cuh"
 #include "../../csrc/decode_f32.cuh"
 #include "decode_sm90.cuh"
-
-namespace {
-
-// attention_tile.cuh's body for dtype 0 = bf16 (WMMA), 1 = fp32 (CUDA
-// cores) at head dim 32.  Returns cudaGetLastError() after the launch, -1
-// for shapes the kernel does not take (launch<> refuses a G above its BM)
-// and -2 for a dtype or head dim it is not built for.
-int launch_tile_any(int dtype, int head_dim, const attn::Params& p, int B, void* stream) {
-  if (p.G < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
-      (p.Hq / p.Hkv) % p.G != 0 || p.T < 1 || p.S < 1 || B < 1)
-    return -1;
-  if (head_dim != 32) return -2;
-  if (dtype == 0) return attn::launch<attn::bf16, 32>(p, B, stream);
-  if (dtype == 1) return attn::launch<float, 32>(p, B, stream);
-  return -2;
-}
-
-}  // namespace
 
 // dtype: 0 = bf16, 1 = fp32.  head_dim: 32, 64, 128 or 256.  lengths: (B,) int32
 // on the device.  strides: 12 element strides, q (b, t, h), k (b, s, h),
@@ -75,12 +54,11 @@ int launch_tile_any(int dtype, int head_dim, const attn::Params& p, int B, void*
 // 16-byte aligned; out is contiguous.  S is the number of cache positions
 // that may be read.  scratch: decode_attention_scratch_bytes() bytes (null
 // when 0).  *kernel is set to the body the call launches: 0 =
-// decode_sm90_kernel (split-KV, TMA + wgmma), 1 = attention_tile's WMMA
-// body, 2 = its CUDA-core body, 3 = decode_f32_kernel (split-KV, CUDA
-// cores).  Returns cudaGetLastError() after the launch, -1 for shapes the
-// kernels do not take or a missing scratch, -2 for a dtype or head dim they
-// are not built for, -3/-4 when the CUDA driver cannot encode the tensor
-// maps.
+// decode_sm90_kernel (split-KV, TMA + wgmma, bf16), 1 = decode_f32_kernel
+// (split-KV, CUDA cores, fp32).  Returns cudaGetLastError() after the
+// launch, -1 for shapes the kernels do not take or a missing scratch, -2
+// for a dtype or head dim they are not built for, -3/-4 when the CUDA
+// driver cannot encode the tensor maps.
 //
 // lse null: the whole call (k_off must be 0).  lse non-null: the partial
 // entry, the same attention over ONE block of a cache split along its
@@ -88,9 +66,9 @@ int launch_tile_any(int dtype, int head_dim, const attn::Params& p, int B, void*
 // still at lengths[b] + t), for the combine across blocks by log-sum-exp.
 // out then gets the block's output normalized over its visible keys, lse
 // (B, T, Hq) fp32 each row's natural log-sum-exp of those keys' scores; a
-// row that sees none gets 0 and -inf.  The sm90 and f32 bodies send every
-// live split to scratch and combine_kernel (splitkv_sm90.cuh) merges them
-// and writes lse; attention_tile's bodies write lse beside their output.
+// row that sees none gets 0 and -inf.  Both bodies send every live split to
+// scratch and combine_kernel (splitkv_sm90.cuh) merges them and writes
+// lse.
 extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
                                        const void* k, const void* v,
                                        const void* lengths, void* out, void* lse,
@@ -104,6 +82,9 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
     *kernel = 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (head_dim) {
+      case 32:
+        return decode90::launch<32>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq, Hkv,
+                                    scale, logit_cap, s, lse_f, k_off);
       case 64:
         return decode90::launch<64>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq, Hkv,
                                     scale, logit_cap, s, lse_f, k_off);
@@ -116,9 +97,12 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
     }
   }
   if (decode32::takes(dtype, head_dim, Hq / Hkv, T)) {
-    *kernel = 3;
+    *kernel = 1;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (head_dim) {
+      case 32:
+        return decode32::launch_dense<32>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq,
+                                          Hkv, scale, logit_cap, s, lse_f, k_off);
       case 64:
         return decode32::launch_dense<64>(q, k, v, lengths, out, scratch, strides, B, T, S, Hq,
                                           Hkv, scale, logit_cap, s, lse_f, k_off);
@@ -130,32 +114,12 @@ extern "C" int decode_attention_launch(int dtype, int head_dim, const void* q,
                                            Hq, Hkv, scale, logit_cap, s, lse_f, k_off);
     }
   }
-  *kernel = dtype == 0 ? 1 : 2;
-  attn::Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.lengths = static_cast<const int*>(lengths);
-  p.lse = lse_f;
-  p.k_off = k_off;
-  attn::set_strides(p, strides);
-  p.T = T;
-  p.S = S;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.G = Hq / Hkv;                            // the g heads of a KV head share rows
-  p.causal = 1;
-  p.window = 0;
-  p.scale = scale;
-  p.cap = logit_cap;
-  return launch_tile_any(dtype, head_dim, p, B, stream);
+  return -2;
 }
 
 // Bytes of scratch the call with these arguments needs (the split-KV
-// partials of the sm90 and f32 bodies; 0 when they run one split or for
-// attention_tile's bodies, and every split's partial for the partial
-// entry).
+// partials of the sm90 and f32 bodies; 0 when they run one split, and every
+// split's partial for the partial entry).
 extern "C" long long decode_attention_scratch_bytes(int dtype, int head_dim, int B, int T,
                                                     int S, int Hq, int Hkv, int partial) {
   if (Hkv < 1 || Hq % Hkv != 0 || S < 1 || B < 1) return 0;
@@ -169,6 +133,7 @@ extern "C" long long decode_attention_scratch_bytes(int dtype, int head_dim, int
 // Dynamic shared memory of a block of the sm90 body at this head dim (for
 // reports), or -2 for a head dim it is not built for.
 extern "C" int decode_sm90_smem_bytes(int head_dim) {
+  if (head_dim == 32) return splitkv::Cfg<32>::BYTES;
   if (head_dim == 64) return splitkv::Cfg<64>::BYTES;
   if (head_dim == 128) return splitkv::Cfg<128>::BYTES;
   if (head_dim == 256) return splitkv::Cfg<256>::BYTES;
@@ -178,11 +143,3 @@ extern "C" int decode_sm90_smem_bytes(int head_dim) {
 // Dynamic shared memory of a block of the f32 body at this head dim (for
 // reports), or -2 for a head dim it is not built for.
 extern "C" int decode_f32_smem_bytes(int head_dim) { return decode32::smem_bytes(head_dim); }
-
-// Dynamic shared memory of a block of attention_tile.cuh's body (head dim
-// 32) for this dtype (0 = bf16, 1 = fp32) and head dim (for reports), or -2
-// for one it is not built for.
-extern "C" int attention_tile_smem_bytes(int dtype, int head_dim) {
-  if (head_dim != 32) return -2;
-  return dtype == 0 ? attn::Layout<attn::bf16, 32>::BYTES : attn::Layout<float, 32>::BYTES;
-}

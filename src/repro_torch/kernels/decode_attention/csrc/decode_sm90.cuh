@@ -1,6 +1,6 @@
 // Dense decode / SD-verify attention in bf16 on Hopper (sm_90a): the body of
-// the bf16 path of decode_attention.cu at head dims 64, 128 and 256, at any
-// T and up to 64 query heads per KV head.
+// the bf16 path of decode_attention.cu at head dims 32, 64, 128 and 256, at
+// any T and up to 64 query heads per KV head.
 //
 //   out[b, t, h*g + i] = softmax_s( cap(q . k[b, s, h] * scale)
 //                                   | s <= lengths[b] + t, s < S ) . v[b, :, h]
@@ -25,7 +25,8 @@
 //     trash slot S lies outside the map, so TMA never reads it (a box
 //     reaching past S is zero fill).  One box of 64 columns x 1 head x 64
 //     positions x 1 sequence per 64 columns of a chunk; chunks that start
-//     past length + T - 1 are never loaded.  Rows of the last chunk past
+//     past length + T - 1 are never loaded (at D 32 one box of 32 columns, a
+//     64-byte row, in the 64-byte swizzle).  Rows of the last chunk past
 //     length + T - 1 are masked in the scores and zeroed in shared memory
 //     (splitkv::consume).
 //   * q is read in place through its strides too: one 4-D box (64, g, tp, 1)
@@ -87,9 +88,10 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::prefetch_map(&qmap);
     sm90::prefetch_map(&kmap);
     sm90::prefetch_map(&vmap);
+    constexpr int SW = L::SW;
     sm90::mbar_expect_tx(bars.q_full, L::NB * p.g * p.tp * SW);   // steps past T: zero fill
     for (int c = 0; c < L::NB; ++c)
-      sm90::tma_load_4d(smem + c * ROWS * SW, &qmap, bars.q_full, 64 * c, h * p.g, rt.t0, b);
+      sm90::tma_load_4d(smem + c * ROWS * SW, &qmap, bars.q_full, L::DC * c, h * p.g, rt.t0, b);
     for (int i = 0; i < n_chunks; ++i) {
       const int s = i % L::RING;
       const int kb = k0 + i * BK;            // the chunk's first key
@@ -100,7 +102,7 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         const CUtensorMap* map = kv ? &vmap : &kmap;
         sm90::mbar_expect_tx(bar, L::KV_BYTES);   // zero fill past S counts too
         for (int c = 0; c < L::NB; ++c)
-          sm90::tma_load_4d(dst + c * BK * SW, map, bar, 64 * c, h, kb, b);
+          sm90::tma_load_4d(dst + c * BK * SW, map, bar, L::DC * c, h, kb, b);
       }
     }
     return;
@@ -108,11 +110,12 @@ decode_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   consume<D>(smem, bars, p, b, h, sp, rt, base, last, k0, n_chunks, direct);
 }
 
-// Whether this body takes the call: bf16 at head dim 64, 128 or 256, any T
-// and at most 64 query heads per KV head (one query position's rows fit a
+// Whether this body takes the call: bf16 at head dim 32, 64, 128 or 256, any
+// T and at most 64 query heads per KV head (one query position's rows fit a
 // tile).  (Strides and alignment are the wrapper's check.)
 inline bool takes(int dtype, int head_dim, int g, int T) {
-  return dtype == 0 && (head_dim == 64 || head_dim == 128 || head_dim == 256) &&
+  return dtype == 0 &&
+         (head_dim == 32 || head_dim == 64 || head_dim == 128 || head_dim == 256) &&
          g >= 1 && g <= ROWS && T >= 1;
 }
 
@@ -170,10 +173,10 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   const long long qd[4] = {D, Hq, T, B}, kd[4] = {D, Hkv, S, B};
   const long long qs[3] = {st[2], st[1], st[0]}, ks[3] = {st[5], st[4], st[3]},
                   vs[3] = {st[8], st[7], st[6]};
-  const int qb[4] = {64, p.g, p.tp, 1}, kb[4] = {64, 1, BK, 1};
-  int rc = sm90::make_map_bf16<4>(&qm, q, qd, qs, qb, SW);
-  if (rc == 0) rc = sm90::make_map_bf16<4>(&km, k, kd, ks, kb, SW);
-  if (rc == 0) rc = sm90::make_map_bf16<4>(&vm, v, kd, vs, kb, SW);
+  const int qb[4] = {L::DC, p.g, p.tp, 1}, kb[4] = {L::DC, 1, BK, 1};
+  int rc = sm90::make_map_bf16<4>(&qm, q, qd, qs, qb, L::SW);
+  if (rc == 0) rc = sm90::make_map_bf16<4>(&km, k, kd, ks, kb, L::SW);
+  if (rc == 0) rc = sm90::make_map_bf16<4>(&vm, v, kd, vs, kb, L::SW);
   if (rc != 0) return rc;
   decode_sm90_kernel<D>
       <<<dim3(p.splits * p.n_tiles, Hkv, B), NT, L::BYTES, stream>>>(qm, km, vm, p);

@@ -15,15 +15,12 @@ would sync.  ``LAUNCHES`` counts calls that launched the kernel (one per
 call, whether or not it also ran its combine step).  The paged wrapper of
 the same reference module is ``paged.paged_decode_attention``.
 
-Three bodies: bf16 at head dims 64, 128 and 256 runs the split-KV TMA +
+Two split-KV bodies at head dims 32, 64, 128 and 256: bf16 runs the TMA +
 wgmma body (``csrc/decode_sm90.cuh``; more than 64 query rows per KV head in
-row tiles), fp32 at those head dims the split-KV CUDA-core body
-(``kernels/csrc/decode_f32.cuh``), and head dim 32 (reduced configs only)
-the WMMA (bf16) and CUDA-core (fp32) bodies of
-``kernels/csrc/attention_tile.cuh``.  The launcher reports which one it
-launched, and ``LAST_ROUTE`` holds it (``"sm90"``, ``"f32"``, ``"wmma"`` or
-``"simt"``; ``ROUTE_LAUNCHES`` tallies launches by (route, head dim)).  The
-split partials go into scratch the launcher sizes
+row tiles), fp32 the CUDA-core body (``kernels/csrc/decode_f32.cuh``).  The
+launcher reports which one it launched, and ``LAST_ROUTE`` holds it
+(``"sm90"`` or ``"f32"``; ``ROUTE_LAUNCHES`` tallies launches by (route,
+head dim)).  The split partials go into scratch the launcher sizes
 (``decode_attention_scratch_bytes``) and this wrapper takes from torch's
 allocator on the current stream, so a call never syncs and can be captured
 in a CUDA graph.
@@ -59,7 +56,7 @@ LAST_ROUTE = {"decode_attention": None, "decode_attention_partial": None}
 # calls and
 # the calls a CUDA graph captures (a replay runs what was captured)
 ROUTE_LAUNCHES: Counter = Counter()
-_ROUTES = ("sm90", "wmma", "simt", "f32")     # the launcher's kernel codes
+_ROUTES = ("sm90", "f32")     # the launcher's kernel codes
 
 
 def reset_launch_counts() -> None:
@@ -162,8 +159,8 @@ def decode_attention_partial(
     a cache split along its sequence (``ref.decode_attention_partial_plain``
     states it): the block's normalized output in q's dtype and the fp32
     log-sum-exp (B, T, Hq) of every row, -inf where the block holds no key
-    the row sees.  The same bodies as :func:`decode_attention`; the sm90
-    and f32 bodies write every live split's partial to scratch and one merge
+    the row sees.  The same bodies as :func:`decode_attention`, at every
+    head dim; both write every live split's partial to scratch and one merge
     kernel normalizes them and writes the log-sum-exp."""
     refuse_autograd("decode_attention_partial", q, k, v)
     if q.device.type == "cpu":

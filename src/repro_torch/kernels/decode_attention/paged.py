@@ -12,14 +12,13 @@ wrapper checks dtypes, devices, shapes and contiguity, never table values,
 because reading them would sync.  ``LAUNCHES`` counts calls that launched
 the kernel (one per call, whether or not it also ran its combine step).
 
-Three bodies at head dims 64, 128 and 256: bf16 on pages of 8, 16, 32 or
-a multiple of 64 runs the split-KV TMA + wgmma body
-(``csrc/paged_sm90.cuh``), bf16 on other pages the old CUDA-core body
-(the launcher refuses bf16 at 256 on them), and fp32 on any page the
-split-KV CUDA-core body (``kernels/csrc/decode_f32.cuh``).  The launcher
-reports which one it launched, and ``LAST_ROUTE`` holds it (``"sm90"``,
-``"f32"`` or ``"simt"``; ``ROUTE_LAUNCHES`` tallies launches by (route, head
-dim)).  The split partials go into scratch the launcher sizes
+Two split-KV bodies at head dims 32, 64, 128 and 256, on pages of any
+size: bf16 runs the TMA + wgmma body (``csrc/paged_sm90.cuh``: K/V boxes of
+gcd(page size, 64) rows, or chunks staged by cp.async on pages that are not
+a multiple of 8), fp32 the CUDA-core body (``kernels/csrc/decode_f32.cuh``).
+The launcher reports which one it launched, and ``LAST_ROUTE`` holds it
+(``"sm90"`` or ``"f32"``; ``ROUTE_LAUNCHES`` tallies launches by (route,
+head dim)).  The split partials go into scratch the launcher sizes
 (``paged_decode_attention_scratch_bytes``) and this wrapper allocates.
 """
 from __future__ import annotations
@@ -43,10 +42,10 @@ LAST_ROUTE = {"paged_decode_attention": None}
 # launches since the last reset by (route, head dim): eager calls and
 # the calls a CUDA graph captures (a replay runs what was captured)
 ROUTE_LAUNCHES: Counter = Counter()
-_ROUTES = ("sm90", "simt", "f32")     # the launcher's kernel codes
+_ROUTES = ("sm90", "f32")     # the launcher's kernel codes
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_ROWS = 64                  # g * T query rows one block holds
 
 

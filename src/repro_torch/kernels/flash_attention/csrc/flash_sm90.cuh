@@ -91,8 +91,8 @@ struct Cfg {
   static constexpr int NT = 128 * (NC + 1);       // consumers + producer warpgroup
   static constexpr int MIN_BLOCKS = NC == 2 ? 1 : 2;   // blocks an SM holds
   static constexpr int CONSUMER_REGS = NC == 2 ? 240 : 232;
-  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle = bytes of a box row
-  static constexpr int DC = SW / 2;               // elements of a box row
+  static constexpr int SW = sm90::box_swizzle(D);   // swizzle = bytes of a box row
+  static constexpr int DC = sm90::box_cols(D);      // elements of a box row
   static constexpr int STAGES = D >= 128 ? 2 : (NC == 2 ? 3 : 4);
   // Q buffers: two, so the next item's Q lands under this one's last
   // chunks; one at D 256 (64 KB of Q, 128 KB of ring)
@@ -161,15 +161,6 @@ __device__ __forceinline__ void qk_product(float (&sc)[BK / 2], uint64_t da, uin
                                            int scale_d) {
   if constexpr (BK == 128) sm90::wgmma_ss_n128<0>(sc, da, db, scale_d);
   else sm90::wgmma_ss_n64<0>(sc, da, db, scale_d);
-}
-
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (D == 256) sm90::wgmma_rs_n256<1>(o, a, db, 1);
-  else if constexpr (D == 128) sm90::wgmma_rs_n128<1>(o, a, db, 1);
-  else if constexpr (D == 64) sm90::wgmma_rs_n64<1>(o, a, db, 1);
-  else sm90::wgmma_rs_n32<1>(o, a, db, 1);
 }
 
 template <int D, int NC>
@@ -350,7 +341,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t db = sm90::make_desc(vbase + kk * 16 * SW, BK * SW, 8 * SW, SW);
-          pv_product<D>(o, pa[kk], db);
+          sm90::wgmma_rs<D, 1>(o, pa[kk], db, 1);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();

@@ -357,19 +357,20 @@ def _paged_case(dev, dtype, *, B, Hq, Hkv, D, T, ps, MP, seed=0,
 SPLIT_LENGTHS = [5, 200, 1234, 4096 - 8]
 
 
-@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("ps", [8, 16, 64, 24, 12])
 @pytest.mark.parametrize("T", [1, 5, 8])
 @pytest.mark.parametrize("Hq,Hkv", [(28, 4), (8, 2)])
 @pytest.mark.parametrize("D", [64, 128])
 def test_paged_sm90_kernel_matches_plain(cuda, ps, T, Hq, Hkv, D):
-    """The bf16 split-KV TMA + wgmma body: pages of 8, 16 and 64, T 1, 5
-    and 8 at g 7 and 4, head dims 64 and 128, over a 4096-key table with
-    rows that have one live split and rows that have many (combined)."""
+    """The bf16 split-KV TMA + wgmma body: pages of 8, 16 and 64, of 24
+    (TMA boxes of 8 rows) and of 12 (chunks staged by cp.async), T 1, 5 and
+    8 at g 7 and 4, head dims 64 and 128, over a 4096-key table with rows
+    that have one live split and rows that have many (combined)."""
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.decode_attention.ref import \
         paged_decode_attention_plain
     case = _paged_case(cuda, torch.bfloat16, B=4, Hq=Hq, Hkv=Hkv, D=D, T=T,
-                       ps=ps, MP=4096 // ps, seed=ps + T + D,
+                       ps=ps, MP=-(-4096 // ps), seed=ps + T + D,
                        lengths=SPLIT_LENGTHS)
     before = paged.LAUNCHES["paged_decode_attention"]
     out = paged.paged_decode_attention(*case)
@@ -382,15 +383,16 @@ def test_paged_sm90_kernel_matches_plain(cuda, ps, T, Hq, Hkv, D):
     _assert_rows_close(out, ref, PAGED_ROW_TOL)
 
 
-@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("ps", [8, 16, 64, 24, 12, 7])
 def test_paged_sm90_kernel_ignores_poisoned_stale_and_trash_pages(cuda, ps):
     """bf16: NaN in every position past length + T - 1 (the rest of the
     last page, the pages beyond) and in the trash page: the split-KV body's
-    output must not move by one bit, split by split and combined."""
+    output must not move by one bit, split by split and combined, whether
+    TMA boxes (pages of 8, 16, 64, 24) or cp.async (12, 7) fill its ring."""
     from repro_torch.kernels.decode_attention import paged
     q, kp, vp, lengths, table = _paged_case(
         cuda, torch.bfloat16, B=4, Hq=28, Hkv=4, D=128, T=5, ps=ps,
-        MP=4096 // ps, seed=ps, lengths=SPLIT_LENGTHS)
+        MP=-(-4096 // ps), seed=ps, lengths=SPLIT_LENGTHS)
     before = paged.paged_decode_attention(q, kp, vp, lengths, table)
     pk, pv = kp.clone(), vp.clone()
     pk[0], pv[0] = float("nan"), float("inf")
@@ -408,9 +410,10 @@ def test_paged_sm90_kernel_ignores_poisoned_stale_and_trash_pages(cuda, ps):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("T,ps,cap", [(1, 16, 0.0), (5, 64, 0.0),
-                                      (8, 8, 30.0), (3, 64, 30.0)])
+                                      (8, 8, 30.0), (3, 64, 30.0),
+                                      (5, 48, 0.0), (5, 20, 30.0)])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.decode_attention.ref import \
@@ -421,8 +424,8 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, D, T, ps, cap):
     out = paged.paged_decode_attention(*case, logit_cap=cap)
     torch.cuda.synchronize()
     assert paged.LAUNCHES["paged_decode_attention"] == before + 1
-    # bf16 runs the split-KV TMA + wgmma body at every head dim, 256
-    # included, fp32 the split-KV CUDA-core body
+    # bf16 runs the split-KV TMA + wgmma body at every head dim (32 to 256)
+    # and page size, fp32 the split-KV CUDA-core body
     assert paged.LAST_ROUTE["paged_decode_attention"] == (
         "sm90" if dtype == torch.bfloat16 else "f32")
     ref = paged_decode_attention_plain(*case, logit_cap=cap)
@@ -462,12 +465,14 @@ def test_paged_attention_kernel_long_context_and_no_sync(cuda, dtype):
 
 @pytest.mark.parametrize("ps", [16, 64, 24])
 @pytest.mark.parametrize("T,Hq,Hkv,D", [(5, 28, 4, 128), (1, 28, 4, 128),
-                                        (5, 16, 8, 256), (8, 8, 2, 64)])
+                                        (5, 16, 8, 256), (8, 8, 2, 64),
+                                        (5, 4, 2, 32)])
 def test_paged_f32_kernel_long_table(cuda, ps, T, Hq, Hkv, D):
     """The fp32 split-KV CUDA-core body over a long table (4096 keys and
     up): pages of 16 and 64, and of 24, which tile no 64-key chunk and take
     the same body, rows with one live split and rows with many (the
-    fp32 combine), at the target's, gemma3's and a draft's heads, at the
+    fp32 combine), at the target's, gemma3's, a draft's and the reduced
+    draft's heads (of 32), at the
     reference's 2e-5; then NaN past every row's last key and in the trash
     page must not move the output by one bit."""
     from repro_torch.kernels import build
@@ -500,23 +505,29 @@ def test_paged_f32_kernel_long_table(cuda, ps, T, Hq, Hkv, D):
     torch.testing.assert_close(after, out, rtol=0, atol=0)
 
 
-def test_paged_odd_page_size_keeps_the_old_body(cuda):
-    """Pages of 24 tile no 64-key chunk: bf16 at head dim 128 takes the old
-    CUDA-core body (route simt); fp32 the split-KV CUDA-core body (route
-    f32), which looks every key's page up and takes any page size; both
-    held at the same bounds."""
+@pytest.mark.parametrize("ps", [12, 24, 48])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_paged_odd_page_sizes_take_the_sm90_body(cuda, ps, D):
+    """Pages that tile no 64-key chunk: bf16 takes the split-KV TMA + wgmma
+    body at every head dim (boxes of gcd(ps, 64) rows, 8 on pages of 24, 16
+    on pages of 48; on pages of 12 the chunks staged by cp.async), gemma3's
+    16 / 8 heads at 256 on pages of 48 included, where the old body refused
+    the call; held at PAGED_TOL and PAGED_ROW_TOL over a table of ~1600
+    keys (one split and several)."""
     from repro_torch.kernels.decode_attention import paged
     from repro_torch.kernels.decode_attention.ref import \
         paged_decode_attention_plain
-    for dtype, route in ((torch.float32, "f32"), (torch.bfloat16, "simt")):
-        case = _paged_case(cuda, dtype, B=3, Hq=28, Hkv=4, D=128, T=5, ps=24,
-                           MP=12, seed=24)
-        out = paged.paged_decode_attention(*case)
-        torch.cuda.synchronize()
-        assert paged.LAST_ROUTE["paged_decode_attention"] == route
-        ref = paged_decode_attention_plain(*case)
-        tol = PAGED_TOL[dtype]
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    Hq, Hkv = (16, 8) if D == 256 else (28, 4)
+    case = _paged_case(cuda, torch.bfloat16, B=4, Hq=Hq, Hkv=Hkv, D=D, T=5,
+                       ps=ps, MP=-(-1650 // ps), seed=ps + D,
+                       lengths=[3, 700, 1100, 1640])
+    out = paged.paged_decode_attention(*case)
+    torch.cuda.synchronize()
+    assert paged.LAST_ROUTE["paged_decode_attention"] == "sm90"
+    ref = paged_decode_attention_plain(*case)
+    tol = PAGED_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    _assert_rows_close(out, ref, PAGED_ROW_TOL)
 
 
 def test_paged_gather_refused_on_cuda(cuda):
@@ -780,7 +791,7 @@ def _decode_case(dev, *, B, T, Hq, Hkv, D, S, lengths, seed=0):
 @pytest.mark.parametrize("S", [512, 8192])
 @pytest.mark.parametrize("g", [1, 2, 4, 7])
 @pytest.mark.parametrize("T", [1, 2, 5])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_decode_sm90_kernel_matches_plain(cuda, D, T, g, S):
     """The bf16 split-KV TMA + wgmma body of the dense decode kernel on the
     cache layout, at every head dim it takes, T 1, 2, 5 and g 1, 2, 4, 7: at S 512
@@ -829,17 +840,17 @@ def test_decode_sm90_kernel_ignores_poisoned_stale_keys_and_trash_slot(
 
 @pytest.mark.parametrize("dtype,D,g,T,route", [
     (torch.bfloat16, 128, 7, 5, "sm90"), (torch.bfloat16, 64, 7, 1, "sm90"),
-    (torch.bfloat16, 64, 8, 8, "sm90"), (torch.bfloat16, 32, 7, 5, "wmma"),
+    (torch.bfloat16, 64, 8, 8, "sm90"), (torch.bfloat16, 32, 7, 5, "sm90"),
     (torch.bfloat16, 128, 7, 10, "sm90"), (torch.bfloat16, 256, 2, 5, "sm90"),
     (torch.bfloat16, 256, 1, 1, "sm90"), (torch.bfloat16, 256, 2, 33, "sm90"),
+    (torch.bfloat16, 32, 2, 40, "sm90"),
     (torch.float32, 128, 7, 5, "f32"), (torch.float32, 64, 2, 1, "f32"),
-    (torch.float32, 32, 2, 5, "simt")])
+    (torch.float32, 32, 2, 5, "f32")])
 def test_decode_kernel_routes_are_what_the_launcher_reports(cuda, dtype, D,
                                                             g, T, route):
-    """bf16 at head dims 64, 128 and 256 takes the split-KV TMA + wgmma
-    body at any g * T (row tiles past 64 rows), fp32 there the split-KV
-    CUDA-core body; head dim 32 attention_tile's WMMA (bf16) and CUDA-core
-    (fp32) bodies: each as the launcher reports it, each against the plain
+    """bf16 at every head dim, 32 to 256, takes the split-KV TMA + wgmma
+    body at any g * T (row tiles past 64 rows), fp32 the split-KV CUDA-core
+    body: each as the launcher reports it, each against the plain
     version."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
@@ -918,7 +929,7 @@ def test_decode_row_tiles_match_plain(cuda, dtype, D, g, T, S):
         _assert_rows_close(out, ref, DECODE_ROW_TOL)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("T,g", [(1, 7), (5, 7), (5, 2), (9, 1)])
 @pytest.mark.parametrize("S", [512, 8192])
 def test_decode_f32_kernel_matches_plain(cuda, D, T, g, S):
@@ -953,11 +964,13 @@ def test_decode_f32_kernel_matches_plain(cuda, D, T, g, S):
 @pytest.mark.parametrize("dtype,D,g,T", [
     (torch.bfloat16, 128, 7, 10), (torch.bfloat16, 256, 2, 33),
     (torch.float32, 128, 7, 5), (torch.float32, 128, 7, 10),
-    (torch.float32, 256, 2, 5)])
+    (torch.float32, 256, 2, 5), (torch.bfloat16, 32, 2, 5),
+    (torch.float32, 32, 2, 5)])
 @pytest.mark.parametrize("blocks", [2, 4])
 def test_partial_entry_on_row_tiles_and_fp32(cuda, dtype, D, g, T, blocks):
-    """Kernel 4's partial entry where g * T > 64 (row tiles) and in fp32
-    (the CUDA-core body's partials, its lse from the fp32 combine): each
+    """Kernel 4's partial entry where g * T > 64 (row tiles), in fp32
+    (the CUDA-core body's partials, its lse from the fp32 combine) and at
+    head dim 32 (the split-KV bodies there too, lse from the combine): each
     block against its plain version (the lse -inf exactly where the plain
     one's is), the blocks merged by log-sum-exp against the whole plain
     call."""

@@ -112,6 +112,19 @@ def test_plain_paged_attention_head_dim_256_matches_reference_kernel(ps, T,
     _hold_paged_against_reference((ps * 10 + T + 256,), ps, T, cap, d=256)
 
 
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("ps,d", [(24, 128), (24, 256), (12, 128), (12, 256),
+                                  (16, 32), (24, 32)])
+def test_plain_paged_attention_odd_pages_and_head_dim_32_match_reference(
+        ps, d, cap):
+    """Pages that tile no 64-key chunk (24: TMA boxes of 8 rows on the card;
+    12: chunks staged by cp.async) at head dims 128 and 256, and head dim 32
+    (the reduced drafts'), at a 5-wide verify: the plain version the card's
+    bodies are held against ≡ the reference's interpret-mode kernel ≡ its
+    oracle."""
+    _hold_paged_against_reference((ps * 10 + d,), ps, 5, cap, d=d)
+
+
 @pytest.mark.parametrize("T", [16, 9])
 def test_gathered_view_ignores_stale_nan_past_the_newest_query(T):
     """Extends wider than PAGED_KERNEL_MAX_T (a 16-token prefix-sharing

@@ -26,11 +26,20 @@ Phases, each of which fails the run if it fails:
          and dbrx-132b's expert widths), bf16, rtol = atol = 3e-2
          (tests/test_ragged_gmm.py); each case prints the items of the
          fused kernel (expert chunks x column tiles) beside the visit count
-         of the old visit list, and the expert-chunk count of the down
-         kernel (ragged.expert_chunks); both kernels must report the TMA +
-         wgmma route (ragged.LAST_ROUTE); the fused kernel's two products
-         alone (torch._grouped_mm over a copy of [Wg | Wu], no act * mul)
-         are timed on a line of their own, as context, not its yardstick;
+         of the reference's row-tile-aligned visit list
+         (ragged.make_group_metadata), and the expert-chunk count of the
+         down kernel (ragged.expert_chunks); both kernels must report the
+         TMA + wgmma body with its TMA producer (ragged.LAST_ROUTE "sm90",
+         LAST_PRODUCER "tma"); the fused kernel's two products alone
+         (torch._grouped_mm over a copy of [Wg | Wu], no act * mul) are
+         timed on a line of their own, as context, not its yardstick; then
+         RAGGED_BODY_CASES at qwen2-57b-a14b's widths, each on the body and
+         producer it names: bm 16 and 128 (the reference's row tiles pick
+         no body), x one element off 16 bytes at the three routings and
+         f 2564 (the bf16 body's staged producer), fp32 at the three
+         routings and with x 4 bytes off 16 (the fp32 body, simt90, at
+         rtol = atol = 1e-4, TF32 off), and 600 experts at narrow widths in
+         both dtypes (two launch windows of the bf16 body);
        * the paged decode/verify attention kernel (28 query / 4 KV heads,
          pages of 64, noise in every page, a permuted table, ragged
          lengths): SD verify (B 8, T 5), AR verify (T 1), long context
@@ -77,7 +86,9 @@ Phases, each of which fails the run if it fails:
          expert_capacity(40, 8, 64) = 128 and a prefill capacity
          expert_capacity(2048, 8, 64) = 512, bf16 at 2e-2 through the TMA +
          wgmma kernel, fp32 at 1e-5 through the CUDA-core one
-         (tests/test_kernels.py);
+         (tests/test_kernels.py); x one element off 16 bytes at the
+         SD-verify capacity in both dtypes, through the element-by-element
+         bodies (bf16 WMMA, fp32 CUDA cores);
      each kernel is also timed beside one PyTorch call that computes the
      same function and that the port never calls (the yardstick), eagerly
      and on the device alone (calls captured in one CUDA graph); each
@@ -87,7 +98,8 @@ Phases, each of which fails the run if it fails:
      a bf16 case that did not run the TMA + wgmma kernel fails the run;
   4. reference: on the reduced qwen2-57b-a14b in fp32, the CUDA path agrees
      with the port's plain CPU path (which the CPU tests hold against the JAX
-     reference) and greedy SD equals greedy AR; greedy SD from CUDA-graph
+     reference), its ragged products all on the fp32 body (simt90), and
+     greedy SD equals greedy AR; greedy SD from CUDA-graph
      replay equals the eager card round's and the CPU round's token for
      token; a continuous paged stream (6 requests, Poisson arrivals, one
      late long prompt that grows the session) emits the same tokens from
@@ -521,8 +533,8 @@ def _counted_modules():
 def build_kernels():
     """Build every library (one nvcc each, all at once); print the build
     time and, from ``ptxas -v`` of the build, the registers, shared memory
-    and spills of the TMA + wgmma kernels and of kernels 5 and 6's fp32
-    CUDA-core bodies and of kernels 3 and 4's fp32 body."""
+    and spills of the TMA + wgmma kernels (kernels 1-2's in both producer
+    modes) and of the fp32 CUDA-core bodies of kernels 1-2, 3-4, 5 and 6."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import paged
@@ -555,7 +567,9 @@ def build_kernels():
             "decode_sm90_kernel": build.load(
                 dec_ops.SOURCE).decode_sm90_smem_bytes,
             "ragged_sm90_kernel": build.load(
-                ragged.SOURCE).ragged_sm90_smem_bytes}     # (nmat, act)
+                ragged.SOURCE).ragged_sm90_smem_bytes,     # (nmat, act, staged)
+            "ragged_simt90_kernel": build.load(
+                ragged.SOURCE).ragged_simt90_smem_bytes}   # (nmat, act)
     seen, spilled = set(), []
     for src, text in reports.items():
         for line in text.splitlines():
@@ -581,7 +595,11 @@ def build_kernels():
                for a in ((1, 128), (2, 128), (2, 256))}
             | {("paged_sm90_kernel", (d,)) for d in (32, 64, 128, 256)}
             | {("decode_sm90_kernel", (d,)) for d in (32, 64, 128, 256)}
-            | {("ragged_sm90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))}
+            # kernels 1-2's bf16 body, TMA (0) and staged (1) producers
+            | {("ragged_sm90_kernel", a + (st,))
+               for a in ((1, 0), (2, 0), (2, 1)) for st in (0, 1)}
+            # their fp32 body
+            | {("ragged_simt90_kernel", a) for a in ((1, 0), (2, 0), (2, 1))}
             # the fp32 CUDA-core bodies of kernels 5 and 6
             | {("flash_f32_kernel", (d,)) for d in (32, 64, 128)}
             | {("flash_f32_qreg_kernel", (256,))}
@@ -610,6 +628,7 @@ def _ptxas_entries(text: str, kernels=("flash_sm90_kernel",
                                         "paged_sm90_kernel",
                                         "decode_sm90_kernel",
                                         "ragged_sm90_kernel",
+                                        "ragged_simt90_kernel",
                                         "decode_f32_kernel")):
     """(kernel, template arguments, registers, spill line) for each entry
     function of ``kernels`` in ``ptxas -v`` output."""
@@ -731,7 +750,8 @@ def kernel_phase(seed: int):
     every full-width MoE target: qwen2-57b-a14b (the serve and prefetch
     paths), EAGLE_ARCH (the EAGLE paths), dbrx-132b (wave-dbrx) and
     jamba-v0.1-52b (wave-jamba, continuous-jamba: E 16, top-2, d 4096,
-    f 14336); every bf16 case must take the TMA + wgmma route."""
+    f 14336), every one on the TMA + wgmma body with its TMA producer; then
+    the cases off that route (ragged_body_phase)."""
     import torch
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
@@ -743,49 +763,101 @@ def kernel_phase(seed: int):
                            ("jamba-v0.1-52b",
                             prefixed_ragged_cases("jamba"))):
         _ragged_width_cases(arch, cases_fn, gen, results)
+    ragged_body_phase(gen, results)
     return results
 
 
 def _ragged_width_cases(arch: str, cases_fn, gen, results: dict) -> None:
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.gmm import ragged
-    from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
 
     dev = torch.device("cuda")
     cfg = get_config(arch)
-    E, K, D, F = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model, cfg.moe_d_ff
-    dt = torch.bfloat16
-    wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) / D ** 0.5).to(dt)
-              for _ in range(2))
-    wd = (torch.randn((E, F, D), generator=gen, device=dev) / F ** 0.5).to(dt)
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    wg, wu, wd = _ragged_weights(cfg.num_experts, cfg.d_model, cfg.moe_d_ff,
+                                 torch.bfloat16, gen)
     # the fused kernel's two products alone, for context: one grouped
     # product over [Wg | Wu] (made here, outside any timed region)
     wgu = torch.cat([wg, wu], dim=2)
-    cases = cases_fn(E, K, gen, dev)
-    bm = ragged.sm90_chunk_rows()                     # rows of an expert chunk
-    tiles_n = -(-F // ragged.sm90_tile_cols(2))      # the fused kernel's columns
-    for case, sizes in cases.items():
-        N = int(sizes.sum())
-        active = int((sizes > 0).sum())
-        xs = torch.randn((N, D), generator=gen, device=dev).to(dt)
-        h = ragged.fused_gate_up(xs, wg, wu, sizes)
-        routes = {"fused_gate_up": ragged.LAST_ROUTE["fused_gate_up"]}
-        h_ref = fused_gate_up_ref(xs, wg, wu, sizes)
-        y = ragged.ragged_gmm(h_ref, wd, sizes)
-        routes["ragged_gmm"] = ragged.LAST_ROUTE["ragged_gmm"]  # as reported
-        y_ref = ragged_gmm_ref(h_ref, wd, sizes)
-        torch.cuda.synchronize()
-        for name, route in routes.items():
-            if route != "sm90":
-                raise AssertionError(f"{name} [{case}]: bf16 ran the {route} "
-                                     "kernel, not the TMA + wgmma one")
-        for name, out, ref in (("fused_gate_up", h, h_ref),
-                               ("ragged_gmm", y, y_ref)):
-            _hold(name, case, out, ref, TOL, results[name])
-        meta, _ = ragged._plan(xs, E, sizes, None)     # the old visit list
-        visits = int(meta.num_visits[0])
-        chunks = len(ragged.expert_chunks(sizes, bm))
+    for case, sizes in cases_fn(E, K, gen, dev).items():
+        xs = torch.randn((int(sizes.sum()), cfg.d_model), generator=gen,
+                         device=dev).bfloat16()
+        _ragged_case(arch, case, xs, (wg, wu, wd), sizes, results,
+                     want=("sm90", "tma"), wgu=wgu)
+    del wg, wu, wd, wgu
+    torch.cuda.empty_cache()
+
+
+def _ragged_weights(E: int, D: int, F: int, dt, gen):
+    """w_gate, w_up (E, D, F) and w_down (E, F, D) from ``gen``."""
+    import torch
+    dev = torch.device("cuda")
+    wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) / D ** 0.5
+               ).to(dt) for _ in range(2))
+    wd = (torch.randn((E, F, D), generator=gen, device=dev) / F ** 0.5).to(dt)
+    return wg, wu, wd
+
+
+def _offset(t, elems: int):
+    """A contiguous copy of t whose base lies ``elems`` elements past a
+    16-byte boundary (0: t itself)."""
+    import torch
+    if not elems:
+        return t
+    buf = torch.empty((t.numel() + elems,), dtype=t.dtype, device=t.device)
+    buf[elems:].copy_(t.reshape(-1))
+    return buf[elems:].view(t.shape)
+
+
+def _ragged_case(arch: str, case: str, xs, ws, sizes, results: dict, *,
+                 want: tuple, bm=None, wgu=None) -> None:
+    """Both ragged products on one routing: the fused gate/up of xs, then
+    the down product of its plain output.  Each must report the body and
+    producer ``want`` names, is held against its plain version (bf16 at
+    TOL, fp32 at RAGGED_F32_TOL) and timed eagerly and as calls captured in
+    one CUDA graph, beside its bound (at the dtype's peak), the plain
+    version and one PyTorch call (``torch._grouped_mm``, where it takes the
+    call; the fused product has none: with ``wgu``, [Wg | Wu] for its two
+    products alone, timed on a line of its own as context)."""
+    import torch
+    from repro_torch.kernels.gmm import ragged
+    from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
+
+    wg, wu, wd = ws
+    E, D, F = wg.shape
+    N = xs.shape[0]
+    active = int((sizes > 0).sum())
+    el = xs.element_size()
+    f32 = xs.dtype == torch.float32
+    tol, peak = (RAGGED_F32_TOL, FP32_FLOPS) if f32 else (TOL, BF16_FLOPS)
+    h = ragged.fused_gate_up(xs, wg, wu, sizes, bm=bm)
+    routes = {"fused_gate_up": (ragged.LAST_ROUTE["fused_gate_up"],
+                                ragged.LAST_PRODUCER["fused_gate_up"])}
+    h_ref = fused_gate_up_ref(xs, wg, wu, sizes)
+    h_in = _offset(h_ref, xs.data_ptr() % 16 // el)   # x's offset for down
+    y = ragged.ragged_gmm(h_in, wd, sizes, bm=bm)
+    routes["ragged_gmm"] = (ragged.LAST_ROUTE["ragged_gmm"],
+                            ragged.LAST_PRODUCER["ragged_gmm"])
+    y_ref = ragged_gmm_ref(h_in, wd, sizes)
+    torch.cuda.synchronize()
+    for name, got in routes.items():
+        if got != want:
+            raise AssertionError(f"{name} [{case}]: {xs.dtype} ran "
+                                 f"{got}, expected {want} (body, producer)")
+    for name, out, ref in (("fused_gate_up", h, h_ref),
+                           ("ragged_gmm", y, y_ref)):
+        _hold(name, case, out, ref, tol, results[name])
+    # the reference's row-tile-aligned visit list, beside the body's chunks
+    meta = ragged.make_group_metadata(sizes, -(-N // 64) * 64, 64)
+    visits = int(meta.num_visits[0])
+    bm_rows = (ragged.sm90_chunk_rows() if want[0] == "sm90"
+               else ragged.simt90_chunk_rows())
+    chunks = len(ragged.expert_chunks(sizes, bm_rows))
+    cols = (ragged.sm90_tile_cols(2) if want[0] == "sm90"
+            else ragged.simt90_tile_cols(2))
+    tiles_n = -(-F // cols)
+    products = {}
+    if wgu is not None:
         prod_fn, prod_name = grouped_mm_library(xs, wgu, sizes)
         products = dict(
             products_only_ms=cuda_time_ms(prod_fn) if prod_fn else None,
@@ -795,53 +867,151 @@ def _ragged_width_cases(arch: str, cases_fn, gen, results: dict) -> None:
             f"the yardstick: {prod_name} over [Wg | Wu], no act * mul): "
             f"{_fmt(products['products_only_ms'])} (graph "
             f"{_fmt(products['products_only_graph_ms'])})")
-        timings = {
-            "fused_gate_up": dict(
-                fn=lambda: ragged.fused_gate_up(xs, wg, wu, sizes),
-                plain_ms=cuda_time_ms(lambda: fused_gate_up_ref(xs, wg, wu, sizes),
-                                      warmup=1, iters=3),
-                bytes=N * D * 2 + active * 2 * D * F * 2 + E * 4 + N * F * 2,
-                flops=2 * 2 * N * D * F, library=(None, "no single call"),
-                work=f"items={chunks}x{tiles_n}={chunks * tiles_n:4d} "
-                     f"(visit list {visits:3d}) "
-                     f"route={routes['fused_gate_up']}",
-                extra=dict(route=routes["fused_gate_up"], expert_chunks=chunks,
-                           column_tiles=tiles_n, items=chunks * tiles_n,
-                           **products)),
-            "ragged_gmm": dict(
-                fn=lambda: ragged.ragged_gmm(h_ref, wd, sizes),
-                plain_ms=cuda_time_ms(lambda: ragged_gmm_ref(h_ref, wd, sizes),
-                                      warmup=1, iters=3),
-                bytes=N * F * 2 + active * F * D * 2 + E * 4 + N * D * 2,
-                flops=2 * N * F * D,
-                library=grouped_mm_library(h_ref, wd, sizes),
-                work=f"expert chunks={chunks:3d} (bm {bm}) "
-                     f"route={routes['ragged_gmm']}",
-                extra=dict(route=routes["ragged_gmm"], expert_chunks=chunks,
-                           chunk_rows=bm)),
-        }
-        for name, t in timings.items():
-            b_ms, b_by = bound_ms(t["bytes"], t["flops"])
-            lib_fn, lib_name = t["library"]
-            ms = cuda_time_ms(t["fn"])
-            graph_ms = graph_time_ms(t["fn"], calls=10, iters=3)
-            lib_ms = cuda_time_ms(lib_fn) if lib_fn is not None else None
-            lib_graph_ms = (graph_time_ms(lib_fn, calls=10, iters=3)
-                            if lib_fn is not None else None)
-            results[name]["cases"][case] = dict(
-                arch=arch, E=E, d=D, f=F,
-                rows=N, active_experts=active, visits=visits,
-                kernel_ms=ms, kernel_graph_ms=graph_ms,
-                plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, library_graph_ms=lib_graph_ms,
-                library=lib_name, **t["extra"])
-            log(f"kernel {name:13s} [{case:9s}] rows={N:5d} experts={active:2d} "
-                f"{t['work']}  {ms:.3f} ms (graph "
-                f"{_fmt(graph_ms)})  "
-                f"plain {t['plain_ms']:.3f} ms  bound {b_ms:.3f} ms ({b_by})  "
-                f"library {_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)}; "
-                f"{lib_name})")
-    del wg, wu, wd, wgu
+    route_of = {n: f"{r}/{p}" if p else r for n, (r, p) in routes.items()}
+    timings = {
+        "fused_gate_up": dict(
+            fn=lambda: ragged.fused_gate_up(xs, wg, wu, sizes, bm=bm),
+            plain_ms=cuda_time_ms(lambda: fused_gate_up_ref(xs, wg, wu, sizes),
+                                  warmup=1, iters=3),
+            bytes=(N * D + active * 2 * D * F + N * F) * el + E * 4,
+            flops=2 * 2 * N * D * F, library=(None, "no single call"),
+            work=f"items={chunks}x{tiles_n}={chunks * tiles_n:4d} "
+                 f"(visit list {visits:3d}) route={route_of['fused_gate_up']}",
+            extra=dict(route=routes["fused_gate_up"][0],
+                       producer=routes["fused_gate_up"][1],
+                       expert_chunks=chunks, column_tiles=tiles_n,
+                       items=chunks * tiles_n, **products)),
+        "ragged_gmm": dict(
+            fn=lambda: ragged.ragged_gmm(h_in, wd, sizes, bm=bm),
+            plain_ms=cuda_time_ms(lambda: ragged_gmm_ref(h_in, wd, sizes),
+                                  warmup=1, iters=3),
+            bytes=(N * F + active * F * D + N * D) * el + E * 4,
+            flops=2 * N * F * D,
+            library=grouped_mm_library(h_in, wd, sizes),
+            work=f"expert chunks={chunks:3d} (bm {bm_rows}) "
+                 f"route={route_of['ragged_gmm']}",
+            extra=dict(route=routes["ragged_gmm"][0],
+                       producer=routes["ragged_gmm"][1],
+                       expert_chunks=chunks, chunk_rows=bm_rows)),
+    }
+    for name, t in timings.items():
+        b_ms, b_by = bound_ms(t["bytes"], t["flops"], peak)
+        lib_fn, lib_name = t["library"]
+        ms = cuda_time_ms(t["fn"])
+        graph_ms = graph_time_ms(t["fn"], calls=10, iters=3)
+        lib_ms = cuda_time_ms(lib_fn) if lib_fn is not None else None
+        lib_graph_ms = (graph_time_ms(lib_fn, calls=10, iters=3)
+                        if lib_fn is not None else None)
+        results[name]["cases"][case] = dict(
+            arch=arch, dtype=str(xs.dtype).split(".")[-1], E=E, d=D, f=F,
+            bm=bm, rows=N, active_experts=active, visits=visits,
+            kernel_ms=ms, kernel_graph_ms=graph_ms,
+            plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+            library=lib_name, **t["extra"])
+        log(f"kernel {name:13s} [{case:9s}] rows={N:5d} experts={active:2d} "
+            f"{t['work']}  {ms:.3f} ms (graph "
+            f"{_fmt(graph_ms)})  "
+            f"plain {t['plain_ms']:.3f} ms  bound {b_ms:.3f} ms ({b_by})  "
+            f"library {_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)}; "
+            f"{lib_name})")
+
+
+# The ragged bodies off the bf16 TMA route, at qwen2-57b-a14b's experts
+# (and 600 narrow ones): case -> (dtype, x's offset from 16 bytes in
+# elements, F added to the expert width, bm, routing, expected (body,
+# producer)).  The routings are ragged_cases' (SD verify 320 rows, AR 64,
+# prefill 4096); bm is the reference's row tile, which picks no body.
+RAGGED_BODY_CASES = {
+    "bm16_verify": ("bfloat16", 0, 0, 16, "verify", ("sm90", "tma")),
+    "bm128_verify": ("bfloat16", 0, 0, 128, "verify", ("sm90", "tma")),
+    "staged_verify": ("bfloat16", 1, 0, None, "verify", ("sm90", "staged")),
+    "staged_ar_verify": ("bfloat16", 1, 0, None, "ar_verify",
+                         ("sm90", "staged")),
+    "staged_prefill": ("bfloat16", 1, 0, None, "prefill", ("sm90", "staged")),
+    "f2564_verify": ("bfloat16", 0, 4, None, "verify", ("sm90", "staged")),
+    "fp32_verify": ("float32", 0, 0, None, "verify", ("simt90", None)),
+    "fp32_ar_verify": ("float32", 0, 0, None, "ar_verify", ("simt90", None)),
+    "fp32_prefill": ("float32", 0, 0, None, "prefill", ("simt90", None)),
+    "fp32_unaligned_verify": ("float32", 1, 0, None, "verify",
+                              ("simt90", None)),
+}
+# 600 experts (two launch windows of the bf16 body) at narrow widths:
+# (E, top-k, d, f, tokens)
+RAGGED_MANY_EXPERTS = (600, 8, 512, 256, 40)
+# fp32 ragged products: summation order only (TF32 off), as
+# tests/test_ragged_gmm.py's fp32 bound
+RAGGED_F32_TOL = 1e-4
+
+
+def ragged_body_inputs(case: str, spec: tuple, weights: dict, routings: dict,
+                       gen):
+    """xs and (w_gate, w_up, w_down) of a RAGGED_BODY_CASES case: the
+    routing's rows at d, x moved ``offset`` elements off its 16-byte base;
+    ``weights`` caches the weights by (dtype, F added)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    dtype_name, offset, f_extra, _, routing, _ = spec
+    cfg = get_config("qwen2-57b-a14b")
+    dt = getattr(torch, dtype_name)
+    key = (dtype_name, f_extra)
+    if key not in weights:
+        weights.clear()                            # one set at a time
+        torch.cuda.empty_cache()
+        weights[key] = _ragged_weights(cfg.num_experts, cfg.d_model,
+                                       cfg.moe_d_ff + f_extra, dt, gen)
+    sizes = routings[routing]
+    xs = torch.randn((int(sizes.sum()), cfg.d_model), generator=gen,
+                     device=torch.device("cuda")).to(dt)
+    return _offset(xs, offset), weights[key], sizes
+
+
+def many_experts_inputs(dtype_name: str, gen):
+    """RAGGED_MANY_EXPERTS' routing of its tokens, xs and weights."""
+    import torch
+    E, K, D, F, tokens = RAGGED_MANY_EXPERTS
+    dt = getattr(torch, dtype_name)
+    sizes = routed_sizes(tokens, E, K, gen, torch.device("cuda"))
+    xs = torch.randn((int(sizes.sum()), D), generator=gen,
+                     device=torch.device("cuda")).to(dt)
+    return xs, _ragged_weights(E, D, F, dt, gen), sizes
+
+
+def ragged_body_case_list(gen, dev) -> list:
+    """(case, bm, expected (body, producer), make) for RAGGED_BODY_CASES
+    and 600 experts in both dtypes; make() returns (xs, (w_gate, w_up,
+    w_down), group sizes), drawn from ``gen`` when called, in list order."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen2-57b-a14b")
+    routings = {k: v for k, v in ragged_cases(
+        cfg.num_experts, cfg.num_experts_per_tok, gen, dev).items()
+        if k != "edge"}
+    weights = {}
+    cases = [(case, spec[3], spec[5],
+              lambda case=case, spec=spec: ragged_body_inputs(
+                  case, spec, weights, routings, gen))
+             for case, spec in RAGGED_BODY_CASES.items()]
+    for dtype_name, want in (("bfloat16", ("sm90", "tma")),
+                             ("float32", ("simt90", None))):
+        def make(d=dtype_name):
+            weights.clear()                        # the full-width set goes
+            return many_experts_inputs(d, gen)
+        cases.append((f"e600_{dtype_name}", None, want, make))
+    return cases
+
+
+def ragged_body_phase(gen, results: dict) -> None:
+    """Kernels 1 and 2 off the bf16 TMA route (ragged_body_case_list), each
+    on the body and producer it names."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain version
+    for case, bm, want, make in ragged_body_case_list(
+            gen, torch.device("cuda")):
+        xs, ws, sizes = make()
+        arch = (f"{RAGGED_MANY_EXPERTS[0]} experts" if case.startswith("e600")
+                else "qwen2-57b-a14b")
+        _ragged_case(arch, case, xs, ws, sizes, results, want=want, bm=bm)
+        del xs, ws, sizes
     torch.cuda.empty_cache()
 
 
@@ -1351,25 +1521,29 @@ def capacity_cases() -> dict:
         "fp32_prefill_gate_up": ("float32", E, c_prefill, D, F),
         # x 4 bytes past a 16-byte boundary: the element-by-element body
         "fp32_unaligned_sd_verify_gate_up": ("float32", E, c_verify, D, F),
+        # x 2 bytes past a 16-byte boundary: the bf16 WMMA body
+        "unaligned_sd_verify_gate_up": ("bfloat16", E, c_verify, D, F),
     }
 
 
-# capacity cases whose x starts 4 bytes past a 16-byte boundary
-UNALIGNED_CAPACITY = ("fp32_unaligned_sd_verify_gate_up",)
+# capacity cases whose x starts one element past a 16-byte boundary
+UNALIGNED_CAPACITY = ("fp32_unaligned_sd_verify_gate_up",
+                      "unaligned_sd_verify_gate_up")
 
 
 def capacity_route(case: str, dtype_name: str) -> str:
     """The body gmm._route must pick for a capacity case: TMA + wgmma for
-    bf16, the cp.async CUDA-core body for aligned fp32, the
-    element-by-element one for unaligned fp32."""
-    if dtype_name == "bfloat16":
-        return "sm90"
-    return "simt" if case in UNALIGNED_CAPACITY else "simt90"
+    bf16, the cp.async CUDA-core body for aligned fp32; for x off 16 bytes
+    the element-by-element ones, WMMA (bf16) and CUDA-core (fp32)."""
+    if case in UNALIGNED_CAPACITY:
+        return "wmma" if dtype_name == "bfloat16" else "simt"
+    return "sm90" if dtype_name == "bfloat16" else "simt90"
 
 
 def capacity_inputs(case: str, spec: tuple, gen, dev):
     """x (E, C, in width) and w (E, in width, out width) of a capacity
-    case, x moved 4 bytes off its 16-byte base for UNALIGNED_CAPACITY."""
+    case, x moved one element off its 16-byte base for
+    UNALIGNED_CAPACITY."""
     import torch
     dtype_name, E, C, Din, Dout = spec
     dt = getattr(torch, dtype_name)
@@ -1412,10 +1586,10 @@ def capacity_kernel_phase(seed: int):
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS
                               if dtype_name == "bfloat16" else FP32_FLOPS)
         # the dynamic shared memory of the launcher's block for C rows (the
-        # element-by-element body's is static: None)
+        # element-by-element bodies' is static: None)
         smem = (build.load(gmm.SOURCE).gmm_capacity_smem_bytes(
                     ("sm90", "simt90").index(route), C)
-                if route != "simt" else None)
+                if route in ("sm90", "simt90") else None)
         ms = cuda_time_ms(lambda: gmm.gmm_capacity(x, w), warmup=2, iters=10)
         plain_ms = cuda_time_ms(lambda: gmm_capacity_ref(x, w), warmup=1,
                                 iters=3)
@@ -1515,6 +1689,7 @@ def reference_phase(seed: int):
     from repro_torch.configs.registry import get_config
     from repro_torch.core.proposer import make_proposer
     from repro_torch.core.spec_decode import SDEngine, generate_ar
+    from repro_torch.kernels.gmm import ragged
     from repro_torch.models.model import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1529,6 +1704,7 @@ def reference_phase(seed: int):
     lengths = np.array([16, 9, 12, 5], np.int32)
     ver = rng.integers(3, cfg.vocab_size, (4, 5)).astype(np.int32)
     outs = []
+    reset_launch_counts()
     for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
         last, cache = m.prefill(p, toks, m.init_cache(4, 32), lengths=lengths)
         logits, _ = m.extend(p, ver, cache)
@@ -1536,6 +1712,12 @@ def reference_phase(seed: int):
     err = max((a - b).abs().max().item() for a, b in zip(*outs))
     if not err <= 1e-3:
         raise AssertionError(f"reference: CUDA path vs CPU path max err {err:.3g}")
+    # the reduced target is fp32: both ragged products on the fp32 body
+    ragged_routes = dict(ragged.ROUTE_LAUNCHES)
+    if (set(ragged_routes) != {("fused_gate_up", "simt90"),
+                               ("ragged_gmm", "simt90")}):
+        raise AssertionError(f"reference: fp32 ragged launches by route "
+                             f"{ragged_routes}, expected simt90 only")
     drafts = {"cpu": Model(dcfg, device="cpu"), "cuda": Model(dcfg, device="cuda")}
     pd_cpu = drafts["cpu"].init(torch.Generator().manual_seed(seed + 1))
     pd_gpu = _to_device(pd_cpu, drafts["cuda"].device)
@@ -1562,7 +1744,8 @@ def reference_phase(seed: int):
         if not np.array_equal(out, sd):
             raise AssertionError(f"reference: greedy SD from graph replay "
                                  f"!= {name}")
-    log(f"reference: reduced fp32 logits CUDA vs CPU max err {err:.2e} (<= 1e-3); "
+    log(f"reference: reduced fp32 logits CUDA vs CPU max err {err:.2e} (<= 1e-3; "
+        f"ragged launches {ragged_routes}); "
         "greedy SD == greedy AR (4 rows x 24 tokens); graph replay == eager "
         f"card == CPU ({eng.graphs.total_captures} capture, "
         f"{eng.graphs.total_replays} replays)")
@@ -2111,6 +2294,8 @@ def serve_phase(seed: int):
             "(bf16: not required to be equal)")
         rounds += rounds2
         outputs[path] = out
+        log_tokens_digest(path, [out[u] for u in sorted(out)]
+                          if sched == "continuous" else out)
         expect = {name: 0 for name in launches[path]}
         expect["fused_gate_up"] = expect["ragged_gmm"] = \
             moe_layers * tm.forward_count
@@ -2573,6 +2758,19 @@ def _check_head_dim_256_routes(path: str, paged: bool) -> None:
     log(f"{path}: launches by (route, head dim) " + "; ".join(
         f"{name} {dict(sorted(tally.items()))}"
         for name, (tally, _) in tallies.items()))
+
+
+def log_tokens_digest(path: str, outputs) -> None:
+    """Log a digest of each request's greedy tokens, in request order, and
+    of them all (serve_ab.py --arch and --tokens compare two trees'
+    digests, request for request)."""
+    import hashlib
+
+    import numpy as np
+    per_req = [hashlib.sha256(np.asarray(o).astype(np.int64).tobytes()
+                              ).hexdigest()[:8] for o in outputs]
+    digest = hashlib.sha256(" ".join(per_req).encode()).hexdigest()[:16]
+    log(f"{path}: tokens digest {digest} (requests {' '.join(per_req)})")
 
 
 def _wave_line(path: str, label: str, r) -> str:
@@ -3139,7 +3337,6 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
     trees' digests).  ``paths`` names the ARCH_PATHS to run (default all).
     Returns the launch counts per path."""
     import gc
-    import hashlib
 
     import numpy as np
     import torch
@@ -3273,12 +3470,7 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
             for o in done:
                 if o.min() < 0 or o.max() >= cfg.vocab_size:
                     raise AssertionError(f"{path}: token out of the vocab")
-            per_req = [hashlib.sha256(o.astype(np.int64).tobytes()
-                                      ).hexdigest()[:8] for o in done]
-            digest = hashlib.sha256(" ".join(per_req).encode()
-                                    ).hexdigest()[:16]
-            log(f"{path}: tokens digest {digest} (requests "
-                f"{' '.join(per_req)})")
+            log_tokens_digest(path, done)
             got = launch_counts()
             expect = {name: 0 for name in got}
             if moe_layers:
@@ -3890,6 +4082,7 @@ def ep_phase(seed: int, served: dict) -> dict:
         out, _ = _path_runs(eng, kind, run, path, card)
         launches[path] = launch_counts()
         served["outputs"][path] = out
+        log_tokens_digest(path, out)
         calls = collectives.EP_CALLS["moe_ep_forward"]
         want = moe_layers * target_ep.forward_count
         expect = {name: 0 for name in launches[path]}
@@ -4670,8 +4863,10 @@ def main() -> int:
     launches.update(train_reference_phase(args.seed))
     launches.update(train_phase(args.seed))
 
-    tols = {"fused_gate_up": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",
-            "ragged_gmm": f"rtol=atol={TOL} (tests/test_ragged_gmm.py)",
+    tols = {"fused_gate_up": f"bf16 rtol=atol={TOL}, fp32 {RAGGED_F32_TOL} "
+                             "(tests/test_ragged_gmm.py)",
+            "ragged_gmm": f"bf16 rtol=atol={TOL}, fp32 {RAGGED_F32_TOL} "
+                          "(tests/test_ragged_gmm.py)",
             "paged_decode_attention":
                 "bf16 rtol=atol=2e-2, fp32 2e-5 (decode_attention.py:288); "
                 f"bf16 split-KV body also <= {PAGED_ROW_TOL} x row rms",

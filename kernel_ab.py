@@ -26,15 +26,17 @@ PyTorch call that computes the same function where there is one
 TF32 off; ``sdpa_gathered``, ``sdpa_dense``, ``grouped_mm_library``).
 A tree whose kernel refuses a case (a head dim or page size an older body
 did not take) reports the case as refused instead of a time.  The kind
-oldgmm times the routes of the ragged kernels that no served path takes
-(fp32 on the CUDA cores, ``"simt"``; bf16 in 16-row tiles, ``"wmma"``), both
-products at the routings of ``ragged_cases``' serving cases, beside the
-card's bound for the same work and ``torch._grouped_mm`` where it takes the
-call.  Prints a line per (tree, case) and, last, a JSON object of the median
+oldgmm times the ragged kernels off the bf16 TMA route (``old_routes``:
+bm 16 and 128, bf16 operands TMA cannot address, fp32, 600 experts), both
+products, beside the card's bound for the same work and
+``torch._grouped_mm`` where it takes the call: on a tree with the old
+bodies they run ``"wmma"`` (bf16) and ``"simt"`` (fp32), on one with two
+bodies ``"sm90"`` (its staged producer off TMA's shapes) and ``"simt90"``.
+Prints a line per (tree, case) and, last, a JSON object of the median
 time of each (tree, case).  ``--only`` keeps the named kinds of case: flash,
 gmm (the capacity GEMM), paged, decode (dense decode/verify), fused (ragged
-gate/up), down (ragged down), oldgmm (the old ragged routes; only when
-named).  Needs an NVIDIA GPU.
+gate/up), down (ragged down), oldgmm (the ragged cases off the bf16 TMA
+route; only when named).  Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -73,8 +75,10 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
     res = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
 
     def emit(kind, case, fn, ref, tol, lib_fn, calls, **extra):
+        """Hold and time one case; False when the tree's kernel refuses
+        it (or the kind is not asked for)."""
         if kind not in kinds:
-            return
+            return False
         rec = {"tree": label, "kernel": kind, "case": case, **extra}
         try:
             out = fn()
@@ -82,7 +86,7 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
             print(json.dumps({**rec, "ms": None, "library_ms": None,
                               "refused": str(e).splitlines()[0]}),
                   flush=True)
-            return
+            return False
         err = chip_smoke._hold(f"{label} {kind}", case, out, ref, tol, res)
         print(json.dumps({
             **rec, "ms": chip_smoke.graph_time_ms(fn, calls=calls),
@@ -91,6 +95,7 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
             "max_abs_err": err,
             "row_scaled_err": chip_smoke.row_scaled_err(out, ref)}),
             flush=True)
+        return True
 
     for case, (dtype_name, B, T, Hq, Hkv, D, window, cap) in \
             chip_smoke.FLASH_CASES.items():
@@ -161,52 +166,86 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
                   if "down" in kinds else (None, None))
         emit("down", case, lambda: ragged.ragged_gmm(h, wd, sizes),
              ragged_gmm_ref(h, wd, sizes), chip_smoke.TOL, lib, 10)
-        if "oldgmm" in kinds and case in ("verify", "ar_verify", "prefill"):
-            old_routes(emit, case, xs, wg, wu, wd, sizes)
         del xs, h, lib
     del wg, wu, wd
     torch.cuda.empty_cache()
+    if "oldgmm" in kinds:
+        old_routes(emit, gen, dev)
 
 
-def old_routes(emit, case, xs, wg, wu, wd, sizes) -> None:
-    """The ragged kernels' routes that no served path takes, at one
-    routing: fp32 (``"simt"``) and bf16 in 16-row tiles (``"wmma"``), each
-    product beside its bound (each operand read once: x, the weights of the
-    experts that hold rows, the output written once; 2 N K F FLOPs a
-    product at the dtype's peak) and ``torch._grouped_mm`` where it takes
-    the call."""
+def old_routes(emit, gen, dev) -> None:
+    """Kernels 1-2 off the bf16 TMA route: chip_smoke.py's
+    RAGGED_BODY_CASES (bm 16 and 128, x 2 bytes off 16 and f 2564 in bf16,
+    fp32 aligned and 4 bytes off, at qwen2-57b-a14b's widths), 600 experts
+    at narrow widths in both dtypes, and fp32 at a test shape whose D pitch
+    is 280 bytes; both products, each beside its bound (each operand read
+    once: x, the weights of the experts that hold rows, the output written
+    once; 2 N K F FLOPs a product at the dtype's peak) and
+    ``torch._grouped_mm`` where it takes the call; a bf16 case whose x is
+    off 16 bytes again with x aligned (``*_aligned``: the TMA producer on
+    the same routing).  Each tree checks its own routes: one with the old
+    bodies runs ``"wmma"`` (bf16) and ``"simt"`` (fp32), one with two
+    bodies the (body, producer) each case names."""
     import torch
     from repro_torch.kernels.gmm import ragged
     from repro_torch.kernels.gmm.ref import fused_gate_up_ref, ragged_gmm_ref
-    N, D = xs.shape
-    E, _, F = wg.shape
-    active = int((sizes > 0).sum())
-    for dt, bm, route in ((torch.float32, None, "simt"),
-                          (torch.bfloat16, 16, "wmma")):
-        x, g, u, d = (a.to(dt) for a in (xs, wg, wu, wd))
-        peak = (chip_smoke.BF16_FLOPS if dt == torch.bfloat16
-                else chip_smoke.FP32_FLOPS)
-        tol = 1e-4 if dt == torch.float32 else chip_smoke.TOL
-        el = x.element_size()
-        h = fused_gate_up_ref(x, g, u, sizes)
+    two_bodies = hasattr(ragged, "LAST_PRODUCER")
+    cases = chip_smoke.ragged_body_case_list(gen, dev)
+
+    def test_shape():                 # x's row pitch 280 bytes, fp32
+        sizes = torch.tensor([37, 0, 1, 129, 0, 77, 13, 200],
+                             dtype=torch.int32, device=dev)
+        xs = torch.randn((int(sizes.sum()), 70), generator=gen, device=dev)
+        return xs, chip_smoke._ragged_weights(8, 70, 96, torch.float32,
+                                              gen), sizes
+    cases.append(("fp32_pitch280_test_shape", None, ("simt90", None),
+                  test_shape))
+    for case, bm, want, make in cases:
+        xs, (wg, wu, wd), sizes = make()
+        N, D = xs.shape
+        E, _, F = wg.shape
+        f32 = xs.dtype == torch.float32
+        if not two_bodies:
+            want = ("simt", None) if f32 else ("wmma", None)
+        peak = chip_smoke.FP32_FLOPS if f32 else chip_smoke.BF16_FLOPS
+        tol = chip_smoke.RAGGED_F32_TOL if f32 else chip_smoke.TOL
+        el = xs.element_size()
+        active = int((sizes > 0).sum())
+        h = fused_gate_up_ref(xs, wg, wu, sizes)
+        h = chip_smoke._offset(h, xs.data_ptr() % 16 // el)
         for name, fn, ref, n_bytes, flops, lib in (
-                ("fused", lambda: ragged.fused_gate_up(x, g, u, sizes, bm=bm),
-                 h, (N * D + 2 * active * D * F + N * F) * el + 4 * E,
+                ("fused",
+                 lambda: ragged.fused_gate_up(xs, wg, wu, sizes, bm=bm), h,
+                 (N * D + 2 * active * D * F + N * F) * el + 4 * E,
                  4 * N * D * F, None),
-                ("down", lambda: ragged.ragged_gmm(h, d, sizes, bm=bm),
-                 ragged_gmm_ref(h, d, sizes),
+                ("down", lambda: ragged.ragged_gmm(h, wd, sizes, bm=bm),
+                 ragged_gmm_ref(h, wd, sizes),
                  (N * F + active * F * D + N * D) * el + 4 * E,
-                 2 * N * F * D, chip_smoke.grouped_mm_library(h, d, sizes)[0])):
+                 2 * N * F * D, chip_smoke.grouped_mm_library(h, wd, sizes)[0])):
             b_ms, b_by = chip_smoke.bound_ms(n_bytes, flops, peak)
-            emit("oldgmm", f"{name}_{route}_{case}", fn, ref, tol, lib, 5,
-                 route=route, bound_ms=b_ms, bound_by=b_by, rows=N)
-            got = ragged.LAST_ROUTE["fused_gate_up" if name == "fused"
-                                    else "ragged_gmm"]
-            if got != route:
+            kernel = "fused_gate_up" if name == "fused" else "ragged_gmm"
+            if not emit("oldgmm", f"{name}_{case}", fn, ref, tol, lib,
+                        3 if f32 else 5, bound_ms=b_ms, bound_by=b_by,
+                        rows=N, route="/".join(filter(None, want))):
+                continue
+            got = (ragged.LAST_ROUTE[kernel],
+                   getattr(ragged, "LAST_PRODUCER", {}).get(kernel))
+            if got != want:
                 raise AssertionError(f"oldgmm {name} [{case}]: ran {got}, "
-                                     f"expected {route}")
-        del x, g, u, d, h
-        torch.cuda.empty_cache()
+                                     f"expected {want}")
+        if xs.data_ptr() % 16 and not f32:
+            # the same routing with x (and h) 16-byte aligned: the TMA
+            # producer's time beside the staged one's
+            xa, ha = xs.clone(), h.clone()
+            emit("oldgmm", f"fused_{case}_aligned",
+                 lambda: ragged.fused_gate_up(xa, wg, wu, sizes), h, tol, None, 5,
+                 route="sm90/tma")
+            emit("oldgmm", f"down_{case}_aligned", lambda: ragged.ragged_gmm(ha, wd, sizes),
+                 ragged_gmm_ref(ha, wd, sizes), tol, None, 5, route="sm90/tma")
+            del xa, ha
+        del xs, wg, wu, wd, h
+    cases.clear()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -17,8 +17,9 @@ phases (``PAGED_CASES`` through ``paged_inputs``, ``DECODE_CASES`` through
 ``decode_inputs``; bf16 on the TMA + wgmma bodies, fp32 on the split-KV
 CUDA-core body), every bf16 case of its
 ragged phase (the fused gate/up and down kernels on ``ragged_cases``) and
-every fp32 case of its flash and capacity GEMM phases (``FLASH_CASES``,
-``capacity_cases``), same seeds, through this
+its cases off that route (``ragged_body_case_list``: the staged producer,
+the fp32 body), every fp32 case of its flash and capacity GEMM phases
+(``FLASH_CASES``, ``capacity_cases``), same seeds, through this
 tree and each ``FAULTS`` variant named (every one by default; a fault tree
 runs only the kinds of case its fault is planted in), and prints, per case,
 the largest elementwise error
@@ -34,7 +35,7 @@ the head-dim-256 bodies' at gemma's heads and lengths, the row tiles' in
 every case wider than 64 rows a KV head, the paged producer's on the page
 sizes it is planted for), an fp32 one and a ragged one by
 the tolerance (ragged at every serving case: SD verify, AR verify,
-prefill), a fault of kernels 5 and 6's fp32 bodies by the tolerance in
+prefill, or every case of the producer or body it is planted in), a fault of kernels 5 and 6's fp32 bodies by the tolerance in
 every fp32 case, of kernels 3 and 4's in the fp32 cases it reaches; and
 this tree passes every bound everywhere.
 
@@ -57,6 +58,7 @@ DECODE = "kernels/decode_attention/csrc/decode_sm90.cuh"
 SPLITKV = "kernels/csrc/splitkv_sm90.cuh"
 FLASH = "kernels/flash_attention/csrc/flash_sm90.cuh"
 RAGGED = "kernels/gmm/csrc/ragged_sm90.cuh"
+RAGGED_CU = "kernels/gmm/csrc/ragged_gmm.cu"
 DECODE32 = "kernels/csrc/decode_f32.cuh"
 FLASH32 = "kernels/flash_attention/csrc/flash_f32.cuh"
 CAPACITY = "kernels/gmm/csrc/gmm_capacity.cu"
@@ -90,7 +92,16 @@ FAULTS = {
         (PAGED, "const int r = u / UPR, w = u % UPR;",
          "const int r = u / UPR, w = u % UPR;\n        if (r == 9) continue;")],
     # the fused kernel loads Wu's tile from Wg's map (computes act(g) * g)
-    "fused_wu_from_wg_map": [(RAGGED, "m == 0 ? &wmap : &umap", "&wmap")],
+    "fused_wu_from_wg_map": [(RAGGED, "m == 0 ? &wmap : &umap, &full[s], w.n * BN + 64 * bx,\n",
+                              "&wmap, &full[s], w.n * BN + 64 * bx,\n")],
+    # the bf16 body's staged producer leaves the last 8 columns of every
+    # second 64-column box of each weight tile unloaded (zeros)
+    "ragged_staged_w_cols_dropped": [
+        (RAGGED, "const int n_cols = F - col0;",
+         "const int n_cols = min(F - col0, 64) - 8 * (bx == 1);")],
+    # the fp32 body drops its last K tile
+    "ragged_simt90_last_k_tile": [(RAGGED_CU, "for (int kt = 0; kt < nk; ++kt) {",
+                                   "for (int kt = 0; kt + 1 < nk; ++kt) {")],
     # the epilogue (shared by both ragged products) stores 8 rows past the
     # expert's end, over the next expert's first rows (never past N)
     "ragged_rows_past_end": [(RAGGED, "if (r < w.row_end && c < F) {",
@@ -138,6 +149,9 @@ FAULTS = {
                             "xr[q][1] = v.y;\n        xr[q][2] = v.z;")],
 }
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
+# the fp32 body's cases of chip_smoke.ragged_body_case_list (600 experts too)
+FP32_RAGGED = ("fp32_verify", "fp32_ar_verify", "fp32_prefill",
+               "fp32_unaligned_verify", "e600_float32")
 # chip_smoke's bf16 cases at head dim 256 on gemma's heads and lengths (the
 # split-KV body), the dense decode cases wider than 64 rows a KV head (row
 # tiles), and the paged cases on pages of 24 (TMA boxes of 8 rows) and on
@@ -192,6 +206,10 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                "fused_wu_from_wg_map": {"fused": SERVING_CASES},
                "ragged_rows_past_end": {"fused": SERVING_CASES,
                                         "down": SERVING_CASES},
+               # weights staged by hand only where TMA cannot address them
+               "ragged_staged_w_cols_dropped": {"fused": ("f2564_verify",)},
+               "ragged_simt90_last_k_tile": {"fused": FP32_RAGGED,
+                                             "down": FP32_RAGGED},
                "paged_box_dropped": {"paged": PAGES24},
                "paged_staged_row_dropped": {"paged": STAGED_PAGES},
                "decode_tile_t0": {"decode": WIDE_DECODE},
@@ -462,6 +480,24 @@ def child_errors(root: Path, label: str) -> None:
             report("down", case, ragged.ragged_gmm(h, wd, sizes),
                    ragged_gmm_ref(h, wd, sizes), chip_smoke.TOL, None,
                    ragged.LAST_ROUTE["ragged_gmm"])
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    # the ragged cases off the bf16 TMA route: the staged producer, the
+    # fp32 body, 600 experts
+    for case, bm, _, make in chip_smoke.ragged_body_case_list(gen, dev):
+        xs, (g, u, d), sizes = make()
+        tol = (chip_smoke.RAGGED_F32_TOL if xs.dtype == torch.float32
+               else chip_smoke.TOL)
+        h = fused_gate_up_ref(xs, g, u, sizes)
+        if "fused" in kinds:
+            report("fused", case, ragged.fused_gate_up(xs, g, u, sizes, bm=bm),
+                   h, tol, None, ragged.LAST_ROUTE["fused_gate_up"])
+        h = chip_smoke._offset(h, xs.data_ptr() % 16 // xs.element_size())
+        if "down" in kinds:
+            report("down", case, ragged.ragged_gmm(h, d, sizes, bm=bm),
+                   ragged_gmm_ref(h, d, sizes), tol, None,
+                   ragged.LAST_ROUTE["ragged_gmm"])
+        del xs, g, u, d, h
 
 
 def _fault_cases(name: str) -> dict:

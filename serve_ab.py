@@ -4,7 +4,7 @@ that the fixed-gamma serve lines of two versions are compared in one run on
 one card.
 
     python3 serve_ab.py ROOT [ROOT ...] [--repeat N] [--seed S]
-                        [--prefix | --full | --arch PATH[,PATH ...]]
+                        [--prefix | --full | --tokens | --arch PATH[,PATH ...]]
 
 Each ROOT is a directory holding ``chip_smoke.py`` and ``src/repro_torch``:
 this checkout (``.``) or another commit unpacked with ``git archive`` into
@@ -29,6 +29,11 @@ every phase before the serve phase runs before it as it does there) and
 keeps, besides the serve lines, the tok/s line of every later path
 ("continuous-prefix/model (again): ... tok/s", "tuner continuous (again):
 ... tok/s", ...).
+``--tokens`` runs this checkout's ``serve_phase`` and ``ep_phase`` on each
+ROOT's ``src/repro_torch`` and kernels (wave, continuous, wave-flash and
+wave-ep, SD and AR) and reports, beside the tok/s lines, in how many
+requests every run of every tree emits the same greedy tokens (each path
+logs a digest of them).
 ``--arch`` runs the named ARCH_PATHS of this checkout's ``chip_smoke.py``
 (``arch_serve_phase``, e.g. ``wave-gemma3,continuous-gemma3,wave-gemma7b``)
 on each ROOT's ``src/repro_torch`` and kernels, keeps every wave's tok/s
@@ -78,6 +83,18 @@ def arch_child(root: Path, seed: int, paths) -> None:
             str(dict(sorted(t.items()))) for t in tallies))
     chip_smoke._check_head_dim_256_routes = log_routes
     chip_smoke.arch_serve_phase(seed, paths=paths)
+
+
+def tokens_child(root: Path, seed: int) -> None:
+    """This checkout's serve_phase and ep_phase on ROOT's port and kernels,
+    in this process."""
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from repro_torch.kernels import build
+    build.build_all(tuple(m.SOURCE for m in chip_smoke._counted_modules()))
+    _, served = chip_smoke.serve_phase(seed)
+    chip_smoke.ep_phase(seed, served)
 
 
 def child(root: Path, seed: int, prefix: bool) -> None:
@@ -130,6 +147,9 @@ def main() -> int:
                       help="also run each ROOT's prefix_faults_phase")
     mode.add_argument("--full", action="store_true",
                       help="run each ROOT's whole chip_smoke.py")
+    mode.add_argument("--tokens", action="store_true",
+                      help="this checkout's serve and EP phases on each "
+                           "ROOT, greedy tokens compared")
     mode.add_argument("--arch", default=None,
                       help="comma-separated ARCH_PATHS of this checkout's "
                            "chip_smoke.py to run on each ROOT")
@@ -137,6 +157,8 @@ def main() -> int:
     if args.child is not None:
         if args.arch:
             arch_child(args.child.resolve(), args.seed, args.arch.split(","))
+        elif args.tokens:
+            tokens_child(args.child.resolve(), args.seed)
         else:
             child(args.child.resolve(), args.seed, args.prefix)
         return 0
@@ -151,6 +173,7 @@ def main() -> int:
                [sys.executable, str(Path(__file__).resolve()), "--child",
                 str(root), "--seed", str(args.seed)]
                + (["--prefix"] if args.prefix else [])
+               + (["--tokens"] if args.tokens else [])
                + (["--arch", args.arch] if args.arch else []))
         proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
         if proc.returncode != 0:

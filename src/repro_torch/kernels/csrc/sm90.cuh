@@ -3,12 +3,13 @@
 // consumed by warpgroup matrix multiplies (wgmma): mbarriers, TMA loads,
 // wgmma shared-memory descriptors and instructions, register reallocation
 // (setmaxnreg), and the host-side encoding of a tensor map; and the per-thread
-// cp.async copies of the fp32 CUDA-core bodies and of the paged producer on
-// pages that TMA boxes cannot tile.
+// cp.async copies of the fp32 CUDA-core bodies and of the producers that
+// stage what TMA boxes cannot address (the paged producer's odd pages, the
+// ragged producer's unaligned operands).
 //
 // Used by kernels/flash_attention/csrc/flash_sm90.cuh and flash_f32.cuh,
 // kernels/csrc/splitkv_sm90.cuh and decode_f32.cuh (kernels 3 and 4),
-// kernels/gmm/csrc/gmm_capacity.cu and kernels/gmm/csrc/ragged_sm90.cuh.
+// kernels/gmm/csrc/gmm_capacity.cu, ragged_gmm.cu and ragged_sm90.cuh.
 // Everything is raw PTX; no CUTLASS.
 //
 // The tensor-map encoder, cuTensorMapEncodeTiled, is a CUDA driver API call; it
@@ -56,6 +57,13 @@ __device__ __forceinline__ void fence_barrier_init() {
 // One arrival that also expects `bytes` of TMA transactions.
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Raise the barrier's expected TMA transaction bytes without arriving.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
 }
@@ -130,6 +138,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Pieces of 8 or 4 bytes (both addresses aligned to the piece), of which
+// the first `bytes` are read and the rest written as zeros: the copies of
+// the ragged bodies (ragged_sm90.cuh's staged producer, ragged_gmm.cu's
+// fp32 body) for operands whose 16-byte pieces are not aligned.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// An arrival on `bar` that the hardware makes once every cp.async this
+// thread has issued so far has landed (the barrier's pending count is
+// raised by one now and lowered then, so it does not count toward the
+// barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
 }
 

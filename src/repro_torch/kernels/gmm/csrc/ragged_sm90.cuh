@@ -1,6 +1,6 @@
 // Ragged grouped matmuls of the MoE expert FFN in bf16 on Hopper (sm_90a):
-// the body of ragged_gmm_sm90_launch and fused_gate_up_sm90_launch in
-// ragged_gmm.cu.  One kernel, templated on the number of weight matrices:
+// the bf16 body of ragged_launch in ragged_gmm.cu.  One kernel, templated
+// on the number of weight matrices:
 //
 //   NMAT 1 (down):         out[n] = x[n] @ w[e(n)]
 //   NMAT 2 (fused gate/up): out[n] = act(x[n] @ wg[e(n)]) * (x[n] @ wu[e(n)])
@@ -14,33 +14,62 @@
 // columns [n * BN, (n + 1) * BN), BM = 64.  Its rows start wherever the
 // expert's do, not at a multiple of BM, so each expert's weight tiles are
 // read once per chunk of that expert (once for an expert with <= BM rows)
-// and an empty expert costs nothing.  The row-tile-aligned visit list of the
-// WMMA kernel (ragged.py:make_group_metadata) visits an expert once per
-// BM-row tile its rows touch and reads its weights again on each visit.
-// Rows of a chunk past off[e + 1] are loaded (the next expert's rows, or TMA
-// zero fill past N) and multiplied, never stored.
+// and an empty expert costs nothing.  A row-tile-aligned visit list
+// (ragged.py:make_group_metadata, the reference's grid) visits an expert
+// once per BM-row tile its rows touch and reads its weights again on each
+// visit.  Rows of a chunk past off[e + 1] are loaded (the next expert's
+// rows, or zeros past N) and multiplied, never stored.
 //
 // The list comes from group_sizes alone, inside the kernel: one warp of
-// each block reads the E sizes and writes to shared memory the prefix sums
+// each block reads the sizes and writes to shared memory the prefix sums
 // of the row offsets and of the items (ceil(size / BM) * tiles_n per
 // expert), so the wrapper adds no device op and the number of items stays
 // on the device (a CUDA graph replay reads the routing of its run).  Items
 // are numbered expert-major, then column tile, then chunk, so the chunks of
 // one expert's column tile are adjacent and run at once on neighbouring
-// blocks: their re-reads of the weight tiles hit L2.
+// blocks: their re-reads of the weight tiles hit L2.  The tables hold
+// MAX_E experts: a call over more experts is launched once per window of
+// MAX_E experts (launch()), each launch's warp first summing the rows of
+// the experts before its window; at E <= MAX_E that is one launch.
 //
 // Mainloop: gmm_capacity.cu's cap90 kernel with one consumer warpgroup.  A
-// persistent grid (one block per SM) walks the items; one producer thread
-// keeps a ring of STAGES stages full with TMA, each stage the x tile
-// (64 x 64, a 2-D map over (K, N)) and the item's 64 x BN tile of every
-// weight (3-D maps over (F, K, E)), 128-byte swizzle, one transaction count
-// for the stage.  The consumer warpgroup runs, per 16 of K, one wgmma
-// m64nBNk16 per weight on the same x descriptor (x K-major, w MN-major
-// through the transpose bit), committed as one group, into fp32 accumulators
-// in registers: 2 x 64 a thread for the fused product at BN 128, within
+// persistent grid (one block per SM) walks the items; the producer
+// warpgroup keeps a ring of STAGES stages full, each stage the x tile
+// (64 x 64) and the item's 64 x BN tile of every weight, in the 128-byte
+// swizzle.  The consumer warpgroup runs, per 16 of K, one wgmma m64nBNk16
+// per weight on the same x descriptor (x K-major, w MN-major through the
+// transpose bit), committed as one group, into fp32 accumulators in
+// registers: 2 x 64 a thread for the fused product at BN 128, within
 // __launch_bounds__(256, 1) without setmaxnreg.  The epilogue stores rows
 // below off[e + 1] and columns below F straight from the accumulators; gate
 // and up fragments share one layout, so act(g) * u is formed in registers.
+//
+// The producer has two modes (STAGED), chosen by launch() from the
+// operands, both writing the same layout for the same consumer:
+//   * STAGED 0, whenever TMA can address x and every weight (K and F
+//     multiples of 8, 16-byte aligned bases, out 4-byte aligned): one
+//     thread issues each stage as TMA loads, the x tile through a 2-D map
+//     over (K, N) and each weight's tile through 3-D maps over (F, K, E),
+//     with one transaction count for the stage; TMA fills zeros past N, K
+//     and F.
+//   * STAGED 1, any other shape or base (K or F not a multiple of 8, an
+//     operand off 16 bytes): one thread still loads by TMA the operands TMA
+//     can address (x, or both weights), and the warpgroup's 128 threads
+//     stage the others by hand (stage_box_issue / _store), each 16-byte
+//     unit of a tile with the widest copy its source's alignment allows:
+//     cp.async of 16, 8 or 4 bytes, or, for a unit 2 bytes off 4 (or cut
+//     by K or F), two aligned 16-byte loads shifted into place in
+//     registers; written into the swizzle TMA writes (sm90::swizzled) with
+//     zeros past N, K and F.  No producer thread waits for its copies: the
+//     stage's full barrier expects an arrival from each of the 4 warps,
+//     after its stores (fenced for the async proxy, the wgmma reads), and
+//     the completion of each thread's copies (cp.async.mbarrier.arrive, as
+//     CUTLASS's cp.async + GMMA mainloop, no fence for those).  A unit's
+//     register loads are issued before the wait for its ring slot.  The
+//     epilogue stores element by element where F or out's base leaves a
+//     bf16 pair unaligned, and masks F per element.  (TMA boxes from a map
+//     over a base rounded down to 16 bytes, started at the offset's column,
+//     never completed: the operands off 16 bytes are staged by hand.)
 //
 // What bounds it on an H100: reading the touched experts' weights (~2.35 GB
 // of Wg + Wu, ~1.17 GB of w a layer at SD verify against ~60x less time in
@@ -66,7 +95,7 @@ constexpr int BK = 64;                       // K per stage: one 128-byte row
 constexpr int SW = 128;                      // swizzle bytes (= BK * 2)
 constexpr int BM = 64;                       // rows per item: one wgmma m64 tile
 constexpr int NT = 256;                      // consumer warpgroup + producer warpgroup
-constexpr int MAX_E = 512;                   // experts the shared tables hold
+constexpr int MAX_E = 512;                   // experts the shared tables hold (a window)
 constexpr int X_BYTES = BM * BK * 2;
 constexpr int W_BOX = BK * 64 * 2;           // one 64-column box of a weight
 
@@ -82,6 +111,16 @@ struct Tiles {
   static constexpr int META_OFF = BAR_OFF + 2 * STAGES * 8;
   // + row offsets (E + 1) and item ends (E), int32, + alignment
   static constexpr int BYTES = META_OFF + (2 * MAX_E + 1) * 4 + 1024;
+};
+
+// The staged producer's operands (STAGED 1; unused by the TMA producer).
+struct Staged {
+  const bf16* x;                             // (N, K)
+  const bf16* w;                             // (E, K, F): w, or wg
+  const bf16* u;                             // (E, K, F): wu (fused), else w
+  int N;
+  int x_tma, w_tma;                          // TMA can address x; both weights
+  int out_pairs;                             // bf16 pairs of out 4-byte aligned
 };
 
 template <int ACT> __device__ __forceinline__ float activate(float g);
@@ -103,18 +142,25 @@ __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da, uint64
 }
 
 struct Item {
-  int e, n, row0, row_end;
+  int e, n, row0, row_end;                   // e within the launch's window
 };
 
-// The item list's tables, by warp 0 into shared memory: off[e] the first
-// row of expert e (off[E] = N), item_end[e] the items of experts 0..e.
-// Lane l sums a contiguous run of experts, then a shuffle scan.
-__device__ __forceinline__ void build_items(const int* __restrict__ sizes, int E, int tiles_n,
-                                            int* off, int* item_end) {
+// The item list's tables, by warp 0 into shared memory, for the window of
+// E experts from e0: off[e] the first row of expert e0 + e (off[E] its
+// end), item_end[e] the items of the window's experts 0..e.  The lanes
+// first sum the rows of the experts before the window; then lane l sums a
+// contiguous run of the window's experts, and a shuffle scan.
+__device__ __forceinline__ void build_items(const int* __restrict__ sizes, int e0, int E,
+                                            int tiles_n, int* off, int* item_end) {
   const int lane = threadIdx.x;
-  const int per = (E + 31) / 32, e0 = min(lane * per, E), e1 = min(e0 + per, E);
+  int base = 0;
+  for (int e = lane; e < e0; e += 32) base += sizes[e];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) base += __shfl_xor_sync(0xffffffffu, base, o);
+  sizes += e0;
+  const int per = (E + 31) / 32, e_lo = min(lane * per, E), e_hi = min(e_lo + per, E);
   int rows = 0, items = 0;
-  for (int e = e0; e < e1; ++e) {
+  for (int e = e_lo; e < e_hi; ++e) {
     const int s = sizes[e];
     rows += s;
     items += (s + BM - 1) / BM * tiles_n;
@@ -129,10 +175,10 @@ __device__ __forceinline__ void build_items(const int* __restrict__ sizes, int E
       items_incl += i;
     }
   }
-  rows = rows_incl - rows;                   // exclusive: before expert e0
+  rows = base + rows_incl - rows;            // exclusive: before expert e_lo
   items = items_incl - items;
-  if (lane == 0) off[0] = 0;
-  for (int e = e0; e < e1; ++e) {
+  if (lane == 0) off[0] = base;
+  for (int e = e_lo; e < e_hi; ++e) {
     const int s = sizes[e];
     rows += s;
     items += (s + BM - 1) / BM * tiles_n;
@@ -162,13 +208,129 @@ __device__ __forceinline__ Item item_of(int t, const int* off, const int* item_e
   return it;
 }
 
-// wmap: w (down) or wg (fused); umap: wu (fused; unused by the down product).
-template <int NMAT, int ACT>
+// The staged producer's copies of one 64 x 64 box (64 rows of 128 bytes)
+// into `box` (1024-byte aligned) in the 128-byte swizzle TMA writes: box
+// row r is row row0 + r of a row-major bf16 matrix src with leading
+// dimension ld, columns col0 .. col0 + 63.  Only rows r < n_rows and
+// columns col0 + c, c < n_cols, are read; the rest is written as zeros.
+// The box is 512 16-byte units, (row r, 8 columns from 8u); thread pt of
+// the producer warpgroup takes units pt + 128 i, i < 4.  Each unit takes
+// the widest copy its source address allows: cp.async of 16, 8 or 4 bytes
+// (a source 4-byte aligned, all 8 elements to read), zeros by cp.async
+// where it reads nothing; a unit that starts 2 bytes off 4 or ends past
+// n_cols is loaded into registers as the aligned 16-byte chunks that hold
+// its elements (stage_box_issue<true>), then shifted into place, masked
+// past its last element and stored (stage_box_store), so the loads of a
+// box are in flight together and other copies go between the two.
+struct BoxRegs {
+  uint4 lo[4], hi[4];                        // the register units' chunks
+  uint32_t mask;                             // which of the 4 units they are
+};
+
+// Unit i of this thread: its destination, source address and the number
+// of its elements to read (0..8).
+__device__ __forceinline__ int box_unit(unsigned char* box, const bf16* src, long long ld,
+                                        int row0, int n_rows, int col0, int n_cols, int pt,
+                                        int i, unsigned char** dst, const bf16** a) {
+  const int q = pt + 128 * i, r = q >> 3, u = q & 7;
+  *dst = box + sm90::swizzled(static_cast<uint32_t>(r * SW + u * 16), SW);
+  *a = src + (row0 + r) * ld + col0 + u * 8;          // read only when the count is > 0
+  return r < n_rows ? max(0, min(8, n_cols - u * 8)) : 0;
+}
+
+// Whether a unit of nv elements at address a goes through registers: it
+// starts 2 bytes off 4, or its elements end before the unit does.
+__device__ __forceinline__ bool reg_unit(int nv, const bf16* a) {
+  return nv > 0 &&
+         (nv < 8 || (reinterpret_cast<uintptr_t>(a) & 3) != 0);
+}
+
+// Phase 1 of a box (REGS true: its register loads only, which need no free
+// ring slot; false: its cp.async copies only, returning whether it issued
+// any).
+template <bool REGS>
+__device__ __forceinline__ bool stage_box_issue(unsigned char* box, const bf16* __restrict__ src,
+                                                long long ld, int row0, int n_rows, int col0,
+                                                int n_cols, int pt, BoxRegs& regs) {
+  if (REGS) regs.mask = 0;
+  bool copied = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    unsigned char* dst;
+    const bf16* a;
+    const int nv = box_unit(box, src, ld, row0, n_rows, col0, n_cols, pt, i, &dst, &a);
+    const uintptr_t ad = reinterpret_cast<uintptr_t>(a);
+    if (reg_unit(nv, a)) {
+      if (REGS) {
+        // the aligned 16-byte chunks that hold the unit's elements
+        const uint4* c = reinterpret_cast<const uint4*>(ad & ~uintptr_t{15});
+        regs.lo[i] = __ldg(c);
+        regs.hi[i] = ((ad + 2 * nv - 1) & ~uintptr_t{15}) != (ad & ~uintptr_t{15})
+                         ? __ldg(c + 1)
+                         : make_uint4(0u, 0u, 0u, 0u);
+        regs.mask |= 1u << i;
+      }
+    } else if (!REGS) {
+      copied = true;
+      if (nv == 0 || (ad & 15) == 0) {
+        sm90::cp_async16(dst, nv ? a : src, nv != 0);
+      } else if ((ad & 7) == 0) {
+        sm90::cp_async8(dst, a, 8);
+        sm90::cp_async8(dst + 8, a + 4, 8);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sm90::cp_async4(dst + 4 * j, a + 2 * j, 4);
+      }
+    }
+  }
+  return copied;
+}
+
+// Phase 2: the register units shifted into place (the unit's address mod
+// 16 bytes), masked past the unit's last element and stored.  Returns
+// whether it stored any.
+__device__ __forceinline__ bool stage_box_store(unsigned char* box, const bf16* __restrict__ src,
+                                                long long ld, int row0, int n_rows, int col0,
+                                                int n_cols, int pt, const BoxRegs& regs) {
+  if (!regs.mask) return false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!(regs.mask >> i & 1)) continue;
+    unsigned char* dst;
+    const bf16* a;
+    const int nv = box_unit(box, src, ld, row0, n_rows, col0, n_cols, pt, i, &dst, &a);
+    const int s = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
+    const int j = s >> 2, bits = (s & 3) * 8;
+    const uint32_t w[8] = {regs.lo[i].x, regs.lo[i].y, regs.lo[i].z, regs.lo[i].w,
+                           regs.hi[i].x, regs.hi[i].y, regs.hi[i].z, regs.hi[i].w};
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // words j + k and j + k + 1 of the 32 bytes, by selects (no indexing
+      // by a run-time value)
+      const uint32_t x0 = j == 0 ? w[k] : j == 1 ? w[k + 1] : j == 2 ? w[k + 2] : w[k + 3];
+      const uint32_t x1 = j == 0 ? w[k + 1] : j == 1 ? w[k + 2] : j == 2 ? w[k + 3] : w[k + 4];
+      o[k] = __funnelshift_r(x0, x1, bits);
+      // elements 2k, 2k + 1 of the unit: zero past its count
+      if (2 * k >= nv) o[k] = 0u;
+      else if (2 * k + 1 >= nv) o[k] &= 0xffffu;
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+  return true;
+}
+
+// wmap: w (down) or wg (fused); umap: wu (fused; unused by the down
+// product).  The maps are read by the TMA producer (STAGED 0), st by the
+// staged one.  sizes: the group sizes of every expert; the launch covers
+// the E experts from e0.
+template <int NMAT, int ACT, int STAGED>
 __global__ void __launch_bounds__(NT, 1)
 ragged_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                    const __grid_constant__ CUtensorMap wmap,
-                   const __grid_constant__ CUtensorMap umap, bf16* __restrict__ out,
-                   const int* __restrict__ sizes, int E, int K, int F, int tiles_n) {
+                   const __grid_constant__ CUtensorMap umap, const Staged st,
+                   bf16* __restrict__ out, const int* __restrict__ sizes, int e0, int E,
+                   int K, int F, int tiles_n) {
   using L = Tiles<NMAT>;
   constexpr int BN = L::BN, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -179,10 +341,10 @@ ragged_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   int* item_end = off + E + 1;
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x < 32) build_items(sizes, E, tiles_n, off, item_end);
+  if (threadIdx.x < 32) build_items(sizes, e0, E, tiles_n, off, item_end);
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&full[s], STAGED ? 4 : 1);   // staged: each producer warp
       sm90::mbar_init(&empty[s], 1);
     }
     sm90::fence_barrier_init();
@@ -192,8 +354,85 @@ ragged_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   const int nk = (K + BK - 1) / BK;
 
   if (wg == 1) {
-    // ---- producer: one thread keeps the ring full, item after item
-    if (threadIdx.x == 128) {
+    if constexpr (STAGED != 0) {
+      // ---- staged producer: the warpgroup copies each stage, item after
+      // item; the stage's full barrier (count 4) takes an arrival from each
+      // warp after its threads' stores, and waits for each thread's cp.async
+      // copies (cp.async.mbarrier.arrive), so no thread waits for its copies
+      const int pt = threadIdx.x - 128, lane = pt % 32;
+      const long long wstride = static_cast<long long>(K) * F;
+      if (pt == 0) {
+        if (st.x_tma) sm90::prefetch_map(&xmap);
+        if (st.w_tma) {
+          sm90::prefetch_map(&wmap);
+          if (NMAT == 2) sm90::prefetch_map(&umap);
+        }
+      }
+      int it = 0;
+      for (int t = blockIdx.x; t < n_items; t += gridDim.x) {
+        const Item w = item_of(t, off, item_end, E, tiles_n);
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int s = it % STAGES;
+          unsigned char* stg = smem + s * L::STAGE;
+          const int k0 = ks * BK;
+          // the boxes staged by hand this stage: x (bit 0), weight box bx of
+          // matrix m (bit 1 + m * (BN / 64) + bx)
+          const uint32_t by_hand =
+              (st.x_tma ? 0u : 1u) | (st.w_tma ? 0u : ((1u << (NMAT * (BN / 64))) - 1) << 1);
+          // x's register loads go before the wait for the slot, and stay in
+          // flight while the other copies go
+          BoxRegs xr, wr;
+          if (by_hand & 1)
+            stage_box_issue<true>(stg, st.x, K, w.row0, st.N - w.row0, k0, K - k0, pt, xr);
+          sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          if (pt == 0) {
+            // the rest by TMA, its bytes expected before the loads (this
+            // thread's arrival comes after its copies below)
+            const int tma_boxes = NMAT * (BN / 64) - __popc(by_hand >> 1);
+            const uint32_t bytes = (by_hand & 1 ? 0 : X_BYTES) + tma_boxes * W_BOX;
+            if (bytes) sm90::mbar_expect(&full[s], bytes);
+            if (!(by_hand & 1)) sm90::tma_load_2d(stg, &xmap, &full[s], k0, w.row0);
+#pragma unroll
+            for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+              for (int bx = 0; bx < BN / 64; ++bx)
+                if (!(by_hand >> (1 + m * (BN / 64) + bx) & 1))
+                  sm90::tma_load_3d(stg + X_BYTES + m * L::W_BYTES + bx * W_BOX,
+                                    m == 0 ? &wmap : &umap, &full[s], w.n * BN + 64 * bx, k0,
+                                    e0 + w.e);
+          }
+          bool stored = false, copied = false;
+          if (by_hand & 1)
+            copied = stage_box_issue<false>(stg, st.x, K, w.row0, st.N - w.row0, k0, K - k0,
+                                            pt, xr);
+#pragma unroll
+          for (int m = 0; m < NMAT; ++m)
+#pragma unroll
+            for (int bx = 0; bx < BN / 64; ++bx) {
+              if (!(by_hand >> (1 + m * (BN / 64) + bx) & 1)) continue;
+              const int col0 = w.n * BN + 64 * bx;
+              const int n_cols = F - col0;
+              unsigned char* box = stg + X_BYTES + m * L::W_BYTES + bx * W_BOX;
+              const bf16* src = (m == 0 ? st.w : st.u) + (e0 + w.e) * wstride;
+              stage_box_issue<true>(box, src, F, k0, K - k0, col0, n_cols, pt, wr);
+              copied |= stage_box_issue<false>(box, src, F, k0, K - k0, col0, n_cols, pt, wr);
+              stored |= stage_box_store(box, src, F, k0, K - k0, col0, n_cols, pt, wr);
+            }
+          if (by_hand & 1)
+            stored |= stage_box_store(stg, st.x, K, w.row0, st.N - w.row0, k0, K - k0, pt, xr);
+          // this thread's stores (generic proxy) before the wgmma reads of
+          // them (async proxy); its cp.async copies take no fence.  The
+          // barrier waits for each thread's copies, and takes one arrival
+          // from each warp after its stores
+          if (stored) sm90::fence_proxy_async();
+          if (copied) sm90::cp_async_arrive(&full[s]);
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(&full[s]);
+        }
+      }
+      sm90::cp_async_wait<0>();              // no thread leaves with copies in flight
+    } else if (threadIdx.x == 128) {
+      // ---- TMA producer: one thread keeps the ring full, item after item
       sm90::prefetch_map(&xmap);
       sm90::prefetch_map(&wmap);
       if (NMAT == 2) sm90::prefetch_map(&umap);
@@ -203,16 +442,16 @@ ragged_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int ks = 0; ks < nk; ++ks, ++it) {
           const int s = it % STAGES;
           sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-          unsigned char* st = smem + s * L::STAGE;
+          unsigned char* stg = smem + s * L::STAGE;
           sm90::mbar_expect_tx(&full[s], L::STAGE);
-          sm90::tma_load_2d(st, &xmap, &full[s], ks * BK, w.row0);
+          sm90::tma_load_2d(stg, &xmap, &full[s], ks * BK, w.row0);
 #pragma unroll
           for (int m = 0; m < NMAT; ++m)
 #pragma unroll
             for (int bx = 0; bx < BN / 64; ++bx)
-              sm90::tma_load_3d(st + X_BYTES + m * L::W_BYTES + bx * W_BOX,
+              sm90::tma_load_3d(stg + X_BYTES + m * L::W_BYTES + bx * W_BOX,
                                 m == 0 ? &wmap : &umap, &full[s], w.n * BN + 64 * bx,
-                                ks * BK, w.e);
+                                ks * BK, e0 + w.e);
         }
       }
     }
@@ -275,8 +514,13 @@ ragged_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
               v0 = activate<ACT>(v0) * acc[1][i];
               v1 = activate<ACT>(v1) * acc[1][i + 1];
             }
-            *reinterpret_cast<uint32_t*>(out + static_cast<long long>(r) * F + c) =
-                sm90::pack_bf16(v0, v1);
+            bf16* o = out + static_cast<long long>(r) * F + c;
+            if (!STAGED || (st.out_pairs && c + 1 < F)) {
+              *reinterpret_cast<uint32_t*>(o) = sm90::pack_bf16(v0, v1);
+            } else {
+              o[0] = __float2bfloat16_rn(v0);
+              if (c + 1 < F) o[1] = __float2bfloat16_rn(v1);
+            }
           }
         }
       }
@@ -284,35 +528,66 @@ ragged_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// x (N, K); w and u (E, K, F), u read only when NMAT is 2; out (N, F).
-template <int NMAT, int ACT>
-int launch(const void* x, const void* w, const void* u, void* out, const void* sizes, int N,
-           int K, int F, int E, cudaStream_t stream) {
+// One instantiation's launches: a window of at most MAX_E experts each.
+template <int NMAT, int ACT, int STAGED>
+int launch_mode(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMap& umap,
+                const Staged& st, void* out, const void* sizes, int N, int K, int F, int E,
+                cudaStream_t stream) {
   using L = Tiles<NMAT>;
   static bool opted_in = false;              // per instantiation and library
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ragged_sm90_kernel<NMAT, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    const cudaError_t err =
+        cudaFuncSetAttribute(ragged_sm90_kernel<NMAT, ACT, STAGED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  CUtensorMap xmap, wmap, umap;
+  const int tiles_n = (F + L::BN - 1) / L::BN;
+  for (int e0 = 0; e0 < E; e0 += MAX_E) {
+    const int ew = E - e0 < MAX_E ? E - e0 : MAX_E;
+    // items <= (N / BM + ew) * tiles_n: no more blocks than that, nor than SMs
+    const long long bound = (static_cast<long long>(N) / BM + ew) * tiles_n;
+    const int grid = static_cast<int>(bound < sm90::sm_count() ? bound : sm90::sm_count());
+    ragged_sm90_kernel<NMAT, ACT, STAGED><<<grid, NT, L::BYTES, stream>>>(
+        xmap, wmap, umap, st, static_cast<bf16*>(out), static_cast<const int*>(sizes), e0, ew,
+        K, F, tiles_n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// Launches of a call over E experts (one per window of MAX_E).
+inline int launches(int E) { return (E + MAX_E - 1) / MAX_E; }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// x (N, K); w and u (E, K, F), u read only when NMAT is 2; out (N, F).
+// *staged is set to 1 when the launch takes the staged producer.
+template <int NMAT, int ACT>
+int launch(const void* x, const void* w, const void* u, void* out, const void* sizes, int N,
+           int K, int F, int E, cudaStream_t stream, int* staged) {
+  const bf16* ub = static_cast<const bf16*>(NMAT == 2 ? u : w);
+  const Staged st{static_cast<const bf16*>(x), static_cast<const bf16*>(w), ub, N,
+                  K % 8 == 0 && aligned16(x), F % 8 == 0 && aligned16(w) && aligned16(ub),
+                  F % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0};
+  // the TMA producer when TMA can address every operand (and out's bf16
+  // pairs are aligned), else the staged one
+  const bool staged_mode = !(st.x_tma && st.w_tma && reinterpret_cast<uintptr_t>(out) % 4 == 0);
+  // tensor maps for the operands TMA can address (every one in TMA mode)
+  CUtensorMap xmap{}, wmap{}, umap{};
   const long long xd[2] = {K, N}, xs[1] = {K};
   const long long wd[3] = {F, K, E}, ws[2] = {F, static_cast<long long>(K) * F};
-  const int xb[2] = {BK, BM}, wb[3] = {64, BK, 1};
-  int rc = sm90::make_map_bf16<2>(&xmap, x, xd, xs, xb, SW);
-  if (rc == 0) rc = sm90::make_map_bf16<3>(&wmap, w, wd, ws, wb, SW);
-  if (NMAT == 2 && rc == 0) rc = sm90::make_map_bf16<3>(&umap, u, wd, ws, wb, SW);
+  const int xbox[2] = {BK, BM}, wbox[3] = {64, BK, 1};
+  int rc = st.x_tma ? sm90::make_map_bf16<2>(&xmap, x, xd, xs, xbox, SW) : 0;
+  if (rc == 0 && st.w_tma) rc = sm90::make_map_bf16<3>(&wmap, w, wd, ws, wbox, SW);
+  if (rc == 0 && st.w_tma && NMAT == 2) rc = sm90::make_map_bf16<3>(&umap, u, wd, ws, wbox, SW);
   if (NMAT == 1) umap = wmap;
   if (rc != 0) return rc;
-  const int tiles_n = (F + L::BN - 1) / L::BN;
-  // items <= (N / BM + E) * tiles_n: no more blocks than that, nor than SMs
-  const long long bound = (static_cast<long long>(N) / BM + E) * tiles_n;
-  const int grid = static_cast<int>(bound < sm90::sm_count() ? bound : sm90::sm_count());
-  ragged_sm90_kernel<NMAT, ACT><<<grid, NT, L::BYTES, stream>>>(
-      xmap, wmap, umap, static_cast<bf16*>(out), static_cast<const int*>(sizes), E, K, F,
-      tiles_n);
-  return static_cast<int>(cudaGetLastError());
+  *staged = staged_mode;
+  return staged_mode
+             ? launch_mode<NMAT, ACT, 1>(xmap, wmap, umap, st, out, sizes, N, K, F, E, stream)
+             : launch_mode<NMAT, ACT, 0>(xmap, wmap, umap, st, out, sizes, N, K, F, E, stream);
 }
 
 }  // namespace

@@ -2,46 +2,58 @@
 kernels in ``csrc/ragged_gmm.cu``.
 
 Port of ``repro.kernels.gmm.ragged``.  Tokens arrive sorted by expert id
-with per-expert ``group_sizes``; no capacity bins.  ``make_group_metadata``
-maps the static visit axis ``ceil(N/bm) + E - 1`` onto the ragged
-(expert, m-tile) work list, on the device and without a host sync: an
-m-tile whose rows belong to one expert is visited once, a tile straddling a
-group boundary once per group, and an empty expert not at all.
+with per-expert ``group_sizes``; no capacity bins.  Both products
+(``fused_gate_up`` and ``ragged_gmm``, the two launches of
+``ragged_moe_ffn``) run one of two bodies on the card, by element type
+(``_route``):
 
-Both products in bf16 (``fused_gate_up`` and ``ragged_gmm``, the two
-launches of ``ragged_moe_ffn``) take the TMA + wgmma kernel
-(``csrc/ragged_sm90.cuh``) whenever TMA can address their operands
-(``_route``): its work items are expert-aligned, (expert, row chunk of 64
-rows, column tile), built inside the kernel from ``group_sizes``, so
-an expert's weights are read once per chunk of its rows rather than once per
-row tile its rows touch, and the wrapper builds no list: the bf16 expert
-FFN is two launches that read ``group_sizes`` on the device.
-``expert_chunks`` computes the same list on the host for tests and
-reports; nothing on the kernel's path calls it.  Other bf16 shapes keep the
-WMMA kernels, fp32 the CUDA-core ones, both on ``make_group_metadata``'s
-visit list.
+  * ``"sm90"``, every bf16 call: the TMA + wgmma kernel
+    (``csrc/ragged_sm90.cuh``).  Its work items are expert-aligned,
+    (expert, row chunk of 64 rows, column tile), built inside the kernel
+    from ``group_sizes``, so an expert's weights are read once per chunk of
+    its rows rather than once per row tile its rows touch, and the wrapper
+    builds no list: the bf16 expert FFN is two launches that read
+    ``group_sizes`` on the device.  Its producer loads the tiles by TMA
+    where TMA can address the operands (K and F multiples of 8, 16-byte
+    aligned bases) and stages them by ``cp.async`` into the same layout
+    otherwise (``LAST_PRODUCER``: ``"tma"`` or ``"staged"``); more than 512
+    experts take one launch a window of 512.
+  * ``"simt90"``, every fp32 call: the CUDA-core body of ``ragged_gmm.cu``
+    on the same kind of items (chunks of 64 rows), a ring of weight tiles
+    filled by ``cp.async`` and x through registers, 16-byte copies where
+    aligned and 4-byte ones otherwise.
+
+``bm`` is the reference's row-tile argument (16, 64, its default 128, ...).
+The bodies' chunks do not depend on it: it changes nothing here, on the
+card or on the CPU, and no value of it makes a call raise.
+``make_group_metadata`` (the reference's row-tile-aligned visit list) and
+``expert_chunks`` (the bf16 body's chunks, computed on the host) serve
+tests and reports; nothing on a kernel's path calls them.
 
 The groups may cover fewer than N rows (``sum(group_sizes) <= N``, the
-expert-parallel receive buffer of ``distributed/collectives.py``): no route
-launches a tile or a visit for the rows past the last group, nor stores
-into them.  The TMA kernel's 64-row box of a chunk reads up to 63 rows
-past its expert's end (the next expert's rows, or these), multiplies them
-and never stores them, as at any group boundary.
+expert-parallel receive buffer of ``distributed/collectives.py``): no body
+launches an item for the rows past the last group, nor stores into them.
+The bf16 body's 64-row box of a chunk reads up to 63 rows past its
+expert's end (the next expert's rows, or these), multiplies them and never
+stores them, as at any group boundary; the fp32 body never reads them.
 
 Each wrapper takes the plain PyTorch version (``ref.py``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
-the two.  On the meta device (the dry-run, ``launch/dryrun.py``) it
-launches nothing: it records its kernel's work in the active step
-counters (``launch/costs.record_kernel``) and returns an empty result of
-its shape; its group sizes must then hold values (a stated routing,
-``launch/costs.stated_group_sizes``).  ``LAUNCHES`` counts kernel
-launches per kernel, so a run can show that its main path went through
-them; ``LAST_ROUTE`` holds the kernel the last launch of each ran, as its
-launcher reported it (``"sm90"``, ``"wmma"`` or ``"simt"``).
+the two, nor between the bodies: a call the body refuses raises.  On the
+meta device (the dry-run, ``launch/dryrun.py``) it launches nothing: it
+records its kernel's work in the active step counters
+(``launch/costs.record_kernel``) and returns an empty result of its shape;
+its group sizes must then hold values (a stated routing,
+``launch/costs.stated_group_sizes``).  ``LAUNCHES`` counts kernel launches
+per kernel, so a run can show that its main path went through them;
+``LAST_ROUTE`` holds the body the last launch of each ran, as its
+launcher reported it (``"sm90"`` or ``"simt90"``), and ``ROUTE_LAUNCHES``
+tallies launches by (kernel, route).
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -56,19 +68,25 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ragged_gmm.cu"
 
 # kernel launches since the last reset, by kernel
 LAUNCHES = {"fused_gate_up": 0, "ragged_gmm": 0}
-# the kernel the last launch of each ran, as its launcher reported it
+# the body the last launch of each ran, as its launcher reported it, and the
+# bf16 body's producer ("tma" or "staged"; None after an fp32 launch)
 LAST_ROUTE = {"fused_gate_up": None, "ragged_gmm": None}
-_ROUTES = ("sm90", "wmma", "simt")   # the launchers' kernel codes
-_SM90_MAX_EXPERTS = 512              # the TMA kernel's shared tables
+LAST_PRODUCER = {"fused_gate_up": None, "ragged_gmm": None}
+# launches since the last reset by (kernel, route)
+ROUTE_LAUNCHES: Counter = Counter()
+# the two bodies, and the bf16 body's producers, by the launcher's code
+# (0: sm90 with TMA, 1: sm90 staged, 2: simt90)
+_ROUTES = ("sm90", "simt90")
+_PRODUCERS = ("tma", "staged", None)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _ACTS = {"silu": 0, "gelu": 1}
-_MAX_GRID_Y = 65535
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 class GroupMetadata(NamedTuple):
@@ -126,31 +144,18 @@ def expert_chunks(group_sizes: torch.Tensor, bm: int) -> torch.Tensor:
     return torch.stack([e, row0, torch.minimum(row0 + bm, ends[e])], 1)
 
 
-def _row_tile(n_rows: int, n_experts: int) -> int:
-    """16-row tiles when experts hold few rows each (decode/verify), else
-    64: the kernels' two instantiations."""
-    return 16 if n_rows <= 32 * n_experts else 64
-
-
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_gate_up_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
-                                             i, i, i, i, p, ctypes.POINTER(i)]
-        lib.ragged_gmm_launch.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i,
-                                          i, p, ctypes.POINTER(i)]
-        lib.ragged_gmm_sm90_launch.argtypes = [p, p, p, p, i, i, i, i, p,
-                                               ctypes.POINTER(i)]
-        lib.fused_gate_up_sm90_launch.argtypes = [i, p, p, p, p, p, i, i, i,
-                                                  i, p, ctypes.POINTER(i)]
+        lib.ragged_launch.argtypes = [i, i, i, p, p, p, p, p, i, i, i, i, p,
+                                      ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.ragged_sm90_tile_cols.argtypes = [i]
-        lib.fused_gate_up_launch.restype = i
-        lib.ragged_gmm_launch.restype = i
-        lib.ragged_gmm_sm90_launch.restype = i
-        lib.fused_gate_up_sm90_launch.restype = i
-        lib.ragged_sm90_chunk_rows.restype = i
-        lib.ragged_sm90_tile_cols.restype = i
+        lib.ragged_simt90_tile_cols.argtypes = [i]
+        lib.ragged_launch.restype = i
+        for fn in (lib.ragged_sm90_chunk_rows, lib.ragged_sm90_tile_cols,
+                   lib.ragged_simt90_chunk_rows, lib.ragged_simt90_tile_cols):
+            fn.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -173,125 +178,69 @@ def _check(xs: torch.Tensor, ws, group_sizes: torch.Tensor) -> None:
         raise ValueError(f"group_sizes must be ({E},) on {xs.device}")
 
 
-def _vec_ok(K: int, F: int, tensors) -> bool:
-    """Whether every 16-byte chunk the kernels load is aligned."""
-    vec = 16 // tensors[0].element_size()
-    return (K % vec == 0 and F % vec == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors))
-
-
 def _route(xs: torch.Tensor, w, bm: Optional[int] = None) -> str:
-    """The kernel a launch takes, for ``w`` the weight of ``ragged_gmm`` or
-    the tuple (gate, up) of ``fused_gate_up``: ``"simt"`` for fp32; for
-    bf16 ``"sm90"`` when TMA can address x and every weight (row pitches
-    multiples of 16 bytes, 16-byte aligned bases), there are at most 512
-    experts and ``bm`` is None or 64 (its chunk rows); else ``"wmma"``
-    (``bm`` 16 asks for it)."""
-    if xs.dtype == torch.float32:
-        return "simt"
+    """The body a launch takes, for ``w`` the weight of ``ragged_gmm`` or
+    the tuple (gate, up) of ``fused_gate_up``: ``"sm90"`` for bf16 (at any
+    shape, base and number of experts), ``"simt90"`` for fp32.  ``bm`` (the
+    reference's row tile) does not enter."""
+    return "simt90" if xs.dtype == torch.float32 else "sm90"
+
+
+def _tma_ok(xs: torch.Tensor, w) -> bool:
+    """Whether the bf16 body's producer loads this call's tiles by TMA (K
+    and F multiples of 8, x and every weight 16-byte aligned; the output,
+    a new tensor, always is) rather than staging them."""
     ws = (w,) if isinstance(w, torch.Tensor) else tuple(w)
-    E, K, F = ws[0].shape
-    if (bm in (None, 64) and E <= _SM90_MAX_EXPERTS
-            and K % 8 == 0 and F % 8 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (xs, *ws))):
-        return "sm90"
-    return "wmma"
+    _, K, F = ws[0].shape
+    return (K % 8 == 0 and F % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (xs, *ws)))
 
 
 def sm90_chunk_rows() -> int:
-    """Rows of one expert chunk of the TMA kernel, as its library says
+    """Rows of one expert chunk of the bf16 body, as its library says
     (needs the built library)."""
     return _lib().ragged_sm90_chunk_rows()
 
 
 def sm90_tile_cols(n_mat: int) -> int:
-    """Output columns of one item of the TMA kernel: ``n_mat`` 1 for the
+    """Output columns of one item of the bf16 body: ``n_mat`` 1 for the
     down product, 2 for the fused gate/up (needs the built library)."""
     return _lib().ragged_sm90_tile_cols(n_mat)
 
 
-def _plan(xs: torch.Tensor, E: int, group_sizes: torch.Tensor,
-          bm: Optional[int]):
-    N = xs.shape[0]
-    bm = _row_tile(N, E) if bm is None else bm
-    if bm not in (16, 64):
-        raise ValueError(f"the kernels are built for bm in (16, 64), got {bm}")
-    n_pad = -(-N // bm) * bm
-    if n_pad // bm + E - 1 > _MAX_GRID_Y:
-        raise ValueError(f"{N} rows over {E} experts exceed the grid")
-    return make_group_metadata(group_sizes, n_pad, bm), bm
+def simt90_chunk_rows() -> int:
+    """Rows of one expert chunk of the fp32 body (needs the library)."""
+    return _lib().ragged_simt90_chunk_rows()
 
 
-def _launch_fused(xs, w_gate, w_up, meta: GroupMetadata, bm: int,
-                  activation: str) -> torch.Tensor:
-    N, K = xs.shape
-    F = w_gate.shape[2]
-    out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
-    kernel = ctypes.c_int(-1)
-    with torch.cuda.device(xs.device):
-        status = _lib().fused_gate_up_launch(
-            _DTYPES[xs.dtype], bm, _ACTS[activation], xs.data_ptr(),
-            w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(),
-            meta.group_offsets.data_ptr(), meta.group_ids.data_ptr(),
-            meta.m_tile_ids.data_ptr(), meta.num_visits.data_ptr(), K, F,
-            meta.group_ids.shape[0], int(_vec_ok(K, F, (xs, w_gate, w_up, out))),
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
-    build.check(status, "fused_gate_up")
-    LAUNCHES["fused_gate_up"] += 1
-    LAST_ROUTE["fused_gate_up"] = _ROUTES[kernel.value]
-    return out
+def simt90_tile_cols(n_mat: int) -> int:
+    """Output columns of one item of the fp32 body, as ``sm90_tile_cols``."""
+    return _lib().ragged_simt90_tile_cols(n_mat)
 
 
-def _launch_fused_sm90(xs, w_gate, w_up, group_sizes: torch.Tensor,
-                       activation: str) -> torch.Tensor:
-    N, K = xs.shape
-    E, _, F = w_gate.shape
-    sizes = group_sizes.to(torch.int32).contiguous()   # no-op when it is
-    out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
-    kernel = ctypes.c_int(-1)
-    with torch.cuda.device(xs.device):
-        status = _lib().fused_gate_up_sm90_launch(
-            _ACTS[activation], xs.data_ptr(), w_gate.data_ptr(),
-            w_up.data_ptr(), out.data_ptr(), sizes.data_ptr(), N, K, F, E,
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
-    build.check(status, "fused_gate_up")
-    LAUNCHES["fused_gate_up"] += 1
-    LAST_ROUTE["fused_gate_up"] = _ROUTES[kernel.value]
-    return out
-
-
-def _launch_ragged(xs, w, meta: GroupMetadata, bm: int) -> torch.Tensor:
-    N, K = xs.shape
-    F = w.shape[2]
-    out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
-    kernel = ctypes.c_int(-1)
-    with torch.cuda.device(xs.device):
-        status = _lib().ragged_gmm_launch(
-            _DTYPES[xs.dtype], bm, xs.data_ptr(), w.data_ptr(), out.data_ptr(),
-            meta.group_offsets.data_ptr(), meta.group_ids.data_ptr(),
-            meta.m_tile_ids.data_ptr(), meta.num_visits.data_ptr(), K, F,
-            meta.group_ids.shape[0], int(_vec_ok(K, F, (xs, w, out))),
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
-    build.check(status, "ragged_gmm")
-    LAUNCHES["ragged_gmm"] += 1
-    LAST_ROUTE["ragged_gmm"] = _ROUTES[kernel.value]
-    return out
-
-
-def _launch_ragged_sm90(xs, w, group_sizes: torch.Tensor) -> torch.Tensor:
+def _launch(name: str, xs: torch.Tensor, w: torch.Tensor,
+            u: Optional[torch.Tensor], group_sizes: torch.Tensor,
+            activation: str = "silu") -> torch.Tensor:
+    """One call of ``ragged_launch``: the down product (``u`` None) or the
+    fused gate/up (``w`` the gate weight, ``u`` the up weight)."""
     N, K = xs.shape
     E, _, F = w.shape
     sizes = group_sizes.to(torch.int32).contiguous()   # no-op when it is
     out = torch.empty((N, F), dtype=xs.dtype, device=xs.device)
-    kernel = ctypes.c_int(-1)
+    body, launches = ctypes.c_int(-1), ctypes.c_int(0)
     with torch.cuda.device(xs.device):
-        status = _lib().ragged_gmm_sm90_launch(
-            xs.data_ptr(), w.data_ptr(), out.data_ptr(),
-            sizes.data_ptr(), N, K, F, E,
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
-    build.check(status, "ragged_gmm")
-    LAUNCHES["ragged_gmm"] += 1
-    LAST_ROUTE["ragged_gmm"] = _ROUTES[kernel.value]
+        status = _lib().ragged_launch(
+            _DTYPES[xs.dtype], 1 if u is None else 2, _ACTS[activation],
+            xs.data_ptr(), w.data_ptr(), (w if u is None else u).data_ptr(),
+            out.data_ptr(), sizes.data_ptr(), N, K, F, E,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(body),
+            ctypes.byref(launches))
+    build.check(status, name)
+    route = _ROUTES[body.value // 2]
+    LAUNCHES[name] += launches.value
+    LAST_ROUTE[name] = route
+    LAST_PRODUCER[name] = _PRODUCERS[body.value]
+    ROUTE_LAUNCHES[name, route] += launches.value
     return out
 
 
@@ -332,10 +281,9 @@ def ragged_gmm(xs: torch.Tensor,            # (N, D) tokens sorted by expert
                *, bm: Optional[int] = None) -> torch.Tensor:   # (N, F)
     """``xs[n] @ w[e(n)]`` with fp32 accumulation, cast to ``xs.dtype``.
     ``group_sizes`` sums to at most N; the rows past the last group are
-    left unwritten (the plain version zeroes them).  ``bm`` (16 or 64)
-    overrides the row tile, which is otherwise 64 rows for the TMA kernel
-    and chosen from the rows per expert for the visit-list kernels; 16
-    takes the WMMA kernel in bf16."""
+    left unwritten (the plain version zeroes them).  ``bm`` is the
+    reference's row tile and changes nothing: every bf16 call takes the
+    ``sm90`` body (64-row expert chunks), every fp32 call ``simt90``."""
     refuse_autograd("ragged_gmm", xs, w)
     if xs.is_meta:
         return _counted(xs, (w,), group_sizes)
@@ -344,10 +292,7 @@ def ragged_gmm(xs: torch.Tensor,            # (N, D) tokens sorted by expert
     _check(xs, (w,), group_sizes)
     if xs.shape[0] == 0:
         return xs.new_empty((0, w.shape[2]))
-    if _route(xs, w, bm) == "sm90":
-        return _launch_ragged_sm90(xs, w, group_sizes)
-    meta, bm = _plan(xs, w.shape[0], group_sizes, bm)
-    return _launch_ragged(xs, w, meta, bm)
+    return _launch("ragged_gmm", xs, w, None, group_sizes)
 
 
 def fused_gate_up(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -365,10 +310,8 @@ def fused_gate_up(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     _check(xs, (w_gate, w_up), group_sizes)
     if xs.shape[0] == 0:
         return xs.new_empty((0, w_gate.shape[2]))
-    if _route(xs, (w_gate, w_up), bm) == "sm90":
-        return _launch_fused_sm90(xs, w_gate, w_up, group_sizes, activation)
-    meta, bm = _plan(xs, w_gate.shape[0], group_sizes, bm)
-    return _launch_fused(xs, w_gate, w_up, meta, bm, activation)
+    return _launch("fused_gate_up", xs, w_gate, w_up, group_sizes,
+                   activation)
 
 
 def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
@@ -378,9 +321,10 @@ def ragged_moe_ffn(xs: torch.Tensor,         # (N, D) tokens sorted by expert
                    bm: Optional[int] = None) -> torch.Tensor:
     """Whole expert FFN on expert-sorted tokens in 2 launches:
     ``fused_gate_up``, then ``ragged_gmm`` of its ``h``, which is rounded to
-    the input dtype between the launches, as in the reference.  On the bf16
-    TMA route (``_route``) nothing else runs: each kernel builds its work
-    list from ``group_sizes``; the visit-list kernels build theirs each."""
+    the input dtype between the launches, as in the reference.  Nothing
+    else runs: each body builds its work list from ``group_sizes`` on the
+    device.  ``bm`` (the reference's row tile, 128 by default there)
+    changes nothing on the card or on the CPU."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(_ACTS)}")
     refuse_autograd("ragged_moe_ffn", xs, w_gate, w_up, w_down)

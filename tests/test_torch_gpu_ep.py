@@ -49,18 +49,25 @@ TRAILING = [([5, 0, 11], 24), ([37, 0, 1, 129, 0, 77, 13, 200], 600),
 
 
 @pytest.mark.parametrize("sizes,n", TRAILING)
-@pytest.mark.parametrize("dtype,bm,route", [
-    (torch.bfloat16, None, "sm90"), (torch.bfloat16, 16, "wmma"),
-    (torch.float32, None, "simt")])
-def test_trailing_rows_on_every_route(cuda, sizes, n, dtype, bm, route):
-    """sum(group_sizes) < N on each route: the real rows equal the plain
-    version's, and NaN in the rows past the groups reaches no real row
-    (no tile or visit is launched for them, nothing reads them into a
+@pytest.mark.parametrize("dtype,bm,x_offset,route", [
+    (torch.bfloat16, None, 0, "sm90"), (torch.bfloat16, 16, 0, "sm90"),
+    (torch.bfloat16, 128, 1, "sm90"),             # the staged producer
+    (torch.float32, None, 0, "simt90"), (torch.float32, 16, 1, "simt90")])
+def test_trailing_rows_on_every_route(cuda, sizes, n, dtype, bm, x_offset,
+                                      route):
+    """sum(group_sizes) < N on each body (and the bf16 body's staged
+    producer, x one element off 16 bytes), whatever ``bm``: the real rows
+    equal the plain version's, and NaN in the rows past the groups reaches
+    no real row (no item is launched for them, nothing reads them into a
     stored row)."""
     g = torch.Generator(device=cuda).manual_seed(len(sizes) + n)
     E, D, F, real = len(sizes), 128, 256, int(sum(sizes))
     xs = torch.randn((n, D), generator=g, device=cuda).to(dtype)
     xs[real:] = float("nan")
+    if x_offset:
+        buf = torch.empty((xs.numel() + x_offset,), dtype=dtype, device=cuda)
+        buf[x_offset:].copy_(xs.reshape(-1))
+        xs = buf[x_offset:].view(xs.shape)
     wg, wu = ((torch.randn((E, D, F), generator=g, device=cuda)
                / D ** 0.5).to(dtype) for _ in range(2))
     wd = (torch.randn((E, F, D), generator=g, device=cuda) / F ** 0.5).to(dtype)

@@ -63,18 +63,134 @@ def _close(out, ref, dtype):
 
 @pytest.mark.parametrize("sizes", GROUP_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bm", [16, 64])
+@pytest.mark.parametrize("bm", [None, 16, 64, 128])
 def test_ragged_gmm_kernel_matches_plain(cuda, sizes, dtype, bm):
-    """fp32 runs the CUDA-core kernel; bf16 the WMMA kernel at 16-row tiles
-    (only it has them) and the TMA + wgmma kernel at 64-row chunks."""
+    """fp32 runs the CUDA-core body (simt90), bf16 the TMA + wgmma body
+    with its TMA producer, whatever row tile ``bm`` names (the reference's
+    argument; 128 is its default)."""
     sizes, xs, (w, _) = _case(sizes, 64, 96, dtype, cuda)
     before = ragged.LAUNCHES["ragged_gmm"]
     out = ragged.ragged_gmm(xs, w, sizes, bm=bm)
     torch.cuda.synchronize()
     assert ragged.LAUNCHES["ragged_gmm"] == before + 1
-    assert ragged.LAST_ROUTE["ragged_gmm"] == (
-        "simt" if dtype == torch.float32 else "wmma" if bm == 16 else "sm90")
+    fp32 = dtype == torch.float32
+    assert ragged.LAST_ROUTE["ragged_gmm"] == ("simt90" if fp32 else "sm90")
+    assert ragged.LAST_PRODUCER["ragged_gmm"] == (None if fp32 else "tma")
     _close(out, ragged_gmm_ref(xs, w, sizes), dtype)
+
+
+def _offset(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous copy of t whose base lies ``elems`` elements past a
+    16-byte boundary."""
+    buf = torch.empty((t.numel() + elems,), dtype=t.dtype, device=t.device)
+    buf[elems:].copy_(t.reshape(-1))
+    return buf[elems:].view(t.shape)
+
+
+# operands TMA cannot address: (what, K, F) -- x, the weight (w_gate of the
+# fused product) or w_up alone one element off 16 bytes; K 36 (x's row
+# pitch 72 bytes); F 100 (the weights' and the output's pitch 200 bytes);
+# several K steps and column tiles (K 256, 200; F 320, 256), the operands
+# TMA can address still loaded by TMA beside the staged one.
+STAGED_CASES = [("x", 64, 96), ("w", 64, 96), ("w_up", 64, 96),
+                ("none", 36, 96), ("none", 64, 100), ("x", 256, 192),
+                ("w", 256, 320), ("w_up", 200, 256)]
+
+
+def _unaligned(what, xs, ws):
+    if what == "x":
+        return _offset(xs, 1), ws
+    if what == "w":
+        return xs, [_offset(ws[0], 1), ws[1]]
+    if what == "w_up":
+        return xs, [ws[0], _offset(ws[1], 1)]
+    return xs, ws
+
+
+@pytest.mark.parametrize("sizes", GROUP_CASES)
+@pytest.mark.parametrize("what,K,F", STAGED_CASES)
+@pytest.mark.parametrize("product", ["down", "silu", "gelu"])
+def test_ragged_staged_producer_matches_plain(cuda, sizes, what, K, F,
+                                              product):
+    """bf16 operands TMA cannot address run the sm90 body with its staged
+    producer (cp.async into the swizzled tiles; 2-byte offsets through
+    aligned words), held at the bf16 bound."""
+    sizes, xs, ws = _case(sizes, K, F, torch.bfloat16, cuda, seed=K + F)
+    xs, ws = _unaligned(what, xs, ws)
+    name = "ragged_gmm" if product == "down" else "fused_gate_up"
+    if product == "down":
+        out = ragged.ragged_gmm(xs, ws[0], sizes)
+        ref = ragged_gmm_ref(xs, ws[0], sizes)
+    else:
+        out = ragged.fused_gate_up(xs, ws[0], ws[1], sizes,
+                                   activation=product)
+        ref = fused_gate_up_ref(xs, ws[0], ws[1], sizes, product)
+    torch.cuda.synchronize()
+    assert ragged.LAST_ROUTE[name] == "sm90"
+    assert ragged.LAST_PRODUCER[name] == (
+        "tma" if what == "w_up" and product == "down" else "staged")
+    _close(out, ref, torch.bfloat16)
+
+
+# fp32 operands: aligned; x's row pitch 280 bytes (K 70); x 4 bytes off
+# 16; the weights 4 bytes off; F 100 (pitch 400 bytes: 16-byte pieces of
+# the output and weights aligned only every fourth row)
+F32_CASES = [("none", 64, 96), ("none", 70, 96), ("x", 64, 96),
+             ("w", 64, 96), ("w_up", 64, 96), ("none", 64, 100),
+             ("none", 70, 130)]
+
+
+@pytest.mark.parametrize("sizes", GROUP_CASES)
+@pytest.mark.parametrize("what,K,F", F32_CASES)
+@pytest.mark.parametrize("product", ["down", "silu", "gelu"])
+def test_ragged_fp32_body_matches_plain(cuda, sizes, what, K, F, product):
+    """Every fp32 call runs the simt90 body (16-byte copies where aligned,
+    4-byte ones otherwise), at 1e-4 with TF32 off."""
+    sizes, xs, ws = _case(sizes, K, F, torch.float32, cuda, seed=K * F)
+    xs, ws = _unaligned(what, xs, ws)
+    name = "ragged_gmm" if product == "down" else "fused_gate_up"
+    if product == "down":
+        out = ragged.ragged_gmm(xs, ws[0], sizes)
+        ref = ragged_gmm_ref(xs, ws[0], sizes)
+    else:
+        out = ragged.fused_gate_up(xs, ws[0], ws[1], sizes,
+                                   activation=product)
+        ref = fused_gate_up_ref(xs, ws[0], ws[1], sizes, product)
+    torch.cuda.synchronize()
+    assert ragged.LAST_ROUTE[name] == "simt90"
+    _close(out, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ragged_many_experts(cuda, dtype, offset):
+    """600 experts, most empty: the bf16 body launches once per window of
+    512 experts (the second launch sums the rows before its window), fp32
+    once; both products match the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(600 + offset)
+    E, D, F = 600, 64, 96
+    sizes = torch.zeros((E,), dtype=torch.int32, device=cuda)
+    hit = torch.randperm(E, generator=g, device=cuda)[:120]
+    sizes[hit] = torch.randint(1, 80, (120,), generator=g, device=cuda,
+                               dtype=torch.int32)
+    sizes[E - 1] = 70                          # rows in the last window
+    N = int(sizes.sum())
+    xs = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    wg, wu = ((torch.randn((E, D, F), generator=g, device=cuda) / D ** 0.5)
+              .to(dtype) for _ in range(2))
+    if offset:
+        xs = _offset(xs, offset)
+    windows = -(-E // 512) if dtype == torch.bfloat16 else 1
+    before = dict(ragged.LAUNCHES)
+    z = ragged.ragged_gmm(xs, wg, sizes)
+    h = ragged.fused_gate_up(xs, wg, wu, sizes)
+    torch.cuda.synchronize()
+    assert {k: ragged.LAUNCHES[k] - before[k] for k in before} == {
+        "fused_gate_up": windows, "ragged_gmm": windows}
+    assert ragged.LAST_ROUTE["ragged_gmm"] == (
+        "sm90" if dtype == torch.bfloat16 else "simt90")
+    _close(z, ragged_gmm_ref(xs, wg, sizes), dtype)
+    _close(h, fused_gate_up_ref(xs, wg, wu, sizes), dtype)
 
 
 @pytest.mark.parametrize("sizes", GROUP_CASES + [[0] * 5 + [129] + [0] * 2])
@@ -120,7 +236,7 @@ def test_ragged_gmm_sm90_at_serving_widths(cuda, tokens):
     bm = ragged.sm90_chunk_rows()
     n_chunks = len(ragged.expert_chunks(sizes, bm))
     assert bm == 64 and n_chunks == int(((sizes + bm - 1) // bm).sum())
-    meta, _ = ragged._plan(h, E, sizes, bm)
+    meta = ragged.make_group_metadata(sizes, -(-h.shape[0] // bm) * bm, bm)
     assert n_chunks <= int(meta.num_visits[0])
 
 

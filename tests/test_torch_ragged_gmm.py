@@ -137,11 +137,45 @@ def test_visits_scale_with_routed_rows_not_capacity_bins():
                                       bm).num_visits[0]) == 1
 
 
-def test_row_tile_follows_rows_per_expert():
-    """Verify-sized routing (320 rows on 64 experts) takes 16-row tiles,
-    prefill-sized (4096 rows) 64-row tiles."""
-    assert tr._row_tile(320, 64) == 16
-    assert tr._row_tile(4096, 64) == 64
+@pytest.mark.parametrize("bm", [16, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bm_changes_nothing_against_reference(bm, dtype):
+    """``bm`` is the reference's row tile: the reference's kernel at that
+    tile (interpret mode) and the port's call with it give the same
+    expert FFN, and the port's call equals its call without it."""
+    sizes, xs, wg, wu = _case([37, 0, 1, 129, 0, 77, 13, 200], D=64, F=96)
+    wd = (np.random.default_rng(5).standard_normal((len(sizes), 96, 64))
+          / np.sqrt(96)).astype(np.float32)
+    (jx, tx), (jg, tg), (ju, tu), (jd, td) = (both(a, dtype)
+                                              for a in (xs, wg, wu, wd))
+    js, ts = both(sizes)
+    out = tr.ragged_moe_ffn(tx, tg, tu, td, ts, bm=bm)
+    assert torch.equal(out, tr.ragged_moe_ffn(tx, tg, tu, td, ts))
+    tol = 2e-4 if dtype == "float32" else TOL[dtype]
+    _close(out, jr.ragged_moe_ffn(jx, jg, ju, jd, js, bm=bm,
+                                  interpret=True), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_many_experts_match_reference(dtype):
+    """600 experts (more than one launch window of the bf16 body), most
+    empty, at narrow widths: the plain versions against the reference's
+    oracles."""
+    rng = np.random.default_rng(600)
+    E, D, F = 600, 16, 24
+    sizes = np.zeros(E, np.int32)
+    hit = rng.choice(E, 90, replace=False)
+    sizes[hit] = rng.integers(1, 9, 90)
+    N = int(sizes.sum())
+    xs = rng.standard_normal((N, D)).astype(np.float32)
+    wg, wu = ((rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+              for _ in range(2))
+    (jx, tx), (jg, tg), (ju, tu) = both(xs, dtype), both(wg, dtype), both(wu, dtype)
+    js, ts = both(sizes)
+    _close(tr.ragged_gmm(tx, tg, ts), jref.ragged_gmm_ref(jx, jg, js),
+           TOL[dtype])
+    _close(tr.fused_gate_up(tx, tg, tu, ts, activation="gelu"),
+           jref.fused_gate_up_ref(jx, jg, ju, js, "gelu"), TOL[dtype])
 
 
 # serve-like routings (top-8 of 64 experts) besides GROUP_CASES
@@ -195,21 +229,24 @@ def test_expert_chunks_never_exceed_visits(sizes, bm):
     assert int(meta.num_visits[0]) - n_chunks == crossing
 
 
-@pytest.mark.parametrize("dtype,K,F,bm,route", [
-    (torch.float32, 64, 96, None, "simt"),
-    (torch.bfloat16, 64, 96, None, "sm90"),
-    (torch.bfloat16, 64, 96, 64, "sm90"),
-    (torch.bfloat16, 64, 96, 128, "wmma"),         # no 128-row chunks
-    (torch.bfloat16, 64, 96, 16, "wmma"),          # 16-row tiles: WMMA only
-    (torch.bfloat16, 36, 96, None, "wmma"),        # row pitch of 72 bytes
-    (torch.bfloat16, 64, 100, None, "wmma"),       # F not a multiple of 8
+@pytest.mark.parametrize("dtype,K,F,bm,route,tma", [
+    (torch.float32, 64, 96, None, "simt90", True),
+    (torch.float32, 70, 96, None, "simt90", False),   # row pitch of 280 bytes
+    (torch.bfloat16, 64, 96, None, "sm90", True),
+    (torch.bfloat16, 64, 96, 64, "sm90", True),
+    (torch.bfloat16, 64, 96, 128, "sm90", True),     # the reference's default
+    (torch.bfloat16, 64, 96, 16, "sm90", True),      # bm picks no body
+    (torch.bfloat16, 36, 96, None, "sm90", False),   # row pitch of 72 bytes
+    (torch.bfloat16, 64, 100, None, "sm90", False),  # F not a multiple of 8
 ])
-def test_route_picks_the_down_kernel(dtype, K, F, bm, route):
+def test_route_picks_the_down_kernel(dtype, K, F, bm, route, tma):
     """``_route``'s dispatch (the launchers report what they ran on the
-    card; the CPU runs neither)."""
+    card; the CPU runs neither): one body per element type, the bf16
+    body's producer by TMA where TMA can address x and the weight."""
     xs = torch.zeros((10, K), dtype=dtype)
     w = torch.zeros((3, K, F), dtype=dtype)
     assert tr._route(xs, w, bm) == route
+    assert tr._tma_ok(xs, w) == tma
 
 
 def _offset_by_one(shape, dtype):
@@ -218,19 +255,20 @@ def _offset_by_one(shape, dtype):
     return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
 
 
-@pytest.mark.parametrize("dtype,K,F,bm,up_offset,route", [
-    (torch.float32, 64, 96, None, False, "simt"),
-    (torch.bfloat16, 64, 96, None, False, "sm90"),
-    (torch.bfloat16, 64, 96, 64, False, "sm90"),
-    (torch.bfloat16, 64, 96, 16, False, "wmma"),   # 16-row tiles: WMMA only
-    (torch.bfloat16, 64, 96, 128, False, "wmma"),  # no 128-row chunks
-    (torch.bfloat16, 36, 96, None, False, "wmma"),  # row pitch of 72 bytes
-    (torch.bfloat16, 64, 100, None, False, "wmma"),  # F not a multiple of 8
-    (torch.bfloat16, 64, 96, None, True, "wmma"),  # w_up alone misaligned
+@pytest.mark.parametrize("dtype,K,F,bm,up_offset,route,tma", [
+    (torch.float32, 64, 96, None, False, "simt90", True),
+    (torch.float32, 64, 96, None, True, "simt90", False),
+    (torch.bfloat16, 64, 96, None, False, "sm90", True),
+    (torch.bfloat16, 64, 96, 64, False, "sm90", True),
+    (torch.bfloat16, 64, 96, 16, False, "sm90", True),   # bm picks no body
+    (torch.bfloat16, 64, 96, 128, False, "sm90", True),  # the reference's default
+    (torch.bfloat16, 36, 96, None, False, "sm90", False),  # row pitch of 72 bytes
+    (torch.bfloat16, 64, 100, None, False, "sm90", False),  # F not a multiple of 8
+    (torch.bfloat16, 64, 96, None, True, "sm90", False),  # w_up alone misaligned
 ])
-def test_route_picks_the_fused_kernel(dtype, K, F, bm, up_offset, route):
-    """``_route`` over both weights of the fused gate/up product: TMA must
-    address x, w_gate and w_up, each checked on its own."""
+def test_route_picks_the_fused_kernel(dtype, K, F, bm, up_offset, route, tma):
+    """``_route`` over both weights of the fused gate/up product, and
+    whether TMA addresses x, w_gate and w_up, each checked on its own."""
     xs = torch.zeros((10, K), dtype=dtype)
     wg = torch.zeros((3, K, F), dtype=dtype)
     wu = (_offset_by_one((3, K, F), dtype) if up_offset
@@ -238,5 +276,24 @@ def test_route_picks_the_fused_kernel(dtype, K, F, bm, up_offset, route):
     assert wg.data_ptr() % 16 == 0
     assert (wu.data_ptr() % 16 != 0) == up_offset
     assert tr._route(xs, (wg, wu), bm) == route
-    # the gate weight alone: only the misaligned w_up kept it off sm90
-    assert tr._route(xs, wg, bm) == ("sm90" if up_offset else route)
+    assert tr._tma_ok(xs, (wg, wu)) == tma
+    # the gate weight alone: only the misaligned w_up kept TMA off
+    assert tr._route(xs, wg, bm) == route
+    assert tr._tma_ok(xs, wg) == (True if up_offset else tma)
+
+
+@pytest.mark.parametrize("bm", [None, 16, 64, 128])
+@pytest.mark.parametrize("E", [3, 600])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_offset", [False, True])
+def test_route_ignores_bm_experts_and_alignment(bm, E, dtype, x_offset):
+    """Every bf16 call takes sm90 and every fp32 call simt90, whatever the
+    row tile the caller names, the number of experts (600 is two windows
+    of the bf16 body) and x's base (one element off 16 bytes: the bf16
+    producer then stages)."""
+    xs = (_offset_by_one((10, 64), dtype) if x_offset
+          else torch.zeros((10, 64), dtype=dtype))
+    w = torch.zeros((E, 64, 96), dtype=dtype)
+    assert tr._route(xs, w, bm) == ("simt90" if dtype == torch.float32
+                                    else "sm90")
+    assert tr._tma_ok(xs, w) == (not x_offset)

@@ -86,15 +86,17 @@ Phases, each of which fails the run if it fails:
          expert_capacity(40, 8, 64) = 128 and a prefill capacity
          expert_capacity(2048, 8, 64) = 512, bf16 at 2e-2 through the TMA +
          wgmma kernel, fp32 at 1e-5 through the CUDA-core one
-         (tests/test_kernels.py); x one element off 16 bytes at the
-         SD-verify capacity in both dtypes, through the element-by-element
-         bodies (bf16 WMMA, fp32 CUDA cores);
+         (tests/test_kernels.py); x or w one element off 16 bytes at the
+         SD-verify capacity in both dtypes, and x at the prefill capacity
+         in bf16: bf16 on the same body with its staged producer, fp32 on
+         the same body with 4-byte copies;
      each kernel is also timed beside one PyTorch call that computes the
      same function and that the port never calls (the yardstick), eagerly
      and on the device alone (calls captured in one CUDA graph); each
      flash, paged, ragged (fused and down) and capacity case prints the
-     kernel its launch ran (route: gmm._route, the wrapper's dispatch, for the
-     capacity GEMM; for the others the kernel their launcher reports), and
+     kernel its launch ran (route: gmm._route, the wrapper's dispatch, and
+     the producer its launcher reported, for the capacity GEMM; for the
+     others the kernel their launcher reports), and
      a bf16 case that did not run the TMA + wgmma kernel fails the run;
   4. reference: on the reduced qwen2-57b-a14b in fp32, the CUDA path agrees
      with the port's plain CPU path (which the CPU tests hold against the JAX
@@ -558,9 +560,9 @@ def build_kernels():
             "flash_f32_qreg_kernel": build.load(
                 flash_attention.SOURCE).flash_f32_smem_bytes,
             "gmm_capacity_sm90_kernel": build.load(
-                gmm.SOURCE).gmm_capacity_sm90_smem_bytes,
+                gmm.SOURCE).gmm_capacity_sm90_smem_bytes,  # (nc, bn, staged)
             "gmm_capacity_simt90_kernel": build.load(
-                gmm.SOURCE).gmm_capacity_simt90_smem_bytes,   # (rows)
+                gmm.SOURCE).gmm_capacity_simt90_smem_bytes,   # (rows, xv, wv)
             "paged_sm90_kernel": build.load(paged.SOURCE).paged_sm90_smem_bytes,
             "decode_f32_kernel": lambda d, _paged, _kg: build.load(
                 dec_ops.SOURCE).decode_f32_smem_bytes(d),  # (D, paged, KG)
@@ -591,8 +593,9 @@ def build_kernels():
                              f"{spilled}")
     want = ({("flash_sm90_kernel", (d, nc)) for d in (32, 64, 128)
              for nc in (1, 2)} | {("flash_sm90_kernel", (256, 2))}
-            | {("gmm_capacity_sm90_kernel", a)
-               for a in ((1, 128), (2, 128), (2, 256))}
+            # kernel 6's bf16 body, TMA (0) and staged (1) producers
+            | {("gmm_capacity_sm90_kernel", a + (st,))
+               for a in ((1, 128), (2, 128), (2, 256)) for st in (0, 1)}
             | {("paged_sm90_kernel", (d,)) for d in (32, 64, 128, 256)}
             | {("decode_sm90_kernel", (d,)) for d in (32, 64, 128, 256)}
             # kernels 1-2's bf16 body, TMA (0) and staged (1) producers
@@ -603,7 +606,9 @@ def build_kernels():
             # the fp32 CUDA-core bodies of kernels 5 and 6
             | {("flash_f32_kernel", (d,)) for d in (32, 64, 128)}
             | {("flash_f32_qreg_kernel", (256,))}
-            | {("gmm_capacity_simt90_kernel", (r,)) for r in (64, 128)}
+            # (x and w each in 16- or 4-byte pieces)
+            | {("gmm_capacity_simt90_kernel", (r, xv, wv)) for r in (64, 128)
+               for xv in (4, 1) for wv in (4, 1)}
             # kernels 3 and 4's fp32 split-KV body (paged 1, dense 0; key
             # groups 1, 2, 4, 8)
             | {("decode_f32_kernel", (d, pg, kg))
@@ -1519,42 +1524,49 @@ def capacity_cases() -> dict:
         "fp32_sd_verify_gate_up": ("float32", E, c_verify, D, F),
         "fp32_sd_verify_down": ("float32", E, c_verify, F, D),
         "fp32_prefill_gate_up": ("float32", E, c_prefill, D, F),
-        # x 4 bytes past a 16-byte boundary: the element-by-element body
+        # x, or w, 4 bytes past a 16-byte boundary: simt90's 4-byte copies
         "fp32_unaligned_sd_verify_gate_up": ("float32", E, c_verify, D, F),
-        # x 2 bytes past a 16-byte boundary: the bf16 WMMA body
+        "fp32_w_unaligned_sd_verify_gate_up": ("float32", E, c_verify, D, F),
+        # x, or w, 2 bytes past a 16-byte boundary: the bf16 body with its
+        # staged producer (the operand off 16 bytes by hand, the other by
+        # TMA), at C 128 and, for x, at the prefill capacity (BN 256 tile)
         "unaligned_sd_verify_gate_up": ("bfloat16", E, c_verify, D, F),
+        "w_unaligned_sd_verify_gate_up": ("bfloat16", E, c_verify, D, F),
+        "unaligned_prefill_gate_up": ("bfloat16", E, c_prefill, D, F),
     }
 
 
-# capacity cases whose x starts one element past a 16-byte boundary
-UNALIGNED_CAPACITY = ("fp32_unaligned_sd_verify_gate_up",
-                      "unaligned_sd_verify_gate_up")
+# capacity cases with an operand one element past a 16-byte boundary:
+# which operand
+UNALIGNED_CAPACITY = {"fp32_unaligned_sd_verify_gate_up": "x",
+                      "fp32_w_unaligned_sd_verify_gate_up": "w",
+                      "unaligned_sd_verify_gate_up": "x",
+                      "w_unaligned_sd_verify_gate_up": "w",
+                      "unaligned_prefill_gate_up": "x"}
 
 
-def capacity_route(case: str, dtype_name: str) -> str:
-    """The body gmm._route must pick for a capacity case: TMA + wgmma for
-    bf16, the cp.async CUDA-core body for aligned fp32; for x off 16 bytes
-    the element-by-element ones, WMMA (bf16) and CUDA-core (fp32)."""
-    if case in UNALIGNED_CAPACITY:
-        return "wmma" if dtype_name == "bfloat16" else "simt"
-    return "sm90" if dtype_name == "bfloat16" else "simt90"
+def capacity_route(case: str, dtype_name: str) -> tuple:
+    """(route, producer) the wrapper must report for a capacity case:
+    bf16 on the TMA + wgmma body, its TMA producer, or its staged one where
+    an operand is off 16 bytes; fp32 on the cp.async CUDA-core body (no
+    producer)."""
+    if dtype_name == "float32":
+        return "simt90", None
+    return "sm90", "staged" if case in UNALIGNED_CAPACITY else "tma"
 
 
 def capacity_inputs(case: str, spec: tuple, gen, dev):
     """x (E, C, in width) and w (E, in width, out width) of a capacity
-    case, x moved one element off its 16-byte base for
-    UNALIGNED_CAPACITY."""
+    case, the operand UNALIGNED_CAPACITY names moved one element off its
+    16-byte base."""
     import torch
     dtype_name, E, C, Din, Dout = spec
     dt = getattr(torch, dtype_name)
     x = torch.randn((E, C, Din), generator=gen, device=dev).to(dt)
     w = (torch.randn((E, Din, Dout), generator=gen, device=dev)
          / Din ** 0.5).to(dt)
-    if case in UNALIGNED_CAPACITY:
-        buf = torch.empty((x.numel() + 1,), dtype=dt, device=dev)
-        buf[1:].copy_(x.reshape(-1))
-        x = buf[1:].view(x.shape)
-    return x, w
+    off = UNALIGNED_CAPACITY.get(case)
+    return _offset(x, int(off == "x")), _offset(w, int(off == "w"))
 
 
 def capacity_kernel_phase(seed: int):
@@ -1572,11 +1584,13 @@ def capacity_kernel_phase(seed: int):
         dtype_name, E, C, Din, Dout = spec
         x, w = capacity_inputs(case, spec, gen, dev)
         out = gmm.gmm_capacity(x, w)
-        route = gmm.LAST_ROUTE["gmm_capacity"]    # the wrapper's dispatch
+        # the wrapper's dispatch and the producer its launcher reported
+        route = gmm.LAST_ROUTE["gmm_capacity"]
+        producer = gmm.LAST_PRODUCER["gmm_capacity"]
         want = capacity_route(case, dtype_name)
-        if route != want:
+        if (route, producer) != want:
             raise AssertionError(f"gmm_capacity [{case}]: {dtype_name} ran "
-                                 f"the {route} kernel, expected {want}")
+                                 f"{(route, producer)}, expected {want}")
         ref = gmm_capacity_ref(x, w)
         torch.cuda.synchronize()
         err = _hold("gmm_capacity", case, out, ref, GMM_TOL[dtype_name], res)
@@ -1585,11 +1599,11 @@ def capacity_kernel_phase(seed: int):
         flops = 2 * E * C * Din * Dout
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS
                               if dtype_name == "bfloat16" else FP32_FLOPS)
-        # the dynamic shared memory of the launcher's block for C rows (the
-        # element-by-element bodies' is static: None)
-        smem = (build.load(gmm.SOURCE).gmm_capacity_smem_bytes(
-                    ("sm90", "simt90").index(route), C)
-                if route in ("sm90", "simt90") else None)
+        # the dynamic shared memory of the launcher's block for C rows (x
+        # staged by hand takes wider column tiles)
+        x_staged = route == "sm90" and (Din % 8 or x.data_ptr() % 16)
+        smem = build.load(gmm.SOURCE).gmm_capacity_smem_bytes(
+            ("sm90", "simt90").index(route), C, int(bool(x_staged)))
         ms = cuda_time_ms(lambda: gmm.gmm_capacity(x, w), warmup=2, iters=10)
         plain_ms = cuda_time_ms(lambda: gmm_capacity_ref(x, w), warmup=1,
                                 iters=3)
@@ -1600,13 +1614,14 @@ def capacity_kernel_phase(seed: int):
         lib_graph_ms = (graph_time_ms(lib_fn, calls=10, iters=3) if lib_fn
                         else None)
         res["cases"][case] = dict(
-            dtype=dtype_name, route=route, E=E, C=C, K=Din, F=Dout,
+            dtype=dtype_name, route=route, producer=producer, E=E, C=C,
+            K=Din, F=Dout,
             kernel_ms=ms, kernel_graph_ms=graph_ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops,
             library_ms=lib_ms, library_graph_ms=lib_graph_ms, library=lib,
             max_abs_err=err, tol=GMM_TOL[dtype_name], smem_bytes=smem)
         log(f"kernel gmm_capacity [{case:22s}] {dtype_name} route={route} "
-            f"smem={smem} E={E} C={C} {Din}->{Dout}  {ms:.3f} ms (graph "
+            f"producer={producer} smem={smem} E={E} C={C} {Din}->{Dout}  {ms:.3f} ms (graph "
             f"{_fmt(graph_ms)})"
             f"  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})  library "
             f"{_fmt(lib_ms)} (graph {_fmt(lib_graph_ms)}; {lib})  "

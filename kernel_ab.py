@@ -24,6 +24,11 @@ timed as calls captured in one CUDA graph (``graph_time_ms``), beside the
 PyTorch call that computes the same function where there is one
 (``flash_library``: ``F.scaled_dot_product_attention``; ``torch.bmm`` with
 TF32 off; ``sdpa_gathered``, ``sdpa_dense``, ``grouped_mm_library``).
+The capacity cases with an operand off 16 bytes (chip_smoke's
+``UNALIGNED_CAPACITY``) run on a tree with the old bodies as ``"wmma"``
+(bf16) and ``"simt"`` (fp32), on one with two bodies as ``"sm90"`` with
+its staged producer and ``"simt90"``; each staged case is timed again on
+aligned copies of its operands (``capacity_case``).
 A tree whose kernel refuses a case (a head dim or page size an older body
 did not take) reports the case as refused instead of a time.  The kind
 oldgmm times the ragged kernels off the bf16 TMA route (``old_routes``:
@@ -114,13 +119,7 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
     for case, spec in chip_smoke.capacity_cases().items():
         if "gmm" not in kinds:
             continue
-        dt = getattr(torch, spec[0])
-        x, w = chip_smoke.capacity_inputs(case, spec, gen, dev)
-        emit("gmm", case, lambda: gmm.gmm_capacity(x, w),
-             gmm_capacity_ref(x, w), chip_smoke.GMM_TOL[spec[0]],
-             lambda: torch.bmm(x, w), 10 if dt == torch.bfloat16 else 3)
-        del x, w
-        torch.cuda.empty_cache()
+        capacity_case(emit, gmm, gmm_capacity_ref, case, spec, gen, dev)
     for case, spec in chip_smoke.PAGED_CASES.items():
         dtype_name, _, _, _, cap = spec
         if "paged" not in kinds:
@@ -171,6 +170,46 @@ def child(root: Path, label: str, kinds=KINDS) -> None:
     torch.cuda.empty_cache()
     if "oldgmm" in kinds:
         old_routes(emit, gen, dev)
+
+
+def capacity_case(emit, gmm, gmm_capacity_ref, case, spec, gen, dev) -> None:
+    """One capacity GEMM case beside its bound and ``torch.bmm``.  Each
+    tree checks its own (route, producer): one with four bodies runs an
+    operand off 16 bytes on ``"wmma"`` (bf16) or ``"simt"`` (fp32), one
+    with two bodies on ``"sm90"`` with its staged producer or ``"simt90"``
+    (chip_smoke.capacity_route).  A staged case is timed again with its
+    operands copied to 16-byte aligned bases (``*_aligned``: the TMA
+    producer on the same values)."""
+    import torch
+    dtype_name, E, C, Din, Dout = spec
+    dt = getattr(torch, dtype_name)
+    x, w = chip_smoke.capacity_inputs(case, spec, gen, dev)
+    unaligned = case in chip_smoke.UNALIGNED_CAPACITY
+    want = chip_smoke.capacity_route(case, dtype_name)
+    if not hasattr(gmm, "LAST_PRODUCER"):          # the four-body tree
+        want = (("wmma" if dt == torch.bfloat16 else "simt") if unaligned
+                else want[0], None)
+    b_ms, b_by = chip_smoke.bound_ms(
+        (x.numel() + w.numel() + E * C * Dout) * x.element_size(),
+        2 * E * C * Din * Dout,
+        chip_smoke.BF16_FLOPS if dt == torch.bfloat16 else chip_smoke.FP32_FLOPS)
+    ref = gmm_capacity_ref(x, w)
+    tol = chip_smoke.GMM_TOL[dtype_name]
+    calls = 10 if dt == torch.bfloat16 else 3
+    if emit("gmm", case, lambda: gmm.gmm_capacity(x, w), ref, tol,
+            lambda: torch.bmm(x, w), calls, bound_ms=b_ms, bound_by=b_by,
+            route="/".join(filter(None, want))):
+        got = (gmm.LAST_ROUTE["gmm_capacity"],
+               getattr(gmm, "LAST_PRODUCER", {}).get("gmm_capacity"))
+        if got != want:
+            raise AssertionError(f"gmm [{case}]: ran {got}, expected {want}")
+    if unaligned and dt == torch.bfloat16:
+        xa, wa = x.clone(), w.clone()
+        emit("gmm", f"{case}_aligned", lambda: gmm.gmm_capacity(xa, wa), ref,
+             tol, None, calls, bound_ms=b_ms, bound_by=b_by, route="sm90/tma")
+        del xa, wa
+    del x, w, ref
+    torch.cuda.empty_cache()
 
 
 def old_routes(emit, gen, dev) -> None:

@@ -19,7 +19,8 @@ CUDA-core body), every bf16 case of its
 ragged phase (the fused gate/up and down kernels on ``ragged_cases``) and
 its cases off that route (``ragged_body_case_list``: the staged producer,
 the fp32 body), every fp32 case of its flash and capacity GEMM phases
-(``FLASH_CASES``, ``capacity_cases``), same seeds, through this
+(``FLASH_CASES``, ``capacity_cases``) and the capacity GEMM's bf16 cases
+on its staged producer (``UNALIGNED_CAPACITY``), same seeds, through this
 tree and each ``FAULTS`` variant named (every one by default; a fault tree
 runs only the kinds of case its fault is planted in), and prints, per case,
 the largest elementwise error
@@ -36,7 +37,9 @@ every case wider than 64 rows a KV head, the paged producer's on the page
 sizes it is planted for), an fp32 one and a ragged one by
 the tolerance (ragged at every serving case: SD verify, AR verify,
 prefill, or every case of the producer or body it is planted in), a fault of kernels 5 and 6's fp32 bodies by the tolerance in
-every fp32 case, of kernels 3 and 4's in the fp32 cases it reaches; and
+every fp32 case (of kernel 6's 4-byte copies: every case that takes
+them), of kernels 3 and 4's in the fp32 cases it reaches, of kernel 6's
+staged producer in every bf16 case that stages x; and
 this tree passes every bound everywhere.
 
 ``tune`` times the named ``TUNING`` variants against this tree with
@@ -140,13 +143,23 @@ FAULTS = {
     "flash32_no_rescale": [(FLASH32, "o[i][cc] *= corr;", "o[i][cc] *= 1.f;"),
                            (FLASH32, "o[i][cc] *= ci;", "o[i][cc] *= 1.f;")],
     # kernel 6's fp32 body drops the last K tile, or stages the first K
-    # column of every tile of x as zeros
+    # column of every tile of x as zeros (both copy widths); its 4-byte
+    # copies alone drop the last K tile
     "simt90_last_k_tile": [(CAPACITY, "for (int kt = 0; kt < nk; ++kt) {",
                             "for (int kt = 0; kt + 1 < nk; ++kt) {")],
     "simt90_x_col0_zero": [(CAPACITY, "xr[q][0] = v.x;\n        xr[q][1] = v.y;\n"
                                       "        xr[q][2] = v.z;",
                             "xr[q][0] = kq == 0 ? 0.f : v.x;\n        "
-                            "xr[q][1] = v.y;\n        xr[q][2] = v.z;")],
+                            "xr[q][1] = v.y;\n        xr[q][2] = v.z;"),
+                           (CAPACITY, "xr[q][0] = ok ? src[0] : 0.f;",
+                            "xr[q][0] = ok && kq != 0 ? src[0] : 0.f;")],
+    "simt90_4byte_last_k_tile": [(CAPACITY, "for (int kt = 0; kt < nk; ++kt) {",
+                                  "for (int kt = 0; kt + (XV == 1 || WV == 1) < nk; "
+                                  "++kt) {")],
+    # kernel 6's staged producer leaves out the last unit (8 columns) of
+    # every row of x's last K tile (zeros)
+    "cap_staged_x_last_unit": [(CAPACITY, "C - row0, k0, K - k0};",
+                                "C - row0, k0, K - k0 - 8 * (k0 + BK >= K)};")],
 }
 SERVING_CASES = ("verify", "ar_verify", "prefill")    # chip_smoke.ragged_cases
 # the fp32 body's cases of chip_smoke.ragged_body_case_list (600 experts too)
@@ -190,11 +203,24 @@ def paged_fp32_cases() -> tuple:
 
 
 def gmm_fp32_cases() -> tuple:
-    """chip_smoke.py's fp32 capacity GEMM cases on the simt90 body (the
-    unaligned one runs the element-by-element body)."""
+    """chip_smoke.py's fp32 capacity GEMM cases (the simt90 body, 16-byte
+    copies, or 4-byte ones where an operand is off 16 bytes)."""
     import chip_smoke
-    return tuple(c for c in _fp32_cases(chip_smoke.capacity_cases())
-                 if c not in chip_smoke.UNALIGNED_CAPACITY)
+    return _fp32_cases(chip_smoke.capacity_cases())
+
+
+def gmm_unaligned_cases(dtype_name: str, operand: str) -> tuple:
+    """chip_smoke.py's capacity cases of a dtype whose ``operand`` is off
+    16 bytes (bf16: the staged producer; fp32: the 4-byte copies)."""
+    import chip_smoke
+    return tuple(c for c, spec in chip_smoke.capacity_cases().items()
+                 if spec[0] == dtype_name
+                 and chip_smoke.UNALIGNED_CAPACITY.get(c) == operand)
+
+
+def gmm_fp32_unaligned_cases() -> tuple:
+    return (gmm_unaligned_cases("float32", "x")
+            + gmm_unaligned_cases("float32", "w"))
 
 
 # fault: {kernel it is planted in: the cases of that kernel that must each
@@ -226,7 +252,13 @@ FAULT_CASES = {"dropped_split": {"paged": ("long_context",),
                "flash32_last_chunk": {"flash": flash_fp32_cases},
                "flash32_no_rescale": {"flash": flash_fp32_cases},
                "simt90_last_k_tile": {"gmm": gmm_fp32_cases},
-               "simt90_x_col0_zero": {"gmm": gmm_fp32_cases}}
+               "simt90_x_col0_zero": {"gmm": gmm_fp32_cases},
+               # kernel 6's 4-byte copies, in every fp32 case that takes
+               # them; its staged producer's x, in every bf16 case with x
+               # staged
+               "simt90_4byte_last_k_tile": {"gmm": gmm_fp32_unaligned_cases},
+               "cap_staged_x_last_unit": {
+                   "gmm": lambda: gmm_unaligned_cases("bfloat16", "x")}}
 TUNING = {
     # K/V boxes of 4 rows on pages of 12 or 20 (TMA writing half of an
     # 8-row swizzle atom), or of any height on every page size (pages of 7:
@@ -336,6 +368,10 @@ TUNING = {
                            "constexpr int QREG_MIN_D = 128;")],
     "flash32_qreg_bn16": [(FLASH32, "static constexpr int BN = 32;",
                            "static constexpr int BN = 16;")],
+    # kernel 6 with x staged by hand: 128-column tiles up to C 128 (as with
+    # x by TMA) instead of 256
+    "cap_staged_x_bn128": [(CAPACITY, "constexpr bool WIDE_STAGED_X = true;",
+                            "constexpr bool WIDE_STAGED_X = false;")],
 }
 VARIANTS = {**FAULTS, **TUNING}
 # the kernel_ab.py kinds a tuning variant changes, by its name's prefix
@@ -344,7 +380,7 @@ TUNE_KINDS = {"paged": ("paged",), "decode": ("decode",),
               "splitkv": ("paged", "decode"), "flash": ("flash",),
               "flash32": ("flash",), "simt90": ("gmm",),
               "f32": ("paged", "decode"),
-              "ragged": ("down",), "fused": ("fused",)}
+              "ragged": ("down",), "fused": ("fused",), "cap": ("gmm",)}
 
 
 def make_tree(name: str) -> Path:
@@ -426,11 +462,13 @@ def child_errors(root: Path, label: str) -> None:
             break
         dtype_name = spec[0]
         x, w = chip_smoke.capacity_inputs(case, spec, gen, dev)
-        if dtype_name != "float32":
+        if dtype_name != "float32" and case not in chip_smoke.UNALIGNED_CAPACITY:
             continue
-        report("gmm", case, gmm.gmm_capacity(x, w), gmm_capacity_ref(x, w),
+        out = gmm.gmm_capacity(x, w)
+        report("gmm", case, out, gmm_capacity_ref(x, w),
                chip_smoke.GMM_TOL[dtype_name], None,
-               gmm.LAST_ROUTE["gmm_capacity"])
+               "/".join(filter(None, (gmm.LAST_ROUTE["gmm_capacity"],
+                                      gmm.LAST_PRODUCER["gmm_capacity"]))))
         del x, w
         torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(2)   # chip_smoke's seed 0

@@ -5,11 +5,12 @@
 // (setmaxnreg), and the host-side encoding of a tensor map; and the per-thread
 // cp.async copies of the fp32 CUDA-core bodies and of the producers that
 // stage what TMA boxes cannot address (the paged producer's odd pages, the
-// ragged producer's unaligned operands).
+// ragged and capacity producers' unaligned operands, stage_sm90.cuh).
 //
 // Used by kernels/flash_attention/csrc/flash_sm90.cuh and flash_f32.cuh,
 // kernels/csrc/splitkv_sm90.cuh and decode_f32.cuh (kernels 3 and 4),
-// kernels/gmm/csrc/gmm_capacity.cu, ragged_gmm.cu and ragged_sm90.cuh.
+// kernels/csrc/stage_sm90.cuh, kernels/gmm/csrc/gmm_capacity.cu,
+// ragged_gmm.cu and ragged_sm90.cuh.
 // Everything is raw PTX; no CUTLASS.
 //
 // The tensor-map encoder, cuTensorMapEncodeTiled, is a CUDA driver API call; it
@@ -143,8 +144,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 
 // Pieces of 8 or 4 bytes (both addresses aligned to the piece), of which
 // the first `bytes` are read and the rest written as zeros: the copies of
-// the ragged bodies (ragged_sm90.cuh's staged producer, ragged_gmm.cu's
-// fp32 body) for operands whose 16-byte pieces are not aligned.
+// the staged producers (stage_sm90.cuh) and of the fp32 bodies of
+// ragged_gmm.cu and gmm_capacity.cu for operands whose 16-byte pieces are
+// not aligned.
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(bytes)

@@ -55,7 +55,8 @@
 //   * STAGED 1, any other shape or base (K or F not a multiple of 8, an
 //     operand off 16 bytes): one thread still loads by TMA the operands TMA
 //     can address (x, or both weights), and the warpgroup's 128 threads
-//     stage the others by hand (stage_box_issue / _store), each 16-byte
+//     stage the others by hand (../../csrc/stage_sm90.cuh, shared with
+//     gmm_capacity.cu's staged producer), each 16-byte
 //     unit of a tile with the widest copy its source's alignment allows:
 //     cp.async of 16, 8 or 4 bytes, or, for a unit 2 bytes off 4 (or cut
 //     by K or F), two aligned 16-byte loads shifted into place in
@@ -85,11 +86,15 @@
 #pragma once
 
 #include "../../csrc/sm90.cuh"
+#include "../../csrc/stage_sm90.cuh"
 
 namespace ragged90 {
 namespace {
 
 using bf16 = __nv_bfloat16;
+using stage90::BoxRegs;
+using stage90::stage_box_issue;
+using stage90::stage_box_store;
 
 constexpr int BK = 64;                       // K per stage: one 128-byte row
 constexpr int SW = 128;                      // swizzle bytes (= BK * 2)
@@ -206,118 +211,6 @@ __device__ __forceinline__ Item item_of(int t, const int* off, const int* item_e
   it.row0 = off[e] + (local % chunks) * BM;
   it.row_end = off[e + 1];
   return it;
-}
-
-// The staged producer's copies of one 64 x 64 box (64 rows of 128 bytes)
-// into `box` (1024-byte aligned) in the 128-byte swizzle TMA writes: box
-// row r is row row0 + r of a row-major bf16 matrix src with leading
-// dimension ld, columns col0 .. col0 + 63.  Only rows r < n_rows and
-// columns col0 + c, c < n_cols, are read; the rest is written as zeros.
-// The box is 512 16-byte units, (row r, 8 columns from 8u); thread pt of
-// the producer warpgroup takes units pt + 128 i, i < 4.  Each unit takes
-// the widest copy its source address allows: cp.async of 16, 8 or 4 bytes
-// (a source 4-byte aligned, all 8 elements to read), zeros by cp.async
-// where it reads nothing; a unit that starts 2 bytes off 4 or ends past
-// n_cols is loaded into registers as the aligned 16-byte chunks that hold
-// its elements (stage_box_issue<true>), then shifted into place, masked
-// past its last element and stored (stage_box_store), so the loads of a
-// box are in flight together and other copies go between the two.
-struct BoxRegs {
-  uint4 lo[4], hi[4];                        // the register units' chunks
-  uint32_t mask;                             // which of the 4 units they are
-};
-
-// Unit i of this thread: its destination, source address and the number
-// of its elements to read (0..8).
-__device__ __forceinline__ int box_unit(unsigned char* box, const bf16* src, long long ld,
-                                        int row0, int n_rows, int col0, int n_cols, int pt,
-                                        int i, unsigned char** dst, const bf16** a) {
-  const int q = pt + 128 * i, r = q >> 3, u = q & 7;
-  *dst = box + sm90::swizzled(static_cast<uint32_t>(r * SW + u * 16), SW);
-  *a = src + (row0 + r) * ld + col0 + u * 8;          // read only when the count is > 0
-  return r < n_rows ? max(0, min(8, n_cols - u * 8)) : 0;
-}
-
-// Whether a unit of nv elements at address a goes through registers: it
-// starts 2 bytes off 4, or its elements end before the unit does.
-__device__ __forceinline__ bool reg_unit(int nv, const bf16* a) {
-  return nv > 0 &&
-         (nv < 8 || (reinterpret_cast<uintptr_t>(a) & 3) != 0);
-}
-
-// Phase 1 of a box (REGS true: its register loads only, which need no free
-// ring slot; false: its cp.async copies only, returning whether it issued
-// any).
-template <bool REGS>
-__device__ __forceinline__ bool stage_box_issue(unsigned char* box, const bf16* __restrict__ src,
-                                                long long ld, int row0, int n_rows, int col0,
-                                                int n_cols, int pt, BoxRegs& regs) {
-  if (REGS) regs.mask = 0;
-  bool copied = false;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    unsigned char* dst;
-    const bf16* a;
-    const int nv = box_unit(box, src, ld, row0, n_rows, col0, n_cols, pt, i, &dst, &a);
-    const uintptr_t ad = reinterpret_cast<uintptr_t>(a);
-    if (reg_unit(nv, a)) {
-      if (REGS) {
-        // the aligned 16-byte chunks that hold the unit's elements
-        const uint4* c = reinterpret_cast<const uint4*>(ad & ~uintptr_t{15});
-        regs.lo[i] = __ldg(c);
-        regs.hi[i] = ((ad + 2 * nv - 1) & ~uintptr_t{15}) != (ad & ~uintptr_t{15})
-                         ? __ldg(c + 1)
-                         : make_uint4(0u, 0u, 0u, 0u);
-        regs.mask |= 1u << i;
-      }
-    } else if (!REGS) {
-      copied = true;
-      if (nv == 0 || (ad & 15) == 0) {
-        sm90::cp_async16(dst, nv ? a : src, nv != 0);
-      } else if ((ad & 7) == 0) {
-        sm90::cp_async8(dst, a, 8);
-        sm90::cp_async8(dst + 8, a + 4, 8);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sm90::cp_async4(dst + 4 * j, a + 2 * j, 4);
-      }
-    }
-  }
-  return copied;
-}
-
-// Phase 2: the register units shifted into place (the unit's address mod
-// 16 bytes), masked past the unit's last element and stored.  Returns
-// whether it stored any.
-__device__ __forceinline__ bool stage_box_store(unsigned char* box, const bf16* __restrict__ src,
-                                                long long ld, int row0, int n_rows, int col0,
-                                                int n_cols, int pt, const BoxRegs& regs) {
-  if (!regs.mask) return false;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!(regs.mask >> i & 1)) continue;
-    unsigned char* dst;
-    const bf16* a;
-    const int nv = box_unit(box, src, ld, row0, n_rows, col0, n_cols, pt, i, &dst, &a);
-    const int s = static_cast<int>(reinterpret_cast<uintptr_t>(a) & 15);
-    const int j = s >> 2, bits = (s & 3) * 8;
-    const uint32_t w[8] = {regs.lo[i].x, regs.lo[i].y, regs.lo[i].z, regs.lo[i].w,
-                           regs.hi[i].x, regs.hi[i].y, regs.hi[i].z, regs.hi[i].w};
-    uint32_t o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      // words j + k and j + k + 1 of the 32 bytes, by selects (no indexing
-      // by a run-time value)
-      const uint32_t x0 = j == 0 ? w[k] : j == 1 ? w[k + 1] : j == 2 ? w[k + 2] : w[k + 3];
-      const uint32_t x1 = j == 0 ? w[k + 1] : j == 1 ? w[k + 2] : j == 2 ? w[k + 3] : w[k + 4];
-      o[k] = __funnelshift_r(x0, x1, bits);
-      // elements 2k, 2k + 1 of the unit: zero past its count
-      if (2 * k >= nv) o[k] = 0u;
-      else if (2 * k + 1 >= nv) o[k] &= 0xffffu;
-    }
-    *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
-  }
-  return true;
 }
 
 // wmap: w (down) or wg (fused); umap: wu (fused; unused by the down

@@ -7,22 +7,26 @@ cast to x's dtype.  The reference asserts that C, F and D are multiples of
 its blocks (min(128, ·), min(512, D)); the kernels mask ragged edges, so
 they take any C (the reference's own tests use C = 4).
 
-Four kernels, chosen per call by ``_route`` before the launch: ``"sm90"``
-(bf16 through TMA and wgmma, whenever TMA can address x and w), ``"wmma"``
-(bf16 shapes whose row pitch or base TMA cannot take), ``"simt90"`` (fp32 on
-the CUDA cores through a ring of shared-memory tiles, whenever its 16-byte
-copies and loads are aligned) and ``"simt"`` (fp32 operands that are not).
+Two bodies, chosen per call by ``_route`` before the launch, each taking
+any D, F and base: ``"sm90"`` for every bf16 call (TMA and wgmma; its
+producer loads the tiles by TMA where TMA can address both operands and
+stages the one it cannot by ``cp.async`` into the same layout otherwise,
+``_producer``: ``"tma"`` or ``"staged"``) and ``"simt90"`` for every fp32
+call (the CUDA cores through a ring of shared-memory tiles, 16-byte copies
+where every piece is aligned and 4-byte ones otherwise).
 
 CPU tensors take the plain PyTorch version (``ref.gmm_capacity_ref``); CUDA
 tensors launch the kernel or raise.  ``LAUNCHES`` counts kernel launches,
-``LAST_ROUTE`` holds the route of the last one and ``ROUTE_LAUNCHES``
-tallies them by route.
+``LAST_ROUTE`` holds the route of the last one, ``LAST_PRODUCER`` the
+producer its launcher reported (None after an fp32 launch), and
+``ROUTE_LAUNCHES`` tallies them by route.
 """
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -33,11 +37,14 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "gmm_capacity.cu"
 
 # kernel launches since the last reset
 LAUNCHES = {"gmm_capacity": 0}
-# the route of the last launch, and launches since the last reset by route
+# the route of the last launch, the bf16 body's producer as its launcher
+# reported it ("tma" or "staged"; None after an fp32 launch), and launches
+# since the last reset by route
 LAST_ROUTE = {"gmm_capacity": None}
+LAST_PRODUCER = {"gmm_capacity": None}
 ROUTE_LAUNCHES: Counter = Counter()
 
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID = 65535
 
 
@@ -51,11 +58,11 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_capacity_launch.argtypes = [i, i, p, p, p, i, i, i, i, p]
-        lib.gmm_capacity_launch.restype = i
+        lib.gmm_capacity_sm90_launch.argtypes = [p, p, p, i, i, i, i, p,
+                                                 ctypes.POINTER(i)]
+        lib.gmm_capacity_simt90_launch.argtypes = [p, p, p, i, i, i, i, p]
         for fn in (lib.gmm_capacity_sm90_launch,
                    lib.gmm_capacity_simt90_launch):
-            fn.argtypes = [p, p, p, i, i, i, i, p]
             fn.restype = i
         lib._argtypes_set = True
     return lib
@@ -76,17 +83,20 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _route(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The kernel a call takes.  When the row pitches D and F are multiples
-    of 16 bytes and both bases 16-byte aligned (the output, a new tensor,
-    always is): ``"sm90"`` for bf16 (TMA can address both operands),
-    ``"simt90"`` for fp32 (its 16-byte copies are aligned).  Otherwise the
-    element-by-element kernels: ``"wmma"`` for bf16, ``"simt"`` for fp32."""
-    vec = 16 // x.element_size()
-    aligned = (x.shape[2] % vec == 0 and w.shape[2] % vec == 0
-               and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    """The body a call takes: ``"sm90"`` for bf16, ``"simt90"`` for fp32,
+    at any D, F and base."""
+    return "simt90" if x.dtype == torch.float32 else "sm90"
+
+
+def _producer(x: torch.Tensor, w: torch.Tensor) -> Optional[str]:
+    """The producer the bf16 body takes: ``"tma"`` when TMA can address x
+    and w (D and F multiples of 8, both bases 16-byte aligned; the output,
+    a new tensor, always is), ``"staged"`` otherwise; None for fp32."""
     if x.dtype == torch.float32:
-        return "simt90" if aligned else "simt"
-    return "sm90" if aligned else "wmma"
+        return None
+    tma = (x.shape[2] % 8 == 0 and w.shape[2] % 8 == 0
+           and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    return "tma" if tma else "staged"
 
 
 def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
@@ -105,21 +115,24 @@ def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if 0 in (E, C, F):
         return out
-    route = _route(x, w)
+    route, producer = _route(x, w), _producer(x, w)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+    staged = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
-        if route in ("sm90", "simt90"):
-            launch = (_lib().gmm_capacity_sm90_launch if route == "sm90"
-                      else _lib().gmm_capacity_simt90_launch)
-            status = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C,
-                            D, F, stream)
+        if route == "sm90":
+            status = _lib().gmm_capacity_sm90_launch(*args,
+                                                     ctypes.byref(staged))
         else:
-            bm = 64 if C >= 64 else 16
-            status = _lib().gmm_capacity_launch(
-                _DTYPES[x.dtype], bm, x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), E, C, D, F, stream)
+            status = _lib().gmm_capacity_simt90_launch(*args)
     build.check(status, "gmm_capacity")
     LAUNCHES["gmm_capacity"] += 1
     LAST_ROUTE["gmm_capacity"] = route
     ROUTE_LAUNCHES[route] += 1
+    reported = (None if route == "simt90"
+                else "staged" if staged.value else "tma")
+    LAST_PRODUCER["gmm_capacity"] = reported
+    if reported != producer:
+        raise RuntimeError(f"gmm_capacity: the launcher took the {reported} "
+                           f"producer, _producer predicted {producer}")
     return out

@@ -171,32 +171,35 @@ def _operands(E, C, D, F, dtype, offset=0):
     return x, w
 
 
-@pytest.mark.parametrize("dtype,E,C,D,F,offset,route", [
-    ("float32", 2, 4, 32, 48, 0, "simt90"),        # fp32: the parity path
-    ("float32", 64, 128, 3584, 2560, 0, "simt90"),
-    ("float32", 64, 512, 3584, 2560, 0, "simt90"),  # a prefill capacity
-    ("float32", 2, 4, 30, 48, 0, "simt"),          # D pitch 120 bytes
-    ("float32", 2, 4, 32, 42, 0, "simt"),          # F pitch 168 bytes
-    ("float32", 2, 4, 32, 48, 1, "simt"),          # x base off 4 bytes
-    ("bfloat16", 2, 4, 32, 48, 0, "sm90"),         # the reference's C = 4
-    ("bfloat16", 3, 100, 72, 40, 0, "sm90"),       # ragged C and F
-    ("bfloat16", 1, 512, 64, 384, 0, "sm90"),
-    ("bfloat16", 2, 4, 36, 48, 0, "wmma"),         # D pitch 72 bytes
-    ("bfloat16", 2, 4, 32, 44, 0, "wmma"),         # F pitch 88 bytes
-    ("bfloat16", 2, 4, 32, 48, 1, "wmma"),         # x base off 16 bytes
+@pytest.mark.parametrize("dtype,E,C,D,F,offset,route,producer", [
+    ("float32", 2, 4, 32, 48, 0, "simt90", None),   # fp32: the parity path
+    ("float32", 64, 128, 3584, 2560, 0, "simt90", None),
+    ("float32", 64, 512, 3584, 2560, 0, "simt90", None),  # prefill capacity
+    ("float32", 2, 4, 30, 48, 0, "simt90", None),   # D pitch 120 bytes
+    ("float32", 2, 4, 32, 42, 0, "simt90", None),   # F pitch 168 bytes
+    ("float32", 2, 4, 32, 48, 1, "simt90", None),   # x base off 4 bytes
+    ("bfloat16", 2, 4, 32, 48, 0, "sm90", "tma"),   # the reference's C = 4
+    ("bfloat16", 3, 100, 72, 40, 0, "sm90", "tma"),  # ragged C and F
+    ("bfloat16", 1, 512, 64, 384, 0, "sm90", "tma"),
+    ("bfloat16", 2, 4, 36, 48, 0, "sm90", "staged"),  # D pitch 72 bytes
+    ("bfloat16", 2, 4, 32, 44, 0, "sm90", "staged"),  # F pitch 88 bytes
+    ("bfloat16", 2, 4, 32, 48, 1, "sm90", "staged"),  # x base off 2 bytes
 ])
-def test_gmm_capacity_route(dtype, E, C, D, F, offset, route):
-    """bf16 takes the TMA + wgmma kernel whenever TMA can address x and w,
-    the WMMA kernel otherwise; fp32 the cp.async CUDA-core kernel whenever
-    its 16-byte copies are aligned, the element-by-element one otherwise."""
+def test_gmm_capacity_route(dtype, E, C, D, F, offset, route, producer):
+    """bf16 takes the TMA + wgmma body at every shape and base, with its
+    TMA producer whenever TMA can address x and w and its staged producer
+    otherwise; fp32 the cp.async CUDA-core body (16-byte copies where
+    aligned, 4-byte ones otherwise), which has no producer."""
     x, w = _operands(E, C, D, F, dtype, offset)
     assert tgmm._route(x, w) == route
+    assert tgmm._producer(x, w) == producer
 
 
 def test_every_model_shape_routes_to_sm90():
     """The full-width expert FFN's capacity products (gate/up D -> F, down
     F -> D) at the SD-verify and prefill capacities, and the reduced
-    model's, all take the TMA + wgmma kernel in bf16."""
+    model's, all take the TMA + wgmma kernel in bf16, its producer loading
+    every tile by TMA."""
     from repro_torch.configs.registry import get_config
     for name, reduced in (("qwen2-57b-a14b", False), ("qwen2-57b-a14b", True)):
         cfg = get_config(name, reduced=reduced)
@@ -205,14 +208,16 @@ def test_every_model_shape_routes_to_sm90():
         for n_tokens in (8, 40, 2048):
             C = tops.expert_capacity(n_tokens, K, E)
             for din, dout in ((D, F), (F, D)):
-                assert tgmm._route(*_operands(E, C, din, dout, "bfloat16")) \
-                    == "sm90", (name, reduced, C, din, dout)
+                x, w = _operands(E, C, din, dout, "bfloat16")
+                assert tgmm._route(x, w) == "sm90", (name, reduced, C, din,
+                                                     dout)
+                assert tgmm._producer(x, w) == "tma", (name, reduced, C)
 
 
 def test_every_model_shape_routes_to_simt90_in_fp32():
     """In fp32 (the parity checks and the ops path) the same capacity
-    products all take the cp.async CUDA-core kernel; a weight whose base
-    is 4 bytes off takes the element-by-element one."""
+    products all take the cp.async CUDA-core kernel, a weight whose base
+    is 4 bytes off too (its 4-byte copies), with no producer."""
     from repro_torch.configs.registry import get_config
     for name, reduced in (("qwen2-57b-a14b", False), ("qwen2-57b-a14b", True)):
         cfg = get_config(name, reduced=reduced)
@@ -224,4 +229,42 @@ def test_every_model_shape_routes_to_simt90_in_fp32():
                 x, w = _operands(E, C, din, dout, "float32")
                 assert tgmm._route(x, w) == "simt90", (name, reduced, C)
                 w_off = torch.empty((dout + 1,))[1:].expand(E, din, dout)
-                assert tgmm._route(x, w_off) == "simt"
+                assert tgmm._route(x, w_off) == "simt90"
+                assert tgmm._producer(x, w_off) is None
+
+
+def _off_one(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose base is one element past t's."""
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("variant,D,F", [("x_off", 64, 48), ("w_off", 64, 48),
+                                         ("d_pitch72", None, 48),
+                                         ("f_odd", 64, 45)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_capacity_offset_views_match_reference(dtype, variant, D, F):
+    """The shapes and bases the card takes off TMA's and the 16-byte
+    copies' (x or w one element off its base, a D pitch of 72 bytes, an
+    odd F) equal the reference's kernel and oracle, at E 2, C 100.  bf16
+    predicts the staged producer, fp32 the simt90 body."""
+    if D is None:                            # 72 bytes a row of x
+        D = 72 // (4 if dtype == "float32" else 2)
+    E, C = 2, 100
+    rng = np.random.default_rng(D + F)
+    (jx, tx) = both(rng.standard_normal((E, C, D)).astype(np.float32), dtype)
+    (jw, tw) = both((rng.standard_normal((E, D, F)) / np.sqrt(D)
+                     ).astype(np.float32), dtype)
+    if variant == "x_off":
+        tx = _off_one(tx)
+    elif variant == "w_off":
+        tw = _off_one(tw)
+    assert tgmm._route(tx, tw) == ("simt90" if dtype == "float32" else "sm90")
+    assert tgmm._producer(tx, tw) == (None if dtype == "float32"
+                                      else "staged")
+    out = tgmm.gmm_capacity(tx, tw)
+    assert out.dtype == tx.dtype and out.shape == (E, C, F)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _close(out, jgmm.gmm_capacity(jx, jw, interpret=True), tol)
+    _close(out, jref.gmm_capacity_ref(jx, jw), tol)

@@ -1476,26 +1476,29 @@ def test_gmm_capacity_sm90_kernel_matches_plain(cuda, C):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype,E,C,D,F,route", [
-    (torch.bfloat16, 2, 100, 36, 40, "wmma"),      # D pitch 72 bytes
-    (torch.bfloat16, 2, 64, 64, 200, "sm90"),       # F ragged, not a tile
-    (torch.float32, 2, 100, 72, 40, "simt90"),
-    (torch.float32, 2, 100, 70, 40, "simt"),        # D pitch 280 bytes
+@pytest.mark.parametrize("dtype,E,C,D,F,route,producer", [
+    (torch.bfloat16, 2, 100, 36, 40, "sm90", "staged"),  # D pitch 72 bytes
+    (torch.bfloat16, 2, 64, 64, 200, "sm90", "tma"),     # F ragged, not a tile
+    (torch.float32, 2, 100, 72, 40, "simt90", None),
+    (torch.float32, 2, 100, 70, 40, "simt90", None),     # D pitch 280 bytes
 ])
-def test_gmm_capacity_routes_match_plain(cuda, dtype, E, C, D, F, route):
-    """A shape TMA cannot address keeps the WMMA kernel; fp32 takes the
-    cp.async CUDA-core kernel where its 16-byte copies are aligned, the
-    element-by-element one otherwise; each matches the plain version at
-    its bound and the wrapper reports the route it launched."""
+def test_gmm_capacity_routes_match_plain(cuda, dtype, E, C, D, F, route,
+                                         producer):
+    """A bf16 shape TMA cannot address runs the TMA + wgmma body with its
+    staged producer; fp32 takes the cp.async CUDA-core body, with 16-byte
+    copies where they are aligned and 4-byte ones otherwise; each matches
+    the plain version at its bound and the wrapper reports the route and
+    producer it launched."""
     from repro_torch.kernels.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_capacity_ref
     gen = torch.Generator(device=cuda).manual_seed(D + F)
     x = _randn(cuda, (E, C, D), dtype, gen)
     w = (torch.randn((E, D, F), generator=gen, device=cuda) / D ** 0.5
          ).to(dtype)
-    assert gmm._route(x, w) == route
+    assert gmm._route(x, w) == route and gmm._producer(x, w) == producer
     out = gmm.gmm_capacity(x, w)
     assert gmm.LAST_ROUTE["gmm_capacity"] == route
+    assert gmm.LAST_PRODUCER["gmm_capacity"] == producer
     tol = GMM_TOL[dtype]
     torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
                                rtol=tol, atol=tol)
@@ -1524,32 +1527,101 @@ def test_gmm_capacity_simt90_kernel_matches_plain(cuda, C, K, F):
                                atol=tol)
 
 
+def _off_one(t):
+    """The same values, the base one element past a 16-byte boundary."""
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
 @pytest.mark.parametrize("which", ["x", "w"])
-def test_gmm_capacity_unaligned_fp32_takes_simt(cuda, which):
-    """An fp32 operand whose base is 4 bytes off 16 takes the
-    element-by-element kernel, chosen before the launch."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_capacity_unaligned_fp32_takes_simt90(cuda, dtype, which):
+    """An operand whose base is one element off 16 bytes keeps the body of
+    its dtype: fp32 the cp.async CUDA-core body (its 4-byte copies), bf16
+    the TMA + wgmma body with its staged producer, chosen before the
+    launch and reported by it."""
     from repro_torch.kernels.gmm import gmm
     from repro_torch.kernels.gmm.ref import gmm_capacity_ref
     gen = torch.Generator(device=cuda).manual_seed(7)
     E, C, K, F = 2, 40, 64, 96
-    x = _randn(cuda, (E, C, K), torch.float32, gen)
-    w = torch.randn((E, K, F), generator=gen, device=cuda) / K ** 0.5
-
-    def off4(t):           # the same values, the base 4 bytes past 16
-        buf = torch.empty((t.numel() + 1,), device=t.device)
-        buf[1:].copy_(t.reshape(-1))
-        return buf[1:].view(t.shape)
-
+    x = _randn(cuda, (E, C, K), dtype, gen)
+    w = (torch.randn((E, K, F), generator=gen, device=cuda) / K ** 0.5
+         ).to(dtype)
     if which == "x":
-        x = off4(x)
+        x = _off_one(x)
     else:
-        w = off4(w)
+        w = _off_one(w)
     assert (x.data_ptr() % 16 != 0) == (which == "x")
     assert (w.data_ptr() % 16 != 0) == (which == "w")
-    assert gmm._route(x, w) == "simt"
+    want = ("simt90", None) if dtype == torch.float32 else ("sm90", "staged")
+    assert (gmm._route(x, w), gmm._producer(x, w)) == want
     out = gmm.gmm_capacity(x, w)
     torch.cuda.synchronize()
-    assert gmm.LAST_ROUTE["gmm_capacity"] == "simt"
+    assert (gmm.LAST_ROUTE["gmm_capacity"],
+            gmm.LAST_PRODUCER["gmm_capacity"]) == want
+    tol = GMM_TOL[dtype]
+    torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+# operands TMA (bf16) or 16-byte copies (fp32) cannot take: (which operand
+# is one element off its base, K, F).  bf16: x off 2 bytes (w by TMA), w
+# off 2 bytes (x by TMA), a D pitch of 72 bytes, an F pitch of 90 bytes
+# (bf16 pairs of out unaligned), K < 8; fp32 likewise at 4 bytes, 72 and
+# 180 bytes, K < 4.  K 200: a last K tile of 8; F 328: a last column tile
+# of 72 (one box of 8 columns, at BN 256 two boxes of zeros)
+UNALIGNED_GMM = {torch.bfloat16: [("x", 200, 328), ("w", 200, 328),
+                                  (None, 36, 328), (None, 200, 45),
+                                  (None, 5, 328)],
+                 torch.float32: [("x", 200, 328), ("w", 200, 328),
+                                 (None, 18, 328), (None, 200, 45),
+                                 (None, 3, 328)]}
+
+
+def _unaligned_case(dev, dtype, C, which, K, F, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(dev, (3, C, K), dtype, gen)
+    w = (torch.randn((3, K, F), generator=gen, device=dev) / K ** 0.5
+         ).to(dtype)
+    return (_off_one(x) if which == "x" else x,
+            _off_one(w) if which == "w" else w)
+
+
+@pytest.mark.parametrize("C", [1, 40, 128, 512])
+@pytest.mark.parametrize("which,K,F", UNALIGNED_GMM[torch.bfloat16])
+def test_gmm_capacity_staged_matches_plain(cuda, C, which, K, F):
+    """The bf16 body's staged producer on every tile (C 1 and 40: one
+    consumer warpgroup; 128: two; 512: two at 256 columns), each operand
+    TMA cannot address staged by hand beside the other's TMA loads; three
+    experts, so a bin that read past C would take the next expert's
+    rows."""
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+    x, w = _unaligned_case(cuda, torch.bfloat16, C, which, K, F, C + K + F)
+    assert (gmm._route(x, w), gmm._producer(x, w)) == ("sm90", "staged")
+    before = gmm.LAUNCHES["gmm_capacity"]
+    out = gmm.gmm_capacity(x, w)
+    torch.cuda.synchronize()
+    assert gmm.LAUNCHES["gmm_capacity"] == before + 1
+    assert gmm.LAST_PRODUCER["gmm_capacity"] == "staged"
+    tol = GMM_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), gmm_capacity_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("C", [1, 40, 128, 512])
+@pytest.mark.parametrize("which,K,F", UNALIGNED_GMM[torch.float32])
+def test_gmm_capacity_simt90_4byte_matches_plain(cuda, C, which, K, F):
+    """The fp32 body's 4-byte copies at both row tiles (64 rows up to C 64,
+    128 above), on operands whose 16-byte pieces are not aligned."""
+    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.gmm.ref import gmm_capacity_ref
+    x, w = _unaligned_case(cuda, torch.float32, C, which, K, F, C + K + F)
+    assert gmm._route(x, w) == "simt90"
+    out = gmm.gmm_capacity(x, w)
+    torch.cuda.synchronize()
+    assert gmm.LAST_ROUTE["gmm_capacity"] == "simt90"
     tol = GMM_TOL[torch.float32]
     torch.testing.assert_close(out, gmm_capacity_ref(x, w), rtol=tol,
                                atol=tol)

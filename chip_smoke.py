@@ -16,7 +16,13 @@ Phases, each of which fails the run if it fails:
      CUDA-core bodies (flash, capacity GEMM, and decode_f32.cuh's split-KV
      body of kernels 3 and 4 at head dims 32, 64, 128 and 256): registers,
      dynamic shared memory, spills (none allowed in the D-256 TMA + wgmma
-     bodies, nor in kernels 3 and 4's bodies at head dim 32);
+     bodies, nor in kernels 3 and 4's bodies at head dim 32); then every
+     ``extern "C"`` symbol the tree binds (``repro_torch.analysis.
+     launch_lint.bound_symbols``, read from the sources) must be exported
+     by the library built from its source, and every instantiation ptxas
+     reports must ask for at most the device's per-block opt-in shared
+     memory (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, read from the
+     device);
   3. kernels: at the main paths' shapes, run each kernel and its plain
      PyTorch version on the same inputs made from --seed, hold them within
      the stated tolerance and time both beside the card's bound:
@@ -572,7 +578,7 @@ def build_kernels():
                 ragged.SOURCE).ragged_sm90_smem_bytes,     # (nmat, act, staged)
             "ragged_simt90_kernel": build.load(
                 ragged.SOURCE).ragged_simt90_smem_bytes}   # (nmat, act)
-    seen, spilled = set(), []
+    seen, spilled, smem_bytes = set(), [], {}
     for src, text in reports.items():
         for line in text.splitlines():
             if "(C75" in line and "sm90_kernel" in line:   # ptxas's advisories
@@ -584,8 +590,9 @@ def build_kernels():
                     and not re.search(r"\b0 bytes spill stores, 0 bytes "
                                       r"spill loads", spills or "")):
                 spilled.append((kernel, args, spills))
+            smem_bytes[kernel, args] = smem[kernel](*args)
             log(f"ptxas {kernel}<{', '.join(map(str, args))}> ({src.name}): "
-                f"{regs} registers at entry, {smem[kernel](*args)} bytes "
+                f"{regs} registers at entry, {smem_bytes[kernel, args]} bytes "
                 f"dynamic shared memory, {spills}")
     if spilled:
         raise AssertionError(f"ptxas -v: the head-dim-256 TMA + wgmma bodies "
@@ -617,6 +624,66 @@ def build_kernels():
     if seen != want:
         raise AssertionError(f"ptxas -v shows TMA + wgmma and fp32 kernels "
                              f"{sorted(seen)}, expected {sorted(want)}")
+    check_bindings(smem_bytes)
+
+
+def smem_optin_limit() -> int:
+    """The device's per-block opt-in shared memory, read from the device
+    (torch's device properties, else the CUDA runtime's
+    cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    import ctypes
+
+    import torch
+    limit = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", None)
+    if limit:
+        return int(limit)
+    attr_optin = 97                 # cudaDevAttrMaxSharedMemoryPerBlockOptin
+    for name in ("libcudart.so", "/usr/local/cuda/lib64/libcudart.so"):
+        try:
+            cudart = ctypes.CDLL(name)
+        except OSError:
+            continue
+        value = ctypes.c_int(0)
+        if cudart.cudaDeviceGetAttribute(ctypes.byref(value), attr_optin,
+                                         torch.cuda.current_device()) == 0:
+            return value.value
+    raise RuntimeError("cannot read the device's per-block opt-in shared "
+                       "memory")
+
+
+def check_bindings(smem_bytes) -> None:
+    """Fail unless every ``extern "C"`` symbol the port's tree binds (the
+    static launch-contract pass's reading of the sources) is exported by
+    the library build.py built from its source, and every ptxas-reported
+    instantiation's dynamic shared memory (``smem_bytes``) fits the
+    device's per-block opt-in limit."""
+    from repro_torch.analysis import launch_lint
+    from repro_torch.analysis.__main__ import default_paths
+    from repro_torch.analysis._astutil import Project
+    from repro_torch.kernels import build
+    bound = launch_lint.bound_symbols(Project(default_paths(str(ROOT)),
+                                              str(ROOT)))
+    missing, n = [], 0
+    for src, symbols in sorted(bound.items()):
+        lib = build.load(Path(src))
+        for sym in sorted(symbols):
+            n += 1
+            if not hasattr(lib, sym):
+                missing.append(f"{Path(src).name}:{sym}")
+    if missing or not n:
+        raise AssertionError(f"bound symbols not exported by their "
+                             f"libraries: {missing} (of {n})")
+    limit = smem_optin_limit()
+    (kernel, args), most = max(smem_bytes.items(), key=lambda kv: kv[1])
+    over = {k: v for k, v in smem_bytes.items() if v > limit}
+    if over:
+        raise AssertionError(f"dynamic shared memory over the device's "
+                             f"per-block opt-in limit {limit}: {over}")
+    log(f"bindings: {n} extern \"C\" symbols of {len(bound)} libraries "
+        f"exported; largest dynamic shared memory {most} bytes "
+        f"({kernel}<{', '.join(map(str, args))}>) of {len(smem_bytes)} "
+        f"instantiations, device per-block opt-in limit {limit} bytes")
 
 
 # the TMA + wgmma bodies of kernels 3, 4 and 5 at head dim 256: no spills
@@ -2147,6 +2214,7 @@ def serve_phase(seed: int):
 
     # the verify pass must not wait on the host for the routing, the
     # lengths or the block table, dense or paged
+    # lint: allow[R505] token ids of a host-sync probe; values do not matter
     tok = torch.randint(3, cfg.vocab_size, (8, 64), device="cuda")
     for paged in (False, True):
         cache = target.init_cache(8, 128, paged=paged)
@@ -3148,7 +3216,9 @@ def arch_reference_phase(seed: int):
         disp = "gmm" if cfg.num_experts else "onehot"
         m = {d: (Model(cfg, moe_dispatch=disp, device=d), Model(dcfg, device=d))
              for d in ("cpu", "cuda")}
+        # lint: allow[R504] one model per iteration, from the run's seed
         p_cpu = (m["cpu"][0].init(torch.Generator().manual_seed(seed)),
+             # lint: allow[R504] one model per iteration, from the run's seed
                  m["cpu"][1].init(torch.Generator().manual_seed(seed + 1)))
         p = {"cpu": p_cpu,
              "cuda": tuple(_to_device(x, torch.device("cuda")) for x in p_cpu)}
@@ -3382,7 +3452,9 @@ def arch_serve_phase(seed: int, paths=None) -> dict:
             target = Model(cfg, moe_dispatch=disp, device="cuda")
             draft = Model(dcfg, device="cuda")
             gen = torch.Generator(device=target.device)
+            # lint: allow[R504] one model per iteration, from the run's seed
             params_t = target.init(gen.manual_seed(seed))
+            # lint: allow[R504] one model per iteration, from the run's seed
             params_d = draft.init(gen.manual_seed(seed + 1))
             torch.cuda.synchronize()
             n_t = sum(t.numel() for t in _leaves(params_t))
@@ -3739,6 +3811,7 @@ def train_reference_phase(seed: int) -> dict:
         it = packed_batches(cfg.vocab_size, 4, 64, kind="code", seed=seed)
         batches = [next(it) for _ in range(3)]
         cpu_params = Model(cfg, device="cpu").init(
+            # lint: allow[R504] one model per iteration, from the run's seed
             torch.Generator("cpu").manual_seed(seed))
         # the step updates params in place: the card's copy is made first
         start = {"cuda": _to_device(cpu_params, torch.device("cuda")),

@@ -155,6 +155,7 @@ def main() -> int:
                                     params_t, 5)):
         cache = model.init_cache(8, 128)
         _, cache = model.prefill(params, prompts, cache, lengths=lengths)
+        # lint: allow[R505] token ids of a timing probe; values do not matter
         tok = torch.randint(3, cfg.vocab_size, (8, T), device="cuda")
         model.extend(params, tok, cache)               # warm-up
         ops, wall = profile(lambda: model.extend(params, tok, cache))

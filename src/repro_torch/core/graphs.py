@@ -117,9 +117,12 @@ class StaticIO:
             cols.append(counts[None, :].expand(committed.shape[0], -1))
         packed = torch.cat(cols, 1)
         if self.out is None:
+            # lint: allow[T106] allocated by the key's first, eager run
             self._n_pf = 0 if pf is None else len(self.PF_KEYS)
+            # lint: allow[T106] allocated by the key's first, eager run
             self.out = torch.empty_like(packed)
             if self.device.type == "cuda":
+                # lint: allow[T106] allocated by the key's first, eager run
                 self._out_host = torch.empty(packed.shape, dtype=torch.int32,
                                              pin_memory=True)
         self.out.copy_(packed)

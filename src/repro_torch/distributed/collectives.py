@@ -534,6 +534,7 @@ def moe_ep_forward(params: dict, cfg, x: torch.Tensor, *, mesh=None,
                              shared="shared" in params and not tp_shared)
     y = torch.empty((n_pad, d), dtype=y_loc.dtype, device=x.device)
     _all_gather(y, y_loc, grp)
+    # lint: allow[T106] credited by RoundGraphs on every replay
     EP_CALLS["moe_ep_forward"] += 1
     y = y[:B * T].reshape(B, T, d)
     if tp_shared:

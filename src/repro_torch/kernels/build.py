@@ -124,7 +124,9 @@ def load(source: Path) -> ctypes.CDLL:
         lib = _loaded.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(build(source)))
+            # lint: allow[T106] loaded at a key's first, eager run
             _loaded[source] = lib
+            # lint: allow[T106] loaded at a key's first, eager run
             LOADS["libraries"] += 1
         return lib
 

@@ -119,8 +119,11 @@ def _launch(entry: str, q, k, v, lengths, scale: float, logit_cap: float,
             int(k_lo or 0), float(scale), float(logit_cap),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, entry)
+    # lint: allow[T106] credited by RoundGraphs on every replay
     LAUNCHES[entry] += 1
+    # lint: allow[T106] a replay launches what its capture did
     LAST_ROUTE[entry] = _ROUTES[kernel.value]
+    # lint: allow[T106] eager runs and captures only (chip_smoke's checks)
     ROUTE_LAUNCHES[LAST_ROUTE[entry], D] += 1
     return out, lse
 

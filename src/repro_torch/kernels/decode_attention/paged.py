@@ -146,7 +146,10 @@ def paged_decode_attention(
             float(scale), float(logit_cap),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, "paged_decode_attention")
+    # lint: allow[T106] credited by RoundGraphs on every replay
     LAUNCHES["paged_decode_attention"] += 1
+    # lint: allow[T106] a replay launches what its capture did
     LAST_ROUTE["paged_decode_attention"] = _ROUTES[kernel.value]
+    # lint: allow[T106] eager runs and captures only (chip_smoke's checks)
     ROUTE_LAUNCHES[LAST_ROUTE["paged_decode_attention"], D] += 1
     return out

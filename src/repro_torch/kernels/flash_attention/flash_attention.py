@@ -130,8 +130,11 @@ def flash_attention_btd(q, k, v, *, causal: bool = True, window: int = 0,
             Hq, Hkv, int(causal), int(window), float(scale), float(logit_cap),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(kernel))
     build.check(status, "flash_attention")
+    # lint: allow[T106] credited by RoundGraphs on every replay
     LAUNCHES["flash_attention"] += 1
+    # lint: allow[T106] a replay launches what its capture did
     LAST_ROUTE["flash_attention"] = _ROUTES[kernel.value]
+    # lint: allow[T106] eager runs and captures only (chip_smoke's checks)
     ROUTE_LAUNCHES[LAST_ROUTE["flash_attention"], D] += 1
     return out
 

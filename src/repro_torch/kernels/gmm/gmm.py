@@ -126,11 +126,15 @@ def gmm_capacity(x: torch.Tensor,           # (E, C, D) dispatched tokens
         else:
             status = _lib().gmm_capacity_simt90_launch(*args)
     build.check(status, "gmm_capacity")
+    # lint: allow[T106] credited by RoundGraphs on every replay
     LAUNCHES["gmm_capacity"] += 1
+    # lint: allow[T106] a replay launches what its capture did
     LAST_ROUTE["gmm_capacity"] = route
+    # lint: allow[T106] eager runs and captures only (chip_smoke's checks)
     ROUTE_LAUNCHES[route] += 1
     reported = (None if route == "simt90"
                 else "staged" if staged.value else "tma")
+    # lint: allow[T106] a replay launches what its capture did
     LAST_PRODUCER["gmm_capacity"] = reported
     if reported != producer:
         raise RuntimeError(f"gmm_capacity: the launcher took the {reported} "

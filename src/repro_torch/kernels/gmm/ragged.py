@@ -237,9 +237,13 @@ def _launch(name: str, xs: torch.Tensor, w: torch.Tensor,
             ctypes.byref(launches))
     build.check(status, name)
     route = _ROUTES[body.value // 2]
+    # lint: allow[T106] credited by RoundGraphs on every replay
     LAUNCHES[name] += launches.value
+    # lint: allow[T106] a replay launches what its capture did
     LAST_ROUTE[name] = route
+    # lint: allow[T106] a replay launches what its capture did
     LAST_PRODUCER[name] = _PRODUCERS[body.value]
+    # lint: allow[T106] eager runs and captures only (chip_smoke's checks)
     ROUTE_LAUNCHES[name, route] += launches.value
     return out
 
@@ -254,6 +258,7 @@ def _counted(xs: torch.Tensor, ws, group_sizes: torch.Tensor
         raise ValueError("a ragged kernel on the meta device needs group "
                          "sizes with values (launch/costs."
                          "stated_group_sizes)")
+    # lint: allow[T104] meta tensors only (the dry-run), never captured
     sizes = group_sizes.tolist()
     N, D = xs.shape
     F = ws[0].shape[2]

@@ -31,6 +31,7 @@ def _group_bounds(group_sizes: torch.Tensor, n: int):
     """Host (start, end) row range per expert.  The groups may cover fewer
     than ``n`` rows (an expert-parallel receive buffer's empty slots sort
     past them): those rows belong to no expert and stay zero."""
+    # lint: allow[T104] plain version: CPU tensors only, never captured
     ends = torch.cumsum(group_sizes.to(torch.int64), 0).clamp(max=n).tolist()
     starts = [0] + ends[:-1]
     return list(zip(starts, ends))

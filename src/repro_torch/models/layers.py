@@ -173,6 +173,7 @@ def embed(params: dict, tokens: torch.Tensor, scale: bool = False) -> torch.Tens
 def scale_embedding(x: torch.Tensor) -> torch.Tensor:
     """Gemma-style sqrt(d) scaling of looked-up embeddings."""
     # a 0-dim CPU tensor rides along as a scalar, rounded to x's dtype
+    # lint: allow[S403] a constant of the width, the same on every replay
     return x * torch.tensor(math.sqrt(x.shape[-1]), dtype=x.dtype)
 
 

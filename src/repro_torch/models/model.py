@@ -989,6 +989,7 @@ class Model:
             paged_attention=self.paged_attention,
             prefetch_masks=prefetch_masks, shard=shard,
             prepare=self._prepare(shard, cache))
+        # lint: allow[T106] credited by RoundGraphs on every replay
         self.forward_count += 1
         pend = dict(cache)
         if any(c is not None for c in collected):

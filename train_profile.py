@@ -84,6 +84,7 @@ def main() -> int:
              .with_overrides(num_layers=1), 2, 512, 1e-4)):
         model = Model(cfg, remat=True)
         params, opt = init_train_state(
+            # lint: allow[R504] one model per iteration, from the run's seed
             model, torch.Generator("cuda").manual_seed(args.seed))
         tcfg = TrainConfig(learning_rate=lr, warmup_steps=1,
                            total_steps=args.steps + 2)
